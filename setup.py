@@ -28,7 +28,9 @@ setup(
                  "shard_map scaling, and a native host runtime)"),
     packages=find_packages(include=["spmv_vector_cache_tpu*"]),
     package_data={"spmv_vector_cache_tpu.native": ["*.cpp", "*.h",
-                                                   "Makefile"]},
+                                                   "Makefile"],
+                  "spmv_vector_cache_tpu_torch": ["csrc/*.cu",
+                                                  "csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=["jax", "numpy", "scipy"],
     cmdclass={"build_py": BuildNative},

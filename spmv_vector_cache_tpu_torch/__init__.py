@@ -1,0 +1,27 @@
+"""spmv_vector_cache_tpu_torch — the PyTorch/CUDA port of
+``spmv_vector_cache_tpu``.
+
+The JAX package stays the reference; this package mirrors its layout
+module for module and imports ``torch``, never ``jax``:
+
+* :mod:`.formats` — host-side numpy containers, conversions, analyses
+  and plan builders (byte-equal plans to the reference's);
+* :mod:`.ops` — the plan dispatch, the epilogues as torch ops, and the
+  wrappers of the hand-written CUDA kernels in ``csrc/`` (DIA and SELL
+  window SpMV), each beside its plain PyTorch version;
+* :mod:`.interop` — plans carried across from the JAX package;
+* :mod:`.utils` — stat registry and device policy.
+
+The first slice covers ``SparseOperator.from_matrix(a, device=...) @ x``
+for DIA, Hybrid and SELL-window plans.
+"""
+
+from . import formats, interop, ops, utils  # noqa: F401
+from .formats.containers import COO, CSC, CSR  # noqa: F401
+from .formats.plan import auto_plan  # noqa: F401
+from .ops import semiring  # noqa: F401
+from .ops.operator import SparseOperator  # noqa: F401
+from .ops.reference import golden, spmv_numpy  # noqa: F401
+from .ops.spmv_sell import spmv_plan  # noqa: F401
+
+__version__ = "0.1.0"

@@ -1,0 +1,79 @@
+"""Plan cost model (counterpart of
+``spmv_vector_cache_tpu/formats/costmodel.py``; Sell, Dia, Hybrid and
+CooTail plans).
+
+A closed-form per-apply time estimate per plan family, which the planner
+uses to veto mis-selections.  The constants are the reference's, measured
+on a TPU v5e: they are kept unchanged only so that the port picks the
+same plans as the reference.  They do not describe the H100;
+re-measuring them there is a later ROADMAP item.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+
+# --- v5e constants, unchanged from the reference ---------------------------
+#: streamed ns per (8,128)-tile slot at the 6 B/nnz window stream
+_NS_PER_SLOT_BASE = 0.0117
+#: extra ns/slot per window block past K=2
+_NS_PER_SLOT_PER_K = 0.00207
+#: fixed cost of one Pallas grid step
+_NS_PER_GRID_STEP = 1000.0
+#: fixed per-kernel-launch cost inside a chained jit
+_NS_LAUNCH = 5000.0
+#: unsorted 1-D segment-scatter fixup: ns/slot + floor
+_NS_PER_SEGSUM_SLOT = 7.0
+_NS_SEGSUM_FLOOR = 30000.0
+#: element gather+scatter COO path: ns/nnz + floor
+_NS_PER_COO_NNZ = 16.0
+_NS_COO_FLOOR = 3000.0
+#: HBM read bandwidth (bytes/ns)
+_BYTES_PER_NS = 700.0
+
+
+def estimate_seconds(plan: Any) -> float:
+    """The reference's predicted seconds per apply (a v5e estimate)."""
+    name = type(plan).__name__
+    if name == "SellPlan":
+        return _sell_seconds(plan)
+    if name == "DiaPlan":
+        return _dia_seconds(plan)
+    if name == "HybridPlan":
+        return (estimate_seconds(plan.dia) + estimate_seconds(plan.rest)
+                + 10e-6)
+    if name == "CooTail":
+        return (_NS_COO_FLOOR + _NS_PER_COO_NNZ * plan.nnz) * 1e-9
+    raise ValueError(f"no cost model for plan type {name}")
+
+
+def _sell_seconds(plan) -> float:
+    st = plan.stats
+    slots = st.num_tiles * plan.positions * plan.lane_rows
+    k = st.window_blocks
+    if k > 0:
+        per_slot = _NS_PER_SLOT_BASE + _NS_PER_SLOT_PER_K * max(k - 2, 0)
+    else:
+        # resident/deep select ladder: ~one pass per 128-lane x block,
+        # bounded by the deep sweep's linear-in-blocks cost
+        nb = -(-plan.shape[1] // 128)
+        per_slot = _NS_PER_SLOT_BASE + _NS_PER_SLOT_PER_K * min(nb, 2048)
+    steps = max(1, st.num_tiles // (8 * max(1, st.groups_per_step)))
+    t = _NS_LAUNCH + slots * per_slot + steps * _NS_PER_GRID_STEP
+    # epilogue
+    if plan.identity_map or st.uniform_parts or st.group_slice_identity:
+        t += 10e3
+    else:
+        slots_y = plan.row_map.shape[0]
+        t += _NS_SEGSUM_FLOOR + _NS_PER_SEGSUM_SLOT * slots_y
+    return t * 1e-9
+
+
+def _dia_seconds(plan) -> float:
+    vals = plan.vals
+    nbytes = int(np.prod(vals.shape)) * np.dtype(vals.dtype).itemsize
+    steps = max(1, vals.shape[0])
+    return (_NS_LAUNCH + nbytes / _BYTES_PER_NS
+            + steps * _NS_PER_GRID_STEP) * 1e-9

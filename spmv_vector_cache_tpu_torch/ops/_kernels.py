@@ -1,0 +1,101 @@
+"""Build and bind the hand-written CUDA kernels in ``csrc/``.
+
+``nvcc -shared`` compiles every ``csrc/*.cu`` into one shared library
+with a plain C interface, loaded with ``ctypes``.  The build runs on
+first use, into ``_build/`` inside the package, keyed by a hash of the
+sources (so an edited kernel rebuilds and an unchanged one is reused).
+A failed build raises with nvcc's output.  Nothing here runs at import
+time: the CPU tests import every module of the port.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+PACKAGE = Path(__file__).resolve().parent.parent
+CSRC = PACKAGE / "csrc"
+BUILD = PACKAGE / "_build"
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+
+#: C entry points and their argument types (pointers and the stream as
+#: c_void_p, so ctypes never truncates them to 32 bits)
+SIGNATURES = {
+    # vals, x, offsets, y, rows, cols, ndiag, rows_per_step, stream
+    "spmv_dia_f32": [_P, _P, _P, _P, _L, _L, _I, _I, _P],
+    # vals, cols_win, window_base, x, out, out_rows, positions, lanes,
+    # group_tiles, fold, window_grain, cols, semiring, stream
+    "spmv_sell_window_f32": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I,
+                             _L, _I, _P],
+}
+
+
+def sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").exists():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA "
+                           "kernels are built from csrc/ on first use")
+    return found
+
+
+def build() -> tuple[Path, str]:
+    """Compile ``csrc/*.cu`` unless a library for these exact sources
+    exists; returns (library path, nvcc output, empty when reused)."""
+    h = hashlib.sha256()
+    for p in sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    lib = BUILD / f"libspmv_kernels_{h.hexdigest()[:16]}.so"
+    if lib.exists():
+        return lib, ""
+    BUILD.mkdir(exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *[str(p) for p in sources() if p.suffix == ".cu"]]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, lib)           # atomic: a reader never sees half a file
+    return lib, proc.stdout + proc.stderr
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The kernel library, built on first use and loaded once."""
+    path, _ = build()
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise on a non-zero ``cudaGetLastError()`` from a launch."""
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError_t {err}")

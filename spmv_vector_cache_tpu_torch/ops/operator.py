@@ -1,0 +1,137 @@
+"""SparseOperator — the user-facing handle (counterpart of
+``spmv_vector_cache_tpu/ops/operator.py``).
+
+The operator plans a matrix on the host once, places the plan's arrays
+on a torch device once, and then applies it: ``op @ x``.
+
+>>> op = SparseOperator.from_matrix(a, device="cuda")   # plans + places
+>>> y = op @ x                                          # kernel SpMV
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from ..formats.cached import CooTail
+from ..formats.dia import HybridPlan
+from ..formats.plan import auto_plan, place
+from ..utils.stats import StatRegistry
+from . import semiring as sr
+from .spmv_sell import spmv_plan
+from .strategy import (execution_counters, plan_bytes_per_apply, plan_nnz,
+                       select_strategy)
+
+Array = Any
+
+
+def _plan_device(plan) -> torch.device:
+    arr = plan.dia.vals if isinstance(plan, HybridPlan) else plan.vals
+    return arr.device if isinstance(arr, torch.Tensor) \
+        else torch.device("cpu")
+
+
+class SparseOperator:
+    """A planned sparse matrix on one device, ready for repeated
+    application."""
+
+    def __init__(self, plan, strategy: str = "auto",
+                 semiring: str = "plus_times"):
+        self.plan = plan
+        self.device = _plan_device(plan)
+        self.semiring = sr.get(semiring).name
+        self.strategy = (select_strategy(plan) if strategy == "auto"
+                         else strategy)
+        stats_src = plan.dia if isinstance(plan, HybridPlan) else plan
+        if isinstance(stats_src, CooTail):
+            self.stats = StatRegistry({"nnz": stats_src.nnz})
+        else:
+            self.stats = StatRegistry(
+                {k: v for k, v in stats_src.stats.as_dict().items()
+                 if isinstance(v, (int, float))})
+        for s in ("window", "dia", "resident", "deep", "cached", "packed",
+                  "coo", "chunk"):
+            self.stats[f"strategy_{s}"] = int(self.strategy == s)
+        # plan-derived per-execution work counters: what one apply does
+        for k, v in execution_counters(plan, self.strategy).items():
+            self.stats[k] = v
+        self.stats["bytes_per_apply"] = plan_bytes_per_apply(
+            plan, self.strategy)
+
+    # -- construction -----------------------------------------------------
+    @classmethod
+    def from_matrix(cls, a, *, strategy: str = "auto",
+                    value_dtype=np.float32, tune: bool = False,
+                    semiring: str = "plus_times",
+                    device="cpu", **plan_kwargs) -> "SparseOperator":
+        """Plan ``a`` (any container) on the host, place the plan on
+        ``device`` and select an execution strategy.  ``semiring``
+        selects the algebra; the plan's padding is built to match."""
+        if tune:
+            raise NotImplementedError("tune=True needs ops/tune.py, which "
+                                      "is not ported yet (ROADMAP.md "
+                                      "queue 1, item 13)")
+        t0 = time.perf_counter()
+        plan = auto_plan(a, value_dtype=value_dtype, semiring=semiring,
+                         **plan_kwargs)
+        t_plan = time.perf_counter() - t0
+        op = cls(place(plan, torch.device(device)), strategy=strategy,
+                 semiring=semiring)
+        op.stats["plan_seconds"] = t_plan
+        return op
+
+    # -- application ------------------------------------------------------
+    @property
+    def shape(self):
+        return self.plan.shape
+
+    def _as_x(self, x) -> torch.Tensor:
+        return torch.as_tensor(x, device=self.device)
+
+    def matvec(self, x: Array) -> torch.Tensor:
+        return spmv_plan(self.plan, self._as_x(x), strategy=self.strategy,
+                         semiring=self.semiring)
+
+    def matmat(self, b: Array) -> torch.Tensor:
+        raise NotImplementedError("SpMM is not ported yet (ROADMAP.md "
+                                  "queue 1, item 9)")
+
+    def __matmul__(self, x: Array) -> torch.Tensor:
+        x = self._as_x(x)
+        if x.dim() == 1:
+            return self.matvec(x)
+        return self.matmat(x)
+
+    def exec(self, x: Array, y: Optional[Array] = None) -> np.ndarray:
+        """Timed application with stat recording: returns ``y (+)= A @ x``
+        on the host (the copy back synchronises with the device)."""
+        t0 = time.perf_counter()
+        out_host = self.matvec(x).cpu().numpy()
+        dt = time.perf_counter() - t0
+        if "first_exec_seconds" not in self.stats:
+            # the first call carries the kernel build and load
+            self.stats["first_exec_seconds"] = dt
+        self.stats["spmvtime"] = dt
+        self.stats["gnnz_per_s"] = plan_nnz(self.plan) / dt / 1e9
+        if y is not None:
+            out_host = out_host + np.asarray(y)
+        return out_host
+
+    # -- verification -----------------------------------------------------
+    def compare_golden(self, x: Array, golden: Array,
+                       rtol: float = 1e-4, atol: float = 1e-4) -> int:
+        """Count of entries outside tolerance vs a golden result."""
+        y = self.matvec(x).cpu().numpy().astype(np.float64)
+        g = np.asarray(golden, dtype=np.float64)
+        bad = int((np.abs(y - g) > atol + rtol * np.abs(g)).sum())
+        self.stats["diffFromGolden"] = bad
+        return bad
+
+    def __repr__(self):
+        return (f"SparseOperator(shape={self.plan.shape}, "
+                f"nnz={plan_nnz(self.plan)}, "
+                f"strategy={self.strategy!r}, "
+                f"plan={type(self.plan).__name__}, device={self.device})")
