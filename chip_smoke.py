@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port once on one GPU, at the bench.py sizes.
+"""Drive the PyTorch/CUDA port once on one GPU, at full size.
 
     python3 chip_smoke.py
 
 Builds the CUDA kernels of ``spmv_vector_cache_tpu_torch/csrc/`` and
-runs ``SparseOperator.from_matrix(a, device="cuda") @ x`` on three
+runs ``SparseOperator.from_matrix(a, device="cuda") @ x`` on five
 matrices, one per plan type of the main path:
 
 1. DIA — bench.py's headline matrix: 2^20 rows, 27 diagonals (-13..13),
@@ -12,15 +12,21 @@ matrices, one per plan type of the main path:
 2. SELL window — bench.py's shuffled band: 2^19 rows, 27 nonzeros per
    row at random columns inside the row's 128-column block;
 3. Hybrid — the headline band plus ~2 nonzeros per row at random
-   columns within +-512 of the diagonal.
+   columns within +-512 of the diagonal;
+4. Chunk — ``tools/realistic.scircuit_like()``: 170,998^2, 926,915
+   nonzeros, power-law rows with 24 dense rail rows (a ChunkPlan with
+   heavy subwindow buckets);
+5. Packed — ``tools/realistic.mac_econ_like()``: 206,500^2, 1,316,368
+   nonzeros, short rows spread +-12,000 columns (a PackedPlan).
 
 Each phase checks y against scipy in float64 (relative error below
 1e-4, bench.py's gate), checks the plan the planner picked, and checks
-that the main path launched the kernels (their launch counters).  Each
-kernel is then compared with its plain PyTorch version on the same
-inputs on the card, and both are timed with CUDA events.  Every check
-raises; nothing is caught.  Needs one CUDA device; exits non-zero
-without one.
+that its run of the main path launched the phase's kernels (their
+launch counters, set to 0 just before the phase's apply and read just
+after).  Each kernel is then compared with its plain PyTorch version on
+the same inputs on the card, and both are timed with CUDA events.
+Every check raises; nothing is caught.  Needs one CUDA device; exits
+non-zero without one.
 
 Standard output, last three lines: the card's name and power limit as
 nvidia-smi reports them, one JSON line with the kernels' measurements,
@@ -102,17 +108,28 @@ def max_abs(a, b):
 def main():
     import scipy.sparse as sp
 
+    from spmv_vector_cache_tpu_torch.formats.chunk import ChunkPlan
     from spmv_vector_cache_tpu_torch.formats.containers import COO
     from spmv_vector_cache_tpu_torch.formats.convert import (coo_to_csr,
                                                               from_scipy)
     from spmv_vector_cache_tpu_torch.formats.dia import DiaPlan, HybridPlan
+    from spmv_vector_cache_tpu_torch.formats.packed import PackedPlan
     from spmv_vector_cache_tpu_torch.formats.plan import SellPlan
     from spmv_vector_cache_tpu_torch.ops import _kernels
+    from spmv_vector_cache_tpu_torch.ops.lane_perm import (
+        lane_unpermute, lane_unpermute_plain)
     from spmv_vector_cache_tpu_torch.ops.operator import SparseOperator
+    from spmv_vector_cache_tpu_torch.ops.spmv_chunk import (subwin_kernel,
+                                                            subwin_plain)
     from spmv_vector_cache_tpu_torch.ops.spmv_dia import (spmv_dia_kernel,
                                                           spmv_dia_plain)
+    from spmv_vector_cache_tpu_torch.ops.spmv_packed import (
+        packed_extract_kernel, packed_extract_plain, packed_scan_kernel,
+        packed_scan_plain)
     from spmv_vector_cache_tpu_torch.ops.spmv_sell import (
         TILES_PER_STEP, sell_window_kernel, sell_window_plain)
+    from spmv_vector_cache_tpu_torch.ops.strategy import plan_nnz
+    from spmv_vector_cache_tpu_torch.tools import realistic
     from spmv_vector_cache_tpu_torch.utils.platform import require_cuda
 
     require_cuda()                     # no CPU fallback: fail without a card
@@ -163,14 +180,28 @@ def main():
     m_hyb.sort_indices()
     x_hyb = rng_h.standard_normal(n).astype(np.float32)
 
+    a_chunk = realistic.scircuit_like()
+    a_packed = realistic.mac_econ_like()
+    rng_x = np.random.default_rng(0)
+    x_chunk = rng_x.standard_normal(a_chunk.shape[1]).astype(np.float32)
+    x_packed = rng_x.standard_normal(a_packed.shape[1]).astype(np.float32)
+
+    def scipy_of(a):
+        return sp.csr_matrix((a.data, a.indices, a.indptr), shape=a.shape)
+
     # --- plan on the host, place on the card --------------------------------
     ops = {}
     for name, a, x in (("dia", from_scipy(band.astype(np.float32)), x_dia),
                        ("sell", a_sell, x_sell),
-                       ("hybrid", from_scipy(m_hyb), x_hyb)):
+                       ("hybrid", from_scipy(m_hyb), x_hyb),
+                       ("chunk", a_chunk, x_chunk),
+                       ("packed", a_packed, x_packed)):
         op = SparseOperator.from_matrix(a, device=dev)
         ops[name] = (op, torch.from_numpy(x).to(dev))
-        log(f"[{name}] {op!r} plan_seconds={op.stats['plan_seconds']:.3f}")
+        fill = (op.plan.dia if isinstance(op.plan, HybridPlan)
+                else op.plan).stats.fill
+        log(f"[{name}] {op!r} plan_seconds={op.stats['plan_seconds']:.3f} "
+            f"bytes_per_apply={op.stats['bytes_per_apply']} fill={fill:.4f}")
 
     p_dia = ops["dia"][0].plan
     assert isinstance(p_dia, DiaPlan) and ops["dia"][0].strategy == "dia"
@@ -189,20 +220,53 @@ def main():
     log(f"[hybrid] rest K={p_hyb.rest.stats.window_blocks} "
         f"tiles={p_hyb.rest.stats.num_tiles} "
         f"fold={p_hyb.rest.stats.group_fold}")
+    p_chunk = ops["chunk"][0].plan
+    assert isinstance(p_chunk, ChunkPlan) and \
+        ops["chunk"][0].strategy == "chunk"
+    assert p_chunk.hbuckets and p_chunk.buckets, p_chunk.stats
+    assert all(b.stats.window_blocks <= 64 for b in p_chunk.buckets)
+    log(f"[chunk] window buckets (K, tiles) "
+        f"{[(b.stats.window_blocks, b.num_tiles) for b in p_chunk.buckets]}"
+        f", subwindow buckets (W, tiles) "
+        f"{[(h.window_blocks, h.num_tiles) for h in p_chunk.hbuckets]}, "
+        f"{p_chunk.num_blocks} light blocks, {p_chunk.num_heavy} heavy rows, "
+        f"residue {type(p_chunk.residue).__name__}")
+    p_packed = ops["packed"][0].plan
+    assert isinstance(p_packed, PackedPlan) and \
+        ops["packed"][0].strategy == "packed"
+    assert p_packed.stats.overflow_nnz > 0, p_packed.stats
+    log(f"[packed] {p_packed.stats}")
 
-    # --- the main path, once, with the launch counters from zero ------------
-    kernels = (spmv_dia_kernel, sell_window_kernel)
-    for k in kernels:
-        k.launches = 0
-    ys = {name: op @ x for name, (op, x) in ops.items()}
-    torch.cuda.synchronize()
-    launches = {k.__name__: k.launches for k in kernels}
-    log(f"main-path launches: {launches}")
-    assert all(v > 0 for v in launches.values()), launches
+    # --- the main path, once per phase, counting the launches ---------------
+    kernels = {"spmv_dia_f32": spmv_dia_kernel,
+               "spmv_sell_window_f32": sell_window_kernel,
+               "lane_unpermute_f32": lane_unpermute,
+               "spmv_subwin_f32": subwin_kernel,
+               "packed_scan_f32": packed_scan_kernel,
+               "packed_extract_f32": packed_extract_kernel}
+    path_kernels = {"dia": ["spmv_dia_f32"],
+                    "sell": ["spmv_sell_window_f32"],
+                    "hybrid": ["spmv_dia_f32", "spmv_sell_window_f32"],
+                    "chunk": ["spmv_sell_window_f32", "lane_unpermute_f32",
+                              "spmv_subwin_f32"],
+                    "packed": ["packed_scan_f32", "packed_extract_f32"]}
+    launches = dict.fromkeys(kernels, 0)
+    ys = {}
+    for name, (op, x) in ops.items():
+        for k in kernels.values():
+            k.launches = 0
+        ys[name] = op @ x
+        torch.cuda.synchronize()
+        counts = {k: w.launches for k, w in kernels.items()}
+        log(f"[{name}] main-path launches: {counts}")
+        assert all(counts[k] > 0 for k in path_kernels[name]), (name, counts)
+        for k, c in counts.items():
+            launches[k] += c
 
     # --- y against float64 scipy --------------------------------------------
     ref64 = {"dia": (band, x_dia), "sell": (m_sell, x_sell),
-             "hybrid": (m_hyb, x_hyb)}
+             "hybrid": (m_hyb, x_hyb), "chunk": (scipy_of(a_chunk), x_chunk),
+             "packed": (scipy_of(a_packed), x_packed)}
     for name, (m, x) in ref64.items():
         y = ys[name]
         assert y.shape == (m.shape[0],) and bool(torch.isfinite(y).all())
@@ -232,35 +296,69 @@ def main():
         return (lambda: sell_window_kernel(*args, **kw),
                 lambda: sell_window_plain(*args, **kw))
 
-    cases = (("spmv_dia_f32", "dia", dia_pair(p_dia, ops["dia"][1])),
-             ("spmv_sell_window_f32", "sell",
+    def subwin_pair(h, x):
+        args = (h.vals, h.cols_win, h.bases, x)
+        return (lambda: subwin_kernel(*args, semiring="plus_times"),
+                lambda: subwin_plain(*args, semiring="plus_times"))
+
+    # kernel C at the chunk phase's shape: (light blocks, 128) sums
+    y2d = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (p_chunk.num_blocks, 128)).astype(np.float32)).to(dev)
+    lane_args = (y2d, p_chunk.perm_idx)
+    pst = p_packed.stats
+    x_pk = ops["packed"][1]
+    scan_args = (p_packed.vals, p_packed.cols, p_packed.cstep, x_pk)
+    scan_kw = dict(chunk_blocks=pst.chunk_blocks, step_tiles=pst.step_tiles)
+    # kernel F reads the plain scan, so both versions see the same input
+    ext_args = (packed_scan_plain(*scan_args, **scan_kw), p_packed.sblock,
+                p_packed.wstep, p_packed.esrc)
+    ext_kw = dict(num_windows=pst.num_windows, step_tiles=pst.step_tiles)
+
+    # (kernel, phase, what, (kernel call, plain call)); a kernel's JSON row
+    # sums its calls in its headline phase
+    cases = [("spmv_dia_f32", "dia", "", dia_pair(p_dia, ops["dia"][1])),
+             ("spmv_sell_window_f32", "sell", "",
               sell_pair(p_sell, ops["sell"][1])),
-             ("spmv_dia_f32", "hybrid",
-              dia_pair(p_hyb.dia, ops["hybrid"][1])),
-             ("spmv_sell_window_f32", "hybrid",
-              sell_pair(p_hyb.rest, ops["hybrid"][1])))
-    rows = {}
-    for kname, phase, (kern, plain) in cases:
+             ("spmv_dia_f32", "hybrid", "", dia_pair(p_hyb.dia,
+                                                     ops["hybrid"][1])),
+             ("spmv_sell_window_f32", "hybrid", "",
+              sell_pair(p_hyb.rest, ops["hybrid"][1]))]
+    cases += [("spmv_sell_window_f32", "chunk", f" K={b.stats.window_blocks}",
+               sell_pair(b, ops["chunk"][1])) for b in p_chunk.buckets]
+    cases += [("spmv_subwin_f32", "chunk", f" W={h.window_blocks}",
+               subwin_pair(h, ops["chunk"][1])) for h in p_chunk.hbuckets]
+    cases += [("lane_unpermute_f32", "chunk", "",
+               (lambda: lane_unpermute(*lane_args),
+                lambda: lane_unpermute_plain(*lane_args))),
+              ("packed_scan_f32", "packed", "",
+               (lambda: packed_scan_kernel(*scan_args, **scan_kw),
+                lambda: packed_scan_plain(*scan_args, **scan_kw))),
+              ("packed_extract_f32", "packed", "",
+               (lambda: packed_extract_kernel(*ext_args, **ext_kw),
+                lambda: packed_extract_plain(*ext_args, **ext_kw)))]
+    headline = {"spmv_dia_f32": "dia", "spmv_sell_window_f32": "sell",
+                "lane_unpermute_f32": "chunk", "spmv_subwin_f32": "chunk",
+                "packed_scan_f32": "packed", "packed_extract_f32": "packed"}
+    rows = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0) for k in kernels}
+    for kname, phase, what, (kern, plain) in cases:
         got, ref = kern(), plain()
         torch.cuda.synchronize()
         err = max_abs(got, ref)
         tol = KERNEL_RTOL * max(1.0, float(ref.abs().max().item()))
-        log(f"[{phase}] {kname} vs plain: max abs err {err:.3g} "
+        log(f"[{phase}] {kname}{what} vs plain: max abs err {err:.3g} "
             f"(limit {tol:.3g}), shape {tuple(got.shape)}")
         assert got.shape == ref.shape and err <= tol, (kname, phase, err)
+        rows[kname]["max_abs_err"] = max(rows[kname]["max_abs_err"], err)
         # plain, kernel, kernel, plain: compare within one call, in turns
         p1, k1, k2, p2 = (time_ms(plain), time_ms(kern), time_ms(kern),
                           time_ms(plain))
-        k_ms, p_ms = min(k1, k2), min(p1, p2)
-        log(f"[{phase}] {kname}: kernel {k1:.4f}/{k2:.4f} ms, plain "
+        log(f"[{phase}] {kname}{what}: kernel {k1:.4f}/{k2:.4f} ms, plain "
             f"{p1:.4f}/{p2:.4f} ms on {card}")
-        if phase in ("dia", "sell"):
-            rows[kname] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms)
-        else:
-            rows[kname]["max_abs_err"] = max(rows[kname]["max_abs_err"], err)
+        if phase == headline[kname]:
+            rows[kname]["ms"] += min(k1, k2)
+            rows[kname]["plain_ms"] += min(p1, p2)
 
     # --- the apply, end to end ----------------------------------------------
-    from spmv_vector_cache_tpu_torch.ops.strategy import plan_nnz
     for name, (op, x) in ops.items():
         ms = time_ms(lambda: op @ x)
         nnz = plan_nnz(op.plan)
@@ -276,24 +374,32 @@ def main():
             f"apply -> idle share {1 - busy / (ms * 1e3):.3f}")
         for k, us in sorted(by_kernel.items(), key=lambda kv: -kv[1]):
             log(f"[{name}]   {us:9.2f} us  {k[:90]}")
-    for kname, r in rows.items():
+    for kname in ("spmv_dia_f32", "spmv_sell_window_f32"):
+        r = rows[kname]
         nnz = plan_nnz(p_dia if kname == "spmv_dia_f32" else p_sell)
         log(f"{kname}: kernel {nnz / r['ms'] / 1e6:.2f} Gnnz/s, plain "
             f"{nnz / r['plain_ms'] / 1e6:.2f} Gnnz/s on {card}")
     log(f"max_memory_allocated: {torch.cuda.max_memory_allocated()} bytes")
 
+    csrc = "spmv_vector_cache_tpu_torch/csrc/"
     meta = {
-        "spmv_dia_f32": ("spmv_vector_cache_tpu_torch/csrc/spmv_dia.cu",
-                         "spmv_vector_cache_tpu/ops/spmv_dia.py:63"),
-        "spmv_sell_window_f32": (
-            "spmv_vector_cache_tpu_torch/csrc/spmv_sell_window.cu",
-            "spmv_vector_cache_tpu/ops/spmv_pallas.py:162"),
+        "spmv_dia_f32": ("spmv_dia.cu", "spmv_vector_cache_tpu/ops/"
+                         "spmv_dia.py:63"),
+        "spmv_sell_window_f32": ("spmv_sell_window.cu",
+                                 "spmv_vector_cache_tpu/ops/"
+                                 "spmv_pallas.py:162"),
+        "lane_unpermute_f32": ("lane_perm.cu", "spmv_vector_cache_tpu/ops/"
+                               "lane_perm.py:26"),
+        "spmv_subwin_f32": ("spmv_subwin.cu", "spmv_vector_cache_tpu/ops/"
+                            "spmv_pallas.py:282"),
+        "packed_scan_f32": ("spmv_packed.cu", "spmv_vector_cache_tpu/ops/"
+                            "spmv_packed.py:44"),
+        "packed_extract_f32": ("spmv_packed.cu", "spmv_vector_cache_tpu/ops/"
+                               "spmv_packed.py:91"),
     }
-    wrapper = {"spmv_dia_f32": "spmv_dia_kernel",
-               "spmv_sell_window_f32": "sell_window_kernel"}
     print(json.dumps({"kernels": [
-        {"name": k, "route": "cuda", "source": meta[k][0],
-         "replaces": meta[k][1], "launches": launches[wrapper[k]], **r}
+        {"name": k, "route": "cuda", "source": csrc + meta[k][0],
+         "replaces": meta[k][1], "launches": launches[k], **r}
         for k, r in rows.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

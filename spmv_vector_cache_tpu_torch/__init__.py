@@ -7,16 +7,18 @@ module for module and imports ``torch``, never ``jax``:
 * :mod:`.formats` — host-side numpy containers, conversions, analyses
   and plan builders (byte-equal plans to the reference's);
 * :mod:`.ops` — the plan dispatch, the epilogues as torch ops, and the
-  wrappers of the hand-written CUDA kernels in ``csrc/`` (DIA and SELL
-  window SpMV), each beside its plain PyTorch version;
+  wrappers of the hand-written CUDA kernels in ``csrc/`` (DIA, SELL
+  window, lane un-permute, subwindow, packed scan and extract), each
+  beside its plain PyTorch version;
 * :mod:`.interop` — plans carried across from the JAX package;
+* :mod:`.tools` — the matrix generators of the evaluation suite;
 * :mod:`.utils` — stat registry and device policy.
 
-The first slice covers ``SparseOperator.from_matrix(a, device=...) @ x``
-for DIA, Hybrid and SELL-window plans.
+``SparseOperator.from_matrix(a, device=...) @ x`` runs DIA, Hybrid,
+SELL-window, Chunk, Packed and COO-tail plans.
 """
 
-from . import formats, interop, ops, utils  # noqa: F401
+from . import formats, interop, ops, tools, utils  # noqa: F401
 from .formats.containers import COO, CSC, CSR  # noqa: F401
 from .formats.plan import auto_plan  # noqa: F401
 from .ops import semiring  # noqa: F401

@@ -17,39 +17,14 @@
 // group when folding), one thread per lane; each thread loops over the
 // positions (and over the group's tiles when folding), so a warp reads
 // 32 consecutive values and offsets (coalesced).  All five semirings are
-// one template on (mul, reduce).
+// one template on the (init, step) pairs of semiring.cuh.
 
 #include <cuda_runtime.h>
-#include <math.h>
 #include <stdint.h>
 
-namespace {
+#include "semiring.cuh"
 
-struct PlusTimes {
-    static __device__ float init() { return 0.0f; }
-    static __device__ float step(float acc, float v, float x) {
-        return fmaf(v, x, acc);
-    }
-};
-struct MinPlus {
-    static __device__ float init() { return INFINITY; }
-    static __device__ float step(float acc, float v, float x) {
-        return fminf(acc, v + x);
-    }
-};
-struct MaxPlus {
-    static __device__ float init() { return -INFINITY; }
-    static __device__ float step(float acc, float v, float x) {
-        return fmaxf(acc, v + x);
-    }
-};
-// max_times and or_and ({0,1} floats: and = *, or = max)
-struct MaxTimes {
-    static __device__ float init() { return -INFINITY; }
-    static __device__ float step(float acc, float v, float x) {
-        return fmaxf(acc, v * x);
-    }
-};
+namespace {
 
 // blockIdx.x = output row: a tile (tiles_per_row = 1) or a group
 // (tiles_per_row = wg); threadIdx.x = lane.
@@ -77,21 +52,9 @@ __global__ void window_kernel(const float* __restrict__ vals,
     out[row * lanes + lane] = acc;
 }
 
-template <class S>
-void launch(const float* vals, const int16_t* cols_win,
-            const int* window_base, const float* x, float* out,
-            long long out_rows, int positions, int lanes, int group_tiles,
-            int tiles_per_row, int window_grain, long long cols,
-            cudaStream_t stream) {
-    window_kernel<S><<<(unsigned)out_rows, lanes, 0, stream>>>(
-        vals, cols_win, window_base, x, out, positions, lanes, group_tiles,
-        tiles_per_row, window_grain, cols);
-}
-
 }  // namespace
 
-// semiring codes: 0 plus_times, 1 min_plus, 2 max_plus, 3 max_times,
-// 4 or_and (ops/semiring.py KERNEL_CODE)
+// semiring: a code of semiring.cuh
 extern "C" int spmv_sell_window_f32(const float* vals,
                                     const int16_t* cols_win,
                                     const int* window_base, const float* x,
@@ -102,32 +65,13 @@ extern "C" int spmv_sell_window_f32(const float* vals,
                                     int semiring, void* stream) {
     if (out_rows > 0) {
         int tpr = fold ? group_tiles : 1;
-        cudaStream_t s = (cudaStream_t)stream;
-        switch (semiring) {
-            case 0:
-                launch<PlusTimes>(vals, cols_win, window_base, x, out,
-                                  out_rows, positions, lanes, group_tiles,
-                                  tpr, window_grain, cols, s);
-                break;
-            case 1:
-                launch<MinPlus>(vals, cols_win, window_base, x, out,
-                                out_rows, positions, lanes, group_tiles,
-                                tpr, window_grain, cols, s);
-                break;
-            case 2:
-                launch<MaxPlus>(vals, cols_win, window_base, x, out,
-                                out_rows, positions, lanes, group_tiles,
-                                tpr, window_grain, cols, s);
-                break;
-            case 3:
-            case 4:
-                launch<MaxTimes>(vals, cols_win, window_base, x, out,
-                                 out_rows, positions, lanes, group_tiles,
-                                 tpr, window_grain, cols, s);
-                break;
-            default:
-                return (int)cudaErrorInvalidValue;
-        }
+        cudaError_t err = spmv::with_semiring(semiring, [&](auto s) {
+            window_kernel<decltype(s)>
+                <<<(unsigned)out_rows, lanes, 0, (cudaStream_t)stream>>>(
+                    vals, cols_win, window_base, x, out, positions, lanes,
+                    group_tiles, tpr, window_grain, cols);
+        });
+        if (err != cudaSuccess) return (int)err;
     }
     return (int)cudaGetLastError();
 }

@@ -1,9 +1,12 @@
 from . import analysis, cached, containers, convert, costmodel, dia, plan  # noqa: F401
+from . import chunk, packed  # noqa: F401
 from .cached import COO_TAIL_MAX, CooTail, coo_tail_from_csr  # noqa: F401
+from .chunk import ChunkPlan, SubwinPlan, build_chunk_plan  # noqa: F401
 from .containers import COO, CSC, CSR  # noqa: F401
 from .convert import (coo_to_csr, csc_to_coo, csc_to_csr,  # noqa: F401
                       csr_to_coo, from_scipy, to_dense)
 from .dia import (DIA, DiaPlan, HybridPlan, build_dia_plan,  # noqa: F401
                   csr_to_dia, split_diagonal)
+from .packed import PackedPlan, build_packed_plan  # noqa: F401
 from .plan import (SellPlan, auto_plan, build_sell_plan,  # noqa: F401
                    validate_plan)

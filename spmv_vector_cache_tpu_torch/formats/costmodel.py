@@ -1,6 +1,6 @@
 """Plan cost model (counterpart of
-``spmv_vector_cache_tpu/formats/costmodel.py``; Sell, Dia, Hybrid and
-CooTail plans).
+``spmv_vector_cache_tpu/formats/costmodel.py``; Sell, Dia, Hybrid,
+CooTail, Chunk and Packed plans).
 
 A closed-form per-apply time estimate per plan family, which the planner
 uses to veto mis-selections.  The constants are the reference's, measured
@@ -32,6 +32,8 @@ _NS_PER_COO_NNZ = 16.0
 _NS_COO_FLOOR = 3000.0
 #: HBM read bandwidth (bytes/ns)
 _BYTES_PER_NS = 700.0
+#: packed pass-B extraction cost per visit
+_NS_PER_PACKED_VISIT = 2600.0
 
 
 def estimate_seconds(plan: Any) -> float:
@@ -46,6 +48,10 @@ def estimate_seconds(plan: Any) -> float:
                 + 10e-6)
     if name == "CooTail":
         return (_NS_COO_FLOOR + _NS_PER_COO_NNZ * plan.nnz) * 1e-9
+    if name == "PackedPlan":
+        return _packed_seconds(plan)
+    if name == "ChunkPlan":
+        return _chunk_seconds(plan)
     raise ValueError(f"no cost model for plan type {name}")
 
 
@@ -77,3 +83,34 @@ def _dia_seconds(plan) -> float:
     steps = max(1, vals.shape[0])
     return (_NS_LAUNCH + nbytes / _BYTES_PER_NS
             + steps * _NS_PER_GRID_STEP) * 1e-9
+
+
+def _chunk_seconds(plan) -> float:
+    """ChunkPlan: per-tile cost ~ 15 + 5.2*K ns for window buckets,
+    ~ 15 + 26*W ns for subwin buckets, plus the sorted partials fold
+    (~9.4 ns/tile) and the fixed lane-perm/heavy epilogue (v5e)."""
+    t = 0.0
+    ttot = 0
+    for b in plan.buckets:
+        st = b.stats
+        t += _NS_LAUNCH + st.num_tiles * (15.0 + 5.2 * st.window_blocks)
+        ttot += st.num_tiles
+    for h in plan.hbuckets:
+        W = h.window_blocks
+        t += _NS_LAUNCH + h.num_tiles * (15.0 + 26.0 * W)
+        ttot += h.num_tiles
+    t += ttot * 9.4 + 20e3
+    if plan.residue is not None:
+        t += estimate_seconds(plan.residue) * 1e9
+    return t * 1e-9
+
+
+def _packed_seconds(plan) -> float:
+    slots_a = int(np.prod(tuple(plan.vals.shape)))
+    visits = int(plan.sblock.shape[0])
+    t = (_NS_LAUNCH * 2 + slots_a * _NS_PER_SLOT_BASE * 2
+         + visits * _NS_PER_PACKED_VISIT)
+    novf = int(plan.ov_vals.shape[0])
+    if novf:
+        t += _NS_COO_FLOOR + _NS_PER_COO_NNZ * novf
+    return t * 1e-9

@@ -5,9 +5,9 @@ The plan builders are the JAX package's host-side numpy code, carried
 over unchanged so that both packages build byte-equal plans for the same
 matrix; the port's kernels are checked against the reference on
 identical layouts.  Where the reference planner would build a plan
-family the port does not have yet (ChunkPlan, CachedPlan, PackedPlan),
-it raises ``NotImplementedError`` naming the family and its ROADMAP
-item instead of picking another plan.
+family the port does not have yet (CachedPlan), it raises
+``NotImplementedError`` naming the family and its ROADMAP item instead
+of picking another plan.
 
 The layout is a **sliced-ELLPACK (SELL) tile plan** over CSR:
 
@@ -60,12 +60,6 @@ RESIDENT_MAX_BLOCKS = 64
 DEEP_MAX_BLOCKS = 2048
 
 
-def _not_ported(family: str, item: int):
-    return NotImplementedError(
-        f"the reference planner would build a {family} here; that plan "
-        f"family is not ported yet (ROADMAP.md queue 1, item {item})")
-
-
 def _require_f32(value_dtype) -> None:
     if np.dtype(value_dtype) != np.float32:
         raise NotImplementedError(
@@ -73,20 +67,35 @@ def _require_f32(value_dtype) -> None:
             f"ported (f64 is ROADMAP.md queue 1, item 10)")
 
 
-def place(plan, device):
-    """The plan with every array field as a torch tensor on ``device``
-    (nested plans included) — done once, by ``SparseOperator``."""
+def map_arrays(plan, fn):
+    """The plan with ``fn`` applied to every numpy-array or tensor field,
+    nested plans included (a HybridPlan's parts, a ChunkPlan's bucket
+    tuples and residue)."""
     changes = {}
     for f in dataclasses.fields(plan):
         v = getattr(plan, f.name)
-        if isinstance(v, np.ndarray):
-            # a read-only array (one read out of a JAX array) is copied:
-            # torch tensors are writable
-            v = np.ascontiguousarray(v) if v.flags.writeable else v.copy()
-            changes[f.name] = torch.from_numpy(v).to(device)
+        if isinstance(v, (np.ndarray, torch.Tensor)):
+            changes[f.name] = fn(v)
         elif dataclasses.is_dataclass(v) and not isinstance(v, type):
-            changes[f.name] = place(v, device)
+            changes[f.name] = map_arrays(v, fn)
+        elif isinstance(v, tuple) and v and dataclasses.is_dataclass(v[0]):
+            changes[f.name] = tuple(map_arrays(p, fn) for p in v)
     return dataclasses.replace(plan, **changes)
+
+
+def _to_tensor(v, device):
+    if isinstance(v, torch.Tensor):
+        return v.to(device)
+    # a read-only array (one read out of a JAX array) is copied: torch
+    # tensors are writable
+    v = np.ascontiguousarray(v) if v.flags.writeable else v.copy()
+    return torch.from_numpy(v).to(device)
+
+
+def place(plan, device):
+    """The plan with every array field as a torch tensor on ``device``
+    (nested plans included) — done once, by ``SparseOperator``."""
+    return map_arrays(plan, lambda v: _to_tensor(v, device))
 
 
 #: tiles per kernel grid step (output block sublane alignment requires 8)
@@ -740,19 +749,32 @@ def _auto_sell_plan(csr: CSR, *, value_dtype, max_window_blocks,
               pad_value=pad_value)
     split = None
     sigma = None
+    p = None
     if lens.size and lens.max() > 0:
         mean = max(1.0, float(lens.mean()))
         mx = float(lens.max())
         if mx / mean > 8.0:
-            # skewed rows: the reference tries its chunk plan here
-            # (formats/chunk.py), which removes the split/sigma scatter
-            # epilogue; the port has no ChunkPlan yet
-            if np.dtype(value_dtype) != np.float64 and \
-                    lane_rows == 128 and positions == 8:
-                raise _not_ported("ChunkPlan", 7)
             split = int(max(positions,
                             _cdiv(int(mean * 4), positions) * positions))
             sigma = lane_rows * 8
+            # skewed rows: the chunk plan (formats/chunk.py) removes the
+            # split/sigma scatter epilogue; take it when the cost model
+            # prices it below the split/sigma plan and the layout stays
+            # dtype/shape-compatible
+            if np.dtype(value_dtype) != np.float64 and \
+                    lane_rows == 128 and positions == 8:
+                from .chunk import build_chunk_plan
+                from .costmodel import estimate_seconds
+
+                # duplicate merging sums values — plus-times only, and
+                # allow_packed is exactly the plus-times flag here
+                cp = build_chunk_plan(csr, value_dtype=value_dtype,
+                                      pad_value=pad_value,
+                                      merge_duplicates=allow_packed)
+                if cp is not None:
+                    p = build_sell_plan(csr, sigma=sigma, split=split, **kw)
+                    if estimate_seconds(cp) < estimate_seconds(p):
+                        return cp
         elif float(lens.std()) > mean:
             sigma = lane_rows * 8
         elif mx >= 1.5 * positions and mx <= 3.0 * mean:
@@ -775,7 +797,8 @@ def _auto_sell_plan(csr: CSR, *, value_dtype, max_window_blocks,
             if pu.stats.window_blocks and \
                     pu.stats.nnz >= 0.5 * real_slots:
                 return pu
-    p = build_sell_plan(csr, sigma=sigma, split=split, **kw)
+    if p is None:                      # not built for the chunk comparison
+        p = build_sell_plan(csr, sigma=sigma, split=split, **kw)
     if p.stats.window_blocks or p.stats.nnz == 0:
         return p
     # small x: the resident strategy (x fully on chip, no locality
@@ -858,7 +881,9 @@ def _auto_sell_plan(csr: CSR, *, value_dtype, max_window_blocks,
         if cp is not None:
             return cp
     if allow_packed and np.dtype(value_dtype) != np.float64:
-        raise _not_ported("PackedPlan", 8)
+        from .packed import build_packed_plan
+
+        return build_packed_plan(csr, value_dtype=value_dtype)
     return p
 
 

@@ -15,8 +15,16 @@ import numpy as np
 import torch
 
 from .formats.cached import CooTail
+from .formats.chunk import ChunkPlan, ChunkStats, SubwinPlan
 from .formats.dia import DiaPlan, DiaStats, HybridPlan
-from .formats.plan import PlanStats, SellPlan, place
+from .formats.packed import PackedPlan, PackedStats
+from .formats.plan import PlanStats, SellPlan, map_arrays, place
+
+#: port plan classes by the reference's class name, and their stats class
+_PLANS = {cls.__name__: cls for cls in
+          (SellPlan, DiaPlan, CooTail, SubwinPlan, PackedPlan)}
+_STATS = {"SellPlan": PlanStats, "DiaPlan": DiaStats,
+          "PackedPlan": PackedStats}
 
 
 def _host(plan_ref):
@@ -24,45 +32,42 @@ def _host(plan_ref):
     kind = type(plan_ref).__name__
     if kind == "HybridPlan":
         return HybridPlan(dia=_host(plan_ref.dia), rest=_host(plan_ref.rest))
-    if kind == "SellPlan":
-        return SellPlan(
-            **{f: np.asarray(getattr(plan_ref, f))
-               for f in ("vals", "cols", "cols_win", "tile_slice",
-                         "window_base", "row_map", "window_rows")},
-            shape=tuple(plan_ref.shape), lane_rows=plan_ref.lane_rows,
-            positions=plan_ref.positions,
-            identity_map=plan_ref.identity_map,
-            stats=PlanStats(**plan_ref.stats.as_dict()))
-    if kind == "DiaPlan":
-        return DiaPlan(vals=np.asarray(plan_ref.vals),
-                       offsets=tuple(int(o) for o in plan_ref.offsets),
-                       shape=tuple(plan_ref.shape),
-                       sublanes=plan_ref.sublanes,
-                       pad_left=plan_ref.pad_left, x_rows=plan_ref.x_rows,
-                       stats=DiaStats(**plan_ref.stats.as_dict()),
-                       double=plan_ref.double)
-    if kind == "CooTail":
-        return CooTail(vals=np.asarray(plan_ref.vals),
-                       cols=np.asarray(plan_ref.cols),
-                       rows_idx=np.asarray(plan_ref.rows_idx),
-                       shape=tuple(plan_ref.shape))
-    raise NotImplementedError(f"{kind} is not ported yet (ROADMAP.md "
-                              f"queue 1)")
+    if kind == "ChunkPlan":
+        return ChunkPlan(
+            buckets=tuple(_host(b) for b in plan_ref.buckets),
+            hbuckets=tuple(_host(h) for h in plan_ref.hbuckets),
+            residue=(None if plan_ref.residue is None
+                     else _host(plan_ref.residue)),
+            perm_idx=np.asarray(plan_ref.perm_idx),
+            heavy_rows=np.asarray(plan_ref.heavy_rows),
+            shape=tuple(plan_ref.shape),
+            stats=ChunkStats(**plan_ref.stats.as_dict()))
+    if kind not in _PLANS:
+        raise NotImplementedError(f"{kind} is not ported yet (ROADMAP.md "
+                                  f"queue 1)")
+    cls = _PLANS[kind]
+    kw = {}
+    for f in dataclasses.fields(cls):
+        v = getattr(plan_ref, f.name)
+        if f.name == "stats":
+            v = _STATS[kind](**v.as_dict())
+        elif f.name == "shape":
+            v = tuple(v)
+        elif f.name == "offsets":
+            v = tuple(int(o) for o in v)
+        elif getattr(v, "ndim", 0) >= 1:        # a numpy or JAX array
+            v = np.asarray(v)
+        kw[f.name] = v
+    return cls(**kw)
 
 
 def plan_from_reference(plan_ref, device="cpu"):
-    """A SellPlan, DiaPlan, HybridPlan or CooTail of the JAX package as
-    the port's plan, its arrays on ``device``."""
+    """A SellPlan, DiaPlan, HybridPlan, CooTail, ChunkPlan or PackedPlan
+    of the JAX package as the port's plan, its arrays on ``device``."""
     return place(_host(plan_ref), torch.device(device))
 
 
 def plan_to_numpy(plan):
     """The port plan with every tensor field as a host numpy array."""
-    changes = {}
-    for f in dataclasses.fields(plan):
-        v = getattr(plan, f.name)
-        if isinstance(v, torch.Tensor):
-            changes[f.name] = v.cpu().numpy()
-        elif dataclasses.is_dataclass(v) and not isinstance(v, type):
-            changes[f.name] = plan_to_numpy(v)
-    return dataclasses.replace(plan, **changes)
+    return map_arrays(plan, lambda v: v.cpu().numpy()
+                      if isinstance(v, torch.Tensor) else v)

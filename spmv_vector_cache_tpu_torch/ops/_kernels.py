@@ -1,6 +1,7 @@
 """Build and bind the hand-written CUDA kernels in ``csrc/``.
 
-``nvcc -shared`` compiles every ``csrc/*.cu`` into one shared library
+``nvcc`` compiles every ``csrc/*.cu`` to an object file, one process per
+source, all started together, then links them into one shared library
 with a plain C interface, loaded with ``ctypes``.  The build runs on
 first use, into ``_build/`` inside the package, keyed by a hash of the
 sources (so an edited kernel rebuilds and an unchanged one is reused).
@@ -23,8 +24,9 @@ PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD = PACKAGE / "_build"
 
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,6 +41,17 @@ SIGNATURES = {
     # group_tiles, fold, window_grain, cols, semiring, stream
     "spmv_sell_window_f32": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I,
                              _L, _I, _P],
+    # y2d, idx, out, n, stream
+    "lane_unpermute_f32": [_P, _P, _P, _L, _P],
+    # vals, cols_win, bases, x, out, tiles, positions, lanes, cols,
+    # semiring, stream
+    "spmv_subwin_f32": [_P, _P, _P, _P, _P, _L, _I, _I, _L, _I, _P],
+    # vals, cols, cstep, x, out, rows, rows_per_step, chunk_cols, ncols,
+    # stream
+    "packed_scan_f32": [_P, _P, _P, _P, _P, _L, _I, _L, _L, _P],
+    # scan, sblock, wstep, esrc, out, num_windows, steps_b, block_slots,
+    # stream
+    "packed_extract_f32": [_P, _P, _P, _P, _P, _I, _I, _L, _P],
 }
 
 
@@ -57,6 +70,20 @@ def _nvcc() -> str:
     return found
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands concurrently; raise with the output of the first
+    that fails, else return all their output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
 def build() -> tuple[Path, str]:
     """Compile ``csrc/*.cu`` unless a library for these exact sources
     exists; returns (library path, nvcc output, empty when reused)."""
@@ -69,17 +96,17 @@ def build() -> tuple[Path, str]:
     if lib.exists():
         return lib, ""
     BUILD.mkdir(exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[str(p) for p in sources() if p.suffix == ".cu"]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)           # atomic: a reader never sees half a file
-    return lib, proc.stdout + proc.stderr
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
+        cus = [p for p in sources() if p.suffix == ".cu"]
+        objs = [str(Path(tmp) / f"{p.stem}.o") for p in cus]
+        out = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(p)]
+                        for p, o in zip(cus, objs)])
+        tmp_lib = str(Path(tmp) / lib.name)
+        out += _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", tmp_lib,
+                          *objs]])
+        os.replace(tmp_lib, lib)   # atomic: a reader never sees half a file
+    return lib, out
 
 
 @functools.lru_cache(maxsize=None)

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..formats.cached import CooTail
+from ..formats.chunk import ChunkPlan
 from ..formats.dia import HybridPlan
 from ..formats.plan import auto_plan, place
 from ..utils.stats import StatRegistry
@@ -29,7 +30,12 @@ Array = Any
 
 
 def _plan_device(plan) -> torch.device:
-    arr = plan.dia.vals if isinstance(plan, HybridPlan) else plan.vals
+    if isinstance(plan, HybridPlan):
+        arr = plan.dia.vals
+    elif isinstance(plan, ChunkPlan):
+        arr = plan.perm_idx
+    else:
+        arr = plan.vals
     return arr.device if isinstance(arr, torch.Tensor) \
         else torch.device("cpu")
 

@@ -14,7 +14,7 @@ from typing import Callable
 
 import torch
 
-#: kernel codes shared with ``csrc/spmv_sell_window.cu``
+#: kernel codes shared with ``csrc/semiring.cuh``
 KERNEL_CODE = {"plus_times": 0, "min_plus": 1, "max_plus": 2,
                "max_times": 3, "or_and": 4}
 

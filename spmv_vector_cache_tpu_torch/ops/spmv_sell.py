@@ -5,9 +5,11 @@
 which replaces the reference's window kernel; :func:`sell_window_plain`
 is its plain PyTorch version.  The epilogues — the slice reduction, the
 sub-row fixup, the Hybrid add and the COO tail — are torch ops, as the
-reference computes them in XLA outside Pallas.  The ``resident``,
-``deep`` and ``stream`` strategies and the df64, Chunk, Cached and
-Packed paths are not ported yet and raise ``NotImplementedError``.
+reference computes them in XLA outside Pallas.  :func:`spmv_plan`
+dispatches every plan type, ChunkPlan (``ops/spmv_chunk.py``) and
+PackedPlan (``ops/spmv_packed.py``) included.  The ``resident``,
+``deep`` and ``stream`` strategies and the df64 and Cached paths are not
+ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -15,13 +17,16 @@ from __future__ import annotations
 import torch
 
 from ..formats.cached import CooTail
+from ..formats.chunk import ChunkPlan
 from ..formats.dia import DiaPlan, HybridPlan
+from ..formats.packed import PackedPlan
 from ..formats.plan import DEEP_MAX_BLOCKS, RESIDENT_MAX_BLOCKS, SellPlan
 from ..formats.plan import TILES_PER_STEP
 from ..utils import platform
 from . import _kernels
 from . import semiring as sr
 from .spmv_dia import spmv_dia
+from .spmv_packed import spmv_packed
 
 # ---------------------------------------------------------------------------
 # epilogues
@@ -178,13 +183,27 @@ def spmv_plan(plan, x: torch.Tensor, *, strategy: str = "auto",
 
     Dispatches on plan type: DiaPlan runs kernel A, HybridPlan adds its
     residual pass, a SellPlan runs the 'window' strategy on kernel B, a
-    CooTail the gather + segment reduce.  DIA plans support plus_times
-    only; SELL plans must have been built with ``pad_value`` = the
-    semiring's zero (``auto_plan(semiring=...)`` does this).
+    ChunkPlan kernels B, D and C, a PackedPlan kernels E and F, a CooTail
+    the gather + segment reduce.  DIA and packed plans support
+    plus_times only; SELL and chunk plans must have been built with
+    ``pad_value`` = the semiring's zero (``auto_plan(semiring=...)``
+    does this).
     """
     semiring = sr.get(semiring).name
+    if isinstance(plan, ChunkPlan):
+        if strategy not in ("auto", "window", "chunk"):
+            raise ValueError(f"ChunkPlan supports only the 'chunk' "
+                             f"strategy, got {strategy!r}")
+        from .spmv_chunk import spmv_chunk   # spmv_chunk imports this module
+
+        return spmv_chunk(plan, x, semiring=semiring)
     if isinstance(plan, CooTail):
         return _spmv_coo(plan, x, semiring)
+    if isinstance(plan, PackedPlan):
+        if strategy not in ("auto", "packed"):
+            raise ValueError(f"PackedPlan supports only the 'packed' "
+                             f"strategy, got {strategy!r}")
+        return spmv_packed(plan, x, semiring=semiring)
     if isinstance(plan, (DiaPlan, HybridPlan)) and semiring != "plus_times":
         raise ValueError("DIA plans encode absence as 0 and support only "
                          "plus_times; build a SELL plan via "

@@ -1,6 +1,7 @@
 """Strategy selection and plan-derived counters (counterpart of
-``spmv_vector_cache_tpu/ops/strategy.py``; Sell, Dia, Hybrid and CooTail
-plans — the timing sweep ``autotune`` comes with ``ops/tune.py``)."""
+``spmv_vector_cache_tpu/ops/strategy.py``; Sell, Dia, Hybrid, CooTail,
+Chunk and Packed plans — the timing sweep ``autotune`` comes with
+``ops/tune.py``)."""
 
 from __future__ import annotations
 
@@ -9,7 +10,9 @@ from typing import Dict
 import numpy as np
 
 from ..formats.cached import CooTail
+from ..formats.chunk import ChunkPlan
 from ..formats.dia import DiaPlan, HybridPlan
+from ..formats.packed import PackedPlan
 from ..formats.plan import DEEP_MAX_BLOCKS, RESIDENT_MAX_BLOCKS, SellPlan
 
 
@@ -21,9 +24,14 @@ def _itemsize(arr) -> int:
 
 def select_strategy(plan) -> str:
     """Pick the execution strategy from plan structure counters (the
-    reference's rule; only 'window', 'dia' and 'coo' run in the port)."""
+    reference's rule; 'resident', 'deep' and 'stream' do not run in the
+    port yet)."""
+    if isinstance(plan, ChunkPlan):
+        return "chunk"
     if isinstance(plan, (DiaPlan, HybridPlan)):
         return "dia"
+    if isinstance(plan, PackedPlan):
+        return "packed"
     if isinstance(plan, CooTail):
         return "coo"
     if not isinstance(plan, SellPlan):
@@ -41,6 +49,8 @@ def select_strategy(plan) -> str:
 
 def plan_nnz(plan) -> int:
     """Populated nonzeros of any ported plan type."""
+    if isinstance(plan, ChunkPlan):
+        return plan.stats.nnz
     if isinstance(plan, HybridPlan):
         return plan_nnz(plan.dia) + plan_nnz(plan.rest)
     if isinstance(plan, CooTail):
@@ -51,6 +61,15 @@ def plan_nnz(plan) -> int:
 def plan_bytes_per_apply(plan, strategy: str = "auto") -> int:
     """Device-memory bytes one SpMV moves, as the reference counts them:
     the streamed plan arrays, the dense vector and the result."""
+    if isinstance(plan, ChunkPlan):
+        b = sum(plan_bytes_per_apply(bk, "window") for bk in plan.buckets)
+        for h in plan.hbuckets:
+            T = h.num_tiles
+            it = _itemsize(h.vals)
+            b += T * 1024 * (it + 2) + 3 * T * 8 * h.window_blocks * 128 * 4
+        if plan.residue is not None:
+            b += plan_bytes_per_apply(plan.residue)
+        return b + (plan.shape[0] + plan.shape[1]) * 4
     if isinstance(plan, HybridPlan):
         return (plan_bytes_per_apply(plan.dia) +
                 plan_bytes_per_apply(plan.rest, strategy))
@@ -59,6 +78,17 @@ def plan_bytes_per_apply(plan, strategy: str = "auto") -> int:
     vec = (rows + cols) * itemsize
     if isinstance(plan, CooTail):
         return plan.nnz * (itemsize + 8) + vec
+    if isinstance(plan, PackedPlan):
+        st = plan.stats
+        slots = st.num_tiles * 1024
+        sps = st.step_tiles * 1024
+        return (slots * (itemsize + 2)           # vals + cols|flag
+                + slots * 4                      # scan S write
+                + st.num_steps_b * sps * 4       # S re-read per visit
+                + st.num_steps_b * 8192 * 2      # esrc tiles
+                + st.num_steps_a * st.chunk_blocks * 128 * 4  # x windows
+                + st.num_windows * 8192 * 4      # y write-back
+                + st.overflow_nnz * 12 + vec)
     if isinstance(plan, DiaPlan):
         return int(np.prod(tuple(plan.vals.shape))) * itemsize + vec
     T, P, R = plan.vals.shape
@@ -88,6 +118,20 @@ def execution_counters(plan, strategy: str = "auto") -> Dict[str, int]:
     """Plan-derived work counters for one apply, as the reference counts
     them: grid steps, window switches, gather passes, select-merge ops,
     shift ops and the epilogue kind."""
+    if isinstance(plan, ChunkPlan):
+        out = {"grid_steps": 0, "window_switches": 0, "gather_passes": 0,
+               "select_ops": 0, "shift_ops": 0, "epilogue_segsum": 1}
+        for bk in plan.buckets:
+            c = execution_counters(bk, "window")
+            for k in out:
+                out[k] += c.get(k, 0)
+        for h in plan.hbuckets:
+            T = h.num_tiles
+            out["grid_steps"] += T // (8 * h.groups_per_step)
+            out["gather_passes"] += T * h.window_blocks
+            out["select_ops"] += T * max(0, h.window_blocks - 1)
+            out["window_switches"] += T * 8
+        return out
     if isinstance(plan, HybridPlan):
         c1 = execution_counters(plan.dia)
         c2 = execution_counters(plan.rest, strategy)
@@ -109,6 +153,20 @@ def execution_counters(plan, strategy: str = "auto") -> Dict[str, int]:
             "grid_steps": 0, "window_switches": 0,
             "gather_passes": plan.nnz, "select_ops": 0, "shift_ops": 0,
             "epilogue_segsum": 1,
+        }
+    if isinstance(plan, PackedPlan):
+        st = plan.stats
+        vregs_a = st.num_tiles                   # one (8,128) tile each
+        vregs_b = st.num_steps_b * 8             # (64,128) output/visit
+        return {
+            "grid_steps": st.num_steps_a + st.num_steps_b,
+            "window_switches": st.num_chunks,
+            "gather_passes": vregs_a * st.chunk_blocks
+            + vregs_b * st.step_tiles * 8,
+            "select_ops": vregs_a * max(0, st.chunk_blocks - 1)
+            + vregs_b * max(0, st.step_tiles * 8 - 1),
+            "shift_ops": vregs_a * 7,            # segmented-scan stages
+            "epilogue_segsum": int(st.overflow_nnz > 0),
         }
     st = plan.stats
     T = st.num_tiles

@@ -1,0 +1,287 @@
+"""Port parity: the ChunkPlan family against the JAX package's.
+
+The matrices of the JAX package's ``tests/test_chunk.py`` (pareto-banded,
+heavy subwindow + window fallback, duplicates, empty rows and tail
+padding, min_plus), made from a seed with numpy, go through both
+packages:
+
+* ``build_chunk_plan`` and ``auto_plan`` give byte-equal plans;
+* ``lane_unpermute`` (kernel C's plain version) equals the JAX Pallas
+  kernel in interpret mode exactly (it moves values, it adds nothing);
+* ``_subwin_partials`` (kernel D's plain version) and ``spmv_plan`` on a
+  ChunkPlan (kernels B, D, C) agree with JAX in interpret mode to a max
+  abs error <= 1e-5 * max(1, max|ref|) for plus_times and the float
+  semirings (float32 sums in another order), exactly for or_and;
+* y agrees with the float64 host loop below 1e-4 relative.
+
+The JAX side runs each plan with one 8-tile group per grid step
+(``_small_steps``): the grid step sets only how the interpreted kernel is
+blocked, not what it computes, and a smaller step keeps the interpreted
+kernels quick to compile.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import scipy.sparse as sp
+import torch
+
+from spmv_vector_cache_tpu.formats import chunk as jchunk
+from spmv_vector_cache_tpu.formats import plan as jplan
+from spmv_vector_cache_tpu.ops import lane_perm as jlane
+from spmv_vector_cache_tpu.ops import operator as joperator
+from spmv_vector_cache_tpu.ops import reference as jref
+from spmv_vector_cache_tpu.ops import semiring as jsr
+from spmv_vector_cache_tpu.ops import spmv_pallas as jsell
+from spmv_vector_cache_tpu_torch.formats import chunk as pchunk
+from spmv_vector_cache_tpu_torch.formats import plan as pplan
+from spmv_vector_cache_tpu_torch.interop import plan_from_reference
+from spmv_vector_cache_tpu_torch.ops import lane_perm as plane
+from spmv_vector_cache_tpu_torch.ops import spmv_chunk as pspmv_chunk
+from spmv_vector_cache_tpu_torch.ops import spmv_sell as psell
+from spmv_vector_cache_tpu_torch.ops.operator import SparseOperator
+from tests.test_torch_plan import assert_plans_equal, both
+
+SEMIRINGS = ("plus_times", "min_plus", "max_plus", "max_times", "or_and")
+
+
+# ---------------------------------------------------------------------------
+# matrices (scipy CSR, float32, sorted), after tests/test_chunk.py
+# ---------------------------------------------------------------------------
+
+def _csr(r, c, v, shape):
+    """COO triples -> scipy CSR keeping duplicates (no summing)."""
+    r, c = np.asarray(r, np.int64), np.asarray(c, np.int64)
+    order = np.lexsort((c, r))
+    indptr = np.concatenate(([0], np.cumsum(np.bincount(
+        r, minlength=shape[0])))).astype(np.int32)
+    return sp.csr_matrix((np.asarray(v, np.float32)[order],
+                          c[order].astype(np.int32), indptr), shape=shape)
+
+
+def pareto_banded(n=4096, seed=0, cap=2048, spread=300):
+    rng = np.random.default_rng(seed)
+    lens = np.minimum((rng.pareto(1.2, n) * 8).astype(np.int64) + 1, cap)
+    r = np.repeat(np.arange(n), lens)
+    c = np.clip((np.abs(rng.standard_normal(r.shape[0])) * spread)
+                .astype(np.int64) + r - spread // 2, 0, n - 1)
+    return _csr(r, c, rng.standard_normal(r.shape[0]), (n, n))
+
+
+def heavy_subwin(n=20000):
+    # one dense heavy row (subwindow tiles), one sparse heavy row (window
+    # packer fallback), a light diagonal
+    rng = np.random.default_rng(5)
+    r = np.concatenate([np.zeros(3000), np.full(2000, 7), np.arange(n)])
+    c = np.concatenate([np.arange(5000, 8000),
+                        np.sort(rng.choice(n, 2000, replace=False)),
+                        np.arange(n)])
+    return _csr(r, c, rng.standard_normal(r.shape[0]), (n, n))
+
+
+def duplicates():
+    return _csr([0, 0, 0, 1, 1], [5, 5, 9, 2, 2], [1., 2., 3., 4., 5.],
+                (200, 200))
+
+
+def empty_rows():
+    # empty rows and a row count that is not a multiple of 1024
+    return _csr([5, 700, 700, 1500], [3, 10, 900, 100], np.ones(4),
+                (1543, 1543))
+
+
+CASES = {
+    "pareto_banded": lambda: pareto_banded(),
+    "heavy_subwin": heavy_subwin,
+    "duplicates": duplicates,
+    "empty_rows": empty_rows,
+}
+
+
+def _small_steps(plan_ref):
+    """The JAX plan with one 8-tile group per grid step (see the module
+    docstring); arrays and every other field unchanged."""
+    return dataclasses.replace(
+        plan_ref,
+        buckets=tuple(dataclasses.replace(
+            b, stats=dataclasses.replace(b.stats, groups_per_step=1))
+            for b in plan_ref.buckets),
+        hbuckets=tuple(dataclasses.replace(h, groups_per_step=1)
+                       for h in plan_ref.hbuckets))
+
+
+def _assert_close(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    finite = np.isfinite(want)
+    assert np.array_equal(np.isfinite(got), finite)
+    assert np.array_equal(got[~finite], want[~finite])
+    scale = max(1.0, float(np.abs(want[finite]).max(initial=0.0)))
+    err = float(np.abs(got[finite] - want[finite]).max(initial=0.0))
+    assert err <= 1e-5 * scale, (err, scale)
+
+
+def _semiring_data(m, semiring, seed):
+    """Matrix and x for a semiring: non-negative for min_plus and
+    max_times, {0, 1} for or_and."""
+    x = np.random.default_rng(seed).standard_normal(m.shape[1]).astype(
+        np.float32)
+    m = m.copy()
+    if semiring in ("min_plus", "max_times"):
+        m.data, x = np.abs(m.data), np.abs(x)
+    elif semiring == "or_and":
+        m.data = (np.abs(m.data) > 0.5).astype(np.float32)
+        x = (x > 0).astype(np.float32)
+    return m, x
+
+
+# ---------------------------------------------------------------------------
+# plans
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_build_chunk_plan_byte_equal(case):
+    ja, pa = both(CASES[case]())
+    port = pchunk.build_chunk_plan(pa)
+    assert isinstance(port, pchunk.ChunkPlan)
+    assert_plans_equal(port, jchunk.build_chunk_plan(ja))
+    for b in port.buckets:
+        pplan.validate_plan(b)
+        assert b.stats.num_slices == port.num_blocks + port.num_heavy
+
+
+def test_build_chunk_plan_structure():
+    _, pa = both(heavy_subwin())
+    p = pchunk.build_chunk_plan(pa)
+    assert p.num_heavy == 2 and len(p.hbuckets) >= 1
+    assert all(isinstance(h, pchunk.SubwinPlan) for h in p.hbuckets)
+    _, pa = both(duplicates())
+    p = pchunk.build_chunk_plan(pa)
+    assert p.stats.nnz == 5                   # counts the original nnz
+    assert sum(b.stats.nnz for b in p.buckets) == 3   # merged slots
+
+
+def test_build_chunk_plan_min_plus_byte_equal():
+    m, _ = _semiring_data(pareto_banded(n=1024, seed=11, cap=256),
+                          "min_plus", 0)
+    ja, pa = both(m)
+    kw = dict(pad_value=float("inf"), merge_duplicates=False)
+    assert_plans_equal(pchunk.build_chunk_plan(pa, **kw),
+                       jchunk.build_chunk_plan(ja, **kw))
+
+
+def test_auto_plan_routes_powerlaw_to_chunk():
+    # the recipe of the JAX package's test of the same name
+    ja, pa = both(pareto_banded(n=8192, seed=13, cap=4096))
+    port = pplan.auto_plan(pa)
+    assert isinstance(port, pchunk.ChunkPlan)
+    assert_plans_equal(port, jplan.auto_plan(ja))
+
+
+def test_build_chunk_plan_rejects_other_sigma():
+    _, pa = both(duplicates())
+    with pytest.raises(ValueError, match="1024"):
+        pchunk.build_chunk_plan(pa, sigma=512)
+
+
+# ---------------------------------------------------------------------------
+# kernels C and D (plain versions) against the Pallas kernels
+# ---------------------------------------------------------------------------
+
+def test_lane_unpermute_matches_jax():
+    rng = np.random.default_rng(2)
+    S = 24
+    y2d = rng.standard_normal((S, 128)).astype(np.float32)
+    perm = np.arange(S * 128)
+    for w0 in range(0, S * 128, 1024):
+        perm[w0:w0 + 1024] = w0 + rng.permutation(1024)
+    idx = (perm - (np.arange(S * 128) // 1024) * 1024).astype(
+        np.int16).reshape(S, 128)
+    want = np.asarray(jlane.lane_unpermute(y2d, idx, interpret=True))
+    got = plane.lane_unpermute(torch.from_numpy(y2d), torch.from_numpy(idx))
+    assert got.numpy().tobytes() == want.tobytes()
+    assert np.array_equal(got.numpy().reshape(-1), y2d.reshape(-1)[perm])
+
+
+@pytest.mark.parametrize("semiring", SEMIRINGS)
+def test_subwin_partials_match_jax(semiring):
+    m, x = _semiring_data(heavy_subwin(), semiring, 3)
+    ja, _ = both(m)
+    jp = jchunk.build_chunk_plan(
+        ja, pad_value=float(jsr.get(semiring).zero),
+        merge_duplicates=semiring == "plus_times")
+    assert jp.hbuckets
+    for h in _small_steps(jp).hbuckets:
+        want = jsell._subwin_partials(h, x, True, semiring)
+        got = pspmv_chunk._subwin_partials(plan_from_reference(h),
+                                           torch.from_numpy(x), semiring)
+        if semiring == "or_and":
+            assert got.numpy().tobytes() == np.asarray(want).tobytes()
+        else:
+            _assert_close(got.numpy(), want)
+
+
+# ---------------------------------------------------------------------------
+# the ChunkPlan apply, and the slice end to end
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_spmv_chunk_matches_jax_and_host(case):
+    m = CASES[case]()
+    ja, _ = both(m)
+    x = np.random.default_rng(4).standard_normal(m.shape[1]).astype(
+        np.float32)
+    jp = jchunk.build_chunk_plan(ja)
+    want = jsell.spmv_plan(_small_steps(jp), x, interpret=True)
+    y = psell.spmv_plan(plan_from_reference(jp), torch.from_numpy(x))
+    _assert_close(y.numpy(), want)
+    want64 = jref.spmv_numpy(ja, x.astype(np.float64))
+    assert np.abs(y.numpy() - want64).max() / \
+        max(1.0, np.abs(want64).max()) < 1e-4
+
+
+@pytest.mark.parametrize("semiring", ["min_plus", "or_and"])
+def test_spmv_chunk_semirings_match_jax(semiring):
+    m, x = _semiring_data(pareto_banded(n=1024, seed=11, cap=256),
+                          semiring, 5)
+    ja, pa = both(m)
+    # auto_plan picks the chunk plan with the semiring's padding
+    jp = jplan.auto_plan(ja, semiring=semiring)
+    assert isinstance(jp, jchunk.ChunkPlan)
+    want = np.asarray(jsell.spmv_plan(_small_steps(jp), x, interpret=True,
+                                      semiring=semiring))
+    port = pplan.auto_plan(pa, semiring=semiring)
+    assert_plans_equal(port, jp)
+    y = psell.spmv_plan(pplan.place(port, "cpu"), torch.from_numpy(x),
+                        semiring=semiring).numpy()
+    if semiring == "or_and":
+        assert y.tobytes() == want.tobytes()
+    else:
+        _assert_close(y, want)
+
+
+def test_operator_on_chunk_plan_matches_jax():
+    ja, pa = both(pareto_banded(n=8192, seed=13, cap=4096))
+    x = np.random.default_rng(6).standard_normal(ja.shape[1]).astype(
+        np.float32)
+    jop = joperator.SparseOperator.from_matrix(ja)
+    op = SparseOperator.from_matrix(pa, device="cpu")
+    assert isinstance(op.plan, pchunk.ChunkPlan)
+    assert op.strategy == jop.strategy == "chunk"
+    assert_plans_equal(op.plan, jop.plan)
+    drop = ("plan_seconds",)
+    assert {k: v for k, v in op.stats.as_dict().items() if k not in drop} \
+        == {k: v for k, v in jop.stats.as_dict().items() if k not in drop}
+    y = op @ x
+    want = jsell.spmv_plan(_small_steps(jop.plan), x, interpret=True)
+    _assert_close(y.numpy(), want)
+
+
+def test_chunk_plan_rejects_other_strategies():
+    _, pa = both(duplicates())
+    plan = pplan.place(pchunk.build_chunk_plan(pa), "cpu")
+    x = torch.ones(200)
+    assert psell.spmv_plan(plan, x, strategy="chunk")[0].item() == 6.0
+    with pytest.raises(ValueError, match="chunk"):
+        psell.spmv_plan(plan, x, strategy="resident")

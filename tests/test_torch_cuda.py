@@ -16,10 +16,13 @@ import pytest
 import scipy.sparse as sp
 import torch
 
+from spmv_vector_cache_tpu_torch.formats.chunk import build_chunk_plan
 from spmv_vector_cache_tpu_torch.formats.convert import from_scipy
 from spmv_vector_cache_tpu_torch.formats.dia import build_dia_plan
+from spmv_vector_cache_tpu_torch.formats.packed import build_packed_plan
 from spmv_vector_cache_tpu_torch.formats.plan import build_sell_plan, place
-from spmv_vector_cache_tpu_torch.ops import spmv_dia, spmv_sell
+from spmv_vector_cache_tpu_torch.ops import (lane_perm, spmv_chunk, spmv_dia,
+                                             spmv_packed, spmv_sell)
 from spmv_vector_cache_tpu_torch.ops.semiring import REGISTRY
 
 pytestmark = pytest.mark.cuda
@@ -82,3 +85,75 @@ def test_window_kernel_matches_plain(cuda, semiring, fold):
                   fold=fold, semiring=semiring)
     got = spmv_sell.sell_window_kernel(*args, **kwargs)
     _close(got, spmv_sell.sell_window_plain(*args, **kwargs))
+
+
+def _heavy_rows_matrix(semiring):
+    """A light diagonal plus a dense heavy row (subwindow tiles) and a
+    sparse one, values non-negative ({0, 1} for or_and)."""
+    n = 20000
+    rng = np.random.default_rng(5)
+    r = np.concatenate([np.zeros(3000), np.full(2000, 7), np.arange(n)])
+    c = np.concatenate([np.arange(5000, 8000),
+                        np.sort(rng.choice(n, 2000, replace=False)),
+                        np.arange(n)])
+    v = np.abs(rng.standard_normal(r.shape[0])).astype(np.float32)
+    if semiring == "or_and":
+        v = (v > 0.5).astype(np.float32)
+    m = sp.csr_matrix((v, (r, c)), shape=(n, n))
+    m.sort_indices()
+    return m
+
+
+def test_lane_unpermute_kernel_matches_plain(cuda):
+    rng = np.random.default_rng(3)
+    S = 64
+    perm = np.arange(S * 128)
+    for w0 in range(0, S * 128, 1024):
+        perm[w0:w0 + 1024] = w0 + rng.permutation(1024)
+    idx = torch.from_numpy((perm - (np.arange(S * 128) // 1024) * 1024)
+                           .astype(np.int16).reshape(S, 128)).to(cuda)
+    y2d = torch.from_numpy(rng.standard_normal((S, 128)).astype(
+        np.float32)).to(cuda)
+    before = lane_perm.lane_unpermute.launches
+    got = lane_perm.lane_unpermute(y2d, idx)
+    assert lane_perm.lane_unpermute.launches == before + 1
+    # a permutation moves values: exact
+    assert torch.equal(got, lane_perm.lane_unpermute_plain(y2d, idx))
+
+
+@pytest.mark.parametrize("semiring", sorted(REGISTRY))
+def test_subwin_kernel_matches_plain(cuda, semiring):
+    m = _heavy_rows_matrix(semiring)
+    plan = place(build_chunk_plan(from_scipy(m),
+                                  pad_value=REGISTRY[semiring].zero,
+                                  merge_duplicates=False), cuda)
+    assert plan.hbuckets
+    x = torch.from_numpy(np.abs(np.random.default_rng(4).standard_normal(
+        m.shape[1])).astype(np.float32)).to(cuda)
+    for h in plan.hbuckets:
+        args = (h.vals, h.cols_win, h.bases, x)
+        got = spmv_chunk.subwin_kernel(*args, semiring=semiring)
+        _close(got, spmv_chunk.subwin_plain(*args, semiring=semiring))
+
+
+@pytest.mark.parametrize("chunk_blocks", [1, 4, 32])
+def test_packed_kernels_match_plain(cuda, chunk_blocks):
+    rng = np.random.default_rng(6)
+    rows, cols = 20000, 9000
+    flat = rng.choice(rows * cols, 180000, replace=False)
+    m = sp.csr_matrix((rng.standard_normal(flat.shape[0]).astype(
+        np.float32), (flat // cols, flat % cols)), shape=(rows, cols))
+    m.sort_indices()
+    plan = place(build_packed_plan(from_scipy(m),
+                                   chunk_blocks=chunk_blocks), cuda)
+    st = plan.stats
+    x = torch.from_numpy(rng.standard_normal(cols).astype(np.float32)).to(
+        cuda)
+    scan_args = (plan.vals, plan.cols, plan.cstep, x)
+    scan_kw = dict(chunk_blocks=chunk_blocks, step_tiles=st.step_tiles)
+    scan = spmv_packed.packed_scan_kernel(*scan_args, **scan_kw)
+    _close(scan, spmv_packed.packed_scan_plain(*scan_args, **scan_kw))
+    ext_args = (scan, plan.sblock, plan.wstep, plan.esrc)
+    ext_kw = dict(num_windows=st.num_windows, step_tiles=st.step_tiles)
+    _close(spmv_packed.packed_extract_kernel(*ext_args, **ext_kw),
+           spmv_packed.packed_extract_plain(*ext_args, **ext_kw))

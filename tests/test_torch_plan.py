@@ -99,6 +99,10 @@ def _assert_same(port, ref, path):
             assert a.as_dict() == b.as_dict(), where
         elif dataclasses.is_dataclass(b):
             _assert_same(a, b, where)
+        elif isinstance(b, tuple) and b and dataclasses.is_dataclass(b[0]):
+            assert isinstance(a, tuple) and len(a) == len(b), where
+            for i, (pa, pb) in enumerate(zip(a, b)):
+                _assert_same(pa, pb, f"{where}[{i}]")
         elif isinstance(b, np.ndarray):
             assert isinstance(a, np.ndarray), where
             assert (a.dtype, a.shape) == (b.dtype, b.shape), where
@@ -182,8 +186,9 @@ def test_auto_plan_same_plan(case):
 
 
 def test_auto_plan_skewed_rows_raise_not_ported():
-    # skewed row lengths enter the reference's ChunkPlan branch, which
-    # the port does not have yet: it must say so, not pick another plan
+    # skewed row lengths enter the reference's ChunkPlan branch; the port
+    # no longer raises there but builds the reference's ChunkPlan, array
+    # for array
     n, cols = 4096, 1024
     lens = np.where(np.arange(n) % 100 == 0, cols, 2)
     r = np.repeat(np.arange(n, dtype=np.int64), lens)
@@ -191,5 +196,7 @@ def test_auto_plan_skewed_rows_raise_not_ported():
     m = sp.csr_matrix((np.ones(r.shape[0], np.float32), (r, c)),
                       shape=(n, cols))
     m.sort_indices()
-    with pytest.raises(NotImplementedError, match="ChunkPlan"):
-        pplan.auto_plan(pconvert.from_scipy(m))
+    ja, pa = both(m)
+    port = pplan.auto_plan(pa)
+    assert type(port).__name__ == "ChunkPlan"
+    assert_plans_equal(port, jplan.auto_plan(ja))
