@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels of ``spmv_vector_cache_tpu_torch/csrc/`` and
-runs ``SparseOperator.from_matrix(a, device="cuda") @ x`` on five
-matrices, one per plan type of the main path:
+runs ``SparseOperator.from_matrix(a) @ x`` (the plan placed on the card
+by default) on seven matrices, one per plan type of the main path:
 
 1. DIA — bench.py's headline matrix: 2^20 rows, 27 diagonals (-13..13),
    standard-normal values, seed 0 (~28.3M nonzeros);
@@ -17,16 +17,30 @@ matrices, one per plan type of the main path:
    nonzeros, power-law rows with 24 dense rail rows (a ChunkPlan with
    heavy subwindow buckets);
 5. Packed — ``tools/realistic.mac_econ_like()``: 206,500^2, 1,316,368
-   nonzeros, short rows spread +-12,000 columns (a PackedPlan).
+   nonzeros, short rows spread +-12,000 columns (a PackedPlan);
+6. Cached — the zipf-column matrix of the reference's report
+   (``tools/report.py``, webbase-class popularity): 2^18 rows, 64
+   nonzeros per row at columns drawn with weight (rank + 10)^-2.5 and
+   permuted, seed 3 (a CachedPlan: a 256-column window tier, then a
+   full-cover resident tier);
+7. Deep — the report's uniform-random matrix: 2^18 rows, 16 nonzeros per
+   row at uniform columns, |N(0, 1)| values and x, seed 3, under
+   ``semiring="min_plus"`` (one Bellman-Ford relaxation; a windowless
+   SellPlan on the 'deep' strategy), then the same plan on the 'stream'
+   strategy, which must give the same y exactly; then the same draw over
+   2^19 columns, past the reference's deep cap of 2048 blocks, where the
+   planner picks 'stream' itself (with its RuntimeWarning).
 
-Each phase checks y against scipy in float64 (relative error below
-1e-4, bench.py's gate), checks the plan the planner picked, and checks
-that its run of the main path launched the phase's kernels (their
-launch counters, set to 0 just before the phase's apply and read just
-after).  Each kernel is then compared with its plain PyTorch version on
-the same inputs on the card, and both are timed with CUDA events.
-Every check raises; nothing is caught.  Needs one CUDA device; exits
-non-zero without one.
+Each phase checks y against a float64 host reference (scipy, or a
+min-plus reduce over the CSR rows; relative error below 1e-4, bench.py's
+gate), checks the plan the planner picked, and checks that its run of
+the main path launched the phase's kernels (their launch counters, set
+to 0 just before the phase's apply and read just after).  Each kernel is
+then compared with its plain PyTorch version on the same inputs on the
+card, and both are timed with CUDA events beside the kernel's bound: the
+bytes it must move at 3.35 TB/s or its float32 operations at 67 TFLOP/s,
+whichever takes longer.  Every check raises; nothing is caught.  Needs
+one CUDA device; exits non-zero without one.
 
 Standard output, last three lines: the card's name and power limit as
 nvidia-smi reports them, one JSON line with the kernels' measurements,
@@ -48,6 +62,10 @@ import torch
 KERNEL_RTOL = 1e-5
 #: y vs float64 scipy, bench.py's correctness gate
 Y_RTOL = 1e-4
+#: the H100 SXM's published peaks (NVIDIA data sheet): device memory
+#: bytes/s and float32 operations/s outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
 
 
 def log(msg):
@@ -72,9 +90,9 @@ def time_ms(fn, iters=30, warmup=3):
 
 
 def device_us_by_kernel(fn, iters=20):
-    """Device microseconds per call of ``fn``, by kernel name, from a
-    torch.profiler trace of ``iters`` calls (empty if the profiler saw
-    no device activity)."""
+    """(device microseconds, launches) per call of ``fn``, by kernel
+    name, from a torch.profiler trace of ``iters`` calls (empty if the
+    profiler saw no device activity)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -92,7 +110,7 @@ def device_us_by_kernel(fn, iters=20):
         if us is None:
             us = ev.self_cuda_time_total
         if us > 0:
-            out[ev.key] = us / iters
+            out[ev.key] = (us / iters, ev.count / iters)
     return out
 
 
@@ -105,8 +123,59 @@ def max_abs(a, b):
     return float((a.double() - b.double()).abs().max().item())
 
 
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def x_bytes_read(x, cols):
+    """Bytes of x that a gather at column ids ``cols`` must read: each
+    distinct in-range column once (out of range reads 0, no memory)."""
+    c = cols.reshape(-1)
+    c = c[(c >= 0) & (c < x.shape[0])]
+    return int(torch.unique(c).numel()) * x.element_size()
+
+
+def zipf_cols_matrix(rng, n=1 << 18, per_row=64, s=2.5):
+    """The reference report's zipf-column recipe (tools/report.py)."""
+    from spmv_vector_cache_tpu_torch.formats.containers import COO
+    from spmv_vector_cache_tpu_torch.formats.convert import coo_to_csr
+
+    rz = np.repeat(np.arange(n, dtype=np.int64), per_row)
+    wz = (np.arange(n, dtype=np.float64) + 10.0) ** -s
+    wz /= wz.sum()
+    cz = rng.choice(n, size=rz.shape[0], p=wz).astype(np.int32)
+    cz = rng.permutation(n).astype(np.int32)[cz]
+    return coo_to_csr(COO(data=rng.standard_normal(rz.shape[0]).astype(
+        np.float32), row=rz.astype(np.int32), col=cz, shape=(n, n)))
+
+
+def uniform_matrix(rng, n=1 << 18, per_row=16, cols=None):
+    """The reference report's uniform-random recipe, |N(0, 1)| values,
+    over ``cols`` columns (default n)."""
+    from spmv_vector_cache_tpu_torch.formats.containers import COO
+    from spmv_vector_cache_tpu_torch.formats.convert import coo_to_csr
+
+    ru = np.repeat(np.arange(n, dtype=np.int64), per_row)
+    cols = cols or n
+    cu = rng.integers(0, cols, ru.shape[0]).astype(np.int32)
+    return coo_to_csr(COO(data=np.abs(rng.standard_normal(
+        ru.shape[0])).astype(np.float32), row=ru.astype(np.int32), col=cu,
+        shape=(n, cols)))
+
+
+def min_plus_host(a, x):
+    """float64 min-plus y over CSR rows (every row non-empty)."""
+    indptr = np.asarray(a.indptr, dtype=np.int64)
+    assert (np.diff(indptr) > 0).all()
+    prod = np.asarray(a.data, np.float64) + x.astype(np.float64)[
+        np.asarray(a.indices)]
+    return np.minimum.reduceat(prod, indptr[:-1])
+
+
 def main():
     import scipy.sparse as sp
+
+    from spmv_vector_cache_tpu_torch.formats.cached import CachedPlan
 
     from spmv_vector_cache_tpu_torch.formats.chunk import ChunkPlan
     from spmv_vector_cache_tpu_torch.formats.containers import COO
@@ -127,8 +196,10 @@ def main():
         packed_extract_kernel, packed_extract_plain, packed_scan_kernel,
         packed_scan_plain)
     from spmv_vector_cache_tpu_torch.ops.spmv_sell import (
-        TILES_PER_STEP, sell_window_kernel, sell_window_plain)
-    from spmv_vector_cache_tpu_torch.ops.strategy import plan_nnz
+        folds_groups, sell_global_kernel, sell_global_plain,
+        sell_window_kernel, sell_window_plain)
+    from spmv_vector_cache_tpu_torch.ops.strategy import (plan_nnz,
+                                                          select_strategy)
     from spmv_vector_cache_tpu_torch.tools import realistic
     from spmv_vector_cache_tpu_torch.utils.platform import require_cuda
 
@@ -186,22 +257,45 @@ def main():
     x_chunk = rng_x.standard_normal(a_chunk.shape[1]).astype(np.float32)
     x_packed = rng_x.standard_normal(a_packed.shape[1]).astype(np.float32)
 
+    rng_z = np.random.default_rng(3)
+    a_cached = zipf_cols_matrix(rng_z)
+    x_cached = rng_z.standard_normal(a_cached.shape[1]).astype(np.float32)
+    rng_u = np.random.default_rng(3)
+    a_deep = uniform_matrix(rng_u)
+    x_deep = np.abs(rng_u.standard_normal(a_deep.shape[1])).astype(
+        np.float32)
+    rng_w = np.random.default_rng(3)
+    a_wide = uniform_matrix(rng_w, cols=1 << 19)
+    x_wide = np.abs(rng_w.standard_normal(a_wide.shape[1])).astype(
+        np.float32)
+
     def scipy_of(a):
         return sp.csr_matrix((a.data, a.indices, a.indptr), shape=a.shape)
 
-    # --- plan on the host, place on the card --------------------------------
+    # --- plan on the host, place on the card (the default device) ----------
     ops = {}
-    for name, a, x in (("dia", from_scipy(band.astype(np.float32)), x_dia),
-                       ("sell", a_sell, x_sell),
-                       ("hybrid", from_scipy(m_hyb), x_hyb),
-                       ("chunk", a_chunk, x_chunk),
-                       ("packed", a_packed, x_packed)):
-        op = SparseOperator.from_matrix(a, device=dev)
+    for name, a, x, semiring in (
+            ("dia", from_scipy(band.astype(np.float32)), x_dia,
+             "plus_times"),
+            ("sell", a_sell, x_sell, "plus_times"),
+            ("hybrid", from_scipy(m_hyb), x_hyb, "plus_times"),
+            ("chunk", a_chunk, x_chunk, "plus_times"),
+            ("packed", a_packed, x_packed, "plus_times"),
+            ("cached", a_cached, x_cached, "plus_times"),
+            ("deep", a_deep, x_deep, "min_plus"),
+            ("wide", a_wide, x_wide, "min_plus")):
+        op = SparseOperator.from_matrix(a, semiring=semiring)
+        assert op.device.type == "cuda", op.device
         ops[name] = (op, torch.from_numpy(x).to(dev))
-        fill = (op.plan.dia if isinstance(op.plan, HybridPlan)
-                else op.plan).stats.fill
+        stats_of = {HybridPlan: lambda p: p.dia,
+                    CachedPlan: lambda p: p.hot}.get(type(op.plan),
+                                                    lambda p: p)
+        fill = stats_of(op.plan).stats.fill
         log(f"[{name}] {op!r} plan_seconds={op.stats['plan_seconds']:.3f} "
             f"bytes_per_apply={op.stats['bytes_per_apply']} fill={fill:.4f}")
+    # the deep phase's plan once more, on the stream route
+    ops["stream"] = (SparseOperator(ops["deep"][0].plan, strategy="stream",
+                                    semiring="min_plus"), ops["deep"][1])
 
     p_dia = ops["dia"][0].plan
     assert isinstance(p_dia, DiaPlan) and ops["dia"][0].strategy == "dia"
@@ -236,6 +330,34 @@ def main():
         ops["packed"][0].strategy == "packed"
     assert p_packed.stats.overflow_nnz > 0, p_packed.stats
     log(f"[packed] {p_packed.stats}")
+    p_cached = ops["cached"][0].plan
+    assert isinstance(p_cached, CachedPlan) and \
+        ops["cached"][0].strategy == "cached"
+    hot, tier2 = p_cached.hot, p_cached.cold
+    assert isinstance(hot, SellPlan) and select_strategy(hot) == "window"
+    assert tuple(p_cached.hot_cols.shape) == (256,)
+    assert hot.stats.window_blocks == 2, hot.stats
+    assert isinstance(tier2, CachedPlan) and tier2.cold is None
+    assert tier2.coverage == 1.0 and isinstance(tier2.hot, SellPlan)
+    assert select_strategy(tier2.hot) == "resident"
+    log(f"[cached] tier 1: {p_cached.hot_cols.shape[0]} hot columns, "
+        f"coverage {p_cached.coverage:.4f}, window K="
+        f"{hot.stats.window_blocks}, vals {tuple(hot.vals.shape)}, wg="
+        f"{hot.stats.group_tiles}, fold={hot.stats.group_fold}; tier 2: "
+        f"{tier2.hot_cols.shape[0]} columns, coverage {tier2.coverage}, "
+        f"resident, {tier2.hot.stats.num_tiles} tiles, fill "
+        f"{tier2.hot.stats.fill:.4f}, fold={tier2.hot.stats.group_fold}")
+    p_deep = ops["deep"][0].plan
+    assert isinstance(p_deep, SellPlan) and ops["deep"][0].strategy == "deep"
+    assert p_deep.stats.window_blocks == 0
+    log(f"[deep] {p_deep.stats.num_tiles} tiles, fill "
+        f"{p_deep.stats.fill:.4f}, bytes_per_apply "
+        f"{ops['deep'][0].stats['bytes_per_apply']}")
+    p_wide = ops["wide"][0].plan
+    assert isinstance(p_wide, SellPlan) and ops["wide"][0].strategy == \
+        "stream" and p_wide.stats.window_blocks == 0
+    log(f"[wide] {p_wide.stats.num_tiles} tiles, fill "
+        f"{p_wide.stats.fill:.4f}, {p_wide.shape[1] // 128} x blocks")
 
     # --- the main path, once per phase, counting the launches ---------------
     kernels = {"spmv_dia_f32": spmv_dia_kernel,
@@ -243,13 +365,19 @@ def main():
                "lane_unpermute_f32": lane_unpermute,
                "spmv_subwin_f32": subwin_kernel,
                "packed_scan_f32": packed_scan_kernel,
-               "packed_extract_f32": packed_extract_kernel}
+               "packed_extract_f32": packed_extract_kernel,
+               "spmv_sell_global_f32": sell_global_kernel}
     path_kernels = {"dia": ["spmv_dia_f32"],
                     "sell": ["spmv_sell_window_f32"],
                     "hybrid": ["spmv_dia_f32", "spmv_sell_window_f32"],
                     "chunk": ["spmv_sell_window_f32", "lane_unpermute_f32",
                               "spmv_subwin_f32"],
-                    "packed": ["packed_scan_f32", "packed_extract_f32"]}
+                    "packed": ["packed_scan_f32", "packed_extract_f32"],
+                    "cached": ["spmv_sell_window_f32",
+                               "spmv_sell_global_f32"],
+                    "deep": ["spmv_sell_global_f32"],
+                    "stream": ["spmv_sell_global_f32"],
+                    "wide": ["spmv_sell_global_f32"]}
     launches = dict.fromkeys(kernels, 0)
     ys = {}
     for name, (op, x) in ops.items():
@@ -263,43 +391,77 @@ def main():
         for k, c in counts.items():
             launches[k] += c
 
-    # --- y against float64 scipy --------------------------------------------
+    # --- y against a float64 host reference ---------------------------------
     ref64 = {"dia": (band, x_dia), "sell": (m_sell, x_sell),
              "hybrid": (m_hyb, x_hyb), "chunk": (scipy_of(a_chunk), x_chunk),
-             "packed": (scipy_of(a_packed), x_packed)}
-    for name, (m, x) in ref64.items():
+             "packed": (scipy_of(a_packed), x_packed),
+             "cached": (scipy_of(a_cached), x_cached)}
+    want64 = {name: m.astype(np.float64) @ x.astype(np.float64)
+              for name, (m, x) in ref64.items()}
+    want64["deep"] = want64["stream"] = min_plus_host(a_deep, x_deep)
+    want64["wide"] = min_plus_host(a_wide, x_wide)
+    for name, want in want64.items():
         y = ys[name]
-        assert y.shape == (m.shape[0],) and bool(torch.isfinite(y).all())
-        want = m.astype(np.float64) @ x.astype(np.float64)
+        assert y.shape == want.shape and bool(torch.isfinite(y).all())
         err = rel_err(y, want)
-        log(f"[{name}] y vs float64 scipy: rel err {err:.3g} "
+        log(f"[{name}] y vs float64 host: rel err {err:.3g} "
             f"(limit {Y_RTOL:g})")
         assert err < Y_RTOL, (name, err)
+    # one kernel, one plan: the stream route's y is the deep route's
+    assert torch.equal(ys["stream"], ys["deep"])
+    log("[stream] y equals the deep route's y exactly")
 
     # --- each kernel against its plain version, at the main path's shapes ---
     def window_args(plan):
         st = plan.stats
-        ng = TILES_PER_STEP * st.groups_per_step // st.group_tiles
         return dict(group_tiles=st.group_tiles,
-                    window_grain=st.window_grain,
-                    fold=st.group_fold and ng % 8 == 0,
+                    window_grain=st.window_grain, fold=folds_groups(plan),
                     semiring="plus_times")
 
+    # each pair: (kernel call, plain call, bytes the kernel must move,
+    # float32 operations it does); a gather kernel must read only the
+    # distinct x entries its columns name, not all of x
     def dia_pair(plan, x):
         args = (plan.vals, plan.offsets, x, plan.shape[0])
         return (lambda: spmv_dia_kernel(*args),
-                lambda: spmv_dia_plain(*args))
+                lambda: spmv_dia_plain(*args),
+                nbytes(plan.vals, x) + 4 * len(plan.offsets)
+                + plan.shape[0] * 4,
+                2 * plan.vals.numel())
 
     def sell_pair(plan, x):
         args = (plan.vals, plan.cols_win, plan.window_base, x)
         kw = window_args(plan)
+        rows_out = plan.num_tiles // (plan.stats.group_tiles
+                                      if kw["fold"] else 1)
+        base = plan.window_base.long().repeat_interleave(
+            plan.stats.group_tiles) * plan.stats.window_grain
+        cols = base[:, None, None] + plan.cols_win.long()
         return (lambda: sell_window_kernel(*args, **kw),
-                lambda: sell_window_plain(*args, **kw))
+                lambda: sell_window_plain(*args, **kw),
+                nbytes(*args[:3]) + x_bytes_read(x, cols)
+                + rows_out * plan.lane_rows * 4,
+                2 * plan.vals.numel())
 
     def subwin_pair(h, x):
         args = (h.vals, h.cols_win, h.bases, x)
+        cols = h.bases.long()[:, :, None] * 128 + h.cols_win.long()
         return (lambda: subwin_kernel(*args, semiring="plus_times"),
-                lambda: subwin_plain(*args, semiring="plus_times"))
+                lambda: subwin_plain(*args, semiring="plus_times"),
+                nbytes(*args[:3]) + x_bytes_read(x, cols)
+                + h.vals.shape[0] * h.vals.shape[2] * 4,
+                2 * h.vals.numel())
+
+    def global_pair(plan, x, fold, semiring):
+        args = (plan.vals, plan.cols, x)
+        kw = dict(group_tiles=plan.stats.group_tiles, fold=fold,
+                  semiring=semiring)
+        rows_out = plan.num_tiles // (plan.stats.group_tiles if fold else 1)
+        return (lambda: sell_global_kernel(*args, **kw),
+                lambda: sell_global_plain(*args, **kw),
+                nbytes(*args[:2]) + x_bytes_read(x, plan.cols)
+                + rows_out * plan.lane_rows * 4,
+                2 * plan.vals.numel())
 
     # kernel C at the chunk phase's shape: (light blocks, 128) sums
     y2d = torch.from_numpy(np.random.default_rng(1).standard_normal(
@@ -309,54 +471,112 @@ def main():
     x_pk = ops["packed"][1]
     scan_args = (p_packed.vals, p_packed.cols, p_packed.cstep, x_pk)
     scan_kw = dict(chunk_blocks=pst.chunk_blocks, step_tiles=pst.step_tiles)
+    scan_cols = (p_packed.cstep.long().repeat_interleave(
+        pst.step_tiles)[:, None, None] * (pst.chunk_blocks * 128)
+        + (p_packed.cols.long() & 16383))
     # kernel F reads the plain scan, so both versions see the same input
     ext_args = (packed_scan_plain(*scan_args, **scan_kw), p_packed.sblock,
                 p_packed.wstep, p_packed.esrc)
     ext_kw = dict(num_windows=pst.num_windows, step_tiles=pst.step_tiles)
+    # kernel F reads only the piece sums that esrc picks
+    picked = int((p_packed.esrc >= 0).sum().item())
+    # kernel G, resident route: the cached phase's tier 2 on its x[hot_cols]
+    x_tier2 = ops["cached"][1].index_select(0, tier2.hot_cols)
+    fold2 = folds_groups(tier2.hot)
+    x_tier1 = ops["cached"][1].index_select(0, p_cached.hot_cols)
 
-    # (kernel, phase, what, (kernel call, plain call)); a kernel's JSON row
-    # sums its calls in its headline phase
-    cases = [("spmv_dia_f32", "dia", "", dia_pair(p_dia, ops["dia"][1])),
+    # (kernel, phase, what, (kernel call, plain call, bytes, operations),
+    # exact); a kernel's JSON row sums its calls in its headline phase
+    cases = [("spmv_dia_f32", "dia", "", dia_pair(p_dia, ops["dia"][1]),
+              False),
              ("spmv_sell_window_f32", "sell", "",
-              sell_pair(p_sell, ops["sell"][1])),
+              sell_pair(p_sell, ops["sell"][1]), False),
              ("spmv_dia_f32", "hybrid", "", dia_pair(p_hyb.dia,
-                                                     ops["hybrid"][1])),
+                                                     ops["hybrid"][1]),
+              False),
              ("spmv_sell_window_f32", "hybrid", "",
-              sell_pair(p_hyb.rest, ops["hybrid"][1]))]
+              sell_pair(p_hyb.rest, ops["hybrid"][1]), False)]
     cases += [("spmv_sell_window_f32", "chunk", f" K={b.stats.window_blocks}",
-               sell_pair(b, ops["chunk"][1])) for b in p_chunk.buckets]
+               sell_pair(b, ops["chunk"][1]), False)
+              for b in p_chunk.buckets]
     cases += [("spmv_subwin_f32", "chunk", f" W={h.window_blocks}",
-               subwin_pair(h, ops["chunk"][1])) for h in p_chunk.hbuckets]
+               subwin_pair(h, ops["chunk"][1]), False)
+              for h in p_chunk.hbuckets]
     cases += [("lane_unpermute_f32", "chunk", "",
                (lambda: lane_unpermute(*lane_args),
-                lambda: lane_unpermute_plain(*lane_args))),
+                lambda: lane_unpermute_plain(*lane_args),
+                2 * nbytes(y2d) + nbytes(p_chunk.perm_idx), 0), True),
               ("packed_scan_f32", "packed", "",
                (lambda: packed_scan_kernel(*scan_args, **scan_kw),
-                lambda: packed_scan_plain(*scan_args, **scan_kw))),
+                lambda: packed_scan_plain(*scan_args, **scan_kw),
+                nbytes(*scan_args[:3]) + x_bytes_read(x_pk, scan_cols)
+                + nbytes(p_packed.vals),
+                2 * p_packed.vals.numel()), False),
               ("packed_extract_f32", "packed", "",
                (lambda: packed_extract_kernel(*ext_args, **ext_kw),
-                lambda: packed_extract_plain(*ext_args, **ext_kw)))]
+                lambda: packed_extract_plain(*ext_args, **ext_kw),
+                nbytes(*ext_args[1:]) + picked * 4
+                + pst.num_windows * 8192 * 4, picked), False),
+              ("spmv_sell_window_f32", "cached", " tier 1",
+               sell_pair(hot, x_tier1), False),
+              ("spmv_sell_global_f32", "cached", " resident (tier 2)",
+               global_pair(tier2.hot, x_tier2, fold2, "plus_times"), False),
+              ("spmv_sell_global_f32", "deep", " deep",
+               global_pair(p_deep, ops["deep"][1], False, "min_plus"), True),
+              ("spmv_sell_global_f32", "stream", " stream",
+               global_pair(p_deep, ops["deep"][1], False, "min_plus"), True),
+              ("spmv_sell_global_f32", "wide", " stream (2^19 columns)",
+               global_pair(p_wide, ops["wide"][1], False, "min_plus"), True)]
     headline = {"spmv_dia_f32": "dia", "spmv_sell_window_f32": "sell",
                 "lane_unpermute_f32": "chunk", "spmv_subwin_f32": "chunk",
-                "packed_scan_f32": "packed", "packed_extract_f32": "packed"}
-    rows = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0) for k in kernels}
-    for kname, phase, what, (kern, plain) in cases:
+                "packed_scan_f32": "packed", "packed_extract_f32": "packed",
+                "spmv_sell_global_f32": "deep"}
+    rows = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                    bound_by="bytes", library_ms=None) for k in kernels}
+    bound_terms = {k: [0.0, 0.0] for k in kernels}
+    for kname, phase, what, (kern, plain, nbyte, nops), exact in cases:
         got, ref = kern(), plain()
         torch.cuda.synchronize()
-        err = max_abs(got, ref)
-        tol = KERNEL_RTOL * max(1.0, float(ref.abs().max().item()))
+        assert got.shape == ref.shape, (kname, phase, got.shape, ref.shape)
+        if exact:
+            # a permutation, or order-free min-plus sums: bit for bit
+            assert torch.equal(got, ref), (kname, phase)
+            err, tol = 0.0, 0.0
+        else:
+            err = max_abs(got, ref)
+            tol = KERNEL_RTOL * max(1.0, float(ref.abs().max().item()))
+            assert err <= tol, (kname, phase, err)
         log(f"[{phase}] {kname}{what} vs plain: max abs err {err:.3g} "
-            f"(limit {tol:.3g}), shape {tuple(got.shape)}")
-        assert got.shape == ref.shape and err <= tol, (kname, phase, err)
+            f"(limit {tol:.3g}{', exact' if exact else ''}), shape "
+            f"{tuple(got.shape)}")
         rows[kname]["max_abs_err"] = max(rows[kname]["max_abs_err"], err)
+        bytes_ms = nbyte / PEAK_BYTES_PER_S * 1e3
+        ops_ms = nops / PEAK_F32_PER_S * 1e3
         # plain, kernel, kernel, plain: compare within one call, in turns
         p1, k1, k2, p2 = (time_ms(plain), time_ms(kern), time_ms(kern),
                           time_ms(plain))
         log(f"[{phase}] {kname}{what}: kernel {k1:.4f}/{k2:.4f} ms, plain "
-            f"{p1:.4f}/{p2:.4f} ms on {card}")
+            f"{p1:.4f}/{p2:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
+            f"({nbyte} bytes, {nops} operations) on {card}")
         if phase == headline[kname]:
             rows[kname]["ms"] += min(k1, k2)
             rows[kname]["plain_ms"] += min(p1, p2)
+            rows[kname]["bound_ms"] += max(bytes_ms, ops_ms)
+            bound_terms[kname][0] += bytes_ms
+            bound_terms[kname][1] += ops_ms
+    for kname, (bytes_ms, ops_ms) in bound_terms.items():
+        rows[kname]["bound_by"] = "bytes" if bytes_ms >= ops_ms \
+            else "operations"
+
+    # kernel C's function is one torch.gather of the (blocks, 1024) image
+    img = y2d.reshape(-1, 1024)
+    gidx = p_chunk.perm_idx.long().reshape(-1, 1024)
+    assert torch.equal(torch.gather(img, 1, gidx).reshape(y2d.shape),
+                       lane_unpermute(*lane_args))
+    lib_ms = min(time_ms(lambda: torch.gather(img, 1, gidx)) for _ in "ab")
+    rows["lane_unpermute_f32"]["library_ms"] = lib_ms
+    log(f"[chunk] torch.gather (kernel C's function): {lib_ms:.4f} ms "
+        f"on {card}")
 
     # --- the apply, end to end ----------------------------------------------
     for name, (op, x) in ops.items():
@@ -369,14 +589,17 @@ def main():
             log(f"[{name}] device time by kernel: not measured (the "
                 f"profiler saw no device activity)")
             continue
-        busy = sum(by_kernel.values())
+        busy = sum(us for us, _ in by_kernel.values())
         log(f"[{name}] device busy {busy:.2f} us of a {ms * 1e3:.2f} us "
             f"apply -> idle share {1 - busy / (ms * 1e3):.3f}")
-        for k, us in sorted(by_kernel.items(), key=lambda kv: -kv[1]):
-            log(f"[{name}]   {us:9.2f} us  {k[:90]}")
-    for kname in ("spmv_dia_f32", "spmv_sell_window_f32"):
+        for k, (us, n) in sorted(by_kernel.items(),
+                                 key=lambda kv: -kv[1][0]):
+            log(f"[{name}]   {us:9.2f} us  x{n:g}  {k[:90]}")
+    for kname, plan in (("spmv_dia_f32", p_dia),
+                        ("spmv_sell_window_f32", p_sell),
+                        ("spmv_sell_global_f32", p_deep)):
         r = rows[kname]
-        nnz = plan_nnz(p_dia if kname == "spmv_dia_f32" else p_sell)
+        nnz = plan_nnz(plan)
         log(f"{kname}: kernel {nnz / r['ms'] / 1e6:.2f} Gnnz/s, plain "
             f"{nnz / r['plain_ms'] / 1e6:.2f} Gnnz/s on {card}")
     log(f"max_memory_allocated: {torch.cuda.max_memory_allocated()} bytes")
@@ -384,7 +607,8 @@ def main():
     csrc = "spmv_vector_cache_tpu_torch/csrc/"
     meta = {
         "spmv_dia_f32": ("spmv_dia.cu", "spmv_vector_cache_tpu/ops/"
-                         "spmv_dia.py:63"),
+                         "spmv_dia.py:63, spmv_vector_cache_tpu/ops/"
+                         "spmv_dia.py:81"),
         "spmv_sell_window_f32": ("spmv_sell_window.cu",
                                  "spmv_vector_cache_tpu/ops/"
                                  "spmv_pallas.py:162"),
@@ -396,6 +620,9 @@ def main():
                             "spmv_packed.py:44"),
         "packed_extract_f32": ("spmv_packed.cu", "spmv_vector_cache_tpu/ops/"
                                "spmv_packed.py:91"),
+        "spmv_sell_global_f32": ("spmv_sell_global.cu", ", ".join(
+            f"spmv_vector_cache_tpu/ops/spmv_pallas.py:{line}"
+            for line in (406, 508, 581))),
     }
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": csrc + meta[k][0],

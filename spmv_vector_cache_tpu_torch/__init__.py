@@ -8,14 +8,17 @@ module for module and imports ``torch``, never ``jax``:
   and plan builders (byte-equal plans to the reference's);
 * :mod:`.ops` — the plan dispatch, the epilogues as torch ops, and the
   wrappers of the hand-written CUDA kernels in ``csrc/`` (DIA, SELL
-  window, lane un-permute, subwindow, packed scan and extract), each
-  beside its plain PyTorch version;
+  window, lane un-permute, subwindow, packed scan and extract, and the
+  global-column SELL kernel of the resident, deep and stream
+  strategies), each beside its plain PyTorch version;
 * :mod:`.interop` — plans carried across from the JAX package;
 * :mod:`.tools` — the matrix generators of the evaluation suite;
 * :mod:`.utils` — stat registry and device policy.
 
-``SparseOperator.from_matrix(a, device=...) @ x`` runs DIA, Hybrid,
-SELL-window, Chunk, Packed and COO-tail plans.
+``SparseOperator.from_matrix(a) @ x`` runs DIA, Hybrid, SELL (window,
+resident, deep and stream), Chunk, Packed, Cached and COO-tail plans on
+the card; ``from_matrix(a, device="cpu")`` runs the kernels' plain
+versions, as the tests do.
 """
 
 from . import formats, interop, ops, tools, utils  # noqa: F401

@@ -1,4 +1,4 @@
-// Semirings of the SELL kernels (B and D), as (init, step) pairs over
+// Semirings of the SELL kernels (B, D and G), as (init, step) pairs over
 // float32: step(acc, v, x) = acc (+) (v (x) x).  The boolean semiring
 // runs on a {0, 1} float encoding (and = *, or = max), so it shares
 // max_times.  Codes match ops/semiring.py KERNEL_CODE:

@@ -1,6 +1,8 @@
 from . import analysis, cached, containers, convert, costmodel, dia, plan  # noqa: F401
 from . import chunk, packed  # noqa: F401
-from .cached import COO_TAIL_MAX, CooTail, coo_tail_from_csr  # noqa: F401
+from .cached import (COO_TAIL_MAX, CachedPlan, CooTail,  # noqa: F401
+                     build_cached_plan, column_frequency,
+                     coo_tail_from_csr, hot_set_coverage)
 from .chunk import ChunkPlan, SubwinPlan, build_chunk_plan  # noqa: F401
 from .containers import COO, CSC, CSR  # noqa: F401
 from .convert import (coo_to_csr, csc_to_coo, csc_to_csr,  # noqa: F401

@@ -1,6 +1,6 @@
 """Plan cost model (counterpart of
 ``spmv_vector_cache_tpu/formats/costmodel.py``; Sell, Dia, Hybrid,
-CooTail, Chunk and Packed plans).
+Cached, CooTail, Chunk and Packed plans).
 
 A closed-form per-apply time estimate per plan family, which the planner
 uses to veto mis-selections.  The constants are the reference's, measured
@@ -46,6 +46,11 @@ def estimate_seconds(plan: Any) -> float:
     if name == "HybridPlan":
         return (estimate_seconds(plan.dia) + estimate_seconds(plan.rest)
                 + 10e-6)
+    if name == "CachedPlan":
+        t = estimate_seconds(plan.hot) + 10e-6
+        if plan.cold is not None:
+            t += estimate_seconds(plan.cold)
+        return t
     if name == "CooTail":
         return (_NS_COO_FLOOR + _NS_PER_COO_NNZ * plan.nnz) * 1e-9
     if name == "PackedPlan":

@@ -4,10 +4,9 @@
 The plan builders are the JAX package's host-side numpy code, carried
 over unchanged so that both packages build byte-equal plans for the same
 matrix; the port's kernels are checked against the reference on
-identical layouts.  Where the reference planner would build a plan
-family the port does not have yet (CachedPlan), it raises
-``NotImplementedError`` naming the family and its ROADMAP item instead
-of picking another plan.
+identical layouts.  Every plan family the reference planner builds
+for f32 values (SELL, DIA, Hybrid, Chunk, Packed, Cached, CooTail) is
+ported.
 
 The layout is a **sliced-ELLPACK (SELL) tile plan** over CSR:
 
@@ -70,7 +69,8 @@ def _require_f32(value_dtype) -> None:
 def map_arrays(plan, fn):
     """The plan with ``fn`` applied to every numpy-array or tensor field,
     nested plans included (a HybridPlan's parts, a ChunkPlan's bucket
-    tuples and residue)."""
+    tuples and residue, a CachedPlan's hot and cold tiers; a field that
+    is None stays None)."""
     changes = {}
     for f in dataclasses.fields(plan):
         v = getattr(plan, f.name)

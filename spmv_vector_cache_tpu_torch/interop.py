@@ -14,7 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .formats.cached import CooTail
+from .formats.cached import CachedPlan, CooTail
 from .formats.chunk import ChunkPlan, ChunkStats, SubwinPlan
 from .formats.dia import DiaPlan, DiaStats, HybridPlan
 from .formats.packed import PackedPlan, PackedStats
@@ -32,6 +32,12 @@ def _host(plan_ref):
     kind = type(plan_ref).__name__
     if kind == "HybridPlan":
         return HybridPlan(dia=_host(plan_ref.dia), rest=_host(plan_ref.rest))
+    if kind == "CachedPlan":
+        return CachedPlan(
+            hot=_host(plan_ref.hot),
+            cold=None if plan_ref.cold is None else _host(plan_ref.cold),
+            hot_cols=np.asarray(plan_ref.hot_cols),
+            shape=tuple(plan_ref.shape), coverage=float(plan_ref.coverage))
     if kind == "ChunkPlan":
         return ChunkPlan(
             buckets=tuple(_host(b) for b in plan_ref.buckets),
@@ -61,9 +67,11 @@ def _host(plan_ref):
     return cls(**kw)
 
 
-def plan_from_reference(plan_ref, device="cpu"):
-    """A SellPlan, DiaPlan, HybridPlan, CooTail, ChunkPlan or PackedPlan
-    of the JAX package as the port's plan, its arrays on ``device``."""
+def plan_from_reference(plan_ref, device="cuda"):
+    """A SellPlan, DiaPlan, HybridPlan, CachedPlan, CooTail, ChunkPlan or
+    PackedPlan of the JAX package as the port's plan, its arrays on
+    ``device`` (the card unless the caller asks for ``"cpu"``; without a
+    card, torch's placement raises)."""
     return place(_host(plan_ref), torch.device(device))
 
 

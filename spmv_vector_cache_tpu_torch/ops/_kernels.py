@@ -52,6 +52,10 @@ SIGNATURES = {
     # scan, sblock, wstep, esrc, out, num_windows, steps_b, block_slots,
     # stream
     "packed_extract_f32": [_P, _P, _P, _P, _P, _I, _I, _L, _P],
+    # vals, cols, x, out, out_rows, positions, lanes, group_tiles, fold,
+    # cols, semiring, stream
+    "spmv_sell_global_f32": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _L, _I,
+                             _P],
 }
 
 

@@ -4,8 +4,9 @@
 The operator plans a matrix on the host once, places the plan's arrays
 on a torch device once, and then applies it: ``op @ x``.
 
->>> op = SparseOperator.from_matrix(a, device="cuda")   # plans + places
->>> y = op @ x                                          # kernel SpMV
+>>> op = SparseOperator.from_matrix(a)      # plans + places on the card
+>>> y = op @ x                             # kernel SpMV
+>>> op_cpu = SparseOperator.from_matrix(a, device="cpu")   # plain versions
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from ..formats.cached import CooTail
+from ..formats.cached import CachedPlan, CooTail
 from ..formats.chunk import ChunkPlan
 from ..formats.dia import HybridPlan
 from ..formats.plan import auto_plan, place
@@ -30,6 +31,8 @@ Array = Any
 
 
 def _plan_device(plan) -> torch.device:
+    if isinstance(plan, CachedPlan):
+        return _plan_device(plan.hot)
     if isinstance(plan, HybridPlan):
         arr = plan.dia.vals
     elif isinstance(plan, ChunkPlan):
@@ -51,7 +54,8 @@ class SparseOperator:
         self.semiring = sr.get(semiring).name
         self.strategy = (select_strategy(plan) if strategy == "auto"
                          else strategy)
-        stats_src = plan.dia if isinstance(plan, HybridPlan) else plan
+        stats_src = plan.dia if isinstance(plan, HybridPlan) else (
+            plan.hot if isinstance(plan, CachedPlan) else plan)
         if isinstance(stats_src, CooTail):
             self.stats = StatRegistry({"nnz": stats_src.nnz})
         else:
@@ -61,6 +65,9 @@ class SparseOperator:
         for s in ("window", "dia", "resident", "deep", "cached", "packed",
                   "coo", "chunk"):
             self.stats[f"strategy_{s}"] = int(self.strategy == s)
+        if isinstance(plan, CachedPlan):
+            self.stats["cache_coverage"] = plan.coverage
+            self.stats["cache_hot_cols"] = int(plan.hot_cols.shape[0])
         # plan-derived per-execution work counters: what one apply does
         for k, v in execution_counters(plan, self.strategy).items():
             self.stats[k] = v
@@ -72,10 +79,12 @@ class SparseOperator:
     def from_matrix(cls, a, *, strategy: str = "auto",
                     value_dtype=np.float32, tune: bool = False,
                     semiring: str = "plus_times",
-                    device="cpu", **plan_kwargs) -> "SparseOperator":
+                    device="cuda", **plan_kwargs) -> "SparseOperator":
         """Plan ``a`` (any container) on the host, place the plan on
-        ``device`` and select an execution strategy.  ``semiring``
-        selects the algebra; the plan's padding is built to match."""
+        ``device`` (the card unless the caller asks for ``"cpu"``; without
+        a card, torch's placement raises) and select an execution
+        strategy.  ``semiring`` selects the algebra; the plan's padding
+        is built to match."""
         if tune:
             raise NotImplementedError("tune=True needs ops/tune.py, which "
                                       "is not ported yet (ROADMAP.md "

@@ -2,21 +2,24 @@
 ``spmv_vector_cache_tpu/ops/spmv_pallas.py``).
 
 :func:`sell_window_kernel` wraps kernel B (``csrc/spmv_sell_window.cu``),
-which replaces the reference's window kernel; :func:`sell_window_plain`
-is its plain PyTorch version.  The epilogues — the slice reduction, the
-sub-row fixup, the Hybrid add and the COO tail — are torch ops, as the
-reference computes them in XLA outside Pallas.  :func:`spmv_plan`
-dispatches every plan type, ChunkPlan (``ops/spmv_chunk.py``) and
-PackedPlan (``ops/spmv_packed.py``) included.  The ``resident``,
-``deep`` and ``stream`` strategies and the df64 and Cached paths are not
-ported yet and raise ``NotImplementedError``.
+which replaces the reference's window kernel; :func:`sell_global_kernel`
+wraps kernel G (``csrc/spmv_sell_global.cu``), which replaces its
+resident, deep and stream kernels.  :func:`sell_window_plain` and
+:func:`sell_global_plain` are their plain PyTorch versions.  The
+epilogues — the slice reduction, the sub-row fixup, the Hybrid and
+CachedPlan joins and the COO tail — are torch ops, as the reference
+computes them in XLA outside Pallas.  :func:`spmv_plan` dispatches every
+plan type, ChunkPlan (``ops/spmv_chunk.py``) and PackedPlan
+(``ops/spmv_packed.py``) included; the df64 paths are not ported yet.
 """
 
 from __future__ import annotations
 
+import warnings
+
 import torch
 
-from ..formats.cached import CooTail
+from ..formats.cached import CachedPlan, CooTail
 from ..formats.chunk import ChunkPlan
 from ..formats.dia import DiaPlan, HybridPlan
 from ..formats.packed import PackedPlan
@@ -140,6 +143,15 @@ def sell_window_kernel(vals, cols_win, window_base, x, *, group_tiles: int,
 sell_window_kernel.launches = 0
 
 
+def folds_groups(plan: SellPlan) -> bool:
+    """Whether the window and resident routes fold each group's slices
+    into one output row: the plan asks for it and a grid step holds a
+    multiple of 8 groups (the reference's rule)."""
+    st = plan.stats
+    NG = TILES_PER_STEP * st.groups_per_step // st.group_tiles
+    return st.group_fold and NG % 8 == 0
+
+
 def _window_partials(plan: SellPlan, x: torch.Tensor, semiring: str):
     """Run the window kernel, returning (per-tile or per-group partial
     rows, fold) before any slice/row reduction."""
@@ -148,8 +160,7 @@ def _window_partials(plan: SellPlan, x: torch.Tensor, semiring: str):
         raise ValueError(
             "window strategy infeasible for this plan "
             "(stats.window_blocks == 0); rebuild with stripe_width")
-    NG = TILES_PER_STEP * st.groups_per_step // st.group_tiles
-    fold = st.group_fold and NG % 8 == 0
+    fold = folds_groups(plan)
     out = sell_window_kernel(
         plan.vals, plan.cols_win, plan.window_base,
         x.to(plan.vals.dtype).contiguous(), group_tiles=st.group_tiles,
@@ -161,6 +172,125 @@ def _spmv_window(plan: SellPlan, x: torch.Tensor,
                  semiring: str = "plus_times") -> torch.Tensor:
     out, fold = _window_partials(plan, x, semiring)
     return _reduce_partials(plan, out, semiring, per_group=fold)
+
+
+# ---------------------------------------------------------------------------
+# resident, deep and stream strategies: kernel G
+# ---------------------------------------------------------------------------
+
+def sell_global_plain(vals, cols, x, *, group_tiles: int, fold: bool,
+                      semiring: str) -> torch.Tensor:
+    """Plain PyTorch version of kernel G (same inputs, same output)."""
+    mul, axis_reduce = sr.kernel_ops(semiring)
+    T, P, R = vals.shape
+    n = x.shape[0]
+    c = cols.long()
+    c = torch.where((c >= 0) & (c < n), c, n)  # out of range reads 0
+    prod = mul(vals, torch.cat([x, x.new_zeros(1)])[c])
+    if fold:
+        return axis_reduce(prod.reshape(T // group_tiles, group_tiles * P, R),
+                           1)
+    return axis_reduce(prod, 1)
+
+
+def _check_global(vals, cols, x, group_tiles, fold):
+    if vals.dim() != 3 or cols.shape != vals.shape:
+        raise ValueError(f"vals {tuple(vals.shape)} and cols "
+                         f"{tuple(cols.shape)} must be equal (T, P, R)")
+    if vals.dtype != torch.float32 or x.dtype != torch.float32:
+        raise NotImplementedError(f"global-column SpMV runs float32 only "
+                                  f"(vals {vals.dtype}, x {x.dtype})")
+    if cols.dtype != torch.int32:
+        raise ValueError(f"cols must be int32, got {cols.dtype}")
+    if fold and vals.shape[0] % group_tiles:
+        raise ValueError(f"{vals.shape[0]} tiles do not fold into groups "
+                         f"of {group_tiles}")
+    if x.dim() != 1:
+        raise ValueError(f"x must be 1-D, got shape {tuple(x.shape)}")
+    for t in (cols, x):
+        if t.device != vals.device:
+            raise ValueError(f"operands on {vals.device} and {t.device}")
+    if not all(t.is_contiguous() for t in (vals, cols, x)):
+        raise ValueError("global-column operands must be contiguous")
+
+
+def sell_global_kernel(vals, cols, x, *, group_tiles: int, fold: bool,
+                       semiring: str) -> torch.Tensor:
+    """Kernel G on CUDA tensors; the plain version on CPU tensors.
+
+    ``vals``/``cols``: (T, P, R) float32 / int32 global column ids;
+    returns per-tile partial rows (T, R), or per-group rows (T/wg, R)
+    when ``fold``."""
+    _check_global(vals, cols, x, group_tiles, fold)
+    if not platform.is_cuda(x):
+        return sell_global_plain(vals, cols, x, group_tiles=group_tiles,
+                                 fold=fold, semiring=semiring)
+    T, P, R = vals.shape
+    out_rows = T // group_tiles if fold else T
+    out = torch.empty((out_rows, R), dtype=torch.float32, device=x.device)
+    err = _kernels.library().spmv_sell_global_f32(
+        vals.data_ptr(), cols.data_ptr(), x.data_ptr(), out.data_ptr(),
+        out_rows, P, R, group_tiles, int(fold), x.shape[0],
+        sr.KERNEL_CODE[semiring],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _kernels.check(err, "spmv_sell_global_f32")
+    sell_global_kernel.launches += 1
+    return out
+
+
+sell_global_kernel.launches = 0
+
+
+def _x_blocks(plan: SellPlan) -> int:
+    return -(-plan.shape[1] // 128)
+
+
+#: the reference's x-width cap of each kernel-G route, in 128-lane blocks,
+#: with its advice; v5e limits, kept only for parity (stream has none)
+_GLOBAL_CAPS = {
+    "resident": ("RESIDENT_MAX_BLOCKS", RESIDENT_MAX_BLOCKS,
+                 "the resident strategy's per-block select chain would "
+                 "dominate — use 'stream' or restructure"),
+    "deep": ("DEEP_MAX_BLOCKS", DEEP_MAX_BLOCKS,
+             "build a CachedPlan (hot/cold column split) for matrices this "
+             "wide with no locality"),
+}
+
+
+def _spmv_global(plan: SellPlan, x: torch.Tensor, semiring: str,
+                 strategy: str) -> torch.Tensor:
+    """The reference's resident, deep and stream routes, all on kernel
+    G: resident folds groups where the layout allows it, deep and stream
+    write per-tile partials.  Stream builds no pre-gathered x: kernel G
+    reads x[cols] itself, at any width."""
+    if strategy in _GLOBAL_CAPS:
+        name, cap, advice = _GLOBAL_CAPS[strategy]
+        NB = _x_blocks(plan)
+        if NB > cap:
+            raise ValueError(f"x spans {NB} 128-lane blocks > {name} "
+                             f"({cap}); {advice}")
+    fold = strategy == "resident" and folds_groups(plan)
+    out = sell_global_kernel(plan.vals, plan.cols,
+                             x.to(plan.vals.dtype).contiguous(),
+                             group_tiles=plan.stats.group_tiles, fold=fold,
+                             semiring=semiring)
+    return _reduce_partials(plan, out, semiring, per_group=fold)
+
+
+def warn_stream(plan) -> None:
+    """Never let the 'stream' route be picked silently: it serves a plan
+    wider than DEEP_MAX_BLOCKS blocks with no column locality and no
+    popularity split, where every x read is a random device-memory
+    access."""
+    warnings.warn(
+        f"SpMV falling back to the 'stream' strategy for a "
+        f"{plan.shape[0]}x{plan.shape[1]} matrix: no window, cache tier or "
+        f"packed plan was built, so every x read lands at a random column "
+        f"(the global-column kernel that 'stream' shares with 'deep' "
+        f"reached about a third of its bytes bound on uniform columns on "
+        f"an H100, PERF.md).  Build the plan with auto_plan (CachedPlan "
+        f"hot/cold split) or restructure.",
+        RuntimeWarning, stacklevel=3)
 
 
 def _spmv_coo(plan: CooTail, x: torch.Tensor, semiring: str) -> torch.Tensor:
@@ -182,7 +312,9 @@ def spmv_plan(plan, x: torch.Tensor, *, strategy: str = "auto",
     """Run SpMV ``y = A (+).(x) x`` from a prebuilt plan on ``x.device``.
 
     Dispatches on plan type: DiaPlan runs kernel A, HybridPlan adds its
-    residual pass, a SellPlan runs the 'window' strategy on kernel B, a
+    residual pass, a SellPlan runs the 'window' strategy on kernel B or
+    the 'resident', 'deep' and 'stream' strategies on kernel G, a
+    CachedPlan its hot tier on ``x[hot_cols]`` and its cold part on x, a
     ChunkPlan kernels B, D and C, a PackedPlan kernels E and F, a CooTail
     the gather + segment reduce.  DIA and packed plans support
     plus_times only; SELL and chunk plans must have been built with
@@ -204,6 +336,20 @@ def spmv_plan(plan, x: torch.Tensor, *, strategy: str = "auto",
             raise ValueError(f"PackedPlan supports only the 'packed' "
                              f"strategy, got {strategy!r}")
         return spmv_packed(plan, x, semiring=semiring)
+    if isinstance(plan, CachedPlan):
+        if strategy not in ("auto", "cached"):
+            raise ValueError(f"CachedPlan supports only the 'cached' "
+                             f"strategy, got {strategy!r}")
+        # each nonzero lives in exactly one part, so the join is one
+        # semiring add
+        s = sr.get(semiring)
+        y = spmv_plan(plan.hot, x.index_select(0, plan.hot_cols),
+                      semiring=semiring)
+        if plan.cold is not None:
+            yc = spmv_plan(plan.cold, x, semiring=semiring)
+            # or_and's logical add yields bool; restore the float encoding
+            y = s.add(y, yc).to(yc.dtype)
+        return y
     if isinstance(plan, (DiaPlan, HybridPlan)) and semiring != "plus_times":
         raise ValueError("DIA plans encode absence as 0 and support only "
                          "plus_times; build a SELL plan via "
@@ -227,7 +373,7 @@ def spmv_plan(plan, x: torch.Tensor, *, strategy: str = "auto",
         raise NotImplementedError("double-float SELL plans are not ported "
                                   "(ROADMAP.md queue 1, item 10)")
     if strategy == "auto":
-        nb = -(-plan.shape[1] // 128)
+        nb = _x_blocks(plan)
         if plan.stats.window_blocks > 0:
             strategy = "window"
         elif nb <= RESIDENT_MAX_BLOCKS:
@@ -235,11 +381,10 @@ def spmv_plan(plan, x: torch.Tensor, *, strategy: str = "auto",
         elif nb <= DEEP_MAX_BLOCKS:
             strategy = "deep"
         else:
+            warn_stream(plan)
             strategy = "stream"
     if strategy == "window":
-        return _spmv_window(plan, x, semiring=semiring)
+        return _spmv_window(plan, x, semiring)
     if strategy in ("resident", "deep", "stream"):
-        raise NotImplementedError(
-            f"the {strategy!r} SELL strategy is not ported yet (ROADMAP.md "
-            f"queue 1, item 5)")
+        return _spmv_global(plan, x, semiring, strategy)
     raise ValueError(f"unknown strategy {strategy!r}")

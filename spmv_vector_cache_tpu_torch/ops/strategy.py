@@ -1,7 +1,7 @@
 """Strategy selection and plan-derived counters (counterpart of
-``spmv_vector_cache_tpu/ops/strategy.py``; Sell, Dia, Hybrid, CooTail,
-Chunk and Packed plans — the timing sweep ``autotune`` comes with
-``ops/tune.py``)."""
+``spmv_vector_cache_tpu/ops/strategy.py``; Sell, Dia, Hybrid, Cached,
+CooTail, Chunk and Packed plans — the timing sweep ``autotune`` comes
+with ``ops/tune.py``)."""
 
 from __future__ import annotations
 
@@ -9,11 +9,12 @@ from typing import Dict
 
 import numpy as np
 
-from ..formats.cached import CooTail
+from ..formats.cached import CachedPlan, CooTail
 from ..formats.chunk import ChunkPlan
 from ..formats.dia import DiaPlan, HybridPlan
 from ..formats.packed import PackedPlan
 from ..formats.plan import DEEP_MAX_BLOCKS, RESIDENT_MAX_BLOCKS, SellPlan
+from .spmv_sell import warn_stream
 
 
 def _itemsize(arr) -> int:
@@ -24,12 +25,13 @@ def _itemsize(arr) -> int:
 
 def select_strategy(plan) -> str:
     """Pick the execution strategy from plan structure counters (the
-    reference's rule; 'resident', 'deep' and 'stream' do not run in the
-    port yet)."""
+    reference's rule); picking 'stream' warns."""
     if isinstance(plan, ChunkPlan):
         return "chunk"
     if isinstance(plan, (DiaPlan, HybridPlan)):
         return "dia"
+    if isinstance(plan, CachedPlan):
+        return "cached"
     if isinstance(plan, PackedPlan):
         return "packed"
     if isinstance(plan, CooTail):
@@ -44,6 +46,7 @@ def select_strategy(plan) -> str:
         return "resident"
     if nb <= DEEP_MAX_BLOCKS:
         return "deep"
+    warn_stream(plan)
     return "stream"
 
 
@@ -53,6 +56,9 @@ def plan_nnz(plan) -> int:
         return plan.stats.nnz
     if isinstance(plan, HybridPlan):
         return plan_nnz(plan.dia) + plan_nnz(plan.rest)
+    if isinstance(plan, CachedPlan):
+        return plan_nnz(plan.hot) + (
+            plan_nnz(plan.cold) if plan.cold is not None else 0)
     if isinstance(plan, CooTail):
         return plan.nnz
     return plan.stats.nnz
@@ -73,6 +79,11 @@ def plan_bytes_per_apply(plan, strategy: str = "auto") -> int:
     if isinstance(plan, HybridPlan):
         return (plan_bytes_per_apply(plan.dia) +
                 plan_bytes_per_apply(plan.rest, strategy))
+    if isinstance(plan, CachedPlan):
+        b = plan_bytes_per_apply(plan.hot)
+        if plan.cold is not None:
+            b += plan_bytes_per_apply(plan.cold)
+        return b
     itemsize = _itemsize(plan.vals)
     rows, cols = plan.shape
     vec = (rows + cols) * itemsize
@@ -137,6 +148,14 @@ def execution_counters(plan, strategy: str = "auto") -> Dict[str, int]:
         c2 = execution_counters(plan.rest, strategy)
         return {k: c1.get(k, 0) + c2.get(k, 0)
                 for k in set(c1) | set(c2)}
+    if isinstance(plan, CachedPlan):
+        c1 = execution_counters(plan.hot)
+        c2 = execution_counters(plan.cold) if plan.cold is not None else {}
+        out = {k: c1.get(k, 0) + c2.get(k, 0) for k in set(c1) | set(c2)}
+        # the predicted hit and miss volumes of the hot set
+        out["hot_hits"] = plan_nnz(plan.hot)
+        out["cold_misses"] = plan_nnz(plan.cold) if plan.cold else 0
+        return out
     if strategy == "auto":
         strategy = select_strategy(plan)
     if isinstance(plan, DiaPlan):

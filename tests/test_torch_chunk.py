@@ -214,7 +214,7 @@ def test_subwin_partials_match_jax(semiring):
     assert jp.hbuckets
     for h in _small_steps(jp).hbuckets:
         want = jsell._subwin_partials(h, x, True, semiring)
-        got = pspmv_chunk._subwin_partials(plan_from_reference(h),
+        got = pspmv_chunk._subwin_partials(plan_from_reference(h, "cpu"),
                                            torch.from_numpy(x), semiring)
         if semiring == "or_and":
             assert got.numpy().tobytes() == np.asarray(want).tobytes()
@@ -234,7 +234,7 @@ def test_spmv_chunk_matches_jax_and_host(case):
         np.float32)
     jp = jchunk.build_chunk_plan(ja)
     want = jsell.spmv_plan(_small_steps(jp), x, interpret=True)
-    y = psell.spmv_plan(plan_from_reference(jp), torch.from_numpy(x))
+    y = psell.spmv_plan(plan_from_reference(jp, "cpu"), torch.from_numpy(x))
     _assert_close(y.numpy(), want)
     want64 = jref.spmv_numpy(ja, x.astype(np.float64))
     assert np.abs(y.numpy() - want64).max() / \

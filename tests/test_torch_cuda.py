@@ -157,3 +157,68 @@ def test_packed_kernels_match_plain(cuda, chunk_blocks):
     ext_kw = dict(num_windows=st.num_windows, step_tiles=st.step_tiles)
     _close(spmv_packed.packed_extract_kernel(*ext_args, **ext_kw),
            spmv_packed.packed_extract_plain(*ext_args, **ext_kw))
+
+
+@pytest.mark.parametrize("fold", [True, False])
+@pytest.mark.parametrize("semiring", sorted(REGISTRY))
+def test_global_kernel_matches_plain(cuda, semiring, fold):
+    rng = np.random.default_rng(7)
+    n, cols = 2048, 40000
+    r = np.repeat(np.arange(n), 16)
+    c = rng.integers(0, cols, r.shape[0])
+    v = np.abs(rng.standard_normal(r.shape[0])).astype(np.float32)
+    if semiring == "or_and":
+        v = (v > 0.5).astype(np.float32)
+    m = sp.csr_matrix((v, (r, c)), shape=(n, cols))
+    m.sort_indices()
+    kw = dict(split=16, uniform_split=True, window_group_tiles=2) if fold \
+        else {}
+    plan = place(build_sell_plan(from_scipy(m),
+                                 pad_value=REGISTRY[semiring].zero, **kw),
+                 cuda)
+    # x one column short: the last column reads as 0 in both versions
+    x = torch.from_numpy(np.abs(rng.standard_normal(cols - 1)).astype(
+        np.float32)).to(cuda)
+    args = (plan.vals, plan.cols, x)
+    kwargs = dict(group_tiles=plan.stats.group_tiles, fold=fold,
+                  semiring=semiring)
+    before = spmv_sell.sell_global_kernel.launches
+    got = spmv_sell.sell_global_kernel(*args, **kwargs)
+    assert spmv_sell.sell_global_kernel.launches == before + 1
+    ref = spmv_sell.sell_global_plain(*args, **kwargs)
+    if semiring == "plus_times":
+        _close(got, ref)
+    else:
+        # order-free reductions of one float32 operation per product
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("semiring", ["plus_times", "min_plus"])
+def test_cached_operator_on_the_card_matches_cpu(cuda, semiring):
+    from spmv_vector_cache_tpu_torch.formats.cached import CachedPlan
+    from spmv_vector_cache_tpu_torch.ops.operator import SparseOperator
+
+    rng = np.random.default_rng(8)
+    rows, cols = 16384, 65536
+    ranks = np.minimum(rng.zipf(1.6, size=rows * 32) - 1, cols - 1)
+    c = rng.permutation(cols)[ranks]
+    m = sp.coo_matrix((np.abs(rng.standard_normal(rows * 32)).astype(
+        np.float32), (np.repeat(np.arange(rows), 32), c)),
+        shape=(rows, cols)).tocsr()
+    m.sum_duplicates()
+    m.sort_indices()
+    a = from_scipy(m.astype(np.float32))
+    op = SparseOperator.from_matrix(a, semiring=semiring)   # the card
+    cpu = SparseOperator.from_matrix(a, semiring=semiring, device="cpu")
+    assert isinstance(op.plan, CachedPlan) and op.strategy == "cached"
+    assert op.device.type == "cuda"
+    x = np.abs(rng.standard_normal(cols)).astype(np.float32)
+    before = spmv_sell.sell_global_kernel.launches
+    y = op @ x
+    torch.cuda.synchronize()
+    assert spmv_sell.sell_global_kernel.launches > before
+    want = cpu @ x
+    if semiring == "plus_times":
+        _close(y.cpu(), want)
+    else:
+        assert torch.equal(y.cpu(), want)

@@ -79,7 +79,7 @@ def test_operator_exec_and_compare_golden():
 def test_operator_unported_paths_raise():
     _, pa = both(banded(512, [-1, 0, 1], seed=7))
     with pytest.raises(NotImplementedError, match="tune"):
-        SparseOperator.from_matrix(pa, tune=True)
-    op = SparseOperator.from_matrix(pa)
+        SparseOperator.from_matrix(pa, tune=True, device="cpu")
+    op = SparseOperator.from_matrix(pa, device="cpu")
     with pytest.raises(NotImplementedError, match="SpMM"):
         op @ np.ones((512, 4), np.float32)

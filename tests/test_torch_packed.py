@@ -85,7 +85,7 @@ def test_spmv_packed_matches_jax_and_host(case):
         np.float32)
     jp = jpacked.build_packed_plan(ja, chunk_blocks=cb)
     want = jspmv_packed.spmv_packed(jp, x, interpret=True)
-    y = pspmv_packed.spmv_packed(plan_from_reference(jp),
+    y = pspmv_packed.spmv_packed(plan_from_reference(jp, "cpu"),
                                  torch.from_numpy(x)).numpy()
     _assert_close(y, want)
     want64 = jref.spmv_numpy(ja, x.astype(np.float64))
@@ -120,7 +120,7 @@ def test_packed_scan_matches_jax():
         grid_spec=spec, interpret=True,
         out_shape=jax.ShapeDtypeStruct(jp.vals.shape, jnp.float32))(
         jp.cstep, jp.vals, jp.cols, x2d.reshape(-1, 128))
-    p = plan_from_reference(jp)
+    p = plan_from_reference(jp, "cpu")
     got = pspmv_packed.packed_scan_kernel(
         p.vals, p.cols, p.cstep, torch.from_numpy(x), chunk_blocks=cb,
         step_tiles=st.step_tiles)
@@ -165,7 +165,9 @@ def test_auto_plan_routes_locality_poor_to_packed():
 
 def test_auto_plan_column_skew_still_raises_for_cached():
     # the second recipe: skewed columns make the reference build a
-    # CachedPlan, which the port does not have yet
+    # CachedPlan (a 2,048-column window tier, K=16, with a packed cold
+    # part); the port no longer raises there but builds the same plan,
+    # array for array
     rng = np.random.RandomState(11)
     n = 1 << 17
     rows = np.repeat(np.arange(n, dtype=np.int64), 4)
@@ -174,9 +176,14 @@ def test_auto_plan_column_skew_still_raises_for_cached():
     m = sp.csr_matrix((rng.standard_normal(rows.shape[0]).astype(
         np.float32), (rows, cols)), shape=(n, n))
     m.sort_indices()
-    _, pa = both(m)
-    with pytest.raises(NotImplementedError, match="CachedPlan"):
-        pplan.auto_plan(pa)
+    ja, pa = both(m)
+    port = pplan.auto_plan(pa)
+    assert type(port).__name__ == "CachedPlan"
+    assert isinstance(port.cold, ppacked.PackedPlan)
+    assert port.hot_cols.shape == (2048,)
+    assert port.hot.stats.window_blocks == 16
+    assert pstrategy.select_strategy(port) == "cached"
+    assert_plans_equal(port, jplan.auto_plan(ja))
 
 
 def test_operator_on_packed_plan_matches_jax():

@@ -85,7 +85,7 @@ def both(m):
 
 def assert_plans_equal(port_plan, ref_plan, path="plan"):
     """Byte equality of a port plan with a JAX-package plan."""
-    ref = plan_to_numpy(plan_from_reference(ref_plan))
+    ref = plan_to_numpy(plan_from_reference(ref_plan, "cpu"))
     port = plan_to_numpy(port_plan)
     _assert_same(port, ref, path)
 
