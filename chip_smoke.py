@@ -5,7 +5,8 @@
 
 Builds the CUDA kernels of ``spmv_vector_cache_tpu_torch/csrc/`` and
 runs ``SparseOperator.from_matrix(a) @ x`` (the plan placed on the card
-by default) on seven matrices, one per plan type of the main path:
+by default) on seven matrices, one per plan type of the main path, then
+the multi-RHS product ``op @ B`` (SpMM) on four of them:
 
 1. DIA — bench.py's headline matrix: 2^20 rows, 27 diagonals (-13..13),
    standard-normal values, seed 0 (~28.3M nonzeros);
@@ -29,13 +30,22 @@ by default) on seven matrices, one per plan type of the main path:
    SellPlan on the 'deep' strategy), then the same plan on the 'stream'
    strategy, which must give the same y exactly; then the same draw over
    2^19 columns, past the reference's deep cap of 2048 blocks, where the
-   planner picks 'stream' itself (with its RuntimeWarning).
+   planner picks 'stream' itself (with its RuntimeWarning);
+8. SpMM, ``op @ B`` with B of shape (cols, 16), N(0, 1) from a seeded
+   generator: ``spmm_dia`` (the DIA operator of phase 1, kernel I),
+   ``spmm_sell`` (phase 2's window plan, kernel H), ``spmm_hybrid``
+   (phase 3's, kernels I and H) and ``spmm_packed`` (phase 5's
+   PackedPlan, which has no fused kernel: the reference SpMM runs on the
+   card and neither H nor I launches).  Then fused SpMM against k
+   looped SpMVs and against ``torch.sparse.mm`` at k = 8, 32 and 64 on
+   the DIA and shuffled-band matrices.
 
 Each phase checks y against a float64 host reference (scipy, or a
 min-plus reduce over the CSR rows; relative error below 1e-4, bench.py's
 gate), checks the plan the planner picked, and checks that its run of
 the main path launched the phase's kernels (their launch counters, set
-to 0 just before the phase's apply and read just after).  Each kernel is
+to 0 just before the phase's apply and read just after; the SpMM phases
+must launch exactly their kernels, once each, and no other).  Each kernel is
 then compared with its plain PyTorch version on the same inputs on the
 card, and both are timed with CUDA events beside the kernel's bound: the
 bytes it must move at 3.35 TB/s or its float32 operations at 67 TFLOP/s,
@@ -128,11 +138,12 @@ def nbytes(*tensors):
 
 
 def x_bytes_read(x, cols):
-    """Bytes of x that a gather at column ids ``cols`` must read: each
-    distinct in-range column once (out of range reads 0, no memory)."""
+    """Bytes of x (or of the rows of a row-major B) that a gather at
+    column ids ``cols`` must read: each distinct in-range column once
+    (out of range reads 0, no memory)."""
     c = cols.reshape(-1)
     c = c[(c >= 0) & (c < x.shape[0])]
-    return int(torch.unique(c).numel()) * x.element_size()
+    return int(torch.unique(c).numel()) * x.stride(0) * x.element_size()
 
 
 def zipf_cols_matrix(rng, n=1 << 18, per_row=64, s=2.5):
@@ -188,6 +199,10 @@ def main():
     from spmv_vector_cache_tpu_torch.ops.lane_perm import (
         lane_unpermute, lane_unpermute_plain)
     from spmv_vector_cache_tpu_torch.ops.operator import SparseOperator
+    from spmv_vector_cache_tpu_torch.ops.spmm_dia import (spmm_dia_kernel,
+                                                          spmm_dia_plain)
+    from spmv_vector_cache_tpu_torch.ops.spmm_sell import (
+        spmm_window_kernel, spmm_window_plain)
     from spmv_vector_cache_tpu_torch.ops.spmv_chunk import (subwin_kernel,
                                                             subwin_plain)
     from spmv_vector_cache_tpu_torch.ops.spmv_dia import (spmv_dia_kernel,
@@ -296,6 +311,17 @@ def main():
     # the deep phase's plan once more, on the stream route
     ops["stream"] = (SparseOperator(ops["deep"][0].plan, strategy="stream",
                                     semiring="min_plus"), ops["deep"][1])
+    # SpMM: four of the operators applied to B (cols, k), k = 16 (the k4
+    # of tools/suite.py), N(0, 1) from a seeded generator
+    K_RHS = 16
+    rng_b = np.random.default_rng(4)
+    b_host = {}
+    for name, base in (("spmm_dia", "dia"), ("spmm_sell", "sell"),
+                       ("spmm_hybrid", "hybrid"), ("spmm_packed", "packed")):
+        op = ops[base][0]
+        b_host[name] = rng_b.standard_normal((op.shape[1], K_RHS)).astype(
+            np.float32)
+        ops[name] = (op, torch.from_numpy(b_host[name]).to(dev))
 
     p_dia = ops["dia"][0].plan
     assert isinstance(p_dia, DiaPlan) and ops["dia"][0].strategy == "dia"
@@ -366,7 +392,9 @@ def main():
                "spmv_subwin_f32": subwin_kernel,
                "packed_scan_f32": packed_scan_kernel,
                "packed_extract_f32": packed_extract_kernel,
-               "spmv_sell_global_f32": sell_global_kernel}
+               "spmv_sell_global_f32": sell_global_kernel,
+               "spmm_dia_f32": spmm_dia_kernel,
+               "spmm_sell_window_f32": spmm_window_kernel}
     path_kernels = {"dia": ["spmv_dia_f32"],
                     "sell": ["spmv_sell_window_f32"],
                     "hybrid": ["spmv_dia_f32", "spmv_sell_window_f32"],
@@ -377,7 +405,18 @@ def main():
                                "spmv_sell_global_f32"],
                     "deep": ["spmv_sell_global_f32"],
                     "stream": ["spmv_sell_global_f32"],
-                    "wide": ["spmv_sell_global_f32"]}
+                    "wide": ["spmv_sell_global_f32"],
+                    "spmm_dia": ["spmm_dia_f32"],
+                    "spmm_sell": ["spmm_sell_window_f32"],
+                    "spmm_hybrid": ["spmm_dia_f32", "spmm_sell_window_f32"],
+                    "spmm_packed": []}
+    # an SpMM phase launches exactly these, and no other kernel: the
+    # PackedPlan has no fused kernel and runs the reference SpMM
+    exact_launches = {"spmm_dia": {"spmm_dia_f32": 1},
+                      "spmm_sell": {"spmm_sell_window_f32": 1},
+                      "spmm_hybrid": {"spmm_dia_f32": 1,
+                                      "spmm_sell_window_f32": 1},
+                      "spmm_packed": {}}
     launches = dict.fromkeys(kernels, 0)
     ys = {}
     for name, (op, x) in ops.items():
@@ -388,6 +427,10 @@ def main():
         counts = {k: w.launches for k, w in kernels.items()}
         log(f"[{name}] main-path launches: {counts}")
         assert all(counts[k] > 0 for k in path_kernels[name]), (name, counts)
+        if name in exact_launches:
+            want = dict.fromkeys(kernels, 0)
+            want.update(exact_launches[name])
+            assert counts == want, (name, counts)
         for k, c in counts.items():
             launches[k] += c
 
@@ -395,7 +438,11 @@ def main():
     ref64 = {"dia": (band, x_dia), "sell": (m_sell, x_sell),
              "hybrid": (m_hyb, x_hyb), "chunk": (scipy_of(a_chunk), x_chunk),
              "packed": (scipy_of(a_packed), x_packed),
-             "cached": (scipy_of(a_cached), x_cached)}
+             "cached": (scipy_of(a_cached), x_cached),
+             "spmm_dia": (band, b_host["spmm_dia"]),
+             "spmm_sell": (m_sell, b_host["spmm_sell"]),
+             "spmm_hybrid": (m_hyb, b_host["spmm_hybrid"]),
+             "spmm_packed": (scipy_of(a_packed), b_host["spmm_packed"])}
     want64 = {name: m.astype(np.float64) @ x.astype(np.float64)
               for name, (m, x) in ref64.items()}
     want64["deep"] = want64["stream"] = min_plus_host(a_deep, x_deep)
@@ -463,6 +510,29 @@ def main():
                 + rows_out * plan.lane_rows * 4,
                 2 * plan.vals.numel())
 
+    def spmm_dia_pair(plan, b):
+        args = (plan.vals, plan.offsets, b, plan.shape[0])
+        return (lambda: spmm_dia_kernel(*args),
+                lambda: spmm_dia_plain(*args),
+                nbytes(plan.vals, b) + 4 * len(plan.offsets)
+                + plan.shape[0] * b.shape[1] * 4,
+                2 * plan.vals.numel() * b.shape[1])
+
+    def spmm_window_pair(plan, b):
+        st = plan.stats
+        args = (plan.vals, plan.cols_win, plan.window_base, b)
+        kw = dict(group_tiles=st.group_tiles, window_grain=st.window_grain,
+                  fold=folds_groups(plan))
+        rows_out = plan.num_tiles // (st.group_tiles if kw["fold"] else 1)
+        base = plan.window_base.long().repeat_interleave(
+            st.group_tiles) * st.window_grain
+        cols = base[:, None, None] + plan.cols_win.long()
+        return (lambda: spmm_window_kernel(*args, **kw),
+                lambda: spmm_window_plain(*args, **kw),
+                nbytes(*args[:3]) + x_bytes_read(b, cols)
+                + rows_out * plan.lane_rows * b.shape[1] * 4,
+                2 * plan.vals.numel() * b.shape[1])
+
     # kernel C at the chunk phase's shape: (light blocks, 128) sums
     y2d = torch.from_numpy(np.random.default_rng(1).standard_normal(
         (p_chunk.num_blocks, 128)).astype(np.float32)).to(dev)
@@ -526,11 +596,20 @@ def main():
               ("spmv_sell_global_f32", "stream", " stream",
                global_pair(p_deep, ops["deep"][1], False, "min_plus"), True),
               ("spmv_sell_global_f32", "wide", " stream (2^19 columns)",
-               global_pair(p_wide, ops["wide"][1], False, "min_plus"), True)]
+               global_pair(p_wide, ops["wide"][1], False, "min_plus"), True),
+              ("spmm_dia_f32", "spmm_dia", f" k={K_RHS}",
+               spmm_dia_pair(p_dia, ops["spmm_dia"][1]), False),
+              ("spmm_sell_window_f32", "spmm_sell", f" k={K_RHS}",
+               spmm_window_pair(p_sell, ops["spmm_sell"][1]), False),
+              ("spmm_dia_f32", "spmm_hybrid", f" k={K_RHS}",
+               spmm_dia_pair(p_hyb.dia, ops["spmm_hybrid"][1]), False),
+              ("spmm_sell_window_f32", "spmm_hybrid", f" k={K_RHS}",
+               spmm_window_pair(p_hyb.rest, ops["spmm_hybrid"][1]), False)]
     headline = {"spmv_dia_f32": "dia", "spmv_sell_window_f32": "sell",
                 "lane_unpermute_f32": "chunk", "spmv_subwin_f32": "chunk",
                 "packed_scan_f32": "packed", "packed_extract_f32": "packed",
-                "spmv_sell_global_f32": "deep"}
+                "spmv_sell_global_f32": "deep", "spmm_dia_f32": "spmm_dia",
+                "spmm_sell_window_f32": "spmm_sell"}
     rows = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
                     bound_by="bytes", library_ms=None) for k in kernels}
     bound_terms = {k: [0.0, 0.0] for k in kernels}
@@ -578,12 +657,35 @@ def main():
     log(f"[chunk] torch.gather (kernel C's function): {lib_ms:.4f} ms "
         f"on {card}")
 
+    # kernels H and I: torch.sparse.mm of the same matrix, as a CSR tensor
+    # on the card, with the same B (a yardstick, never on the path)
+    def csr_on_card(m):
+        return torch.sparse_csr_tensor(
+            torch.from_numpy(m.indptr.astype(np.int64)).to(dev),
+            torch.from_numpy(m.indices.astype(np.int64)).to(dev),
+            torch.from_numpy(m.data.astype(np.float32)).to(dev),
+            size=m.shape)
+
+    csr_t = {"dia": csr_on_card(band), "sell": csr_on_card(m_sell)}
+    for kname, phase, base in (("spmm_dia_f32", "spmm_dia", "dia"),
+                               ("spmm_sell_window_f32", "spmm_sell",
+                                "sell")):
+        a_t, b = csr_t[base], ops[phase][1]
+        err = rel_err(torch.sparse.mm(a_t, b), want64[phase])
+        assert err < Y_RTOL, (phase, err)
+        lib_ms = min(time_ms(lambda: torch.sparse.mm(a_t, b)) for _ in "ab")
+        rows[kname]["library_ms"] = lib_ms
+        log(f"[{phase}] torch.sparse.mm (CSR, k={K_RHS}): {lib_ms:.4f} ms, "
+            f"rel err {err:.3g} vs float64, on {card}")
+
     # --- the apply, end to end ----------------------------------------------
     for name, (op, x) in ops.items():
         ms = time_ms(lambda: op @ x)
         nnz = plan_nnz(op.plan)
-        log(f"[{name}] apply: {ms:.4f} ms -> {nnz / ms / 1e6:.2f} Gnnz/s "
-            f"(nnz={nnz}) on {card}")
+        rhs = x.shape[1] if x.dim() == 2 else 1
+        log(f"[{name}] apply: {ms:.4f} ms -> {nnz * rhs / ms / 1e6:.2f} "
+            f"Gnnz/s (nnz={nnz}{f' x {rhs} RHS' if rhs > 1 else ''}) on "
+            f"{card}")
         by_kernel = device_us_by_kernel(lambda: op @ x)
         if not by_kernel:
             log(f"[{name}] device time by kernel: not measured (the "
@@ -602,6 +704,32 @@ def main():
         nnz = plan_nnz(plan)
         log(f"{kname}: kernel {nnz / r['ms'] / 1e6:.2f} Gnnz/s, plain "
             f"{nnz / r['plain_ms'] / 1e6:.2f} Gnnz/s on {card}")
+
+    # --- fused SpMM against k looped SpMVs and torch.sparse.mm (ROADMAP
+    # item 9); the looped applies take B's columns made contiguous
+    # beforehand, so each is the plain SpMV main path -------------------------
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for name in ("dia", "sell"):
+        op, a_t = ops[name][0], csr_t[name]
+        for k in (8, 32, 64):
+            b = torch.randn((op.shape[1], k), generator=gen, device=dev)
+            cols_b = b.T.contiguous()
+            fused = op @ b
+            looped = torch.stack([op @ cols_b[j] for j in range(k)], dim=1)
+            err = max_abs(fused, looped)
+            tol = KERNEL_RTOL * max(1.0, float(looped.abs().max().item()))
+            assert err <= tol, (name, k, err)
+            t_f = time_ms(lambda: op @ b, iters=20)
+            t_l = time_ms(lambda: [op @ cols_b[j] for j in range(k)],
+                          iters=10)
+            t_s = time_ms(lambda: torch.sparse.mm(a_t, b), iters=20)
+            log(f"[fused-vs-looped] {name} k={k}: fused {t_f:.4f} ms, "
+                f"looped {t_l:.4f} ms ({k} applies), torch.sparse.mm "
+                f"{t_s:.4f} ms; looped/fused {t_l / t_f:.2f}, "
+                f"sparse.mm/fused {t_s / t_f:.2f}; fused vs looped max abs "
+                f"err {err:.3g} on {card}")
+            del b, cols_b, fused, looped
+        torch.cuda.empty_cache()
     log(f"max_memory_allocated: {torch.cuda.max_memory_allocated()} bytes")
 
     csrc = "spmv_vector_cache_tpu_torch/csrc/"
@@ -623,6 +751,11 @@ def main():
         "spmv_sell_global_f32": ("spmv_sell_global.cu", ", ".join(
             f"spmv_vector_cache_tpu/ops/spmv_pallas.py:{line}"
             for line in (406, 508, 581))),
+        "spmm_dia_f32": ("spmm_dia.cu", "spmv_vector_cache_tpu/ops/"
+                         "spmm_dia.py:36"),
+        "spmm_sell_window_f32": ("spmm_sell_window.cu", ", ".join(
+            f"spmv_vector_cache_tpu/ops/spmm_pallas.py:{line}"
+            for line in (34, 104))),
     }
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": csrc + meta[k][0],

@@ -6,27 +6,32 @@ module for module and imports ``torch``, never ``jax``:
 
 * :mod:`.formats` — host-side numpy containers, conversions, analyses
   and plan builders (byte-equal plans to the reference's);
-* :mod:`.ops` — the plan dispatch, the epilogues as torch ops, and the
-  wrappers of the hand-written CUDA kernels in ``csrc/`` (DIA, SELL
-  window, lane un-permute, subwindow, packed scan and extract, and the
-  global-column SELL kernel of the resident, deep and stream
-  strategies), each beside its plain PyTorch version;
+* :mod:`.ops` — the plan dispatch of SpMV and SpMM, the epilogues as
+  torch ops, the reference executors, and the wrappers of the
+  hand-written CUDA kernels in ``csrc/`` (DIA, SELL window, lane
+  un-permute, subwindow, packed scan and extract, the global-column SELL
+  kernel of the resident, deep and stream strategies, and the DIA and
+  SELL-window SpMM kernels), each beside its plain PyTorch version;
 * :mod:`.interop` — plans carried across from the JAX package;
 * :mod:`.tools` — the matrix generators of the evaluation suite;
 * :mod:`.utils` — stat registry and device policy.
 
 ``SparseOperator.from_matrix(a) @ x`` runs DIA, Hybrid, SELL (window,
 resident, deep and stream), Chunk, Packed, Cached and COO-tail plans on
-the card; ``from_matrix(a, device="cpu")`` runs the kernels' plain
-versions, as the tests do.
+the card, and ``op @ B`` (B of shape (cols, k)) runs the fused SpMM of
+DIA, Hybrid, SELL-window and COO-tail plans there, every other plan on
+the reference SpMM; ``from_matrix(a, device="cpu")`` runs the kernels'
+plain versions, as the tests do.
 """
 
 from . import formats, interop, ops, tools, utils  # noqa: F401
-from .formats.containers import COO, CSC, CSR  # noqa: F401
+from .formats.containers import BSR, COO, CSC, CSR, ELL  # noqa: F401
 from .formats.plan import auto_plan  # noqa: F401
 from .ops import semiring  # noqa: F401
 from .ops.operator import SparseOperator  # noqa: F401
-from .ops.reference import golden, spmv_numpy  # noqa: F401
+from .ops.reference import golden, spmm, spmv, spmv_numpy  # noqa: F401
+from .ops.spmm_dia import spmm_dia  # noqa: F401
+from .ops.spmm_sell import spmm_plan  # noqa: F401
 from .ops.spmv_sell import spmv_plan  # noqa: F401
 
 __version__ = "0.1.0"

@@ -56,6 +56,12 @@ SIGNATURES = {
     # cols, semiring, stream
     "spmv_sell_global_f32": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _L, _I,
                              _P],
+    # vals, b, offsets, y, rows, cols, k, ndiag, rows_per_step, stream
+    "spmm_dia_f32": [_P, _P, _P, _P, _L, _L, _I, _I, _I, _P],
+    # vals, cols_win, window_base, b, out, out_rows, positions, lanes,
+    # group_tiles, fold, window_grain, cols, k, stream
+    "spmm_sell_window_f32": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I,
+                             _L, _I, _P],
 }
 
 

@@ -6,6 +6,7 @@ on a torch device once, and then applies it: ``op @ x``.
 
 >>> op = SparseOperator.from_matrix(a)      # plans + places on the card
 >>> y = op @ x                             # kernel SpMV
+>>> Y = op @ B                             # kernel SpMM, B: (cols, k)
 >>> op_cpu = SparseOperator.from_matrix(a, device="cpu")   # plain versions
 """
 
@@ -22,7 +23,9 @@ from ..formats.chunk import ChunkPlan
 from ..formats.dia import HybridPlan
 from ..formats.plan import auto_plan, place
 from ..utils.stats import StatRegistry
+from . import reference
 from . import semiring as sr
+from .spmm_sell import NoFusedSpmm, has_fused_spmm, spmm_plan
 from .spmv_sell import spmv_plan
 from .strategy import (execution_counters, plan_bytes_per_apply, plan_nnz,
                        select_strategy)
@@ -47,10 +50,12 @@ class SparseOperator:
     """A planned sparse matrix on one device, ready for repeated
     application."""
 
-    def __init__(self, plan, strategy: str = "auto",
+    def __init__(self, plan, strategy: str = "auto", matrix=None,
                  semiring: str = "plus_times"):
         self.plan = plan
         self.device = _plan_device(plan)
+        self._matrix = matrix          # the host container, for SpMM
+        self._matrix_on_device = None  # placed on the first fallback SpMM
         self.semiring = sr.get(semiring).name
         self.strategy = (select_strategy(plan) if strategy == "auto"
                          else strategy)
@@ -94,7 +99,7 @@ class SparseOperator:
                          **plan_kwargs)
         t_plan = time.perf_counter() - t0
         op = cls(place(plan, torch.device(device)), strategy=strategy,
-                 semiring=semiring)
+                 matrix=a, semiring=semiring)
         op.stats["plan_seconds"] = t_plan
         return op
 
@@ -111,8 +116,31 @@ class SparseOperator:
                          semiring=self.semiring)
 
     def matmat(self, b: Array) -> torch.Tensor:
-        raise NotImplementedError("SpMM is not ported yet (ROADMAP.md "
-                                  "queue 1, item 9)")
+        """Multi-RHS ``Y = A @ B``, B of shape (cols, k), plus_times only.
+
+        A plan with a fused kernel (DIA, window SELL, Hybrid of those,
+        COO tail) runs :func:`.spmm_sell.spmm_plan`; any other runs
+        :func:`.reference.spmm` on the matrix the operator was built
+        from, placed on the operator's device on first use.  The choice
+        is made by plan type before anything runs, so a kernel's failure
+        is never caught.
+        """
+        if self.semiring != "plus_times":
+            # the reference's SpMM ignores the semiring and returns a
+            # plus-times product over the semiring's padding
+            raise NotImplementedError(f"SpMM runs plus_times only; this "
+                                      f"operator's semiring is "
+                                      f"{self.semiring}")
+        b = self._as_x(b).to(torch.float32).contiguous()
+        if has_fused_spmm(self.plan):
+            return spmm_plan(self.plan, b)
+        if self._matrix is None:
+            raise NoFusedSpmm(f"{type(self.plan).__name__} has no fused "
+                              f"SpMM kernel and the operator holds no "
+                              f"matrix to run reference.spmm on")
+        if self._matrix_on_device is None:
+            self._matrix_on_device = place(self._matrix, self.device)
+        return reference.spmm(self._matrix_on_device, b)
 
     def __matmul__(self, x: Array) -> torch.Tensor:
         x = self._as_x(x)

@@ -39,18 +39,22 @@ def _check(vals: torch.Tensor, offsets, x: torch.Tensor) -> None:
 def spmv_dia_plain(vals: torch.Tensor, offsets, x: torch.Tensor,
                    rows: int) -> torch.Tensor:
     """Plain PyTorch version of kernel A: the same sum, in the same
-    diagonal order, with out-of-range columns reading 0."""
+    diagonal order, with out-of-range columns reading 0.  An x with a
+    trailing RHS axis, B of shape (cols, k), gives Y (rows, k): kernel
+    I's plain version (``ops/spmm_dia.py``)."""
     T, D, S, L = vals.shape
+    tail = (1,) * (x.dim() - 1)            # broadcast over B's RHS axis
     v = vals.permute(1, 0, 2, 3).reshape(D, T * S * L)[:, :rows]
     r = torch.arange(rows, device=x.device)
     cols = x.shape[0]
-    acc = torch.zeros(rows, dtype=x.dtype, device=x.device)
+    acc = torch.zeros((rows,) + tuple(x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
     for k, off in enumerate(offsets):
         c = r + int(off)
         ok = (c >= 0) & (c < cols)
-        xv = torch.where(ok, x[c.clamp(0, max(cols - 1, 0))],
+        xv = torch.where(ok.view(-1, *tail), x[c.clamp(0, max(cols - 1, 0))],
                          torch.zeros((), dtype=x.dtype, device=x.device))
-        acc = acc + v[k] * xv
+        acc = acc + v[k].view(-1, *tail) * xv
     return acc
 
 

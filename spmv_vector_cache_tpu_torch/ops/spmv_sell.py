@@ -38,10 +38,12 @@ from .spmv_packed import spmv_packed
 def _fixup_rows(plan: SellPlan, y2d: torch.Tensor,
                 semiring: str) -> torch.Tensor:
     """(num_slices, R) slice sums -> y: identity slice, uniform-parts
-    lane fold, or the general row_map segment reduce."""
+    lane fold, or the general row_map segment reduce.  A trailing RHS
+    axis, (num_slices, R, k) -> Y (rows, k), rides along (SpMM)."""
     rows = plan.shape[0]
+    tail = tuple(y2d.shape[2:])
     if plan.identity_map:
-        return y2d.reshape(-1)[:rows]
+        return y2d.reshape((-1,) + tail)[:rows]
     s = sr.get(semiring)
     p = plan.stats.uniform_parts
     if p:
@@ -52,8 +54,9 @@ def _fixup_rows(plan: SellPlan, y2d: torch.Tensor,
         for j in range(1, p):
             acc = s.add(acc, y2d[:, j * rps:(j + 1) * rps])
         # or_and's logical add yields bool; restore the float encoding
-        return acc.to(y2d.dtype).reshape(-1)[:rows]
-    y = s.segment_reduce(y2d.reshape(-1), plan.row_map, num_segments=rows + 1)
+        return acc.to(y2d.dtype).reshape((-1,) + tail)[:rows]
+    y = s.segment_reduce(y2d.reshape((-1,) + tail), plan.row_map,
+                         num_segments=rows + 1)
     return y[:rows]
 
 
@@ -62,7 +65,9 @@ def _reduce_partials(plan: SellPlan, partials: torch.Tensor,
                      per_group: bool = False) -> torch.Tensor:
     """Kernel output -> y.  ``partials`` holds per-tile rows (T, R), or
     per-group rows (ngroups, R) when the kernel folded slices
-    (``per_group``); both reduce to y2d, then the sub-row fixup runs."""
+    (``per_group``); both reduce to y2d, then the sub-row fixup runs.
+    SpMM partials carry a trailing RHS axis, (T or ngroups, R, k), and
+    reduce to Y (rows, k) the same way."""
     s = sr.get(semiring)
     st = plan.stats
     if per_group and st.group_slice_identity:
@@ -82,17 +87,19 @@ def _reduce_partials(plan: SellPlan, partials: torch.Tensor,
 def sell_window_plain(vals, cols_win, window_base, x, *, group_tiles: int,
                       window_grain: int, fold: bool,
                       semiring: str) -> torch.Tensor:
-    """Plain PyTorch version of kernel B (same inputs, same output)."""
+    """Plain PyTorch version of kernel B (same inputs, same output).  An
+    x with a trailing RHS axis, B of shape (cols, k), gives partials with
+    that axis: kernel H's plain version (``ops/spmm_sell.py``)."""
     mul, axis_reduce = sr.kernel_ops(semiring)
     T, P, R = vals.shape
-    cols = x.shape[0]
+    cols, tail = x.shape[0], tuple(x.shape[1:])
     base = window_base.long().repeat_interleave(group_tiles) * window_grain
     c = (base[:, None, None] + cols_win.long()).clamp_(max=cols)
-    xz = torch.cat([x, x.new_zeros(1)])        # c >= cols reads 0
-    prod = mul(vals, xz[c])
+    xz = torch.cat([x, x.new_zeros((1,) + tail)])      # c >= cols reads 0
+    prod = mul(vals.reshape(vals.shape + (1,) * len(tail)), xz[c])
     if fold:
-        return axis_reduce(prod.reshape(T // group_tiles, group_tiles * P, R),
-                           1)
+        return axis_reduce(
+            prod.reshape((T // group_tiles, group_tiles * P, R) + tail), 1)
     return axis_reduce(prod, 1)
 
 

@@ -222,3 +222,112 @@ def test_cached_operator_on_the_card_matches_cpu(cuda, semiring):
         _close(y.cpu(), want)
     else:
         assert torch.equal(y.cpu(), want)
+
+
+# ---------------------------------------------------------------------------
+# SpMM: kernels H and I
+# ---------------------------------------------------------------------------
+
+RHS = [1, 5, 8, 16, 64]
+
+
+@pytest.mark.parametrize("k", RHS)
+@pytest.mark.parametrize("offs,rows,cols", [
+    ([-130, -1, 0, 3, 200], 900, 900),
+    ([-1025, 0, 1300], 3000, 3000),      # offsets past either end
+    ([0, 200], 300, 520),                # rectangular
+])
+def test_spmm_dia_kernel_matches_plain(cuda, offs, rows, cols, k):
+    from spmv_vector_cache_tpu_torch.ops import spmm_dia
+
+    rng = np.random.default_rng(9)
+    m = sp.spdiags(rng.standard_normal((len(offs), max(rows, cols))).astype(
+        np.float32), offs, rows, cols).tocsr()
+    plan = place(build_dia_plan(from_scipy(m), sublanes=8), cuda)
+    b = torch.from_numpy(rng.standard_normal((cols, k)).astype(
+        np.float32)).to(cuda)
+    before = spmm_dia.spmm_dia_kernel.launches
+    got = spmm_dia.spmm_dia_kernel(plan.vals, plan.offsets, b, rows)
+    assert spmm_dia.spmm_dia_kernel.launches == before + 1
+    _close(got, spmm_dia.spmm_dia_plain(plan.vals, plan.offsets, b, rows))
+    _close(got.cpu(), torch.from_numpy((m.astype(np.float64) @ b.cpu()
+                                        .double().numpy()).astype(
+                                            np.float32)))
+
+
+@pytest.mark.parametrize("k", RHS)
+@pytest.mark.parametrize("fold", [True, False])
+def test_spmm_window_kernel_matches_plain(cuda, fold, k):
+    from spmv_vector_cache_tpu_torch.ops import spmm_sell
+
+    rng = np.random.default_rng(10)
+    n = 2048
+    r = np.repeat(np.arange(n), 20)
+    c = (r // 128) * 128 + rng.integers(0, 128, r.shape[0])
+    m = sp.csr_matrix((rng.standard_normal(r.shape[0]).astype(np.float32),
+                       (r, c)), shape=(n, n + 300))
+    m.sort_indices()
+    kw = dict(split=16, uniform_split=True, window_group_tiles=2) if fold \
+        else {}
+    plan = place(build_sell_plan(from_scipy(m), window_grain=32, **kw), cuda)
+    st = plan.stats
+    # B 200 rows short of the plan's columns: the slots of the last rows,
+    # nonzeros and padding alike, name columns past B and read 0 in both
+    # versions
+    b = torch.from_numpy(rng.standard_normal((n - 200, k)).astype(
+        np.float32)).to(cuda)
+    base = plan.window_base.long().repeat_interleave(st.group_tiles)
+    slot_cols = base[:, None, None] * st.window_grain + plan.cols_win.long()
+    past = slot_cols >= b.shape[0]
+    assert bool((past & (plan.vals == 0)).any())      # padding slots
+    assert bool((past & (plan.vals != 0)).any())      # nonzeros
+    args = (plan.vals, plan.cols_win, plan.window_base, b)
+    kwargs = dict(group_tiles=st.group_tiles, window_grain=st.window_grain,
+                  fold=fold)
+    before = spmm_sell.spmm_window_kernel.launches
+    got = spmm_sell.spmm_window_kernel(*args, **kwargs)
+    assert spmm_sell.spmm_window_kernel.launches == before + 1
+    _close(got, spmm_sell.spmm_window_plain(*args, **kwargs))
+
+
+@pytest.mark.parametrize("kind", ["dia", "window", "hybrid", "packed"])
+def test_spmm_operator_on_the_card_matches_cpu(cuda, kind):
+    from spmv_vector_cache_tpu_torch.ops import spmm_dia, spmm_sell
+    from spmv_vector_cache_tpu_torch.ops.operator import SparseOperator
+
+    rng = np.random.default_rng(11)
+    n = 32768 if kind == "hybrid" else 4096
+    if kind == "packed":
+        flat = rng.choice(20000 * 9000, 180000, replace=False)
+        m = sp.csr_matrix((rng.standard_normal(flat.shape[0]).astype(
+            np.float32), (flat // 9000, flat % 9000)), shape=(20000, 9000))
+    elif kind == "window":
+        r = np.repeat(np.arange(n), 27)
+        c = (r // 128) * 128 + rng.integers(0, 128, r.shape[0])
+        m = sp.csr_matrix((rng.standard_normal(r.shape[0]).astype(
+            np.float32), (r, c)), shape=(n, n))
+    else:
+        m = sp.spdiags(rng.standard_normal((27, n)).astype(np.float32),
+                       list(range(-13, 14)), n, n).tocsr()
+        if kind == "hybrid":
+            rr = np.repeat(np.arange(n), 2)
+            cc = np.clip(rr + rng.integers(-512, 513, rr.shape[0]), 0,
+                         n - 1)
+            m = (m + sp.csr_matrix((rng.standard_normal(rr.shape[0]).astype(
+                np.float32), (rr, cc)), shape=(n, n))).tocsr()
+    m = m.astype(np.float32)
+    m.sort_indices()
+    a = from_scipy(m)
+    op = SparseOperator.from_matrix(a)                      # the card
+    cpu = SparseOperator.from_matrix(a, device="cpu")
+    b = rng.standard_normal((m.shape[1], 16)).astype(np.float32)
+    counts = (spmm_dia.spmm_dia_kernel.launches,
+              spmm_sell.spmm_window_kernel.launches)
+    y = op @ b
+    torch.cuda.synchronize()
+    launched = (spmm_dia.spmm_dia_kernel.launches - counts[0],
+                spmm_sell.spmm_window_kernel.launches - counts[1])
+    assert launched == {"dia": (1, 0), "window": (0, 1), "hybrid": (1, 1),
+                        "packed": (0, 0)}[kind], (type(op.plan), launched)
+    assert y.device.type == "cuda" and y.shape == (m.shape[0], 16)
+    _close(y.cpu(), cpu @ b)

@@ -80,6 +80,7 @@ def test_operator_unported_paths_raise():
     _, pa = both(banded(512, [-1, 0, 1], seed=7))
     with pytest.raises(NotImplementedError, match="tune"):
         SparseOperator.from_matrix(pa, tune=True, device="cpu")
-    op = SparseOperator.from_matrix(pa, device="cpu")
+    # SpMM runs now (tests/test_torch_spmm.py), under plus_times only
+    op = SparseOperator.from_matrix(pa, semiring="min_plus", device="cpu")
     with pytest.raises(NotImplementedError, match="SpMM"):
         op @ np.ones((512, 4), np.float32)

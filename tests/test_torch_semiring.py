@@ -1,5 +1,5 @@
-"""Port parity: the semirings' segment reduce and the torch CSR executor
-against the JAX package's.
+"""Port parity: the semirings' segment reduce and the torch executor
+``reference.spmv`` on a CSR matrix against the JAX package's.
 
 Empty segments must get what ``jax.ops.segment_*`` gives them: 0 for the
 sum, -inf for max, +inf for min, and 0 (False) for or_and.  Values are
@@ -48,5 +48,6 @@ def test_spmv_csr_matches_jax(semiring):
     if semiring == "or_and":
         x = (x > 0.7).astype(np.float32)
     want = np.asarray(jref.spmv(ja, x, semiring=semiring)).astype(np.float32)
-    got = pref.spmv_csr(pa, torch.from_numpy(x), semiring).numpy()
+    got = pref.spmv(pa, torch.from_numpy(x), semiring).to(
+        torch.float32).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
