@@ -6,7 +6,9 @@
 Builds the CUDA kernels of ``spmv_vector_cache_tpu_torch/csrc/`` and
 runs ``SparseOperator.from_matrix(a) @ x`` (the plan placed on the card
 by default) on seven matrices, one per plan type of the main path, then
-the multi-RHS product ``op @ B`` (SpMM) on four of them:
+the multi-RHS product ``op @ B`` (SpMM) on four of them, then the
+double-precision SpMV ``from_matrix(a, value_dtype=np.float64) @ x`` on
+four:
 
 1. DIA — bench.py's headline matrix: 2^20 rows, 27 diagonals (-13..13),
    standard-normal values, seed 0 (~28.3M nonzeros);
@@ -38,19 +40,27 @@ the multi-RHS product ``op @ B`` (SpMM) on four of them:
    PackedPlan, which has no fused kernel: the reference SpMM runs on the
    card and neither H nor I launches).  Then fused SpMM against k
    looped SpMVs and against ``torch.sparse.mm`` at k = 8, 32 and 64 on
-   the DIA and shuffled-band matrices.
+   the DIA and shuffled-band matrices;
+9. float64, the same seeded draws kept in float64 and a float64 x:
+   ``dia_f64`` (the DIA headline: a double DiaPlan, kernel J),
+   ``sell_f64`` (the shuffled band: a double window SellPlan, kernel K),
+   ``hybrid_f64`` (the Hybrid: kernels J and K) and ``deep_f64`` (the
+   uniform matrix under plus_times: a windowless double SellPlan on the
+   'deep' strategy, kernel L); then the pair API (``spmv_dia_df``,
+   ``spmv_sell_double_pair``) on the first two.
 
 Each phase checks y against a float64 host reference (scipy, or a
 min-plus reduce over the CSR rows; relative error below 1e-4, bench.py's
-gate), checks the plan the planner picked, and checks that its run of
-the main path launched the phase's kernels (their launch counters, set
-to 0 just before the phase's apply and read just after; the SpMM phases
-must launch exactly their kernels, once each, and no other).  Each kernel is
-then compared with its plain PyTorch version on the same inputs on the
-card, and both are timed with CUDA events beside the kernel's bound: the
-bytes it must move at 3.35 TB/s or its float32 operations at 67 TFLOP/s,
-whichever takes longer.  Every check raises; nothing is caught.  Needs
-one CUDA device; exits non-zero without one.
+gate, and below 1e-11 in the float64 phases), checks the plan the
+planner picked, and checks that its run of the main path launched the
+phase's kernels (their launch counters, set to 0 just before the phase's
+apply and read just after; the SpMM and float64 phases must launch
+exactly their kernels, once each, and no other).  Each kernel is then
+compared with its plain PyTorch version on the same inputs on the card,
+and both are timed with CUDA events beside the kernel's bound: the bytes
+it must move at 3.35 TB/s or its operations at 67 TFLOP/s (float32) or
+34 TFLOP/s (float64), whichever takes longer.  Every check raises;
+nothing is caught.  Needs one CUDA device; exits non-zero without one.
 
 Standard output, last three lines: the card's name and power limit as
 nvidia-smi reports them, one JSON line with the kernels' measurements,
@@ -70,12 +80,21 @@ import torch
 #: products, in a different order (fma, summation tree), so they agree
 #: to a few float32 ulps of the largest partial sum
 KERNEL_RTOL = 1e-5
+#: the float64 kernels against their plain versions: float64 sums of the
+#: same products in another order
+KERNEL_RTOL_F64 = 1e-13
 #: y vs float64 scipy, bench.py's correctness gate
 Y_RTOL = 1e-4
+#: the float64 phases' y vs float64 scipy: the reference's df64 gate
+Y_RTOL_F64 = 1e-11
+#: the pair API's (yh, yl) joined vs the float64 apply's y: the low word
+#: rounds to float32, which leaves 2^-48 of |y| (4e-15 bounds it)
+PAIR_RTOL = 4e-15
 #: the H100 SXM's published peaks (NVIDIA data sheet): device memory
-#: bytes/s and float32 operations/s outside the tensor cores
+#: bytes/s, and float32 and float64 operations/s outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
+PEAK_F64_PER_S = 34e12
 
 
 def log(msg):
@@ -160,7 +179,8 @@ def zipf_cols_matrix(rng, n=1 << 18, per_row=64, s=2.5):
         np.float32), row=rz.astype(np.int32), col=cz, shape=(n, n)))
 
 
-def uniform_matrix(rng, n=1 << 18, per_row=16, cols=None):
+def uniform_matrix(rng, n=1 << 18, per_row=16, cols=None,
+                   dtype=np.float32):
     """The reference report's uniform-random recipe, |N(0, 1)| values,
     over ``cols`` columns (default n)."""
     from spmv_vector_cache_tpu_torch.formats.containers import COO
@@ -170,7 +190,7 @@ def uniform_matrix(rng, n=1 << 18, per_row=16, cols=None):
     cols = cols or n
     cu = rng.integers(0, cols, ru.shape[0]).astype(np.int32)
     return coo_to_csr(COO(data=np.abs(rng.standard_normal(
-        ru.shape[0])).astype(np.float32), row=ru.astype(np.int32), col=cu,
+        ru.shape[0])).astype(dtype), row=ru.astype(np.int32), col=cu,
         shape=(n, cols)))
 
 
@@ -195,7 +215,7 @@ def main():
     from spmv_vector_cache_tpu_torch.formats.dia import DiaPlan, HybridPlan
     from spmv_vector_cache_tpu_torch.formats.packed import PackedPlan
     from spmv_vector_cache_tpu_torch.formats.plan import SellPlan
-    from spmv_vector_cache_tpu_torch.ops import _kernels
+    from spmv_vector_cache_tpu_torch.ops import _kernels, df64
     from spmv_vector_cache_tpu_torch.ops.lane_perm import (
         lane_unpermute, lane_unpermute_plain)
     from spmv_vector_cache_tpu_torch.ops.operator import SparseOperator
@@ -205,14 +225,17 @@ def main():
         spmm_window_kernel, spmm_window_plain)
     from spmv_vector_cache_tpu_torch.ops.spmv_chunk import (subwin_kernel,
                                                             subwin_plain)
-    from spmv_vector_cache_tpu_torch.ops.spmv_dia import (spmv_dia_kernel,
-                                                          spmv_dia_plain)
+    from spmv_vector_cache_tpu_torch.ops.spmv_dia import (
+        spmv_dia_df, spmv_dia_f64_kernel, spmv_dia_f64_plain,
+        spmv_dia_kernel, spmv_dia_plain)
     from spmv_vector_cache_tpu_torch.ops.spmv_packed import (
         packed_extract_kernel, packed_extract_plain, packed_scan_kernel,
         packed_scan_plain)
     from spmv_vector_cache_tpu_torch.ops.spmv_sell import (
-        folds_groups, sell_global_kernel, sell_global_plain,
-        sell_window_kernel, sell_window_plain)
+        folds_groups, sell_global_f64_kernel, sell_global_f64_plain,
+        sell_global_kernel, sell_global_plain, sell_window_f64_kernel,
+        sell_window_f64_plain, sell_window_kernel, sell_window_plain,
+        spmv_sell_double_pair)
     from spmv_vector_cache_tpu_torch.ops.strategy import (plan_nnz,
                                                           select_strategy)
     from spmv_vector_cache_tpu_torch.tools import realistic
@@ -238,33 +261,47 @@ def main():
 
     # --- the three matrices (bench.py's draws, in bench.py's order) --------
     n, ndiag = 1 << 20, 27
+    # (each draw kept in float64 for the float64 phases, which use the
+    # same values unrounded)
     rng = np.random.default_rng(0)
     offs = list(range(-(ndiag // 2), ndiag // 2 + 1))
-    band = sp.spdiags(rng.standard_normal((ndiag, n)).astype(np.float32),
-                      offs, n, n).tocsr()
+    band_vals = rng.standard_normal((ndiag, n))
+    band = sp.spdiags(band_vals.astype(np.float32), offs, n, n).tocsr()
     band.sort_indices()
-    x_dia = rng.standard_normal(n).astype(np.float32)
+    band64 = sp.spdiags(band_vals, offs, n, n).tocsr()
+    band64.sort_indices()
+    del band_vals
+    x_dia64 = rng.standard_normal(n)
+    x_dia = x_dia64.astype(np.float32)
 
     ns, blk = n >> 1, 128
     rsh = np.repeat(np.arange(ns, dtype=np.int64), ndiag)
     csh = ((rsh // blk) * blk
            + rng.integers(0, blk, rsh.shape[0])).astype(np.int32)
+    sell_vals = rng.standard_normal(rsh.shape[0])
     a_sell = coo_to_csr(COO(
-        data=rng.standard_normal(rsh.shape[0]).astype(np.float32),
+        data=sell_vals.astype(np.float32),
         row=rsh.astype(np.int32), col=csh, shape=(ns, ns)))
-    x_sell = rng.standard_normal(ns).astype(np.float32)
+    a_sell64 = coo_to_csr(COO(data=sell_vals, row=rsh.astype(np.int32),
+                              col=csh, shape=(ns, ns)))
+    x_sell64 = rng.standard_normal(ns)
+    x_sell = x_sell64.astype(np.float32)
     m_sell = sp.csr_matrix((a_sell.data, a_sell.indices, a_sell.indptr),
                            shape=(ns, ns))
 
     rng_h = np.random.default_rng(0)
     rr = np.repeat(np.arange(n, dtype=np.int64), 2)
     cc = np.clip(rr + rng_h.integers(-512, 513, rr.shape[0]), 0, n - 1)
-    resid = sp.csr_matrix(
-        (rng_h.standard_normal(rr.shape[0]).astype(np.float32), (rr, cc)),
-        shape=(n, n))
+    resid_vals = rng_h.standard_normal(rr.shape[0])
+    resid = sp.csr_matrix((resid_vals.astype(np.float32), (rr, cc)),
+                          shape=(n, n))
     m_hyb = (band + resid).tocsr().astype(np.float32)
     m_hyb.sort_indices()
-    x_hyb = rng_h.standard_normal(n).astype(np.float32)
+    m_hyb64 = (band64 + sp.csr_matrix((resid_vals, (rr, cc)),
+                                      shape=(n, n))).tocsr()
+    m_hyb64.sort_indices()
+    x_hyb64 = rng_h.standard_normal(n)
+    x_hyb = x_hyb64.astype(np.float32)
 
     a_chunk = realistic.scircuit_like()
     a_packed = realistic.mac_econ_like()
@@ -279,6 +316,9 @@ def main():
     a_deep = uniform_matrix(rng_u)
     x_deep = np.abs(rng_u.standard_normal(a_deep.shape[1])).astype(
         np.float32)
+    rng_u = np.random.default_rng(3)
+    a_deep64 = uniform_matrix(rng_u, dtype=np.float64)
+    x_deep64 = np.abs(rng_u.standard_normal(a_deep64.shape[1]))
     rng_w = np.random.default_rng(3)
     a_wide = uniform_matrix(rng_w, cols=1 << 19)
     x_wide = np.abs(rng_w.standard_normal(a_wide.shape[1])).astype(
@@ -298,8 +338,14 @@ def main():
             ("packed", a_packed, x_packed, "plus_times"),
             ("cached", a_cached, x_cached, "plus_times"),
             ("deep", a_deep, x_deep, "min_plus"),
-            ("wide", a_wide, x_wide, "min_plus")):
-        op = SparseOperator.from_matrix(a, semiring=semiring)
+            ("wide", a_wide, x_wide, "min_plus"),
+            ("dia_f64", from_scipy(band64), x_dia64, "plus_times"),
+            ("sell_f64", a_sell64, x_sell64, "plus_times"),
+            ("hybrid_f64", from_scipy(m_hyb64), x_hyb64, "plus_times"),
+            ("deep_f64", a_deep64, x_deep64, "plus_times")):
+        op = SparseOperator.from_matrix(
+            a, semiring=semiring,
+            value_dtype=np.float64 if name.endswith("_f64") else np.float32)
         assert op.device.type == "cuda", op.device
         ops[name] = (op, torch.from_numpy(x).to(dev))
         stats_of = {HybridPlan: lambda p: p.dia,
@@ -384,6 +430,34 @@ def main():
         "stream" and p_wide.stats.window_blocks == 0
     log(f"[wide] {p_wide.stats.num_tiles} tiles, fill "
         f"{p_wide.stats.fill:.4f}, {p_wide.shape[1] // 128} x blocks")
+    p_dia64 = ops["dia_f64"][0].plan
+    assert isinstance(p_dia64, DiaPlan) and p_dia64.double
+    assert ops["dia_f64"][0].strategy == "dia"
+    assert tuple(p_dia64.vals.shape) == (128, 54, 64, 128), p_dia64.vals.shape
+    p_sell64 = ops["sell_f64"][0].plan
+    st = p_sell64.stats
+    assert isinstance(p_sell64, SellPlan) and st.double
+    assert ops["sell_f64"][0].strategy == "window"
+    assert tuple(p_sell64.vals.shape) == (16384, 16, 128), p_sell64.vals.shape
+    assert (st.window_blocks, st.group_tiles, st.uniform_parts) == \
+        (1, 2, 2), st
+    assert folds_groups(p_sell64) and st.group_slice_identity, st
+    p_hyb64 = ops["hybrid_f64"][0].plan
+    assert isinstance(p_hyb64, HybridPlan) and p_hyb64.dia.double
+    assert ops["hybrid_f64"][0].strategy == "dia"
+    assert isinstance(p_hyb64.rest, SellPlan) and p_hyb64.rest.stats.double
+    assert p_hyb64.rest.stats.window_blocks > 0, p_hyb64.rest.stats
+    log(f"[hybrid_f64] dia vals {tuple(p_hyb64.dia.vals.shape)}, rest vals "
+        f"{tuple(p_hyb64.rest.vals.shape)} K="
+        f"{p_hyb64.rest.stats.window_blocks} fold="
+        f"{folds_groups(p_hyb64.rest)} identity map "
+        f"{p_hyb64.rest.identity_map}")
+    p_deep64 = ops["deep_f64"][0].plan
+    assert isinstance(p_deep64, SellPlan) and p_deep64.stats.double
+    assert p_deep64.stats.window_blocks == 0
+    assert ops["deep_f64"][0].strategy == "deep"
+    log(f"[deep_f64] vals {tuple(p_deep64.vals.shape)}, fill "
+        f"{p_deep64.stats.fill:.4f}")
 
     # --- the main path, once per phase, counting the launches ---------------
     kernels = {"spmv_dia_f32": spmv_dia_kernel,
@@ -394,7 +468,10 @@ def main():
                "packed_extract_f32": packed_extract_kernel,
                "spmv_sell_global_f32": sell_global_kernel,
                "spmm_dia_f32": spmm_dia_kernel,
-               "spmm_sell_window_f32": spmm_window_kernel}
+               "spmm_sell_window_f32": spmm_window_kernel,
+               "spmv_dia_f64": spmv_dia_f64_kernel,
+               "spmv_sell_window_f64": sell_window_f64_kernel,
+               "spmv_sell_global_f64": sell_global_f64_kernel}
     path_kernels = {"dia": ["spmv_dia_f32"],
                     "sell": ["spmv_sell_window_f32"],
                     "hybrid": ["spmv_dia_f32", "spmv_sell_window_f32"],
@@ -409,14 +486,24 @@ def main():
                     "spmm_dia": ["spmm_dia_f32"],
                     "spmm_sell": ["spmm_sell_window_f32"],
                     "spmm_hybrid": ["spmm_dia_f32", "spmm_sell_window_f32"],
-                    "spmm_packed": []}
-    # an SpMM phase launches exactly these, and no other kernel: the
-    # PackedPlan has no fused kernel and runs the reference SpMM
+                    "spmm_packed": [],
+                    "dia_f64": ["spmv_dia_f64"],
+                    "sell_f64": ["spmv_sell_window_f64"],
+                    "hybrid_f64": ["spmv_dia_f64", "spmv_sell_window_f64"],
+                    "deep_f64": ["spmv_sell_global_f64"]}
+    # an SpMM or float64 phase launches exactly these, and no other
+    # kernel: the PackedPlan has no fused kernel and runs the reference
+    # SpMM
     exact_launches = {"spmm_dia": {"spmm_dia_f32": 1},
                       "spmm_sell": {"spmm_sell_window_f32": 1},
                       "spmm_hybrid": {"spmm_dia_f32": 1,
                                       "spmm_sell_window_f32": 1},
-                      "spmm_packed": {}}
+                      "spmm_packed": {},
+                      "dia_f64": {"spmv_dia_f64": 1},
+                      "sell_f64": {"spmv_sell_window_f64": 1},
+                      "hybrid_f64": {"spmv_dia_f64": 1,
+                                     "spmv_sell_window_f64": 1},
+                      "deep_f64": {"spmv_sell_global_f64": 1}}
     launches = dict.fromkeys(kernels, 0)
     ys = {}
     for name, (op, x) in ops.items():
@@ -457,6 +544,32 @@ def main():
     # one kernel, one plan: the stream route's y is the deep route's
     assert torch.equal(ys["stream"], ys["deep"])
     log("[stream] y equals the deep route's y exactly")
+    ref_f64 = {"dia_f64": (band64, x_dia64), "sell_f64": (scipy_of(a_sell64),
+                                                          x_sell64),
+               "hybrid_f64": (m_hyb64, x_hyb64),
+               "deep_f64": (scipy_of(a_deep64), x_deep64)}
+    for name, (m, x) in ref_f64.items():
+        y, want = ys[name], m @ x
+        assert y.dtype == torch.float64 and y.shape == want.shape
+        assert bool(torch.isfinite(y).all())
+        err = rel_err(y, want)
+        want64[name] = want
+        log(f"[{name}] y vs float64 scipy: rel err {err:.3g} (limit "
+            f"{Y_RTOL_F64:g})")
+        assert err < Y_RTOL_F64, (name, err)
+    # the pair API: (xh, xl) float32 in, (yh, yl) out, joined against the
+    # float64 apply's y (not counted: the main path ran above)
+    for name, pair_fn in (("sell_f64", lambda xh, xl: spmv_sell_double_pair(
+                              p_sell64, xh, xl)),
+                          ("dia_f64", lambda xh, xl: spmv_dia_df(
+                              p_dia64, xh, xl))):
+        yh, yl = pair_fn(*df64.split(ops[name][1]))
+        assert yh.dtype == yl.dtype == torch.float32
+        err = max_abs(df64.join(yh, yl), ys[name]) / max(
+            1.0, float(ys[name].abs().max().item()))
+        log(f"[{name}] pair API joined vs the float64 apply: rel err "
+            f"{err:.3g} (limit {PAIR_RTOL:g})")
+        assert err < PAIR_RTOL, (name, err)
 
     # --- each kernel against its plain version, at the main path's shapes ---
     def window_args(plan):
@@ -466,8 +579,9 @@ def main():
                     semiring="plus_times")
 
     # each pair: (kernel call, plain call, bytes the kernel must move,
-    # float32 operations it does); a gather kernel must read only the
-    # distinct x entries its columns name, not all of x
+    # operations it does, in float32, or float64 for the _f64 kernels); a
+    # gather kernel must read only the distinct x entries its columns
+    # name, not all of x
     def dia_pair(plan, x):
         args = (plan.vals, plan.offsets, x, plan.shape[0])
         return (lambda: spmv_dia_kernel(*args),
@@ -532,6 +646,39 @@ def main():
                 nbytes(*args[:3]) + x_bytes_read(b, cols)
                 + rows_out * plan.lane_rows * b.shape[1] * 4,
                 2 * plan.vals.numel() * b.shape[1])
+
+    # the float64 kernels read a (.., 2C, ..) hi/lo slab: two words per
+    # stored slot, 2 FP64 operations per slot
+    def dia_f64_pair(plan, x):
+        args = (plan.vals, plan.offsets, x, plan.shape[0])
+        return (lambda: spmv_dia_f64_kernel(*args),
+                lambda: spmv_dia_f64_plain(*args),
+                nbytes(plan.vals, x) + 4 * len(plan.offsets)
+                + plan.shape[0] * 8,
+                plan.vals.numel())
+
+    def sell_f64_pair(plan, x):
+        st = plan.stats
+        args = (plan.vals, plan.cols_win, plan.window_base, x)
+        kw = dict(group_tiles=st.group_tiles, window_grain=st.window_grain,
+                  fold=folds_groups(plan))
+        rows_out = plan.num_tiles // (st.group_tiles if kw["fold"] else 1)
+        base = plan.window_base.long().repeat_interleave(
+            st.group_tiles) * st.window_grain
+        cols = base[:, None, None] + plan.cols_win.long()
+        return (lambda: sell_window_f64_kernel(*args, **kw),
+                lambda: sell_window_f64_plain(*args, **kw),
+                nbytes(*args[:3]) + x_bytes_read(x, cols)
+                + rows_out * plan.lane_rows * 8,
+                plan.vals.numel())
+
+    def global_f64_pair(plan, x):
+        args = (plan.vals, plan.cols, x)
+        return (lambda: sell_global_f64_kernel(*args),
+                lambda: sell_global_f64_plain(*args),
+                nbytes(*args[:2]) + x_bytes_read(x, plan.cols)
+                + plan.num_tiles * plan.lane_rows * 8,
+                plan.vals.numel())
 
     # kernel C at the chunk phase's shape: (light blocks, 128) sums
     y2d = torch.from_numpy(np.random.default_rng(1).standard_normal(
@@ -604,12 +751,24 @@ def main():
               ("spmm_dia_f32", "spmm_hybrid", f" k={K_RHS}",
                spmm_dia_pair(p_hyb.dia, ops["spmm_hybrid"][1]), False),
               ("spmm_sell_window_f32", "spmm_hybrid", f" k={K_RHS}",
-               spmm_window_pair(p_hyb.rest, ops["spmm_hybrid"][1]), False)]
+               spmm_window_pair(p_hyb.rest, ops["spmm_hybrid"][1]), False),
+              ("spmv_dia_f64", "dia_f64", "",
+               dia_f64_pair(p_dia64, ops["dia_f64"][1]), False),
+              ("spmv_sell_window_f64", "sell_f64", "",
+               sell_f64_pair(p_sell64, ops["sell_f64"][1]), False),
+              ("spmv_dia_f64", "hybrid_f64", "",
+               dia_f64_pair(p_hyb64.dia, ops["hybrid_f64"][1]), False),
+              ("spmv_sell_window_f64", "hybrid_f64", "",
+               sell_f64_pair(p_hyb64.rest, ops["hybrid_f64"][1]), False),
+              ("spmv_sell_global_f64", "deep_f64", "",
+               global_f64_pair(p_deep64, ops["deep_f64"][1]), False)]
     headline = {"spmv_dia_f32": "dia", "spmv_sell_window_f32": "sell",
                 "lane_unpermute_f32": "chunk", "spmv_subwin_f32": "chunk",
                 "packed_scan_f32": "packed", "packed_extract_f32": "packed",
                 "spmv_sell_global_f32": "deep", "spmm_dia_f32": "spmm_dia",
-                "spmm_sell_window_f32": "spmm_sell"}
+                "spmm_sell_window_f32": "spmm_sell",
+                "spmv_dia_f64": "dia_f64", "spmv_sell_window_f64": "sell_f64",
+                "spmv_sell_global_f64": "deep_f64"}
     rows = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
                     bound_by="bytes", library_ms=None) for k in kernels}
     bound_terms = {k: [0.0, 0.0] for k in kernels}
@@ -623,14 +782,17 @@ def main():
             err, tol = 0.0, 0.0
         else:
             err = max_abs(got, ref)
-            tol = KERNEL_RTOL * max(1.0, float(ref.abs().max().item()))
+            rtol = KERNEL_RTOL_F64 if got.dtype == torch.float64 \
+                else KERNEL_RTOL
+            tol = rtol * max(1.0, float(ref.abs().max().item()))
             assert err <= tol, (kname, phase, err)
         log(f"[{phase}] {kname}{what} vs plain: max abs err {err:.3g} "
             f"(limit {tol:.3g}{', exact' if exact else ''}), shape "
             f"{tuple(got.shape)}")
         rows[kname]["max_abs_err"] = max(rows[kname]["max_abs_err"], err)
         bytes_ms = nbyte / PEAK_BYTES_PER_S * 1e3
-        ops_ms = nops / PEAK_F32_PER_S * 1e3
+        ops_ms = nops / (PEAK_F64_PER_S if kname.endswith("_f64")
+                         else PEAK_F32_PER_S) * 1e3
         # plain, kernel, kernel, plain: compare within one call, in turns
         p1, k1, k2, p2 = (time_ms(plain), time_ms(kern), time_ms(kern),
                           time_ms(plain))
@@ -659,11 +821,11 @@ def main():
 
     # kernels H and I: torch.sparse.mm of the same matrix, as a CSR tensor
     # on the card, with the same B (a yardstick, never on the path)
-    def csr_on_card(m):
+    def csr_on_card(m, dtype=np.float32):
         return torch.sparse_csr_tensor(
             torch.from_numpy(m.indptr.astype(np.int64)).to(dev),
             torch.from_numpy(m.indices.astype(np.int64)).to(dev),
-            torch.from_numpy(m.data.astype(np.float32)).to(dev),
+            torch.from_numpy(m.data.astype(dtype)).to(dev),
             size=m.shape)
 
     csr_t = {"dia": csr_on_card(band), "sell": csr_on_card(m_sell)}
@@ -677,6 +839,28 @@ def main():
         rows[kname]["library_ms"] = lib_ms
         log(f"[{phase}] torch.sparse.mm (CSR, k={K_RHS}): {lib_ms:.4f} ms, "
             f"rel err {err:.3g} vs float64, on {card}")
+    # kernels A and B, and J, K and L: torch.sparse.mm of the same
+    # matrix as a CSR tensor (float32, or float64), x as (cols, 1)
+    for kname, phase, m, dtype, tol in (
+            ("spmv_dia_f32", "dia", band, np.float32, Y_RTOL),
+            ("spmv_sell_window_f32", "sell", m_sell, np.float32, Y_RTOL),
+            ("spmv_dia_f64", "dia_f64", band64, np.float64, Y_RTOL_F64),
+            ("spmv_sell_window_f64", "sell_f64", ref_f64["sell_f64"][0],
+             np.float64, Y_RTOL_F64),
+            ("spmv_sell_global_f64", "deep_f64", ref_f64["deep_f64"][0],
+             np.float64, Y_RTOL_F64)):
+        a_t = csr_t[phase] if phase in csr_t else csr_on_card(m, dtype)
+        x_col = ops[phase][1].reshape(-1, 1)
+        err = rel_err(torch.sparse.mm(a_t, x_col).reshape(-1),
+                      want64[phase])
+        assert err < tol, (phase, err)
+        lib_ms = min(time_ms(lambda: torch.sparse.mm(a_t, x_col))
+                     for _ in "ab")
+        rows[kname]["library_ms"] = lib_ms
+        log(f"[{phase}] torch.sparse.mm (CSR {np.dtype(dtype).name}, x as "
+            f"(cols, 1)): {lib_ms:.4f} ms, rel err {err:.3g} vs float64, "
+            f"on {card}")
+        del a_t
 
     # --- the apply, end to end ----------------------------------------------
     for name, (op, x) in ops.items():
@@ -699,7 +883,10 @@ def main():
             log(f"[{name}]   {us:9.2f} us  x{n:g}  {k[:90]}")
     for kname, plan in (("spmv_dia_f32", p_dia),
                         ("spmv_sell_window_f32", p_sell),
-                        ("spmv_sell_global_f32", p_deep)):
+                        ("spmv_sell_global_f32", p_deep),
+                        ("spmv_dia_f64", p_dia64),
+                        ("spmv_sell_window_f64", p_sell64),
+                        ("spmv_sell_global_f64", p_deep64)):
         r = rows[kname]
         nnz = plan_nnz(plan)
         log(f"{kname}: kernel {nnz / r['ms'] / 1e6:.2f} Gnnz/s, plain "
@@ -756,6 +943,15 @@ def main():
         "spmm_sell_window_f32": ("spmm_sell_window.cu", ", ".join(
             f"spmv_vector_cache_tpu/ops/spmm_pallas.py:{line}"
             for line in (34, 104))),
+        "spmv_dia_f64": ("spmv_dia.cu", "spmv_vector_cache_tpu/ops/"
+                         "spmv_dia.py:135, spmv_vector_cache_tpu/ops/"
+                         "spmv_dia.py:159"),
+        "spmv_sell_window_f64": ("spmv_sell_window.cu",
+                                 "spmv_vector_cache_tpu/ops/"
+                                 "spmv_pallas.py:675"),
+        "spmv_sell_global_f64": ("spmv_sell_global.cu",
+                                 "spmv_vector_cache_tpu/ops/"
+                                 "spmv_pallas.py:708"),
     }
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": csrc + meta[k][0],

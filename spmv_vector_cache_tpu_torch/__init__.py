@@ -10,8 +10,10 @@ module for module and imports ``torch``, never ``jax``:
   torch ops, the reference executors, and the wrappers of the
   hand-written CUDA kernels in ``csrc/`` (DIA, SELL window, lane
   un-permute, subwindow, packed scan and extract, the global-column SELL
-  kernel of the resident, deep and stream strategies, and the DIA and
-  SELL-window SpMM kernels), each beside its plain PyTorch version;
+  kernel of the resident, deep and stream strategies, the DIA and
+  SELL-window SpMM kernels, and the float64 builds of the DIA, SELL
+  window and global-column kernels), each beside its plain PyTorch
+  version;
 * :mod:`.interop` — plans carried across from the JAX package;
 * :mod:`.tools` — the matrix generators of the evaluation suite;
 * :mod:`.utils` — stat registry and device policy.
@@ -20,8 +22,10 @@ module for module and imports ``torch``, never ``jax``:
 resident, deep and stream), Chunk, Packed, Cached and COO-tail plans on
 the card, and ``op @ B`` (B of shape (cols, k)) runs the fused SpMM of
 DIA, Hybrid, SELL-window and COO-tail plans there, every other plan on
-the reference SpMM; ``from_matrix(a, device="cpu")`` runs the kernels'
-plain versions, as the tests do.
+the reference SpMM; ``from_matrix(a, value_dtype=np.float64) @ x``
+runs the double DIA, Hybrid and SELL plans in FP64 and returns a float64
+y; ``from_matrix(a, device="cpu")`` runs the kernels' plain versions, as
+the tests do.
 """
 
 from . import formats, interop, ops, tools, utils  # noqa: F401
@@ -32,6 +36,8 @@ from .ops.operator import SparseOperator  # noqa: F401
 from .ops.reference import golden, spmm, spmv, spmv_numpy  # noqa: F401
 from .ops.spmm_dia import spmm_dia  # noqa: F401
 from .ops.spmm_sell import spmm_plan  # noqa: F401
-from .ops.spmv_sell import spmv_plan  # noqa: F401
+from .ops.spmv_dia import spmv_dia_df, spmv_dia_double  # noqa: F401
+from .ops.spmv_sell import (spmv_plan, spmv_sell_double,  # noqa: F401
+                            spmv_sell_double_pair)
 
 __version__ = "0.1.0"

@@ -1,45 +1,73 @@
-// DIA SpMV for Hopper (sm_90a), plain C interface bound with ctypes.
+// DIA SpMV for Hopper (sm_90a), plain C interface bound with ctypes:
+// kernel A (float32) and its float64 build, kernel J.
 //
-// Replaces the Pallas kernels `_make_dia_kernel` and
+// Kernel A replaces the Pallas kernels `_make_dia_kernel` and
 // `_make_dia_kernel_windowed` (spmv_vector_cache_tpu/ops/spmv_dia.py),
 // which compute the same function with x resident in VMEM or streamed in
 // sliding blocks; that choice is a VMEM-capacity one the card does not
-// have, so one kernel serves both.
+// have, so one kernel serves both.  Kernel J replaces their double-float
+// forms `_make_dia_kernel_df` and `_make_dia_kernel_df_windowed` (with
+// `_df_diag_accumulate`), which emulate f64 with hi/lo f32 pairs and
+// error-free transforms; J joins each pair into a double (values.cuh)
+// and sums in FP64, reading a float64 x and writing a float64 y.
 //
 // y[r] = sum_k vals[t, k, i, l] * x[r + off_k], r = t*S*128 + i*128 + l,
 // where x reads as 0 outside [0, cols) (the reference's zero-padded x
-// image).  Only rows below `rows` are written.
+// image).  Only rows below `rows` are written.  A double plan's slab is
+// (T, 2D, S*128): the low word of diagonal k sits at diagonal D + k.
 //
-// Bound: the value stream, 4 B per stored slot, read once; x is re-read
-// D times but from L1/L2 (neighbouring diagonals touch neighbouring
-// addresses).  Design: one thread per row, so neighbouring threads read
-// neighbouring `vals` and `x` addresses (coalesced); the k-sum runs in
-// the order of the plain PyTorch version; the offsets are a small int32
-// device array read through the read-only cache.
+// Bound: the value stream, 4 B per stored slot (8 B, two words, in J),
+// read once; x is re-read D times but from L1/L2 (neighbouring diagonals
+// touch neighbouring addresses).  J's FP64 work, 2 flops per slot, is
+// far below the card's FP64 rate.  Design: one thread per row, so
+// neighbouring threads read neighbouring `vals` and `x` addresses
+// (coalesced); the k-sum runs in the order of the plain PyTorch version;
+// the offsets are a small int32 device array read through the read-only
+// cache.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "values.cuh"
+
 namespace {
 
+template <class V>
 __global__ void spmv_dia_kernel(const float* __restrict__ vals,
-                                const float* __restrict__ x,
+                                const typename V::T* __restrict__ x,
                                 const int* __restrict__ offsets,
-                                float* __restrict__ y,
+                                typename V::T* __restrict__ y,
                                 long long rows, long long cols, int ndiag,
                                 int rows_per_step) {
+    using T = typename V::T;
     long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (r >= rows) return;
     long long t = r / rows_per_step;
     long long rem = r - t * rows_per_step;
-    const float* v = vals + t * ndiag * (long long)rows_per_step + rem;
-    float acc = 0.0f;
+    const long long half = (long long)ndiag * rows_per_step;
+    const float* v = vals + t * V::kChannels * half + rem;
+    T acc = T(0);
     for (int k = 0; k < ndiag; ++k) {
         long long c = r + __ldg(offsets + k);
-        float xv = (c >= 0 && c < cols) ? __ldg(x + c) : 0.0f;
-        acc = fmaf(__ldg(v + (long long)k * rows_per_step), xv, acc);
+        T xv = (c >= 0 && c < cols) ? __ldg(x + c) : T(0);
+        acc = spmv::madd(V::load(v + (long long)k * rows_per_step, half), xv,
+                         acc);
     }
     y[r] = acc;
+}
+
+template <class V>
+int launch(const float* vals, const typename V::T* x, const int* offsets,
+           typename V::T* y, long long rows, long long cols, int ndiag,
+           int rows_per_step, void* stream) {
+    if (rows > 0) {
+        const int threads = 256;
+        long long blocks = (rows + threads - 1) / threads;
+        spmv_dia_kernel<V><<<(unsigned)blocks, threads, 0,
+                             (cudaStream_t)stream>>>(
+            vals, x, offsets, y, rows, cols, ndiag, rows_per_step);
+    }
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -48,12 +76,15 @@ extern "C" int spmv_dia_f32(const float* vals, const float* x,
                             const int* offsets, float* y, long long rows,
                             long long cols, int ndiag, int rows_per_step,
                             void* stream) {
-    if (rows > 0) {
-        const int threads = 256;
-        long long blocks = (rows + threads - 1) / threads;
-        spmv_dia_kernel<<<(unsigned)blocks, threads, 0,
-                          (cudaStream_t)stream>>>(
-            vals, x, offsets, y, rows, cols, ndiag, rows_per_step);
-    }
-    return (int)cudaGetLastError();
+    return launch<spmv::F32Values>(vals, x, offsets, y, rows, cols, ndiag,
+                                   rows_per_step, stream);
+}
+
+// vals: the double plan's (T, 2D, S*128) hi/lo slab; x, y: float64
+extern "C" int spmv_dia_f64(const float* vals, const double* x,
+                            const int* offsets, double* y, long long rows,
+                            long long cols, int ndiag, int rows_per_step,
+                            void* stream) {
+    return launch<spmv::PairValues>(vals, x, offsets, y, rows, cols, ndiag,
+                                    rows_per_step, stream);
 }

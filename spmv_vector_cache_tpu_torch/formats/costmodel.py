@@ -79,6 +79,8 @@ def _sell_seconds(plan) -> float:
     else:
         slots_y = plan.row_map.shape[0]
         t += _NS_SEGSUM_FLOOR + _NS_PER_SEGSUM_SLOT * slots_y
+    if st.double:
+        t *= 2.5
     return t * 1e-9
 
 

@@ -145,8 +145,8 @@ class DiaPlan:
     pad_left: int                     # reference x image left pad
     x_rows: int                       # reference x image height
     stats: DiaStats
-    #: the reference's double-float layout flag; always False here (f64
-    #: plans are not ported yet)
+    #: double-float layout: vals channels [0:D] hold f32 value highs and
+    #: [D:2D] the f32 lows (hi + lo == the f64 value)
     double: bool = False
 
     @property
@@ -157,10 +157,12 @@ class DiaPlan:
 def build_dia_plan(a, *, sublanes: int = DIA_SUBLANES,
                    value_dtype=np.float32) -> DiaPlan:
     """Build the (T, D, S, 128) tile plan from a DIA/CSR/CSC/COO
-    container (float32 values)."""
-    from .plan import _require_f32
+    container.  ``value_dtype=np.float64`` builds a double plan: each
+    value as a (hi, lo) float32 pair, highs and lows stacked along the
+    diagonal axis, (T, 2D, S, 128)."""
+    from .plan import _require_f32_or_f64
 
-    _require_f32(value_dtype)
+    double = _require_f32_or_f64(value_dtype)
     if not isinstance(a, DIA):
         if isinstance(a, (CSC, COO)):
             from .convert import coo_to_csr, csc_to_csr
@@ -175,8 +177,14 @@ def build_dia_plan(a, *, sublanes: int = DIA_SUBLANES,
     T = nr // RS
     vd = np.zeros((D, nr), value_dtype)
     vd[:, :rows] = np.asarray(a.data, value_dtype)
+    store = vd
+    if double:
+        from ..ops.df64 import split_f64
+
+        hi, lo = split_f64(vd)
+        store = np.concatenate([hi, lo], axis=0)       # (2D, nr) f32
     vals = np.ascontiguousarray(
-        vd.reshape(D, T, S, 128).transpose(1, 0, 2, 3))
+        store.reshape(store.shape[0], T, S, 128).transpose(1, 0, 2, 3))
 
     omin = min(offsets) if offsets else 0
     pad_left = ((max(0, -omin)) + 127) // 128 * 128
@@ -185,14 +193,15 @@ def build_dia_plan(a, *, sublanes: int = DIA_SUBLANES,
     x_rows = max(x_rows, (pad_left + cols + 127) // 128)
 
     nnz = int((vd != 0).sum())
-    streamed = D * nr * np.dtype(value_dtype).itemsize
+    streamed = store.shape[0] * nr * store.itemsize
     stats = DiaStats(
         nnz=nnz, ndiag=D, num_steps=T,
         fill=float(nnz) / float(D * nr) if D else 0.0,
         bytes_per_nnz=streamed / nnz if nnz else 0.0,
         x_rows=x_rows)
     return DiaPlan(vals=vals, offsets=offsets, shape=(rows, cols),
-                   sublanes=S, pad_left=pad_left, x_rows=x_rows, stats=stats)
+                   sublanes=S, pad_left=pad_left, x_rows=x_rows, stats=stats,
+                   double=double)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -6,7 +6,8 @@ over unchanged so that both packages build byte-equal plans for the same
 matrix; the port's kernels are checked against the reference on
 identical layouts.  Every plan family the reference planner builds
 for f32 values (SELL, DIA, Hybrid, Chunk, Packed, Cached, CooTail) is
-ported.
+ported, and the double (``value_dtype=np.float64``) SELL, DIA and Hybrid
+plans, whose values are hi/lo float32 pairs.
 
 The layout is a **sliced-ELLPACK (SELL) tile plan** over CSR:
 
@@ -60,10 +61,22 @@ DEEP_MAX_BLOCKS = 2048
 
 
 def _require_f32(value_dtype) -> None:
+    """The chunk and packed builders: float32 values only (the planner
+    never gives them float64, as in the reference)."""
     if np.dtype(value_dtype) != np.float32:
         raise NotImplementedError(
-            f"value_dtype {np.dtype(value_dtype)}: only float32 plans are "
-            f"ported (f64 is ROADMAP.md queue 1, item 10)")
+            f"value_dtype {np.dtype(value_dtype)}: this plan family is "
+            f"built for float32 values only")
+
+
+def _require_f32_or_f64(value_dtype) -> bool:
+    """The SELL and DIA builders: float32, or float64 stored as hi/lo
+    float32 pairs; returns whether the plan is double."""
+    if np.dtype(value_dtype) not in (np.float32, np.float64):
+        raise NotImplementedError(
+            f"value_dtype {np.dtype(value_dtype)}: float32 and float64 "
+            f"plans are ported (bf16 is ROADMAP.md queue 1, item 2)")
+    return np.dtype(value_dtype) == np.float64
 
 
 def map_arrays(plan, fn):
@@ -138,8 +151,9 @@ class PlanStats:
     #: group g *is* slice g for g < num_slices (uniform tiling): kernel
     #: group rows are y2d directly, no tile segment-sum at all
     group_slice_identity: bool = False
-    #: the reference's double-float layout flag; always False here (f64
-    #: plans are not ported yet), kept so that stats compare equal
+    #: double-float layout: vals is f32 (T, 2*positions, R) with value
+    #: highs in [:, :P] and lows in [:, P:] (hi + lo == the f64 value);
+    #: cols and cols_win stay (T, P, R)
     double: bool = False
     #: lane granularity of ``window_base`` (128, 64, or 32).  Finer grain
     #: lets a window start mid-block, shaving a whole 128-lane block off
@@ -324,7 +338,15 @@ def build_sell_plan(a, *, lane_rows: int = 128, positions: int = 8,
                          f"TILES_PER_STEP ({TILES_PER_STEP})")
     if uniform_split and (split is None or stripe_width is not None):
         raise ValueError("uniform_split requires split= and no striping")
-    _require_f32(value_dtype)
+    double = _require_f32_or_f64(value_dtype)
+    if double and pad_value != 0.0:
+        raise ValueError("double-float plans support plus_times only "
+                         "(pad_value must be 0)")
+    if double and positions & (positions - 1):
+        raise ValueError(
+            f"double-float plans need a power-of-two positions (got "
+            f"{positions}): the reference's compensated pairwise reduction "
+            f"halves the sublane axis")
     rows, cols_n = csr.shape
     indptr = np.asarray(csr.indptr, dtype=np.int64)
     indices = (np.asarray(csr.indices, dtype=np.int64) & 0x3FFFFFFF)
@@ -601,9 +623,16 @@ def build_sell_plan(a, *, lane_rows: int = 128, positions: int = 8,
         groups_per_step=groups, pad_value=float(pad_value),
         group_tiles=wg, uniform_parts=uniform_parts,
         group_fold=group_fold, group_slice_identity=group_slice_identity,
-        window_grain=grain)
+        double=double, window_grain=grain)
 
     cols_win = compute_cols_win(live, cols, wb, window_blocks, wg, grain)
+    if double:
+        # hi/lo f32 channel pairs stacked along the position axis, the
+        # reference's layout; the kernels join each pair into a double
+        from ..ops.df64 import split_f64
+
+        hi, lo = split_f64(vals)
+        vals = np.concatenate([hi, lo], axis=1)        # (T, 2P, R)
     window_rows = compute_window_rows(wb, window_blocks, cols_n, grain)
 
     return SellPlan(vals=vals, cols=cols, cols_win=cols_win,
@@ -906,6 +935,8 @@ def validate_plan(plan: SellPlan, a=None) -> None:
     * optional: nonzero multiset matches the source container ``a``.
     """
     T, P, R = plan.vals.shape
+    if plan.stats.double:
+        P = plan.positions
     ts = np.asarray(plan.tile_slice)
     if ts.shape != (T,):
         raise ValueError("tile_slice shape mismatch")
@@ -916,6 +947,8 @@ def validate_plan(plan: SellPlan, a=None) -> None:
 
     cols = np.asarray(plan.cols)
     vals = np.asarray(plan.vals)
+    if plan.stats.double:      # rejoin the hi/lo channel pairs to f64
+        vals = vals[:, :P].astype(np.float64) + vals[:, P:]
     pad = plan.stats.pad_value
     live = (vals != pad) if np.isfinite(pad) else np.isfinite(vals)
     if live.any():

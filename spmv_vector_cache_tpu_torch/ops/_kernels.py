@@ -56,6 +56,17 @@ SIGNATURES = {
     # cols, semiring, stream
     "spmv_sell_global_f32": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _L, _I,
                              _P],
+    # vals (hi/lo pairs), x, offsets, y (float64), rows, cols, ndiag,
+    # rows_per_step, stream
+    "spmv_dia_f64": [_P, _P, _P, _P, _L, _L, _I, _I, _P],
+    # vals (hi/lo pairs), cols_win, window_base, x, out (float64),
+    # out_rows, positions, lanes, group_tiles, fold, window_grain, cols,
+    # stream
+    "spmv_sell_window_f64": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I,
+                             _L, _P],
+    # vals (hi/lo pairs), cols, x, out (float64), tiles, positions, lanes,
+    # cols, stream
+    "spmv_sell_global_f64": [_P, _P, _P, _P, _L, _I, _I, _L, _P],
     # vals, b, offsets, y, rows, cols, k, ndiag, rows_per_step, stream
     "spmm_dia_f32": [_P, _P, _P, _P, _L, _L, _I, _I, _I, _P],
     # vals, cols_win, window_base, b, out, out_rows, positions, lanes,

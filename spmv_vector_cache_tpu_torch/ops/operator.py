@@ -6,6 +6,8 @@ on a torch device once, and then applies it: ``op @ x``.
 
 >>> op = SparseOperator.from_matrix(a)      # plans + places on the card
 >>> y = op @ x                             # kernel SpMV
+>>> op64 = SparseOperator.from_matrix(a, value_dtype=np.float64)
+>>> y64 = op64 @ x                         # float64 y, FP64 kernels
 >>> Y = op @ B                             # kernel SpMM, B: (cols, k)
 >>> op_cpu = SparseOperator.from_matrix(a, device="cpu")   # plain versions
 """
@@ -25,7 +27,7 @@ from ..formats.plan import auto_plan, place
 from ..utils.stats import StatRegistry
 from . import reference
 from . import semiring as sr
-from .spmm_sell import NoFusedSpmm, has_fused_spmm, spmm_plan
+from .spmm_sell import NoFusedSpmm, has_fused_spmm, is_double, spmm_plan
 from .spmv_sell import spmv_plan
 from .strategy import (execution_counters, plan_bytes_per_apply, plan_nnz,
                        select_strategy)
@@ -89,7 +91,8 @@ class SparseOperator:
         ``device`` (the card unless the caller asks for ``"cpu"``; without
         a card, torch's placement raises) and select an execution
         strategy.  ``semiring`` selects the algebra; the plan's padding
-        is built to match."""
+        is built to match.  ``value_dtype=np.float64`` builds a double
+        plan (plus_times): ``op @ x`` then returns a float64 y."""
         if tune:
             raise NotImplementedError("tune=True needs ops/tune.py, which "
                                       "is not ported yet (ROADMAP.md "
@@ -123,7 +126,7 @@ class SparseOperator:
         :func:`.reference.spmm` on the matrix the operator was built
         from, placed on the operator's device on first use.  The choice
         is made by plan type before anything runs, so a kernel's failure
-        is never caught.
+        is never caught.  A double plan raises: there is no float64 SpMM.
         """
         if self.semiring != "plus_times":
             # the reference's SpMM ignores the semiring and returns a
@@ -131,6 +134,13 @@ class SparseOperator:
             raise NotImplementedError(f"SpMM runs plus_times only; this "
                                       f"operator's semiring is "
                                       f"{self.semiring}")
+        if is_double(self.plan):
+            # the reference's SpMM reads a double plan's hi words only and
+            # returns a float32 Y (ROADMAP.md queue 3)
+            raise NotImplementedError("SpMM on a double-float plan is not "
+                                      "ported: the reference has no "
+                                      "float64 SpMM kernel (ROADMAP.md "
+                                      "queue 3)")
         b = self._as_x(b).to(torch.float32).contiguous()
         if has_fused_spmm(self.plan):
             return spmm_plan(self.plan, b)

@@ -76,8 +76,8 @@ def spmm_dia(plan: DiaPlan, b: torch.Tensor) -> torch.Tensor:
     device memory through L1/L2 at any width.
     """
     if plan.double:
-        raise NotImplementedError("double-float DIA plans are not ported "
-                                  "(ROADMAP.md queue 1, item 10)")
+        raise NotImplementedError("double-float DIA plans have no SpMM "
+                                  "kernel (ROADMAP.md queue 3)")
     if b.dim() != 2 or b.shape[0] != plan.shape[1]:
         raise ValueError(f"B has shape {tuple(b.shape)}, the plan needs "
                          f"({plan.shape[1]}, k)")

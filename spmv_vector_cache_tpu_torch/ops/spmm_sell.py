@@ -28,20 +28,32 @@ from .spmv_sell import _reduce_partials, folds_groups, sell_window_plain
 
 class NoFusedSpmm(ValueError):
     """The plan has no fused SpMM kernel (a PackedPlan, a ChunkPlan, a
-    CachedPlan, a windowless SellPlan, or a HybridPlan whose residual is
-    one of these): run ``reference.spmm`` on the matrix instead, as
-    ``SparseOperator.matmat`` does."""
+    CachedPlan, a windowless or double SellPlan, a double DiaPlan, or a
+    HybridPlan with such a part): run ``reference.spmm`` on the matrix
+    instead, as ``SparseOperator.matmat`` does for float32 plans."""
+
+
+def is_double(plan) -> bool:
+    """Whether the plan holds float64 values as hi/lo float32 pairs: a
+    double DiaPlan or SellPlan, or a HybridPlan of those."""
+    if isinstance(plan, HybridPlan):
+        return is_double(plan.dia)
+    if isinstance(plan, DiaPlan):
+        return plan.double
+    return isinstance(plan, SellPlan) and plan.stats.double
 
 
 def has_fused_spmm(plan) -> bool:
-    """Whether :func:`spmm_plan` runs ``plan``: a CooTail, a DiaPlan, a
-    window SellPlan (float32), or a HybridPlan whose residual is one."""
+    """Whether :func:`spmm_plan` runs ``plan``: a CooTail, a float32
+    DiaPlan, a float32 window SellPlan, or a HybridPlan of those (the
+    reference has no float64 SpMM kernel)."""
+    if is_double(plan):
+        return False
     if isinstance(plan, (CooTail, DiaPlan)):
         return True
     if isinstance(plan, HybridPlan):
         return has_fused_spmm(plan.rest)
-    return (isinstance(plan, SellPlan) and plan.stats.window_blocks > 0
-            and not plan.stats.double)
+    return isinstance(plan, SellPlan) and plan.stats.window_blocks > 0
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,11 @@
 nonzero is its row plus a constant, so there is no index stream.
 :func:`spmv_dia_kernel` wraps kernel A (``csrc/spmv_dia.cu``), which
 replaces the reference's resident and windowed Pallas kernels;
-:func:`spmv_dia_plain` is its plain PyTorch version.
+:func:`spmv_dia_plain` is its plain PyTorch version.  On a double plan
+(``value_dtype=np.float64``, hi/lo float32 pairs) :func:`spmv_dia_double`
+(float64 in and out) and :func:`spmv_dia_df` (the reference's pair API)
+run kernel J, the float64 build of A (:func:`spmv_dia_f64_kernel`),
+which replaces the reference's double-float kernels.
 """
 
 from __future__ import annotations
@@ -15,19 +19,23 @@ import torch
 
 from ..formats.dia import DiaPlan
 from ..utils import platform
-from . import _kernels
+from . import _kernels, df64
 
 
-def _check(vals: torch.Tensor, offsets, x: torch.Tensor) -> None:
+def _check(vals: torch.Tensor, offsets, x: torch.Tensor,
+           double: bool = False) -> None:
     if vals.dim() != 4 or vals.shape[3] != 128:
         raise ValueError(f"DIA vals must be (T, D, S, 128), got "
                          f"{tuple(vals.shape)}")
-    if len(offsets) != vals.shape[1]:
+    channels = 2 if double else 1       # a double slab: hi and lo halves
+    if channels * len(offsets) != vals.shape[1]:
         raise ValueError(f"{len(offsets)} offsets for {vals.shape[1]} "
-                         f"diagonals")
-    if vals.dtype != torch.float32 or x.dtype != torch.float32:
+                         f"diagonal channels")
+    want_x = torch.float64 if double else torch.float32
+    if vals.dtype != torch.float32 or x.dtype != want_x:
         raise NotImplementedError(
-            f"DIA SpMV runs float32 only (vals {vals.dtype}, x {x.dtype})")
+            f"DIA SpMV runs float32 values with a {want_x} x (vals "
+            f"{vals.dtype}, x {x.dtype})")
     if x.dim() != 1:
         raise ValueError(f"x must be 1-D, got shape {tuple(x.shape)}")
     if vals.device != x.device:
@@ -88,8 +96,47 @@ def spmv_dia_kernel(vals: torch.Tensor, offsets, x: torch.Tensor,
 spmv_dia_kernel.launches = 0
 
 
+def spmv_dia_f64_plain(vals: torch.Tensor, offsets, x: torch.Tensor,
+                       rows: int) -> torch.Tensor:
+    """Plain PyTorch version of kernel J: the hi/lo slab joined into
+    float64 values, then kernel A's plain version in float64."""
+    return spmv_dia_plain(df64.join_channels(vals), offsets, x, rows)
+
+
+def spmv_dia_f64_kernel(vals: torch.Tensor, offsets, x: torch.Tensor,
+                        rows: int) -> torch.Tensor:
+    """Kernel J on a CUDA tensor; the plain version on a CPU tensor.
+    ``vals``: a double plan's (T, 2D, S, 128) float32 hi/lo slab; ``x``
+    and the result: float64."""
+    _check(vals, offsets, x, double=True)
+    if not platform.is_cuda(x):
+        return spmv_dia_f64_plain(vals, offsets, x, rows)
+    T, D2, S, L = vals.shape
+    if rows > T * S * L:
+        raise ValueError(f"rows={rows} exceeds the plan's {T * S * L}")
+    offs = _offsets_on(tuple(int(o) for o in offsets), x.device)
+    y = torch.empty(rows, dtype=torch.float64, device=x.device)
+    err = _kernels.library().spmv_dia_f64(
+        vals.data_ptr(), x.data_ptr(), offs.data_ptr(), y.data_ptr(),
+        rows, x.shape[0], D2 // 2, S * L,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _kernels.check(err, "spmv_dia_f64")
+    spmv_dia_f64_kernel.launches += 1
+    return y
+
+
+spmv_dia_f64_kernel.launches = 0
+
+
+def _check_x(plan: DiaPlan, x: torch.Tensor) -> None:
+    if x.shape != (plan.shape[1],):
+        raise ValueError(f"x has shape {tuple(x.shape)}, the plan needs "
+                         f"({plan.shape[1]},)")
+
+
 def spmv_dia(plan: DiaPlan, x: torch.Tensor) -> torch.Tensor:
-    """``y = A @ x`` from a prebuilt :class:`DiaPlan` on ``x.device``.
+    """``y = A @ x`` from a prebuilt float32 :class:`DiaPlan` on
+    ``x.device``.
 
     The reference's ``resident`` argument is dropped: it chose between
     keeping the x image in VMEM and streaming sliding blocks, a capacity
@@ -97,10 +144,30 @@ def spmv_dia(plan: DiaPlan, x: torch.Tensor) -> torch.Tensor:
     memory through L1/L2 at any size.
     """
     if plan.double:
-        raise NotImplementedError("double-float DIA plans are not ported "
-                                  "(ROADMAP.md queue 1, item 10)")
-    if x.shape != (plan.shape[1],):
-        raise ValueError(f"x has shape {tuple(x.shape)}, the plan needs "
-                         f"({plan.shape[1]},)")
+        raise ValueError("double-float plan: use spmv_dia_double (float64 "
+                         "x and y) or spmv_dia_df (hi/lo float32 pairs)")
+    _check_x(plan, x)
     return spmv_dia_kernel(plan.vals, plan.offsets,
                            x.to(plan.vals.dtype).contiguous(), plan.shape[0])
+
+
+def spmv_dia_double(plan: DiaPlan, x: torch.Tensor) -> torch.Tensor:
+    """``y = A @ x`` from a double :class:`DiaPlan` on ``x.device``:
+    float64 x (a float32 x is widened exactly) in, float64 y out, on
+    kernel J.  The reference joins y on the host; here it stays on
+    ``x.device``.  No ``resident`` argument, as for :func:`spmv_dia`."""
+    if not plan.double:
+        raise ValueError("plan was not built with value_dtype=np.float64")
+    _check_x(plan, x)
+    return spmv_dia_f64_kernel(plan.vals, plan.offsets,
+                               x.to(torch.float64).contiguous(),
+                               plan.shape[0])
+
+
+def spmv_dia_df(plan: DiaPlan, xh: torch.Tensor,
+                xl: torch.Tensor) -> tuple:
+    """The reference's pair API: (xh, xl) float32 in, (yh, yl) float32
+    out on ``xh.device``, with ``yh + yl`` the float64 y.  A shim over
+    :func:`spmv_dia_double`: the pair is joined into one float64 x and y
+    split again."""
+    return df64.split(spmv_dia_double(plan, df64.join(xh, xl)))

@@ -5,12 +5,20 @@
 which replaces the reference's window kernel; :func:`sell_global_kernel`
 wraps kernel G (``csrc/spmv_sell_global.cu``), which replaces its
 resident, deep and stream kernels.  :func:`sell_window_plain` and
-:func:`sell_global_plain` are their plain PyTorch versions.  The
-epilogues — the slice reduction, the sub-row fixup, the Hybrid and
-CachedPlan joins and the COO tail — are torch ops, as the reference
-computes them in XLA outside Pallas.  :func:`spmv_plan` dispatches every
-plan type, ChunkPlan (``ops/spmv_chunk.py``) and PackedPlan
-(``ops/spmv_packed.py``) included; the df64 paths are not ported yet.
+:func:`sell_global_plain` are their plain PyTorch versions.  A double
+plan (``value_dtype=np.float64``: (T, 2P, R) hi/lo float32 values) runs
+:func:`spmv_sell_double` or the pair API :func:`spmv_sell_double_pair`:
+its window strategy on kernel K (:func:`sell_window_f64_kernel`), every
+other strategy on kernel L (:func:`sell_global_f64_kernel`), the float64
+builds of B and G, which replace the reference's double-float window
+and stream kernels.  The epilogues — the slice reduction, the sub-row
+fixup, the Hybrid and CachedPlan joins and the COO tail — are torch ops,
+as the reference computes them in XLA outside Pallas; over a double
+plan's float64 partials they are plain float64 sums, where the
+reference needs compensated pair additions over dense fold matrices.
+:func:`spmv_plan` dispatches every plan type, ChunkPlan
+(``ops/spmv_chunk.py``) and PackedPlan (``ops/spmv_packed.py``)
+included.
 """
 
 from __future__ import annotations
@@ -26,9 +34,9 @@ from ..formats.packed import PackedPlan
 from ..formats.plan import DEEP_MAX_BLOCKS, RESIDENT_MAX_BLOCKS, SellPlan
 from ..formats.plan import TILES_PER_STEP
 from ..utils import platform
-from . import _kernels
+from . import _kernels, df64
 from . import semiring as sr
-from .spmv_dia import spmv_dia
+from .spmv_dia import spmv_dia, spmv_dia_double
 from .spmv_packed import spmv_packed
 
 # ---------------------------------------------------------------------------
@@ -103,13 +111,26 @@ def sell_window_plain(vals, cols_win, window_base, x, *, group_tiles: int,
     return axis_reduce(prod, 1)
 
 
-def _check_window(vals, cols_win, window_base, x, group_tiles):
-    if vals.dim() != 3 or cols_win.shape != vals.shape:
-        raise ValueError(f"vals {tuple(vals.shape)} and cols_win "
-                         f"{tuple(cols_win.shape)} must be equal (T, P, R)")
-    if vals.dtype != torch.float32 or x.dtype != torch.float32:
-        raise NotImplementedError(f"window SpMV runs float32 only (vals "
-                                  f"{vals.dtype}, x {x.dtype})")
+def _check_slab(vals, idx, x, name: str, double: bool) -> None:
+    """``vals`` (T, P, R) float32 and its index array ``idx`` (T, P, R);
+    a double slab holds hi and lo halves, (T, 2P, R), beside a (T, P, R)
+    index array and a float64 x."""
+    channels = 2 if double else 1
+    if vals.dim() != 3 or idx.dim() != 3 or tuple(vals.shape) != (
+            idx.shape[0], channels * idx.shape[1], idx.shape[2]):
+        raise ValueError(f"vals {tuple(vals.shape)} and {name} "
+                         f"{tuple(idx.shape)} must be equal (T, P, R)"
+                         f"{'; double vals are (T, 2P, R)' if double else ''}")
+    want_x = torch.float64 if double else torch.float32
+    if vals.dtype != torch.float32 or x.dtype != want_x:
+        raise NotImplementedError(f"SELL SpMV runs float32 values with a "
+                                  f"{want_x} x (vals {vals.dtype}, x "
+                                  f"{x.dtype})")
+
+
+def _check_window(vals, cols_win, window_base, x, group_tiles,
+                  double=False):
+    _check_slab(vals, cols_win, x, "cols_win", double)
     if cols_win.dtype != torch.int16 or window_base.dtype != torch.int32:
         raise ValueError("cols_win must be int16 and window_base int32")
     if vals.shape[0] % group_tiles or \
@@ -150,6 +171,44 @@ def sell_window_kernel(vals, cols_win, window_base, x, *, group_tiles: int,
 sell_window_kernel.launches = 0
 
 
+def sell_window_f64_plain(vals, cols_win, window_base, x, *,
+                          group_tiles: int, window_grain: int,
+                          fold: bool) -> torch.Tensor:
+    """Plain PyTorch version of kernel K: the hi/lo slab joined into
+    float64 values, then kernel B's plain version under plus_times."""
+    return sell_window_plain(df64.join_channels(vals), cols_win, window_base,
+                             x, group_tiles=group_tiles,
+                             window_grain=window_grain, fold=fold,
+                             semiring="plus_times")
+
+
+def sell_window_f64_kernel(vals, cols_win, window_base, x, *,
+                           group_tiles: int, window_grain: int,
+                           fold: bool) -> torch.Tensor:
+    """Kernel K on CUDA tensors; the plain version on CPU tensors.
+    ``vals``: a double plan's (T, 2P, R) float32 hi/lo slab; ``x`` and
+    the partials, (T or T/wg, R): float64."""
+    _check_window(vals, cols_win, window_base, x, group_tiles, double=True)
+    if not platform.is_cuda(x):
+        return sell_window_f64_plain(vals, cols_win, window_base, x,
+                                     group_tiles=group_tiles,
+                                     window_grain=window_grain, fold=fold)
+    T, P2, R = vals.shape
+    out_rows = T // group_tiles if fold else T
+    out = torch.empty((out_rows, R), dtype=torch.float64, device=x.device)
+    err = _kernels.library().spmv_sell_window_f64(
+        vals.data_ptr(), cols_win.data_ptr(), window_base.data_ptr(),
+        x.data_ptr(), out.data_ptr(), out_rows, P2 // 2, R, group_tiles,
+        int(fold), window_grain, x.shape[0],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _kernels.check(err, "spmv_sell_window_f64")
+    sell_window_f64_kernel.launches += 1
+    return out
+
+
+sell_window_f64_kernel.launches = 0
+
+
 def folds_groups(plan: SellPlan) -> bool:
     """Whether the window and resident routes fold each group's slices
     into one output row: the plan asks for it and a grid step holds a
@@ -159,14 +218,18 @@ def folds_groups(plan: SellPlan) -> bool:
     return st.group_fold and NG % 8 == 0
 
 
-def _window_partials(plan: SellPlan, x: torch.Tensor, semiring: str):
-    """Run the window kernel, returning (per-tile or per-group partial
-    rows, fold) before any slice/row reduction."""
-    st = plan.stats
-    if st.window_blocks <= 0:
+def _require_window(plan: SellPlan) -> None:
+    if plan.stats.window_blocks <= 0:
         raise ValueError(
             "window strategy infeasible for this plan "
             "(stats.window_blocks == 0); rebuild with stripe_width")
+
+
+def _window_partials(plan: SellPlan, x: torch.Tensor, semiring: str):
+    """Run the window kernel, returning (per-tile or per-group partial
+    rows, fold) before any slice/row reduction."""
+    _require_window(plan)
+    st = plan.stats
     fold = folds_groups(plan)
     out = sell_window_kernel(
         plan.vals, plan.cols_win, plan.window_base,
@@ -200,13 +263,8 @@ def sell_global_plain(vals, cols, x, *, group_tiles: int, fold: bool,
     return axis_reduce(prod, 1)
 
 
-def _check_global(vals, cols, x, group_tiles, fold):
-    if vals.dim() != 3 or cols.shape != vals.shape:
-        raise ValueError(f"vals {tuple(vals.shape)} and cols "
-                         f"{tuple(cols.shape)} must be equal (T, P, R)")
-    if vals.dtype != torch.float32 or x.dtype != torch.float32:
-        raise NotImplementedError(f"global-column SpMV runs float32 only "
-                                  f"(vals {vals.dtype}, x {x.dtype})")
+def _check_global(vals, cols, x, group_tiles, fold, double=False):
+    _check_slab(vals, cols, x, "cols", double)
     if cols.dtype != torch.int32:
         raise ValueError(f"cols must be int32, got {cols.dtype}")
     if fold and vals.shape[0] % group_tiles:
@@ -246,6 +304,36 @@ def sell_global_kernel(vals, cols, x, *, group_tiles: int, fold: bool,
 
 
 sell_global_kernel.launches = 0
+
+
+def sell_global_f64_plain(vals, cols, x) -> torch.Tensor:
+    """Plain PyTorch version of kernel L: the hi/lo slab joined into
+    float64 values, then kernel G's per-tile plain version under
+    plus_times."""
+    return sell_global_plain(df64.join_channels(vals), cols, x,
+                             group_tiles=1, fold=False,
+                             semiring="plus_times")
+
+
+def sell_global_f64_kernel(vals, cols, x) -> torch.Tensor:
+    """Kernel L on CUDA tensors; the plain version on CPU tensors.
+    ``vals``: a double plan's (T, 2P, R) float32 hi/lo slab; ``cols``:
+    (T, P, R) int32; ``x`` and the per-tile partials (T, R): float64."""
+    _check_global(vals, cols, x, 1, False, double=True)
+    if not platform.is_cuda(x):
+        return sell_global_f64_plain(vals, cols, x)
+    T, P2, R = vals.shape
+    out = torch.empty((T, R), dtype=torch.float64, device=x.device)
+    err = _kernels.library().spmv_sell_global_f64(
+        vals.data_ptr(), cols.data_ptr(), x.data_ptr(), out.data_ptr(), T,
+        P2 // 2, R, x.shape[0],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _kernels.check(err, "spmv_sell_global_f64")
+    sell_global_f64_kernel.launches += 1
+    return out
+
+
+sell_global_f64_kernel.launches = 0
 
 
 def _x_blocks(plan: SellPlan) -> int:
@@ -300,6 +388,53 @@ def warn_stream(plan) -> None:
         RuntimeWarning, stacklevel=3)
 
 
+# ---------------------------------------------------------------------------
+# double plans: kernels K and L
+# ---------------------------------------------------------------------------
+
+def spmv_sell_double(plan: SellPlan, x: torch.Tensor, *,
+                     strategy: str = "auto") -> torch.Tensor:
+    """``y = A @ x`` from a double SellPlan on ``x.device``: float64 x (a
+    float32 x is widened exactly) in, float64 y out.
+
+    'window' runs kernel K, folding groups where kernel B would;
+    'stream', and the 'resident' and 'deep' that the operator's
+    ``select_strategy`` gives a windowless plan, run kernel L, which
+    reads x at any width; 'auto' is window when feasible, else stream.
+    The reference knows only 'window' and 'stream' here and raises on
+    the others."""
+    st = plan.stats
+    if not st.double:
+        raise ValueError("plan was not built with value_dtype=np.float64")
+    x = x.to(torch.float64).contiguous()
+    if strategy == "auto":
+        strategy = "window" if st.window_blocks > 0 else "stream"
+    if strategy == "window":
+        _require_window(plan)
+        fold = folds_groups(plan)
+        out = sell_window_f64_kernel(
+            plan.vals, plan.cols_win, plan.window_base, x,
+            group_tiles=st.group_tiles, window_grain=st.window_grain,
+            fold=fold)
+        return _reduce_partials(plan, out, per_group=fold)
+    if strategy in ("resident", "deep", "stream"):
+        return _reduce_partials(plan,
+                                sell_global_f64_kernel(plan.vals, plan.cols,
+                                                       x))
+    raise ValueError(f"unknown strategy {strategy!r}")
+
+
+def spmv_sell_double_pair(plan: SellPlan, xh: torch.Tensor,
+                          xl: torch.Tensor, *,
+                          strategy: str = "auto") -> tuple:
+    """The reference's pair API: (xh, xl) float32 in, (yh, yl) float32
+    out on ``xh.device``, with ``yh + yl`` the float64 y.  A shim over
+    :func:`spmv_sell_double`: the pair is joined into one float64 x and
+    y split again, all on the device."""
+    return df64.split(spmv_sell_double(plan, df64.join(xh, xl),
+                                       strategy=strategy))
+
+
 def _spmv_coo(plan: CooTail, x: torch.Tensor, semiring: str) -> torch.Tensor:
     """COO tail: element gather + segment reduce (torch ops, as the
     reference runs it in XLA)."""
@@ -320,7 +455,9 @@ def spmv_plan(plan, x: torch.Tensor, *, strategy: str = "auto",
 
     Dispatches on plan type: DiaPlan runs kernel A, HybridPlan adds its
     residual pass, a SellPlan runs the 'window' strategy on kernel B or
-    the 'resident', 'deep' and 'stream' strategies on kernel G, a
+    the 'resident', 'deep' and 'stream' strategies on kernel G (a double
+    plan's DIA part runs kernel J and its SELL plans kernels K and L,
+    float64 y from any x, plus_times only), a
     CachedPlan its hot tier on ``x[hot_cols]`` and its cold part on x, a
     ChunkPlan kernels B, D and C, a PackedPlan kernels E and F, a CooTail
     the gather + segment reduce.  DIA and packed plans support
@@ -365,20 +502,25 @@ def spmv_plan(plan, x: torch.Tensor, *, strategy: str = "auto",
         if strategy not in ("auto", "dia"):
             raise ValueError(f"DiaPlan supports only the 'dia' strategy, "
                              f"got {strategy!r}")
-        return spmv_dia(plan, x)
+        return spmv_dia_double(plan, x) if plan.double else \
+            spmv_dia(plan, x)
     if isinstance(plan, HybridPlan):
         # 'dia' (what select_strategy gives a HybridPlan) names the DIA
         # part; the residual then picks its own strategy.  The reference
         # passes 'dia' on to a SELL residual, which rejects it.
         rest_strategy = "auto" if strategy == "dia" else strategy
-        return (spmv_dia(plan.dia, x) +
+        dia = spmv_dia_double if plan.dia.double else spmv_dia
+        return (dia(plan.dia, x) +
                 spmv_plan(plan.rest, x, strategy=rest_strategy))
     if not isinstance(plan, SellPlan):
         raise NotImplementedError(
             f"{type(plan).__name__} is not ported yet (ROADMAP.md queue 1)")
     if plan.stats.double:
-        raise NotImplementedError("double-float SELL plans are not ported "
-                                  "(ROADMAP.md queue 1, item 10)")
+        if semiring != "plus_times":
+            raise ValueError(
+                f"double-float plans run plus_times only (as in the "
+                f"reference); got {semiring!r}")
+        return spmv_sell_double(plan, x, strategy=strategy)
     if strategy == "auto":
         nb = _x_blocks(plan)
         if plan.stats.window_blocks > 0:

@@ -331,3 +331,145 @@ def test_spmm_operator_on_the_card_matches_cpu(cuda, kind):
                         "packed": (0, 0)}[kind], (type(op.plan), launched)
     assert y.device.type == "cuda" and y.shape == (m.shape[0], 16)
     _close(y.cpu(), cpu @ b)
+
+
+# ---------------------------------------------------------------------------
+# double plans: kernels J, K and L (float64 sums of the same products as
+# their plain versions, in another order: rtol 1e-13 of max|y|)
+# ---------------------------------------------------------------------------
+
+def _close64(got, ref):
+    assert got.shape == ref.shape and got.dtype == ref.dtype == torch.float64
+    scale = max(1.0, float(ref.abs().max()))
+    torch.testing.assert_close(got, ref, rtol=1e-13, atol=1e-13 * scale)
+
+
+def _f64_values(m, rng):
+    m = m.astype(np.float64)
+    m.data = rng.standard_normal(m.data.shape[0])
+    return m
+
+
+@pytest.mark.parametrize("offs,rows,cols", [
+    ([-13, -1, 0, 1, 13], 9000, 9000),
+    ([-1025, 0, 1300], 3000, 3000),      # offsets past either end
+    ([0, 200], 300, 520),                # rectangular
+])
+def test_dia_f64_kernel_matches_plain(cuda, offs, rows, cols):
+    rng = np.random.default_rng(12)
+    m = _f64_values(sp.spdiags(np.ones((len(offs), max(rows, cols))), offs,
+                               rows, cols).tocsr(), rng)
+    plan = place(build_dia_plan(from_scipy(m), sublanes=8,
+                                value_dtype=np.float64), cuda)
+    assert plan.double
+    x = torch.from_numpy(rng.standard_normal(cols)).to(cuda)
+    before = spmv_dia.spmv_dia_f64_kernel.launches
+    got = spmv_dia.spmv_dia_f64_kernel(plan.vals, plan.offsets, x, rows)
+    assert spmv_dia.spmv_dia_f64_kernel.launches == before + 1
+    _close64(got, spmv_dia.spmv_dia_f64_plain(plan.vals, plan.offsets, x,
+                                              rows))
+    _close64(got.cpu(), torch.from_numpy(m @ x.cpu().numpy()))
+
+
+@pytest.mark.parametrize("layout", ["fold", "unfolded", "row_map"])
+def test_window_f64_kernel_matches_plain(cuda, layout):
+    rng = np.random.default_rng(13)
+    n = 2048
+    r = np.repeat(np.arange(n), 20)
+    c = (r // 128) * 128 + rng.integers(0, 128, r.shape[0])
+    m = sp.csr_matrix((np.ones(r.shape[0]), (r, c)), shape=(n, n + 300))
+    m.sum_duplicates()
+    m = _f64_values(m, rng)
+    m.sort_indices()
+    kw = {"fold": dict(split=16, uniform_split=True, window_group_tiles=2),
+          "unfolded": {}, "row_map": dict(split=8, sigma=512)}[layout]
+    plan = place(build_sell_plan(from_scipy(m), window_grain=32,
+                                 value_dtype=np.float64, **kw), cuda)
+    st = plan.stats
+    fold = spmv_sell.folds_groups(plan)
+    assert fold == (layout == "fold") and st.window_blocks > 0
+    # x 100 columns short: columns past it read 0 in both versions
+    x = torch.from_numpy(rng.standard_normal(n + 200)).to(cuda)
+    args = (plan.vals, plan.cols_win, plan.window_base, x)
+    kwargs = dict(group_tiles=st.group_tiles, window_grain=st.window_grain,
+                  fold=fold)
+    before = spmv_sell.sell_window_f64_kernel.launches
+    got = spmv_sell.sell_window_f64_kernel(*args, **kwargs)
+    assert spmv_sell.sell_window_f64_kernel.launches == before + 1
+    _close64(got, spmv_sell.sell_window_f64_plain(*args, **kwargs))
+    # through the dispatch: y against float64 scipy over the full x
+    xf = rng.standard_normal(n + 300)
+    y = spmv_sell.spmv_sell_double(plan, torch.from_numpy(xf).to(cuda))
+    _close64(y.cpu(), torch.from_numpy(m @ xf))
+
+
+@pytest.mark.parametrize("strategy", ["stream", "resident", "deep"])
+def test_global_f64_kernel_matches_plain(cuda, strategy):
+    rng = np.random.default_rng(14)
+    n, cols = 2048, 40000
+    r = np.repeat(np.arange(n), 16)
+    c = rng.integers(0, cols, r.shape[0])
+    m = sp.csr_matrix((np.ones(r.shape[0]), (r, c)), shape=(n, cols))
+    m.sum_duplicates()
+    m = _f64_values(m, rng)
+    m.sort_indices()
+    plan = place(build_sell_plan(from_scipy(m), value_dtype=np.float64),
+                 cuda)
+    assert plan.stats.window_blocks == 0
+    # x one column short: the last column reads as 0 in both versions
+    x = torch.from_numpy(rng.standard_normal(cols - 1)).to(cuda)
+    before = spmv_sell.sell_global_f64_kernel.launches
+    got = spmv_sell.sell_global_f64_kernel(plan.vals, plan.cols, x)
+    assert spmv_sell.sell_global_f64_kernel.launches == before + 1
+    _close64(got, spmv_sell.sell_global_f64_plain(plan.vals, plan.cols, x))
+    xf = rng.standard_normal(cols)
+    y = spmv_sell.spmv_sell_double(plan, torch.from_numpy(xf).to(cuda),
+                                   strategy=strategy)
+    _close64(y.cpu(), torch.from_numpy(m @ xf))
+
+
+@pytest.mark.parametrize("kind", ["dia", "hybrid", "window", "windowless"])
+def test_f64_operator_on_the_card_matches_cpu(cuda, kind):
+    from spmv_vector_cache_tpu_torch.ops.operator import SparseOperator
+
+    rng = np.random.default_rng(15)
+    n = 8192
+    if kind == "windowless":
+        r = np.repeat(np.arange(2048), 16)
+        m = sp.csr_matrix((np.ones(r.shape[0]),
+                           (r, rng.integers(0, 40000, r.shape[0]))),
+                          shape=(2048, 40000))
+        m.sum_duplicates()
+    elif kind == "window":
+        r = np.repeat(np.arange(n), 27)
+        c = (r // 128) * 128 + rng.integers(0, 128, r.shape[0])
+        m = sp.csr_matrix((np.ones(r.shape[0]), (r, c)), shape=(n, n))
+        m.sum_duplicates()
+    else:
+        m = sp.spdiags(np.ones((27, n)), list(range(-13, 14)), n, n).tocsr()
+        if kind == "hybrid":
+            rr = np.repeat(np.arange(n), 2)
+            cc = np.clip(rr + rng.integers(-512, 513, rr.shape[0]), 0, n - 1)
+            m = (m + sp.csr_matrix((np.ones(rr.shape[0]), (rr, cc)),
+                                   shape=(n, n))).tocsr()
+    m = _f64_values(m, rng)
+    m.sort_indices()
+    a = from_scipy(m)
+    op = SparseOperator.from_matrix(a, value_dtype=np.float64)   # the card
+    cpu = SparseOperator.from_matrix(a, value_dtype=np.float64,
+                                     device="cpu")
+    assert type(op.plan).__name__ == {"dia": "DiaPlan",
+                                      "hybrid": "HybridPlan"}.get(
+                                          kind, "SellPlan")
+    x = rng.standard_normal(m.shape[1])
+    kernels = (spmv_dia.spmv_dia_f64_kernel, spmv_sell.sell_window_f64_kernel,
+               spmv_sell.sell_global_f64_kernel)
+    counts = [k.launches for k in kernels]
+    y = op @ x
+    torch.cuda.synchronize()
+    launched = tuple(k.launches - c for k, c in zip(kernels, counts))
+    assert launched == {"dia": (1, 0, 0), "hybrid": (1, 1, 0),
+                        "window": (0, 1, 0), "windowless": (0, 0, 1)}[kind]
+    assert y.device.type == "cuda" and y.dtype == torch.float64
+    _close64(y.cpu(), cpu @ x)
+    _close64(y.cpu(), torch.from_numpy(m @ x))
