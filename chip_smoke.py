@@ -8,7 +8,8 @@ runs ``SparseOperator.from_matrix(a) @ x`` (the plan placed on the card
 by default) on seven matrices, one per plan type of the main path, then
 the multi-RHS product ``op @ B`` (SpMM) on four of them, then the
 double-precision SpMV ``from_matrix(a, value_dtype=np.float64) @ x`` on
-four:
+four, then the stream checksum, the sharded SpMV and SpMM, and the
+roofline audit:
 
 1. DIA — bench.py's headline matrix: 2^20 rows, 27 diagonals (-13..13),
    standard-normal values, seed 0 (~28.3M nonzeros);
@@ -47,7 +48,24 @@ four:
    ``hybrid_f64`` (the Hybrid: kernels J and K) and ``deep_f64`` (the
    uniform matrix under plus_times: a windowless double SellPlan on the
    'deep' strategy, kernel L); then the pair API (``spmv_dia_df``,
-   ``spmv_sell_double_pair``) on the first two.
+   ``spmv_sell_double_pair``) on the first two;
+10. ``stream_checksum``: kernel N's per-block sums of a 256 MiB float32
+    ramp of (8, 128) tiles, 64 tiles (256 KiB) per checksum, against
+    their closed form; then ``measure_stream_bandwidth`` read (kernel N)
+    and readwrite, the measured bandwidth every bound is also given at,
+    beside ``torch.sum``'s rate on a buffer of the same size;
+11. the sharded paths, on ``make_mesh(4, device="cuda")``: four shards on
+    one card: ``sharded_dia`` (the DIA headline as
+    ``build_sharded_dia_plan(a, 4)``, halo 128, kernel M four times; y
+    equal to phase 1's kernel-A y bit for bit), ``sharded_sell`` and
+    ``sharded_sell_ag`` (the shuffled band as ``build_sharded_plan(a,
+    4)``, halo and all_gather exchange, kernel B four times each; 'auto'
+    picks halo) and ``sharded_spmm`` (the same plan ``@ B``, k = 16,
+    kernel H four times);
+12. ``marginal``: ``roofline.time_marginal`` of a chain of DIA applies
+    beside the CUDA-event time of one; ``audit``:
+    ``SparseOperator.audit`` of the DIA and shuffled-band operators at
+    the measured read bandwidth (a roofline fraction above 1.05 fails).
 
 Each phase checks y against a float64 host reference (scipy, or a
 min-plus reduce over the CSR rows; relative error below 1e-4, bench.py's
@@ -58,8 +76,9 @@ apply and read just after; the SpMM and float64 phases must launch
 exactly their kernels, once each, and no other).  Each kernel is then
 compared with its plain PyTorch version on the same inputs on the card,
 and both are timed with CUDA events beside the kernel's bound: the bytes
-it must move at 3.35 TB/s or its operations at 67 TFLOP/s (float32) or
-34 TFLOP/s (float64), whichever takes longer.  Every check raises;
+it must move at 3.35 TB/s (and at the measured read bandwidth) or its
+operations at 67 TFLOP/s (float32) or 34 TFLOP/s (float64), whichever
+takes longer.  Every check raises;
 nothing is caught.  Needs one CUDA device; exits non-zero without one.
 
 Standard output, last three lines: the card's name and power limit as
@@ -227,7 +246,8 @@ def main():
                                                             subwin_plain)
     from spmv_vector_cache_tpu_torch.ops.spmv_dia import (
         spmv_dia_df, spmv_dia_f64_kernel, spmv_dia_f64_plain,
-        spmv_dia_kernel, spmv_dia_plain)
+        spmv_dia_halo_kernel, spmv_dia_halo_plain, spmv_dia_kernel,
+        spmv_dia_plain)
     from spmv_vector_cache_tpu_torch.ops.spmv_packed import (
         packed_extract_kernel, packed_extract_plain, packed_scan_kernel,
         packed_scan_plain)
@@ -238,8 +258,18 @@ def main():
         spmv_sell_double_pair)
     from spmv_vector_cache_tpu_torch.ops.strategy import (plan_nnz,
                                                           select_strategy)
+    from spmv_vector_cache_tpu_torch.parallel import (
+        build_sharded_dia_plan, build_sharded_plan, make_mesh,
+        place_on_mesh, spmm_sharded, spmv_dia_sharded, spmv_sharded)
+    from spmv_vector_cache_tpu_torch.parallel.spmv_sharded import \
+        exchange_mode
+    from spmv_vector_cache_tpu_torch.parallel.mesh import (shard_vector,
+                                                           with_halos)
     from spmv_vector_cache_tpu_torch.tools import realistic
+    from spmv_vector_cache_tpu_torch.utils import roofline
     from spmv_vector_cache_tpu_torch.utils.platform import require_cuda
+    from spmv_vector_cache_tpu_torch.utils.stream import (
+        checksum_stream, checksum_stream_plain)
 
     require_cuda()                     # no CPU fallback: fail without a card
 
@@ -471,7 +501,9 @@ def main():
                "spmm_sell_window_f32": spmm_window_kernel,
                "spmv_dia_f64": spmv_dia_f64_kernel,
                "spmv_sell_window_f64": sell_window_f64_kernel,
-               "spmv_sell_global_f64": sell_global_f64_kernel}
+               "spmv_sell_global_f64": sell_global_f64_kernel,
+               "spmv_dia_halo_f32": spmv_dia_halo_kernel,
+               "stream_checksum_f32": checksum_stream}
     path_kernels = {"dia": ["spmv_dia_f32"],
                     "sell": ["spmv_sell_window_f32"],
                     "hybrid": ["spmv_dia_f32", "spmv_sell_window_f32"],
@@ -521,6 +553,62 @@ def main():
         for k, c in counts.items():
             launches[k] += c
 
+    # --- the stream checksum and the sharded paths: their plans and inputs,
+    # then one counted run each ----------------------------------------------
+    # a 256 MiB float32 stream of (8, 128) tiles, 64 tiles (256 KiB, one
+    # CTA of kernel N) per checksum; the ramp holds t in tile t
+    n_tiles, STREAM_BLOCK = (256 << 20) // 4096, 64
+    ramp = torch.arange(n_tiles, dtype=torch.float32, device=dev)[
+        :, None, None].expand(n_tiles, 8, 128).contiguous()
+    noise = torch.randn((n_tiles, 8, 128), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(6))
+    mesh4 = make_mesh(4, device="cuda")       # one card: 4 shards on it
+    t0 = time.perf_counter()
+    sp_dia = place_on_mesh(build_sharded_dia_plan(from_scipy(band), 4),
+                           mesh4)
+    t_dia = time.perf_counter() - t0
+    assert (sp_dia.halo, sp_dia.rows_per_shard) == (128, 262144), sp_dia
+    t0 = time.perf_counter()
+    sp_sell = place_on_mesh(build_sharded_plan(a_sell, 4), mesh4)
+    t_sell = time.perf_counter() - t0
+    assert (sp_sell.halo, sp_sell.rows_per_shard) == (128, 131072), sp_sell
+    assert sp_sell.window_blocks == 1, sp_sell
+    log(f"[sharded] 4 shards on {[str(d) for d in mesh4.devices]}: DIA "
+        f"plan {t_dia:.3f} s (vals {tuple(sp_dia.vals[0].shape)} per shard, "
+        f"halo {sp_dia.halo}), SELL plan {t_sell:.3f} s (vals "
+        f"{tuple(sp_sell.vals[0].shape)} per shard, K="
+        f"{sp_sell.window_blocks}, halo {sp_sell.halo}, identity map "
+        f"{sp_sell.identity_map})")
+    x_dia_t, x_sell_t = ops["dia"][1], ops["sell"][1]
+    b_sell_t = ops["spmm_sell"][1]
+    # name: (the main path, the launches it must make, and no other)
+    more_paths = {
+        "stream_checksum": (lambda: checksum_stream(ramp, STREAM_BLOCK),
+                   {"stream_checksum_f32": 1}),
+        "sharded_dia": (lambda: spmv_dia_sharded(sp_dia, x_dia_t, mesh4),
+                        {"spmv_dia_halo_f32": 4}),
+        "sharded_sell": (lambda: spmv_sharded(sp_sell, x_sell_t, mesh4,
+                                              mode="halo"),
+                         {"spmv_sell_window_f32": 4}),
+        "sharded_sell_ag": (lambda: spmv_sharded(sp_sell, x_sell_t, mesh4,
+                                                 mode="all_gather"),
+                            {"spmv_sell_window_f32": 4}),
+        "sharded_spmm": (lambda: spmm_sharded(sp_sell, b_sell_t, mesh4),
+                         {"spmm_sell_window_f32": 4}),
+    }
+    for name, (run, exact) in more_paths.items():
+        for k in kernels.values():
+            k.launches = 0
+        ys[name] = run()
+        torch.cuda.synchronize()
+        counts = {k: w.launches for k, w in kernels.items()}
+        log(f"[{name}] main-path launches: {counts}")
+        want = dict.fromkeys(kernels, 0)
+        want.update(exact)
+        assert counts == want, (name, counts)
+        for k, c in counts.items():
+            launches[k] += c
+
     # --- y against a float64 host reference ---------------------------------
     ref64 = {"dia": (band, x_dia), "sell": (m_sell, x_sell),
              "hybrid": (m_hyb, x_hyb), "chunk": (scipy_of(a_chunk), x_chunk),
@@ -544,6 +632,44 @@ def main():
     # one kernel, one plan: the stream route's y is the deep route's
     assert torch.equal(ys["stream"], ys["deep"])
     log("[stream] y equals the deep route's y exactly")
+    # the sharded paths against float64 scipy, and kernel M against kernel
+    # A: the same slab values and the same diagonal order, so bit for bit
+    for name, base in (("sharded_dia", "dia"), ("sharded_sell", "sell"),
+                       ("sharded_sell_ag", "sell"),
+                       ("sharded_spmm", "spmm_sell")):
+        y, want = ys[name], want64[base]
+        assert y.shape == want.shape and bool(torch.isfinite(y).all())
+        err = rel_err(y, want)
+        log(f"[{name}] y vs float64 host: rel err {err:.3g} (limit "
+            f"{Y_RTOL:g})")
+        assert err < Y_RTOL, (name, err)
+    assert torch.equal(ys["sharded_dia"], ys["dia"])
+    log("[sharded_dia] y equals kernel A's unsharded y bit for bit")
+    err = max_abs(ys["sharded_sell"], ys["sharded_sell_ag"])
+    tol = KERNEL_RTOL * max(1.0, float(ys["sharded_sell_ag"].abs().max()))
+    assert err <= tol, err
+    log(f"[sharded_sell] halo vs all_gather y: max abs err {err:.3g} "
+        f"(limit {tol:.3g}; exact: "
+        f"{torch.equal(ys['sharded_sell'], ys['sharded_sell_ag'])})")
+    # 'auto' picks the halo exchange (the partials' index_add_ sums in no
+    # fixed order, so two runs agree to rounding, not bit for bit)
+    assert exchange_mode(sp_sell, "auto") == "halo"
+    err = max_abs(spmv_sharded(sp_sell, x_sell_t, mesh4, mode="auto"),
+                  ys["sharded_sell"])
+    assert err <= tol, err
+    log(f"[sharded_sell] mode='auto' runs the halo exchange (halo "
+        f"{sp_sell.halo} <= rows_per_shard {sp_sell.rows_per_shard}); its y "
+        f"vs the halo run's: max abs err {err:.3g}")
+    # the ramp's checksums against their closed form: block b sums tiles
+    # 64b .. 64b+63, each 1024 copies of its index
+    b_idx = np.arange(n_tiles // STREAM_BLOCK, dtype=np.float64)
+    closed = 1024.0 * (STREAM_BLOCK * STREAM_BLOCK * b_idx
+                       + STREAM_BLOCK * (STREAM_BLOCK - 1) / 2)
+    got = ys["stream_checksum"].cpu().numpy().astype(np.float64)
+    err = float(np.abs(got - closed).max() / np.abs(closed).max())
+    log(f"[stream_checksum] {got.shape[0]} ramp checksums of {STREAM_BLOCK} tiles "
+        f"vs the closed form: rel err {err:.3g} (limit 1e-06)")
+    assert got.shape == closed.shape and err < 1e-6, err
     ref_f64 = {"dia_f64": (band64, x_dia64), "sell_f64": (scipy_of(a_sell64),
                                                           x_sell64),
                "hybrid_f64": (m_hyb64, x_hyb64),
@@ -762,16 +888,44 @@ def main():
                sell_f64_pair(p_hyb64.rest, ops["hybrid_f64"][1]), False),
               ("spmv_sell_global_f64", "deep_f64", "",
                global_f64_pair(p_deep64, ops["deep_f64"][1]), False)]
+
+    # kernel M, each shard of the sharded DIA phase on its halo'd x
+    def halo_pair(d):
+        args = (sp_dia.vals[d], sp_dia.offsets, x_ext[d],
+                sp_dia.rows_per_shard, sp_dia.halo)
+        return (lambda: spmv_dia_halo_kernel(*args),
+                lambda: spmv_dia_halo_plain(*args),
+                nbytes(sp_dia.vals[d], x_ext[d]) + 4 * len(sp_dia.offsets)
+                + sp_dia.rows_per_shard * 4,
+                2 * sp_dia.vals[d].numel())
+
+    x_shards = shard_vector(x_dia_t, torch.float32, 4,
+                            sp_dia.rows_per_shard, mesh4)
+    x_ext = [with_halos(x_shards, d, sp_dia.halo, dev)
+             for d, dev in enumerate(mesh4.devices)]
+    cases += [("spmv_dia_halo_f32", "sharded_dia", f" shard {d}",
+               halo_pair(d), False) for d in range(4)]
+    # kernel N on the random stream: one add per float read
+    cases += [("stream_checksum_f32", "stream_checksum",
+               f" block={STREAM_BLOCK} tiles",
+               (lambda: checksum_stream(noise, STREAM_BLOCK),
+                lambda: checksum_stream_plain(noise, STREAM_BLOCK),
+                nbytes(noise) + noise.numel() // (STREAM_BLOCK * 256),
+                noise.numel()), False)]
     headline = {"spmv_dia_f32": "dia", "spmv_sell_window_f32": "sell",
                 "lane_unpermute_f32": "chunk", "spmv_subwin_f32": "chunk",
                 "packed_scan_f32": "packed", "packed_extract_f32": "packed",
                 "spmv_sell_global_f32": "deep", "spmm_dia_f32": "spmm_dia",
                 "spmm_sell_window_f32": "spmm_sell",
                 "spmv_dia_f64": "dia_f64", "spmv_sell_window_f64": "sell_f64",
-                "spmv_sell_global_f64": "deep_f64"}
+                "spmv_sell_global_f64": "deep_f64",
+                "spmv_dia_halo_f32": "sharded_dia",
+                "stream_checksum_f32": "stream_checksum"}
     rows = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
                     bound_by="bytes", library_ms=None) for k in kernels}
     bound_terms = {k: [0.0, 0.0] for k in kernels}
+    # (bytes, operations, peak operations/s) of each headline case
+    bound_work = {k: [] for k in kernels}
     for kname, phase, what, (kern, plain, nbyte, nops), exact in cases:
         got, ref = kern(), plain()
         torch.cuda.synchronize()
@@ -805,6 +959,9 @@ def main():
             rows[kname]["bound_ms"] += max(bytes_ms, ops_ms)
             bound_terms[kname][0] += bytes_ms
             bound_terms[kname][1] += ops_ms
+            bound_work[kname].append((nbyte, nops, PEAK_F64_PER_S
+                                      if kname.endswith("_f64")
+                                      else PEAK_F32_PER_S))
     for kname, (bytes_ms, ops_ms) in bound_terms.items():
         rows[kname]["bound_by"] = "bytes" if bytes_ms >= ops_ms \
             else "operations"
@@ -817,6 +974,11 @@ def main():
     lib_ms = min(time_ms(lambda: torch.gather(img, 1, gidx)) for _ in "ab")
     rows["lane_unpermute_f32"]["library_ms"] = lib_ms
     log(f"[chunk] torch.gather (kernel C's function): {lib_ms:.4f} ms "
+        f"on {card}")
+    # kernel N: torch.sum streams the same 256 MiB (one sum, not 1024)
+    lib_ms = min(time_ms(lambda: torch.sum(noise)) for _ in "ab")
+    rows["stream_checksum_f32"]["library_ms"] = lib_ms
+    log(f"[stream_checksum] torch.sum of the same buffer: {lib_ms:.4f} ms "
         f"on {card}")
 
     # kernels H and I: torch.sparse.mm of the same matrix, as a CSR tensor
@@ -863,19 +1025,30 @@ def main():
         del a_t
 
     # --- the apply, end to end ----------------------------------------------
-    for name, (op, x) in ops.items():
-        ms = time_ms(lambda: op @ x)
-        nnz = plan_nnz(op.plan)
-        rhs = x.shape[1] if x.dim() == 2 else 1
-        log(f"[{name}] apply: {ms:.4f} ms -> {nnz * rhs / ms / 1e6:.2f} "
-            f"Gnnz/s (nnz={nnz}{f' x {rhs} RHS' if rhs > 1 else ''}) on "
-            f"{card}")
-        by_kernel = device_us_by_kernel(lambda: op @ x)
+    # name: (the apply, its nonzeros, its RHS count)
+    applies = {name: ((lambda op=op, x=x: op @ x), plan_nnz(op.plan),
+                      x.shape[1] if x.dim() == 2 else 1)
+               for name, (op, x) in ops.items()}
+    for name, base in (("sharded_dia", "dia"), ("sharded_sell", "sell"),
+                       ("sharded_sell_ag", "sell"),
+                       ("sharded_spmm", "spmm_sell")):
+        applies[name] = (more_paths[name][0],) + applies[base][1:]
+    # kernel N on the random stream (no nonzeros: its rate is bytes/s)
+    applies["stream_checksum"] = (
+        lambda: checksum_stream(noise, STREAM_BLOCK), None, 1)
+    busy_us = {}
+    for name, (apply, nnz, rhs) in applies.items():
+        ms = time_ms(apply)
+        rate = (f"{nbytes(noise) / ms / 1e9:.4f} TB/s read" if nnz is None
+                else f"{nnz * rhs / ms / 1e6:.2f} Gnnz/s (nnz={nnz}"
+                f"{f' x {rhs} RHS' if rhs > 1 else ''})")
+        log(f"[{name}] apply: {ms:.4f} ms -> {rate} on {card}")
+        by_kernel = device_us_by_kernel(apply)
         if not by_kernel:
             log(f"[{name}] device time by kernel: not measured (the "
                 f"profiler saw no device activity)")
             continue
-        busy = sum(us for us, _ in by_kernel.values())
+        busy = busy_us[name] = sum(us for us, _ in by_kernel.values())
         log(f"[{name}] device busy {busy:.2f} us of a {ms * 1e3:.2f} us "
             f"apply -> idle share {1 - busy / (ms * 1e3):.3f}")
         for k, (us, n) in sorted(by_kernel.items(),
@@ -917,6 +1090,80 @@ def main():
                 f"err {err:.3g} on {card}")
             del b, cols_b, fused, looped
         torch.cuda.empty_cache()
+
+    # --- stream_checksum: the read probe on kernel N (the bandwidth every
+    # roofline fraction below divides by) and the readwrite probe ---------
+    checksum_stream.launches = 0
+    bw_read = roofline.measure_stream_bandwidth(mode="read")
+    n_probe = checksum_stream.launches
+    assert n_probe > 0, n_probe
+    bw_rw = roofline.measure_stream_bandwidth(mode="readwrite")
+    log(f"[stream_checksum] measure_stream_bandwidth (256 MiB): read "
+        f"{bw_read / 1e12:.4f} TB/s ({n_probe} launches of kernel N; "
+        f"{bw_read / PEAK_BYTES_PER_S:.4f} of the data sheet's "
+        f"{PEAK_BYTES_PER_S / 1e12:g} TB/s), readwrite "
+        f"{bw_rw / 1e12:.4f} TB/s, on {card}")
+    # every measured-bandwidth bound and audit fraction divides by kernel
+    # N's rate: torch.sum's rate on a buffer of the same size tells a
+    # change to kernel N apart from a change in the card
+    row_n = rows["stream_checksum_f32"]
+    log(f"[stream_checksum] beside the probe, on the same 256 MiB: "
+        f"torch.sum {nbytes(noise) / row_n['library_ms'] / 1e9:.4f} TB/s, "
+        f"kernel N (CUDA events) {nbytes(noise) / row_n['ms'] / 1e9:.4f} "
+        f"TB/s, on {card}")
+    # a probe above the data sheet would mean the probe is wrong
+    assert 0 < bw_read < 1.05 * PEAK_BYTES_PER_S, bw_read
+
+    # --- marginal: the two-point marginal of a chain of kernel-A applies,
+    # beside the CUDA-event time of one apply -------------------------------
+    op_dia, x_d = ops["dia"]
+
+    def dia_chain(n):
+        def go():
+            for _ in range(n):
+                y = op_dia @ x_d
+            return y[:1]
+        return go
+
+    spmv_dia_kernel.launches = 0
+    t_marg = roofline.time_marginal(dia_chain, i1=30, i2=90)
+    n_chain = spmv_dia_kernel.launches
+    assert n_chain > 0, n_chain
+    ev_ms = time_ms(lambda: op_dia @ x_d)
+    log(f"[marginal] time_marginal, DIA headline ({n_chain} launches of "
+        f"kernel A): {t_marg * 1e6:.2f} us per apply; CUDA events "
+        f"{ev_ms * 1e3:.2f} us per apply; profiler device busy "
+        f"{busy_us.get('dia', float('nan')):.2f} us; on {card}")
+
+    # --- audit: SparseOperator.audit at the measured read bandwidth --------
+    for name, path in (("dia", ["spmv_dia_f32"]),
+                       ("sell", ["spmv_sell_window_f32"])):
+        op = ops[name][0]
+        for k in kernels.values():
+            k.launches = 0
+        out = op.audit(stream_bw=bw_read)
+        assert all(kernels[k].launches > 0 for k in path), name
+        log(f"[audit] {name}: seconds {out['seconds'] * 1e6:.2f} us per "
+            f"apply (profiler device busy "
+            f"{busy_us.get(name, float('nan')):.2f} us), gnnz_per_s "
+            f"{out['gnnz_per_s']:.4f}, achieved_gb_per_s "
+            f"{out['achieved_gb_per_s']:.2f}, peak_gb_per_s "
+            f"{out['peak_gb_per_s']:.2f}, roofline_fraction "
+            f"{out['roofline_fraction']:.4f} (bytes_per_apply "
+            f"{op.stats['bytes_per_apply']}), on {card}")
+        # above 1.05 the byte model or the probe would be wrong
+        assert out["roofline_fraction"] <= 1.05, (name, out)
+
+    # every kernel's bound at the measured read bandwidth beside the one at
+    # the data sheet's 3.35 TB/s
+    for kname, work in bound_work.items():
+        rows[kname]["bound_ms_at_measured_bw"] = 1e3 * sum(
+            max(b / bw_read, o / peak) for b, o, peak in work)
+        log(f"{kname}: bound {rows[kname]['bound_ms']:.5f} ms at "
+            f"{PEAK_BYTES_PER_S / 1e12:g} TB/s, "
+            f"{rows[kname]['bound_ms_at_measured_bw']:.5f} ms at the "
+            f"measured {bw_read / 1e12:.4f} TB/s; kernel "
+            f"{rows[kname]['ms']:.5f} ms")
     log(f"max_memory_allocated: {torch.cuda.max_memory_allocated()} bytes")
 
     csrc = "spmv_vector_cache_tpu_torch/csrc/"
@@ -952,6 +1199,10 @@ def main():
         "spmv_sell_global_f64": ("spmv_sell_global.cu",
                                  "spmv_vector_cache_tpu/ops/"
                                  "spmv_pallas.py:708"),
+        "spmv_dia_halo_f32": ("spmv_dia.cu", "spmv_vector_cache_tpu/"
+                              "parallel/dia_sharded.py:120"),
+        "stream_checksum_f32": ("stream_checksum.cu",
+                                "tests/test_backend_stream.py:26"),
     }
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": csrc + meta[k][0],

@@ -14,9 +14,14 @@ module for module and imports ``torch``, never ``jax``:
   SELL-window SpMM kernels, and the float64 builds of the DIA, SELL
   window and global-column kernels), each beside its plain PyTorch
   version;
+* :mod:`.parallel` — sharded SpMV and SpMM over a mesh of devices (one
+  process; several shards may share one card): row-block SELL plans with
+  all-gather or halo exchange, and DIA plans with halo exchange on the
+  halo DIA kernel;
 * :mod:`.interop` — plans carried across from the JAX package;
 * :mod:`.tools` — the matrix generators of the evaluation suite;
-* :mod:`.utils` — stat registry and device policy.
+* :mod:`.utils` — stat registry, device policy, the stream checksum
+  kernel and the roofline audit (measured stream bandwidth).
 
 ``SparseOperator.from_matrix(a) @ x`` runs DIA, Hybrid, SELL (window,
 resident, deep and stream), Chunk, Packed, Cached and COO-tail plans on
@@ -28,7 +33,7 @@ y; ``from_matrix(a, device="cpu")`` runs the kernels' plain versions, as
 the tests do.
 """
 
-from . import formats, interop, ops, tools, utils  # noqa: F401
+from . import formats, interop, ops, parallel, tools, utils  # noqa: F401
 from .formats.containers import BSR, COO, CSC, CSR, ELL  # noqa: F401
 from .formats.plan import auto_plan  # noqa: F401
 from .ops import semiring  # noqa: F401

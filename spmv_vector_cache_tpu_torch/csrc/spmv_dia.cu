@@ -1,5 +1,6 @@
 // DIA SpMV for Hopper (sm_90a), plain C interface bound with ctypes:
-// kernel A (float32) and its float64 build, kernel J.
+// kernel A (float32), its float64 build, kernel J, and its halo build,
+// kernel M.
 //
 // Kernel A replaces the Pallas kernels `_make_dia_kernel` and
 // `_make_dia_kernel_windowed` (spmv_vector_cache_tpu/ops/spmv_dia.py),
@@ -10,11 +11,19 @@
 // `_df_diag_accumulate`), which emulate f64 with hi/lo f32 pairs and
 // error-free transforms; J joins each pair into a double (values.cuh)
 // and sums in FP64, reading a float64 x and writing a float64 y.
+// Kernel M replaces `_local_dia_spmv`
+// (spmv_vector_cache_tpu/parallel/dia_sharded.py), one shard's DIA SpMV
+// over an x that carries both neighbours' halos; the reference runs
+// `_make_dia_kernel` there with pad_left = halo, so M is A with an x
+// origin: the shard's row r reads x_ext[halo + r + off_k], and the left
+// halo sits below the shard's own columns.
 //
-// y[r] = sum_k vals[t, k, i, l] * x[r + off_k], r = t*S*128 + i*128 + l,
-// where x reads as 0 outside [0, cols) (the reference's zero-padded x
-// image).  Only rows below `rows` are written.  A double plan's slab is
-// (T, 2D, S*128): the low word of diagonal k sits at diagonal D + k.
+// y[r] = sum_k vals[t, k, i, l] * x[origin + r + off_k],
+// r = t*S*128 + i*128 + l, where x reads as 0 outside [0, x_len) (the
+// reference's zero-padded x image); A and J run with origin 0 and
+// x_len = cols.  Only rows below `rows` are written.  A double plan's
+// slab is (T, 2D, S*128): the low word of diagonal k sits at diagonal
+// D + k.
 //
 // Bound: the value stream, 4 B per stored slot (8 B, two words, in J),
 // read once; x is re-read D times but from L1/L2 (neighbouring diagonals
@@ -32,12 +41,16 @@
 
 namespace {
 
-template <class V>
+// kHalo: the x origin is read at run time (kernel M); A and J compile
+// without it, so their code is what it was before M (a run-time origin
+// of 0 cost A 6 % of its device time on an H100)
+template <class V, bool kHalo>
 __global__ void spmv_dia_kernel(const float* __restrict__ vals,
                                 const typename V::T* __restrict__ x,
                                 const int* __restrict__ offsets,
                                 typename V::T* __restrict__ y,
-                                long long rows, long long cols, int ndiag,
+                                long long rows, long long x_len,
+                                long long x_origin, int ndiag,
                                 int rows_per_step) {
     using T = typename V::T;
     long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -46,26 +59,28 @@ __global__ void spmv_dia_kernel(const float* __restrict__ vals,
     long long rem = r - t * rows_per_step;
     const long long half = (long long)ndiag * rows_per_step;
     const float* v = vals + t * V::kChannels * half + rem;
+    const long long r_x = kHalo ? r + x_origin : r;
     T acc = T(0);
     for (int k = 0; k < ndiag; ++k) {
-        long long c = r + __ldg(offsets + k);
-        T xv = (c >= 0 && c < cols) ? __ldg(x + c) : T(0);
+        long long c = r_x + __ldg(offsets + k);
+        T xv = (c >= 0 && c < x_len) ? __ldg(x + c) : T(0);
         acc = spmv::madd(V::load(v + (long long)k * rows_per_step, half), xv,
                          acc);
     }
     y[r] = acc;
 }
 
-template <class V>
+template <class V, bool kHalo>
 int launch(const float* vals, const typename V::T* x, const int* offsets,
-           typename V::T* y, long long rows, long long cols, int ndiag,
-           int rows_per_step, void* stream) {
+           typename V::T* y, long long rows, long long x_len,
+           long long x_origin, int ndiag, int rows_per_step, void* stream) {
     if (rows > 0) {
         const int threads = 256;
         long long blocks = (rows + threads - 1) / threads;
-        spmv_dia_kernel<V><<<(unsigned)blocks, threads, 0,
-                             (cudaStream_t)stream>>>(
-            vals, x, offsets, y, rows, cols, ndiag, rows_per_step);
+        spmv_dia_kernel<V, kHalo><<<(unsigned)blocks, threads, 0,
+                                    (cudaStream_t)stream>>>(
+            vals, x, offsets, y, rows, x_len, x_origin, ndiag,
+            rows_per_step);
     }
     return (int)cudaGetLastError();
 }
@@ -76,8 +91,20 @@ extern "C" int spmv_dia_f32(const float* vals, const float* x,
                             const int* offsets, float* y, long long rows,
                             long long cols, int ndiag, int rows_per_step,
                             void* stream) {
-    return launch<spmv::F32Values>(vals, x, offsets, y, rows, cols, ndiag,
-                                   rows_per_step, stream);
+    return launch<spmv::F32Values, false>(vals, x, offsets, y, rows, cols,
+                                          0, ndiag, rows_per_step, stream);
+}
+
+// kernel M: x_ext holds the shard's x with the left halo first, so the
+// shard's row r reads x_ext[x_origin + r + off_k]
+extern "C" int spmv_dia_halo_f32(const float* vals, const float* x_ext,
+                                 const int* offsets, float* y,
+                                 long long rows, long long x_len,
+                                 long long x_origin, int ndiag,
+                                 int rows_per_step, void* stream) {
+    return launch<spmv::F32Values, true>(vals, x_ext, offsets, y, rows,
+                                         x_len, x_origin, ndiag,
+                                         rows_per_step, stream);
 }
 
 // vals: the double plan's (T, 2D, S*128) hi/lo slab; x, y: float64
@@ -85,6 +112,6 @@ extern "C" int spmv_dia_f64(const float* vals, const double* x,
                             const int* offsets, double* y, long long rows,
                             long long cols, int ndiag, int rows_per_step,
                             void* stream) {
-    return launch<spmv::PairValues>(vals, x, offsets, y, rows, cols, ndiag,
-                                    rows_per_step, stream);
+    return launch<spmv::PairValues, false>(vals, x, offsets, y, rows, cols,
+                                           0, ndiag, rows_per_step, stream);
 }

@@ -237,6 +237,10 @@ def _cdiv(a, b):
     return -(-a // b)
 
 
+def _round_up(n, m):
+    return _cdiv(n, m) * m
+
+
 def compute_cols_win(live: np.ndarray, cols: np.ndarray,
                      window_base: np.ndarray, window_blocks: int,
                      group_tiles: int = WINDOW_GROUP_TILES,

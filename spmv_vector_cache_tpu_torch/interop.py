@@ -19,10 +19,15 @@ from .formats.chunk import ChunkPlan, ChunkStats, SubwinPlan
 from .formats.dia import DiaPlan, DiaStats, HybridPlan
 from .formats.packed import PackedPlan, PackedStats
 from .formats.plan import PlanStats, SellPlan, map_arrays, place
+from .parallel.dia_sharded import ShardedDiaPlan
+from .parallel.mesh import make_mesh, place_on_mesh, stacked_numpy
+from .parallel.spmv_sharded import ShardedPlan
 
 #: port plan classes by the reference's class name, and their stats class
 _PLANS = {cls.__name__: cls for cls in
-          (SellPlan, DiaPlan, CooTail, SubwinPlan, PackedPlan)}
+          (SellPlan, DiaPlan, CooTail, SubwinPlan, PackedPlan, ShardedPlan,
+           ShardedDiaPlan)}
+_SHARDED = (ShardedPlan, ShardedDiaPlan)
 _STATS = {"SellPlan": PlanStats, "DiaPlan": DiaStats,
           "PackedPlan": PackedStats}
 
@@ -67,15 +72,24 @@ def _host(plan_ref):
     return cls(**kw)
 
 
-def plan_from_reference(plan_ref, device="cuda"):
+def plan_from_reference(plan_ref, device="cuda", *, mesh=None):
     """A SellPlan, DiaPlan, HybridPlan, CachedPlan, CooTail, ChunkPlan or
     PackedPlan of the JAX package as the port's plan, its arrays on
     ``device`` (the card unless the caller asks for ``"cpu"``; without a
-    card, torch's placement raises)."""
-    return place(_host(plan_ref), torch.device(device))
+    card, torch's placement raises).  A ShardedPlan or ShardedDiaPlan
+    comes across with shard d on ``mesh.devices[d]`` (default: one shard
+    per entry of ``make_mesh(num_shards, device=device)``)."""
+    host = _host(plan_ref)
+    if isinstance(host, _SHARDED):
+        mesh = mesh or make_mesh(host.num_shards, device=device)
+        return place_on_mesh(host, mesh)
+    return place(host, torch.device(device))
 
 
 def plan_to_numpy(plan):
-    """The port plan with every tensor field as a host numpy array."""
+    """The port plan with every tensor field as a host numpy array (a
+    sharded plan's per-shard tensors stacked back into one array)."""
+    if isinstance(plan, _SHARDED):
+        return stacked_numpy(plan)
     return map_arrays(plan, lambda v: v.cpu().numpy()
                       if isinstance(v, torch.Tensor) else v)

@@ -73,6 +73,11 @@ SIGNATURES = {
     # group_tiles, fold, window_grain, cols, k, stream
     "spmm_sell_window_f32": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I,
                              _L, _I, _P],
+    # vals, x_ext, offsets, y, rows, x_len, x_origin, ndiag,
+    # rows_per_step, stream
+    "spmv_dia_halo_f32": [_P, _P, _P, _P, _L, _L, _L, _I, _I, _P],
+    # data, out, num_blocks, block_elems, stream
+    "stream_checksum_f32": [_P, _P, _L, _L, _P],
 }
 
 

@@ -10,6 +10,7 @@ on a torch device once, and then applies it: ``op @ x``.
 >>> y64 = op64 @ x                         # float64 y, FP64 kernels
 >>> Y = op @ B                             # kernel SpMM, B: (cols, k)
 >>> op_cpu = SparseOperator.from_matrix(a, device="cpu")   # plain versions
+>>> op.audit(stream_bw=roofline.measure_stream_bandwidth())  # roofline
 """
 
 from __future__ import annotations
@@ -172,6 +173,46 @@ class SparseOperator:
         if y is not None:
             out_host = out_host + np.asarray(y)
         return out_host
+
+    def audit(self, x: Optional[Array] = None, *, iters: int = 20,
+              stream_bw: Optional[float] = None) -> dict:
+        """Achieved-against-peak roofline audit.
+
+        Times a chain of dependent applies (each normalised by its norm
+        on a square operator; a rectangular one carries the dependency
+        through a negligible scalar) with the two-point marginal of
+        ``iters`` and ``3 * iters`` applies, models the bytes one apply
+        moves (``plan_bytes_per_apply``), and records Gnnz/s, achieved
+        GB/s and, given ``stream_bw`` (bytes/s, e.g. from
+        ``roofline.measure_stream_bandwidth``), the roofline fraction into
+        ``self.stats``.  The marginal is host wall time per apply: the
+        device's time where the card is the bottleneck, the host's
+        dispatch cost where it is not (``utils/roofline.py``)."""
+        from ..utils import roofline
+
+        rows, cols = self.plan.shape
+        if x is None:
+            x = torch.ones(cols, dtype=torch.float32)
+        x = self._as_x(x)
+        square = rows == cols
+
+        def make(n):
+            def go():
+                u = x
+                for _ in range(n):
+                    w = self.matvec(u)
+                    if square:
+                        u = w / torch.linalg.vector_norm(w).clamp(min=1e-30)
+                    else:
+                        u = u * (1 + w.reshape(-1)[0] * 1e-30)
+                return u[:1]
+            return go
+
+        dt = roofline.time_marginal(make, i1=iters, i2=3 * iters)
+        return roofline.audit(
+            self.stats, nnz=plan_nnz(self.plan), seconds=dt,
+            bytes_moved=plan_bytes_per_apply(self.plan, self.strategy),
+            stream_bw=stream_bw)
 
     # -- verification -----------------------------------------------------
     def compare_golden(self, x: Array, golden: Array,

@@ -4,7 +4,11 @@
 nonzero is its row plus a constant, so there is no index stream.
 :func:`spmv_dia_kernel` wraps kernel A (``csrc/spmv_dia.cu``), which
 replaces the reference's resident and windowed Pallas kernels;
-:func:`spmv_dia_plain` is its plain PyTorch version.  On a double plan
+:func:`spmv_dia_plain` is its plain PyTorch version.
+:func:`spmv_dia_halo_kernel` wraps kernel M, A with an x origin, which
+replaces the reference's sharded DIA kernel (one shard's rows over an x
+carrying both neighbours' halos, ``parallel/dia_sharded.py``);
+:func:`spmv_dia_halo_plain` is its plain version.  On a double plan
 (``value_dtype=np.float64``, hi/lo float32 pairs) :func:`spmv_dia_double`
 (float64 in and out) and :func:`spmv_dia_df` (the reference's pair API)
 run kernel J, the float64 build of A (:func:`spmv_dia_f64_kernel`),
@@ -44,16 +48,14 @@ def _check(vals: torch.Tensor, offsets, x: torch.Tensor,
         raise ValueError("DIA operands must be contiguous")
 
 
-def spmv_dia_plain(vals: torch.Tensor, offsets, x: torch.Tensor,
-                   rows: int) -> torch.Tensor:
-    """Plain PyTorch version of kernel A: the same sum, in the same
-    diagonal order, with out-of-range columns reading 0.  An x with a
-    trailing RHS axis, B of shape (cols, k), gives Y (rows, k): kernel
-    I's plain version (``ops/spmm_dia.py``)."""
+def spmv_dia_halo_plain(vals: torch.Tensor, offsets, x: torch.Tensor,
+                        rows: int, origin: int) -> torch.Tensor:
+    """Plain PyTorch version of kernel M: row r reads
+    ``x[origin + r + off_k]``, and 0 outside ``[0, len(x))``."""
     T, D, S, L = vals.shape
     tail = (1,) * (x.dim() - 1)            # broadcast over B's RHS axis
     v = vals.permute(1, 0, 2, 3).reshape(D, T * S * L)[:, :rows]
-    r = torch.arange(rows, device=x.device)
+    r = torch.arange(rows, device=x.device) + int(origin)
     cols = x.shape[0]
     acc = torch.zeros((rows,) + tuple(x.shape[1:]), dtype=x.dtype,
                       device=x.device)
@@ -64,6 +66,15 @@ def spmv_dia_plain(vals: torch.Tensor, offsets, x: torch.Tensor,
                          torch.zeros((), dtype=x.dtype, device=x.device))
         acc = acc + v[k].view(-1, *tail) * xv
     return acc
+
+
+def spmv_dia_plain(vals: torch.Tensor, offsets, x: torch.Tensor,
+                   rows: int) -> torch.Tensor:
+    """Plain PyTorch version of kernel A: the same sum, in the same
+    diagonal order, with out-of-range columns reading 0.  An x with a
+    trailing RHS axis, B of shape (cols, k), gives Y (rows, k): kernel
+    I's plain version (``ops/spmm_dia.py``)."""
+    return spmv_dia_halo_plain(vals, offsets, x, rows, 0)
 
 
 @functools.lru_cache(maxsize=64)
@@ -94,6 +105,32 @@ def spmv_dia_kernel(vals: torch.Tensor, offsets, x: torch.Tensor,
 
 
 spmv_dia_kernel.launches = 0
+
+
+def spmv_dia_halo_kernel(vals: torch.Tensor, offsets, x_ext: torch.Tensor,
+                         rows: int, origin: int) -> torch.Tensor:
+    """Kernel M on a CUDA tensor; the plain version on a CPU tensor.
+    One shard's DIA SpMV (``parallel/dia_sharded.py``): ``x_ext`` is the
+    left halo, the shard's x and the right halo, and ``origin`` the left
+    halo's width, so row r reads ``x_ext[origin + r + off_k]``."""
+    _check(vals, offsets, x_ext)
+    if not platform.is_cuda(x_ext):
+        return spmv_dia_halo_plain(vals, offsets, x_ext, rows, origin)
+    T, D, S, L = vals.shape
+    if rows > T * S * L:
+        raise ValueError(f"rows={rows} exceeds the plan's {T * S * L}")
+    offs = _offsets_on(tuple(int(o) for o in offsets), x_ext.device)
+    y = torch.empty(rows, dtype=torch.float32, device=x_ext.device)
+    err = _kernels.library().spmv_dia_halo_f32(
+        vals.data_ptr(), x_ext.data_ptr(), offs.data_ptr(), y.data_ptr(),
+        rows, x_ext.shape[0], int(origin), D, S * L,
+        torch.cuda.current_stream(x_ext.device).cuda_stream)
+    _kernels.check(err, "spmv_dia_halo_f32")
+    spmv_dia_halo_kernel.launches += 1
+    return y
+
+
+spmv_dia_halo_kernel.launches = 0
 
 
 def spmv_dia_f64_plain(vals: torch.Tensor, offsets, x: torch.Tensor,

@@ -473,3 +473,164 @@ def test_f64_operator_on_the_card_matches_cpu(cuda, kind):
     assert y.device.type == "cuda" and y.dtype == torch.float64
     _close64(y.cpu(), cpu @ x)
     _close64(y.cpu(), torch.from_numpy(m @ x))
+
+
+# ---------------------------------------------------------------------------
+# kernel M (halo DIA), kernel N (stream checksum), the sharded paths
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("offs,rows", [
+    ([0], 700),
+    ([-130, -7, 0, 3, 200], 3000),
+    (list(range(-13, 14)), 5000),
+])
+def test_dia_halo_kernel_origin_zero_is_kernel_a(cuda, offs, rows):
+    """Origin 0 over x_len = cols: kernel M is kernel A, bit for bit."""
+    rng = np.random.default_rng(16)
+    m = sp.spdiags(rng.standard_normal((len(offs), rows)).astype(
+        np.float32), offs, rows, rows).tocsr()
+    plan = place(build_dia_plan(from_scipy(m), sublanes=8), cuda)
+    x = torch.from_numpy(rng.standard_normal(rows).astype(np.float32)).to(
+        cuda)
+    before = spmv_dia.spmv_dia_halo_kernel.launches
+    got = spmv_dia.spmv_dia_halo_kernel(plan.vals, plan.offsets, x, rows, 0)
+    assert spmv_dia.spmv_dia_halo_kernel.launches == before + 1
+    assert torch.equal(got, spmv_dia.spmv_dia_kernel(plan.vals, plan.offsets,
+                                                     x, rows))
+    _close(got, spmv_dia.spmv_dia_halo_plain(plan.vals, plan.offsets, x,
+                                             rows, 0))
+
+
+@pytest.mark.parametrize("shard", [0, 1, 3])
+def test_dia_halo_kernel_matches_plain_on_shards(cuda, shard):
+    """One shard of a 4-shard plan over a halo'd x: both ring edges (the
+    wrapped halo entries meet zero values) and an inner shard."""
+    from spmv_vector_cache_tpu_torch.parallel import build_sharded_dia_plan
+
+    rng = np.random.default_rng(17)
+    n = 4 * 1024
+    m = sp.spdiags(rng.standard_normal((5, n)).astype(np.float32),
+                   [-130, -1, 0, 1, 130], n, n).tocsr()
+    sp_plan = build_sharded_dia_plan(from_scipy(m), 4, sublanes=8)
+    halo, rps = sp_plan.halo, sp_plan.rows_per_shard
+    vals = torch.from_numpy(sp_plan.vals[shard]).to(cuda)
+    x_ext = torch.from_numpy(rng.standard_normal(rps + 2 * halo).astype(
+        np.float32)).to(cuda)
+    got = spmv_dia.spmv_dia_halo_kernel(vals, sp_plan.offsets, x_ext, rps,
+                                        halo)
+    _close(got, spmv_dia.spmv_dia_halo_plain(vals, sp_plan.offsets, x_ext,
+                                             rps, halo))
+
+
+@pytest.mark.parametrize("T,block", [(64, 8), (256, 128), (96, 96),
+                                     (4, 1)])
+def test_stream_checksum_kernel_ramp_closed_form(cuda, T, block):
+    """Tile t holds t: each block's sum is exact in float32 here, so the
+    kernel (one CTA per block, looping over blocks of up to 131072
+    floats here) must give it exactly."""
+    from spmv_vector_cache_tpu_torch.utils import stream
+
+    tile_vals = torch.arange(T, dtype=torch.float32, device=cuda)
+    data = tile_vals[:, None, None].expand(T, 8, 128).contiguous()
+    before = stream.checksum_stream.launches
+    got = stream.checksum_stream(data, block)
+    assert stream.checksum_stream.launches == before + 1
+    want = tile_vals.reshape(T // block, block).sum(1) * 1024
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("T,P,R,block", [(512, 8, 128, 64),
+                                         (300, 8, 128, 100),
+                                         (64, 4, 33, 16)])
+def test_stream_checksum_kernel_matches_plain(cuda, T, P, R, block):
+    from spmv_vector_cache_tpu_torch.utils import stream
+
+    g = torch.Generator(device=cuda).manual_seed(18)
+    data = torch.randn((T, P, R), generator=g, device=cuda)
+    _close(stream.checksum_stream(data, block),
+           stream.checksum_stream_plain(data, block))
+
+
+def test_measured_read_bandwidth_in_the_cards_range(cuda):
+    """The read probe on the default 256 MiB buffer: at least 1.0e12
+    bytes/s and at most 5 % above the H100's 3.35e12."""
+    from spmv_vector_cache_tpu_torch.utils import roofline
+
+    bw = roofline.measure_stream_bandwidth()
+    assert 1.0e12 < bw < 1.05 * 3.35e12, bw
+
+
+SHARDED_KINDS = ["dia", "halo", "all_gather", "spmm"]
+
+
+@pytest.mark.parametrize("kind", SHARDED_KINDS)
+def test_sharded_on_the_card_matches_cpu(cuda, kind):
+    """Four shards on one card against four on the CPU; the kernels
+    launch once per shard."""
+    from spmv_vector_cache_tpu_torch.parallel import make_mesh
+
+    _sharded_matches_cpu(kind, make_mesh(4, device="cuda:0"))
+
+
+@pytest.mark.parametrize("shards_per_card", [1, 2])
+@pytest.mark.parametrize("kind", SHARDED_KINDS)
+def test_sharded_over_several_cards_matches_cpu(cuda, kind,
+                                                shards_per_card):
+    """One or two shards on each visible card (each shard's kernels
+    launch into its own card's stream) against the same shards on the
+    CPU."""
+    from spmv_vector_cache_tpu_torch.parallel import make_mesh
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs two or more CUDA devices")
+    mesh = make_mesh(shards_per_card * cards)
+    assert len(set(mesh.devices)) == cards
+    _sharded_matches_cpu(kind, mesh)
+
+
+def _sharded_matches_cpu(kind, mesh):
+    from spmv_vector_cache_tpu_torch.ops import spmm_sell
+    from spmv_vector_cache_tpu_torch.parallel import (
+        build_sharded_dia_plan, build_sharded_plan, make_mesh,
+        spmm_sharded, spmv_dia_sharded, spmv_sharded)
+
+    D = mesh.size
+    rng = np.random.default_rng(19)
+    n = 8192
+    if kind == "dia":
+        m = sp.spdiags(rng.standard_normal((27, n)).astype(np.float32),
+                       list(range(-13, 14)), n, n).tocsr()
+    else:
+        r = np.repeat(np.arange(n), 27)
+        c = (r // 128) * 128 + rng.integers(0, 128, r.shape[0])
+        m = sp.csr_matrix((rng.standard_normal(r.shape[0]).astype(
+            np.float32), (r, c)), shape=(n, n))
+        m.sum_duplicates()
+    m.sort_indices()
+    a = from_scipy(m)
+    x = rng.standard_normal((n, 16) if kind == "spmm" else n).astype(
+        np.float32)
+    cpu = make_mesh(D, device="cpu")
+    assert all(d.type == "cuda" for d in mesh.devices)
+    if kind == "dia":
+        plan = build_sharded_dia_plan(a, D, sublanes=8)
+        kernel, run = spmv_dia.spmv_dia_halo_kernel, spmv_dia_sharded
+        kw = {}
+    elif kind == "spmm":
+        plan = build_sharded_plan(a, D)
+        kernel, run = spmm_sell.spmm_window_kernel, spmm_sharded
+        kw = {}
+    else:
+        plan = build_sharded_plan(a, D)
+        kernel, run = spmv_sell.sell_window_kernel, spmv_sharded
+        kw = dict(mode=kind)
+    before = kernel.launches
+    y = run(plan, torch.from_numpy(x).to(mesh.devices[0]), mesh, **kw)
+    for dev in set(mesh.devices):
+        torch.cuda.synchronize(dev)
+    assert kernel.launches == before + D
+    assert y.device == mesh.devices[0]
+    _close(y.cpu(), run(plan, torch.from_numpy(x), cpu, **kw))
+    want = torch.from_numpy((m.astype(np.float64) @ x).astype(np.float32))
+    _close(y.cpu(), want)
