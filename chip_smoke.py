@@ -61,7 +61,7 @@ roofline audit:
     ``sharded_sell_ag`` (the shuffled band as ``build_sharded_plan(a,
     4)``, halo and all_gather exchange, kernel B four times each; 'auto'
     picks halo) and ``sharded_spmm`` (the same plan ``@ B``, k = 16,
-    kernel H four times);
+    kernel H four times, each shard's rows of Y written by H itself);
 12. ``marginal``: ``roofline.time_marginal`` of a chain of DIA applies
     beside the CUDA-event time of one; ``audit``:
     ``SparseOperator.audit`` of the DIA and shuffled-band operators at
@@ -78,14 +78,23 @@ compared with its plain PyTorch version on the same inputs on the card,
 and both are timed with CUDA events beside the kernel's bound: the bytes
 it must move at 3.35 TB/s (and at the measured read bandwidth) or its
 operations at 67 TFLOP/s (float32) or 34 TFLOP/s (float64), whichever
-takes longer.  Every check raises;
-nothing is caught.  Needs one CUDA device; exits non-zero without one.
+takes longer (kernel H also on each shard of ``sharded_spmm``, and at
+RUN_PACK 2, 4, 8 and 16, the tiles one CTA takes of short slices;
+kernel C through the public wrapper beside ``torch.gather``, both
+allocating, and by the apply's in-place call beside ``torch.gather``
+into a buffer).  ``host_cost`` then times each piece of kernel C's
+launch path by the host clock.  The profiler's by-kernel lists of
+``spmm_sell``, ``spmm_hybrid`` and ``sharded_spmm`` must hold kernel H
+and no ``index_add_``.  Every check raises; nothing is caught.  Needs
+one CUDA device; exits non-zero without one.
 
 Standard output, last three lines: the card's name and power limit as
 nvidia-smi reports them, one JSON line with the kernels' measurements,
 and one JSON line ``{"ok": true, "device": {...}}``.
 """
 
+import dataclasses
+import functools
 import json
 import statistics
 import subprocess
@@ -222,6 +231,58 @@ def min_plus_host(a, x):
     return np.minimum.reduceat(prod, indptr[:-1])
 
 
+def host_cost(y2d, idx, img, gidx, card, n=10_000):
+    """Host microseconds per call of each piece of kernel C's launch path
+    (``ops/lane_perm.py``, ``ops/_kernels.py``), ``n`` calls each by the
+    host clock with no launch in between, then of the whole wrappers and
+    of ``torch.gather`` (the calls launch; the card keeps up)."""
+    from spmv_vector_cache_tpu_torch.ops import _kernels, lane_perm
+
+    dev = y2d.device
+    fn = _kernels.library().lane_unpermute_f32
+    out, work, buf = torch.empty_like(y2d), y2d.clone(), torch.empty_like(img)
+    ptrs = (y2d.data_ptr(), idx.data_ptr(), out.data_ptr())
+    stream = _kernels.current_stream(dev.index)
+    pieces = {
+        "_check (the public wrapper's checks)":
+            lambda: lane_perm._check(y2d, idx),
+        "torch.empty_like": lambda: torch.empty_like(y2d),
+        "stream: torch.cuda.current_stream(dev).cuda_stream":
+            lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "stream: _kernels.current_stream (raw handle)":
+            lambda: _kernels.current_stream(dev.index),
+        "library lookup: _kernels.library().lane_unpermute_f32":
+            lambda: _kernels.library().lane_unpermute_f32,
+        "ctypes call of a no-op (n = 0)": lambda: fn(*ptrs, 0, stream),
+        "data_ptr()": lambda: y2d.data_ptr(),
+        "get_device()": lambda: y2d.get_device(),
+        "t.device.type == 'cuda' (a torch.device object a call)":
+            lambda: y2d.device.type == "cuda",
+        "t.is_cuda": lambda: y2d.is_cuda,
+    }
+    whole = {
+        "lane_unpermute (public, with launch)":
+            lambda: lane_perm.lane_unpermute(y2d, idx),
+        "unpermute_plan_rows (the apply's, in place, with launch)":
+            lambda: lane_perm.unpermute_plan_rows(work, idx),
+        "torch.gather (one ATen dispatch)":
+            lambda: torch.gather(img, 1, gidx),
+        "torch.gather(out=) into a buffer":
+            lambda: torch.gather(img, 1, gidx, out=buf),
+    }
+    for group, calls in (("piece", pieces), ("whole", whole)):
+        for name, call in calls.items():
+            call()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                call()
+            dt = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            log(f"[host_cost] {group}: {name}: {dt / n * 1e6:.3f} us per "
+                f"call ({n} calls, host clock) on {card}")
+
+
 def main():
     import scipy.sparse as sp
 
@@ -233,15 +294,16 @@ def main():
                                                               from_scipy)
     from spmv_vector_cache_tpu_torch.formats.dia import DiaPlan, HybridPlan
     from spmv_vector_cache_tpu_torch.formats.packed import PackedPlan
-    from spmv_vector_cache_tpu_torch.formats.plan import SellPlan
-    from spmv_vector_cache_tpu_torch.ops import _kernels, df64
+    from spmv_vector_cache_tpu_torch.formats.plan import SellPlan, place
+    from spmv_vector_cache_tpu_torch.ops import _kernels, df64, spmm_sell
     from spmv_vector_cache_tpu_torch.ops.lane_perm import (
-        lane_unpermute, lane_unpermute_plain)
+        lane_unpermute, lane_unpermute_plain, unpermute_plan_rows)
     from spmv_vector_cache_tpu_torch.ops.operator import SparseOperator
     from spmv_vector_cache_tpu_torch.ops.spmm_dia import (spmm_dia_kernel,
                                                           spmm_dia_plain)
     from spmv_vector_cache_tpu_torch.ops.spmm_sell import (
-        spmm_window_kernel, spmm_window_plain)
+        RUN_ATOMIC, spmm_window_kernel, spmm_window_plain, tile_runs,
+        window_parts)
     from spmv_vector_cache_tpu_torch.ops.spmv_chunk import (subwin_kernel,
                                                             subwin_plain)
     from spmv_vector_cache_tpu_torch.ops.spmv_dia import (
@@ -261,8 +323,8 @@ def main():
     from spmv_vector_cache_tpu_torch.parallel import (
         build_sharded_dia_plan, build_sharded_plan, make_mesh,
         place_on_mesh, spmm_sharded, spmv_dia_sharded, spmv_sharded)
-    from spmv_vector_cache_tpu_torch.parallel.spmv_sharded import \
-        exchange_mode
+    from spmv_vector_cache_tpu_torch.parallel.spmv_sharded import (
+        _local_plan, exchange_mode)
     from spmv_vector_cache_tpu_torch.parallel.mesh import (shard_vector,
                                                            with_halos)
     from spmv_vector_cache_tpu_torch.tools import realistic
@@ -758,19 +820,26 @@ def main():
                 + plan.shape[0] * b.shape[1] * 4,
                 2 * plan.vals.numel() * b.shape[1])
 
+    # kernel H sums each slice's tiles itself: its output is Y's rows
+    # (identity map, uniform parts) or the slice sums, written once
     def spmm_window_pair(plan, b):
         st = plan.stats
-        args = (plan.vals, plan.cols_win, plan.window_base, b)
-        kw = dict(group_tiles=st.group_tiles, window_grain=st.window_grain,
-                  fold=folds_groups(plan))
-        rows_out = plan.num_tiles // (st.group_tiles if kw["fold"] else 1)
+        parts = window_parts(plan)
+        args = (plan.vals, plan.cols_win, plan.window_base, plan.tile_slice,
+                b)
+        kw = dict(num_slices=plan.num_slices, group_tiles=st.group_tiles,
+                  window_grain=st.window_grain, parts=parts,
+                  rows=plan.shape[0])
+        out_rows = plan.shape[0] if parts else \
+            plan.num_slices * plan.lane_rows
         base = plan.window_base.long().repeat_interleave(
             st.group_tiles) * st.window_grain
         cols = base[:, None, None] + plan.cols_win.long()
+        runs = tile_runs(plan.tile_slice, plan.num_slices)
         return (lambda: spmm_window_kernel(*args, **kw),
                 lambda: spmm_window_plain(*args, **kw),
-                nbytes(*args[:3]) + x_bytes_read(b, cols)
-                + rows_out * plan.lane_rows * b.shape[1] * 4,
+                nbytes(*args[:4]) + runs.nbytes + x_bytes_read(b, cols)
+                + out_rows * b.shape[1] * 4,
                 2 * plan.vals.numel() * b.shape[1])
 
     # the float64 kernels read a (.., 2C, ..) hi/lo slab: two words per
@@ -845,10 +914,18 @@ def main():
     cases += [("spmv_subwin_f32", "chunk", f" W={h.window_blocks}",
                subwin_pair(h, ops["chunk"][1]), False)
               for h in p_chunk.hbuckets]
-    cases += [("lane_unpermute_f32", "chunk", "",
+    # kernel C through the public wrapper, which allocates its output;
+    # then the apply's call, which un-permutes its input in place (timed
+    # on a copy, permuted anew by every call)
+    y2d_work = y2d.clone()
+    c_bytes = 2 * nbytes(y2d) + nbytes(p_chunk.perm_idx)
+    cases += [("lane_unpermute_f32", "chunk", " (public, allocating)",
                (lambda: lane_unpermute(*lane_args),
-                lambda: lane_unpermute_plain(*lane_args),
-                2 * nbytes(y2d) + nbytes(p_chunk.perm_idx), 0), True),
+                lambda: lane_unpermute_plain(*lane_args), c_bytes, 0), True),
+              ("lane_unpermute_f32", "chunk apply",
+               " (in place, the apply's call)",
+               (lambda: unpermute_plan_rows(y2d_work, p_chunk.perm_idx),
+                lambda: lane_unpermute_plain(*lane_args), c_bytes, 0), True),
               ("packed_scan_f32", "packed", "",
                (lambda: packed_scan_kernel(*scan_args, **scan_kw),
                 lambda: packed_scan_plain(*scan_args, **scan_kw),
@@ -905,6 +982,60 @@ def main():
              for d, dev in enumerate(mesh4.devices)]
     cases += [("spmv_dia_halo_f32", "sharded_dia", f" shard {d}",
                halo_pair(d), False) for d in range(4)]
+    # kernel H, each shard of the sharded SpMM phase on the replicated B
+    # (zero-padded to the shards' rows, as spmm_sharded hands it over)
+    b_pad = b_sell_t.new_zeros((4 * sp_sell.rows_per_shard, K_RHS))
+    b_pad[:b_sell_t.shape[0]] = b_sell_t
+    shard_plans = [_local_plan(sp_sell, d, sp_sell.cols[d],
+                               sp_sell.window_base[d], b_pad.shape[0],
+                               sp_sell.max_window_base) for d in range(4)]
+    cases += [("spmm_sell_window_f32", "sharded_spmm", f" shard {d}",
+               spmm_window_pair(lp, b_pad), False)
+              for d, lp in enumerate(shard_plans)]
+    for name, plan in (("spmm_sell", p_sell), ("spmm_hybrid", p_hyb.rest),
+                       *((f"sharded_spmm shard {d}", lp)
+                         for d, lp in enumerate(shard_plans))):
+        runs = tile_runs(plan.tile_slice, plan.num_slices)
+        log(f"[{name}] kernel H: parts={window_parts(plan)} (1: identity "
+            f"map, p: lane fold, 0: slice sums), {runs.shape[0]} runs over "
+            f"{plan.num_tiles} tiles and {plan.num_slices} slices, "
+            f"{int(((runs[:, 3] & RUN_ATOMIC) != 0).sum())} split "
+            f"(atomic) pieces")
+    # kernel H's work list: RUN_PACK tiles a CTA takes of short slices,
+    # in turns (each packing is a placement of its own, the same sums)
+    shipped_pack = spmm_sell.RUN_PACK
+    for name, plan, b in (("spmm_sell", p_sell, ops["spmm_sell"][1]),
+                          ("spmm_hybrid", p_hyb.rest, ops["spmm_hybrid"][1]),
+                          ("sharded_spmm shard 0", shard_plans[0], b_pad)):
+        kw = dict(num_slices=plan.num_slices,
+                  group_tiles=plan.stats.group_tiles,
+                  window_grain=plan.stats.window_grain,
+                  parts=window_parts(plan), rows=plan.shape[0])
+        calls, want = {}, None
+        try:
+            for pack in (2, 4, 8, 16):
+                spmm_sell.RUN_PACK = pack
+                pl = place(dataclasses.replace(
+                    plan, tile_slice=plan.tile_slice.clone()), dev)
+                args = (pl.vals, pl.cols_win, pl.window_base, pl.tile_slice,
+                        b)
+                calls[pack] = (functools.partial(spmm_window_kernel, *args,
+                                                 **kw),
+                               spmm_sell._RUNS[pl.tile_slice][1].shape[0])
+                got = calls[pack][0]()
+                want = got if want is None else want
+                # one CTA sums each slice, in tile order: bit for bit
+                assert torch.equal(got, want), (name, pack)
+        finally:
+            spmm_sell.RUN_PACK = shipped_pack
+        packs = (2, 4, 8, 16)
+        ms = {p: [] for p in packs}
+        for p in packs + packs[::-1]:
+            ms[p].append(time_ms(calls[p][0]))
+        log(f"[{name}] kernel H by RUN_PACK (CTAs; ms in turns 2, 4, 8, 16, "
+            f"16, 8, 4, 2): " + ", ".join(
+                f"{p}: {calls[p][1]} CTAs {ms[p][0]:.4f}/{ms[p][1]:.4f} ms"
+                for p in packs) + f"; CUDA events, k={K_RHS}, on {card}")
     # kernel N on the random stream: one add per float read
     cases += [("stream_checksum_f32", "stream_checksum",
                f" block={STREAM_BLOCK} tiles",
@@ -971,10 +1102,35 @@ def main():
     gidx = p_chunk.perm_idx.long().reshape(-1, 1024)
     assert torch.equal(torch.gather(img, 1, gidx).reshape(y2d.shape),
                        lane_unpermute(*lane_args))
-    lib_ms = min(time_ms(lambda: torch.gather(img, 1, gidx)) for _ in "ab")
-    rows["lane_unpermute_f32"]["library_ms"] = lib_ms
-    log(f"[chunk] torch.gather (kernel C's function): {lib_ms:.4f} ms "
-        f"on {card}")
+    # in turns, like for like: the public wrapper against torch.gather,
+    # both allocating their output; the apply's in-place call against
+    # torch.gather into an output allocated beforehand
+    buf = torch.empty_like(img)
+
+    def apply_c():
+        return unpermute_plan_rows(y2d_work, p_chunk.perm_idx)
+
+    def public_c():
+        return lane_unpermute(*lane_args)
+
+    def gather():
+        return torch.gather(img, 1, gidx)
+
+    def gather_out():
+        return torch.gather(img, 1, gidx, out=buf)
+
+    for what, c_call, g_call in (
+            ("allocating: the public lane_unpermute, torch.gather", public_c,
+             gather),
+            ("into a buffer: the apply's in-place call, torch.gather(out=)",
+             apply_c, gather_out)):
+        c1, g1, g2, c2 = (time_ms(c_call), time_ms(g_call), time_ms(g_call),
+                          time_ms(c_call))
+        if c_call is public_c:
+            rows["lane_unpermute_f32"]["library_ms"] = min(g1, g2)
+        log(f"[chunk] in turns, {what}: kernel C {c1:.4f}/{c2:.4f} ms, "
+            f"torch.gather {g1:.4f}/{g2:.4f} ms; CUDA events, on {card}")
+    host_cost(y2d, p_chunk.perm_idx, img, gidx, card)
     # kernel N: torch.sum streams the same 256 MiB (one sum, not 1024)
     lib_ms = min(time_ms(lambda: torch.sum(noise)) for _ in "ab")
     rows["stream_checksum_f32"]["library_ms"] = lib_ms
@@ -1054,6 +1210,13 @@ def main():
         for k, (us, n) in sorted(by_kernel.items(),
                                  key=lambda kv: -kv[1][0]):
             log(f"[{name}]   {us:9.2f} us  x{n:g}  {k[:90]}")
+        if name in ("spmm_sell", "spmm_hybrid", "sharded_spmm"):
+            # kernel H sums its slices itself: no index_add_ of partials
+            # and, on the window plan, nothing after H at all
+            assert not any("indexFunc" in k for k in by_kernel), name
+            assert any("spmm_runs_kernel" in k for k in by_kernel), name
+            if name == "spmm_sell":
+                assert len(by_kernel) == 1, by_kernel
     for kname, plan in (("spmv_dia_f32", p_dia),
                         ("spmv_sell_window_f32", p_sell),
                         ("spmv_sell_global_f32", p_deep),

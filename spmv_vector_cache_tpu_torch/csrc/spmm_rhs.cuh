@@ -1,4 +1,4 @@
-// Right-hand-side chunks of the SpMM kernels (H and I): C consecutive
+// Right-hand-side chunks of the DIA SpMM kernel I: C consecutive
 // columns of one row of a row-major (n, k) float32 matrix, held in
 // registers.  A chunk is C = the power of two >= k, at most 8 (one
 // 32-byte sector at C = 8); the last chunk of a row may hold fewer than

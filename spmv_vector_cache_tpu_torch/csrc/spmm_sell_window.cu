@@ -1,110 +1,327 @@
 // SELL window SpMM for Hopper (sm_90a), plain C interface bound with
-// ctypes: kernel H.
+// ctypes: kernel H, from the slot stream to slice sums or rows of Y.
 //
 // Replaces the Pallas kernel `_make_spmm_kernel` and its operand builder
 // `_bt_windows`, as run by `_spmm_window`
-// (spmv_vector_cache_tpu/ops/spmm_pallas.py).  With B of shape (cols, k),
-// row-major as the caller hands it, it writes row-major
-//   per tile   out[t, l, j] = sum_p  vals[t, p, l] * B[c(t, p, l), j]
-//                                                          (T, R, k)
-//   per group  out[g, l, j] = sum_{t in g, p} ...       (T/wg, R, k)
-// with c = window_base[t / wg] * window_grain + cols_win[t, p, l], as in
-// kernel B (spmv_sell_window.cu).  B reads as 0 at c >= cols (padding
-// slots may point past the last column); columns j >= k are neither
-// read nor written.  The reference builds a transposed B, a k8-padded
-// copy and an overlapped grain image of it, all for Mosaic's aligned
-// window slices; here B is read where it lies, and `ops/spmm_sell.py`
-// reduces the partials as kernel B's are reduced (tiles or groups to
-// slices, then the sub-row fixup), over a trailing k axis.
+// (spmv_vector_cache_tpu/ops/spmm_pallas.py), together with the slice
+// reduction that follows it there.  With B of shape (cols, k), row-major
+// as the caller hands it, a tile t's slot (p, l) holds vals[t, p, l] at
+// column c = window_base[t / wg] * window_grain + cols_win[t, p, l], as
+// in kernel B (spmv_sell_window.cu); B reads as 0 at c >= cols.  The
+// tiles of one slice are one contiguous run (tile_slice is
+// nondecreasing), and kernel H writes, plus_times,
+//   parts == 0:  S[s, l, j] = sum over the run of slice s, over p,
+//                of vals * B[c, j]                          (slices, R, k)
+//   parts >= 1:  Y[s * R/parts + r, j] = sum_{q < parts}
+//                                        S[s, q * R/parts + r, j]
+//                for rows < out_rows: the lane fold of a uniform-parts
+//                plan (parts = p) or the identity map (parts = 1)
+// so no partials reach device memory and no reduction pass follows.
 //
-// Bound: bytes — the nonzero stream, 6 B per slot (f32 value + int16
-// offset), read once per block of up to 8 RHS chunks, the B rows the
-// slots name and the partials.  B is gathered through L1/L2: a group's
-// window spans at most K*128 rows of B.  Design: a block of R (=128)
-// lanes by up to 8 RHS chunks per output row (a tile, or a group when
-// folding); one thread per (lane, chunk) keeps its chunk's C sums in
-// registers and walks the positions (and the group's tiles when
-// folding).  A warp's value and offset loads are 32 contiguous slots;
-// its B loads are one 32-byte sector per slot at C = 8.  The warps of
-// one block read the same slots, so the slot stream leaves device memory
-// once for up to 64 RHS.  plus_times only, as the reference kernel.
+// Work list: `runs` holds one int4 record per CTA, {t0, t1, s0, s1}:
+// the CTA sums tiles [t0, t1) and writes slices [s0, s1), empty slices
+// as 0.  Short slices are packed several to a CTA; a slice of more than
+// a cap of tiles (ops/spmm_sell.py RUN_CAP: 32 tiles, a slice whose
+// longest sub-row has more than 256 nonzeros, or the padding tiles a
+// plan appends to its last slice) is split over several CTAs, each
+// marked with kAtomic, which add their sums into a zeroed output with
+// Hopper's float4 atomicAdd.  Those sums are in no fixed order; every
+// other output is written once, by one CTA, in a fixed order.
+//
+// Bound: bytes — the slot stream (6 B per slot: f32 value, int16
+// offset), the distinct B rows the slots name, the output once.  Design:
+// - the RHS axis lies across neighbouring threads: `lane_threads`
+//   threads per lane, V consecutive columns each (float4 or two, or one
+//   float where k is not a multiple of 4), so one warp load reads whole
+//   64-byte row segments of B (8 rows at k = 16) instead of 32 scattered
+//   pieces; blockIdx.y walks the RHS axis in chunks of lane_threads * V;
+// - each tile's slots (4 KB of values, 2 KB of offsets at P = 8,
+//   R = 128) come into shared memory with cp.async, in a ring of
+//   kStages buffers that keeps the next tiles of the run in flight, one
+//   barrier a tile; the warps read them there, so no warp waits on a
+//   slot load before its B loads (reading each lane's slots straight
+//   from device memory, which no other warp needs, measured slower:
+//   PERF.md);
+// - a lane's sums stay in registers over the run; the lane fold goes
+//   through shared memory.
+// B stays in device memory, read through L1 and L2: a group's window
+// spans K*128 rows of B, a few KB at K = 1.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <algorithm>
-
-#include "spmm_rhs.cuh"
-
 namespace {
 
-// blockIdx.x = output row: a tile (tiles_per_row = 1) or a group
-// (tiles_per_row = wg); threadIdx.x = lane; blockIdx.y * blockDim.y +
-// threadIdx.y = RHS chunk.
-template <int C, bool VEC>
-__global__ void spmm_window_kernel(const float* __restrict__ vals,
-                                   const int16_t* __restrict__ cols_win,
-                                   const int* __restrict__ window_base,
-                                   const float* __restrict__ b,
-                                   float* __restrict__ out, int positions,
-                                   int lanes, int group_tiles,
-                                   int tiles_per_row, int window_grain,
-                                   long long cols, int k, int nchunk) {
-    int ch = blockIdx.y * blockDim.y + threadIdx.y;
-    if (ch >= nchunk) return;
-    int j0 = ch * C;
-    int n = min(C, k - j0);
-    long long row = blockIdx.x;
-    int lane = threadIdx.x;
-    long long t0 = row * tiles_per_row;
-    long long base =
-        (long long)__ldg(window_base + t0 / group_tiles) * window_grain;
-    long long slot = t0 * positions * lanes + lane;
-    int np = tiles_per_row * positions;
-    float acc[C];
+// bit 30 of a run record's fourth word: the CTA holds one piece of a
+// slice split over several CTAs
+constexpr int kAtomic = 1 << 30;
+constexpr int kMaxThreads = 1024;
+// tile buffers in the shared-memory ring: up to kStages - 1 tiles in
+// flight while one is summed
+constexpr int kStages = 4;
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+    unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(src)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// v[0:V] = p[0:V]; V = 1 or a multiple of 4 (16-byte aligned p).
+template <int V>
+__device__ __forceinline__ void load_row(const float* __restrict__ p,
+                                         float (&v)[V]) {
+    if constexpr (V == 1) {
+        v[0] = __ldg(p);
+    } else {
 #pragma unroll
-    for (int i = 0; i < C; ++i) acc[i] = 0.0f;
-    for (int p = 0; p < np; ++p, slot += lanes) {
-        long long c = base + (long long)__ldg(cols_win + slot);
-        float w = __ldg(vals + slot);
-        float bv[C];
-        if (c < cols) {
-            spmm::load<C, VEC>(b + c * k + j0, n, bv);
+        for (int i = 0; i < V; i += 4) {
+            float4 q = __ldg(reinterpret_cast<const float4*>(p + i));
+            v[i] = q.x;
+            v[i + 1] = q.y;
+            v[i + 2] = q.z;
+            v[i + 3] = q.w;
+        }
+    }
+}
+
+// p[0:V] = v, or += v atomically (p zeroed beforehand).
+template <int V>
+__device__ __forceinline__ void put(float* __restrict__ p,
+                                    const float (&v)[V], bool atomic) {
+    if constexpr (V == 1) {
+        if (atomic)
+            atomicAdd(p, v[0]);
+        else
+            *p = v[0];
+    } else {
+#pragma unroll
+        for (int i = 0; i < V; i += 4) {
+            float4 q = make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]);
+            float4* d = reinterpret_cast<float4*>(p + i);
+            if (atomic)
+                atomicAdd(d, q);       // sm_90: one vector atomic
+            else
+                *d = q;
+        }
+    }
+}
+
+// blockIdx.x = run record, blockIdx.y = RHS chunk; threadIdx.x =
+// lane * lane_threads + g, thread g of a lane holding columns
+// j = blockIdx.y * lane_threads * V + g * V .. + V.
+template <int V>
+__global__ void __launch_bounds__(kMaxThreads)
+spmm_runs_kernel(const float* __restrict__ vals,
+                 const int16_t* __restrict__ cols_win,
+                 const int* __restrict__ window_base,
+                 const int* __restrict__ tile_slice,
+                 const int4* __restrict__ runs, const float* __restrict__ b,
+                 float* __restrict__ out, int positions, int lanes,
+                 int lane_threads, int group_tiles, int window_grain,
+                 long long cols, int k, int parts, long long out_rows) {
+    constexpr int kUnroll = V == 8 ? 4 : 8;
+    extern __shared__ __align__(16) unsigned char smem[];
+    // kStages tile buffers of `slots` values then `slots` offsets (6
+    // bytes a slot, 16-byte aligned as slots % 8 == 0), then the lane
+    // fold's
+    const int slots = positions * lanes;                  // per tile
+    const int tile_bytes = slots * 6;
+    auto sv = [&](int buf) {
+        return reinterpret_cast<float*>(smem + buf * tile_bytes);
+    };
+    auto sc = [&](int buf) {
+        return reinterpret_cast<int16_t*>(smem + buf * tile_bytes +
+                                          slots * 4);
+    };
+    float* red = reinterpret_cast<float*>(smem + kStages * tile_bytes);
+
+    const int tid = threadIdx.x;
+    const int lane = tid / lane_threads;
+    const int g = tid - lane * lane_threads;
+    const int ck = lane_threads * V;
+    const int j = blockIdx.y * ck + g * V;
+    const bool active = j < k;
+    const int4 run = __ldg(runs + blockIdx.x);
+    const long long t0 = run.x, t1 = run.y;
+    int cur = run.z;
+    const int s1 = run.w & ~kAtomic;
+    const bool atomic = (run.w & kAtomic) != 0;
+    const int vchunks = slots / 4, cchunks = slots / 8;   // 16-byte pieces
+
+    auto load_tile = [&](long long t, int buf) {
+        const float* gv = vals + t * slots;
+        const int16_t* gc = cols_win + t * slots;
+        float* dv = sv(buf);
+        int16_t* dc = sc(buf);
+        for (int i = tid; i < vchunks + cchunks; i += blockDim.x) {
+            if (i < vchunks)
+                cp_async16(dv + 4 * i, gv + 4 * i);
+            else
+                cp_async16(dc + 8 * (i - vchunks), gc + 8 * (i - vchunks));
+        }
+    };
+
+    float acc[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) acc[i] = 0.0f;
+
+    // write slice s's sums (every thread of the CTA calls it), then zero
+    auto flush = [&](int s) {
+        if (parts == 0) {
+            if (active)
+                put<V>(out + ((long long)s * lanes + lane) * k + j, acc,
+                       atomic);
+        } else if (parts == 1) {
+            long long row = (long long)s * lanes + lane;
+            if (active && row < out_rows)
+                put<V>(out + row * k + j, acc, atomic);
         } else {
+            const int rps = lanes / parts;
 #pragma unroll
-            for (int i = 0; i < C; ++i) bv[i] = 0.0f;
+            for (int i = 0; i < V; ++i) red[lane * ck + g * V + i] = acc[i];
+            __syncthreads();
+            if (lane < rps && active) {
+                float sum[V];
+#pragma unroll
+                for (int i = 0; i < V; ++i)
+                    sum[i] = red[lane * ck + g * V + i];
+                for (int q = 1; q < parts; ++q) {
+                    const float* r = red + (q * rps + lane) * ck + g * V;
+#pragma unroll
+                    for (int i = 0; i < V; ++i) sum[i] += r[i];
+                }
+                long long row = (long long)s * rps + lane;
+                if (row < out_rows) put<V>(out + row * k + j, sum, atomic);
+            }
+            __syncthreads();
         }
 #pragma unroll
-        for (int i = 0; i < C; ++i) acc[i] = fmaf(w, bv[i], acc[i]);
+        for (int i = 0; i < V; ++i) acc[i] = 0.0f;
+    };
+
+    // one commit group per tile, empty past the run's end, so that
+    // waiting for all but the newest kStages - 2 groups waits for tile t
+    for (int i = 0; i < kStages - 1; ++i) {
+        if (t0 + i < t1) load_tile(t0 + i, i);
+        cp_async_commit();
     }
-    spmm::store<C, VEC>(out + (row * lanes + lane) * k + j0, n, acc);
+    for (long long t = t0; t < t1; ++t) {
+        const int buf = (int)((t - t0) % kStages);
+        cp_async_wait<kStages - 2>();
+        // tile t is in shared memory, and every thread is done with tile
+        // t - 1, whose buffer takes tile t + kStages - 1
+        __syncthreads();
+        if (t + kStages - 1 < t1)
+            load_tile(t + kStages - 1, (buf + kStages - 1) % kStages);
+        cp_async_commit();
+        const int s = __ldg(tile_slice + t);
+        while (cur < s) flush(cur++);         // the slices before tile t
+        const long long base =
+            (long long)__ldg(window_base + t / group_tiles) * window_grain;
+        if (active) {
+            const float* v = sv(buf) + lane;
+            const int16_t* c = sc(buf) + lane;
+#pragma unroll kUnroll
+            for (int p = 0; p < positions; ++p) {
+                const float w = v[p * lanes];
+                const long long col = base + c[p * lanes];
+                if (col < cols) {
+                    float bv[V];
+                    load_row<V>(b + col * k + j, bv);
+#pragma unroll
+                    for (int i = 0; i < V; ++i)
+                        acc[i] = fmaf(w, bv[i], acc[i]);
+                }
+            }
+        }
+    }
+    while (cur < s1) flush(cur++);
+}
+
+template <int V>
+cudaError_t launch(const float* vals, const int16_t* cols_win,
+                   const int* window_base, const int* tile_slice,
+                   const int* runs, const float* b, float* out,
+                   long long num_runs, int positions, int lanes,
+                   int lane_threads, int group_tiles, int window_grain,
+                   long long cols, int k, int parts, long long out_rows,
+                   cudaStream_t stream) {
+    const int ck = lane_threads * V;
+    const size_t slots = (size_t)positions * lanes;
+    const size_t smem = kStages * slots * 6 +
+                        (parts > 1 ? (size_t)lanes * ck * sizeof(float) : 0);
+    if (smem > 48 * 1024) {
+        cudaError_t err = cudaFuncSetAttribute(
+            spmm_runs_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)smem);
+        if (err != cudaSuccess) return err;
+    }
+    dim3 grid((unsigned)num_runs, (unsigned)((k + ck - 1) / ck));
+    spmm_runs_kernel<V><<<grid, lanes * lane_threads, smem, stream>>>(
+        vals, cols_win, window_base, tile_slice,
+        reinterpret_cast<const int4*>(runs), b, out, positions, lanes,
+        lane_threads, group_tiles, window_grain, cols, k, parts, out_rows);
+    return cudaSuccess;
 }
 
 }  // namespace
 
-extern "C" int spmm_sell_window_f32(const float* vals,
-                                    const int16_t* cols_win,
-                                    const int* window_base, const float* b,
-                                    float* out, long long out_rows,
-                                    int positions, int lanes,
-                                    int group_tiles, int fold,
-                                    int window_grain, long long cols, int k,
-                                    void* stream) {
-    bool aligned = (uintptr_t)b % 16 == 0 && (uintptr_t)out % 16 == 0;
-    int tpr = fold ? group_tiles : 1;
-    cudaError_t err = spmm::with_chunk(k, aligned, [&](auto ch) {
-        using Ch = decltype(ch);
-        int nchunk = (k + Ch::C - 1) / Ch::C;
-        if (out_rows <= 0 || lanes <= 0) return;
-        int per_block = std::min(nchunk, std::max(1, 1024 / lanes));
-        dim3 grid((unsigned)out_rows,
-                  (unsigned)((nchunk + per_block - 1) / per_block));
-        dim3 block((unsigned)lanes, (unsigned)per_block);
-        spmm_window_kernel<Ch::C, Ch::VEC>
-            <<<grid, block, 0, (cudaStream_t)stream>>>(
-                vals, cols_win, window_base, b, out, positions, lanes,
-                group_tiles, tpr, window_grain, cols, k, nchunk);
-    });
+// runs: (num_runs, 4) int32 records; out: (num_slices, lanes, k) when
+// parts == 0, else (out_rows, k), zeroed by the caller when a record
+// carries kAtomic.  positions * lanes must be a multiple of 8, and vals,
+// cols_win and runs 16-byte aligned (cp.async and int4 reads).
+extern "C" int spmm_sell_window_f32(
+    const float* vals, const int16_t* cols_win, const int* window_base,
+    const int* tile_slice, const int* runs, const float* b, float* out,
+    long long num_runs, int positions, int lanes, int group_tiles,
+    int window_grain, long long cols, int k, int parts, long long out_rows,
+    void* stream) {
+    if (k < 1 || positions < 1 || lanes < 1 || lanes > kMaxThreads ||
+        (positions * lanes) % 8 || parts < 0 || (parts > 1 && lanes % parts))
+        return (int)cudaErrorInvalidValue;
+    if ((uintptr_t)vals % 16 || (uintptr_t)cols_win % 16 ||
+        (uintptr_t)runs % 16)
+        return (int)cudaErrorMisalignedAddress;
+    if (num_runs <= 0) return (int)cudaGetLastError();
+    const bool aligned = (uintptr_t)b % 16 == 0 && (uintptr_t)out % 16 == 0;
+    const int v = !aligned || k % 4 ? 1 : (k % 8 == 0 && k > 32 ? 8 : 4);
+    // threads per lane: a power of two covering k / v columns, at most 8
+    const int need = (k + v - 1) / v;
+    int lane_threads = 1;
+    while (lane_threads < need && lane_threads < 8 &&
+           lanes * lane_threads * 2 <= kMaxThreads)
+        lane_threads *= 2;
+    cudaStream_t s = (cudaStream_t)stream;
+    cudaError_t err;
+    switch (v) {
+        case 1:
+            err = launch<1>(vals, cols_win, window_base, tile_slice, runs, b,
+                            out, num_runs, positions, lanes, lane_threads,
+                            group_tiles, window_grain, cols, k, parts,
+                            out_rows, s);
+            break;
+        case 4:
+            err = launch<4>(vals, cols_win, window_base, tile_slice, runs, b,
+                            out, num_runs, positions, lanes, lane_threads,
+                            group_tiles, window_grain, cols, k, parts,
+                            out_rows, s);
+            break;
+        default:
+            err = launch<8>(vals, cols_win, window_base, tile_slice, runs, b,
+                            out, num_runs, positions, lanes, lane_threads,
+                            group_tiles, window_grain, cols, k, parts,
+                            out_rows, s);
+    }
     if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
 }

@@ -28,6 +28,7 @@ import dataclasses
 from typing import Any, Optional, Tuple
 
 import numpy as np
+import torch
 
 from .plan import (TILES_PER_STEP, PlanStats, SellPlan, _as_csr, _cdiv,
                    _require_f32, compute_window_rows)
@@ -121,6 +122,22 @@ class ChunkPlan:
     @property
     def num_heavy(self) -> int:
         return int(self.heavy_rows.shape[0])
+
+
+def check_perm_idx(perm_idx) -> None:
+    """Raise unless ``perm_idx`` (numpy or torch) is what kernel C reads
+    without a check on the apply path (``ops/lane_perm.py``): (8k, 128)
+    int16 offsets in [0, CHUNK_SIGMA) within each aligned 8-row block.
+    ``place`` runs it once per placed ChunkPlan."""
+    shape = tuple(perm_idx.shape)
+    if len(shape) != 2 or shape[1] != 128 or shape[0] % 8:
+        raise ValueError(f"perm_idx must be (8k, 128), got {shape}")
+    if perm_idx.dtype not in (np.int16, torch.int16):
+        raise ValueError(f"perm_idx must be int16, got {perm_idx.dtype}")
+    if shape[0] and not (0 <= int(perm_idx.min()) and
+                         int(perm_idx.max()) < CHUNK_SIGMA):
+        raise ValueError(f"perm_idx holds offsets outside [0, "
+                         f"{CHUNK_SIGMA})")
 
 
 def _pack_windows(cols: np.ndarray, lanes: np.ndarray,

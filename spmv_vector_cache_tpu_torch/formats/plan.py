@@ -107,8 +107,18 @@ def _to_tensor(v, device):
 
 def place(plan, device):
     """The plan with every array field as a torch tensor on ``device``
-    (nested plans included) — done once, by ``SparseOperator``."""
-    return map_arrays(plan, lambda v: _to_tensor(v, device))
+    (nested plans included) — done once, by ``SparseOperator``.  The
+    per-plan work of the kernels is done here, once: a ChunkPlan's
+    ``perm_idx`` is checked for kernel C, which reads it unchecked on
+    every apply, and kernel H's work list is built for a window plan."""
+    from ..ops.spmm_sell import place_plan_runs
+    from .chunk import ChunkPlan, check_perm_idx
+
+    if isinstance(plan, ChunkPlan):
+        check_perm_idx(plan.perm_idx)
+    placed = map_arrays(plan, lambda v: _to_tensor(v, device))
+    place_plan_runs(placed)
+    return placed
 
 
 #: tiles per kernel grid step (output block sublane alignment requires 8)

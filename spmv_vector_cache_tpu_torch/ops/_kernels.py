@@ -7,6 +7,11 @@ first use, into ``_build/`` inside the package, keyed by a hash of the
 sources (so an edited kernel rebuilds and an unchanged one is reused).
 A failed build raises with nvcc's output.  Nothing here runs at import
 time: the CPU tests import every module of the port.
+
+Every wrapper launches through :func:`launch`, the port's one launch
+path: it binds each C entry point once, passes the raw handle of the
+current stream of the operands' card (:func:`current_stream`, no Python
+``Stream`` object), and raises on a launch error.
 """
 
 from __future__ import annotations
@@ -19,6 +24,8 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+
+import torch
 
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
@@ -69,10 +76,11 @@ SIGNATURES = {
     "spmv_sell_global_f64": [_P, _P, _P, _P, _L, _I, _I, _L, _P],
     # vals, b, offsets, y, rows, cols, k, ndiag, rows_per_step, stream
     "spmm_dia_f32": [_P, _P, _P, _P, _L, _L, _I, _I, _I, _P],
-    # vals, cols_win, window_base, b, out, out_rows, positions, lanes,
-    # group_tiles, fold, window_grain, cols, k, stream
-    "spmm_sell_window_f32": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I,
-                             _L, _I, _P],
+    # vals, cols_win, window_base, tile_slice, runs, b, out, num_runs,
+    # positions, lanes, group_tiles, window_grain, cols, k, parts,
+    # out_rows, stream
+    "spmm_sell_window_f32": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I,
+                             _I, _L, _I, _I, _L, _P],
     # vals, x_ext, offsets, y, rows, x_len, x_origin, ndiag,
     # rows_per_step, stream
     "spmv_dia_halo_f32": [_P, _P, _P, _P, _L, _L, _L, _I, _I, _P],
@@ -147,8 +155,27 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def check(err: int, name: str) -> None:
-    """Raise on a non-zero ``cudaGetLastError()`` from a launch."""
-    if err != 0:
+def current_stream(device_index: int) -> int:
+    """The raw ``cudaStream_t`` of the current stream of CUDA device
+    ``device_index``, as an int: the stream a ``torch.cuda.stream(s)``
+    context made current there, else the default one.  PyTorch's own
+    generated code looks it up the same way; ``torch.cuda.current_stream``
+    builds a Python ``Stream`` object on every call."""
+    return torch._C._cuda_getCurrentRawStream(device_index)
+
+
+#: C entry points already looked up in the library, by name
+_BOUND: dict = {}
+
+
+def launch(name: str, device_index: int, *args) -> None:
+    """Call the C entry point ``name`` with ``args`` and the current
+    stream of CUDA device ``device_index`` (the operands' card, from
+    ``tensor.get_device()``); raise if the launch failed."""
+    fn = _BOUND.get(name)
+    if fn is None:
+        fn = _BOUND[name] = getattr(library(), name)
+    err = fn(*args, current_stream(device_index))
+    if err:             # cudaGetLastError() after the launch, or a refusal
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError_t {err}")

@@ -54,11 +54,9 @@ def spmm_dia_kernel(vals: torch.Tensor, offsets, b: torch.Tensor,
         raise ValueError(f"rows={rows} exceeds the plan's {T * S * L}")
     offs = _offsets_on(tuple(int(o) for o in offsets), b.device)
     y = torch.empty((rows, b.shape[1]), dtype=torch.float32, device=b.device)
-    err = _kernels.library().spmm_dia_f32(
-        vals.data_ptr(), b.data_ptr(), offs.data_ptr(), y.data_ptr(),
-        rows, b.shape[0], b.shape[1], D, S * L,
-        torch.cuda.current_stream(b.device).cuda_stream)
-    _kernels.check(err, "spmm_dia_f32")
+    _kernels.launch(
+        "spmm_dia_f32", b.get_device(), vals.data_ptr(), b.data_ptr(),
+        offs.data_ptr(), y.data_ptr(), rows, b.shape[0], b.shape[1], D, S * L)
     spmm_dia_kernel.launches += 1
     return y
 

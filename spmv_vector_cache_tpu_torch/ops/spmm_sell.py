@@ -5,25 +5,29 @@
 which streams a plan's nonzeros once for many right-hand sides instead of
 once per column.  :func:`spmm_window_kernel` wraps kernel H
 (``csrc/spmm_sell_window.cu``), which replaces the reference's
-``_make_spmm_kernel`` and its ``_bt_windows`` operand; its partials
-reduce to Y through the SELL SpMV epilogue (``_reduce_partials``) over a
-trailing k axis.  :func:`spmm_window_plain` is its plain PyTorch
-version.  :func:`spmm_plan` dispatches on plan type;
-:func:`has_fused_spmm` says, before anything runs, whether a plan has a
-fused kernel at all.
+``_make_spmm_kernel`` and its ``_bt_windows`` operand and sums each
+slice's tiles itself (:func:`tile_runs`): it writes Y's rows where the
+plan's rows are an identity map or a uniform-parts lane fold, and slice
+sums for the SELL SpMV epilogue's ``row_map`` reduce otherwise.
+:func:`spmm_window_plain` is its plain PyTorch version.
+:func:`spmm_plan` dispatches on plan type; :func:`has_fused_spmm` says,
+before anything runs, whether a plan has a fused kernel at all.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from ..formats.cached import CooTail
 from ..formats.dia import DiaPlan, HybridPlan
 from ..formats.plan import SellPlan
 from ..utils import platform
 from . import _kernels
+from . import semiring as sr
 from .spmm_dia import spmm_dia
-from .spmv_sell import _reduce_partials, folds_groups, sell_window_plain
+from .spmv_sell import _fixup_rows, fold_lanes, sell_window_plain
 
 
 class NoFusedSpmm(ValueError):
@@ -60,58 +64,174 @@ def has_fused_spmm(plan) -> bool:
 # window SpMM: kernel H
 # ---------------------------------------------------------------------------
 
-def spmm_window_plain(vals, cols_win, window_base, b, *, group_tiles: int,
-                      window_grain: int, fold: bool) -> torch.Tensor:
+#: most tiles one CTA of kernel H sums; a longer slice is split over
+#: several CTAs that add into a zeroed output (csrc/spmm_sell_window.cu).
+#: Untuned: no measured plan has a slice this long (PERF.md)
+RUN_CAP = 32
+#: consecutive short slices one CTA takes, up to this many tiles in all
+#: (chip_smoke.py times 2, 4, 8 and 16 in turns: 4 and 8 tie on the
+#: shuffled band, 4 is the fastest on the Hybrid rest; PERF.md)
+RUN_PACK = 4
+#: and at most this many slices, empty ones included (an empty slice is
+#: only written as 0); untuned: no measured plan has empty slices
+RUN_SLICES = 16
+#: a run record's bit for a piece of a split slice (kAtomic in the source)
+RUN_ATOMIC = 1 << 30
+
+
+def tile_runs(tile_slice, num_slices: int) -> np.ndarray:
+    """Kernel H's work list: one (t0, t1, s0, s1) int32 record per CTA,
+    which sums tiles [t0, t1) and writes slices [s0, s1) (``s1 |
+    RUN_ATOMIC`` for one piece of a slice of more than ``RUN_CAP``
+    tiles, split evenly).  Slice s owns tiles [base[s], base[s+1]), with
+    ``base`` the cumulative ``bincount`` of the nondecreasing
+    ``tile_slice`` (``build_sell_plan``'s ``tile_base``); every slice is
+    written, an empty one as 0."""
+    ts = np.asarray(tile_slice.cpu() if isinstance(tile_slice, torch.Tensor)
+                    else tile_slice).astype(np.int64)
+    if ts.size and (np.any(np.diff(ts) < 0) or ts[0] < 0 or
+                    ts[-1] >= num_slices):
+        raise ValueError("tile_slice must be nondecreasing in "
+                         f"[0, {num_slices})")
+    counts = np.bincount(ts, minlength=num_slices)
+    base = np.concatenate(([0], np.cumsum(counts)))
+    recs = []
+    s = 0
+    while s < num_slices:
+        n = int(counts[s])
+        if n > RUN_CAP:
+            pieces = -(-n // RUN_CAP)
+            edges = base[s] + n * np.arange(pieces + 1) // pieces
+            recs += [(a, e, s, (s + 1) | RUN_ATOMIC)
+                     for a, e in zip(edges[:-1], edges[1:])]
+            s += 1
+            continue
+        e, tiles = s + 1, n
+        while e < num_slices and e - s < RUN_SLICES and \
+                tiles + counts[e] <= RUN_PACK:
+            tiles += int(counts[e])
+            e += 1
+        recs.append((base[s], base[e], s, e))
+        s = e
+    return np.asarray(recs, dtype=np.int32).reshape(-1, 4)
+
+
+#: kernel H's work list of each placed plan by its ``tile_slice`` tensor:
+#: (num_slices, runs on the plan's device, whether a slice is split).  A
+#: sharded apply rebuilds its shard plans around the same tensors.
+_RUNS = WeakIdKeyDictionary()
+
+
+def place_runs(tile_slice: torch.Tensor, num_slices: int) -> None:
+    """Build kernel H's work list for a placed plan's ``tile_slice``, once
+    (a no-op when it is built): ``formats.plan.place`` and
+    ``parallel.place_on_mesh`` call it, so that no apply waits on it."""
+    hit = _RUNS.get(tile_slice)
+    if hit is None or hit[0] != num_slices:
+        recs = tile_runs(tile_slice, num_slices)
+        _RUNS[tile_slice] = (num_slices,
+                             torch.from_numpy(recs).to(tile_slice.device),
+                             bool((recs[:, 3] & RUN_ATOMIC).any()))
+
+
+def place_plan_runs(plan) -> None:
+    """:func:`place_runs` for a placed plan that kernel H runs: a float32
+    window SellPlan, or a HybridPlan's such rest."""
+    if isinstance(plan, HybridPlan):
+        plan = plan.rest
+    if isinstance(plan, SellPlan) and has_fused_spmm(plan):
+        place_runs(plan.tile_slice, plan.num_slices)
+
+
+def window_parts(plan: SellPlan) -> int:
+    """What kernel H writes for ``plan``: Y's rows through the lane fold
+    of ``parts`` sub-rows (1 for the identity map, p for a uniform-parts
+    plan), or, at 0, the (slices, R, k) slice sums for the ``row_map``
+    reduce."""
+    return 1 if plan.identity_map else plan.stats.uniform_parts
+
+
+def spmm_window_plain(vals, cols_win, window_base, tile_slice, b, *,
+                      num_slices: int, group_tiles: int, window_grain: int,
+                      parts: int, rows: int) -> torch.Tensor:
     """Plain PyTorch version of kernel H (same inputs, same output):
-    kernel B's plain version under plus_times, over B's trailing k axis;
-    per-tile partials (T, R, k), or per-group (T/wg, R, k) when
-    ``fold``."""
-    return sell_window_plain(vals, cols_win, window_base, b,
-                             group_tiles=group_tiles,
-                             window_grain=window_grain, fold=fold,
-                             semiring="plus_times")
+    kernel B's per-tile partials under plus_times over B's trailing k
+    axis, their segment sums over ``tile_slice``, then, for ``parts`` >=
+    1, the lane fold to Y's (rows, k)."""
+    partials = sell_window_plain(vals, cols_win, window_base, b,
+                                 group_tiles=group_tiles,
+                                 window_grain=window_grain, fold=False,
+                                 semiring="plus_times")
+    y2d = sr.PLUS_TIMES.segment_reduce(partials, tile_slice,
+                                       num_segments=num_slices)
+    return fold_lanes(y2d, parts, rows) if parts else y2d
 
 
-def _check_window(vals, cols_win, window_base, b, group_tiles):
+def _check_window(vals, cols_win, window_base, tile_slice, b, group_tiles,
+                  num_slices, parts):
     if vals.dim() != 3 or cols_win.shape != vals.shape:
         raise ValueError(f"vals {tuple(vals.shape)} and cols_win "
                          f"{tuple(cols_win.shape)} must be equal (T, P, R)")
     if vals.dtype != torch.float32 or b.dtype != torch.float32:
         raise NotImplementedError(f"window SpMM runs float32 only (vals "
                                   f"{vals.dtype}, B {b.dtype})")
-    if cols_win.dtype != torch.int16 or window_base.dtype != torch.int32:
-        raise ValueError("cols_win must be int16 and window_base int32")
+    if cols_win.dtype != torch.int16 or window_base.dtype != torch.int32 or \
+            tile_slice.dtype != torch.int32:
+        raise ValueError("cols_win must be int16, window_base and "
+                         "tile_slice int32")
     if vals.shape[0] % group_tiles or \
             window_base.shape != (vals.shape[0] // group_tiles,):
         raise ValueError("window_base must hold one base per group")
+    if tile_slice.shape != vals.shape[:1] or num_slices < 1:
+        raise ValueError("tile_slice must hold one slice per tile")
+    if parts < 0 or (parts and vals.shape[2] % parts):
+        raise ValueError(f"parts={parts} must divide the {vals.shape[2]} "
+                         f"lanes")
     if b.dim() != 2 or b.shape[1] < 1:
         raise ValueError(f"B must be (cols, k) with k >= 1, got shape "
                          f"{tuple(b.shape)}")
-    for t in (cols_win, window_base, b):
+    for t in (cols_win, window_base, tile_slice, b):
         if t.device != vals.device:
             raise ValueError(f"operands on {vals.device} and {t.device}")
-    if not all(t.is_contiguous() for t in (vals, cols_win, window_base, b)):
+    if not all(t.is_contiguous()
+               for t in (vals, cols_win, window_base, tile_slice, b)):
         raise ValueError("window SpMM operands must be contiguous")
 
 
-def spmm_window_kernel(vals, cols_win, window_base, b, *, group_tiles: int,
-                       window_grain: int, fold: bool) -> torch.Tensor:
-    """Kernel H on CUDA tensors; the plain version on CPU tensors."""
-    _check_window(vals, cols_win, window_base, b, group_tiles)
+def spmm_window_kernel(vals, cols_win, window_base, tile_slice, b, *,
+                       num_slices: int, group_tiles: int, window_grain: int,
+                       parts: int, rows: int) -> torch.Tensor:
+    """Kernel H on CUDA tensors; the plain version on CPU tensors.
+    Returns Y (rows, k) for ``parts`` >= 1, else the (num_slices, R, k)
+    slice sums.  On the card ``tile_slice`` must be a placed plan's: its
+    work list (:func:`place_runs`) is built at placement."""
+    _check_window(vals, cols_win, window_base, tile_slice, b, group_tiles,
+                  num_slices, parts)
+    kw = dict(num_slices=num_slices, group_tiles=group_tiles,
+              window_grain=window_grain, parts=parts, rows=rows)
     if not platform.is_cuda(b):
-        return spmm_window_plain(vals, cols_win, window_base, b,
-                                 group_tiles=group_tiles,
-                                 window_grain=window_grain, fold=fold)
+        return spmm_window_plain(vals, cols_win, window_base, tile_slice, b,
+                                 **kw)
     T, P, R = vals.shape
     k = b.shape[1]
-    out_rows = T // group_tiles if fold else T
-    out = torch.empty((out_rows, R, k), dtype=torch.float32, device=b.device)
-    err = _kernels.library().spmm_sell_window_f32(
-        vals.data_ptr(), cols_win.data_ptr(), window_base.data_ptr(),
-        b.data_ptr(), out.data_ptr(), out_rows, P, R, group_tiles,
-        int(fold), window_grain, b.shape[0], k,
-        torch.cuda.current_stream(b.device).cuda_stream)
-    _kernels.check(err, "spmm_sell_window_f32")
+    hit = _RUNS.get(tile_slice)
+    if hit is None or hit[0] != num_slices:
+        raise ValueError("kernel H's work list is built when its plan is "
+                         "placed: place the plan with formats.plan.place "
+                         "(parallel.place_on_mesh for a sharded plan)")
+    _, runs, split = hit
+    if parts:
+        shape = (rows, k)
+        covered = rows <= num_slices * (R // parts)
+    else:
+        shape, covered = (num_slices, R, k), True
+    alloc = torch.empty if covered and not split else torch.zeros
+    out = alloc(shape, dtype=torch.float32, device=b.device)
+    _kernels.launch(
+        "spmm_sell_window_f32", b.get_device(), vals.data_ptr(),
+        cols_win.data_ptr(), window_base.data_ptr(), tile_slice.data_ptr(),
+        runs.data_ptr(), b.data_ptr(), out.data_ptr(), runs.shape[0], P, R,
+        group_tiles, window_grain, b.shape[0], k, parts, rows)
     spmm_window_kernel.launches += 1
     return out
 
@@ -120,16 +240,19 @@ spmm_window_kernel.launches = 0
 
 
 def _spmm_window(plan: SellPlan, b: torch.Tensor) -> torch.Tensor:
-    """Kernel H, then the slice reduction and sub-row fixup of the SpMV
-    window path over the trailing k axis.  The reference's per-chunk
+    """Kernel H, which sums each slice's tiles and folds its lanes into
+    Y's rows itself; a general ``row_map`` then takes the SpMV path's
+    segment reduce over the trailing k axis.  The reference's per-chunk
     ``segment_sum`` loop and its (S, k8, 8, R) transpose reduce to the
     same Y."""
     st = plan.stats
-    fold = folds_groups(plan)
-    out = spmm_window_kernel(plan.vals, plan.cols_win, plan.window_base, b,
+    parts = window_parts(plan)
+    out = spmm_window_kernel(plan.vals, plan.cols_win, plan.window_base,
+                             plan.tile_slice, b, num_slices=plan.num_slices,
                              group_tiles=st.group_tiles,
-                             window_grain=st.window_grain, fold=fold)
-    return _reduce_partials(plan, out, "plus_times", per_group=fold)
+                             window_grain=st.window_grain, parts=parts,
+                             rows=plan.shape[0])
+    return out if parts else _fixup_rows(plan, out, "plus_times")
 
 
 def _spmm_coo(plan: CooTail, b: torch.Tensor) -> torch.Tensor:

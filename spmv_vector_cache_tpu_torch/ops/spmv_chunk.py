@@ -21,7 +21,7 @@ from ..formats.packed import PackedPlan
 from ..utils import platform
 from . import _kernels
 from . import semiring as sr
-from .lane_perm import lane_unpermute
+from .lane_perm import unpermute_plan_rows
 from .spmv_packed import spmv_packed
 from .spmv_sell import _spmv_coo, _window_partials
 
@@ -66,12 +66,10 @@ def subwin_kernel(vals, cols_win, bases, x, *, semiring: str) -> torch.Tensor:
         return subwin_plain(vals, cols_win, bases, x, semiring=semiring)
     T, P, R = vals.shape
     out = torch.empty((T, R), dtype=torch.float32, device=x.device)
-    err = _kernels.library().spmv_subwin_f32(
-        vals.data_ptr(), cols_win.data_ptr(), bases.data_ptr(),
-        x.data_ptr(), out.data_ptr(), T, P, R, x.shape[0],
-        sr.KERNEL_CODE[semiring],
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _kernels.check(err, "spmv_subwin_f32")
+    _kernels.launch(
+        "spmv_subwin_f32", x.get_device(), vals.data_ptr(),
+        cols_win.data_ptr(), bases.data_ptr(), x.data_ptr(), out.data_ptr(), T,
+        P, R, x.shape[0], sr.KERNEL_CODE[semiring])
     subwin_kernel.launches += 1
     return out
 
@@ -113,7 +111,7 @@ def spmv_chunk(plan: ChunkPlan, x: torch.Tensor,
         y2b = s.segment_reduce(part, ids, num_segments=nblk + nheavy)
         # or_and's logical add yields bool; restore the float encoding
         y2d = y2b if y2d is None else s.add(y2d, y2b).to(y2b.dtype)
-    y = lane_unpermute(y2d[:nblk], plan.perm_idx).reshape(-1)[:rows]
+    y = unpermute_plan_rows(y2d[:nblk], plan.perm_idx).reshape(-1)[:rows]
     if nheavy:
         yh = axis_reduce(y2d[nblk:], 1)            # (nheavy,)
         yh = s.segment_reduce(yh, plan.heavy_rows,

@@ -95,11 +95,9 @@ def spmv_dia_kernel(vals: torch.Tensor, offsets, x: torch.Tensor,
         raise ValueError(f"rows={rows} exceeds the plan's {T * S * L}")
     offs = _offsets_on(tuple(int(o) for o in offsets), x.device)
     y = torch.empty(rows, dtype=torch.float32, device=x.device)
-    err = _kernels.library().spmv_dia_f32(
-        vals.data_ptr(), x.data_ptr(), offs.data_ptr(), y.data_ptr(),
-        rows, x.shape[0], D, S * L,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _kernels.check(err, "spmv_dia_f32")
+    _kernels.launch(
+        "spmv_dia_f32", x.get_device(), vals.data_ptr(), x.data_ptr(),
+        offs.data_ptr(), y.data_ptr(), rows, x.shape[0], D, S * L)
     spmv_dia_kernel.launches += 1
     return y
 
@@ -121,11 +119,10 @@ def spmv_dia_halo_kernel(vals: torch.Tensor, offsets, x_ext: torch.Tensor,
         raise ValueError(f"rows={rows} exceeds the plan's {T * S * L}")
     offs = _offsets_on(tuple(int(o) for o in offsets), x_ext.device)
     y = torch.empty(rows, dtype=torch.float32, device=x_ext.device)
-    err = _kernels.library().spmv_dia_halo_f32(
-        vals.data_ptr(), x_ext.data_ptr(), offs.data_ptr(), y.data_ptr(),
-        rows, x_ext.shape[0], int(origin), D, S * L,
-        torch.cuda.current_stream(x_ext.device).cuda_stream)
-    _kernels.check(err, "spmv_dia_halo_f32")
+    _kernels.launch(
+        "spmv_dia_halo_f32", x_ext.get_device(), vals.data_ptr(),
+        x_ext.data_ptr(), offs.data_ptr(), y.data_ptr(), rows, x_ext.shape[0],
+        int(origin), D, S * L)
     spmv_dia_halo_kernel.launches += 1
     return y
 
@@ -153,11 +150,9 @@ def spmv_dia_f64_kernel(vals: torch.Tensor, offsets, x: torch.Tensor,
         raise ValueError(f"rows={rows} exceeds the plan's {T * S * L}")
     offs = _offsets_on(tuple(int(o) for o in offsets), x.device)
     y = torch.empty(rows, dtype=torch.float64, device=x.device)
-    err = _kernels.library().spmv_dia_f64(
-        vals.data_ptr(), x.data_ptr(), offs.data_ptr(), y.data_ptr(),
-        rows, x.shape[0], D2 // 2, S * L,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _kernels.check(err, "spmv_dia_f64")
+    _kernels.launch(
+        "spmv_dia_f64", x.get_device(), vals.data_ptr(), x.data_ptr(),
+        offs.data_ptr(), y.data_ptr(), rows, x.shape[0], D2 // 2, S * L)
     spmv_dia_f64_kernel.launches += 1
     return y
 

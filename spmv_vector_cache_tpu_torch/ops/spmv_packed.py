@@ -86,12 +86,10 @@ def packed_scan_kernel(vals, cols, cstep, x, *, chunk_blocks: int,
                                  chunk_blocks=chunk_blocks,
                                  step_tiles=step_tiles)
     out = torch.empty_like(vals)
-    err = _kernels.library().packed_scan_f32(
-        vals.data_ptr(), cols.data_ptr(), cstep.data_ptr(), x.data_ptr(),
-        out.data_ptr(), vals.shape[0] * 8, step_tiles * 8,
-        chunk_blocks * 128, x.shape[0],
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _kernels.check(err, "packed_scan_f32")
+    _kernels.launch(
+        "packed_scan_f32", x.get_device(), vals.data_ptr(), cols.data_ptr(),
+        cstep.data_ptr(), x.data_ptr(), out.data_ptr(), vals.shape[0] * 8,
+        step_tiles * 8, chunk_blocks * 128, x.shape[0])
     packed_scan_kernel.launches += 1
     return out
 
@@ -146,11 +144,10 @@ def packed_extract_kernel(scan, sblock, wstep, esrc, *, num_windows: int,
                                     step_tiles=step_tiles)
     out = torch.empty((num_windows * PACKED_WINDOW_BLOCKS, 128),
                       dtype=torch.float32, device=scan.device)
-    err = _kernels.library().packed_extract_f32(
-        scan.data_ptr(), sblock.data_ptr(), wstep.data_ptr(),
-        esrc.data_ptr(), out.data_ptr(), num_windows, sblock.shape[0],
-        step_tiles * 1024, torch.cuda.current_stream(scan.device).cuda_stream)
-    _kernels.check(err, "packed_extract_f32")
+    _kernels.launch(
+        "packed_extract_f32", scan.get_device(), scan.data_ptr(),
+        sblock.data_ptr(), wstep.data_ptr(), esrc.data_ptr(), out.data_ptr(),
+        num_windows, sblock.shape[0], step_tiles * 1024)
     packed_extract_kernel.launches += 1
     return out
 

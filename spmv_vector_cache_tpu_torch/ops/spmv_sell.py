@@ -43,6 +43,22 @@ from .spmv_packed import spmv_packed
 # epilogues
 # ---------------------------------------------------------------------------
 
+def fold_lanes(y2d: torch.Tensor, parts: int, rows: int,
+               semiring: str = "plus_times") -> torch.Tensor:
+    """(num_slices, R[, k]) slice sums -> the first ``rows`` rows of y
+    (Y), where part j of row r of a slice sits at lane j*rps + r%rps
+    (rps = R / parts): the uniform-parts lane fold, and at ``parts`` = 1
+    the identity map."""
+    tail = tuple(y2d.shape[2:])
+    rps = y2d.shape[1] // parts
+    acc = y2d[:, :rps]
+    s = sr.get(semiring)
+    for j in range(1, parts):
+        acc = s.add(acc, y2d[:, j * rps:(j + 1) * rps])
+    # or_and's logical add yields bool; restore the float encoding
+    return acc.to(y2d.dtype).reshape((-1,) + tail)[:rows]
+
+
 def _fixup_rows(plan: SellPlan, y2d: torch.Tensor,
                 semiring: str) -> torch.Tensor:
     """(num_slices, R) slice sums -> y: identity slice, uniform-parts
@@ -52,17 +68,10 @@ def _fixup_rows(plan: SellPlan, y2d: torch.Tensor,
     tail = tuple(y2d.shape[2:])
     if plan.identity_map:
         return y2d.reshape((-1,) + tail)[:rows]
-    s = sr.get(semiring)
     p = plan.stats.uniform_parts
     if p:
-        # part j of row r sits at lane j*rps + r%rps: fold contiguous
-        # lane slices
-        rps = plan.lane_rows // p
-        acc = y2d[:, :rps]
-        for j in range(1, p):
-            acc = s.add(acc, y2d[:, j * rps:(j + 1) * rps])
-        # or_and's logical add yields bool; restore the float encoding
-        return acc.to(y2d.dtype).reshape((-1,) + tail)[:rows]
+        return fold_lanes(y2d, p, rows, semiring)
+    s = sr.get(semiring)
     y = s.segment_reduce(y2d.reshape((-1,) + tail), plan.row_map,
                          num_segments=rows + 1)
     return y[:rows]
@@ -158,12 +167,11 @@ def sell_window_kernel(vals, cols_win, window_base, x, *, group_tiles: int,
     T, P, R = vals.shape
     out_rows = T // group_tiles if fold else T
     out = torch.empty((out_rows, R), dtype=torch.float32, device=x.device)
-    err = _kernels.library().spmv_sell_window_f32(
-        vals.data_ptr(), cols_win.data_ptr(), window_base.data_ptr(),
-        x.data_ptr(), out.data_ptr(), out_rows, P, R, group_tiles,
-        int(fold), window_grain, x.shape[0], sr.KERNEL_CODE[semiring],
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _kernels.check(err, "spmv_sell_window_f32")
+    _kernels.launch(
+        "spmv_sell_window_f32", x.get_device(), vals.data_ptr(),
+        cols_win.data_ptr(), window_base.data_ptr(), x.data_ptr(),
+        out.data_ptr(), out_rows, P, R, group_tiles, int(fold), window_grain,
+        x.shape[0], sr.KERNEL_CODE[semiring])
     sell_window_kernel.launches += 1
     return out
 
@@ -196,12 +204,11 @@ def sell_window_f64_kernel(vals, cols_win, window_base, x, *,
     T, P2, R = vals.shape
     out_rows = T // group_tiles if fold else T
     out = torch.empty((out_rows, R), dtype=torch.float64, device=x.device)
-    err = _kernels.library().spmv_sell_window_f64(
-        vals.data_ptr(), cols_win.data_ptr(), window_base.data_ptr(),
-        x.data_ptr(), out.data_ptr(), out_rows, P2 // 2, R, group_tiles,
-        int(fold), window_grain, x.shape[0],
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _kernels.check(err, "spmv_sell_window_f64")
+    _kernels.launch(
+        "spmv_sell_window_f64", x.get_device(), vals.data_ptr(),
+        cols_win.data_ptr(), window_base.data_ptr(), x.data_ptr(),
+        out.data_ptr(), out_rows, P2 // 2, R, group_tiles, int(fold),
+        window_grain, x.shape[0])
     sell_window_f64_kernel.launches += 1
     return out
 
@@ -293,12 +300,10 @@ def sell_global_kernel(vals, cols, x, *, group_tiles: int, fold: bool,
     T, P, R = vals.shape
     out_rows = T // group_tiles if fold else T
     out = torch.empty((out_rows, R), dtype=torch.float32, device=x.device)
-    err = _kernels.library().spmv_sell_global_f32(
-        vals.data_ptr(), cols.data_ptr(), x.data_ptr(), out.data_ptr(),
-        out_rows, P, R, group_tiles, int(fold), x.shape[0],
-        sr.KERNEL_CODE[semiring],
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _kernels.check(err, "spmv_sell_global_f32")
+    _kernels.launch(
+        "spmv_sell_global_f32", x.get_device(), vals.data_ptr(),
+        cols.data_ptr(), x.data_ptr(), out.data_ptr(), out_rows, P, R,
+        group_tiles, int(fold), x.shape[0], sr.KERNEL_CODE[semiring])
     sell_global_kernel.launches += 1
     return out
 
@@ -324,11 +329,10 @@ def sell_global_f64_kernel(vals, cols, x) -> torch.Tensor:
         return sell_global_f64_plain(vals, cols, x)
     T, P2, R = vals.shape
     out = torch.empty((T, R), dtype=torch.float64, device=x.device)
-    err = _kernels.library().spmv_sell_global_f64(
-        vals.data_ptr(), cols.data_ptr(), x.data_ptr(), out.data_ptr(), T,
-        P2 // 2, R, x.shape[0],
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _kernels.check(err, "spmv_sell_global_f64")
+    _kernels.launch(
+        "spmv_sell_global_f64", x.get_device(), vals.data_ptr(),
+        cols.data_ptr(), x.data_ptr(), out.data_ptr(), T, P2 // 2, R,
+        x.shape[0])
     sell_global_f64_kernel.launches += 1
     return out
 

@@ -68,18 +68,25 @@ def device_scope(dev: torch.device):
 def place_on_mesh(plan, mesh: Mesh):
     """The sharded plan with each array field as a tuple of per-shard
     tensors, shard d on ``mesh.devices[d]``; a plan already placed there
-    comes back as it is."""
+    comes back as it is.  A window ShardedPlan's shards get kernel H's
+    work list here, once."""
+    from ..ops.spmm_sell import place_runs
+    from .spmv_sharded import ShardedPlan
+
     if mesh.size != plan.num_shards:
         raise ValueError(f"mesh of {mesh.size} devices for a plan of "
                          f"{plan.num_shards} shards")
-    if _is_placed_on(plan, mesh):
-        return plan
-    changes = {}
-    for name in plan._array_fields:
-        v = getattr(plan, name)
-        changes[name] = tuple(_to_tensor(v[d], dev)
-                              for d, dev in enumerate(mesh.devices))
-    return dataclasses.replace(plan, **changes)
+    if not _is_placed_on(plan, mesh):
+        changes = {}
+        for name in plan._array_fields:
+            v = getattr(plan, name)
+            changes[name] = tuple(_to_tensor(v[d], dev)
+                                  for d, dev in enumerate(mesh.devices))
+        plan = dataclasses.replace(plan, **changes)
+    if isinstance(plan, ShardedPlan) and plan.window_blocks:
+        for ts in plan.tile_slice:
+            place_runs(ts, plan.num_slices)
+    return plan
 
 
 def _is_placed_on(plan, mesh: Mesh) -> bool:

@@ -173,9 +173,10 @@ def build_sharded_plan(a, num_shards: int, *, value_dtype=np.float32,
 def _local_plan(sp: ShardedPlan, d: int, cols, window_base, x_len: int,
                 max_wb: int) -> SellPlan:
     """Shard d's arrays reassembled into a single-device SellPlan, with
-    the reference's stats (so that ``folds_groups`` and the epilogue read
-    what its kernel route reads: no group fold, the tile segment sum,
-    then the row map)."""
+    the reference's stats (so that ``folds_groups`` and the SpMV epilogue
+    read what its kernel route reads: no group fold, the tile segment
+    sum, then the row map; kernel H sums the slices and, the map being
+    the identity, writes the shard's rows of Y itself)."""
     vals = sp.vals[d]
     T, P, R = vals.shape
     stats = PlanStats(

@@ -14,7 +14,7 @@ import torch
 
 
 def is_cuda(t: torch.Tensor) -> bool:
-    return t.device.type == "cuda"
+    return t.is_cuda                  # no torch.device object: per launch
 
 
 def require_cuda() -> None:

@@ -53,10 +53,9 @@ def checksum_stream(data: torch.Tensor, block: int) -> torch.Tensor:
                          "must be a multiple of 4 and data 16-byte aligned")
     num_blocks = T // block
     out = torch.empty(num_blocks, dtype=torch.float32, device=data.device)
-    err = _kernels.library().stream_checksum_f32(
-        data.data_ptr(), out.data_ptr(), num_blocks, block_elems,
-        torch.cuda.current_stream(data.device).cuda_stream)
-    _kernels.check(err, "stream_checksum_f32")
+    _kernels.launch(
+        "stream_checksum_f32", data.get_device(), data.data_ptr(),
+        out.data_ptr(), num_blocks, block_elems)
     checksum_stream.launches += 1
     return out
 

@@ -204,6 +204,59 @@ def test_lane_unpermute_matches_jax():
     assert np.array_equal(got.numpy().reshape(-1), y2d.reshape(-1)[perm])
 
 
+@pytest.mark.parametrize("operand", ["y2d", "idx"])
+def test_lane_unpermute_refuses_a_misaligned_view(operand):
+    # kernel C reads both operands as 16-byte vectors: a contiguous view
+    # that starts off a 16-byte boundary is refused on either device
+    y2d = torch.zeros(8 * 128 + 4)
+    idx = torch.zeros(8 * 128 + 8, dtype=torch.int16)
+    ok = (y2d[4:].reshape(8, 128), idx[8:].reshape(8, 128))
+    assert torch.equal(plane.lane_unpermute(*ok), ok[0])
+    bad = (y2d[1:1025].reshape(8, 128), ok[1]) if operand == "y2d" else \
+        (ok[0], idx[1:1025].reshape(8, 128))
+    assert bad[0].is_contiguous() and bad[1].is_contiguous()
+    with pytest.raises(ValueError, match="16-byte"):
+        plane.lane_unpermute(*bad)
+
+
+#: a bad perm_idx for placement to refuse: what it changes, the message
+BAD_PERM_IDX = {
+    "above": (lambda i: np.where(i == 0, 1024, i).astype(np.int16),
+              "outside"),
+    "below": (lambda i: np.where(i == 0, -1, i).astype(np.int16),
+              "outside"),
+    "dtype": (lambda i: i.astype(np.int32), "int16"),
+    "rows": (lambda i: i[:-1], "8k, 128"),
+}
+
+
+@pytest.mark.parametrize("bad", sorted(BAD_PERM_IDX))
+def test_place_checks_perm_idx(bad):
+    # kernel C reads a placed plan's perm_idx without a check on each
+    # apply: placement refuses one it could not read
+    _, pa = both(pareto_banded(n=2048, seed=3, cap=512))
+    plan = pchunk.build_chunk_plan(pa)
+    pplan.place(plan, "cpu")
+    change, match = BAD_PERM_IDX[bad]
+    with pytest.raises(ValueError, match=match):
+        pplan.place(dataclasses.replace(
+            plan, perm_idx=change(plan.perm_idx)), "cpu")
+
+
+def test_unpermute_plan_rows_is_lane_unpermute():
+    rng = np.random.default_rng(4)
+    _, pa = both(pareto_banded(n=2048, seed=3, cap=512))
+    plan = pplan.place(pchunk.build_chunk_plan(pa), "cpu")
+    y2d = torch.from_numpy(rng.standard_normal(
+        (plan.num_blocks, 128)).astype(np.float32))
+    assert torch.equal(plane.unpermute_plan_rows(y2d, plan.perm_idx),
+                       plane.lane_unpermute(y2d, plan.perm_idx))
+    with pytest.raises(ValueError, match="perm_idx"):
+        plane.unpermute_plan_rows(y2d[:8], plan.perm_idx)
+    with pytest.raises(ValueError, match="float32"):
+        plane.unpermute_plan_rows(y2d.double(), plan.perm_idx)
+
+
 @pytest.mark.parametrize("semiring", SEMIRINGS)
 def test_subwin_partials_match_jax(semiring):
     m, x = _semiring_data(heavy_subwin(), semiring, 3)

@@ -21,8 +21,8 @@ from spmv_vector_cache_tpu_torch.formats.convert import from_scipy
 from spmv_vector_cache_tpu_torch.formats.dia import build_dia_plan
 from spmv_vector_cache_tpu_torch.formats.packed import build_packed_plan
 from spmv_vector_cache_tpu_torch.formats.plan import build_sell_plan, place
-from spmv_vector_cache_tpu_torch.ops import (lane_perm, spmv_chunk, spmv_dia,
-                                             spmv_packed, spmv_sell)
+from spmv_vector_cache_tpu_torch.ops import (_kernels, lane_perm, spmv_chunk,
+                                             spmv_dia, spmv_packed, spmv_sell)
 from spmv_vector_cache_tpu_torch.ops.semiring import REGISTRY
 
 pytestmark = pytest.mark.cuda
@@ -119,6 +119,16 @@ def test_lane_unpermute_kernel_matches_plain(cuda):
     assert lane_perm.lane_unpermute.launches == before + 1
     # a permutation moves values: exact
     assert torch.equal(got, lane_perm.lane_unpermute_plain(y2d, idx))
+    # on a caller's stream, the launch goes into that stream
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        assert _kernels.current_stream(cuda.index or 0) == side.cuda_stream
+        assert _kernels.current_stream(cuda.index or 0) != \
+            torch.cuda.default_stream(cuda).cuda_stream
+        on_side = lane_perm.lane_unpermute(y2d, idx)
+    side.synchronize()
+    assert torch.equal(on_side, got)
 
 
 @pytest.mark.parametrize("semiring", sorted(REGISTRY))
@@ -255,39 +265,93 @@ def test_spmm_dia_kernel_matches_plain(cuda, offs, rows, cols, k):
                                             np.float32)))
 
 
-@pytest.mark.parametrize("k", RHS)
-@pytest.mark.parametrize("fold", [True, False])
-def test_spmm_window_kernel_matches_plain(cuda, fold, k):
+#: kernel H's layouts: build_sell_plan arguments, what H writes
+#: (spmm_sell.window_parts) and whether a slice is split over CTAs that
+#: add atomically; one 8-tile step per grid step keeps the padding tiles
+#: on the last slice under the per-CTA cap, except where said
+H_LAYOUTS = {
+    "identity": (dict(groups_per_step=1), 1, False),
+    "uniform_parts": (dict(split=16, uniform_split=True,
+                           window_group_tiles=2, groups_per_step=1), 2,
+                      False),
+    "row_map": (dict(split=8, sigma=512, groups_per_step=1), 0, False),
+    # a 600-nonzero row: its slice holds 75+ tiles, past the cap
+    "long_run": (dict(groups_per_step=1), 1, True),
+    # the default grid step pads the last slice with 400+ zero tiles
+    "padded": (dict(split=16, uniform_split=True, window_group_tiles=2),
+               2, True),
+}
+H_RHS = [1, 3, 8, 16, 20, 64]
+
+
+@pytest.mark.parametrize("k", H_RHS)
+@pytest.mark.parametrize("layout", sorted(H_LAYOUTS))
+def test_spmm_window_kernel_matches_plain(cuda, layout, k):
     from spmv_vector_cache_tpu_torch.ops import spmm_sell
 
+    kw, parts, split = H_LAYOUTS[layout]
     rng = np.random.default_rng(10)
     n = 2048
     r = np.repeat(np.arange(n), 20)
     c = (r // 128) * 128 + rng.integers(0, 128, r.shape[0])
+    if layout == "long_run":
+        r = np.concatenate([r, np.full(600, 5)])
+        c = np.concatenate([c, rng.choice(np.arange(128, 1700), 600,
+                                          replace=False)])
     m = sp.csr_matrix((rng.standard_normal(r.shape[0]).astype(np.float32),
                        (r, c)), shape=(n, n + 300))
+    m.sum_duplicates()
     m.sort_indices()
-    kw = dict(split=16, uniform_split=True, window_group_tiles=2) if fold \
-        else {}
     plan = place(build_sell_plan(from_scipy(m), window_grain=32, **kw), cuda)
     st = plan.stats
+    assert st.window_blocks > 0 and spmm_sell.window_parts(plan) == parts
+    runs = spmm_sell.tile_runs(plan.tile_slice, plan.num_slices)
+    assert bool((runs[:, 3] & spmm_sell.RUN_ATOMIC).any()) == split
     # B 200 rows short of the plan's columns: the slots of the last rows,
-    # nonzeros and padding alike, name columns past B and read 0 in both
-    # versions
+    # nonzeros and (but in the sorted row_map layout) padding alike, name
+    # columns past B and read 0 in both versions
     b = torch.from_numpy(rng.standard_normal((n - 200, k)).astype(
         np.float32)).to(cuda)
     base = plan.window_base.long().repeat_interleave(st.group_tiles)
     slot_cols = base[:, None, None] * st.window_grain + plan.cols_win.long()
     past = slot_cols >= b.shape[0]
-    assert bool((past & (plan.vals == 0)).any())      # padding slots
+    assert bool((past & (plan.vals == 0)).any()) == (layout != "row_map")
     assert bool((past & (plan.vals != 0)).any())      # nonzeros
-    args = (plan.vals, plan.cols_win, plan.window_base, b)
-    kwargs = dict(group_tiles=st.group_tiles, window_grain=st.window_grain,
-                  fold=fold)
+    args = (plan.vals, plan.cols_win, plan.window_base, plan.tile_slice, b)
+    kwargs = dict(num_slices=plan.num_slices, group_tiles=st.group_tiles,
+                  window_grain=st.window_grain, parts=parts,
+                  rows=plan.shape[0])
     before = spmm_sell.spmm_window_kernel.launches
     got = spmm_sell.spmm_window_kernel(*args, **kwargs)
     assert spmm_sell.spmm_window_kernel.launches == before + 1
     _close(got, spmm_sell.spmm_window_plain(*args, **kwargs))
+    if not split:
+        # one CTA writes each output, in a fixed order: bit for bit again
+        assert torch.equal(got, spmm_sell.spmm_window_kernel(*args,
+                                                             **kwargs))
+
+
+def test_spmm_window_kernel_needs_a_placed_plan(cuda):
+    # kernel H's work list is built at placement: a tile_slice that no
+    # placement saw is refused before anything launches
+    from spmv_vector_cache_tpu_torch.ops import spmm_sell
+
+    m = sp.random(1024, 1024, density=0.02, format="csr", dtype=np.float32,
+                  random_state=np.random.default_rng(12))
+    m.sort_indices()
+    plan = place(build_sell_plan(from_scipy(m), window_grain=32), cuda)
+    assert plan.stats.window_blocks > 0
+    b = torch.ones((1024, 4), device=cuda)
+    kwargs = dict(num_slices=plan.num_slices,
+                  group_tiles=plan.stats.group_tiles,
+                  window_grain=plan.stats.window_grain,
+                  parts=spmm_sell.window_parts(plan), rows=1024)
+    before = spmm_sell.spmm_window_kernel.launches
+    with pytest.raises(ValueError, match="placed"):
+        spmm_sell.spmm_window_kernel(plan.vals, plan.cols_win,
+                                     plan.window_base,
+                                     plan.tile_slice.clone(), b, **kwargs)
+    assert spmm_sell.spmm_window_kernel.launches == before
 
 
 @pytest.mark.parametrize("kind", ["dia", "window", "hybrid", "packed"])

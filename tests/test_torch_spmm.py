@@ -5,11 +5,13 @@ JAX package's.
   (its Pallas kernel in interpret mode) on the JAX DIA SpMM tests'
   shapes, and against JAX ``reference.spmm`` past the width where the
   JAX kernel's VMEM budget refuses the plan;
-* ``spmm_plan`` on window SellPlans (kernel H's plain version and the
-  slice/sub-row epilogue over a trailing k axis) against the JAX
-  ``spmm_plan``, with identity and row_map fixups, a folded
-  uniform-parts layout, and window grains 128 and 32; kernel H's
-  partials against kernel B's, column by column;
+* ``spmm_plan`` on window SellPlans (kernel H's plain version, which
+  sums each slice's tiles and folds its lanes, and the ``row_map``
+  reduce over a trailing k axis) against the JAX ``spmm_plan``, with
+  identity and row_map fixups, a folded uniform-parts layout, and window
+  grains 128 and 32; kernel H's output against kernel B's partials
+  reduced the same way, column by column; kernel H's work list
+  (``tile_runs``) against ``tile_slice``;
 * ``spmm_plan`` on a HybridPlan and on a CooTail;
 * ``SparseOperator.matmat`` for every plan family, and its refusals.
 
@@ -172,28 +174,48 @@ def test_spmm_window_matches_jax(case, k):
     np.testing.assert_allclose(y.numpy(), want, **TOL)
     np.testing.assert_allclose(y.numpy(), m.astype(np.float64) @ b, **TOL)
 
-    # kernel H's partials are kernel B's partials, one RHS column at a
-    # time
-    args = (pp.vals, pp.cols_win, pp.window_base)
-    kwargs = dict(group_tiles=st.group_tiles, window_grain=st.window_grain,
-                  fold=layout[2])
-    partials = pspmm.spmm_window_kernel(*args, bt, **kwargs)
+    # kernel H's plain version: Y itself where H folds the lanes, else
+    # the slice sums that the row_map reduce takes
+    parts = pspmm.window_parts(pp)
+    assert parts == (1 if layout[0] else layout[1])
+    args = (pp.vals, pp.cols_win, pp.window_base, pp.tile_slice)
+    kwargs = dict(num_slices=pp.num_slices, group_tiles=st.group_tiles,
+                  window_grain=st.window_grain, parts=parts,
+                  rows=m.shape[0])
+    out = pspmm.spmm_window_plain(*args, bt, **kwargs)
+    y_h = out if parts else psell._fixup_rows(pp, out, "plus_times")
+    np.testing.assert_allclose(y_h.numpy(), want, **TOL)
+    # ... and, on a CPU tensor, the wrapper
+    assert torch.equal(pspmm.spmm_window_kernel(*args, bt, **kwargs), out)
+    # kernel H's output is kernel B's per-tile partials reduced the same
+    # way, one RHS column at a time
     for j in range(k):
-        col = psell.sell_window_plain(*args, bt[:, j].contiguous(),
-                                      semiring="plus_times", **kwargs)
-        np.testing.assert_allclose(partials[..., j].numpy(), col.numpy(),
+        col = psell.sell_window_plain(
+            pp.vals, pp.cols_win, pp.window_base, bt[:, j].contiguous(),
+            group_tiles=st.group_tiles, window_grain=st.window_grain,
+            fold=False, semiring="plus_times")
+        col = psell.sr.PLUS_TIMES.segment_reduce(col, pp.tile_slice,
+                                                 num_segments=pp.num_slices)
+        if parts:
+            col = psell.fold_lanes(col, parts, m.shape[0])
+        np.testing.assert_allclose(out[..., j].numpy(), col.numpy(),
                                    rtol=1e-6, atol=1e-6)
+
+
+def _window_args(plan, parts=0):
+    st = plan.stats
+    return ((plan.vals, plan.cols_win, plan.window_base, plan.tile_slice),
+            dict(num_slices=plan.num_slices, group_tiles=st.group_tiles,
+                 window_grain=st.window_grain, parts=parts,
+                 rows=plan.shape[0]))
 
 
 def test_spmm_window_plain_reads_zero_past_b():
     # padding slots and columns past the last row of B read 0
     _, pa = both(shuffled_band(1024, seed=7))
     plan = pplan.place(pplan.build_sell_plan(pa), "cpu")
-    st = plan.stats
     b = torch.from_numpy(_b(1024, 3, seed=8))
-    kw = dict(group_tiles=st.group_tiles, window_grain=st.window_grain,
-              fold=False)
-    args = (plan.vals, plan.cols_win, plan.window_base)
+    args, kw = _window_args(plan)
     short = pspmm.spmm_window_plain(*args, b[:1000].contiguous(), **kw)
     zeroed = b.clone()
     zeroed[1000:] = 0
@@ -204,10 +226,7 @@ def test_spmm_window_plain_reads_zero_past_b():
 def test_spmm_window_kernel_checks_operands():
     _, pa = both(shuffled_band(1024, seed=9))
     plan = pplan.place(pplan.build_sell_plan(pa), "cpu")
-    st = plan.stats
-    kw = dict(group_tiles=st.group_tiles, window_grain=st.window_grain,
-              fold=False)
-    args = (plan.vals, plan.cols_win, plan.window_base)
+    args, kw = _window_args(plan)
     with pytest.raises(NotImplementedError, match="float32"):
         pspmm.spmm_window_kernel(*args, torch.zeros((1024, 2),
                                                     dtype=torch.float64),
@@ -216,6 +235,133 @@ def test_spmm_window_kernel_checks_operands():
         pspmm.spmm_window_kernel(*args, torch.zeros(1024), **kw)
     with pytest.raises(ValueError, match="contiguous"):
         pspmm.spmm_window_kernel(*args, torch.zeros((2, 1024)).T, **kw)
+    with pytest.raises(ValueError, match="tile_slice"):
+        pspmm.spmm_window_kernel(*args[:3], args[3][1:],
+                                 torch.zeros((1024, 2)), **kw)
+    with pytest.raises(ValueError, match="parts"):
+        pspmm.spmm_window_kernel(*args, torch.zeros((1024, 2)),
+                                 **dict(kw, parts=3))
+
+
+# ---------------------------------------------------------------------------
+# kernel H's work list: the tile run of each slice
+# ---------------------------------------------------------------------------
+
+def _runs_cover(runs, tile_slice, num_slices):
+    """Every tile summed once, into its own slice; every slice written by
+    one plain record or by the pieces of one split slice."""
+    ts = np.asarray(tile_slice)
+    written = np.zeros(num_slices, np.int64)
+    seen = np.zeros(ts.shape[0], np.int64)
+    for t0, t1, s0, w in runs.tolist():
+        s1 = w & ~pspmm.RUN_ATOMIC
+        assert t0 <= t1 and s0 < s1
+        seen[t0:t1] += 1
+        assert ((ts[t0:t1] >= s0) & (ts[t0:t1] < s1)).all()
+        if w & pspmm.RUN_ATOMIC:
+            assert s1 == s0 + 1 and t1 - t0 <= pspmm.RUN_CAP
+            assert (ts == s0).sum() > pspmm.RUN_CAP
+        else:
+            assert t1 - t0 <= max(pspmm.RUN_PACK, pspmm.RUN_CAP)
+            written[s0:s1] += 1
+    assert (seen == 1).all()
+    split = {t0 for t0, _, _, w in runs.tolist() if w & pspmm.RUN_ATOMIC}
+    assert (written[np.bincount(ts, minlength=num_slices) <=
+                    pspmm.RUN_CAP] == 1).all()
+    return split
+
+
+def test_tile_runs_of_a_padded_plan():
+    # build_sell_plan appends the grid step's padding tiles to the last
+    # slice: 64 real tiles, 448 padding ones in slice 31, split in 14
+    _, pa = both(shuffled_band(2048, seed=5))
+    plan = pplan.build_sell_plan(pa, split=16, uniform_split=True,
+                                 window_group_tiles=2)
+    ts = plan.tile_slice
+    assert plan.num_slices == 32 and ts.shape[0] == 512
+    assert (ts == 31).sum() == 450
+    runs = pspmm.tile_runs(ts, plan.num_slices)
+    _runs_cover(runs, ts, plan.num_slices)
+    pieces = runs[(runs[:, 3] & pspmm.RUN_ATOMIC) != 0]
+    assert len(pieces) == 15 and (pieces[:, 2] == 31).all()
+    assert pieces[0, 0] == 62 and pieces[-1, 1] == 512
+    # the other slices, 2 tiles each, two to a record
+    plain = runs[(runs[:, 3] & pspmm.RUN_ATOMIC) == 0]
+    assert plain.tolist()[0] == [0, 4, 0, 2]
+
+
+def test_tile_runs_of_one_tile_slices():
+    ts = np.arange(20, dtype=np.int32)
+    runs = pspmm.tile_runs(ts, 20)
+    _runs_cover(runs, ts, 20)
+    assert runs.tolist() == [[t, t + 4, t, t + 4] for t in range(0, 20, 4)]
+
+
+def test_tile_runs_of_a_run_past_the_cap():
+    # slice 1 holds 70 tiles: three pieces of 23-24; slices 3 and 5
+    # none, packed with their neighbours (4 tiles at most a record)
+    counts = np.array([3, 70, 2, 0, 1, 0, 5])
+    ts = np.repeat(np.arange(7, dtype=np.int32), counts)
+    runs = pspmm.tile_runs(ts, 7)
+    _runs_cover(runs, ts, 7)
+    assert runs.tolist() == [
+        [0, 3, 0, 1], [3, 26, 1, 2 | pspmm.RUN_ATOMIC],
+        [26, 49, 1, 2 | pspmm.RUN_ATOMIC], [49, 73, 1, 2 | pspmm.RUN_ATOMIC],
+        [73, 76, 2, 6], [76, 81, 6, 7]]
+
+
+def test_tile_runs_of_a_sharded_plan():
+    # a shard with fewer slices than the stacked plan leaves the slices
+    # in between empty, and its padding tiles name the last one
+    ts = np.concatenate([np.repeat(np.arange(6, dtype=np.int32), 2),
+                         np.full(4, 9, np.int32)])
+    runs = pspmm.tile_runs(ts, 10)
+    _runs_cover(runs, ts, 10)
+    assert runs.tolist() == [[0, 4, 0, 2], [4, 8, 2, 4], [8, 12, 4, 9],
+                             [12, 16, 9, 10]]
+
+
+@pytest.mark.parametrize("bad", ["decreasing", "out_of_range"])
+def test_tile_runs_rejects_a_bad_tile_slice(bad):
+    ts = np.array([0, 2, 1] if bad == "decreasing" else [0, 1, 3], np.int32)
+    with pytest.raises(ValueError, match="nondecreasing"):
+        pspmm.tile_runs(ts, 3)
+
+
+@pytest.mark.parametrize("kind", ["sell", "hybrid", "sharded", "windowless"])
+def test_placement_builds_the_work_list(kind):
+    # kernel H's work list is built once, when the plan is placed, for
+    # each tile_slice that kernel H reads, and for no other
+    from spmv_vector_cache_tpu_torch.formats.dia import (HybridPlan,
+                                                         build_dia_plan)
+    from spmv_vector_cache_tpu_torch.parallel import (build_sharded_plan,
+                                                      make_mesh, place_on_mesh)
+
+    _, pa = both(shuffled_band(2048, seed=17))
+    if kind == "sharded":
+        plan = place_on_mesh(build_sharded_plan(pa, 4),
+                             make_mesh(4, device="cpu"))
+        read = [(ts, plan.num_slices) for ts in plan.tile_slice]
+        assert place_on_mesh(plan, make_mesh(4, device="cpu")) is plan
+    elif kind == "hybrid":
+        _, pb = both(banded(2048, [-1, 0, 1], seed=18))
+        plan = pplan.place(HybridPlan(dia=build_dia_plan(pb, sublanes=8),
+                                      rest=pplan.build_sell_plan(pa)), "cpu")
+        read = [(plan.rest.tile_slice, plan.rest.num_slices)]
+    else:
+        built = pplan.build_sell_plan(pa) if kind == "sell" else \
+            _windowless(pplan, both(random_sparse(300, 5000, 0.02,
+                                                  seed=4))[1])
+        plan = pplan.place(built, "cpu")
+        read = [(plan.tile_slice, plan.num_slices)] if kind == "sell" else []
+        assert (plan.tile_slice in pspmm._RUNS) == (kind == "sell")
+    for ts, num_slices in read:
+        n, runs, split = pspmm._RUNS[ts]
+        want = pspmm.tile_runs(ts, num_slices)
+        assert n == num_slices and np.array_equal(runs.numpy(), want)
+        assert split == bool((want[:, 3] & pspmm.RUN_ATOMIC).any())
+        # a copy of the tensor is not a placed plan's
+        assert ts.clone() not in pspmm._RUNS
 
 
 # ---------------------------------------------------------------------------
