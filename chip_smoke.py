@@ -78,23 +78,26 @@ compared with its plain PyTorch version on the same inputs on the card,
 and both are timed with CUDA events beside the kernel's bound: the bytes
 it must move at 3.35 TB/s (and at the measured read bandwidth) or its
 operations at 67 TFLOP/s (float32) or 34 TFLOP/s (float64), whichever
-takes longer (kernel H also on each shard of ``sharded_spmm``, and at
-RUN_PACK 2, 4, 8 and 16, the tiles one CTA takes of short slices;
-kernel C through the public wrapper beside ``torch.gather``, both
-allocating, and by the apply's in-place call beside ``torch.gather``
-into a buffer).  ``host_cost`` then times each piece of kernel C's
-launch path by the host clock.  The profiler's by-kernel lists of
+takes longer (kernel H also on each shard of ``sharded_spmm``; kernel
+C through the public wrapper beside ``torch.gather``, both allocating,
+and by the apply's in-place call beside ``torch.gather`` into a
+buffer).  ``host_cost`` then times each piece of kernel C's launch path
+by the host clock.  One PyTorch call of the same function is timed
+beside kernels A, B, H, I, J, K, L and N, beside G on the cached tier 2
+(``torch.sparse.mm`` of the tier's matrix over ``x[hot_cols]``) and
+beside M (each shard's rows over its halo'd x), each checked against
+the float64 reference.  The profiler's by-kernel lists of
 ``spmm_sell``, ``spmm_hybrid`` and ``sharded_spmm`` must hold kernel H
-and no ``index_add_``.  Every check raises; nothing is caught.  Needs
-one CUDA device; exits non-zero without one.
+and no ``index_add_``, and those of ``deep``, ``stream`` and ``wide``
+kernel G and no ``scatter_reduce`` nor ``index_add_``.  Every check
+raises; nothing is caught.  Needs one CUDA device; exits non-zero
+without one.
 
 Standard output, last three lines: the card's name and power limit as
 nvidia-smi reports them, one JSON line with the kernels' measurements,
 and one JSON line ``{"ok": true, "device": {...}}``.
 """
 
-import dataclasses
-import functools
 import json
 import statistics
 import subprocess
@@ -149,7 +152,10 @@ def time_ms(fn, iters=30, warmup=3):
 def device_us_by_kernel(fn, iters=20):
     """(device microseconds, launches) per call of ``fn``, by kernel
     name, from a torch.profiler trace of ``iters`` calls (empty if the
-    profiler saw no device activity)."""
+    profiler saw no device activity).  The time is per recorded launch
+    times the launches a call makes: a profiler session that follows
+    another in the process may leave the first launch unrecorded (19
+    of 20), which would otherwise read as a 5 % shorter kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -167,7 +173,8 @@ def device_us_by_kernel(fn, iters=20):
         if us is None:
             us = ev.self_cuda_time_total
         if us > 0:
-            out[ev.key] = (us / iters, ev.count / iters)
+            per_call = round(ev.count / iters) or ev.count / iters
+            out[ev.key] = (us / ev.count * per_call, per_call)
     return out
 
 
@@ -229,6 +236,22 @@ def min_plus_host(a, x):
     prod = np.asarray(a.data, np.float64) + x.astype(np.float64)[
         np.asarray(a.indices)]
     return np.minimum.reduceat(prod, indptr[:-1])
+
+
+def plan_csr(plan):
+    """The matrix a float32 SellPlan stores, as a scipy CSR: each slot
+    with a nonzero value at (the original row of its sub-row, its
+    column)."""
+    import scipy.sparse as sp
+
+    R = plan.lane_rows
+    rows = plan.row_map.long().cpu().reshape(-1, R)[
+        plan.tile_slice.long().cpu()][:, None, :].expand(plan.vals.shape)
+    v, c = plan.vals.cpu(), plan.cols.cpu()
+    keep = (v != 0) & (rows < plan.shape[0])
+    return sp.csr_matrix((v[keep].numpy(), (rows[keep].numpy(),
+                                             c[keep].long().numpy())),
+                         shape=plan.shape)
 
 
 def host_cost(y2d, idx, img, gidx, card, n=10_000):
@@ -294,16 +317,17 @@ def main():
                                                               from_scipy)
     from spmv_vector_cache_tpu_torch.formats.dia import DiaPlan, HybridPlan
     from spmv_vector_cache_tpu_torch.formats.packed import PackedPlan
-    from spmv_vector_cache_tpu_torch.formats.plan import SellPlan, place
-    from spmv_vector_cache_tpu_torch.ops import _kernels, df64, spmm_sell
+    from spmv_vector_cache_tpu_torch.formats.plan import SellPlan
+    from spmv_vector_cache_tpu_torch.ops import _kernels, df64
     from spmv_vector_cache_tpu_torch.ops.lane_perm import (
         lane_unpermute, lane_unpermute_plain, unpermute_plan_rows)
     from spmv_vector_cache_tpu_torch.ops.operator import SparseOperator
+    from spmv_vector_cache_tpu_torch.ops.runs import RUN_ATOMIC, tile_runs
     from spmv_vector_cache_tpu_torch.ops.spmm_dia import (spmm_dia_kernel,
-                                                          spmm_dia_plain)
-    from spmv_vector_cache_tpu_torch.ops.spmm_sell import (
-        RUN_ATOMIC, spmm_window_kernel, spmm_window_plain, tile_runs,
-        window_parts)
+                                                          spmm_dia_plain,
+                                                          spmm_dia_tiling)
+    from spmv_vector_cache_tpu_torch.ops.spmm_sell import (spmm_window_kernel,
+                                                           spmm_window_plain)
     from spmv_vector_cache_tpu_torch.ops.spmv_chunk import (subwin_kernel,
                                                             subwin_plain)
     from spmv_vector_cache_tpu_torch.ops.spmv_dia import (
@@ -314,10 +338,10 @@ def main():
         packed_extract_kernel, packed_extract_plain, packed_scan_kernel,
         packed_scan_plain)
     from spmv_vector_cache_tpu_torch.ops.spmv_sell import (
-        folds_groups, sell_global_f64_kernel, sell_global_f64_plain,
-        sell_global_kernel, sell_global_plain, sell_window_f64_kernel,
-        sell_window_f64_plain, sell_window_kernel, sell_window_plain,
-        spmv_sell_double_pair)
+        folds_groups, row_parts, sell_global_f64_kernel,
+        sell_global_f64_plain, sell_global_kernel, sell_global_plain,
+        sell_window_f64_kernel, sell_window_f64_plain, sell_window_kernel,
+        sell_window_plain, spmv_sell_double_pair)
     from spmv_vector_cache_tpu_torch.ops.strategy import (plan_nnz,
                                                           select_strategy)
     from spmv_vector_cache_tpu_torch.parallel import (
@@ -801,15 +825,20 @@ def main():
                 + h.vals.shape[0] * h.vals.shape[2] * 4,
                 2 * h.vals.numel())
 
-    def global_pair(plan, x, fold, semiring):
-        args = (plan.vals, plan.cols, x)
-        kw = dict(group_tiles=plan.stats.group_tiles, fold=fold,
-                  semiring=semiring)
-        rows_out = plan.num_tiles // (plan.stats.group_tiles if fold else 1)
+    # kernel G sums each slice's tiles itself: its output is y's rows
+    # (identity map, uniform parts) or the slice sums, written once
+    def global_pair(plan, x, semiring):
+        parts = row_parts(plan)
+        args = (plan.vals, plan.cols, plan.tile_slice, x)
+        kw = dict(num_slices=plan.num_slices, parts=parts,
+                  rows=plan.shape[0], semiring=semiring)
+        out_elems = plan.shape[0] if parts else \
+            plan.num_slices * plan.lane_rows
+        runs = tile_runs(plan.tile_slice, plan.num_slices)
         return (lambda: sell_global_kernel(*args, **kw),
                 lambda: sell_global_plain(*args, **kw),
-                nbytes(*args[:2]) + x_bytes_read(x, plan.cols)
-                + rows_out * plan.lane_rows * 4,
+                nbytes(*args[:3]) + runs.nbytes + x_bytes_read(x, plan.cols)
+                + out_elems * 4,
                 2 * plan.vals.numel())
 
     def spmm_dia_pair(plan, b):
@@ -824,7 +853,7 @@ def main():
     # (identity map, uniform parts) or the slice sums, written once
     def spmm_window_pair(plan, b):
         st = plan.stats
-        parts = window_parts(plan)
+        parts = row_parts(plan)
         args = (plan.vals, plan.cols_win, plan.window_base, plan.tile_slice,
                 b)
         kw = dict(num_slices=plan.num_slices, group_tiles=st.group_tiles,
@@ -894,7 +923,6 @@ def main():
     picked = int((p_packed.esrc >= 0).sum().item())
     # kernel G, resident route: the cached phase's tier 2 on its x[hot_cols]
     x_tier2 = ops["cached"][1].index_select(0, tier2.hot_cols)
-    fold2 = folds_groups(tier2.hot)
     x_tier1 = ops["cached"][1].index_select(0, p_cached.hot_cols)
 
     # (kernel, phase, what, (kernel call, plain call, bytes, operations),
@@ -940,13 +968,13 @@ def main():
               ("spmv_sell_window_f32", "cached", " tier 1",
                sell_pair(hot, x_tier1), False),
               ("spmv_sell_global_f32", "cached", " resident (tier 2)",
-               global_pair(tier2.hot, x_tier2, fold2, "plus_times"), False),
+               global_pair(tier2.hot, x_tier2, "plus_times"), False),
               ("spmv_sell_global_f32", "deep", " deep",
-               global_pair(p_deep, ops["deep"][1], False, "min_plus"), True),
+               global_pair(p_deep, ops["deep"][1], "min_plus"), True),
               ("spmv_sell_global_f32", "stream", " stream",
-               global_pair(p_deep, ops["deep"][1], False, "min_plus"), True),
+               global_pair(p_deep, ops["deep"][1], "min_plus"), True),
               ("spmv_sell_global_f32", "wide", " stream (2^19 columns)",
-               global_pair(p_wide, ops["wide"][1], False, "min_plus"), True),
+               global_pair(p_wide, ops["wide"][1], "min_plus"), True),
               ("spmm_dia_f32", "spmm_dia", f" k={K_RHS}",
                spmm_dia_pair(p_dia, ops["spmm_dia"][1]), False),
               ("spmm_sell_window_f32", "spmm_sell", f" k={K_RHS}",
@@ -996,46 +1024,13 @@ def main():
                        *((f"sharded_spmm shard {d}", lp)
                          for d, lp in enumerate(shard_plans))):
         runs = tile_runs(plan.tile_slice, plan.num_slices)
-        log(f"[{name}] kernel H: parts={window_parts(plan)} (1: identity "
+        log(f"[{name}] kernel H: parts={row_parts(plan)} (1: identity "
             f"map, p: lane fold, 0: slice sums), {runs.shape[0]} runs over "
             f"{plan.num_tiles} tiles and {plan.num_slices} slices, "
             f"{int(((runs[:, 3] & RUN_ATOMIC) != 0).sum())} split "
             f"(atomic) pieces")
-    # kernel H's work list: RUN_PACK tiles a CTA takes of short slices,
-    # in turns (each packing is a placement of its own, the same sums)
-    shipped_pack = spmm_sell.RUN_PACK
-    for name, plan, b in (("spmm_sell", p_sell, ops["spmm_sell"][1]),
-                          ("spmm_hybrid", p_hyb.rest, ops["spmm_hybrid"][1]),
-                          ("sharded_spmm shard 0", shard_plans[0], b_pad)):
-        kw = dict(num_slices=plan.num_slices,
-                  group_tiles=plan.stats.group_tiles,
-                  window_grain=plan.stats.window_grain,
-                  parts=window_parts(plan), rows=plan.shape[0])
-        calls, want = {}, None
-        try:
-            for pack in (2, 4, 8, 16):
-                spmm_sell.RUN_PACK = pack
-                pl = place(dataclasses.replace(
-                    plan, tile_slice=plan.tile_slice.clone()), dev)
-                args = (pl.vals, pl.cols_win, pl.window_base, pl.tile_slice,
-                        b)
-                calls[pack] = (functools.partial(spmm_window_kernel, *args,
-                                                 **kw),
-                               spmm_sell._RUNS[pl.tile_slice][1].shape[0])
-                got = calls[pack][0]()
-                want = got if want is None else want
-                # one CTA sums each slice, in tile order: bit for bit
-                assert torch.equal(got, want), (name, pack)
-        finally:
-            spmm_sell.RUN_PACK = shipped_pack
-        packs = (2, 4, 8, 16)
-        ms = {p: [] for p in packs}
-        for p in packs + packs[::-1]:
-            ms[p].append(time_ms(calls[p][0]))
-        log(f"[{name}] kernel H by RUN_PACK (CTAs; ms in turns 2, 4, 8, 16, "
-            f"16, 8, 4, 2): " + ", ".join(
-                f"{p}: {calls[p][1]} CTAs {ms[p][0]:.4f}/{ms[p][1]:.4f} ms"
-                for p in packs) + f"; CUDA events, k={K_RHS}, on {card}")
+    log(f"[spmm_dia] kernel I tiling at k={K_RHS}: "
+        f"{spmm_dia_tiling(p_dia.offsets, K_RHS)}")
     # kernel N on the random stream: one add per float read
     cases += [("stream_checksum_f32", "stream_checksum",
                f" block={STREAM_BLOCK} tiles",
@@ -1179,6 +1174,38 @@ def main():
             f"(cols, 1)): {lib_ms:.4f} ms, rel err {err:.3g} vs float64, "
             f"on {card}")
         del a_t
+    # kernel G on the cached tier 2: torch.sparse.mm of the tier's matrix
+    # (its plan's slots as a CSR over the tier's columns) over x[hot_cols]
+    m_t2 = plan_csr(tier2.hot)
+    want_t2 = m_t2.astype(np.float64) @ x_tier2.double().cpu().numpy()
+    a_t, x_col = csr_on_card(m_t2), x_tier2.reshape(-1, 1)
+    err = rel_err(torch.sparse.mm(a_t, x_col).reshape(-1), want_t2)
+    assert err < Y_RTOL, err
+    lib_ms = min(time_ms(lambda: torch.sparse.mm(a_t, x_col)) for _ in "ab")
+    log(f"[cached] torch.sparse.mm of tier 2 (CSR float32, {m_t2.nnz} nnz "
+        f"over {m_t2.shape[1]} columns, x[hot_cols] as (cols, 1)): "
+        f"{lib_ms:.4f} ms, rel err {err:.3g} vs float64, on {card}")
+    # kernel M: torch.sparse.mm of each shard's rows, their columns
+    # shifted onto the shard's halo'd x, over that x; the four summed
+    rps, halo = sp_dia.rows_per_shard, sp_dia.halo
+    rows["spmv_dia_halo_f32"]["library_ms"] = 0.0
+    for d in range(4):
+        sub = band[d * rps:(d + 1) * rps]
+        cols_d = sub.indices.astype(np.int64) - (d * rps - halo)
+        assert cols_d.min() >= 0 and cols_d.max() < x_ext[d].shape[0]
+        a_t = csr_on_card(sp.csr_matrix((sub.data, cols_d, sub.indptr),
+                                        shape=(rps, x_ext[d].shape[0])))
+        x_col = x_ext[d].reshape(-1, 1)
+        err = rel_err(torch.sparse.mm(a_t, x_col).reshape(-1),
+                      want64["dia"][d * rps:(d + 1) * rps])
+        assert err < Y_RTOL, (d, err)
+        lib_ms = min(time_ms(lambda: torch.sparse.mm(a_t, x_col))
+                     for _ in "ab")
+        rows["spmv_dia_halo_f32"]["library_ms"] += lib_ms
+        log(f"[sharded_dia] torch.sparse.mm of shard {d} (CSR float32 over "
+            f"its halo'd x): {lib_ms:.4f} ms, rel err {err:.3g} vs "
+            f"float64, on {card}")
+    del a_t
 
     # --- the apply, end to end ----------------------------------------------
     # name: (the apply, its nonzeros, its RHS count)
@@ -1217,6 +1244,12 @@ def main():
             assert any("spmm_runs_kernel" in k for k in by_kernel), name
             if name == "spmm_sell":
                 assert len(by_kernel) == 1, by_kernel
+        if name in ("deep", "stream", "wide"):
+            # kernel G sums each slice and writes y's rows itself: no
+            # scatter_reduce (the segment reduce) nor index_add_ after it
+            assert not any("scatter" in k.lower() or "indexFunc" in k
+                           for k in by_kernel), (name, by_kernel)
+            assert any("global_runs_kernel" in k for k in by_kernel), name
     for kname, plan in (("spmv_dia_f32", p_dia),
                         ("spmv_sell_window_f32", p_sell),
                         ("spmv_sell_global_f32", p_deep),

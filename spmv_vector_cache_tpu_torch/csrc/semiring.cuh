@@ -1,7 +1,11 @@
 // Semirings of the SELL kernels (B, D and G), as (init, step) pairs over
-// float32: step(acc, v, x) = acc (+) (v (x) x).  The boolean semiring
-// runs on a {0, 1} float encoding (and = *, or = max), so it shares
-// max_times.  Codes match ops/semiring.py KERNEL_CODE:
+// float32: step(acc, v, x) = acc (+) (v (x) x); add(a, b) = a (+) b and
+// atomic(p, v): *p = *p (+) v in one atomic update, for kernel G's sums of
+// a slice split over several CTAs; finish(v): a sum as written out.  The
+// boolean semiring runs on a {0, 1} float encoding (and = *, or = max),
+// so it shares max_times; kernel G, which writes its reduced sums, maps
+// them back to {0, 1} as the reference's or_and segment reduce does.
+// Codes match ops/semiring.py KERNEL_CODE:
 // 0 plus_times, 1 min_plus, 2 max_plus, 3 max_times, 4 or_and.
 #pragma once
 
@@ -10,29 +14,65 @@
 
 namespace spmv {
 
+// float min / max as one integer atomic: a float with its sign bit clear
+// orders as a signed int, one with it set as the reverse of an unsigned
+// int (-0.0 included), so each lands where the float order puts it
+__device__ __forceinline__ void atomic_min_f32(float* p, float v) {
+    if (!signbit(v))
+        atomicMin(reinterpret_cast<int*>(p), __float_as_int(v));
+    else
+        atomicMax(reinterpret_cast<unsigned*>(p), __float_as_uint(v));
+}
+
+__device__ __forceinline__ void atomic_max_f32(float* p, float v) {
+    if (!signbit(v))
+        atomicMax(reinterpret_cast<int*>(p), __float_as_int(v));
+    else
+        atomicMin(reinterpret_cast<unsigned*>(p), __float_as_uint(v));
+}
+
 struct PlusTimes {
     static __device__ float init() { return 0.0f; }
     static __device__ float step(float acc, float v, float x) {
         return fmaf(v, x, acc);
     }
+    static __device__ float add(float a, float b) { return a + b; }
+    static __device__ void atomic(float* p, float v) { atomicAdd(p, v); }
+    static __device__ float finish(float v) { return v; }
 };
 struct MinPlus {
     static __device__ float init() { return INFINITY; }
     static __device__ float step(float acc, float v, float x) {
         return fminf(acc, v + x);
     }
+    static __device__ float add(float a, float b) { return fminf(a, b); }
+    static __device__ void atomic(float* p, float v) { atomic_min_f32(p, v); }
+    static __device__ float finish(float v) { return v; }
 };
 struct MaxPlus {
     static __device__ float init() { return -INFINITY; }
     static __device__ float step(float acc, float v, float x) {
         return fmaxf(acc, v + x);
     }
+    static __device__ float add(float a, float b) { return fmaxf(a, b); }
+    static __device__ void atomic(float* p, float v) { atomic_max_f32(p, v); }
+    static __device__ float finish(float v) { return v; }
 };
 struct MaxTimes {
     static __device__ float init() { return -INFINITY; }
     static __device__ float step(float acc, float v, float x) {
         return fmaxf(acc, v * x);
     }
+    static __device__ float add(float a, float b) { return fmaxf(a, b); }
+    static __device__ void atomic(float* p, float v) { atomic_max_f32(p, v); }
+    static __device__ float finish(float v) { return v; }
+};
+// or_and: max_times, its reduced sums written as the reference's
+// segment reduce gives them, 1 where the integer part is positive, else 0
+// (an empty slice's -inf included); monotone, so it commutes with the
+// atomic max of a split slice's pieces
+struct OrAnd : MaxTimes {
+    static __device__ float finish(float v) { return v >= 1.0f ? 1.0f : 0.0f; }
 };
 
 // Calls launch(S{}) with the semiring of `code`; an unknown code is
@@ -43,8 +83,8 @@ cudaError_t with_semiring(int code, F&& launch) {
         case 0: launch(PlusTimes{}); return cudaSuccess;
         case 1: launch(MinPlus{}); return cudaSuccess;
         case 2: launch(MaxPlus{}); return cudaSuccess;
-        case 3:
-        case 4: launch(MaxTimes{}); return cudaSuccess;
+        case 3: launch(MaxTimes{}); return cudaSuccess;
+        case 4: launch(OrAnd{}); return cudaSuccess;
         default: return cudaErrorInvalidValue;
     }
 }

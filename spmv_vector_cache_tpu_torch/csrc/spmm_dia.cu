@@ -12,72 +12,297 @@
 // to relayout, both of which the reference builds for Mosaic.
 //
 // Bound: bytes — the value slab (4 B per stored slot), B and Y, each
-// once; B's rows are re-read once per diagonal, from L1/L2 (neighbouring
-// diagonals touch neighbouring rows).  Design: one thread per (row, RHS
-// chunk), the chunk index fastest, so a warp's B loads and Y stores are
-// contiguous runs of whole rows and its value loads are contiguous; the
-// thread keeps its chunk's C sums in registers.  With C = 8 a chunk is
-// one 32-byte sector (two float4 loads when k is a multiple of 8).
+// once.  The rows of B that a run of R consecutive rows of Y reads are
+// one contiguous span, [r0 + min_off, r0 + R + max_off): R rows plus the
+// band's spread.  Design:
+// - a CTA owns R consecutive rows of one DIA step (R = 128 / threads per
+//   row: small CTAs, many to an SM, overlap one CTA's loads with
+//   another's sums) and a chunk of up to 128 columns of Y (blockIdx.y);
+// - it brings the span of B into shared memory once, with cp.async
+//   (16-byte pieces, or 4-byte ones for an unaligned B or a k that is
+//   not a multiple of 4), rows outside [0, cols) as zeros, each row
+//   padded to a stride that makes a quarter warp's float4 reads hit 32
+//   distinct banks, and in the same commit group its rows' runs of the
+//   value slab (vals[t, d] is S*128 contiguous floats), so that one
+//   wait covers every load of the band;
+// - the plan's diagonals are grouped on the host into bands whose span
+//   fits the shared-memory budget (ops/spmm_dia.py `dia_bands`; one band
+//   for bench.py's -13..13): bands are staged one after another, double
+//   buffered, and the sums stay in registers across bands;
+// - a thread owns one row and KC of its columns (4, 8, 16 or 32; at k >
+//   32 several threads share a row, interleaved by float4) and reads
+//   its values and B from shared memory only.
+// Every B row is read once per CTA that needs it (R rows plus the band's
+// spread: the neighbours' halo rows, 20 % more than B at R = 128 on the
+// bench.py offsets, come mostly from L2) instead of once per diagonal
+// through L1.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "spmm_rhs.cuh"
-
 namespace {
 
-template <int C, bool VEC>
-__global__ void spmm_dia_kernel(const float* __restrict__ vals,
-                                const float* __restrict__ b,
-                                const int* __restrict__ offsets,
-                                float* __restrict__ y, long long rows,
-                                long long cols, int k, int nchunk, int ndiag,
-                                int rows_per_step) {
-    long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    long long r = tid / nchunk;
-    if (r >= rows) return;
-    int j0 = (int)(tid - r * nchunk) * C;
-    int n = min(C, k - j0);
-    long long t = r / rows_per_step;
-    long long rem = r - t * rows_per_step;
-    const float* v = vals + t * ndiag * (long long)rows_per_step + rem;
-    float acc[C];
-#pragma unroll
-    for (int i = 0; i < C; ++i) acc[i] = 0.0f;
-    for (int d = 0; d < ndiag; ++d) {
-        long long c = r + __ldg(offsets + d);
-        float w = __ldg(v + (long long)d * rows_per_step);
-        float bv[C];
-        if (c >= 0 && c < cols) {
-            spmm::load<C, VEC>(b + c * k + j0, n, bv);
+constexpr int kMaxThreads = 512;
+// diagonals whose values and offsets a thread reads before it uses them
+constexpr int kBatch = 8;
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+    return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// blockIdx.x = (DIA step, run of rpc rows in it), blockIdx.y = column
+// chunk of tpr * KC columns; thread = row i * tpr + q, thread q of a row
+// holding the float4 pieces q, q + tpr, q + 2 tpr, ... of the chunk.
+// bands[b] = {first diagonal, end diagonal}; a buffer holds buf_rows
+// rows of B, `stride` floats each, then band_diags runs of rpc values.
+template <int KC>
+__global__ void __launch_bounds__(kMaxThreads)
+spmm_dia_kernel(const float* __restrict__ vals, const float* __restrict__ b,
+                const int* __restrict__ offsets,
+                const int2* __restrict__ bands, float* __restrict__ y,
+                long long rows, long long cols, int k, int ndiag,
+                int rows_per_step, int nbands, int rpc, int tpr, int stride,
+                int buf_rows, int band_diags, int buffers, int bvec,
+                int vvec, int yvec) {
+    extern __shared__ __align__(16) float smem[];
+    const int chunks = (rows_per_step + rpc - 1) / rpc;
+    const long long t = blockIdx.x / chunks;
+    const int c0 = (int)(blockIdx.x - t * chunks) * rpc;
+    const long long r0 = t * rows_per_step + c0;
+    const long long left = rows - r0;
+    const int nrow = (int)min((long long)min(rpc, rows_per_step - c0), left);
+    if (nrow <= 0) return;                  // the last step's padding rows
+    const int j0 = blockIdx.y * tpr * KC;
+    const int ncol = min(tpr * KC, k - j0);
+    const int tid = threadIdx.x;
+    const int i = tid / tpr;
+    const int q = tid - i * tpr;
+    const int b_floats = buf_rows * stride;
+    const int buf_floats = (b_floats + band_diags * rpc + 3) / 4 * 4;
+    const float* v = vals + t * ndiag * (long long)rows_per_step + c0;
+
+    // B rows [r0 + lo, r0 + nrow + hi) of band `band`, columns [j0, j0 +
+    // ncol), into `dst`, then the band's values of rows [r0, r0 + nrow)
+    // into rows of rpc floats after them; one commit group
+    auto stage = [&](int band, float* dst) {
+        const int2 bd = __ldg(bands + band);
+        const int lo = __ldg(offsets + bd.x);
+        const int span = nrow + __ldg(offsets + bd.y - 1) - lo;
+        const long long g0 = r0 + lo;
+        if (bvec) {
+            const int per = ncol / 4;
+            for (int e = tid; e < span * per; e += blockDim.x) {
+                const int rho = e / per, m = e - rho * per;
+                const long long g = g0 + rho;
+                float* d = dst + rho * stride + 4 * m;
+                if (g >= 0 && g < cols)
+                    cp_async16(d, b + g * k + j0 + 4 * m);
+                else
+                    *reinterpret_cast<float4*>(d) = make_float4(0, 0, 0, 0);
+            }
         } else {
-#pragma unroll
-            for (int i = 0; i < C; ++i) bv[i] = 0.0f;
+            for (int e = tid; e < span * ncol; e += blockDim.x) {
+                const int rho = e / ncol, m = e - rho * ncol;
+                const long long g = g0 + rho;
+                float* d = dst + rho * stride + m;
+                if (g >= 0 && g < cols)
+                    cp_async4(d, b + g * k + j0 + m);
+                else
+                    *d = 0.0f;
+            }
         }
+        float* dv = dst + b_floats;
+        const float* sv = v + bd.x * (long long)rows_per_step;
+        const int per = (nrow + 3) / 4;
+        for (int e = tid; e < (bd.y - bd.x) * per; e += blockDim.x) {
+            const int d = e / per, m = 4 * (e - d * per);
+            const float* src = sv + d * (long long)rows_per_step + m;
+            float* dd = dv + d * rpc + m;
+            if (vvec && m + 4 <= nrow) {
+                cp_async16(dd, src);
+            } else {
+                for (int j = 0; j < 4 && m + j < nrow; ++j)
+                    cp_async4(dd + j, src + j);
+            }
+        }
+        cp_async_commit();
+    };
+
+    float acc[KC];
 #pragma unroll
-        for (int i = 0; i < C; ++i) acc[i] = fmaf(w, bv[i], acc[i]);
+    for (int e = 0; e < KC; ++e) acc[e] = 0.0f;
+
+    if (nbands > 0) stage(0, smem);
+    for (int bnd = 0; bnd < nbands; ++bnd) {
+        const float* cur = smem + (bnd % buffers) * buf_floats;
+        // the next band streams in while this one is summed; an empty
+        // group past the last band keeps the wait below uniform
+        if (bnd + 1 < nbands)
+            stage(bnd + 1, smem + ((bnd + 1) % buffers) * buf_floats);
+        else
+            cp_async_commit();
+        cp_async_wait<1>();
+        __syncthreads();                    // band bnd is in shared memory
+        const int2 bd = __ldg(bands + bnd);
+        const int lo = __ldg(offsets + bd.x);
+        if (i < nrow) {
+            const float* base = cur + (i - lo) * stride + 4 * q;
+            const float* wv = cur + b_floats + i - bd.x * rpc;
+            for (int d = bd.x; d < bd.y; d += kBatch) {
+                float w[kBatch];
+                int o[kBatch];
+#pragma unroll
+                for (int u = 0; u < kBatch; ++u) {
+                    const bool ok = d + u < bd.y;
+                    w[u] = ok ? wv[(d + u) * rpc] : 0.0f;
+                    o[u] = ok ? __ldg(offsets + d + u) : lo;
+                }
+#pragma unroll
+                for (int u = 0; u < kBatch; ++u) {
+                    if (d + u < bd.y) {         // uniform over the CTA
+                        const float* row = base + o[u] * stride;
+#pragma unroll
+                        for (int m = 0; m < KC / 4; ++m) {
+                            const float4 bv = *reinterpret_cast<const float4*>(
+                                row + 4 * tpr * m);
+                            acc[4 * m] = fmaf(w[u], bv.x, acc[4 * m]);
+                            acc[4 * m + 1] = fmaf(w[u], bv.y, acc[4 * m + 1]);
+                            acc[4 * m + 2] = fmaf(w[u], bv.z, acc[4 * m + 2]);
+                            acc[4 * m + 3] = fmaf(w[u], bv.w, acc[4 * m + 3]);
+                        }
+                    }
+                }
+            }
+        }
+        __syncthreads();            // done with `cur` before it is refilled
     }
-    spmm::store<C, VEC>(y + r * k + j0, n, acc);
+
+    if (i < nrow) {
+        float* yr = y + (r0 + i) * k;
+#pragma unroll
+        for (int m = 0; m < KC / 4; ++m) {
+            const int col = j0 + 4 * (q + tpr * m);
+            if (yvec && col + 3 < k) {
+                *reinterpret_cast<float4*>(yr + col) = make_float4(
+                    acc[4 * m], acc[4 * m + 1], acc[4 * m + 2],
+                    acc[4 * m + 3]);
+            } else {
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                    if (col + e < k) yr[col + e] = acc[4 * m + e];
+            }
+        }
+    }
+}
+
+template <int KC>
+cudaError_t launch(dim3 grid, int threads, size_t smem, cudaStream_t stream,
+                   const float* vals, const float* b, const int* offsets,
+                   const int* bands, float* y, long long rows,
+                   long long cols, int k, int ndiag, int rows_per_step,
+                   int nbands, int rpc, int tpr, int stride, int buf_rows,
+                   int band_diags, int buffers, int bvec, int vvec,
+                   int yvec) {
+    if (smem > 48 * 1024) {
+        cudaError_t err = cudaFuncSetAttribute(
+            spmm_dia_kernel<KC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)smem);
+        if (err != cudaSuccess) return err;
+    }
+    spmm_dia_kernel<KC><<<grid, threads, smem, stream>>>(
+        vals, b, offsets, reinterpret_cast<const int2*>(bands), y, rows, cols,
+        k, ndiag, rows_per_step, nbands, rpc, tpr, stride, buf_rows,
+        band_diags, buffers, bvec, vvec, yvec);
+    return cudaSuccess;
 }
 
 }  // namespace
 
+// bands: (nbands, 2) int32 {first, end} diagonal indices, increasing
+// offsets within and across bands; rows_per_cta * threads_per_row <=
+// 512; a band's span (rows_per_cta + its last offset - its first) <=
+// buf_rows and its diagonals <= band_diags; stride >= threads_per_row *
+// cols_per_thread, a multiple of 4 (ops/spmm_dia.py spmm_dia_tiling).
 extern "C" int spmm_dia_f32(const float* vals, const float* b,
-                            const int* offsets, float* y, long long rows,
-                            long long cols, int k, int ndiag,
-                            int rows_per_step, void* stream) {
-    bool aligned = (uintptr_t)b % 16 == 0 && (uintptr_t)y % 16 == 0;
-    cudaError_t err = spmm::with_chunk(k, aligned, [&](auto ch) {
-        using Ch = decltype(ch);
-        int nchunk = (k + Ch::C - 1) / Ch::C;
-        long long threads = rows * nchunk;
-        if (threads <= 0) return;
-        const int block = 256;
-        spmm_dia_kernel<Ch::C, Ch::VEC>
-            <<<(unsigned)((threads + block - 1) / block), block, 0,
-               (cudaStream_t)stream>>>(vals, b, offsets, y, rows, cols, k,
-                                       nchunk, ndiag, rows_per_step);
-    });
+                            const int* offsets, const int* bands, float* y,
+                            long long rows, long long cols, int k, int ndiag,
+                            int rows_per_step, int nbands, int rows_per_cta,
+                            int cols_per_thread, int threads_per_row,
+                            int stride, int buf_rows, int band_diags,
+                            int buffers, void* stream) {
+    const int kc = cols_per_thread, tpr = threads_per_row;
+    if (k < 1 || rows_per_cta < 1 || tpr < 1 ||
+        rows_per_cta * tpr > kMaxThreads || stride % 4 ||
+        stride < tpr * kc || buffers < 1 || buffers > 2 ||
+        (nbands > 1 && buffers < 2) || (uintptr_t)bands % 8)
+        return (int)cudaErrorInvalidValue;
+    const long long steps = (rows + rows_per_step - 1) / rows_per_step;
+    if (rows <= 0) return (int)cudaGetLastError();
+    const int chunks = (rows_per_step + rows_per_cta - 1) / rows_per_cta;
+    dim3 grid((unsigned)(steps * chunks),
+              (unsigned)((k + tpr * kc - 1) / (tpr * kc)));
+    const size_t smem = (size_t)buffers *
+                        (((size_t)buf_rows * stride +
+                          (size_t)band_diags * rows_per_cta + 3) / 4 * 4) *
+                        sizeof(float);
+    const int bvec = (uintptr_t)b % 16 == 0 && k % 4 == 0;
+    const int vvec = (uintptr_t)vals % 16 == 0 && rows_per_step % 4 == 0 &&
+                     rows_per_cta % 4 == 0;
+    const int yvec = (uintptr_t)y % 16 == 0 && k % 4 == 0;
+    const int threads = rows_per_cta * tpr;
+    cudaStream_t s = (cudaStream_t)stream;
+    cudaError_t err;
+    switch (kc) {
+        case 4:
+            err = launch<4>(grid, threads, smem, s, vals, b, offsets, bands,
+                            y, rows, cols, k, ndiag, rows_per_step, nbands,
+                            rows_per_cta, tpr, stride, buf_rows, band_diags,
+                            buffers, bvec, vvec, yvec);
+            break;
+        case 8:
+            err = launch<8>(grid, threads, smem, s, vals, b, offsets, bands,
+                            y, rows, cols, k, ndiag, rows_per_step, nbands,
+                            rows_per_cta, tpr, stride, buf_rows, band_diags,
+                            buffers, bvec, vvec, yvec);
+            break;
+        case 16:
+            err = launch<16>(grid, threads, smem, s, vals, b, offsets, bands,
+                             y, rows, cols, k, ndiag, rows_per_step, nbands,
+                             rows_per_cta, tpr, stride, buf_rows, band_diags,
+                             buffers, bvec, vvec, yvec);
+            break;
+        case 32:
+            err = launch<32>(grid, threads, smem, s, vals, b, offsets, bands,
+                             y, rows, cols, k, ndiag, rows_per_step, nbands,
+                             rows_per_cta, tpr, stride, buf_rows, band_diags,
+                             buffers, bvec, vvec, yvec);
+            break;
+        default:
+            return (int)cudaErrorInvalidValue;
+    }
     if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
 }

@@ -59,10 +59,10 @@ SIGNATURES = {
     # scan, sblock, wstep, esrc, out, num_windows, steps_b, block_slots,
     # stream
     "packed_extract_f32": [_P, _P, _P, _P, _P, _I, _I, _L, _P],
-    # vals, cols, x, out, out_rows, positions, lanes, group_tiles, fold,
-    # cols, semiring, stream
-    "spmv_sell_global_f32": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _L, _I,
-                             _P],
+    # vals, cols, tile_slice, runs, x, out, num_runs, positions, lanes,
+    # ncols, parts, out_rows, max_tiles, max_slices, semiring, stream
+    "spmv_sell_global_f32": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _L, _I, _L,
+                             _I, _I, _I, _P],
     # vals (hi/lo pairs), x, offsets, y (float64), rows, cols, ndiag,
     # rows_per_step, stream
     "spmv_dia_f64": [_P, _P, _P, _P, _L, _L, _I, _I, _P],
@@ -74,8 +74,11 @@ SIGNATURES = {
     # vals (hi/lo pairs), cols, x, out (float64), tiles, positions, lanes,
     # cols, stream
     "spmv_sell_global_f64": [_P, _P, _P, _P, _L, _I, _I, _L, _P],
-    # vals, b, offsets, y, rows, cols, k, ndiag, rows_per_step, stream
-    "spmm_dia_f32": [_P, _P, _P, _P, _L, _L, _I, _I, _I, _P],
+    # vals, b, offsets, bands, y, rows, cols, k, ndiag, rows_per_step,
+    # nbands, rows_per_cta, cols_per_thread, threads_per_row, stride,
+    # buf_rows, band_diags, buffers, stream
+    "spmm_dia_f32": [_P, _P, _P, _P, _P, _L, _L, _I, _I, _I, _I, _I, _I, _I,
+                     _I, _I, _I, _I, _P],
     # vals, cols_win, window_base, tile_slice, runs, b, out, num_runs,
     # positions, lanes, group_tiles, window_grain, cols, k, parts,
     # out_rows, stream

@@ -6,9 +6,10 @@ which streams a plan's nonzeros once for many right-hand sides instead of
 once per column.  :func:`spmm_window_kernel` wraps kernel H
 (``csrc/spmm_sell_window.cu``), which replaces the reference's
 ``_make_spmm_kernel`` and its ``_bt_windows`` operand and sums each
-slice's tiles itself (:func:`tile_runs`): it writes Y's rows where the
-plan's rows are an identity map or a uniform-parts lane fold, and slice
-sums for the SELL SpMV epilogue's ``row_map`` reduce otherwise.
+slice's tiles itself (the work list of ``ops/runs.py``): it writes Y's
+rows where the plan's rows are an identity map or a uniform-parts lane
+fold, and slice sums for the SELL SpMV epilogue's ``row_map`` reduce
+otherwise.
 :func:`spmm_window_plain` is its plain PyTorch version.
 :func:`spmm_plan` dispatches on plan type; :func:`has_fused_spmm` says,
 before anything runs, whether a plan has a fused kernel at all.
@@ -16,9 +17,7 @@ before anything runs, whether a plan has a fused kernel at all.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
-from torch.utils.weak import WeakIdKeyDictionary
 
 from ..formats.cached import CooTail
 from ..formats.dia import DiaPlan, HybridPlan
@@ -26,8 +25,10 @@ from ..formats.plan import SellPlan
 from ..utils import platform
 from . import _kernels
 from . import semiring as sr
+from .runs import runs_on
 from .spmm_dia import spmm_dia
-from .spmv_sell import _fixup_rows, fold_lanes, sell_window_plain
+from .spmv_sell import (_fixup_rows, fold_lanes, row_parts,
+                        sell_window_plain)
 
 
 class NoFusedSpmm(ValueError):
@@ -63,93 +64,6 @@ def has_fused_spmm(plan) -> bool:
 # ---------------------------------------------------------------------------
 # window SpMM: kernel H
 # ---------------------------------------------------------------------------
-
-#: most tiles one CTA of kernel H sums; a longer slice is split over
-#: several CTAs that add into a zeroed output (csrc/spmm_sell_window.cu).
-#: Untuned: no measured plan has a slice this long (PERF.md)
-RUN_CAP = 32
-#: consecutive short slices one CTA takes, up to this many tiles in all
-#: (chip_smoke.py times 2, 4, 8 and 16 in turns: 4 and 8 tie on the
-#: shuffled band, 4 is the fastest on the Hybrid rest; PERF.md)
-RUN_PACK = 4
-#: and at most this many slices, empty ones included (an empty slice is
-#: only written as 0); untuned: no measured plan has empty slices
-RUN_SLICES = 16
-#: a run record's bit for a piece of a split slice (kAtomic in the source)
-RUN_ATOMIC = 1 << 30
-
-
-def tile_runs(tile_slice, num_slices: int) -> np.ndarray:
-    """Kernel H's work list: one (t0, t1, s0, s1) int32 record per CTA,
-    which sums tiles [t0, t1) and writes slices [s0, s1) (``s1 |
-    RUN_ATOMIC`` for one piece of a slice of more than ``RUN_CAP``
-    tiles, split evenly).  Slice s owns tiles [base[s], base[s+1]), with
-    ``base`` the cumulative ``bincount`` of the nondecreasing
-    ``tile_slice`` (``build_sell_plan``'s ``tile_base``); every slice is
-    written, an empty one as 0."""
-    ts = np.asarray(tile_slice.cpu() if isinstance(tile_slice, torch.Tensor)
-                    else tile_slice).astype(np.int64)
-    if ts.size and (np.any(np.diff(ts) < 0) or ts[0] < 0 or
-                    ts[-1] >= num_slices):
-        raise ValueError("tile_slice must be nondecreasing in "
-                         f"[0, {num_slices})")
-    counts = np.bincount(ts, minlength=num_slices)
-    base = np.concatenate(([0], np.cumsum(counts)))
-    recs = []
-    s = 0
-    while s < num_slices:
-        n = int(counts[s])
-        if n > RUN_CAP:
-            pieces = -(-n // RUN_CAP)
-            edges = base[s] + n * np.arange(pieces + 1) // pieces
-            recs += [(a, e, s, (s + 1) | RUN_ATOMIC)
-                     for a, e in zip(edges[:-1], edges[1:])]
-            s += 1
-            continue
-        e, tiles = s + 1, n
-        while e < num_slices and e - s < RUN_SLICES and \
-                tiles + counts[e] <= RUN_PACK:
-            tiles += int(counts[e])
-            e += 1
-        recs.append((base[s], base[e], s, e))
-        s = e
-    return np.asarray(recs, dtype=np.int32).reshape(-1, 4)
-
-
-#: kernel H's work list of each placed plan by its ``tile_slice`` tensor:
-#: (num_slices, runs on the plan's device, whether a slice is split).  A
-#: sharded apply rebuilds its shard plans around the same tensors.
-_RUNS = WeakIdKeyDictionary()
-
-
-def place_runs(tile_slice: torch.Tensor, num_slices: int) -> None:
-    """Build kernel H's work list for a placed plan's ``tile_slice``, once
-    (a no-op when it is built): ``formats.plan.place`` and
-    ``parallel.place_on_mesh`` call it, so that no apply waits on it."""
-    hit = _RUNS.get(tile_slice)
-    if hit is None or hit[0] != num_slices:
-        recs = tile_runs(tile_slice, num_slices)
-        _RUNS[tile_slice] = (num_slices,
-                             torch.from_numpy(recs).to(tile_slice.device),
-                             bool((recs[:, 3] & RUN_ATOMIC).any()))
-
-
-def place_plan_runs(plan) -> None:
-    """:func:`place_runs` for a placed plan that kernel H runs: a float32
-    window SellPlan, or a HybridPlan's such rest."""
-    if isinstance(plan, HybridPlan):
-        plan = plan.rest
-    if isinstance(plan, SellPlan) and has_fused_spmm(plan):
-        place_runs(plan.tile_slice, plan.num_slices)
-
-
-def window_parts(plan: SellPlan) -> int:
-    """What kernel H writes for ``plan``: Y's rows through the lane fold
-    of ``parts`` sub-rows (1 for the identity map, p for a uniform-parts
-    plan), or, at 0, the (slices, R, k) slice sums for the ``row_map``
-    reduce."""
-    return 1 if plan.identity_map else plan.stats.uniform_parts
-
 
 def spmm_window_plain(vals, cols_win, window_base, tile_slice, b, *,
                       num_slices: int, group_tiles: int, window_grain: int,
@@ -204,7 +118,7 @@ def spmm_window_kernel(vals, cols_win, window_base, tile_slice, b, *,
     """Kernel H on CUDA tensors; the plain version on CPU tensors.
     Returns Y (rows, k) for ``parts`` >= 1, else the (num_slices, R, k)
     slice sums.  On the card ``tile_slice`` must be a placed plan's: its
-    work list (:func:`place_runs`) is built at placement."""
+    work list (``ops/runs.py``) is built at placement."""
     _check_window(vals, cols_win, window_base, tile_slice, b, group_tiles,
                   num_slices, parts)
     kw = dict(num_slices=num_slices, group_tiles=group_tiles,
@@ -214,24 +128,20 @@ def spmm_window_kernel(vals, cols_win, window_base, tile_slice, b, *,
                                  **kw)
     T, P, R = vals.shape
     k = b.shape[1]
-    hit = _RUNS.get(tile_slice)
-    if hit is None or hit[0] != num_slices:
-        raise ValueError("kernel H's work list is built when its plan is "
-                         "placed: place the plan with formats.plan.place "
-                         "(parallel.place_on_mesh for a sharded plan)")
-    _, runs, split = hit
+    work = runs_on(tile_slice, num_slices)
     if parts:
         shape = (rows, k)
         covered = rows <= num_slices * (R // parts)
     else:
         shape, covered = (num_slices, R, k), True
-    alloc = torch.empty if covered and not split else torch.zeros
+    alloc = torch.empty if covered and not work.split else torch.zeros
     out = alloc(shape, dtype=torch.float32, device=b.device)
     _kernels.launch(
         "spmm_sell_window_f32", b.get_device(), vals.data_ptr(),
         cols_win.data_ptr(), window_base.data_ptr(), tile_slice.data_ptr(),
-        runs.data_ptr(), b.data_ptr(), out.data_ptr(), runs.shape[0], P, R,
-        group_tiles, window_grain, b.shape[0], k, parts, rows)
+        work.runs.data_ptr(), b.data_ptr(), out.data_ptr(),
+        work.runs.shape[0], P, R, group_tiles, window_grain, b.shape[0], k,
+        parts, rows)
     spmm_window_kernel.launches += 1
     return out
 
@@ -246,7 +156,7 @@ def _spmm_window(plan: SellPlan, b: torch.Tensor) -> torch.Tensor:
     ``segment_sum`` loop and its (S, k8, 8, R) transpose reduce to the
     same Y."""
     st = plan.stats
-    parts = window_parts(plan)
+    parts = row_parts(plan)
     out = spmm_window_kernel(plan.vals, plan.cols_win, plan.window_base,
                              plan.tile_slice, b, num_slices=plan.num_slices,
                              group_tiles=st.group_tiles,

@@ -4,15 +4,19 @@
 :func:`sell_window_kernel` wraps kernel B (``csrc/spmv_sell_window.cu``),
 which replaces the reference's window kernel; :func:`sell_global_kernel`
 wraps kernel G (``csrc/spmv_sell_global.cu``), which replaces its
-resident, deep and stream kernels.  :func:`sell_window_plain` and
-:func:`sell_global_plain` are their plain PyTorch versions.  A double
+resident, deep and stream kernels and their slice reduction: G sums each
+slice's tiles itself (the work list of ``ops/runs.py``) and writes y's
+rows, or the slice sums of a general ``row_map`` plan.
+:func:`sell_window_plain` and :func:`sell_global_plain` are their plain
+PyTorch versions.  A double
 plan (``value_dtype=np.float64``: (T, 2P, R) hi/lo float32 values) runs
 :func:`spmv_sell_double` or the pair API :func:`spmv_sell_double_pair`:
 its window strategy on kernel K (:func:`sell_window_f64_kernel`), every
 other strategy on kernel L (:func:`sell_global_f64_kernel`), the float64
 builds of B and G, which replace the reference's double-float window
-and stream kernels.  The epilogues — the slice reduction, the sub-row
-fixup, the Hybrid and CachedPlan joins and the COO tail — are torch ops,
+and stream kernels.  The epilogues — the slice reduction after kernels
+B, K and L, the sub-row fixup, the Hybrid and CachedPlan joins and the
+COO tail — are torch ops,
 as the reference computes them in XLA outside Pallas; over a double
 plan's float64 partials they are plain float64 sums, where the
 reference needs compensated pair additions over dense fold matrices.
@@ -36,6 +40,7 @@ from ..formats.plan import TILES_PER_STEP
 from ..utils import platform
 from . import _kernels, df64
 from . import semiring as sr
+from .runs import runs_on
 from .spmv_dia import spmv_dia, spmv_dia_double
 from .spmv_packed import spmv_packed
 
@@ -80,8 +85,10 @@ def _fixup_rows(plan: SellPlan, y2d: torch.Tensor,
 def _reduce_partials(plan: SellPlan, partials: torch.Tensor,
                      semiring: str = "plus_times",
                      per_group: bool = False) -> torch.Tensor:
-    """Kernel output -> y.  ``partials`` holds per-tile rows (T, R), or
-    per-group rows (ngroups, R) when the kernel folded slices
+    """Kernel B's, K's or L's output -> y (kernels G and H sum each
+    slice's tiles themselves; L, G's float64 build, writes per-tile
+    partials).  ``partials`` holds per-tile rows
+    (T, R), or per-group rows (ngroups, R) when the kernel folded slices
     (``per_group``); both reduce to y2d, then the sub-row fixup runs.
     SpMM partials carry a trailing RHS axis, (T or ngroups, R, k), and
     reduce to Y (rows, k) the same way."""
@@ -255,28 +262,39 @@ def _spmv_window(plan: SellPlan, x: torch.Tensor,
 # resident, deep and stream strategies: kernel G
 # ---------------------------------------------------------------------------
 
-def sell_global_plain(vals, cols, x, *, group_tiles: int, fold: bool,
-                      semiring: str) -> torch.Tensor:
-    """Plain PyTorch version of kernel G (same inputs, same output)."""
+def row_parts(plan: SellPlan) -> int:
+    """What kernels G and H write for ``plan``: y's (Y's) rows through the
+    lane fold of ``parts`` sub-rows (1 for the identity map, p for a
+    uniform-parts plan), or, at 0, the slice sums for the ``row_map``
+    reduce of :func:`_fixup_rows`."""
+    return 1 if plan.identity_map else plan.stats.uniform_parts
+
+
+def _tile_sums(vals, cols, x, semiring: str) -> torch.Tensor:
+    """(T, R) per-tile sums (+)_p vals (x) x[cols]; a column past x reads
+    as 0."""
     mul, axis_reduce = sr.kernel_ops(semiring)
-    T, P, R = vals.shape
     n = x.shape[0]
     c = cols.long()
     c = torch.where((c >= 0) & (c < n), c, n)  # out of range reads 0
-    prod = mul(vals, torch.cat([x, x.new_zeros(1)])[c])
-    if fold:
-        return axis_reduce(prod.reshape(T // group_tiles, group_tiles * P, R),
-                           1)
-    return axis_reduce(prod, 1)
+    return axis_reduce(mul(vals, torch.cat([x, x.new_zeros(1)])[c]), 1)
 
 
-def _check_global(vals, cols, x, group_tiles, fold, double=False):
+def sell_global_plain(vals, cols, tile_slice, x, *, num_slices: int,
+                      parts: int, rows: int, semiring: str) -> torch.Tensor:
+    """Plain PyTorch version of kernel G (same inputs, same output): the
+    per-tile sums, their semiring reduce over ``tile_slice`` to
+    (num_slices, R) slice sums, then, for ``parts`` >= 1, the lane fold
+    to y's ``rows`` rows."""
+    y2d = sr.get(semiring).segment_reduce(_tile_sums(vals, cols, x, semiring),
+                                          tile_slice, num_segments=num_slices)
+    return fold_lanes(y2d, parts, rows, semiring) if parts else y2d
+
+
+def _check_global(vals, cols, x, double=False):
     _check_slab(vals, cols, x, "cols", double)
     if cols.dtype != torch.int32:
         raise ValueError(f"cols must be int32, got {cols.dtype}")
-    if fold and vals.shape[0] % group_tiles:
-        raise ValueError(f"{vals.shape[0]} tiles do not fold into groups "
-                         f"of {group_tiles}")
     if x.dim() != 1:
         raise ValueError(f"x must be 1-D, got shape {tuple(x.shape)}")
     for t in (cols, x):
@@ -286,24 +304,48 @@ def _check_global(vals, cols, x, group_tiles, fold, double=False):
         raise ValueError("global-column operands must be contiguous")
 
 
-def sell_global_kernel(vals, cols, x, *, group_tiles: int, fold: bool,
-                       semiring: str) -> torch.Tensor:
+#: what a kernel-G output that split slices combine into holds first: the
+#: kernel's init of each semiring (or_and runs as max_times)
+_INIT = {"plus_times": 0.0, "min_plus": float("inf"),
+         "max_plus": float("-inf"), "max_times": float("-inf"),
+         "or_and": float("-inf")}
+
+
+def sell_global_kernel(vals, cols, tile_slice, x, *, num_slices: int,
+                       parts: int, rows: int, semiring: str) -> torch.Tensor:
     """Kernel G on CUDA tensors; the plain version on CPU tensors.
 
     ``vals``/``cols``: (T, P, R) float32 / int32 global column ids;
-    returns per-tile partial rows (T, R), or per-group rows (T/wg, R)
-    when ``fold``."""
-    _check_global(vals, cols, x, group_tiles, fold)
-    if not platform.is_cuda(x):
-        return sell_global_plain(vals, cols, x, group_tiles=group_tiles,
-                                 fold=fold, semiring=semiring)
+    ``tile_slice`` (T,) int32 nondecreasing.  Returns y's first ``rows``
+    rows for ``parts`` >= 1 (see :func:`row_parts`), else the
+    (num_slices, R) slice sums.  On the card ``tile_slice`` must be a
+    placed plan's (its work list, ``ops/runs.py``, is built at
+    placement); x is gathered through L1 and L2."""
+    _check_global(vals, cols, x)
     T, P, R = vals.shape
-    out_rows = T // group_tiles if fold else T
-    out = torch.empty((out_rows, R), dtype=torch.float32, device=x.device)
+    if tile_slice.dtype != torch.int32 or tile_slice.shape != (T,) or \
+            tile_slice.device != vals.device or num_slices < 1:
+        raise ValueError("tile_slice must hold one int32 slice per tile, on "
+                         "the plan's device")
+    if parts < 0 or (parts and R % parts):
+        raise ValueError(f"parts={parts} must divide the {R} lanes")
+    if parts and rows > num_slices * (R // parts):
+        raise ValueError(f"{num_slices} slices do not cover {rows} rows")
+    if not platform.is_cuda(x):
+        return sell_global_plain(vals, cols, tile_slice, x,
+                                 num_slices=num_slices, parts=parts,
+                                 rows=rows, semiring=semiring)
+    work = runs_on(tile_slice, num_slices)
+    shape = (rows,) if parts else (num_slices, R)
+    out = torch.full(shape, _INIT[semiring], dtype=torch.float32,
+                     device=x.device) if work.split else \
+        torch.empty(shape, dtype=torch.float32, device=x.device)
     _kernels.launch(
         "spmv_sell_global_f32", x.get_device(), vals.data_ptr(),
-        cols.data_ptr(), x.data_ptr(), out.data_ptr(), out_rows, P, R,
-        group_tiles, int(fold), x.shape[0], sr.KERNEL_CODE[semiring])
+        cols.data_ptr(), tile_slice.data_ptr(), work.runs.data_ptr(),
+        x.data_ptr(), out.data_ptr(), work.runs.shape[0], P, R, x.shape[0],
+        parts, rows, work.max_tiles, work.max_slices,
+        sr.KERNEL_CODE[semiring])
     sell_global_kernel.launches += 1
     return out
 
@@ -313,18 +355,15 @@ sell_global_kernel.launches = 0
 
 def sell_global_f64_plain(vals, cols, x) -> torch.Tensor:
     """Plain PyTorch version of kernel L: the hi/lo slab joined into
-    float64 values, then kernel G's per-tile plain version under
-    plus_times."""
-    return sell_global_plain(df64.join_channels(vals), cols, x,
-                             group_tiles=1, fold=False,
-                             semiring="plus_times")
+    float64 values, then the per-tile plus_times sums."""
+    return _tile_sums(df64.join_channels(vals), cols, x, "plus_times")
 
 
 def sell_global_f64_kernel(vals, cols, x) -> torch.Tensor:
     """Kernel L on CUDA tensors; the plain version on CPU tensors.
     ``vals``: a double plan's (T, 2P, R) float32 hi/lo slab; ``cols``:
     (T, P, R) int32; ``x`` and the per-tile partials (T, R): float64."""
-    _check_global(vals, cols, x, 1, False, double=True)
+    _check_global(vals, cols, x, double=True)
     if not platform.is_cuda(x):
         return sell_global_f64_plain(vals, cols, x)
     T, P2, R = vals.shape
@@ -359,21 +398,24 @@ _GLOBAL_CAPS = {
 def _spmv_global(plan: SellPlan, x: torch.Tensor, semiring: str,
                  strategy: str) -> torch.Tensor:
     """The reference's resident, deep and stream routes, all on kernel
-    G: resident folds groups where the layout allows it, deep and stream
-    write per-tile partials.  Stream builds no pre-gathered x: kernel G
-    reads x[cols] itself, at any width."""
+    G, which sums each slice's tiles and writes y's rows itself (identity
+    map, uniform parts); only a general ``row_map`` plan takes the
+    segment reduce of :func:`_fixup_rows` after it.  Every route gathers
+    x through L1 and L2 (a copy of x per CTA and a cluster's distributed
+    shared memory both lost on the H100, PERF.md): stream builds no
+    pre-gathered x."""
     if strategy in _GLOBAL_CAPS:
         name, cap, advice = _GLOBAL_CAPS[strategy]
         NB = _x_blocks(plan)
         if NB > cap:
             raise ValueError(f"x spans {NB} 128-lane blocks > {name} "
                              f"({cap}); {advice}")
-    fold = strategy == "resident" and folds_groups(plan)
-    out = sell_global_kernel(plan.vals, plan.cols,
+    parts = row_parts(plan)
+    out = sell_global_kernel(plan.vals, plan.cols, plan.tile_slice,
                              x.to(plan.vals.dtype).contiguous(),
-                             group_tiles=plan.stats.group_tiles, fold=fold,
-                             semiring=semiring)
-    return _reduce_partials(plan, out, semiring, per_group=fold)
+                             num_slices=plan.num_slices, parts=parts,
+                             rows=plan.shape[0], semiring=semiring)
+    return out if parts else _fixup_rows(plan, out, semiring)
 
 
 def warn_stream(plan) -> None:

@@ -70,7 +70,7 @@ def place_on_mesh(plan, mesh: Mesh):
     tensors, shard d on ``mesh.devices[d]``; a plan already placed there
     comes back as it is.  A window ShardedPlan's shards get kernel H's
     work list here, once."""
-    from ..ops.spmm_sell import place_runs
+    from ..ops.runs import place_runs
     from .spmv_sharded import ShardedPlan
 
     if mesh.size != plan.num_shards:

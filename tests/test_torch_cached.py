@@ -233,36 +233,120 @@ def test_sell_strategies_match_jax(case, semiring):
 
 @pytest.mark.parametrize("fold", [True, False])
 def test_sell_global_plain_folds_groups(fold):
-    """The plain version's per-group fold equals the per-tile partials
-    reduced over each group, and columns past x read as 0."""
+    """The plain version sums each slice's run of tiles; with the lane
+    fold (two uniform parts) it folds them to y's rows, else it returns
+    the slice sums; columns past x read as 0."""
     rng = np.random.default_rng(7)
     vals = torch.from_numpy(rng.standard_normal((8, 8, 128)).astype(
         np.float32))
     cols = torch.from_numpy(rng.integers(0, 110, (8, 8, 128)).astype(
         np.int32))
+    tile_slice = torch.tensor([0, 0, 1, 1, 1, 2, 3, 3], dtype=torch.int32)
     x = torch.from_numpy(rng.standard_normal(100).astype(np.float32))
-    got = psell.sell_global_kernel(vals, cols, x, group_tiles=4, fold=fold,
+    got = psell.sell_global_kernel(vals, cols, tile_slice, x, num_slices=4,
+                                   parts=2 if fold else 0, rows=250,
                                    semiring="plus_times")
     xz = torch.cat([x, torch.zeros(10)])
     tiles = (vals * xz[cols.long()]).sum(1)
-    want = tiles.reshape(2, 4, 128).sum(1) if fold else tiles
+    slices = torch.zeros(4, 128).index_add_(0, tile_slice, tiles)
+    want = (slices[:, :64] + slices[:, 64:]).reshape(-1)[:250] if fold \
+        else slices
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
 def test_sell_global_kernel_checks_operands():
     vals = torch.zeros(8, 8, 128)
     cols = torch.zeros(8, 8, 128, dtype=torch.int32)
-    kw = dict(group_tiles=4, fold=False, semiring="plus_times")
+    ts = torch.zeros(8, dtype=torch.int32)
+    kw = dict(num_slices=1, parts=1, rows=128, semiring="plus_times")
     with pytest.raises(ValueError, match="int32"):
-        psell.sell_global_kernel(vals, cols.to(torch.int16), torch.ones(4),
-                                 **kw)
+        psell.sell_global_kernel(vals, cols.to(torch.int16), ts,
+                                 torch.ones(4), **kw)
     with pytest.raises(NotImplementedError, match="float32"):
-        psell.sell_global_kernel(vals.double(), cols, torch.ones(4), **kw)
+        psell.sell_global_kernel(vals.double(), cols, ts, torch.ones(4),
+                                 **kw)
     with pytest.raises(ValueError, match="must be equal"):
-        psell.sell_global_kernel(vals[:4], cols, torch.ones(4), **kw)
-    with pytest.raises(ValueError, match="fold"):
-        psell.sell_global_kernel(vals, cols, torch.ones(4), group_tiles=3,
-                                 fold=True, semiring="plus_times")
+        psell.sell_global_kernel(vals[:4], cols, ts, torch.ones(4), **kw)
+    with pytest.raises(ValueError, match="tile_slice"):
+        psell.sell_global_kernel(vals, cols, ts.long(), torch.ones(4), **kw)
+    with pytest.raises(ValueError, match="parts"):
+        psell.sell_global_kernel(vals, cols, ts, torch.ones(4), num_slices=1,
+                                 parts=3, rows=42, semiring="plus_times")
+    with pytest.raises(ValueError, match="cover"):
+        psell.sell_global_kernel(vals, cols, ts, torch.ones(4), num_slices=1,
+                                 parts=2, rows=65, semiring="plus_times")
+
+
+@pytest.mark.parametrize("semiring", ["plus_times", "min_plus"])
+@pytest.mark.parametrize("ncols", [5001, 8192, 12289, 1 << 18, 1 << 19,
+                                   (1 << 19) + 1])
+def test_global_plain_at_x_widths(ncols, semiring):
+    """Kernel G's plain version equals the host loop at the x widths of
+    the cached tier 2 (5,001), around the resident cap (8192 floats), at
+    the deep draw (2^18) and on either side of the stream draw (2^19)."""
+    rng = np.random.default_rng(ncols)
+    rows = 512
+    r = np.repeat(np.arange(rows), 8)
+    c = rng.integers(0, ncols, r.shape[0])
+    v = np.abs(rng.standard_normal(r.shape[0])).astype(np.float32)
+    m = sp.csr_matrix((v, (r, c)), shape=(rows, ncols))
+    m.sum_duplicates()
+    m.sort_indices()
+    x = np.abs(rng.standard_normal(ncols)).astype(np.float32)
+    _, pa = both(m)
+    plan = pplan.place(pplan.build_sell_plan(
+        pa, pad_value=float(jsr.get(semiring).zero)), "cpu")
+    parts = psell.row_parts(plan)
+    y = psell.sell_global_kernel(plan.vals, plan.cols, plan.tile_slice,
+                                 torch.from_numpy(x),
+                                 num_slices=plan.num_slices, parts=parts,
+                                 rows=rows, semiring=semiring)
+    y = (y if parts else psell._fixup_rows(plan, y, semiring)).numpy()
+    if semiring == "plus_times":
+        want = m.astype(np.float64) @ x.astype(np.float64)
+        assert np.abs(y - want).max() / max(1.0, np.abs(want).max()) < 1e-5
+    else:
+        want = np.minimum.reduceat(m.data + x[m.indices], m.indptr[:-1])
+        np.testing.assert_array_equal(y, want)
+
+
+#: kernel G's row layouts: matrix, build_sell_plan arguments, the
+#: reference's strategy, and what G writes (row_parts: 1 identity map, 2
+#: the uniform-parts lane fold, 0 slice sums for the row_map reduce)
+G_LAYOUTS = {
+    "identity": (lambda: random_sparse(300, 40960, 0.002, seed=2), {},
+                 "deep", 1),
+    "uniform_parts": (lambda: shuffled_band(2048, seed=5),
+                      dict(split=16, uniform_split=True, window_group_tiles=2,
+                           groups_per_step=8), "resident", 2),
+    "row_map": (lambda: random_sparse(300, 40960, 0.01, seed=6),
+                dict(split=8, sigma=64), "stream", 0),
+}
+
+
+@pytest.mark.parametrize("semiring", ["plus_times", "min_plus"])
+@pytest.mark.parametrize("layout", sorted(G_LAYOUTS))
+def test_global_kernel_output_matches_jax(layout, semiring):
+    """Kernel G's plain version writes y's rows (or the slice sums that
+    the row_map reduce takes) equal to the JAX spmv_plan's y."""
+    make, kw, strategy, parts = G_LAYOUTS[layout]
+    m, x = _semiring_data(make(), semiring, seed=5)
+    ja, pa = both(m)
+    pad = float(jsr.get(semiring).zero)
+    jp = jplan.build_sell_plan(ja, pad_value=pad, **kw)
+    port = pplan.place(pplan.build_sell_plan(pa, pad_value=pad, **kw), "cpu")
+    assert_plans_equal(port, jp)
+    assert psell.row_parts(port) == parts
+    out = psell.sell_global_kernel(port.vals, port.cols, port.tile_slice,
+                                   torch.from_numpy(x),
+                                   num_slices=port.num_slices, parts=parts,
+                                   rows=port.shape[0], semiring=semiring)
+    assert out.shape == ((port.shape[0],) if parts else
+                         (port.num_slices, port.lane_rows))
+    y = out if parts else psell._fixup_rows(port, out, semiring)
+    want = jsell.spmv_plan(jp.to_device(), x, strategy=strategy,
+                           interpret=True, semiring=semiring)
+    _assert_matches(y.numpy(), want, semiring)
 
 
 # ---------------------------------------------------------------------------

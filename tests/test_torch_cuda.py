@@ -23,6 +23,7 @@ from spmv_vector_cache_tpu_torch.formats.packed import build_packed_plan
 from spmv_vector_cache_tpu_torch.formats.plan import build_sell_plan, place
 from spmv_vector_cache_tpu_torch.ops import (_kernels, lane_perm, spmv_chunk,
                                              spmv_dia, spmv_packed, spmv_sell)
+from spmv_vector_cache_tpu_torch.ops import runs as pruns
 from spmv_vector_cache_tpu_torch.ops.semiring import REGISTRY
 
 pytestmark = pytest.mark.cuda
@@ -169,12 +170,28 @@ def test_packed_kernels_match_plain(cuda, chunk_blocks):
            spmv_packed.packed_extract_plain(*ext_args, **ext_kw))
 
 
+def _global_args(plan, x, semiring):
+    return ((plan.vals, plan.cols, plan.tile_slice, x),
+            dict(num_slices=plan.num_slices, parts=spmv_sell.row_parts(plan),
+                 rows=plan.shape[0], semiring=semiring))
+
+
+def _check_global(got, ref, semiring):
+    if semiring == "plus_times":
+        _close(got, ref)
+    else:
+        # order-free reductions of one float32 operation per product
+        assert torch.equal(got, ref)
+
+
 @pytest.mark.parametrize("fold", [True, False])
 @pytest.mark.parametrize("semiring", sorted(REGISTRY))
 def test_global_kernel_matches_plain(cuda, semiring, fold):
+    # fold: a uniform-parts plan, whose lanes G folds into y's rows; else
+    # the identity map
     rng = np.random.default_rng(7)
     n, cols = 2048, 40000
-    r = np.repeat(np.arange(n), 16)
+    r = np.repeat(np.arange(n), 24)
     c = rng.integers(0, cols, r.shape[0])
     v = np.abs(rng.standard_normal(r.shape[0])).astype(np.float32)
     if semiring == "or_and":
@@ -186,21 +203,109 @@ def test_global_kernel_matches_plain(cuda, semiring, fold):
     plan = place(build_sell_plan(from_scipy(m),
                                  pad_value=REGISTRY[semiring].zero, **kw),
                  cuda)
+    assert spmv_sell.row_parts(plan) == (2 if fold else 1)
     # x one column short: the last column reads as 0 in both versions
     x = torch.from_numpy(np.abs(rng.standard_normal(cols - 1)).astype(
         np.float32)).to(cuda)
-    args = (plan.vals, plan.cols, x)
-    kwargs = dict(group_tiles=plan.stats.group_tiles, fold=fold,
-                  semiring=semiring)
+    if semiring == "or_and":
+        x = (x > 0.5).float()
+    args, kwargs = _global_args(plan, x, semiring)
     before = spmv_sell.sell_global_kernel.launches
     got = spmv_sell.sell_global_kernel(*args, **kwargs)
     assert spmv_sell.sell_global_kernel.launches == before + 1
-    ref = spmv_sell.sell_global_plain(*args, **kwargs)
-    if semiring == "plus_times":
-        _close(got, ref)
-    else:
-        # order-free reductions of one float32 operation per product
-        assert torch.equal(got, ref)
+    _check_global(got, spmv_sell.sell_global_plain(*args, **kwargs),
+                  semiring)
+
+
+def _uniform(rng, rows, cols, per_row, semiring):
+    r = np.repeat(np.arange(rows), per_row)
+    c = rng.integers(0, cols, r.shape[0])
+    v = np.abs(rng.standard_normal(r.shape[0])).astype(np.float32)
+    if semiring == "or_and":
+        v = (v > 0.5).astype(np.float32)
+    m = sp.csr_matrix((v, (r, c)), shape=(rows, cols))
+    m.sum_duplicates()
+    m.sort_indices()
+    return m
+
+
+def _x_for(rng, cols, semiring):
+    x = np.abs(rng.standard_normal(cols)).astype(np.float32)
+    return (x > 0.5).astype(np.float32) if semiring == "or_and" else x
+
+
+#: x widths on either side of what one CTA's shared memory (48 KB) and a
+#: cluster of 16 CTAs (2 MB) would hold, from the cached tier 2's 5,001
+#: columns to 2 MB + 4 bytes; kernel G gathers x through L2 at each
+G_WIDTHS = [5001, 12288, 1 << 18, 1 << 19, (1 << 19) + 1]
+
+
+@pytest.mark.parametrize("semiring", ["plus_times", "min_plus"])
+@pytest.mark.parametrize("ncols", G_WIDTHS)
+def test_global_kernel_x_widths_match_plain(cuda, ncols, semiring):
+    rng = np.random.default_rng(13)
+    m = _uniform(rng, 4096, ncols, 12, semiring)
+    plan = place(build_sell_plan(from_scipy(m),
+                                 pad_value=REGISTRY[semiring].zero), cuda)
+    x = torch.from_numpy(_x_for(rng, ncols, semiring)).to(cuda)
+    args, kwargs = _global_args(plan, x, semiring)
+    got = spmv_sell.sell_global_kernel(*args, **kwargs)
+    _check_global(got, spmv_sell.sell_global_plain(*args, **kwargs),
+                  semiring)
+
+
+#: kernel G's row layouts: build_sell_plan arguments, what G writes
+#: (row_parts) and whether a slice is split over records that combine
+#: atomically
+G_LAYOUTS = {
+    "identity": (dict(groups_per_step=1), 1, False),
+    "uniform_parts": (dict(split=16, uniform_split=True,
+                           window_group_tiles=2, groups_per_step=1), 2,
+                      False),
+    "row_map": (dict(split=8, sigma=512, groups_per_step=1), 0, False),
+    # a 600-nonzero row: its slice holds 75+ tiles, past RUN_CAP
+    "long_run": (dict(groups_per_step=1), 1, True),
+}
+
+
+@pytest.mark.parametrize("semiring", sorted(REGISTRY))
+@pytest.mark.parametrize("layout", sorted(G_LAYOUTS))
+def test_global_kernel_layouts_match_plain(cuda, layout, semiring):
+    kw, parts, split = G_LAYOUTS[layout]
+    rng = np.random.default_rng(15)
+    n, cols = 2048, 70000
+    m = _uniform(rng, n, cols, 20, semiring)
+    if layout == "long_run":
+        long = _uniform(rng, 1, cols, 600, semiring)
+        m = sp.vstack([m[:5], long, m[6:]]).tocsr()
+        m.sort_indices()
+    plan = place(build_sell_plan(from_scipy(m),
+                                 pad_value=REGISTRY[semiring].zero, **kw),
+                 cuda)
+    assert spmv_sell.row_parts(plan) == parts
+    runs = pruns.tile_runs(plan.tile_slice, plan.num_slices)
+    assert bool((runs[:, 3] & pruns.RUN_ATOMIC).any()) == split
+    x = torch.from_numpy(_x_for(rng, cols, semiring)).to(cuda)
+    args, kwargs = _global_args(plan, x, semiring)
+    got = spmv_sell.sell_global_kernel(*args, **kwargs)
+    _check_global(got, spmv_sell.sell_global_plain(*args, **kwargs),
+                  semiring)
+    if not split:
+        # one group writes each output, in a fixed order: bit for bit
+        assert torch.equal(got, spmv_sell.sell_global_kernel(*args,
+                                                             **kwargs))
+
+
+def test_global_kernel_needs_a_placed_plan(cuda):
+    m = _uniform(np.random.default_rng(16), 1024, 50000, 8, "plus_times")
+    plan = place(build_sell_plan(from_scipy(m)), cuda)
+    x = torch.ones(50000, device=cuda)
+    args, kwargs = _global_args(plan, x, "plus_times")
+    before = spmv_sell.sell_global_kernel.launches
+    with pytest.raises(ValueError, match="placed"):
+        spmv_sell.sell_global_kernel(args[0], args[1], args[2].clone(), x,
+                                     **kwargs)
+    assert spmv_sell.sell_global_kernel.launches == before
 
 
 @pytest.mark.parametrize("semiring", ["plus_times", "min_plus"])
@@ -265,8 +370,51 @@ def test_spmm_dia_kernel_matches_plain(cuda, offs, rows, cols, k):
                                             np.float32)))
 
 
+#: kernel I's cases: offsets, rows, cols; rows not a multiple of the
+#: CTA's run of rows (512 / threads per row)
+I_CASES = {
+    "one_band": (list(range(-13, 14)), 3000, 3000),      # bench.py's
+    "bands": ([-1025, 0, 1300], 3000, 3000),             # three at k > 4
+    "unaligned": (list(range(-13, 14)), 1500, 1500),     # B at 4 mod 16
+    "rectangular": ([0, 200], 300, 520),
+}
+I_RHS = [1, 3, 5, 8, 16, 17, 64, 128]
+
+
+@pytest.mark.parametrize("k", I_RHS)
+@pytest.mark.parametrize("case", sorted(I_CASES))
+def test_spmm_dia_kernel_tails_match_plain(cuda, case, k):
+    from spmv_vector_cache_tpu_torch.ops import spmm_dia
+
+    offs, rows, cols = I_CASES[case]
+    rng = np.random.default_rng(17)
+    m = sp.spdiags(rng.standard_normal((len(offs), max(rows, cols))).astype(
+        np.float32), offs, rows, cols).tocsr()
+    plan = place(build_dia_plan(from_scipy(m), sublanes=8), cuda)
+    tiling = spmm_dia.spmm_dia_tiling(plan.offsets, k)
+    assert rows % tiling.rows_per_cta
+    if case == "one_band":
+        assert len(tiling.bands) == 1
+    if case == "bands":
+        assert len(tiling.bands) == (3 if k > 4 else 1)
+    b_host = torch.from_numpy(rng.standard_normal((cols, k)).astype(
+        np.float32))
+    if case == "unaligned":
+        # a contiguous B one float past a 16-byte boundary
+        store = torch.empty(cols * k + 1, device=cuda)
+        b = store[1:].view(cols, k)
+        b.copy_(b_host)
+        assert b.is_contiguous() and b.data_ptr() % 16 == 4
+    else:
+        b = b_host.to(cuda)
+    before = spmm_dia.spmm_dia_kernel.launches
+    got = spmm_dia.spmm_dia_kernel(plan.vals, plan.offsets, b, rows)
+    assert spmm_dia.spmm_dia_kernel.launches == before + 1
+    _close(got, spmm_dia.spmm_dia_plain(plan.vals, plan.offsets, b, rows))
+
+
 #: kernel H's layouts: build_sell_plan arguments, what H writes
-#: (spmm_sell.window_parts) and whether a slice is split over CTAs that
+#: (spmv_sell.row_parts) and whether a slice is split over CTAs that
 #: add atomically; one 8-tile step per grid step keeps the padding tiles
 #: on the last slice under the per-CTA cap, except where said
 H_LAYOUTS = {
@@ -304,9 +452,9 @@ def test_spmm_window_kernel_matches_plain(cuda, layout, k):
     m.sort_indices()
     plan = place(build_sell_plan(from_scipy(m), window_grain=32, **kw), cuda)
     st = plan.stats
-    assert st.window_blocks > 0 and spmm_sell.window_parts(plan) == parts
-    runs = spmm_sell.tile_runs(plan.tile_slice, plan.num_slices)
-    assert bool((runs[:, 3] & spmm_sell.RUN_ATOMIC).any()) == split
+    assert st.window_blocks > 0 and spmv_sell.row_parts(plan) == parts
+    runs = pruns.tile_runs(plan.tile_slice, plan.num_slices)
+    assert bool((runs[:, 3] & pruns.RUN_ATOMIC).any()) == split
     # B 200 rows short of the plan's columns: the slots of the last rows,
     # nonzeros and (but in the sorted row_map layout) padding alike, name
     # columns past B and read 0 in both versions
@@ -345,7 +493,7 @@ def test_spmm_window_kernel_needs_a_placed_plan(cuda):
     kwargs = dict(num_slices=plan.num_slices,
                   group_tiles=plan.stats.group_tiles,
                   window_grain=plan.stats.window_grain,
-                  parts=spmm_sell.window_parts(plan), rows=1024)
+                  parts=spmv_sell.row_parts(plan), rows=1024)
     before = spmm_sell.spmm_window_kernel.launches
     with pytest.raises(ValueError, match="placed"):
         spmm_sell.spmm_window_kernel(plan.vals, plan.cols_win,

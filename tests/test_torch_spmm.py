@@ -42,6 +42,7 @@ from spmv_vector_cache_tpu_torch.formats import cached as pcached
 from spmv_vector_cache_tpu_torch.formats import packed as ppacked
 from spmv_vector_cache_tpu_torch.formats import plan as pplan
 from spmv_vector_cache_tpu_torch.interop import plan_from_reference
+from spmv_vector_cache_tpu_torch.ops import runs as pruns
 from spmv_vector_cache_tpu_torch.ops import spmm_dia as pdia
 from spmv_vector_cache_tpu_torch.ops import spmm_sell as pspmm
 from spmv_vector_cache_tpu_torch.ops import spmv_sell as psell
@@ -132,6 +133,76 @@ def test_spmm_dia_rejects_wrong_b():
                              torch.zeros((300, 4), dtype=torch.float64), 300)
 
 
+#: bench.py's 27 diagonals (-13..13)
+BENCH_OFFSETS = tuple(range(-13, 14))
+
+
+@pytest.mark.parametrize("k", [1, 16, 64, 128, 1000])
+def test_spmm_dia_tiling_of_the_bench_offsets_is_one_band(k):
+    # every k stages bench.py's 27 diagonals as one band, single buffered
+    t = pdia.spmm_dia_tiling(BENCH_OFFSETS, k)
+    assert t.bands == ((0, 27),) and t.buffers == 1
+    assert t.buf_rows == t.rows_per_cta + 26
+
+
+def test_spmm_dia_tiling_of_far_offsets_is_three_bands():
+    # the CUDA tests' [-1025, 0, 1300]: no two diagonals share a band at
+    # k = 16, so the CTA stages three, double buffered
+    t = pdia.spmm_dia_tiling((-1025, 0, 1300), 16)
+    assert t.bands == ((0, 1), (1, 2), (2, 3)) and t.buffers == 2
+    assert t.buf_rows == t.rows_per_cta and t.band_diags == 1
+    assert t.smem_bytes <= pdia.SPMM_DIA_SMEM
+    # at k = 1 a staged row is 16 bytes, and all three fit one buffer
+    t1 = pdia.spmm_dia_tiling((-1025, 0, 1300), 1)
+    assert t1.bands == ((0, 3),) and t1.buffers == 1
+
+
+@pytest.mark.parametrize("offsets,spread,diags,want", [
+    ((-5, -4, 0, 100, 101, 300), 10, None, ((0, 3), (3, 5), (5, 6))),
+    ((-5, -4, 0, 100, 101, 300), 0, None, ((0, 1), (1, 2), (2, 3), (3, 4),
+                                           (4, 5), (5, 6))),
+    ((-5, -4, 0, 100, 101, 300), 305, None, ((0, 6),)),
+    ((0, 0, 7), 6, None, ((0, 2), (2, 3))),
+    ((), 10, None, ()),
+    (tuple(range(-13, 14)), 26, None, ((0, 27),)),
+    (tuple(range(-13, 14)), 26, 8, ((0, 8), (8, 16), (16, 24), (24, 27))),
+])
+def test_dia_bands_groups_consecutive_diagonals(offsets, spread, diags,
+                                                want):
+    assert pdia.dia_bands(offsets, spread, diags) == want
+
+
+def test_dia_bands_rejects_unsorted_offsets():
+    with pytest.raises(ValueError, match="nondecreasing"):
+        pdia.dia_bands((0, -1), 10)
+    with pytest.raises(ValueError, match="max_spread"):
+        pdia.dia_bands((0, 1), -1)
+
+
+@pytest.mark.parametrize("k", [1, 3, 5, 8, 16, 17, 33, 64, 100, 128, 300])
+@pytest.mark.parametrize("offsets", [BENCH_OFFSETS, (-1025, 0, 1300),
+                                     (-300, -200, -2, 0, 5, 900)])
+def test_spmm_dia_tiling_fits_the_kernel(offsets, k):
+    t = pdia.spmm_dia_tiling(offsets, k)
+    cols = t.threads_per_row * t.cols_per_thread
+    assert t.cols_per_thread in (4, 8, 16, 32)
+    assert cols >= min(k, pdia.SPMM_DIA_COLS) and cols <= max(
+        4, 2 * min(k, pdia.SPMM_DIA_COLS))
+    assert t.rows_per_cta * t.threads_per_row <= pdia.SPMM_DIA_THREADS
+    # a quarter warp's float4 reads of 8 / tpr rows hit distinct banks
+    words = {(r * t.stride + 4 * q) % 32 for r in range(8 // min(
+        8, t.threads_per_row)) for q in range(min(8, t.threads_per_row))}
+    assert len(words) == 8 and t.stride % 4 == 0 and t.stride >= cols
+    assert t.smem_bytes <= pdia.SPMM_DIA_SMEM
+    # the bands cover the diagonals in order, each within a buffer
+    assert [d for b in t.bands for d in range(*b)] == list(range(len(
+        offsets)))
+    for d0, d1 in t.bands:
+        assert t.rows_per_cta + offsets[d1 - 1] - offsets[d0] <= t.buf_rows
+        assert d1 - d0 <= t.band_diags
+    assert t.buffers == (1 if len(t.bands) == 1 else 2)
+
+
 # ---------------------------------------------------------------------------
 # SELL window: kernel H
 # ---------------------------------------------------------------------------
@@ -176,7 +247,7 @@ def test_spmm_window_matches_jax(case, k):
 
     # kernel H's plain version: Y itself where H folds the lanes, else
     # the slice sums that the row_map reduce takes
-    parts = pspmm.window_parts(pp)
+    parts = psell.row_parts(pp)
     assert parts == (1 if layout[0] else layout[1])
     args = (pp.vals, pp.cols_win, pp.window_base, pp.tile_slice)
     kwargs = dict(num_slices=pp.num_slices, group_tiles=st.group_tiles,
@@ -254,20 +325,20 @@ def _runs_cover(runs, tile_slice, num_slices):
     written = np.zeros(num_slices, np.int64)
     seen = np.zeros(ts.shape[0], np.int64)
     for t0, t1, s0, w in runs.tolist():
-        s1 = w & ~pspmm.RUN_ATOMIC
+        s1 = w & ~pruns.RUN_ATOMIC
         assert t0 <= t1 and s0 < s1
         seen[t0:t1] += 1
         assert ((ts[t0:t1] >= s0) & (ts[t0:t1] < s1)).all()
-        if w & pspmm.RUN_ATOMIC:
-            assert s1 == s0 + 1 and t1 - t0 <= pspmm.RUN_CAP
-            assert (ts == s0).sum() > pspmm.RUN_CAP
+        if w & pruns.RUN_ATOMIC:
+            assert s1 == s0 + 1 and t1 - t0 <= pruns.RUN_CAP
+            assert (ts == s0).sum() > pruns.RUN_CAP
         else:
-            assert t1 - t0 <= max(pspmm.RUN_PACK, pspmm.RUN_CAP)
+            assert t1 - t0 <= max(pruns.RUN_PACK, pruns.RUN_CAP)
             written[s0:s1] += 1
     assert (seen == 1).all()
-    split = {t0 for t0, _, _, w in runs.tolist() if w & pspmm.RUN_ATOMIC}
+    split = {t0 for t0, _, _, w in runs.tolist() if w & pruns.RUN_ATOMIC}
     assert (written[np.bincount(ts, minlength=num_slices) <=
-                    pspmm.RUN_CAP] == 1).all()
+                    pruns.RUN_CAP] == 1).all()
     return split
 
 
@@ -280,19 +351,19 @@ def test_tile_runs_of_a_padded_plan():
     ts = plan.tile_slice
     assert plan.num_slices == 32 and ts.shape[0] == 512
     assert (ts == 31).sum() == 450
-    runs = pspmm.tile_runs(ts, plan.num_slices)
+    runs = pruns.tile_runs(ts, plan.num_slices)
     _runs_cover(runs, ts, plan.num_slices)
-    pieces = runs[(runs[:, 3] & pspmm.RUN_ATOMIC) != 0]
+    pieces = runs[(runs[:, 3] & pruns.RUN_ATOMIC) != 0]
     assert len(pieces) == 15 and (pieces[:, 2] == 31).all()
     assert pieces[0, 0] == 62 and pieces[-1, 1] == 512
     # the other slices, 2 tiles each, two to a record
-    plain = runs[(runs[:, 3] & pspmm.RUN_ATOMIC) == 0]
+    plain = runs[(runs[:, 3] & pruns.RUN_ATOMIC) == 0]
     assert plain.tolist()[0] == [0, 4, 0, 2]
 
 
 def test_tile_runs_of_one_tile_slices():
     ts = np.arange(20, dtype=np.int32)
-    runs = pspmm.tile_runs(ts, 20)
+    runs = pruns.tile_runs(ts, 20)
     _runs_cover(runs, ts, 20)
     assert runs.tolist() == [[t, t + 4, t, t + 4] for t in range(0, 20, 4)]
 
@@ -302,11 +373,11 @@ def test_tile_runs_of_a_run_past_the_cap():
     # none, packed with their neighbours (4 tiles at most a record)
     counts = np.array([3, 70, 2, 0, 1, 0, 5])
     ts = np.repeat(np.arange(7, dtype=np.int32), counts)
-    runs = pspmm.tile_runs(ts, 7)
+    runs = pruns.tile_runs(ts, 7)
     _runs_cover(runs, ts, 7)
     assert runs.tolist() == [
-        [0, 3, 0, 1], [3, 26, 1, 2 | pspmm.RUN_ATOMIC],
-        [26, 49, 1, 2 | pspmm.RUN_ATOMIC], [49, 73, 1, 2 | pspmm.RUN_ATOMIC],
+        [0, 3, 0, 1], [3, 26, 1, 2 | pruns.RUN_ATOMIC],
+        [26, 49, 1, 2 | pruns.RUN_ATOMIC], [49, 73, 1, 2 | pruns.RUN_ATOMIC],
         [73, 76, 2, 6], [76, 81, 6, 7]]
 
 
@@ -315,7 +386,7 @@ def test_tile_runs_of_a_sharded_plan():
     # in between empty, and its padding tiles name the last one
     ts = np.concatenate([np.repeat(np.arange(6, dtype=np.int32), 2),
                          np.full(4, 9, np.int32)])
-    runs = pspmm.tile_runs(ts, 10)
+    runs = pruns.tile_runs(ts, 10)
     _runs_cover(runs, ts, 10)
     assert runs.tolist() == [[0, 4, 0, 2], [4, 8, 2, 4], [8, 12, 4, 9],
                              [12, 16, 9, 10]]
@@ -325,17 +396,20 @@ def test_tile_runs_of_a_sharded_plan():
 def test_tile_runs_rejects_a_bad_tile_slice(bad):
     ts = np.array([0, 2, 1] if bad == "decreasing" else [0, 1, 3], np.int32)
     with pytest.raises(ValueError, match="nondecreasing"):
-        pspmm.tile_runs(ts, 3)
+        pruns.tile_runs(ts, 3)
 
 
-@pytest.mark.parametrize("kind", ["sell", "hybrid", "sharded", "windowless"])
+@pytest.mark.parametrize("kind", ["sell", "hybrid", "sharded", "windowless",
+                                  "cached", "double"])
 def test_placement_builds_the_work_list(kind):
-    # kernel H's work list is built once, when the plan is placed, for
-    # each tile_slice that kernel H reads, and for no other
+    # the work list of kernels G and H is built once, when the plan is
+    # placed, for each float32 tile_slice that either kernel reads, and
+    # for no other: kernel L (a double plan) writes per-tile partials
     from spmv_vector_cache_tpu_torch.formats.dia import (HybridPlan,
                                                          build_dia_plan)
     from spmv_vector_cache_tpu_torch.parallel import (build_sharded_plan,
                                                       make_mesh, place_on_mesh)
+    from tests.test_torch_cached import powerlaw_cols
 
     _, pa = both(shuffled_band(2048, seed=17))
     if kind == "sharded":
@@ -348,20 +422,35 @@ def test_placement_builds_the_work_list(kind):
         plan = pplan.place(HybridPlan(dia=build_dia_plan(pb, sublanes=8),
                                       rest=pplan.build_sell_plan(pa)), "cpu")
         read = [(plan.rest.tile_slice, plan.rest.num_slices)]
+    elif kind == "cached":
+        # a window tier and a nested full-cover resident tier
+        _, pc = both(powerlaw_cols(0))
+        plan = pplan.place(pcached.build_cached_plan(pc), "cpu")
+        tier2 = plan.cold.hot
+        assert isinstance(plan.cold, pcached.CachedPlan)
+        read = [(plan.hot.tile_slice, plan.hot.num_slices),
+                (tier2.tile_slice, tier2.num_slices)]
     else:
-        built = pplan.build_sell_plan(pa) if kind == "sell" else \
-            _windowless(pplan, both(random_sparse(300, 5000, 0.02,
-                                                  seed=4))[1])
+        built = {"sell": lambda: pplan.build_sell_plan(pa),
+                 "windowless": lambda: _windowless(pplan, both(random_sparse(
+                     300, 5000, 0.02, seed=4))[1]),
+                 "double": lambda: pplan.build_sell_plan(
+                     pa, value_dtype=np.float64)}[kind]()
         plan = pplan.place(built, "cpu")
-        read = [(plan.tile_slice, plan.num_slices)] if kind == "sell" else []
-        assert (plan.tile_slice in pspmm._RUNS) == (kind == "sell")
+        read = [] if kind == "double" else [(plan.tile_slice,
+                                             plan.num_slices)]
+        assert (plan.tile_slice in pruns._RUNS) == (kind != "double")
     for ts, num_slices in read:
-        n, runs, split = pspmm._RUNS[ts]
-        want = pspmm.tile_runs(ts, num_slices)
-        assert n == num_slices and np.array_equal(runs.numpy(), want)
-        assert split == bool((want[:, 3] & pspmm.RUN_ATOMIC).any())
+        work = pruns._RUNS[ts]
+        want = pruns.tile_runs(ts, num_slices)
+        assert work.num_slices == num_slices
+        assert np.array_equal(work.runs.numpy(), want)
+        assert work.split == bool((want[:, 3] & pruns.RUN_ATOMIC).any())
+        s1 = want[:, 3] & ~pruns.RUN_ATOMIC
+        assert work.max_tiles == (want[:, 1] - want[:, 0]).max()
+        assert work.max_slices == (s1 - want[:, 2]).max()
         # a copy of the tensor is not a placed plan's
-        assert ts.clone() not in pspmm._RUNS
+        assert ts.clone() not in pruns._RUNS
 
 
 # ---------------------------------------------------------------------------
