@@ -19,7 +19,8 @@ roofline audit:
    columns within +-512 of the diagonal;
 4. Chunk — ``tools/realistic.scircuit_like()``: 170,998^2, 926,915
    nonzeros, power-law rows with 24 dense rail rows (a ChunkPlan with
-   heavy subwindow buckets);
+   heavy subwindow buckets, which placement gathers into kernel D's
+   slab);
 5. Packed — ``tools/realistic.mac_econ_like()``: 206,500^2, 1,316,368
    nonzeros, short rows spread +-12,000 columns (a PackedPlan);
 6. Cached — the zipf-column matrix of the reference's report
@@ -47,7 +48,7 @@ roofline audit:
    ``sell_f64`` (the shuffled band: a double window SellPlan, kernel K),
    ``hybrid_f64`` (the Hybrid: kernels J and K) and ``deep_f64`` (the
    uniform matrix under plus_times: a windowless double SellPlan on the
-   'deep' strategy, kernel L); then the pair API (``spmv_dia_df``,
+   'deep' strategy, kernel L writing y's rows); then the pair API (``spmv_dia_df``,
    ``spmv_sell_double_pair``) on the first two;
 10. ``stream_checksum``: kernel N's per-block sums of a 256 MiB float32
     ramp of (8, 128) tiles, 64 tiles (256 KiB) per checksum, against
@@ -72,8 +73,9 @@ min-plus reduce over the CSR rows; relative error below 1e-4, bench.py's
 gate, and below 1e-11 in the float64 phases), checks the plan the
 planner picked, and checks that its run of the main path launched the
 phase's kernels (their launch counters, set to 0 just before the phase's
-apply and read just after; the SpMM and float64 phases must launch
-exactly their kernels, once each, and no other).  Each kernel is then
+apply and read just after; the chunk, SpMM and float64 phases must
+launch exactly their kernels, kernel D and C once and B once per light
+bucket in the chunk phase, and no other).  Each kernel is then
 compared with its plain PyTorch version on the same inputs on the card,
 and both are timed with CUDA events beside the kernel's bound: the bytes
 it must move at 3.35 TB/s (and at the measured read bandwidth) or its
@@ -84,12 +86,17 @@ and by the apply's in-place call beside ``torch.gather`` into a
 buffer).  ``host_cost`` then times each piece of kernel C's launch path
 by the host clock.  One PyTorch call of the same function is timed
 beside kernels A, B, H, I, J, K, L and N, beside G on the cached tier 2
-(``torch.sparse.mm`` of the tier's matrix over ``x[hot_cols]``) and
+(``torch.sparse.mm`` of the tier's matrix over ``x[hot_cols]``), beside
+D (``torch.sparse.mm`` of the heavy rows' CSR, the slab's nonzeros) and
 beside M (each shard's rows over its halo'd x), each checked against
-the float64 reference.  The profiler's by-kernel lists of
+the float64 reference; the library calls beside A, B, D, G, J, K and L
+also by the profiler's device time.  The profiler's by-kernel lists of
 ``spmm_sell``, ``spmm_hybrid`` and ``sharded_spmm`` must hold kernel H
-and no ``index_add_``, and those of ``deep``, ``stream`` and ``wide``
-kernel G and no ``scatter_reduce`` nor ``index_add_``.  Every check
+and no ``index_add_``, those of ``deep``, ``stream`` and ``wide``
+kernel G and no ``scatter_reduce`` nor ``index_add_``, that of
+``deep_f64`` kernel L alone, and that of ``chunk`` one launch of kernel
+D and the ``index_add_`` of the light buckets and the heavy merge
+alone.  Every check
 raises; nothing is caught.  Needs one CUDA device; exits non-zero
 without one.
 
@@ -322,14 +329,15 @@ def main():
     from spmv_vector_cache_tpu_torch.ops.lane_perm import (
         lane_unpermute, lane_unpermute_plain, unpermute_plan_rows)
     from spmv_vector_cache_tpu_torch.ops.operator import SparseOperator
-    from spmv_vector_cache_tpu_torch.ops.runs import RUN_ATOMIC, tile_runs
+    from spmv_vector_cache_tpu_torch.ops.runs import (RUN_ATOMIC, heavy_on,
+                                                      runs_on, tile_runs)
     from spmv_vector_cache_tpu_torch.ops.spmm_dia import (spmm_dia_kernel,
                                                           spmm_dia_plain,
                                                           spmm_dia_tiling)
     from spmv_vector_cache_tpu_torch.ops.spmm_sell import (spmm_window_kernel,
                                                            spmm_window_plain)
-    from spmv_vector_cache_tpu_torch.ops.spmv_chunk import (subwin_kernel,
-                                                            subwin_plain)
+    from spmv_vector_cache_tpu_torch.ops.spmv_chunk import (heavy_kernel,
+                                                            heavy_plain)
     from spmv_vector_cache_tpu_torch.ops.spmv_dia import (
         spmv_dia_df, spmv_dia_f64_kernel, spmv_dia_f64_plain,
         spmv_dia_halo_kernel, spmv_dia_halo_plain, spmv_dia_kernel,
@@ -506,6 +514,7 @@ def main():
     assert isinstance(p_chunk, ChunkPlan) and \
         ops["chunk"][0].strategy == "chunk"
     assert p_chunk.hbuckets and p_chunk.buckets, p_chunk.stats
+    assert p_chunk.residue is None, type(p_chunk.residue)
     assert all(b.stats.window_blocks <= 64 for b in p_chunk.buckets)
     log(f"[chunk] window buckets (K, tiles) "
         f"{[(b.stats.window_blocks, b.num_tiles) for b in p_chunk.buckets]}"
@@ -513,6 +522,21 @@ def main():
         f"{[(h.window_blocks, h.num_tiles) for h in p_chunk.hbuckets]}, "
         f"{p_chunk.num_blocks} light blocks, {p_chunk.num_heavy} heavy rows, "
         f"residue {type(p_chunk.residue).__name__}")
+    heavy = heavy_on(p_chunk)
+    heavy_work = runs_on(heavy.tile_row, heavy.rows.shape[0])
+    log(f"[chunk] kernel D's slab: {heavy.vals.shape[0]} real tiles of "
+        f"{sum(h.num_tiles for h in p_chunk.hbuckets)}, "
+        f"{heavy.rows.shape[0]} of the {p_chunk.num_heavy} heavy rows have "
+        f"subwindow tiles (at most "
+        f"{int(torch.bincount(heavy.tile_row).max())} each), "
+        f"{heavy_work.runs.shape[0]} records, most tiles a record "
+        f"{heavy_work.max_tiles}, split {heavy_work.split}")
+    light_heavy = torch.cat([b.tile_slice[b.tile_slice >= p_chunk.num_blocks]
+                             for b in p_chunk.buckets])
+    log(f"[chunk] the light buckets hold {light_heavy.numel()} tiles of "
+        f"{int(torch.unique(light_heavy).numel())} heavy rows (of "
+        f"{sum(b.num_tiles for b in p_chunk.buckets)} light tiles): the "
+        f"heavy merge after kernel B stays")
     p_packed = ops["packed"][0].plan
     assert isinstance(p_packed, PackedPlan) and \
         ops["packed"][0].strategy == "packed"
@@ -579,7 +603,7 @@ def main():
     kernels = {"spmv_dia_f32": spmv_dia_kernel,
                "spmv_sell_window_f32": sell_window_kernel,
                "lane_unpermute_f32": lane_unpermute,
-               "spmv_subwin_f32": subwin_kernel,
+               "spmv_subwin_f32": heavy_kernel,
                "packed_scan_f32": packed_scan_kernel,
                "packed_extract_f32": packed_extract_kernel,
                "spmv_sell_global_f32": sell_global_kernel,
@@ -612,7 +636,10 @@ def main():
     # an SpMM or float64 phase launches exactly these, and no other
     # kernel: the PackedPlan has no fused kernel and runs the reference
     # SpMM
-    exact_launches = {"spmm_dia": {"spmm_dia_f32": 1},
+    exact_launches = {"chunk": {"spmv_sell_window_f32": len(p_chunk.buckets),
+                                "lane_unpermute_f32": 1,
+                                "spmv_subwin_f32": 1},
+                      "spmm_dia": {"spmm_dia_f32": 1},
                       "spmm_sell": {"spmm_sell_window_f32": 1},
                       "spmm_hybrid": {"spmm_dia_f32": 1,
                                       "spmm_sell_window_f32": 1},
@@ -816,13 +843,17 @@ def main():
                 + rows_out * plan.lane_rows * 4,
                 2 * plan.vals.numel())
 
-    def subwin_pair(h, x):
-        args = (h.vals, h.cols_win, h.bases, x)
+    # kernel D adds each heavy row's sum into y in place: each version
+    # updates its own copy of the chunk phase's y (the timed calls go on
+    # adding); it reads and writes the heavy rows of y, no partials
+    def heavy_pair(h, x):
+        args = (h.vals, h.cols_win, h.bases, h.tile_row, h.rows, x)
+        y_k, y_p = ys["chunk"].clone(), ys["chunk"].clone()
         cols = h.bases.long()[:, :, None] * 128 + h.cols_win.long()
-        return (lambda: subwin_kernel(*args, semiring="plus_times"),
-                lambda: subwin_plain(*args, semiring="plus_times"),
-                nbytes(*args[:3]) + x_bytes_read(x, cols)
-                + h.vals.shape[0] * h.vals.shape[2] * 4,
+        return (lambda: heavy_kernel(*args, y_k, semiring="plus_times"),
+                lambda: heavy_plain(*args, y_p, semiring="plus_times"),
+                nbytes(*args[:5], heavy_work.runs) + x_bytes_read(x, cols)
+                + 2 * h.rows.shape[0] * 4,
                 2 * h.vals.numel())
 
     # kernel G sums each slice's tiles itself: its output is y's rows
@@ -896,12 +927,20 @@ def main():
                 + rows_out * plan.lane_rows * 8,
                 plan.vals.numel())
 
+    # kernel L, as G: y's rows (identity map, uniform parts) or the slice
+    # sums, written once in float64
     def global_f64_pair(plan, x):
-        args = (plan.vals, plan.cols, x)
-        return (lambda: sell_global_f64_kernel(*args),
-                lambda: sell_global_f64_plain(*args),
-                nbytes(*args[:2]) + x_bytes_read(x, plan.cols)
-                + plan.num_tiles * plan.lane_rows * 8,
+        parts = row_parts(plan)
+        args = (plan.vals, plan.cols, plan.tile_slice, x)
+        kw = dict(num_slices=plan.num_slices, parts=parts,
+                  rows=plan.shape[0])
+        out_elems = plan.shape[0] if parts else \
+            plan.num_slices * plan.lane_rows
+        runs = tile_runs(plan.tile_slice, plan.num_slices)
+        return (lambda: sell_global_f64_kernel(*args, **kw),
+                lambda: sell_global_f64_plain(*args, **kw),
+                nbytes(*args[:3]) + runs.nbytes + x_bytes_read(x, plan.cols)
+                + out_elems * 8,
                 plan.vals.numel())
 
     # kernel C at the chunk phase's shape: (light blocks, 128) sums
@@ -939,9 +978,10 @@ def main():
     cases += [("spmv_sell_window_f32", "chunk", f" K={b.stats.window_blocks}",
                sell_pair(b, ops["chunk"][1]), False)
               for b in p_chunk.buckets]
-    cases += [("spmv_subwin_f32", "chunk", f" W={h.window_blocks}",
-               subwin_pair(h, ops["chunk"][1]), False)
-              for h in p_chunk.hbuckets]
+    cases += [("spmv_subwin_f32", "chunk",
+               f" ({heavy.vals.shape[0]} tiles of W="
+               f"{[h.window_blocks for h in p_chunk.hbuckets]})",
+               heavy_pair(heavy, ops["chunk"][1]), False)]
     # kernel C through the public wrapper, which allocates its output;
     # then the apply's call, which un-permutes its input in place (timed
     # on a copy, permuted anew by every call)
@@ -1141,6 +1181,16 @@ def main():
             torch.from_numpy(m.data.astype(dtype)).to(dev),
             size=m.shape)
 
+    def library_device_us(phase, what, call):
+        """A library call's device time by the profiler (its event time
+        on a sub-20-us function measures host dispatch)."""
+        by_kernel = device_us_by_kernel(call)
+        us = sum(t for t, _ in by_kernel.values())
+        log(f"[{phase}] {what} device time by profiler: {us:.2f} us per "
+            f"call ({', '.join(k[:40] for k in by_kernel) or 'none'}) on "
+            f"{card}")
+        return us
+
     csr_t = {"dia": csr_on_card(band), "sell": csr_on_card(m_sell)}
     for kname, phase, base in (("spmm_dia_f32", "spmm_dia", "dia"),
                                ("spmm_sell_window_f32", "spmm_sell",
@@ -1173,6 +1223,8 @@ def main():
         log(f"[{phase}] torch.sparse.mm (CSR {np.dtype(dtype).name}, x as "
             f"(cols, 1)): {lib_ms:.4f} ms, rel err {err:.3g} vs float64, "
             f"on {card}")
+        library_device_us(phase, "torch.sparse.mm",
+                          lambda: torch.sparse.mm(a_t, x_col))
         del a_t
     # kernel G on the cached tier 2: torch.sparse.mm of the tier's matrix
     # (its plan's slots as a CSR over the tier's columns) over x[hot_cols]
@@ -1185,6 +1237,36 @@ def main():
     log(f"[cached] torch.sparse.mm of tier 2 (CSR float32, {m_t2.nnz} nnz "
         f"over {m_t2.shape[1]} columns, x[hot_cols] as (cols, 1)): "
         f"{lib_ms:.4f} ms, rel err {err:.3g} vs float64, on {card}")
+    library_device_us("cached", "torch.sparse.mm of tier 2",
+                      lambda: torch.sparse.mm(a_t, x_col))
+    # kernel D: torch.sparse.mm of the heavy rows' CSR (the slab's
+    # nonzeros, one row per heavy row with tiles) over x: D's sums
+    hv = heavy.vals.reshape(heavy.vals.shape[0], -1).cpu().numpy()
+    hc = (heavy.bases.long()[:, :, None] * 128 + heavy.cols_win.long())
+    hc = hc.reshape(hv.shape).cpu().numpy()
+    hr = np.repeat(heavy.tile_row.cpu().numpy(), hv.shape[1]).reshape(
+        hv.shape)
+    keep = hv != 0
+    m_heavy = sp.csr_matrix((hv[keep], (hr[keep], hc[keep])),
+                            shape=(heavy.rows.shape[0], a_chunk.shape[1]))
+    x_chunk_t = ops["chunk"][1]
+    want_h = m_heavy.astype(np.float64) @ x_chunk.astype(np.float64)
+    a_t, x_col = csr_on_card(m_heavy), x_chunk_t.reshape(-1, 1)
+    err = rel_err(torch.sparse.mm(a_t, x_col).reshape(-1), want_h)
+    assert err < Y_RTOL, err
+    # D's sums are what it adds to y: the plain version on a zero y
+    d_sums = heavy_plain(heavy.vals, heavy.cols_win, heavy.bases,
+                         heavy.tile_row, heavy.rows, x_chunk_t,
+                         torch.zeros_like(ys["chunk"]),
+                         semiring="plus_times")[heavy.rows.long()]
+    assert rel_err(d_sums, want_h) < Y_RTOL
+    lib_ms = min(time_ms(lambda: torch.sparse.mm(a_t, x_col)) for _ in "ab")
+    rows["spmv_subwin_f32"]["library_ms"] = lib_ms
+    log(f"[chunk] torch.sparse.mm of the heavy rows' CSR (float32, "
+        f"{m_heavy.nnz} nnz in {m_heavy.shape[0]} rows, x as (cols, 1)): "
+        f"{lib_ms:.4f} ms, rel err {err:.3g} vs float64, on {card}")
+    library_device_us("chunk", "torch.sparse.mm of the heavy rows",
+                      lambda: torch.sparse.mm(a_t, x_col))
     # kernel M: torch.sparse.mm of each shard's rows, their columns
     # shifted onto the shard's halo'd x, over that x; the four summed
     rps, halo = sp_dia.rows_per_shard, sp_dia.halo
@@ -1219,6 +1301,10 @@ def main():
     # kernel N on the random stream (no nonzeros: its rate is bytes/s)
     applies["stream_checksum"] = (
         lambda: checksum_stream(noise, STREAM_BLOCK), None, 1)
+    def kernel_g(key):
+        """A profiler key of kernel G or L, in either of its shapes."""
+        return "global_rows_kernel" in key or "global_runs_kernel" in key
+
     busy_us = {}
     for name, (apply, nnz, rhs) in applies.items():
         ms = time_ms(apply)
@@ -1226,10 +1312,12 @@ def main():
                 else f"{nnz * rhs / ms / 1e6:.2f} Gnnz/s (nnz={nnz}"
                 f"{f' x {rhs} RHS' if rhs > 1 else ''})")
         log(f"[{name}] apply: {ms:.4f} ms -> {rate} on {card}")
-        by_kernel = device_us_by_kernel(apply)
+        # a profiler session now and then records no device activity at
+        # all (seen on the deep phase on an H100): one more session
+        by_kernel = device_us_by_kernel(apply) or device_us_by_kernel(apply)
         if not by_kernel:
             log(f"[{name}] device time by kernel: not measured (the "
-                f"profiler saw no device activity)")
+                f"profiler saw no device activity, twice)")
             continue
         busy = busy_us[name] = sum(us for us, _ in by_kernel.values())
         log(f"[{name}] device busy {busy:.2f} us of a {ms * 1e3:.2f} us "
@@ -1249,7 +1337,20 @@ def main():
             # scatter_reduce (the segment reduce) nor index_add_ after it
             assert not any("scatter" in k.lower() or "indexFunc" in k
                            for k in by_kernel), (name, by_kernel)
-            assert any("global_runs_kernel" in k for k in by_kernel), name
+            assert any(kernel_g(k) for k in by_kernel), name
+        if name == "deep_f64":
+            # kernel L likewise: it alone, no index_add_ and no fill
+            assert len(by_kernel) == 1, by_kernel
+            assert kernel_g(next(iter(by_kernel))), by_kernel
+        if name == "chunk":
+            # one launch of kernel D, and the index_add_s of the light
+            # buckets' segment reduce and of the heavy merge alone
+            d = [n for k, (_, n) in by_kernel.items()
+                 if "heavy_runs_kernel" in k]
+            assert d == [1], by_kernel
+            adds = sum(n for k, (_, n) in by_kernel.items()
+                       if "indexFunc" in k)
+            assert adds == len(p_chunk.buckets) + 1, by_kernel
     for kname, plan in (("spmv_dia_f32", p_dia),
                         ("spmv_sell_window_f32", p_sell),
                         ("spmv_sell_global_f32", p_deep),

@@ -19,7 +19,7 @@
 //   parts >= 1:  y[s * R/parts + r] = (+)_{q < parts} S[s, q * R/parts + r]
 //                for rows < out_rows: the lane fold of a uniform-parts
 //                plan (parts = p) or the identity map (parts = 1)
-// from the work list of kernel H (ops/spmm_sell.py `tile_runs`, built at
+// from the work list of kernel H (ops/runs.py `tile_runs`, built at
 // placement): one int4 record {t0, t1, s0, s1} sums tiles [t0, t1) and
 // writes slices [s0, s1); a piece of a slice split over several records
 // (kAtomic) combines into an output preset to the semiring's init with
@@ -37,22 +37,39 @@
 // the L1 misses it saves on the cached tier 2, and x split over a
 // thread-block cluster's distributed shared memory took 2.4-2.8 times
 // as long on the deep and 2^19-column draws (4-byte remote reads).
-// Design: a persistent CTA takes records in a grid-stride loop; its 2
-// groups of R threads (one per lane, neighbouring threads on
-// neighbouring lanes, so every vals/cols load of a warp is 128
-// contiguous bytes) sum the record's tiles side by side, each issuing a
-// tile's column and value loads, eight positions at a time, before their
-// x gathers; the tile sums then meet in shared memory, where each
-// slice's are added in tile order and folded into rows.
+// Design: two shapes of one computation, chosen at launch from the
+// plan.  Neighbouring threads take neighbouring lanes, so every vals/cols
+// load of a warp is 128 contiguous bytes, and a thread issues a batch of
+// its tile's column and value loads before their x gathers (tile_sum).
+// * global_runs_kernel: a persistent CTA takes records in a grid-stride
+//   loop; its 2 groups of R threads sum the record's tiles side by side;
+//   the tile sums meet in shared memory, where each slice's are added in
+//   tile order and folded into rows.  It serves the lane fold of a
+//   uniform-parts plan and plans with no more records than CTAs resident
+//   at once (the cached tier 2: each record's chain of tiles halved).
+// * global_rows_kernel: one thread per (record, lane) sums each slice's
+//   tiles in tile order in registers and writes the row: no shared memory
+//   and no barrier, so no warp waits on another's gathers.  It serves the
+//   identity map and slice sums when records outnumber the resident CTAs
+//   (the deep draws: G 7-8 % and L 16-17 % faster than in
+//   global_runs_kernel, PERF.md).
 
-// Kernel L replaces the double-float stream kernel `_make_stream_kernel_df`
-// (run by `_spmv_stream_df` over hi/lo x pre-gathered at `cols`): per-tile
-// sums over a double plan, whose vals are (T, 2P, R) hi/lo float32 pairs
-// (values.cuh) while cols stays (T, P, R), reading a float64 x at `cols`
-// directly, one thread per output lane, and writing float64 partials for
-// the slice reduction that follows.  The port runs every windowless
-// double plan on it, whatever strategy name the operator hands over.
-// Bound: 12 B per slot read once.
+// Kernel L is kernel G's body under the float64 pair policy (values.cuh),
+// plus_times only.  It replaces the double-float stream kernel
+// `_make_stream_kernel_df` (run by `_spmv_stream_df` over hi/lo x
+// pre-gathered at `cols`) and the slice reduction after it: a double
+// plan's vals are (T, 2P, R) hi/lo float32 pairs (the lo word
+// positions * lanes floats after its hi word) while cols stays
+// (T, P, R); L reads a float64 x at `cols` directly, sums, keeps tile and
+// slice sums in shared memory and writes y in float64, and combines a
+// split slice's pieces with a float64 atomicAdd into an output preset to
+// 0.0.  The port runs every windowless double plan on it, whatever
+// strategy name the operator hands over.  Bound: 12 B per slot (hi, lo,
+// column) read once, x's distinct entries and y once; as for G, the
+// x gathers through L1/L2 bound it (a 32-byte sector per 8-byte x entry
+// on uniform columns; x is 2 MB of float64 on the deep draw, past a
+// CTA's 227 KB of shared memory, and the on-chip homes of x lost to L2
+// for G on the same draw, PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -69,33 +86,79 @@ namespace {
 constexpr int kAtomic = 1 << 30;
 // threads of kernel G's CTA: 2 groups of 128 lanes, each summing a tile
 constexpr int kThreadsG = 256;
-// slots whose column and value loads a thread issues before their gathers
+// slots whose column and value loads a thread of global_runs_kernel
+// issues before their gathers (global_rows_kernel: 16 bytes of values, 4
+// floats or 2 doubles, which measured best for L on the deep draw and
+// tied for G, PERF.md)
 constexpr int kBatch = 8;
 // Hopper's shared memory per block
 constexpr size_t kMaxSmem = 227 * 1024;
-// kernel L's CTA
-constexpr int kThreads = 256;
+
+// Tile t's sum over its positions at `lane`: batches of `batch` column
+// and value loads, each batch issued before its x gathers.
+template <class S, class V, int batch>
+__device__ __forceinline__ typename V::T tile_sum(
+    const float* __restrict__ vals, const int* __restrict__ cols,
+    const typename V::T* __restrict__ x, long long t, int lane,
+    int positions, int lanes, long long ncols) {
+    using T = typename V::T;
+    const long long slots = (long long)positions * lanes;   // one channel
+    const float* v = vals + t * slots * V::kChannels + lane;
+    const int* c = cols + t * slots + lane;
+    T acc = S::init();
+    for (int p0 = 0; p0 < positions; p0 += batch) {
+        int cc[batch];
+        T vv[batch];
+#pragma unroll
+        for (int u = 0; u < batch; ++u) {
+            const bool ok = p0 + u < positions;
+            cc[u] = ok ? __ldg(c + (p0 + u) * lanes) : -1;
+            vv[u] = ok ? V::load(v + (p0 + u) * lanes, slots) : T(0);
+        }
+#pragma unroll
+        for (int u = 0; u < batch; ++u)
+            if (p0 + u < positions)
+                acc = S::step(acc, vv[u],
+                              cc[u] >= 0 && cc[u] < ncols ? __ldg(x + cc[u])
+                                                          : T(0));
+    }
+    return acc;
+}
+
+// The output of one row of a slice: written, or combined with the
+// semiring's atomic into an output preset to its init (a split slice).
+template <class S, class T>
+__device__ __forceinline__ void put(T* out, long long row, T acc,
+                                   bool atomic) {
+    if (atomic)
+        S::atomic(out + row, S::finish(acc));
+    else
+        out[row] = S::finish(acc);
+}
 
 // blockIdx.x = a persistent CTA; threadIdx.x = group g * lanes + lane.
 // Shared memory: a record's tile sums (max_tiles rows of `lanes`), its
-// slice sums (max_slices rows), then its tile_slice entries.
-template <class S>
+// slice sums (max_slices rows), both in the policy's type V::T, then its
+// tile_slice entries.  V::load reads a slot's value (F32Values: kernel G;
+// PairValues: kernel L, its lo word `slots` floats after the hi word).
+template <class S, class V>
 __global__ void __launch_bounds__(kThreadsG)
 global_runs_kernel(const float* __restrict__ vals,
                    const int* __restrict__ cols,
                    const int* __restrict__ tile_slice,
-                   const int4* __restrict__ runs, const float* __restrict__ x,
-                   float* __restrict__ out, long long num_runs, int positions,
-                   int lanes, long long ncols, int parts, long long out_rows,
-                   int max_tiles, int max_slices) {
-    extern __shared__ __align__(16) float smem[];
+                   const int4* __restrict__ runs,
+                   const typename V::T* __restrict__ x,
+                   typename V::T* __restrict__ out, long long num_runs,
+                   int positions, int lanes, long long ncols, int parts,
+                   long long out_rows, int max_tiles, int max_slices) {
+    using T = typename V::T;
+    extern __shared__ __align__(16) unsigned char smem[];
     const int groups = blockDim.x / lanes;
     const int g = threadIdx.x / lanes;
     const int lane = threadIdx.x - g * lanes;
-    float* part = smem;                                // tile sums
-    float* sums = part + max_tiles * lanes;            // slice sums
+    T* part = reinterpret_cast<T*>(smem);              // tile sums
+    T* sums = part + max_tiles * lanes;                // slice sums
     int* ts = reinterpret_cast<int*>(sums + max_slices * lanes);
-    const long long slots = (long long)positions * lanes;
     for (long long rec = blockIdx.x; rec < num_runs; rec += gridDim.x) {
         const int4 run = __ldg(runs + rec);
         const int nt = run.y - run.x;
@@ -106,34 +169,13 @@ global_runs_kernel(const float* __restrict__ vals,
                                                       threadIdx.x);
         // 1. each group sums whole tiles of the record, its positions'
         // column and value loads issued before their x gathers
-        for (int j = g; j < nt; j += groups) {
-            const long long t = run.x + j;
-            const float* v = vals + t * slots + lane;
-            const int* c = cols + t * slots + lane;
-            float acc = S::init();
-            for (int p0 = 0; p0 < positions; p0 += kBatch) {
-                int cc[kBatch];
-                float vv[kBatch];
-#pragma unroll
-                for (int u = 0; u < kBatch; ++u) {
-                    const bool ok = p0 + u < positions;
-                    cc[u] = ok ? __ldg(c + (p0 + u) * lanes) : -1;
-                    vv[u] = ok ? __ldg(v + (p0 + u) * lanes) : 0.0f;
-                }
-#pragma unroll
-                for (int u = 0; u < kBatch; ++u)
-                    if (p0 + u < positions)
-                        acc = S::step(
-                            acc, vv[u],
-                            cc[u] >= 0 && cc[u] < ncols ? __ldg(x + cc[u])
-                                                        : 0.0f);
-            }
-            part[j * lanes + lane] = acc;
-        }
+        for (int j = g; j < nt; j += groups)
+            part[j * lanes + lane] = tile_sum<S, V, kBatch>(
+                vals, cols, x, run.x + j, lane, positions, lanes, ncols);
         __syncthreads();
         // 2. each slice's tiles, in tile order
         for (int si = g; si < ns; si += groups) {
-            float acc = S::init();
+            T acc = S::init();
             for (int j = 0; j < nt; ++j)
                 if (ts[j] == s0 + si)
                     acc = S::add(acc, part[j * lanes + lane]);
@@ -144,18 +186,44 @@ global_runs_kernel(const float* __restrict__ vals,
         const int rps = parts > 1 ? lanes / parts : lanes;
         for (int e = threadIdx.x; e < ns * rps; e += blockDim.x) {
             const int si = e / rps, r = e - si * rps;
-            float acc = sums[si * lanes + r];
+            T acc = sums[si * lanes + r];
             for (int q = 1; q < parts; ++q)
                 acc = S::add(acc, sums[si * lanes + q * rps + r]);
             const long long row = (long long)(s0 + si) * rps + r;
-            if (parts == 0 || row < out_rows) {
-                if (atomic)
-                    S::atomic(out + row, S::finish(acc));
-                else
-                    out[row] = S::finish(acc);
-            }
+            if (parts == 0 || row < out_rows) put<S>(out, row, acc, atomic);
         }
         __syncthreads();                // before the next record's sums
+    }
+}
+
+// parts <= 1.  blockIdx.x * (blockDim.x / lanes) + threadIdx.x / lanes =
+// the record, threadIdx.x % lanes = the lane; a warp holds one record.
+template <class S, class V>
+__global__ void __launch_bounds__(kThreadsG)
+global_rows_kernel(const float* __restrict__ vals,
+                   const int* __restrict__ cols,
+                   const int* __restrict__ tile_slice,
+                   const int4* __restrict__ runs,
+                   const typename V::T* __restrict__ x,
+                   typename V::T* __restrict__ out, long long num_runs,
+                   int positions, int lanes, long long ncols, int parts,
+                   long long out_rows) {
+    using T = typename V::T;
+    const long long rec = (long long)blockIdx.x * (blockDim.x / lanes) +
+                          threadIdx.x / lanes;
+    const int lane = threadIdx.x % lanes;
+    if (rec >= num_runs) return;
+    const int4 run = __ldg(runs + rec);
+    const bool atomic = (run.w & kAtomic) != 0;
+    const int s1 = run.w & ~kAtomic;
+    for (int s = run.z, t = run.x; s < s1; ++s) {
+        T acc = S::init();
+        for (; t < run.y && __ldg(tile_slice + t) == s; ++t)
+            acc = S::add(acc, tile_sum<S, V, (int)(16 / sizeof(T))>(
+                                  vals, cols, x, t, lane, positions, lanes,
+                                  ncols));
+        const long long row = (long long)s * lanes + lane;
+        if (parts == 0 || row < out_rows) put<S>(out, row, acc, atomic);
     }
 }
 
@@ -186,17 +254,18 @@ int resident(const void* fn, int threads, size_t smem) {
     return sms * per_sm;
 }
 
-template <class S>
+template <class S, class V>
 cudaError_t launch_runs(const float* vals, const int* cols,
                         const int* tile_slice, const int* runs,
-                        const float* x, float* out, long long num_runs,
-                        int positions, int lanes, long long ncols, int parts,
-                        long long out_rows, int max_tiles, int max_slices,
-                        cudaStream_t stream) {
-    auto fn = global_runs_kernel<S>;
+                        const typename V::T* x, typename V::T* out,
+                        long long num_runs, int positions, int lanes,
+                        long long ncols, int parts, long long out_rows,
+                        int max_tiles, int max_slices, cudaStream_t stream) {
+    auto fn = global_runs_kernel<S, V>;
     const int threads = max(1, kThreadsG / lanes) * lanes;
-    const size_t smem = ((size_t)(max_tiles + max_slices) * lanes +
-                         (max_tiles + 3) / 4 * 4) * sizeof(float);
+    const size_t smem =
+        (size_t)(max_tiles + max_slices) * lanes * sizeof(typename V::T) +
+        (size_t)(max_tiles + 3) / 4 * 4 * sizeof(int);
     if (smem > kMaxSmem) return cudaErrorInvalidValue;
     if (smem > 48 * 1024) {
         cudaError_t err = cudaFuncSetAttribute(
@@ -205,6 +274,16 @@ cudaError_t launch_runs(const float* vals, const int* cols,
     }
     const int fit = resident((const void*)fn, threads, smem);
     if (fit <= 0) return cudaErrorInvalidConfiguration;
+    if (parts <= 1 && num_runs > fit) {
+        // more records than resident CTAs: one thread per (record, lane)
+        const int per = threads / lanes;
+        global_rows_kernel<S, V>
+            <<<(unsigned)((num_runs + per - 1) / per), threads, 0,
+               stream>>>(
+            vals, cols, tile_slice, reinterpret_cast<const int4*>(runs), x,
+            out, num_runs, positions, lanes, ncols, parts, out_rows);
+        return cudaSuccess;
+    }
     // as many CTAs as fit at once, and no more than there are records
     const long long n = num_runs < fit ? num_runs : fit;
     fn<<<(unsigned)n, threads, smem, stream>>>(
@@ -214,35 +293,15 @@ cudaError_t launch_runs(const float* vals, const int* cols,
     return cudaSuccess;
 }
 
-// thread i computes output element i = row * lanes + lane of kernel L's
-// per-tile partials; a row is a tile (tiles_per_row = 1) or a group of
-// wg tiles (tiles_per_row = wg).
-template <class S, class V>
-__global__ void global_kernel(const float* __restrict__ vals,
-                              const int* __restrict__ cols,
-                              const typename V::T* __restrict__ x,
-                              typename V::T* __restrict__ out,
-                              long long n_out, int positions, int lanes,
-                              int tiles_per_row, long long ncols) {
-    using T = typename V::T;
-    long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-    if (i >= n_out) return;
-    long long row = i / lanes;
-    int lane = (int)(i - row * lanes);
-    const long long pr = (long long)positions * lanes;  // one channel
-    long long t0 = row * tiles_per_row;
-    long long slot = t0 * pr + lane;
-    const float* v = vals + t0 * V::kChannels * pr + lane;
-    T acc = S::init();
-    for (int tt = 0; tt < tiles_per_row; ++tt, v += (V::kChannels - 1) * pr) {
-#pragma unroll 8
-        for (int p = 0; p < positions; ++p, slot += lanes, v += lanes) {
-            long long c = __ldg(cols + slot);
-            T xv = (c >= 0 && c < ncols) ? __ldg(x + c) : T(0);
-            acc = S::step(acc, V::load(v, pr), xv);
-        }
-    }
-    out[i] = acc;
+// the entry points' shared refusals: 0, or a cudaError_t
+int refuse(const int* runs, int positions, int lanes, int parts,
+           int max_tiles, int max_slices) {
+    if (positions < 1 || lanes < 32 || lanes % 32 || lanes > kThreadsG ||
+        max_tiles < 0 || max_tiles > kThreadsG || max_slices < 0 ||
+        parts < 0 || (parts > 1 && lanes % parts))
+        return (int)cudaErrorInvalidValue;
+    if ((uintptr_t)runs % 16) return (int)cudaErrorMisalignedAddress;
+    return 0;
 }
 
 }  // namespace
@@ -261,15 +320,13 @@ extern "C" int spmv_sell_global_f32(const float* vals, const int* cols,
                                     long long out_rows, int max_tiles,
                                     int max_slices, int semiring,
                                     void* stream) {
-    if (positions < 1 || lanes < 32 || lanes % 32 || lanes > kThreadsG ||
-        max_tiles < 0 || max_tiles > kThreadsG || max_slices < 0 ||
-        parts < 0 || (parts > 1 && lanes % parts))
-        return (int)cudaErrorInvalidValue;
-    if ((uintptr_t)runs % 16) return (int)cudaErrorMisalignedAddress;
+    if (int bad = refuse(runs, positions, lanes, parts, max_tiles,
+                         max_slices))
+        return bad;
     if (num_runs <= 0) return (int)cudaGetLastError();
     cudaError_t err = cudaErrorInvalidValue;
     cudaError_t bad = spmv::with_semiring(semiring, [&](auto sr) {
-        err = launch_runs<decltype(sr)>(
+        err = launch_runs<decltype(sr), spmv::F32Values>(
             vals, cols, tile_slice, runs, x, out, num_runs, positions, lanes,
             ncols, parts, out_rows, max_tiles, max_slices,
             (cudaStream_t)stream);
@@ -279,20 +336,26 @@ extern "C" int spmv_sell_global_f32(const float* vals, const int* cols,
     return (int)cudaGetLastError();
 }
 
-// vals: the double plan's (tiles, 2*positions, lanes) hi/lo slab; cols:
-// (tiles, positions, lanes); x: float64; out: (tiles, lanes) float64
-// per-tile partials; plus_times
+// Kernel L: as spmv_sell_global_f32, plus_times, over a double plan:
+// vals the (tiles, 2*positions, lanes) hi/lo slab, cols (tiles,
+// positions, lanes), x and out float64 (out preset to 0.0 by the caller
+// when a record carries kAtomic)
 extern "C" int spmv_sell_global_f64(const float* vals, const int* cols,
+                                    const int* tile_slice, const int* runs,
                                     const double* x, double* out,
-                                    long long tiles, int positions,
-                                    int lanes, long long ncols,
-                                    void* stream) {
-    long long n_out = tiles * lanes;
-    if (n_out > 0) {
-        unsigned blocks = (unsigned)((n_out + kThreads - 1) / kThreads);
-        global_kernel<spmv::PlusTimesF64, spmv::PairValues>
-            <<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-                vals, cols, x, out, n_out, positions, lanes, 1, ncols);
-    }
+                                    long long num_runs, int positions,
+                                    int lanes, long long ncols, int parts,
+                                    long long out_rows, int max_tiles,
+                                    int max_slices, void* stream) {
+    if (int bad = refuse(runs, positions, lanes, parts, max_tiles,
+                         max_slices))
+        return bad;
+    if (num_runs <= 0) return (int)cudaGetLastError();
+    cudaError_t err =
+        launch_runs<spmv::PlusTimesF64, spmv::PairValues>(
+            vals, cols, tile_slice, runs, x, out, num_runs, positions, lanes,
+            ncols, parts, out_rows, max_tiles, max_slices,
+            (cudaStream_t)stream);
+    if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
 }

@@ -1,22 +1,39 @@
 // Heavy-row subwindow SpMV for Hopper (sm_90a), plain C interface bound
-// with ctypes.
+// with ctypes: kernel D.
 //
 // Replaces the Pallas kernel `_make_subwin_kernel` as run by
-// `_subwin_partials` (spmv_vector_cache_tpu/ops/spmv_pallas.py), the
-// ChunkPlan's heavy-row tiles; it returns what that function returns:
-//   out[t, l] = (+)_p vals[t, p, l] (x) x[bases[t, p]*128 + cols_win[t, p, l]]
-// per tile, (T, 128).  Each position row p of a tile has its own window
-// base; x reads as 0 at columns >= cols, as in the reference's x image
-// zero-padded by W blocks.  Padding slots carry the semiring's zero and
-// offset 0.
+// `_subwin_partials` (spmv_vector_cache_tpu/ops/spmv_pallas.py) once per
+// W bucket of a ChunkPlan's heavy rows, together with what `_spmv_chunk`
+// does to its (T, 128) per-tile partials afterwards: each bucket's segment
+// reduce over the unified segment space, the add across buckets, and the
+// heavy rows' lane fold.  Kernel D runs once per apply over all the
+// plan's heavy subwindow tiles, which placement gathers into one slab
+// (ops/runs.py `heavy_tiles`: the buckets' real tiles, stably ordered by
+// heavy row, padding dropped) with kernel G's work list over it: one
+// int4 record {t0, t1, s0, s1} sums tiles [t0, t1) and heavy rows
+// [s0, s1).  A tile t adds
+//   (+)_{p, l} vals[t, p, l] (x) x[bases[t, p] * 128 + cols_win[t, p, l]]
+// to heavy row tile_row[t], and for each heavy row k the kernel writes
+//   y[rows[k]] = y[rows[k]] (+) finish(sum of row k's tiles)
+// in place, after the apply's light part has written y.  A row of more
+// than RUN_CAP tiles is split over records (kAtomic) that each combine
+// with the semiring's atomic (semiring.cuh).  x reads as 0 at columns
+// >= ncols, as in the reference's x image zero-padded by W blocks;
+// padding slots carry the semiring's zero and offset 0.
 //
-// Bound: the nonzero stream, 6 B per slot (f32 value + int16 offset),
-// read once; a position row's 128 columns are consecutive in a heavy
-// row, so its x reads fall within W blocks and are served by L1/L2.
-// Design: as kernel B (spmv_sell_window.cu) — one block of 128 threads
-// per tile, one thread per lane, a loop over the 8 positions; the
-// reference's pre-gathered W-block x windows and select tree exist only
-// for Mosaic and are not carried over: x is read directly.
+// Bound: the slab, 6 B per slot (f32 value + int16 offset) and 4 B per
+// position row (its base), read once, x's distinct entries and the
+// heavy rows of y; a position row's 128 columns are consecutive in a
+// heavy row, so its x reads fall within W blocks and are served by
+// L1/L2.  The reference's pre-gathered W-block x windows and select tree
+// exist only for Mosaic and are not carried over: x is read directly.
+// A ChunkPlan has few heavy tiles (52 on scircuit_like), so the kernel is
+// bound by latency: one launch instead of one per bucket, up to 8 tiles
+// of a record side by side in a CTA (one group of `lanes` threads each,
+// a tile's bases, offsets and values loaded before its x reads), the
+// record's heavy rows of y loaded while the tiles are, and the tiles'
+// sums folded over lanes with warp shuffles and over tiles in shared
+// memory, in tile order, so no partials reach device memory.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -26,42 +43,133 @@
 namespace {
 
 constexpr long long kBlock = 128;     // columns per x block of `bases`
+// bit 30 of a run record's fourth word: one piece of a split row
+constexpr int kAtomic = 1 << 30;
+// most tiles a CTA sums side by side, one group of `lanes` threads each
+constexpr int kMaxGroups = 8;
+// most tiles of one record, and most warps of one tile
+constexpr int kMaxTiles = 256;
+constexpr int kMaxWarps = 8;
+// slots whose loads a thread issues before their x reads
+constexpr int kBatch = 8;
 
+// blockIdx.x: records in a grid-stride loop; threadIdx.x = group g *
+// lanes + lane
 template <class S>
-__global__ void subwin_kernel(const float* __restrict__ vals,
-                              const int16_t* __restrict__ cols_win,
-                              const int* __restrict__ bases,
-                              const float* __restrict__ x,
-                              float* __restrict__ out, int positions,
-                              int lanes, long long cols) {
-    long long t = blockIdx.x;
-    int lane = threadIdx.x;
-    const int* base = bases + t * positions;
-    long long slot = t * positions * lanes + lane;
-    float acc = S::init();
-    for (int p = 0; p < positions; ++p, slot += lanes) {
-        long long c = (long long)__ldg(base + p) * kBlock +
-                      (long long)__ldg(cols_win + slot);
-        float xv = c < cols ? __ldg(x + c) : 0.0f;
-        acc = S::step(acc, __ldg(vals + slot), xv);
+__global__ void __launch_bounds__(kMaxGroups * 128)
+heavy_runs_kernel(const float* __restrict__ vals,
+                  const int16_t* __restrict__ cols_win,
+                  const int* __restrict__ bases,
+                  const int* __restrict__ tile_row,
+                  const int* __restrict__ rows,
+                  const int4* __restrict__ runs, const float* __restrict__ x,
+                  float* __restrict__ y, long long num_runs, int positions,
+                  int lanes, long long ncols) {
+    __shared__ float wsum[kMaxTiles * kMaxWarps];   // a tile's warp sums
+    __shared__ int ts[kMaxTiles];
+    const int groups = blockDim.x / lanes;
+    const int g = threadIdx.x / lanes;
+    const int lane = threadIdx.x - g * lanes;
+    const int warps = lanes / 32;
+    const long long slots = (long long)positions * lanes;
+    for (long long rec = blockIdx.x; rec < num_runs; rec += gridDim.x) {
+        const int4 run = __ldg(runs + rec);
+        const int nt = run.y - run.x;
+        const int s0 = run.z;
+        const int ns = (run.w & ~kAtomic) - s0;
+        const bool atomic = (run.w & kAtomic) != 0;
+        for (int j = threadIdx.x; j < nt; j += blockDim.x)
+            ts[j] = __ldg(tile_row + run.x + j);
+        // thread si < ns writes heavy row s0 + si: its row of y, and the
+        // value there, ahead of the sums (ns <= blockDim.x, checked)
+        float* dst = nullptr;
+        float old = 0.0f;
+        if (threadIdx.x < ns) {
+            dst = y + __ldg(rows + s0 + threadIdx.x);
+            if (!atomic) old = *dst;
+        }
+        // 1. each group sums whole tiles, a batch of positions' bases,
+        // offsets and values loaded before their x reads
+        for (int j = g; j < nt; j += groups) {
+            const long long t = run.x + j;
+            const int* base = bases + t * positions;
+            const long long slot = t * slots + lane;
+            float acc = S::init();
+            for (int p0 = 0; p0 < positions; p0 += kBatch) {
+                long long cc[kBatch];
+                float vv[kBatch];
+#pragma unroll
+                for (int u = 0; u < kBatch; ++u) {
+                    const bool ok = p0 + u < positions;
+                    const long long s = slot + (long long)(p0 + u) * lanes;
+                    cc[u] = ok ? (long long)__ldg(base + p0 + u) * kBlock +
+                                     __ldg(cols_win + s)
+                               : ncols;
+                    vv[u] = ok ? __ldg(vals + s) : 0.0f;
+                }
+#pragma unroll
+                for (int u = 0; u < kBatch; ++u)
+                    if (p0 + u < positions)
+                        acc = S::step(acc, vv[u],
+                                      cc[u] < ncols ? __ldg(x + cc[u])
+                                                    : 0.0f);
+            }
+            // the tile's lanes: a warp's 32 by shuffles, then its warps
+            for (int off = 16; off > 0; off >>= 1)
+                acc = S::add(acc, __shfl_xor_sync(0xffffffffu, acc, off));
+            if ((lane & 31) == 0) wsum[j * warps + lane / 32] = acc;
+        }
+        __syncthreads();
+        // 2. each heavy row of the record: its tiles in tile order
+        if (threadIdx.x < ns) {
+            float acc = S::init();
+            for (int j = 0; j < nt; ++j)
+                if (ts[j] == s0 + (int)threadIdx.x)
+                    for (int w = 0; w < warps; ++w)
+                        acc = S::add(acc, wsum[j * warps + w]);
+            if (atomic)
+                S::atomic(dst, S::finish(acc));
+            else
+                *dst = S::add(old, S::finish(acc));
+        }
+        __syncthreads();            // before the next record's tile sums
     }
-    out[t * lanes + lane] = acc;
 }
 
 }  // namespace
 
-// semiring: a code of semiring.cuh
+// vals, cols_win: (tiles, positions, lanes) float32 / int16; bases:
+// (tiles, positions) int32; tile_row: (tiles,) int32, nondecreasing;
+// rows: (heavy rows,) int32 rows of y; runs: (num_runs, 4) int32 records
+// of at most max_tiles tiles and max_slices heavy rows each; x: (ncols,);
+// y: updated in place.
+// lanes a multiple of 32, at most 256; runs 16-byte aligned.  semiring:
+// a code of semiring.cuh
 extern "C" int spmv_subwin_f32(const float* vals, const int16_t* cols_win,
-                               const int* bases, const float* x, float* out,
-                               long long tiles, int positions, int lanes,
-                               long long cols, int semiring, void* stream) {
-    if (tiles > 0) {
-        cudaError_t err = spmv::with_semiring(semiring, [&](auto s) {
-            subwin_kernel<decltype(s)>
-                <<<(unsigned)tiles, lanes, 0, (cudaStream_t)stream>>>(
-                    vals, cols_win, bases, x, out, positions, lanes, cols);
-        });
-        if (err != cudaSuccess) return (int)err;
-    }
+                               const int* bases, const int* tile_row,
+                               const int* rows, const int* runs,
+                               const float* x, float* y, long long num_runs,
+                               int positions, int lanes, long long ncols,
+                               int max_tiles, int max_slices, int semiring,
+                               void* stream) {
+    if (positions < 1 || lanes < 32 || lanes % 32 ||
+        lanes > 32 * kMaxWarps || max_tiles < 1 || max_tiles > kMaxTiles ||
+        max_slices < 1 || max_slices > lanes)
+        return (int)cudaErrorInvalidValue;
+    if ((uintptr_t)runs % 16) return (int)cudaErrorMisalignedAddress;
+    if (num_runs <= 0) return (int)cudaGetLastError();
+    // a group per tile of the longest record, as many as a CTA holds
+    int groups = max_tiles < kMaxGroups ? max_tiles : kMaxGroups;
+    if (groups * lanes > kMaxGroups * 128) groups = kMaxGroups * 128 / lanes;
+    const unsigned blocks =
+        (unsigned)(num_runs < (1LL << 20) ? num_runs : (1LL << 20));
+    cudaError_t err = spmv::with_semiring(semiring, [&](auto s) {
+        heavy_runs_kernel<decltype(s)>
+            <<<blocks, groups * lanes, 0, (cudaStream_t)stream>>>(
+                vals, cols_win, bases, tile_row, rows,
+                reinterpret_cast<const int4*>(runs), x, y, num_runs,
+                positions, lanes, ncols);
+    });
+    if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
 }

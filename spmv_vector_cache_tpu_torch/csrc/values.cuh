@@ -41,12 +41,17 @@ __device__ inline double madd(double v, double x, double acc) {
     return fma(v, x, acc);
 }
 
-// plus_times over float64, the one semiring of the double plans
+// plus_times over float64, the one semiring of the double plans, with
+// the add, atomic and finish of semiring.cuh's float32 semirings (kernel
+// L combines a split slice's pieces with a float64 atomicAdd)
 struct PlusTimesF64 {
     static __device__ double init() { return 0.0; }
     static __device__ double step(double acc, double v, double x) {
         return madd(v, x, acc);
     }
+    static __device__ double add(double a, double b) { return a + b; }
+    static __device__ void atomic(double* p, double v) { atomicAdd(p, v); }
+    static __device__ double finish(double v) { return v; }
 };
 
 }  // namespace spmv

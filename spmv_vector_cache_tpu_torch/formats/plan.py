@@ -110,8 +110,9 @@ def place(plan, device):
     (nested plans included) — done once, by ``SparseOperator``.  The
     per-plan work of the kernels is done here, once: a ChunkPlan's
     ``perm_idx`` is checked for kernel C, which reads it unchecked on
-    every apply, and the work list of kernels G and H is built for every
-    float32 SellPlan in it."""
+    every apply, the work list of kernels G, H and L is built for every
+    SellPlan in it, and a ChunkPlan's heavy tiles are gathered into
+    kernel D's slab, with its work list (``ops/runs.py``)."""
     from ..ops.runs import place_plan_runs
     from .chunk import ChunkPlan, check_perm_idx
 

@@ -50,9 +50,10 @@ SIGNATURES = {
                              _L, _I, _P],
     # y2d, idx, out, n, stream
     "lane_unpermute_f32": [_P, _P, _P, _L, _P],
-    # vals, cols_win, bases, x, out, tiles, positions, lanes, cols,
-    # semiring, stream
-    "spmv_subwin_f32": [_P, _P, _P, _P, _P, _L, _I, _I, _L, _I, _P],
+    # vals, cols_win, bases, tile_row, rows, runs, x, y, num_runs,
+    # positions, lanes, ncols, max_tiles, max_slices, semiring, stream
+    "spmv_subwin_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _L, _I,
+                        _I, _I, _P],
     # vals, cols, cstep, x, out, rows, rows_per_step, chunk_cols, ncols,
     # stream
     "packed_scan_f32": [_P, _P, _P, _P, _P, _L, _I, _L, _L, _P],
@@ -71,9 +72,11 @@ SIGNATURES = {
     # stream
     "spmv_sell_window_f64": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I,
                              _L, _P],
-    # vals (hi/lo pairs), cols, x, out (float64), tiles, positions, lanes,
-    # cols, stream
-    "spmv_sell_global_f64": [_P, _P, _P, _P, _L, _I, _I, _L, _P],
+    # vals (hi/lo pairs), cols, tile_slice, runs, x, out (float64),
+    # num_runs, positions, lanes, ncols, parts, out_rows, max_tiles,
+    # max_slices, stream
+    "spmv_sell_global_f64": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _L, _I, _L,
+                             _I, _I, _P],
     # vals, b, offsets, bands, y, rows, cols, k, ndiag, rows_per_step,
     # nbands, rows_per_cta, cols_per_thread, threads_per_row, stride,
     # buf_rows, band_diags, buffers, stream

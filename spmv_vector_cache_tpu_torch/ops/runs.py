@@ -1,13 +1,16 @@
-"""The work list of kernels G and H: which CTA sums which tiles.
+"""The work lists of kernels D, G, H and L: which CTA sums which tiles.
 
 The tiles of one slice of a SellPlan are one contiguous run
-(``tile_slice`` is nondecreasing).  Kernel H (``csrc/spmm_sell_window.cu``)
-and kernel G (``csrc/spmv_sell_global.cu``) sum each slice's run
-themselves, so that no per-tile partials reach device memory, and take
-their runs from one work list per placed plan: :func:`tile_runs` builds
-it from ``tile_slice``, :func:`place_plan_runs` at placement
-(``formats.plan.place``, ``parallel.place_on_mesh``), and
-:func:`runs_on` hands it to a launch.
+(``tile_slice`` is nondecreasing).  Kernel H (``csrc/spmm_sell_window.cu``),
+kernel G and its float64 build L (``csrc/spmv_sell_global.cu``) sum each
+slice's run themselves, so that no per-tile partials reach device
+memory, and take their runs from one work list per placed plan:
+:func:`tile_runs` builds it from ``tile_slice``, :func:`place_plan_runs`
+at placement (``formats.plan.place``, ``parallel.place_on_mesh``), and
+:func:`runs_on` hands it to a launch.  Kernel D (``csrc/spmv_subwin.cu``)
+does the same over a ChunkPlan's heavy subwindow tiles, which placement
+gathers into one slab per plan (:func:`heavy_tiles`, :func:`heavy_on`),
+each heavy row's tiles one run.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
 from ..formats.cached import CachedPlan
+from ..formats.chunk import ChunkPlan
 from ..formats.dia import HybridPlan
 from ..formats.plan import SellPlan
 
@@ -105,19 +109,20 @@ def place_runs(tile_slice: torch.Tensor, num_slices: int) -> None:
 
 
 def place_plan_runs(plan) -> None:
-    """:func:`place_runs` for every float32 SellPlan of a placed plan —
-    the plan itself, a HybridPlan's rest, a CachedPlan's tiers — which
-    kernel G (any strategy but 'window') or kernel H (``op @ B`` on a
-    window plan) may run.  A double SellPlan gets none: kernel L writes
-    per-tile partials."""
+    """:func:`place_runs` for every SellPlan of a placed plan — the plan
+    itself, a HybridPlan's rest, a CachedPlan's tiers — which kernel G or
+    L (any strategy but 'window') or kernel H (``op @ B`` on a window
+    plan) may run, and :func:`place_heavy` for a ChunkPlan."""
     if isinstance(plan, HybridPlan):
         place_plan_runs(plan.rest)
     elif isinstance(plan, CachedPlan):
         place_plan_runs(plan.hot)
         if plan.cold is not None:
             place_plan_runs(plan.cold)
-    elif isinstance(plan, SellPlan) and not plan.stats.double:
+    elif isinstance(plan, SellPlan):
         place_runs(plan.tile_slice, plan.num_slices)
+    elif isinstance(plan, ChunkPlan):
+        place_heavy(plan)
 
 
 def runs_on(tile_slice: torch.Tensor, num_slices: int) -> WorkList:
@@ -125,8 +130,99 @@ def runs_on(tile_slice: torch.Tensor, num_slices: int) -> WorkList:
     no placement saw."""
     hit = _RUNS.get(tile_slice)
     if hit is None or hit.num_slices != num_slices:
-        raise ValueError("the work list of kernels G and H is built when "
-                         "their plan is placed: place the plan with "
+        raise ValueError("the work list of kernels D, G, H and L is built "
+                         "when their plan is placed: place the plan with "
                          "formats.plan.place (parallel.place_on_mesh for a "
                          "sharded plan)")
     return hit
+
+
+# ---------------------------------------------------------------------------
+# kernel D: a ChunkPlan's heavy subwindow tiles as one slab
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class HeavyTiles:
+    """A placed ChunkPlan's heavy subwindow tiles, every W bucket's real
+    tiles in one slab on the plan's device, stably ordered by heavy row
+    (kernel D reads x at ``bases * 128 + cols_win`` whatever the
+    bucket's W, so the buckets differ only in their tiles).  Its work
+    list is :func:`runs_on` ``(tile_row, rows.shape[0])``."""
+
+    vals: torch.Tensor        # (T, P, R) float32
+    cols_win: torch.Tensor    # (T, P, R) int16 offsets from the base
+    bases: torch.Tensor       # (T, P) int32 base blocks of 128 columns
+    tile_row: torch.Tensor    # (T,) int32 entry of ``rows``, nondecreasing
+    rows: torch.Tensor        # (K,) int32 y rows of the heavy rows with tiles
+
+
+def padding_tiles(h, num_segments: int) -> int:
+    """How many tiles at the end of SubwinPlan ``h`` are padding: the
+    builder rounds a bucket to its grid step with tiles of one value
+    (the plan's pad value, the semiring's zero) at offset 0 of base 0,
+    mapped to the last segment (``formats/chunk.py``).  A trailing tile
+    of the last heavy row that looks the same holds no column but 0
+    and one value in all 1024 slots."""
+    T = h.vals.shape[0]
+    flat = h.vals.reshape(T, -1)
+    pad = ((flat == flat[:, :1]).all(1) & (h.cols_win.reshape(T, -1) == 0)
+           .all(1) & (h.bases == 0).all(1) & (h.tile_seg == num_segments - 1))
+    real = np.flatnonzero(~pad.cpu().numpy())
+    return T - (int(real[-1]) + 1 if real.size else 0)
+
+
+def heavy_tiles(plan: ChunkPlan) -> HeavyTiles | None:
+    """The heavy slab of a placed ChunkPlan (None without heavy tiles):
+    the buckets' tiles less their padding, concatenated and stably
+    sorted by ``tile_seg``, so each heavy row's tiles are one run in
+    bucket order.  The plan's own arrays are left as they are."""
+    nblk, nheavy = plan.num_blocks, plan.num_heavy
+    keep = [(h, h.num_tiles - padding_tiles(h, nblk + nheavy))
+            for h in plan.hbuckets]
+    keep = [(h, n) for h, n in keep if n]
+    if not keep:
+        return None
+    seg = np.concatenate([h.tile_seg[:n].cpu().numpy() for h, n in keep])
+    if seg.min() < nblk:
+        raise ValueError("a heavy subwindow tile maps to a light segment")
+    order = np.argsort(seg, kind="stable")
+    heavy, tile_row = np.unique(seg[order] - nblk, return_inverse=True)
+    dev = plan.hbuckets[0].vals.device
+    idx = torch.from_numpy(order).to(dev)
+
+    def slab(field):
+        return torch.cat([getattr(h, field)[:n] for h, n in keep])[idx] \
+            .contiguous()
+
+    rows = plan.heavy_rows.cpu().numpy()[heavy]
+    return HeavyTiles(slab("vals"), slab("cols_win"), slab("bases"),
+                      torch.from_numpy(tile_row.astype(np.int32)).to(dev),
+                      torch.from_numpy(rows.astype(np.int32)).to(dev))
+
+
+#: the heavy slab of each placed ChunkPlan by its first heavy bucket's
+#: ``vals`` tensor (None: the plan has no heavy tiles)
+_HEAVY = WeakIdKeyDictionary()
+
+
+def place_heavy(plan: ChunkPlan) -> None:
+    """Build a placed ChunkPlan's heavy slab and its work list, once, so
+    that no apply waits on them."""
+    if not plan.hbuckets or plan.hbuckets[0].vals in _HEAVY:
+        return
+    heavy = heavy_tiles(plan)
+    if heavy is not None:
+        place_runs(heavy.tile_row, heavy.rows.shape[0])
+    _HEAVY[plan.hbuckets[0].vals] = heavy
+
+
+def heavy_on(plan: ChunkPlan) -> HeavyTiles | None:
+    """The heavy slab of a placed ChunkPlan (None without heavy tiles);
+    raises for a plan no placement saw."""
+    if not plan.hbuckets:
+        return None
+    if plan.hbuckets[0].vals not in _HEAVY:
+        raise ValueError("the heavy slab of kernel D is built when its "
+                         "ChunkPlan is placed: place the plan with "
+                         "formats.plan.place")
+    return _HEAVY[plan.hbuckets[0].vals]

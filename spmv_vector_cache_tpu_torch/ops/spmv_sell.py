@@ -14,9 +14,9 @@ plan (``value_dtype=np.float64``: (T, 2P, R) hi/lo float32 values) runs
 its window strategy on kernel K (:func:`sell_window_f64_kernel`), every
 other strategy on kernel L (:func:`sell_global_f64_kernel`), the float64
 builds of B and G, which replace the reference's double-float window
-and stream kernels.  The epilogues — the slice reduction after kernels
-B, K and L, the sub-row fixup, the Hybrid and CachedPlan joins and the
-COO tail — are torch ops,
+and stream kernels (L, like G, sums each slice itself).  The epilogues —
+the slice reduction after kernels B and K, the sub-row fixup, the Hybrid
+and CachedPlan joins and the COO tail — are torch ops,
 as the reference computes them in XLA outside Pallas; over a double
 plan's float64 partials they are plain float64 sums, where the
 reference needs compensated pair additions over dense fold matrices.
@@ -85,9 +85,8 @@ def _fixup_rows(plan: SellPlan, y2d: torch.Tensor,
 def _reduce_partials(plan: SellPlan, partials: torch.Tensor,
                      semiring: str = "plus_times",
                      per_group: bool = False) -> torch.Tensor:
-    """Kernel B's, K's or L's output -> y (kernels G and H sum each
-    slice's tiles themselves; L, G's float64 build, writes per-tile
-    partials).  ``partials`` holds per-tile rows
+    """Kernel B's or K's output -> y (kernels G, H and L sum each
+    slice's tiles themselves).  ``partials`` holds per-tile rows
     (T, R), or per-group rows (ngroups, R) when the kernel folded slices
     (``per_group``); both reduce to y2d, then the sub-row fixup runs.
     SpMM partials carry a trailing RHS axis, (T or ngroups, R, k), and
@@ -304,11 +303,43 @@ def _check_global(vals, cols, x, double=False):
         raise ValueError("global-column operands must be contiguous")
 
 
-#: what a kernel-G output that split slices combine into holds first: the
-#: kernel's init of each semiring (or_and runs as max_times)
+def _check_slices(tile_slice, T, device, num_slices, parts, rows, R):
+    """Kernels G and L: one int32 slice per tile, and a fold that
+    covers ``rows``."""
+    if tile_slice.dtype != torch.int32 or tile_slice.shape != (T,) or \
+            tile_slice.device != device or num_slices < 1:
+        raise ValueError("tile_slice must hold one int32 slice per tile, on "
+                         "the plan's device")
+    if parts < 0 or (parts and R % parts):
+        raise ValueError(f"parts={parts} must divide the {R} lanes")
+    if parts and rows > num_slices * (R // parts):
+        raise ValueError(f"{num_slices} slices do not cover {rows} rows")
+
+
+#: what a kernel-G or -L output that split slices combine into holds first:
+#: the kernel's init of each semiring (or_and runs as max_times)
 _INIT = {"plus_times": 0.0, "min_plus": float("inf"),
          "max_plus": float("-inf"), "max_times": float("-inf"),
          "or_and": float("-inf")}
+
+
+def _launch_global(entry, vals, cols, tile_slice, x, positions, num_slices,
+                   parts, rows, semiring, *code):
+    """Launch kernel G or L (C entry point ``entry``, then ``code``) on
+    its placed work list; their output, in x's type, starts as the
+    semiring's init where split slices combine into it."""
+    work = runs_on(tile_slice, num_slices)
+    R = vals.shape[2]
+    shape = (rows,) if parts else (num_slices, R)
+    out = torch.full(shape, _INIT[semiring], dtype=x.dtype,
+                     device=x.device) if work.split else \
+        torch.empty(shape, dtype=x.dtype, device=x.device)
+    _kernels.launch(
+        entry, x.get_device(), vals.data_ptr(), cols.data_ptr(),
+        tile_slice.data_ptr(), work.runs.data_ptr(), x.data_ptr(),
+        out.data_ptr(), work.runs.shape[0], positions, R, x.shape[0], parts,
+        rows, work.max_tiles, work.max_slices, *code)
+    return out
 
 
 def sell_global_kernel(vals, cols, tile_slice, x, *, num_slices: int,
@@ -323,29 +354,14 @@ def sell_global_kernel(vals, cols, tile_slice, x, *, num_slices: int,
     placement); x is gathered through L1 and L2."""
     _check_global(vals, cols, x)
     T, P, R = vals.shape
-    if tile_slice.dtype != torch.int32 or tile_slice.shape != (T,) or \
-            tile_slice.device != vals.device or num_slices < 1:
-        raise ValueError("tile_slice must hold one int32 slice per tile, on "
-                         "the plan's device")
-    if parts < 0 or (parts and R % parts):
-        raise ValueError(f"parts={parts} must divide the {R} lanes")
-    if parts and rows > num_slices * (R // parts):
-        raise ValueError(f"{num_slices} slices do not cover {rows} rows")
+    _check_slices(tile_slice, T, vals.device, num_slices, parts, rows, R)
     if not platform.is_cuda(x):
         return sell_global_plain(vals, cols, tile_slice, x,
                                  num_slices=num_slices, parts=parts,
                                  rows=rows, semiring=semiring)
-    work = runs_on(tile_slice, num_slices)
-    shape = (rows,) if parts else (num_slices, R)
-    out = torch.full(shape, _INIT[semiring], dtype=torch.float32,
-                     device=x.device) if work.split else \
-        torch.empty(shape, dtype=torch.float32, device=x.device)
-    _kernels.launch(
-        "spmv_sell_global_f32", x.get_device(), vals.data_ptr(),
-        cols.data_ptr(), tile_slice.data_ptr(), work.runs.data_ptr(),
-        x.data_ptr(), out.data_ptr(), work.runs.shape[0], P, R, x.shape[0],
-        parts, rows, work.max_tiles, work.max_slices,
-        sr.KERNEL_CODE[semiring])
+    out = _launch_global("spmv_sell_global_f32", vals, cols, tile_slice, x,
+                         P, num_slices, parts, rows, semiring,
+                         sr.KERNEL_CODE[semiring])
     sell_global_kernel.launches += 1
     return out
 
@@ -353,25 +369,33 @@ def sell_global_kernel(vals, cols, tile_slice, x, *, num_slices: int,
 sell_global_kernel.launches = 0
 
 
-def sell_global_f64_plain(vals, cols, x) -> torch.Tensor:
-    """Plain PyTorch version of kernel L: the hi/lo slab joined into
-    float64 values, then the per-tile plus_times sums."""
-    return _tile_sums(df64.join_channels(vals), cols, x, "plus_times")
+def sell_global_f64_plain(vals, cols, tile_slice, x, *, num_slices: int,
+                          parts: int, rows: int) -> torch.Tensor:
+    """Plain PyTorch version of kernel L (same inputs, same output): the
+    hi/lo slab joined into float64 values, then kernel G's plain version
+    under plus_times (per-tile sums, slice sums, lane fold)."""
+    return sell_global_plain(df64.join_channels(vals), cols, tile_slice, x,
+                             num_slices=num_slices, parts=parts, rows=rows,
+                             semiring="plus_times")
 
 
-def sell_global_f64_kernel(vals, cols, x) -> torch.Tensor:
+def sell_global_f64_kernel(vals, cols, tile_slice, x, *, num_slices: int,
+                           parts: int, rows: int) -> torch.Tensor:
     """Kernel L on CUDA tensors; the plain version on CPU tensors.
     ``vals``: a double plan's (T, 2P, R) float32 hi/lo slab; ``cols``:
-    (T, P, R) int32; ``x`` and the per-tile partials (T, R): float64."""
+    (T, P, R) int32; ``x`` and the output: float64.  As kernel G
+    (:func:`sell_global_kernel`), plus_times: y's first ``rows`` rows for
+    ``parts`` >= 1, else the (num_slices, R) slice sums; on the card
+    ``tile_slice`` must be a placed plan's."""
     _check_global(vals, cols, x, double=True)
-    if not platform.is_cuda(x):
-        return sell_global_f64_plain(vals, cols, x)
     T, P2, R = vals.shape
-    out = torch.empty((T, R), dtype=torch.float64, device=x.device)
-    _kernels.launch(
-        "spmv_sell_global_f64", x.get_device(), vals.data_ptr(),
-        cols.data_ptr(), x.data_ptr(), out.data_ptr(), T, P2 // 2, R,
-        x.shape[0])
+    _check_slices(tile_slice, T, vals.device, num_slices, parts, rows, R)
+    if not platform.is_cuda(x):
+        return sell_global_f64_plain(vals, cols, tile_slice, x,
+                                     num_slices=num_slices, parts=parts,
+                                     rows=rows)
+    out = _launch_global("spmv_sell_global_f64", vals, cols, tile_slice, x,
+                         P2 // 2, num_slices, parts, rows, "plus_times")
     sell_global_f64_kernel.launches += 1
     return out
 
@@ -446,7 +470,9 @@ def spmv_sell_double(plan: SellPlan, x: torch.Tensor, *,
     'window' runs kernel K, folding groups where kernel B would;
     'stream', and the 'resident' and 'deep' that the operator's
     ``select_strategy`` gives a windowless plan, run kernel L, which
-    reads x at any width; 'auto' is window when feasible, else stream.
+    reads x at any width and writes y's rows (a general ``row_map``
+    plan: its slice sums, then the row_map reduce); 'auto' is window when
+    feasible, else stream.
     The reference knows only 'window' and 'stream' here and raises on
     the others."""
     st = plan.stats
@@ -464,9 +490,11 @@ def spmv_sell_double(plan: SellPlan, x: torch.Tensor, *,
             fold=fold)
         return _reduce_partials(plan, out, per_group=fold)
     if strategy in ("resident", "deep", "stream"):
-        return _reduce_partials(plan,
-                                sell_global_f64_kernel(plan.vals, plan.cols,
-                                                       x))
+        parts = row_parts(plan)
+        out = sell_global_f64_kernel(plan.vals, plan.cols, plan.tile_slice,
+                                     x, num_slices=plan.num_slices,
+                                     parts=parts, rows=plan.shape[0])
+        return out if parts else _fixup_rows(plan, out, "plus_times")
     raise ValueError(f"unknown strategy {strategy!r}")
 
 

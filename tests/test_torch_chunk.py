@@ -8,10 +8,13 @@ packages:
 * ``build_chunk_plan`` and ``auto_plan`` give byte-equal plans;
 * ``lane_unpermute`` (kernel C's plain version) equals the JAX Pallas
   kernel in interpret mode exactly (it moves values, it adds nothing);
-* ``_subwin_partials`` (kernel D's plain version) and ``spmv_plan`` on a
-  ChunkPlan (kernels B, D, C) agree with JAX in interpret mode to a max
-  abs error <= 1e-5 * max(1, max|ref|) for plus_times and the float
-  semirings (float32 sums in another order), exactly for or_and;
+* kernel D's heavy slab and work list (``ops/runs.py``): every real
+  heavy tile once, no padding, each heavy row one run, a long row split;
+* ``subwin_plain`` (the reference's ``_subwin_partials``), kernel D's
+  plain version and ``spmv_plan`` on a ChunkPlan (kernels B, D, C) agree
+  with JAX in interpret mode to a max abs error <= 1e-5 * max(1,
+  max|ref|) for plus_times and the float semirings (float32 sums in
+  another order), exactly for or_and;
 * y agrees with the float64 host loop below 1e-4 relative.
 
 The JAX side runs each plan with one 8-tile group per grid step
@@ -38,6 +41,7 @@ from spmv_vector_cache_tpu_torch.formats import chunk as pchunk
 from spmv_vector_cache_tpu_torch.formats import plan as pplan
 from spmv_vector_cache_tpu_torch.interop import plan_from_reference
 from spmv_vector_cache_tpu_torch.ops import lane_perm as plane
+from spmv_vector_cache_tpu_torch.ops import runs as pruns
 from spmv_vector_cache_tpu_torch.ops import spmv_chunk as pspmv_chunk
 from spmv_vector_cache_tpu_torch.ops import spmv_sell as psell
 from spmv_vector_cache_tpu_torch.ops.operator import SparseOperator
@@ -91,9 +95,28 @@ def empty_rows():
                 (1543, 1543))
 
 
+def heavy_two_buckets(n=60000):
+    """Row 3: 3072 consecutive columns (W = 1-2 tiles) and 3072 at stride
+    4 (W = 8 tiles), one heavy row over two W buckets; row 9: 40,000
+    consecutive columns, a heavy row of 39 subwindow tiles, past RUN_CAP;
+    a light diagonal."""
+    r = np.concatenate([np.full(6144, 3), np.full(40000, 9), np.arange(n)])
+    c = np.concatenate([np.arange(3072), 20000 + 4 * np.arange(3072),
+                        10000 + np.arange(40000), np.arange(n)])
+    v = np.random.default_rng(8).standard_normal(r.shape[0])
+    return _csr(r, c, v, (n, n))
+
+
+def heavy_only():
+    # one dense heavy row and nothing else: subwindow tiles and no light
+    # bucket, so the apply's light part is all empty segments
+    return _csr(np.zeros(3000), np.arange(3000), np.ones(3000), (4, 4096))
+
+
 CASES = {
     "pareto_banded": lambda: pareto_banded(),
     "heavy_subwin": heavy_subwin,
+    "heavy_only": heavy_only,
     "duplicates": duplicates,
     "empty_rows": empty_rows,
 }
@@ -259,6 +282,7 @@ def test_unpermute_plan_rows_is_lane_unpermute():
 
 @pytest.mark.parametrize("semiring", SEMIRINGS)
 def test_subwin_partials_match_jax(semiring):
+    # the reference's per-tile function, bucket by bucket
     m, x = _semiring_data(heavy_subwin(), semiring, 3)
     ja, _ = both(m)
     jp = jchunk.build_chunk_plan(
@@ -267,12 +291,148 @@ def test_subwin_partials_match_jax(semiring):
     assert jp.hbuckets
     for h in _small_steps(jp).hbuckets:
         want = jsell._subwin_partials(h, x, True, semiring)
-        got = pspmv_chunk._subwin_partials(plan_from_reference(h, "cpu"),
-                                           torch.from_numpy(x), semiring)
+        ph = plan_from_reference(h, "cpu")
+        got = pspmv_chunk.subwin_plain(ph.vals, ph.cols_win, ph.bases,
+                                       torch.from_numpy(x),
+                                       semiring=semiring)
         if semiring == "or_and":
             assert got.numpy().tobytes() == np.asarray(want).tobytes()
         else:
             _assert_close(got.numpy(), want)
+
+
+def _bucket_tiles(plan):
+    """(bucket, tile) -> (vals, cols_win, bases, tile_seg) of every tile
+    of every heavy bucket, padding included."""
+    return {(i, t): (h.vals[t], h.cols_win[t], h.bases[t],
+                     int(h.tile_seg[t]))
+            for i, h in enumerate(plan.hbuckets)
+            for t in range(h.num_tiles)}
+
+
+def test_heavy_tiles_work_list():
+    _, pa = both(heavy_two_buckets())
+    plan = pplan.place(pchunk.build_chunk_plan(pa), "cpu")
+    nblk, nseg = plan.num_blocks, plan.num_blocks + plan.num_heavy
+    # placement built the slab and its work list; the plan is unchanged
+    heavy = pruns.heavy_on(plan)
+    assert plan.hbuckets[0].vals in pruns._HEAVY
+    assert_plans_equal(plan, jchunk.build_chunk_plan(both(
+        heavy_two_buckets())[0]))
+    # every slab tile is one real tile of one bucket, each real tile once
+    tiles = _bucket_tiles(plan)
+    pads = {(i, t) for i, h in enumerate(plan.hbuckets)
+            for t in range(h.num_tiles - pruns.padding_tiles(h, nseg),
+                           h.num_tiles)}
+    assert pads and all(tiles[k][3] == nseg - 1 for k in pads)
+    assert all(bool((tiles[k][0] == 0).all()) for k in pads)
+    seen, src = set(), []
+    for t in range(heavy.vals.shape[0]):
+        hit = [k for k, (v, c, b, _) in tiles.items()
+               if torch.equal(v, heavy.vals[t]) and
+               torch.equal(c, heavy.cols_win[t]) and
+               torch.equal(b, heavy.bases[t])]
+        assert len(hit) == 1 and hit[0] not in seen and hit[0] not in pads
+        seen.add(hit[0])
+        src.append(hit[0])
+    assert seen == set(tiles) - pads
+    # the runs follow tile_seg: each tile adds to its own heavy row, rows
+    # ascending, each row's tiles one run
+    seg = np.array([tiles[k][3] for k in src])
+    tile_row = heavy.tile_row.numpy()
+    assert np.all(np.diff(tile_row) >= 0) and np.all(np.diff(seg) >= 0)
+    rows = heavy.rows.numpy()
+    assert np.all(np.diff(rows) > 0)
+    assert np.array_equal(rows[tile_row],
+                          plan.heavy_rows.numpy()[seg - nblk])
+    # row 3 (the rows are 3 and 9) has tiles in two W buckets and forms
+    # one run of one record; row 9's 39 tiles are split into atomic pieces
+    assert rows.tolist() == [3, 9]
+    assert len({src[t][0] for t in np.flatnonzero(tile_row == 0)}) == 2
+    work = pruns.runs_on(heavy.tile_row, 2)
+    recs = work.runs.numpy()
+    s1 = recs[:, 3] & ~pruns.RUN_ATOMIC
+    atomic = (recs[:, 3] & pruns.RUN_ATOMIC) != 0
+    mine = (recs[:, 2] <= 0) & (0 < s1)
+    assert mine.sum() == 1 and not atomic[mine].any()
+    t0, t1 = recs[mine, 0][0], recs[mine, 1][0]
+    assert (t0, t1) == (0, int((tile_row == 0).sum()))
+    long_row = (recs[:, 2] <= 1) & (1 < s1)
+    assert int((tile_row == 1).sum()) == 39 > pruns.RUN_CAP
+    assert long_row.sum() >= 2 and atomic[long_row].all()
+    assert work.split and work.max_tiles <= pruns.RUN_CAP
+
+
+def test_heavy_slab_needs_a_placed_plan():
+    # the slab and its work list are built at placement; a plan whose
+    # arrays became tensors some other way is refused before any apply
+    _, pa = both(heavy_subwin())
+    host = pchunk.build_chunk_plan(pa)
+    unplaced = pplan.map_arrays(host, torch.from_numpy)
+    with pytest.raises(ValueError, match="placed"):
+        pruns.heavy_on(unplaced)
+    with pytest.raises(ValueError, match="placed"):
+        psell.spmv_plan(unplaced, torch.ones(pa.shape[1]))
+    placed = pplan.place(host, "cpu")
+    assert pruns.heavy_on(placed).vals.shape[1:] == (8, 128)
+
+
+def _jax_heavy_rows(jp, x, y0, semiring):
+    """y0 with the reference's heavy subwindow part added: its per-tile
+    partials, segment reduce per bucket, add across buckets, lane fold."""
+    import jax.numpy as jnp
+
+    s = jsr.get(semiring)
+    _, axis_reduce = jsr.kernel_ops(semiring)
+    nseg = jp.num_blocks + jp.num_heavy
+    y2d = None
+    for h in _small_steps(jp).hbuckets:
+        y2b = s.segment_reduce(jsell._subwin_partials(h, x, True, semiring),
+                               jnp.asarray(h.tile_seg), num_segments=nseg,
+                               indices_are_sorted=True)
+        y2d = y2b if y2d is None else s.add(y2d, y2b).astype(y2b.dtype)
+    yh = axis_reduce(y2d[jp.num_blocks:], 1)
+    rows = np.asarray(jp.heavy_rows)
+    want = y0.copy()
+    want[rows] = np.asarray(s.add(jnp.asarray(y0[rows]), yh)).astype(
+        y0.dtype)
+    return want
+
+
+@pytest.mark.parametrize("semiring", SEMIRINGS)
+@pytest.mark.parametrize("case", ["heavy_subwin", "heavy_two_buckets"])
+def test_heavy_plain_matches_jax(case, semiring):
+    # kernel D's plain version: each heavy row's subwindow tiles summed
+    # into y in place, against the reference's partials and their reduce
+    m, x = _semiring_data({"heavy_subwin": heavy_subwin,
+                           "heavy_two_buckets": heavy_two_buckets}[case](),
+                          semiring, 3)
+    ja, pa = both(m)
+    kw = dict(pad_value=float(jsr.get(semiring).zero),
+              merge_duplicates=semiring == "plus_times")
+    jp = jchunk.build_chunk_plan(ja, **kw)
+    plan = pplan.place(pchunk.build_chunk_plan(pa, **kw), "cpu")
+    y0 = np.random.default_rng(7).standard_normal(m.shape[0]).astype(
+        np.float32)
+    if semiring == "or_and":
+        y0 = (y0 > 0).astype(np.float32)
+    heavy = pruns.heavy_on(plan)
+    y = torch.from_numpy(y0.copy())
+    got = pspmv_chunk.heavy_plain(heavy.vals, heavy.cols_win, heavy.bases,
+                                  heavy.tile_row, heavy.rows,
+                                  torch.from_numpy(x), y, semiring=semiring)
+    assert got is y                     # in place
+    # the wrapper takes the plain version on CPU tensors
+    y2 = torch.from_numpy(y0.copy())
+    pspmv_chunk.heavy_kernel(heavy.vals, heavy.cols_win, heavy.bases,
+                             heavy.tile_row, heavy.rows, torch.from_numpy(x),
+                             y2, semiring=semiring)
+    assert torch.equal(y2, y)
+    want = _jax_heavy_rows(jp, x, y0, semiring)
+    if semiring == "or_and":
+        assert got.numpy().tobytes() == want.tobytes()
+    else:
+        _assert_close(got.numpy(), want)
 
 
 # ---------------------------------------------------------------------------
@@ -292,6 +452,27 @@ def test_spmv_chunk_matches_jax_and_host(case):
     want64 = jref.spmv_numpy(ja, x.astype(np.float64))
     assert np.abs(y.numpy() - want64).max() / \
         max(1.0, np.abs(want64).max()) < 1e-4
+
+
+@pytest.mark.parametrize("semiring", SEMIRINGS)
+def test_spmv_chunk_heavy_semirings_match_jax(semiring):
+    # the whole apply on a plan with heavy subwindow tiles (kernels B, C
+    # and D), under each semiring, against the JAX package's _spmv_chunk
+    m, x = _semiring_data(heavy_subwin(), semiring, 9)
+    ja, pa = both(m)
+    kw = dict(pad_value=float(jsr.get(semiring).zero),
+              merge_duplicates=semiring == "plus_times")
+    jp = jchunk.build_chunk_plan(ja, **kw)
+    assert jp.hbuckets
+    want = np.asarray(jsell._spmv_chunk(_small_steps(jp), x, interpret=True,
+                                        semiring=semiring))
+    y = psell.spmv_plan(pplan.place(pchunk.build_chunk_plan(pa, **kw),
+                                    "cpu"),
+                        torch.from_numpy(x), semiring=semiring).numpy()
+    if semiring == "or_and":
+        assert y.tobytes() == want.tobytes()
+    else:
+        _assert_close(y, want)
 
 
 @pytest.mark.parametrize("semiring", ["min_plus", "or_and"])

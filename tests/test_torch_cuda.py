@@ -88,15 +88,18 @@ def test_window_kernel_matches_plain(cuda, semiring, fold):
     _close(got, spmv_sell.sell_window_plain(*args, **kwargs))
 
 
-def _heavy_rows_matrix(semiring):
+def _heavy_rows_matrix(semiring, long_row=False):
     """A light diagonal plus a dense heavy row (subwindow tiles) and a
-    sparse one, values non-negative ({0, 1} for or_and)."""
-    n = 20000
+    sparse one, values non-negative ({0, 1} for or_and); ``long_row``
+    adds row 11, 40,000 consecutive columns: 39 subwindow tiles, past
+    RUN_CAP, split over records that kernel D combines atomically."""
+    n = 60000 if long_row else 20000
     rng = np.random.default_rng(5)
-    r = np.concatenate([np.zeros(3000), np.full(2000, 7), np.arange(n)])
+    r = np.concatenate([np.zeros(3000), np.full(2000, 7), np.arange(n)] +
+                       [np.full(40000, 11)] * long_row)
     c = np.concatenate([np.arange(5000, 8000),
                         np.sort(rng.choice(n, 2000, replace=False)),
-                        np.arange(n)])
+                        np.arange(n)] + [10000 + np.arange(40000)] * long_row)
     v = np.abs(rng.standard_normal(r.shape[0])).astype(np.float32)
     if semiring == "or_and":
         v = (v > 0.5).astype(np.float32)
@@ -132,19 +135,46 @@ def test_lane_unpermute_kernel_matches_plain(cuda):
     assert torch.equal(on_side, got)
 
 
+@pytest.mark.parametrize("split", [False, True])
 @pytest.mark.parametrize("semiring", sorted(REGISTRY))
-def test_subwin_kernel_matches_plain(cuda, semiring):
-    m = _heavy_rows_matrix(semiring)
-    plan = place(build_chunk_plan(from_scipy(m),
-                                  pad_value=REGISTRY[semiring].zero,
-                                  merge_duplicates=False), cuda)
+def test_subwin_kernel_matches_plain(cuda, semiring, split):
+    # kernel D over a ChunkPlan's heavy slab, then the whole apply: one D
+    # launch, y as on the CPU
+    m = _heavy_rows_matrix(semiring, long_row=split)
+    kw = dict(pad_value=REGISTRY[semiring].zero, merge_duplicates=False)
+    plan = place(build_chunk_plan(from_scipy(m), **kw), cuda)
     assert plan.hbuckets
-    x = torch.from_numpy(np.abs(np.random.default_rng(4).standard_normal(
-        m.shape[1])).astype(np.float32)).to(cuda)
-    for h in plan.hbuckets:
-        args = (h.vals, h.cols_win, h.bases, x)
-        got = spmv_chunk.subwin_kernel(*args, semiring=semiring)
-        _close(got, spmv_chunk.subwin_plain(*args, semiring=semiring))
+    heavy = pruns.heavy_on(plan)
+    assert pruns.runs_on(heavy.tile_row,
+                         heavy.rows.shape[0]).split == split
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(np.abs(rng.standard_normal(m.shape[1])).astype(
+        np.float32)).to(cuda)
+    y0 = torch.from_numpy(rng.standard_normal(m.shape[0]).astype(
+        np.float32)).to(cuda)
+    if semiring == "or_and":
+        x, y0 = (x > 0.5).float(), (y0 > 0).float()
+    args = (heavy.vals, heavy.cols_win, heavy.bases, heavy.tile_row,
+            heavy.rows, x)
+    before = spmv_chunk.heavy_kernel.launches
+    got = spmv_chunk.heavy_kernel(*args, y0.clone(), semiring=semiring)
+    assert spmv_chunk.heavy_kernel.launches == before + 1
+    ref = spmv_chunk.heavy_plain(*args, y0.clone(), semiring=semiring)
+    if semiring == "plus_times":
+        _close(got, ref)
+    else:
+        # order-free min and max of the same float32 products
+        assert torch.equal(got, ref)
+    cpu = place(build_chunk_plan(from_scipy(m), **kw), "cpu")
+    before = spmv_chunk.heavy_kernel.launches
+    y = spmv_sell.spmv_plan(plan, x, semiring=semiring)
+    torch.cuda.synchronize()
+    assert spmv_chunk.heavy_kernel.launches == before + 1
+    want = spmv_sell.spmv_plan(cpu, x.cpu(), semiring=semiring)
+    if semiring == "plus_times":
+        _close(y.cpu(), want)
+    else:
+        assert torch.equal(y.cpu(), want)
 
 
 @pytest.mark.parametrize("chunk_blocks", [1, 4, 32])
@@ -615,28 +645,40 @@ def test_window_f64_kernel_matches_plain(cuda, layout):
     _close64(y.cpu(), torch.from_numpy(m @ xf))
 
 
+@pytest.mark.parametrize("layout", sorted(G_LAYOUTS))
 @pytest.mark.parametrize("strategy", ["stream", "resident", "deep"])
-def test_global_f64_kernel_matches_plain(cuda, strategy):
+def test_global_f64_kernel_matches_plain(cuda, strategy, layout):
+    # kernel L on kernel G's row layouts (a split slice combines with a
+    # float64 atomicAdd), then each windowless route: one L launch, y
+    # against float64 scipy
+    kw, parts, split = G_LAYOUTS[layout]
     rng = np.random.default_rng(14)
     n, cols = 2048, 40000
-    r = np.repeat(np.arange(n), 16)
-    c = rng.integers(0, cols, r.shape[0])
-    m = sp.csr_matrix((np.ones(r.shape[0]), (r, c)), shape=(n, cols))
-    m.sum_duplicates()
+    m = _uniform(rng, n, cols, 20, "plus_times")
+    if layout == "long_run":
+        long = _uniform(rng, 1, cols, 600, "plus_times")
+        m = sp.vstack([m[:5], long, m[6:]]).tocsr()
     m = _f64_values(m, rng)
     m.sort_indices()
-    plan = place(build_sell_plan(from_scipy(m), value_dtype=np.float64),
-                 cuda)
+    plan = place(build_sell_plan(from_scipy(m), value_dtype=np.float64,
+                                 **kw), cuda)
     assert plan.stats.window_blocks == 0
+    assert spmv_sell.row_parts(plan) == parts
+    assert pruns.runs_on(plan.tile_slice, plan.num_slices).split == split
     # x one column short: the last column reads as 0 in both versions
     x = torch.from_numpy(rng.standard_normal(cols - 1)).to(cuda)
+    args = (plan.vals, plan.cols, plan.tile_slice, x)
+    kwargs = dict(num_slices=plan.num_slices, parts=parts,
+                  rows=plan.shape[0])
     before = spmv_sell.sell_global_f64_kernel.launches
-    got = spmv_sell.sell_global_f64_kernel(plan.vals, plan.cols, x)
+    got = spmv_sell.sell_global_f64_kernel(*args, **kwargs)
     assert spmv_sell.sell_global_f64_kernel.launches == before + 1
-    _close64(got, spmv_sell.sell_global_f64_plain(plan.vals, plan.cols, x))
+    _close64(got, spmv_sell.sell_global_f64_plain(*args, **kwargs))
     xf = rng.standard_normal(cols)
+    before = spmv_sell.sell_global_f64_kernel.launches
     y = spmv_sell.spmv_sell_double(plan, torch.from_numpy(xf).to(cuda),
                                    strategy=strategy)
+    assert spmv_sell.sell_global_f64_kernel.launches == before + 1
     _close64(y.cpu(), torch.from_numpy(m @ xf))
 
 

@@ -342,6 +342,83 @@ def test_spmv_sell_double_matches_jax(case):
                      jdf64.join_f64(np.asarray(jyh), np.asarray(jyl)))
 
 
+def _long_rows(n=1024, cols=40000, seed=22):
+    """Every 100th row 600 long, the others 4, at uniform columns: a
+    windowless plan whose long rows' slices hold 75 tiles, past RUN_CAP."""
+    rng = np.random.default_rng(seed)
+    lens = np.where(np.arange(n) % 100 == 0, 600, 4)
+    r = np.repeat(np.arange(n, dtype=np.int64), lens)
+    m = sp.csr_matrix((np.ones(r.shape[0]),
+                       (r, rng.integers(0, cols, r.shape[0]))),
+                      shape=(n, cols))
+    m.sum_duplicates()
+    m.sort_indices()
+    return f64(m, seed)
+
+
+#: windowless double plans: (matrix, build_sell_plan kwargs, what kernel L
+#: writes: "rows" through the identity map or a lane fold of uniform
+#: parts, "slices" for a general row_map)
+WINDOWLESS_CASES = {
+    "identity": (lambda: f64(random_sparse(1024, 20000, 0.001, seed=23), 23),
+                 {}, "rows"),
+    "uniform_parts": (lambda: f64(random_sparse(1024, 40000, 0.0004,
+                                                seed=24), 24),
+                      dict(split=8, uniform_split=True), "rows"),
+    "row_map": (lambda: f64(random_sparse(700, 30000, 0.001, seed=25), 25),
+                dict(split=8, sigma=512), "slices"),
+    "long_slice": (_long_rows, {}, "rows"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WINDOWLESS_CASES))
+def test_windowless_double_plans_match_jax(case):
+    # kernel L (its plain version here) on every windowless route, against
+    # the JAX pair API's stream path and the float64 host loop
+    from spmv_vector_cache_tpu.ops import reference as jref
+    from spmv_vector_cache_tpu_torch.ops import runs as pruns
+
+    make, kw, writes = WINDOWLESS_CASES[case]
+    m = make()
+    ja, _ = both(m)
+    jp = jplan.build_sell_plan(ja, value_dtype=np.float64, **kw)
+    assert jp.stats.window_blocks == 0
+    pp = plan_from_reference(jp, "cpu")
+    parts = psell.row_parts(pp)
+    assert (parts > 0) == (writes == "rows")
+    if case == "uniform_parts":
+        assert parts == pp.stats.uniform_parts > 1
+    if case == "long_slice":
+        # the long rows' slices are split over records, combined atomically
+        tiles = np.bincount(pp.tile_slice.numpy())
+        assert tiles.max() > pruns.RUN_CAP
+        assert pruns.runs_on(pp.tile_slice, pp.num_slices).split
+    x = x_of(m.shape[1], 26)
+    xh, xl = jdf64.split_f64(x)
+    jyh, jyl = jsell.spmv_sell_double_pair(jp, xh, xl, strategy="stream",
+                                           interpret=True)
+    want_jax = jdf64.join_f64(np.asarray(jyh), np.asarray(jyl))
+    want_host = jref.spmv_numpy(ja, x)
+    for strategy in ("resident", "deep", "stream"):
+        y = psell.spmv_sell_double(pp, torch.from_numpy(x),
+                                   strategy=strategy)
+        assert y.dtype == torch.float64 and y.shape == (m.shape[0],)
+        assert_f64_close(y.numpy(), want_jax)
+        assert_f64_close(y.numpy(), want_host)
+    # the kernel's own output: y's rows, or the slice sums that the
+    # row_map reduce folds; its per-tile sums match the JAX kernel's
+    out = psell.sell_global_f64_kernel(
+        pp.vals, pp.cols, pp.tile_slice, torch.from_numpy(x),
+        num_slices=pp.num_slices, parts=parts, rows=pp.shape[0])
+    assert out.shape == ((pp.shape[0],) if parts else
+                         (pp.num_slices, pp.lane_rows))
+    th, tl = jsell._spmv_stream_df(small_steps(jp), xh, xl, interpret=True)
+    tile_sums = psell._tile_sums(pdf64.join_channels(pp.vals), pp.cols,
+                                 torch.from_numpy(x), "plus_times")
+    assert_f64_close(tile_sums.numpy(),
+                     jdf64.join_f64(np.asarray(th), np.asarray(tl)))
+
+
 def test_sell_double_folds_like_the_window_kernel():
     # kernel K folds per group where kernel B does; per-tile and
     # per-group partials reduce to the same y
@@ -362,9 +439,13 @@ def test_sell_double_folds_like_the_window_kernel():
     y_t = psell._reduce_partials(plan, per_tile)
     assert_f64_close(y_g.numpy(), m @ x.numpy())
     assert_f64_close(y_t.numpy(), y_g.numpy())
-    # kernel L on the window plan's global columns gives the same y
-    y_l = psell._reduce_partials(plan, psell.sell_global_f64_kernel(
-        plan.vals, plan.cols, x))
+    # kernel L on the window plan's global columns gives the same y: the
+    # plan's rows through its uniform-parts lane fold
+    parts = psell.row_parts(plan)
+    assert parts == st.uniform_parts > 1
+    y_l = psell.sell_global_f64_kernel(
+        plan.vals, plan.cols, plan.tile_slice, x,
+        num_slices=plan.num_slices, parts=parts, rows=plan.shape[0])
     assert_f64_close(y_l.numpy(), y_g.numpy())
 
 

@@ -402,9 +402,9 @@ def test_tile_runs_rejects_a_bad_tile_slice(bad):
 @pytest.mark.parametrize("kind", ["sell", "hybrid", "sharded", "windowless",
                                   "cached", "double"])
 def test_placement_builds_the_work_list(kind):
-    # the work list of kernels G and H is built once, when the plan is
-    # placed, for each float32 tile_slice that either kernel reads, and
-    # for no other: kernel L (a double plan) writes per-tile partials
+    # the work list of kernels G, H and L is built once, when the plan is
+    # placed, for each tile_slice that they read: every SellPlan's, a
+    # double plan's (kernel L) included
     from spmv_vector_cache_tpu_torch.formats.dia import (HybridPlan,
                                                          build_dia_plan)
     from spmv_vector_cache_tpu_torch.parallel import (build_sharded_plan,
@@ -437,9 +437,8 @@ def test_placement_builds_the_work_list(kind):
                  "double": lambda: pplan.build_sell_plan(
                      pa, value_dtype=np.float64)}[kind]()
         plan = pplan.place(built, "cpu")
-        read = [] if kind == "double" else [(plan.tile_slice,
-                                             plan.num_slices)]
-        assert (plan.tile_slice in pruns._RUNS) == (kind != "double")
+        read = [(plan.tile_slice, plan.num_slices)]
+        assert plan.tile_slice in pruns._RUNS
     for ts, num_slices in read:
         work = pruns._RUNS[ts]
         want = pruns.tile_runs(ts, num_slices)
