@@ -87,17 +87,19 @@ buffer).  ``host_cost`` then times each piece of kernel C's launch path
 by the host clock.  One PyTorch call of the same function is timed
 beside kernels A, B, H, I, J, K, L and N, beside G on the cached tier 2
 (``torch.sparse.mm`` of the tier's matrix over ``x[hot_cols]``), beside
-D (``torch.sparse.mm`` of the heavy rows' CSR, the slab's nonzeros) and
+D (``torch.sparse.mm`` of the heavy rows' CSR, the slab's nonzeros),
+beside B at the chunk shape (the light buckets' CSR; each bucket's
+bytes and bound logged), beside the packed apply (the matrix's CSR) and
 beside M (each shard's rows over its halo'd x), each checked against
-the float64 reference; the library calls beside A, B, D, G, J, K and L
-also by the profiler's device time.  The profiler's by-kernel lists of
-``spmm_sell``, ``spmm_hybrid`` and ``sharded_spmm`` must hold kernel H
-and no ``index_add_``, those of ``deep``, ``stream`` and ``wide``
-kernel G and no ``scatter_reduce`` nor ``index_add_``, that of
-``deep_f64`` kernel L alone, and that of ``chunk`` one launch of kernel
-D and the ``index_add_`` of the light buckets and the heavy merge
-alone.  Every check
-raises; nothing is caught.  Needs one CUDA device; exits non-zero
+the float64 reference; the library calls beside A, B, D, G, J, K, L and
+the packed apply also by the profiler's device time.  The profiler's
+by-kernel lists of ``spmm_sell``, ``spmm_hybrid`` and ``sharded_spmm``
+must hold kernel H and no ``index_add_``, those of ``deep``, ``stream``
+and ``wide`` kernel G and no ``scatter_reduce`` nor ``index_add_``, that
+of ``deep_f64`` kernel L alone, that of ``packed`` kernels E and F
+alone, once each, and that of ``chunk`` one launch of kernel D and the
+``index_add_`` of the light buckets and the heavy merge alone.  Every
+check raises; nothing is caught.  Needs one CUDA device; exits non-zero
 without one.
 
 Standard output, last three lines: the card's name and power limit as
@@ -205,6 +207,24 @@ def x_bytes_read(x, cols):
     c = cols.reshape(-1)
     c = c[(c >= 0) & (c < x.shape[0])]
     return int(torch.unique(c).numel()) * x.stride(0) * x.element_size()
+
+
+def packed_extract_bytes(plan, tables, x):
+    """Bytes kernel F must move on a placed PackedPlan, by part: ``esrc``
+    over the rows of each visit's window that y has (2 B each: the last
+    window is partial), the S entries those rows pick, y, and sblock, the
+    tables, the overflow triples and the x they read."""
+    window = plan.esrc.shape[1] * plan.esrc.shape[2]
+    in_y = (plan.shape[0] - plan.wstep.long() * window).clamp(max=window)
+    lanes = torch.arange(window, device=in_y.device)
+    picked = int(((plan.esrc.reshape(-1, window) >= 0)
+                  & (lanes[None, :] < in_y[:, None])).sum().item())
+    rest = (nbytes(plan.sblock, tables.woff, tables.ov_off, tables.ov_lane,
+                   tables.ov_cols, tables.ov_vals)
+            + x_bytes_read(x, tables.ov_cols))
+    return {"esrc": 2 * int(in_y.sum().item()), "picked S entries":
+            picked * 4, "y": plan.shape[0] * 4,
+            "sblock, the tables and the overflow with its x": rest}
 
 
 def zipf_cols_matrix(rng, n=1 << 18, per_row=64, s=2.5):
@@ -329,7 +349,9 @@ def main():
     from spmv_vector_cache_tpu_torch.ops.lane_perm import (
         lane_unpermute, lane_unpermute_plain, unpermute_plan_rows)
     from spmv_vector_cache_tpu_torch.ops.operator import SparseOperator
-    from spmv_vector_cache_tpu_torch.ops.runs import (RUN_ATOMIC, heavy_on,
+    from spmv_vector_cache_tpu_torch.ops.runs import (EXTRACT_BLOCK_ROWS,
+                                                      RUN_ATOMIC,
+                                                      extract_on, heavy_on,
                                                       runs_on, tile_runs)
     from spmv_vector_cache_tpu_torch.ops.spmm_dia import (spmm_dia_kernel,
                                                           spmm_dia_plain,
@@ -343,7 +365,7 @@ def main():
         spmv_dia_halo_kernel, spmv_dia_halo_plain, spmv_dia_kernel,
         spmv_dia_plain)
     from spmv_vector_cache_tpu_torch.ops.spmv_packed import (
-        packed_extract_kernel, packed_extract_plain, packed_scan_kernel,
+        packed_rows_kernel, packed_rows_plain, packed_scan_kernel,
         packed_scan_plain)
     from spmv_vector_cache_tpu_torch.ops.spmv_sell import (
         folds_groups, row_parts, sell_global_f64_kernel,
@@ -542,6 +564,12 @@ def main():
         ops["packed"][0].strategy == "packed"
     assert p_packed.stats.overflow_nnz > 0, p_packed.stats
     log(f"[packed] {p_packed.stats}")
+    f_tables = extract_on(p_packed)
+    ov_per_cta = f_tables.ov_off[1:] - f_tables.ov_off[:-1]
+    log(f"[packed] kernel F's tables: {f_tables.woff.shape[0] - 1} windows "
+        f"of {p_packed.stats.num_steps_b} visits, {ov_per_cta.shape[0]} CTAs "
+        f"of {EXTRACT_BLOCK_ROWS} rows, {int((ov_per_cta > 0).sum())} with "
+        f"overflow (at most {int(ov_per_cta.max())} entries)")
     p_cached = ops["cached"][0].plan
     assert isinstance(p_cached, CachedPlan) and \
         ops["cached"][0].strategy == "cached"
@@ -605,7 +633,7 @@ def main():
                "lane_unpermute_f32": lane_unpermute,
                "spmv_subwin_f32": heavy_kernel,
                "packed_scan_f32": packed_scan_kernel,
-               "packed_extract_f32": packed_extract_kernel,
+               "packed_extract_f32": packed_rows_kernel,
                "spmv_sell_global_f32": sell_global_kernel,
                "spmm_dia_f32": spmm_dia_kernel,
                "spmm_sell_window_f32": spmm_window_kernel,
@@ -633,10 +661,12 @@ def main():
                     "sell_f64": ["spmv_sell_window_f64"],
                     "hybrid_f64": ["spmv_dia_f64", "spmv_sell_window_f64"],
                     "deep_f64": ["spmv_sell_global_f64"]}
-    # an SpMM or float64 phase launches exactly these, and no other
-    # kernel: the PackedPlan has no fused kernel and runs the reference
-    # SpMM
-    exact_launches = {"chunk": {"spmv_sell_window_f32": len(p_chunk.buckets),
+    # the packed, chunk, SpMM or float64 phase launches exactly these,
+    # and no other kernel: the PackedPlan has no fused SpMM kernel and
+    # runs the reference SpMM
+    exact_launches = {"packed": {"packed_scan_f32": 1,
+                                 "packed_extract_f32": 1},
+                      "chunk": {"spmv_sell_window_f32": len(p_chunk.buckets),
                                 "lane_unpermute_f32": 1,
                                 "spmv_subwin_f32": 1},
                       "spmm_dia": {"spmm_dia_f32": 1},
@@ -956,10 +986,17 @@ def main():
         + (p_packed.cols.long() & 16383))
     # kernel F reads the plain scan, so both versions see the same input
     ext_args = (packed_scan_plain(*scan_args, **scan_kw), p_packed.sblock,
-                p_packed.wstep, p_packed.esrc)
-    ext_kw = dict(num_windows=pst.num_windows, step_tiles=pst.step_tiles)
-    # kernel F reads only the piece sums that esrc picks
-    picked = int((p_packed.esrc >= 0).sum().item())
+                p_packed.esrc, x_pk, f_tables)
+    ext_kw = dict(rows=p_packed.shape[0], step_tiles=pst.step_tiles)
+    # kernel F reads only the piece sums that esrc picks, its tables, the
+    # overflow's x, and writes y
+    f_parts = packed_extract_bytes(p_packed, f_tables, x_pk)
+    f_bytes = sum(f_parts.values())
+    picked = f_parts["picked S entries"] // 4
+    novf = f_tables.ov_vals.shape[0]
+    log(f"[packed] kernel F's bytes: "
+        + ", ".join(f"{k} {v}" for k, v in f_parts.items())
+        + f": {f_bytes} in all")
     # kernel G, resident route: the cached phase's tier 2 on its x[hot_cols]
     x_tier2 = ops["cached"][1].index_select(0, tier2.hot_cols)
     x_tier1 = ops["cached"][1].index_select(0, p_cached.hot_cols)
@@ -1001,10 +1038,9 @@ def main():
                 + nbytes(p_packed.vals),
                 2 * p_packed.vals.numel()), False),
               ("packed_extract_f32", "packed", "",
-               (lambda: packed_extract_kernel(*ext_args, **ext_kw),
-                lambda: packed_extract_plain(*ext_args, **ext_kw),
-                nbytes(*ext_args[1:]) + picked * 4
-                + pst.num_windows * 8192 * 4, picked), False),
+               (lambda: packed_rows_kernel(*ext_args, **ext_kw),
+                lambda: packed_rows_plain(*ext_args, **ext_kw),
+                f_bytes, picked + 2 * novf), False),
               ("spmv_sell_window_f32", "cached", " tier 1",
                sell_pair(hot, x_tier1), False),
               ("spmv_sell_global_f32", "cached", " resident (tier 2)",
@@ -1267,6 +1303,50 @@ def main():
         f"{lib_ms:.4f} ms, rel err {err:.3g} vs float64, on {card}")
     library_device_us("chunk", "torch.sparse.mm of the heavy rows",
                       lambda: torch.sparse.mm(a_t, x_col))
+    # the packed apply (kernels E and F): torch.sparse.mm of the matrix's
+    # CSR over x, by events and by the profiler (F alone computes no
+    # function a PyTorch call does: its input is E's scan)
+    a_t, x_col = csr_on_card(scipy_of(a_packed)), x_pk.reshape(-1, 1)
+    err = rel_err(torch.sparse.mm(a_t, x_col).reshape(-1), want64["packed"])
+    assert err < Y_RTOL, err
+    lib_ms = min(time_ms(lambda: torch.sparse.mm(a_t, x_col)) for _ in "ab")
+    log(f"[packed] torch.sparse.mm of the matrix (CSR float32, "
+        f"{a_packed.indices.shape[0]} nnz, x as (cols, 1)), beside the "
+        f"apply: {lib_ms:.4f} ms, rel err {err:.3g} vs float64, on {card}")
+    library_device_us("packed", "torch.sparse.mm of the matrix",
+                      lambda: torch.sparse.mm(a_t, x_col))
+    # kernel B at the chunk shape: each light bucket's bytes and bound,
+    # and torch.sparse.mm of the light buckets' CSR (each slot with a
+    # nonzero value at its segment's lane row and its column) over x: the
+    # per-(segment, lane) sums that B's partials and their index_add_ make
+    nseg = p_chunk.num_blocks + p_chunk.num_heavy
+    lr, lc, lv = [], [], []
+    for b in p_chunk.buckets:
+        seg = b.tile_slice.long()[:, None, None].expand(b.vals.shape)
+        lane = torch.arange(128, device=dev).expand(b.vals.shape)
+        keep = b.vals != 0
+        lr.append((seg * 128 + lane)[keep])
+        lc.append(b.cols.long()[keep])
+        lv.append(b.vals[keep])
+        bb = nbytes(b.vals, b.cols_win, b.window_base) + b.num_tiles * 128 * 4
+        log(f"[chunk] kernel B bucket K={b.stats.window_blocks}: "
+            f"{b.num_tiles} tiles, {int(keep.sum())} nonzeros in "
+            f"{b.vals.numel()} slots (fill {b.stats.fill:.4f}), slab and "
+            f"partials {bb} bytes (x besides), "
+            f"{bb / PEAK_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s")
+    lr, lc, lv = (torch.cat(t).cpu().numpy() for t in (lr, lc, lv))
+    m_light = sp.csr_matrix((lv, (lr, lc)),
+                            shape=(nseg * 128, a_chunk.shape[1]))
+    want_l = m_light.astype(np.float64) @ x_chunk.astype(np.float64)
+    a_t, x_col = csr_on_card(m_light), ops["chunk"][1].reshape(-1, 1)
+    err = rel_err(torch.sparse.mm(a_t, x_col).reshape(-1), want_l)
+    assert err < Y_RTOL, err
+    lib_ms = min(time_ms(lambda: torch.sparse.mm(a_t, x_col)) for _ in "ab")
+    log(f"[chunk] torch.sparse.mm of the light buckets' CSR (float32, "
+        f"{m_light.nnz} nnz in {m_light.shape[0]} lane rows, x as (cols, "
+        f"1)): {lib_ms:.4f} ms, rel err {err:.3g} vs float64, on {card}")
+    library_device_us("chunk", "torch.sparse.mm of the light buckets",
+                      lambda: torch.sparse.mm(a_t, x_col))
     # kernel M: torch.sparse.mm of each shard's rows, their columns
     # shifted onto the shard's halo'd x, over that x; the four summed
     rps, halo = sp_dia.rows_per_shard, sp_dia.halo
@@ -1342,6 +1422,13 @@ def main():
             # kernel L likewise: it alone, no index_add_ and no fill
             assert len(by_kernel) == 1, by_kernel
             assert kernel_g(next(iter(by_kernel))), by_kernel
+        if name == "packed":
+            # kernel E, then kernel F, once each, and nothing else: no
+            # index_add_, gather, fill or add of the overflow COO after F
+            assert sorted(n for _, n in by_kernel.values()) == [1, 1], \
+                by_kernel
+            assert any("packed_scan_kernel" in k for k in by_kernel) and \
+                any("packed_rows_kernel" in k for k in by_kernel), by_kernel
         if name == "chunk":
             # one launch of kernel D, and the index_add_s of the light
             # buckets' segment reduce and of the heavy merge alone

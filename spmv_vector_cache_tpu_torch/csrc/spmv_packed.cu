@@ -15,19 +15,42 @@
 // sums, added in another order.
 //
 // Kernel F replaces the Pallas kernel `_make_extract_kernel` (same
-// file).  Output element (w, e) of y window w (8192 rows) is
-//   out[w*8192 + e] = sum over visits i with wstep[i] == w, in order, of
-//                     S[sblock[i]*ST*1024 + esrc[i, e]]  (esrc < 0: none)
-// and 0 for a window with no visit.  On the TPU the grid runs the visits
-// in order and keeps the window's y block resident between them; blocks
-// of a GPU grid run in parallel, so each thread owns one y element and
-// walks its window's visit range itself (wstep is nondecreasing, so the
-// range is found by binary search).  No two threads write one element.
+// file) and also computes what the reference does after that call
+// (`spmv_packed.py:189-197`: the window mask and the overflow COO), so
+// the apply is E then F and nothing else.  For each y row r < rows, in
+// window w = r / 8192 at element e = r % 8192:
+//   y[r] = sum over visits i in [woff[w], woff[w+1]) of
+//          S[sblock[i]*ST*1024 + esrc[i, e]]  (esrc < 0: none)
+//        + sum over r's overflow entries j, in the plan's order, of
+//          ov_vals[j] * x[ov_cols[j]]
+// so a window with no visit gives 0 plus its overflow.  On the TPU the
+// grid walks the visits in order with the window's y block resident;
+// here each CTA owns a block of rows (8 a thread), reads its window's
+// visit range from a table built at placement (no search), and writes
+// its rows of y once: no atomic, no partial buffer, y the same every
+// run.
 //
 // Bound: bytes.  Pass A streams 6 B per slot in and 4 B out (vectorised:
 // 16 B of values and 8 B of columns per thread); its x reads fall in one
-// chunk of CB*128 columns, served by L1/L2.  Pass B streams 2 B of esrc
-// per output element and visit, and reads S at the pieces' end slots.
+// chunk of CB*128 columns, served by L1/L2.  Pass B reads 2 B of esrc per
+// y row and visit of its window, sblock, the S entries esrc picks, the
+// overflow triples and their x, and writes 4 B per row of y.  With a
+// thread per row and visit loads issued one after another it was
+// latency-bound (a dependent esrc load then S gather per visit, ~2 loads
+// in flight a thread, well under the ~2 MB in flight the card needs).
+// So a thread loads 16 B of esrc (8 rows) a visit, issues a batch of
+// visits' esrc loads and then all their S gathers before summing them,
+// and the CTA's thread groups take interleaved batches of the window's
+// visits; group 0 adds the other groups' sums in group order from shared
+// memory.  The order is fixed, so y is the same every run, but it is not
+// visit order.  The overflow entries are staged through shared memory
+// a CTA-wide round at a time and added, after the visits, by the thread
+// that owns the row.  On the H100, 256 rows a CTA in 4 groups of 32
+// threads, 2 visits a batch, was the fastest launch shape: 6.5 us on
+// `mac_econ_like` against a 4.90 us bound (16.4 MB), where the one-row
+// threads took 10.8 us before the overflow ops (probes_torch/
+// extract_shapes.py; PERF.md).  Issuing the next batch's esrc loads
+// before this batch's gathers, or S gathers that skip L1, were slower.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -87,35 +110,174 @@ __global__ void packed_scan_kernel(const float* __restrict__ vals,
                                                         s[3]);
 }
 
-// first i in [0, n) with a[i] >= key (a nondecreasing)
-__device__ int lower_bound(const int* __restrict__ a, int n, int key) {
-    int lo = 0, hi = n;
-    while (lo < hi) {
-        int mid = (lo + hi) >> 1;
-        if (__ldg(a + mid) < key) lo = mid + 1; else hi = mid;
-    }
-    return lo;
+// Kernel F's launch shape, chosen on the H100 by
+// probes_torch/extract_shapes.py, which builds other shapes by defining
+// these: rows a CTA writes (8 a thread; a divisor of 8192, and equal to
+// ops/runs.py EXTRACT_BLOCK_ROWS, by which placement groups the
+// overflow), thread groups that split a window's visits, and visits a
+// thread loads before it sums them.
+#ifndef PACKED_F_BLOCK_ROWS
+#define PACKED_F_BLOCK_ROWS 256
+#endif
+#ifndef PACKED_F_GROUPS
+#define PACKED_F_GROUPS 4
+#endif
+#ifndef PACKED_F_BATCH
+#define PACKED_F_BATCH 2
+#endif
+
+constexpr int kRowsPerThread = 8;    // one 16 B esrc load a visit
+constexpr int kBlockRows = PACKED_F_BLOCK_ROWS;
+constexpr int kGroups = PACKED_F_GROUPS;
+constexpr int kBatch = PACKED_F_BATCH;
+constexpr int kTX = kBlockRows / kRowsPerThread;  // threads of a group
+constexpr int kThreads = kTX * kGroups;
+static_assert(kBlockRows % kRowsPerThread == 0 &&
+                  kWindowRows % kBlockRows == 0,
+              "a CTA's rows are whole threads' and divide a window");
+static_assert(kThreads <= 1024 && kGroups >= 1 && kBatch >= 1,
+              "kernel F's launch shape");
+
+__device__ __forceinline__ int esrc_at(const int4& v, int j) {
+    int word = j < 2 ? v.x : j < 4 ? v.y : j < 6 ? v.z : v.w;
+    return (int)(short)(j & 1 ? (word >> 16) : word);
 }
 
-// grid (kWindowRows / blockDim.x, num_windows)
-__global__ void packed_extract_kernel(const float* __restrict__ scan,
-                                      const int* __restrict__ sblock,
-                                      const int* __restrict__ wstep,
-                                      const int16_t* __restrict__ esrc,
-                                      float* __restrict__ out, int steps_b,
-                                      long long block_slots) {
-    int w = blockIdx.y;
-    int e = blockIdx.x * blockDim.x + threadIdx.x;
-    int first = lower_bound(wstep, steps_b, w);
-    int last = lower_bound(wstep, steps_b, w + 1);
-    float acc = 0.0f;
-    for (int i = first; i < last; ++i) {
-        int src = __ldg(esrc + (long long)i * kWindowRows + e);
-        if (src >= 0)
-            acc += __ldg(scan + (long long)__ldg(sblock + i) * block_slots +
-                         src);
+// blockDim (kTX, kGroups): kTX threads own the CTA's kBlockRows rows,
+// kGroups groups of them split the window's visits
+__global__ void __launch_bounds__(kThreads) packed_rows_kernel(
+        const float* __restrict__ scan, const int* __restrict__ sblock,
+        const int* __restrict__ woff, const int16_t* __restrict__ esrc,
+        const int* __restrict__ ov_off, const int* __restrict__ ov_lane,
+        const int* __restrict__ ov_cols, const float* __restrict__ ov_vals,
+        const float* __restrict__ x, float* __restrict__ y, long long rows,
+        long long block_slots) {
+    // the sums of groups 1.. for group 0 to add; the overflow products of
+    // a round, their rows in the block, and each thread's run of them
+    __shared__ __align__(16) float part[kGroups > 1 ? kGroups - 1 : 1]
+                                       [kBlockRows];
+    __shared__ float ov_prod[kThreads];
+    __shared__ int ov_row[kThreads];
+    __shared__ int ov_first[kTX], ov_last[kTX];
+    const int tx = threadIdx.x, g = threadIdx.y;
+    const int tid = g * kTX + tx;
+    const long long row0 = (long long)blockIdx.x * kBlockRows;
+    const int w = (int)(row0 / kWindowRows);
+    const int e0 = (int)(row0 % kWindowRows) + tx * kRowsPerThread;
+
+    // the first round of overflow entries, loaded before the visits
+    const int o0 = ov_off ? __ldg(ov_off + blockIdx.x) : 0;
+    const int o1 = ov_off ? __ldg(ov_off + blockIdx.x + 1) : 0;
+    int lane = 0, col = 0;
+    float val = 0.0f;
+    if (o0 + tid < o1) {
+        lane = __ldg(ov_lane + o0 + tid);
+        col = __ldg(ov_cols + o0 + tid);
+        val = __ldg(ov_vals + o0 + tid);
     }
-    out[(long long)w * kWindowRows + e] = acc;
+
+    float acc[kRowsPerThread];
+#pragma unroll
+    for (int j = 0; j < kRowsPerThread; ++j) acc[j] = 0.0f;
+    const int v0 = __ldg(woff + w), v1 = __ldg(woff + w + 1);
+    for (int i0 = v0 + g * kBatch; i0 < v1; i0 += kGroups * kBatch) {
+        int4 ev[kBatch];
+        long long base[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+            const int i = i0 + u;
+            if (i < v1) {
+                ev[u] = __ldg(reinterpret_cast<const int4*>(
+                    esrc + (long long)i * kWindowRows + e0));
+                base[u] = (long long)__ldg(sblock + i) * block_slots;
+            } else {
+                ev[u] = make_int4(-1, -1, -1, -1);
+                base[u] = 0;
+            }
+        }
+        float v[kBatch][kRowsPerThread];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+#pragma unroll
+            for (int j = 0; j < kRowsPerThread; ++j) {
+                const int src = esrc_at(ev[u], j);
+                v[u][j] = src >= 0 ? __ldg(scan + base[u] + src) : 0.0f;
+            }
+        }
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+#pragma unroll
+            for (int j = 0; j < kRowsPerThread; ++j)
+                acc[j] = __fadd_rn(acc[j], v[u][j]);
+        }
+    }
+    if (kGroups > 1) {
+        if (g > 0) {
+            float4* mine = reinterpret_cast<float4*>(
+                &part[g - 1][tx * kRowsPerThread]);
+            mine[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+            mine[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+        }
+        __syncthreads();
+        if (g == 0) {
+#pragma unroll
+            for (int h = 1; h < kGroups; ++h) {
+#pragma unroll
+                for (int j = 0; j < kRowsPerThread; ++j)
+                    acc[j] = __fadd_rn(acc[j],
+                                       part[h - 1][tx * kRowsPerThread + j]);
+            }
+        }
+    }
+
+    // the overflow, a round of up to kThreads entries at a time: each
+    // entry's product into shared memory, then each row's run of entries
+    // (sorted by row, the plan's order within a row) added by its owner
+    for (int r0 = o0; r0 < o1; r0 += kThreads) {
+        const int m = min(kThreads, o1 - r0);
+        if (r0 > o0 && tid < m) {
+            lane = __ldg(ov_lane + r0 + tid);
+            col = __ldg(ov_cols + r0 + tid);
+            val = __ldg(ov_vals + r0 + tid);
+        }
+        if (tid < kTX) ov_first[tid] = ov_last[tid] = 0;
+        if (tid < m) {
+            ov_prod[tid] = __fmul_rn(val, __ldg(x + col));
+            ov_row[tid] = lane;
+        }
+        __syncthreads();
+        if (tid < m) {
+            const int own = lane / kRowsPerThread;
+            if (tid == 0 || ov_row[tid - 1] / kRowsPerThread != own)
+                ov_first[own] = tid;
+            if (tid == m - 1 || ov_row[tid + 1] / kRowsPerThread != own)
+                ov_last[own] = tid + 1;
+        }
+        __syncthreads();
+        if (g == 0) {
+            for (int k = ov_first[tx]; k < ov_last[tx]; ++k) {
+                const int jk = ov_row[k] % kRowsPerThread;
+                const float p = ov_prod[k];
+#pragma unroll
+                for (int j = 0; j < kRowsPerThread; ++j)
+                    if (j == jk) acc[j] = __fadd_rn(acc[j], p);
+            }
+        }
+        __syncthreads();
+    }
+
+    if (g == 0) {
+        const long long r = row0 + tx * kRowsPerThread;
+        if (r + kRowsPerThread <= rows) {
+            float4* out = reinterpret_cast<float4*>(y + r);
+            out[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+            out[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+        } else {
+#pragma unroll
+            for (int j = 0; j < kRowsPerThread; ++j)
+                if (r + j < rows) y[r + j] = acc[j];
+        }
+    }
 }
 
 }  // namespace
@@ -138,16 +300,22 @@ extern "C" int packed_scan_f32(const float* vals, const int16_t* cols,
     return (int)cudaGetLastError();
 }
 
-// out: num_windows * 8192 floats; block_slots = step_tiles * 1024
+// y: rows floats, written, in CTAs of PACKED_F_BLOCK_ROWS rows; ov_off:
+// one offset a CTA and one more, or null for no overflow (x is then not
+// read); block_slots = step_tiles * 1024
 extern "C" int packed_extract_f32(const float* scan, const int* sblock,
-                                  const int* wstep, const int16_t* esrc,
-                                  float* out, int num_windows, int steps_b,
+                                  const int* woff, const int16_t* esrc,
+                                  const int* ov_off, const int* ov_lane,
+                                  const int* ov_cols, const float* ov_vals,
+                                  const float* x, float* y, long long rows,
                                   long long block_slots, void* stream) {
-    if (num_windows > 0) {
-        constexpr int threads = 256;
-        dim3 grid(kWindowRows / threads, (unsigned)num_windows);
-        packed_extract_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-            scan, sblock, wstep, esrc, out, steps_b, block_slots);
+    if (rows > 0) {
+        const unsigned grid = (unsigned)((rows + kBlockRows - 1) /
+                                         kBlockRows);
+        packed_rows_kernel<<<grid, dim3(kTX, kGroups), 0,
+                             (cudaStream_t)stream>>>(
+            scan, sblock, woff, esrc, ov_off, ov_lane, ov_cols, ov_vals, x,
+            y, rows, block_slots);
     }
     return (int)cudaGetLastError();
 }

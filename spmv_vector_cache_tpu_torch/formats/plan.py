@@ -111,8 +111,9 @@ def place(plan, device):
     per-plan work of the kernels is done here, once: a ChunkPlan's
     ``perm_idx`` is checked for kernel C, which reads it unchecked on
     every apply, the work list of kernels G, H and L is built for every
-    SellPlan in it, and a ChunkPlan's heavy tiles are gathered into
-    kernel D's slab, with its work list (``ops/runs.py``)."""
+    SellPlan in it, a ChunkPlan's heavy tiles are gathered into kernel
+    D's slab, with its work list, and a PackedPlan's window visit ranges
+    and grouped overflow are built for kernel F (``ops/runs.py``)."""
     from ..ops.runs import place_plan_runs
     from .chunk import ChunkPlan, check_perm_idx
 

@@ -1,4 +1,4 @@
-"""The work lists of kernels D, G, H and L: which CTA sums which tiles.
+"""The work lists of kernels D, F, G, H and L: which CTA sums which tiles.
 
 The tiles of one slice of a SellPlan are one contiguous run
 (``tile_slice`` is nondecreasing).  Kernel H (``csrc/spmm_sell_window.cu``),
@@ -10,7 +10,10 @@ at placement (``formats.plan.place``, ``parallel.place_on_mesh``), and
 :func:`runs_on` hands it to a launch.  Kernel D (``csrc/spmv_subwin.cu``)
 does the same over a ChunkPlan's heavy subwindow tiles, which placement
 gathers into one slab per plan (:func:`heavy_tiles`, :func:`heavy_on`),
-each heavy row's tiles one run.
+each heavy row's tiles one run.  Kernel F (``csrc/spmv_packed.cu``)
+takes a PackedPlan's visit range of each y window and its overflow
+entries grouped by the CTA that writes their rows (:func:`extract_tables`,
+:func:`extract_on`).
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from torch.utils.weak import WeakIdKeyDictionary
 from ..formats.cached import CachedPlan
 from ..formats.chunk import ChunkPlan
 from ..formats.dia import HybridPlan
+from ..formats.packed import PackedPlan
 from ..formats.plan import SellPlan
 
 #: most tiles one record sums; a longer slice is split over several
@@ -112,7 +116,9 @@ def place_plan_runs(plan) -> None:
     """:func:`place_runs` for every SellPlan of a placed plan — the plan
     itself, a HybridPlan's rest, a CachedPlan's tiers — which kernel G or
     L (any strategy but 'window') or kernel H (``op @ B`` on a window
-    plan) may run, and :func:`place_heavy` for a ChunkPlan."""
+    plan) may run, :func:`place_heavy` for a ChunkPlan and
+    :func:`place_extract` for a PackedPlan (a ChunkPlan's residue and a
+    CachedPlan's cold part included)."""
     if isinstance(plan, HybridPlan):
         place_plan_runs(plan.rest)
     elif isinstance(plan, CachedPlan):
@@ -123,6 +129,10 @@ def place_plan_runs(plan) -> None:
         place_runs(plan.tile_slice, plan.num_slices)
     elif isinstance(plan, ChunkPlan):
         place_heavy(plan)
+        if isinstance(plan.residue, PackedPlan):
+            place_extract(plan.residue)
+    elif isinstance(plan, PackedPlan):
+        place_extract(plan)
 
 
 def runs_on(tile_slice: torch.Tensor, num_slices: int) -> WorkList:
@@ -226,3 +236,100 @@ def heavy_on(plan: ChunkPlan) -> HeavyTiles | None:
                          "ChunkPlan is placed: place the plan with "
                          "formats.plan.place")
     return _HEAVY[plan.hbuckets[0].vals]
+
+
+# ---------------------------------------------------------------------------
+# kernel F: a PackedPlan's window visit ranges and grouped overflow
+# ---------------------------------------------------------------------------
+
+#: y rows one CTA of kernel F writes, by which the overflow entries are
+#: grouped: ``PACKED_F_BLOCK_ROWS`` of ``csrc/spmv_packed.cu``, which
+#: holds F's whole launch shape (a test checks the two agree)
+EXTRACT_BLOCK_ROWS = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class ExtractTables:
+    """What kernel F reads of a placed PackedPlan beside its own arrays:
+    window w's visits are ``[woff[w], woff[w+1])`` of the plan's
+    window-major visit list, and y block b (rows ``[b*EXTRACT_BLOCK_ROWS,
+    (b+1)*EXTRACT_BLOCK_ROWS)``) owns overflow entries ``[ov_off[b],
+    ov_off[b+1])``, stably sorted by row, so that a row's entries keep the
+    plan's order; each carries its row within the block (``ov_lane``).
+    ``ncols`` is the plan's width: F reads x at ``ov_cols`` unmasked, so
+    an x shorter than that is refused before a launch."""
+
+    ncols: int
+    woff: torch.Tensor        # (num_windows + 1,) int32
+    ov_off: torch.Tensor      # (blocks + 1,) int32
+    ov_lane: torch.Tensor     # (novf,) int32 row within its block
+    ov_cols: torch.Tensor     # (novf,) int32 column of x
+    ov_vals: torch.Tensor     # (novf,) float32
+
+
+def _host(t) -> np.ndarray:
+    return np.asarray(t.cpu() if isinstance(t, torch.Tensor) else t)
+
+
+def window_offsets(wstep, num_windows: int) -> np.ndarray:
+    """The visit range of each window: ``num_windows + 1`` int32 offsets
+    into a nondecreasing ``wstep`` (``build_packed_plan``'s order)."""
+    ws = _host(wstep).astype(np.int64)
+    if ws.size and (np.any(np.diff(ws) < 0) or ws[0] < 0 or
+                    ws[-1] >= num_windows):
+        raise ValueError(f"wstep must be nondecreasing in [0, "
+                         f"{num_windows})")
+    return np.searchsorted(ws, np.arange(num_windows + 1)).astype(np.int32)
+
+
+def extract_tables(plan: PackedPlan) -> ExtractTables:
+    """Kernel F's tables for ``plan`` (host or placed), on the device of
+    its ``esrc`` (the CPU for a host plan)."""
+    rows, ncols = plan.shape
+    nblocks = -(-rows // EXTRACT_BLOCK_ROWS)
+    ov_rows = _host(plan.ov_rows).astype(np.int64)
+    ov_cols = _host(plan.ov_cols)
+    # kernel F reads y's rows and x at these unchecked
+    if ov_rows.size and (ov_rows.min() < 0 or ov_rows.max() >= rows or
+                         ov_cols.min() < 0 or ov_cols.max() >= ncols):
+        raise ValueError(f"overflow entries outside the plan's "
+                         f"{rows} x {ncols}")
+    order = np.argsort(ov_rows, kind="stable")
+    rows_s = ov_rows[order]
+    block = rows_s // EXTRACT_BLOCK_ROWS
+    ov_off = np.searchsorted(block, np.arange(nblocks + 1))
+    device = plan.esrc.device if isinstance(plan.esrc, torch.Tensor) \
+        else "cpu"
+
+    def put(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
+
+    return ExtractTables(
+        ncols, put(window_offsets(plan.wstep, plan.stats.num_windows),
+                   np.int32),
+        put(ov_off, np.int32),
+        put(rows_s - block * EXTRACT_BLOCK_ROWS, np.int32),
+        put(ov_cols[order], np.int32),
+        put(_host(plan.ov_vals)[order], np.float32))
+
+
+#: kernel F's tables of each placed PackedPlan by its ``esrc`` tensor
+_EXTRACT = WeakIdKeyDictionary()
+
+
+def place_extract(plan: PackedPlan) -> None:
+    """Build a placed PackedPlan's kernel-F tables, once, so that no apply
+    waits on them."""
+    if plan.esrc not in _EXTRACT:
+        _EXTRACT[plan.esrc] = extract_tables(plan)
+
+
+def extract_on(plan: PackedPlan) -> ExtractTables:
+    """The kernel-F tables of a placed PackedPlan; raises for a plan no
+    placement saw."""
+    hit = _EXTRACT.get(plan.esrc)
+    if hit is None:
+        raise ValueError("the tables of kernel F are built when its "
+                         "PackedPlan is placed: place the plan with "
+                         "formats.plan.place")
+    return hit

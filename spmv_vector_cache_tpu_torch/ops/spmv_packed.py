@@ -2,12 +2,17 @@
 ``spmv_vector_cache_tpu/ops/spmv_packed.py``).
 
 :func:`packed_scan_kernel` wraps kernel E (pass A: gather, multiply,
-segmented scan along each 128-slot row) and :func:`packed_extract_kernel`
-kernel F (pass B: read each piece's sum at its end slot and sum it into
-its y window), both in ``csrc/spmv_packed.cu``; beside each is its plain
-PyTorch version.  The overflow COO is a torch gather plus a segment sum,
-as the reference computes it in XLA outside Pallas.  See
-``formats/packed.py`` for the layout.
+segmented scan along each 128-slot row) and :func:`packed_rows_kernel`
+kernel F (pass B: read each piece's sum at its end slot, sum it into its
+row of y in a fixed order, then add the row's overflow products in the
+plan's order), both in
+``csrc/spmv_packed.cu``; beside each is its plain PyTorch version.  So
+the apply is kernel E then kernel F: F also does what the reference
+computes in XLA after its extract kernel (the window mask, the overflow
+COO), from the tables that placement builds (``ops/runs.py``
+:func:`~.runs.extract_on`).  :func:`packed_extract_kernel` is F over
+whole windows with no overflow, the reference's extract kernel alone.
+See ``formats/packed.py`` for the layout.
 """
 
 from __future__ import annotations
@@ -17,15 +22,17 @@ import torch
 from ..formats.packed import PACKED_WINDOW_BLOCKS, PackedPlan
 from ..utils import platform
 from . import _kernels
-from . import semiring as sr
+from .runs import (EXTRACT_BLOCK_ROWS, ExtractTables, extract_on,
+                   window_offsets)
 
 
 def _check_same_device(ref, *ts):
-    for t in ts:
-        if t.device != ref.device:
+    dev = ref.get_device()          # an int: no torch.device object a call
+    for t in (ref, *ts):
+        if t.get_device() != dev:
             raise ValueError(f"operands on {ref.device} and {t.device}")
-    if not all(t.is_contiguous() for t in (ref, *ts)):
-        raise ValueError("packed operands must be contiguous")
+        if not t.is_contiguous():
+            raise ValueError("packed operands must be contiguous")
 
 
 # ---------------------------------------------------------------------------
@@ -112,47 +119,116 @@ def packed_extract_plain(scan, sblock, wstep, esrc, *, num_windows: int,
     return out.index_add_(0, wstep, contrib).reshape(-1, 128)
 
 
-def _check_extract(scan, sblock, wstep, esrc, num_windows):
+def _check_pass_b(scan, sblock, esrc, num_windows, *more):
     steps_b = sblock.shape[0]
-    if tuple(esrc.shape) != (steps_b, PACKED_WINDOW_BLOCKS, 128) or \
-            wstep.shape != sblock.shape:
+    if tuple(esrc.shape) != (steps_b, PACKED_WINDOW_BLOCKS, 128):
         raise ValueError(f"esrc {tuple(esrc.shape)} must be (steps_b, 64, "
                          f"128) with steps_b = {steps_b} visits")
     if scan.dtype != torch.float32:
         raise NotImplementedError(f"packed SpMV runs float32 only (scan "
                                   f"{scan.dtype})")
-    if esrc.dtype != torch.int16 or sblock.dtype != torch.int32 or \
-            wstep.dtype != torch.int32:
-        raise ValueError("esrc must be int16, sblock and wstep int32")
+    if esrc.dtype != torch.int16 or sblock.dtype != torch.int32:
+        raise ValueError("esrc must be int16 and sblock int32")
     if not 0 < num_windows < 65536:
         raise ValueError(f"num_windows {num_windows} out of [1, 65535]")
-    _check_same_device(scan, sblock, wstep, esrc)
+    _check_same_device(scan, sblock, esrc, *more)
+    if platform.is_cuda(esrc) and esrc.data_ptr() % 16:
+        raise ValueError("kernel F reads esrc 16 B at a time: it must be "
+                         "aligned to that")
+
+
+def _check_extract(scan, sblock, wstep, esrc, num_windows):
+    _check_pass_b(scan, sblock, esrc, num_windows, wstep)
+    if wstep.shape != sblock.shape or wstep.dtype != torch.int32:
+        raise ValueError(f"wstep must be int32 of sblock's shape "
+                         f"{tuple(sblock.shape)}")
+
+
+def packed_rows_plain(scan, sblock, esrc, x, tables: ExtractTables, *,
+                      rows: int, step_tiles: int) -> torch.Tensor:
+    """Plain PyTorch version of kernel F: each window's visits added into
+    its rows in visit order (``index_add_``), then each row's overflow
+    products in the plan's order; y of length ``rows``."""
+    nwin = tables.woff.shape[0] - 1
+    wstep = torch.repeat_interleave(
+        torch.arange(nwin, device=scan.device),
+        (tables.woff[1:] - tables.woff[:-1]).long())
+    y = packed_extract_plain(scan, sblock, wstep, esrc, num_windows=nwin,
+                             step_tiles=step_tiles).reshape(-1)[:rows]
+    y = y.contiguous()
+    block = torch.repeat_interleave(
+        torch.arange(tables.ov_off.shape[0] - 1, device=scan.device),
+        (tables.ov_off[1:] - tables.ov_off[:-1]).long())
+    prod = tables.ov_vals * x[tables.ov_cols.long()]
+    return y.index_add_(0, block * EXTRACT_BLOCK_ROWS + tables.ov_lane, prod)
+
+
+def _check_rows(scan, sblock, esrc, x, tables, rows):
+    # extract_tables puts every table on one device, contiguous
+    _check_pass_b(scan, sblock, esrc, tables.woff.shape[0] - 1, x,
+                  tables.woff)
+    if tables.ov_off.shape != (-(-rows // EXTRACT_BLOCK_ROWS) + 1,):
+        raise ValueError(f"ov_off {tuple(tables.ov_off.shape)}: the tables "
+                         f"are not those of a plan of {rows} rows")
+    if x.dtype != torch.float32 or x.dim() != 1:
+        raise ValueError(f"x must be 1-D float32, got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    if x.shape[0] < tables.ncols:
+        raise ValueError(f"x has {x.shape[0]} entries; the plan has "
+                         f"{tables.ncols} columns")
+
+
+def packed_rows_kernel(scan, sblock, esrc, x, tables: ExtractTables, *,
+                       rows: int, step_tiles: int) -> torch.Tensor:
+    """Kernel F on CUDA tensors; the plain version on CPU tensors.
+    Returns y, (rows,) float32: the visits of each row's window, then
+    the row's overflow."""
+    _check_rows(scan, sblock, esrc, x, tables, rows)
+    if not platform.is_cuda(scan):
+        return packed_rows_plain(scan, sblock, esrc, x, tables, rows=rows,
+                                 step_tiles=step_tiles)
+    y = torch.empty(rows, dtype=torch.float32, device=scan.device)
+    _launch_f(scan, sblock, tables.woff, esrc, tables, x, y, step_tiles)
+    return y
+
+
+def _launch_f(scan, sblock, woff, esrc, tables, x, y, step_tiles):
+    """One launch of kernel F into ``y`` (no overflow without tables)."""
+    ov = (None,) * 4 if tables is None else (
+        tables.ov_off.data_ptr(), tables.ov_lane.data_ptr(),
+        tables.ov_cols.data_ptr(), tables.ov_vals.data_ptr())
+    _kernels.launch(
+        "packed_extract_f32", scan.get_device(), scan.data_ptr(),
+        sblock.data_ptr(), woff.data_ptr(), esrc.data_ptr(), *ov,
+        None if x is None else x.data_ptr(), y.data_ptr(), y.shape[0],
+        step_tiles * 1024)
+    packed_rows_kernel.launches += 1
+
+
+packed_rows_kernel.launches = 0
 
 
 def packed_extract_kernel(scan, sblock, wstep, esrc, *, num_windows: int,
                           step_tiles: int) -> torch.Tensor:
-    """Kernel F on CUDA tensors; the plain version on CPU tensors.
-    Returns (num_windows * 64, 128) float32.  ``wstep`` must be
-    nondecreasing (``build_packed_plan``'s window-major visit order).  Both
-    versions write 0 to unvisited windows, so the plan's ``wfirst`` and
-    ``window_mask`` (the reference's overwrite flag and mask) are not
-    read."""
+    """Kernel F over whole windows with no overflow on CUDA tensors (its
+    launches count on :func:`packed_rows_kernel`); the plain version on
+    CPU tensors.  Returns (num_windows * 64, 128) float32.  ``wstep``
+    must be nondecreasing (``build_packed_plan``'s window-major visit
+    order).  Both versions write 0 to unvisited windows, so the plan's
+    ``wfirst`` and ``window_mask`` (the reference's overwrite flag and
+    mask) are not read."""
     _check_extract(scan, sblock, wstep, esrc, num_windows)
     if not platform.is_cuda(scan):
         return packed_extract_plain(scan, sblock, wstep, esrc,
                                     num_windows=num_windows,
                                     step_tiles=step_tiles)
+    woff = torch.from_numpy(window_offsets(wstep, num_windows)).to(
+        scan.device)
     out = torch.empty((num_windows * PACKED_WINDOW_BLOCKS, 128),
                       dtype=torch.float32, device=scan.device)
-    _kernels.launch(
-        "packed_extract_f32", scan.get_device(), scan.data_ptr(),
-        sblock.data_ptr(), wstep.data_ptr(), esrc.data_ptr(), out.data_ptr(),
-        num_windows, sblock.shape[0], step_tiles * 1024)
-    packed_extract_kernel.launches += 1
+    _launch_f(scan, sblock, woff, esrc, None, None, out.reshape(-1),
+              step_tiles)
     return out
-
-
-packed_extract_kernel.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -170,17 +246,10 @@ def spmv_packed(plan: PackedPlan, x: torch.Tensor, *,
             f"packed plans run plus_times only (piece extraction rides a "
             f"segmented prefix sum); got {semiring!r}")
     st = plan.stats
-    rows = plan.shape[0]
+    tables = extract_on(plan)
     x = x.to(plan.vals.dtype).contiguous()
     scan = packed_scan_kernel(plan.vals, plan.cols, plan.cstep, x,
                               chunk_blocks=st.chunk_blocks,
                               step_tiles=st.step_tiles)
-    out = packed_extract_kernel(scan, plan.sblock, plan.wstep, plan.esrc,
-                                num_windows=st.num_windows,
-                                step_tiles=st.step_tiles)
-    y = out.reshape(-1)[:rows]
-    if plan.ov_vals.shape[0]:
-        prod = plan.ov_vals * x[plan.ov_cols.long()]
-        y = y + sr.PLUS_TIMES.segment_reduce(prod, plan.ov_rows,
-                                             num_segments=rows)
-    return y
+    return packed_rows_kernel(scan, plan.sblock, plan.esrc, x, tables,
+                              rows=plan.shape[0], step_tiles=st.step_tiles)

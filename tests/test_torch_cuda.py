@@ -200,6 +200,109 @@ def test_packed_kernels_match_plain(cuda, chunk_blocks):
            spmv_packed.packed_extract_plain(*ext_args, **ext_kw))
 
 
+def _packed_matrix(overflow, rows=20003, cols=9000):
+    """Random nonzeros over rows that end mid-window and mid-CTA (20,003 =
+    2 windows + 3,619 rows, not a multiple of 8); with overflow, one
+    full row and 9 rows of 2,000, whose runs cross many 128-slot
+    boundaries (the full row's 8,000-odd overflow entries take a CTA of
+    kernel F several rounds); without, one nonzero a row (no run is
+    split)."""
+    rng = np.random.default_rng(6)
+    if not overflow:
+        return sp.csr_matrix((rng.standard_normal(rows).astype(np.float32),
+                              (np.arange(rows), rng.integers(0, cols, rows))),
+                             shape=(rows, cols))
+    flat = rng.choice(rows * cols, 180000, replace=False)
+    r, c = flat // cols, flat % cols
+    dense = np.arange(1000, rows, 2000)[:9]
+    r = np.concatenate([r, np.full(cols, 5), np.repeat(dense, 2000)])
+    c = np.concatenate([c, np.arange(cols), rng.integers(0, cols, 18000)])
+    m = sp.csr_matrix((rng.standard_normal(r.shape[0]).astype(np.float32),
+                       (r, c)), shape=(rows, cols))
+    m.sum_duplicates()
+    m.sort_indices()
+    return m
+
+
+@pytest.mark.parametrize("overflow", [False, True])
+@pytest.mark.parametrize("chunk_blocks", [1, 4, 32])
+def test_packed_rows_kernel_matches_plain(cuda, chunk_blocks, overflow):
+    # kernel F, visits then overflow, against its plain version on the
+    # same scan.  F's thread groups sum interleaved batches of a window's
+    # visits and add their sums in group order, where the plain version
+    # adds visit by visit: the same float32 terms in another order, so
+    # 1e-5 of max|y|
+    m = _packed_matrix(overflow)
+    plan = place(build_packed_plan(from_scipy(m), chunk_blocks=chunk_blocks),
+                 cuda)
+    st = plan.stats
+    assert (st.overflow_nnz > 0) == overflow
+    tables = pruns.extract_on(plan)
+    if overflow:
+        # more entries than the 1,024 threads a CTA has at most
+        assert int((tables.ov_off[1:] - tables.ov_off[:-1]).max()) > 1024
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        m.shape[1]).astype(np.float32)).to(cuda)
+    scan = spmv_packed.packed_scan_plain(plan.vals, plan.cols, plan.cstep, x,
+                                         chunk_blocks=chunk_blocks,
+                                         step_tiles=st.step_tiles)
+    args = (scan, plan.sblock, plan.esrc, x, tables)
+    kw = dict(rows=m.shape[0], step_tiles=st.step_tiles)
+    before = spmv_packed.packed_rows_kernel.launches
+    got = spmv_packed.packed_rows_kernel(*args, **kw)
+    assert spmv_packed.packed_rows_kernel.launches == before + 1
+    _close(got, spmv_packed.packed_rows_plain(*args, **kw))
+
+
+def _packed_operator(cuda):
+    from spmv_vector_cache_tpu_torch.ops.operator import SparseOperator
+
+    m = _packed_matrix(True)
+    op = SparseOperator(place(build_packed_plan(from_scipy(m)), cuda))
+    assert op.strategy == "packed"
+    x = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        m.shape[1]).astype(np.float32)).to(cuda)
+    return op, x
+
+
+def test_packed_apply_launches_e_and_f_alone(cuda):
+    # op @ x on a PackedPlan: kernel E, then kernel F, and no other
+    # kernel, copy or fill on the card (the overflow COO is summed in F)
+    from torch.profiler import ProfilerActivity, profile
+
+    op, x = _packed_operator(cuda)
+    op @ x                                      # builds the kernels
+    torch.cuda.synchronize()
+    counts = (spmv_packed.packed_scan_kernel.launches,
+              spmv_packed.packed_rows_kernel.launches)
+    names, applies = [], 0
+    while not names and applies < 3:    # a session now and then records
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:  # nothing
+            op @ x
+            torch.cuda.synchronize()
+        applies += 1
+        names = sorted(e.name for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+    assert len(names) == 2, names
+    assert any("packed_scan_kernel" in n for n in names) and \
+        any("packed_rows_kernel" in n for n in names), names
+    assert (spmv_packed.packed_scan_kernel.launches - counts[0],
+            spmv_packed.packed_rows_kernel.launches - counts[1]) == \
+        (applies, applies)
+
+
+def test_packed_apply_is_the_same_every_run(cuda):
+    # kernel F writes each row once, with no atomic: bit-equal applies,
+    # and y as on the CPU to rounding
+    op, x = _packed_operator(cuda)
+    y1 = op @ x
+    y2 = op @ x
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2)
+    cpu = place(build_packed_plan(from_scipy(_packed_matrix(True))), "cpu")
+    _close(y1.cpu(), spmv_packed.spmv_packed(cpu, x.cpu()))
+
+
 def _global_args(plan, x, semiring):
     return ((plan.vals, plan.cols, plan.tile_slice, x),
             dict(num_slices=plan.num_slices, parts=spmv_sell.row_parts(plan),

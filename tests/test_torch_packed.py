@@ -12,8 +12,15 @@ packages:
   plain scan runs the reference's Hillis-Steele order, so it is usually
   exact);
 * y agrees with the float64 host loop to 1e-4 * max(1, max|y|), the
-  JAX package's own bound for these matrices.
+  JAX package's own bound for these matrices;
+* the tables placement builds for kernel F (each window's visit range,
+  the overflow grouped by the block of rows a CTA of F writes) hold the
+  plan's visits and overflow, in the plan's order within a row.
 """
+
+import dataclasses
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -32,6 +39,7 @@ from spmv_vector_cache_tpu.ops import spmv_packed as jspmv_packed
 from spmv_vector_cache_tpu_torch.formats import packed as ppacked
 from spmv_vector_cache_tpu_torch.formats import plan as pplan
 from spmv_vector_cache_tpu_torch.interop import plan_from_reference
+from spmv_vector_cache_tpu_torch.ops import runs as pruns
 from spmv_vector_cache_tpu_torch.ops import spmv_packed as pspmv_packed
 from spmv_vector_cache_tpu_torch.ops import spmv_sell as psell
 from spmv_vector_cache_tpu_torch.ops import strategy as pstrategy
@@ -50,6 +58,29 @@ def random_csr(rows, cols, density, seed=7):
     return a
 
 
+def mac_econ_small(n=30000, seed=44):
+    """``tools/realistic.mac_econ_like``'s recipe (1-10 nonzeros a row at
+    N(0, 12000^2) column offsets, clipped, plus the diagonal) at n rows."""
+    rng = np.random.default_rng(seed)
+    r = np.repeat(np.arange(n), rng.integers(1, 11, n))
+    c = np.clip(r + (rng.standard_normal(r.shape[0]) * 12_000).astype(
+        np.int64), 0, n - 1)
+    key = np.unique(np.concatenate([r * n + c, np.arange(n) * (n + 1)]))
+    a = sp.csr_matrix((rng.standard_normal(key.shape[0]).astype(np.float32),
+                       (key // n, key % n)), shape=(n, n))
+    a.sort_indices()
+    return a
+
+
+def one_per_row(rows, cols, seed=2):
+    """One nonzero a row at a random column: no run crosses a 128-slot
+    boundary, so the plan has no overflow."""
+    rng = np.random.default_rng(seed)
+    return sp.csr_matrix((rng.standard_normal(rows).astype(np.float32),
+                          (np.arange(rows), rng.integers(0, cols, rows))),
+                         shape=(rows, cols))
+
+
 #: name -> (matrix, chunk_blocks)
 CASES = {
     "narrow_cb8": (lambda: random_csr(300, 5000, 0.01), 8),
@@ -62,6 +93,10 @@ CASES = {
     "empty_windows": (lambda: sp.csr_matrix(
         (np.ones(3, np.float32), ([0, 1, 2], [5, 6, 7])),
         shape=(40000, 1000)), 2),
+    "no_overflow": (lambda: one_per_row(20000, 7000), 4),
+    "partial_last_window": (lambda: random_csr(2 * 8192 + 1700, 5000, 0.002,
+                                               seed=4), 8),
+    "mac_econ_small": (mac_econ_small, 32),
 }
 
 
@@ -71,8 +106,14 @@ def test_build_packed_plan_byte_equal(case):
     ja, pa = both(make())
     port = ppacked.build_packed_plan(pa, chunk_blocks=cb)
     assert_plans_equal(port, jpacked.build_packed_plan(ja, chunk_blocks=cb))
-    if case == "dense_rows_overflow":
+    if case in ("dense_rows_overflow", "mac_econ_small"):
         assert port.stats.overflow_nnz > 0
+    if case == "no_overflow":
+        assert port.stats.overflow_nnz == 0
+    if case in ("partial_last_window", "mac_econ_small"):
+        # the last window holds fewer than 8192 rows, and is visited
+        assert port.shape[0] % 8192 and \
+            port.wstep[-1] == port.stats.num_windows - 1
     assert np.all(np.diff(port.wstep) >= 0)     # kernel F's precondition
 
 
@@ -93,6 +134,157 @@ def test_spmv_packed_matches_jax_and_host(case):
     assert np.abs(y - want64).max() <= 1e-4 * scale
     if case == "empty_windows":
         assert np.all(y[3:] == 0)
+
+
+def _with_overflow(jp, rows, cols, vals):
+    """A JAX PackedPlan with COO entries appended to its overflow list."""
+    return dataclasses.replace(
+        jp, ov_rows=np.concatenate([np.asarray(jp.ov_rows),
+                                    np.asarray(rows, np.int32)]),
+        ov_cols=np.concatenate([np.asarray(jp.ov_cols),
+                                np.asarray(cols, np.int32)]),
+        ov_vals=np.concatenate([np.asarray(jp.ov_vals),
+                                np.asarray(vals, np.float32)]))
+
+
+def test_spmv_packed_unvisited_window_gives_its_overflow():
+    """A window with no visit but with overflow rows: its rows are 0 plus
+    their overflow (the reference masks the window, then adds the COO).
+    build_packed_plan never makes one (a row with overflow has a primary
+    piece), so the entries are appended to a plan by hand, two of them
+    on one row to keep their order."""
+    make, cb = CASES["empty_windows"]
+    m = make()
+    ja, _ = both(m)
+    jp = jpacked.build_packed_plan(ja, chunk_blocks=cb)
+    assert set(np.asarray(jp.wstep).tolist()) == {0}
+    rows, cols = [17000, 17000, 20000, 39999], [3, 999, 500, 0]
+    vals = [1.5, -2.0, 0.25, 4.0]
+    jp = _with_overflow(jp, rows, cols, vals)
+    x = np.random.default_rng(5).standard_normal(m.shape[1]).astype(
+        np.float32)
+    want = jspmv_packed.spmv_packed(jp, x, interpret=True)
+    y = pspmv_packed.spmv_packed(plan_from_reference(jp, "cpu"),
+                                 torch.from_numpy(x)).numpy()
+    _assert_close(y, want)
+    want64 = jref.spmv_numpy(ja, x.astype(np.float64))
+    np.add.at(want64, rows, np.asarray(vals) * x[cols].astype(np.float64))
+    scale = max(1.0, float(np.abs(want64).max()))
+    assert np.abs(y - want64).max() <= 1e-4 * scale
+    assert np.count_nonzero(y[8192:]) == 3
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_extract_tables_hold_the_visits_and_overflow(case):
+    """Kernel F's tables: window w's visits are the plan's visits with
+    wstep == w, and block b's overflow entries are the plan's entries of
+    rows in b, sorted by row with the plan's order kept within a row."""
+    make, cb = CASES[case]
+    _, pa = both(make())
+    plan = pplan.place(ppacked.build_packed_plan(pa, chunk_blocks=cb),
+                       "cpu")
+    t = pruns.extract_on(plan)
+    rb, rows = pruns.EXTRACT_BLOCK_ROWS, plan.shape[0]
+    assert 8192 % rb == 0 and t.ncols == plan.shape[1]
+    wstep = plan.wstep.numpy()
+    woff = t.woff.numpy()
+    assert woff.shape == (plan.stats.num_windows + 1,)
+    assert woff[0] == 0 and woff[-1] == wstep.shape[0]
+    for w in range(plan.stats.num_windows):
+        assert np.all(wstep[woff[w]:woff[w + 1]] == w)
+    off = t.ov_off.numpy()
+    assert off.shape == (-(-rows // rb) + 1,) and off[-1] == \
+        plan.ov_rows.shape[0]
+    assert np.all(np.diff(off) >= 0)
+    block = np.repeat(np.arange(off.shape[0] - 1), np.diff(off))
+    lane = t.ov_lane.numpy()
+    assert np.all((lane >= 0) & (lane < rb))
+    got_rows = block * rb + lane
+    assert np.all(np.diff(got_rows) >= 0)
+    ov_rows = plan.ov_rows.numpy()
+    for r in np.unique(ov_rows):
+        mine = ov_rows == r
+        at = got_rows == r
+        for got, want in ((t.ov_cols, plan.ov_cols),
+                          (t.ov_vals, plan.ov_vals)):
+            assert np.array_equal(got.numpy()[at], want.numpy()[mine])
+
+
+def test_packed_apply_needs_a_placed_plan():
+    # kernel F's tables are built at placement; a plan whose arrays became
+    # tensors some other way is refused before any apply
+    _, pa = both(random_csr(50, 3000, 0.3, seed=1))
+    host = ppacked.build_packed_plan(pa, chunk_blocks=4)
+    unplaced = pplan.map_arrays(host, torch.from_numpy)
+    with pytest.raises(ValueError, match="placed"):
+        pruns.extract_on(unplaced)
+    with pytest.raises(ValueError, match="placed"):
+        pspmv_packed.spmv_packed(unplaced, torch.ones(3000))
+    bad = dataclasses.replace(host, ov_cols=host.ov_cols + 3000)
+    with pytest.raises(ValueError, match="outside"):
+        pruns.extract_tables(bad)
+    placed = pplan.place(host, "cpu")
+    assert pruns.extract_on(placed).ov_vals.shape == \
+        (host.stats.overflow_nnz,)
+
+
+def test_extract_block_rows_is_kernel_fs():
+    # placement groups the overflow by the rows a CTA of kernel F writes,
+    # a constant of the CUDA source that the launch does not pass
+    src = (Path(pspmv_packed.__file__).parent.parent / "csrc" /
+           "spmv_packed.cu").read_text()
+    got = re.search(r"#define PACKED_F_BLOCK_ROWS (\d+)", src)
+    assert got and int(got.group(1)) == pruns.EXTRACT_BLOCK_ROWS
+
+
+def test_packed_apply_refuses_a_short_x():
+    # kernel F reads x at the overflow columns unmasked, so x must be as
+    # long as the plan is wide; the check runs before any launch
+    make, cb = CASES["dense_rows_overflow"]
+    _, pa = both(make())
+    plan = pplan.place(ppacked.build_packed_plan(pa, chunk_blocks=cb),
+                       "cpu")
+    assert plan.stats.overflow_nnz > 0
+    ncols = plan.shape[1]
+    with pytest.raises(ValueError, match=f"{ncols} columns"):
+        pspmv_packed.spmv_packed(plan, torch.ones(ncols - 1))
+    assert pspmv_packed.spmv_packed(plan, torch.ones(ncols)).shape == \
+        (plan.shape[0],)
+
+
+def test_packed_rows_plain_adds_overflow_after_the_visits():
+    """Kernel F's plain version on hand-made tables: the visits of row 0
+    (window 0) and a row of window 2, then the overflow of rows 0, 9 and
+    of a row in window 1, which no visit reaches."""
+    scan = torch.arange(2 * 8 * 1024, dtype=torch.float32).reshape(
+        2 * 8, 8, 128)
+    esrc = torch.full((3, 64, 128), -1, dtype=torch.int16)
+    esrc[0, 0, 0], esrc[1, 0, 0] = 5, 7
+    esrc[2, 63, 127] = 1
+    rb = pruns.EXTRACT_BLOCK_ROWS
+    rows = 2 * 8192 + 8192
+    nblocks = rows // rb
+    ov_rows = np.array([9, 0, 8200, 0])
+    order = np.argsort(ov_rows, kind="stable")
+    off = np.searchsorted(ov_rows[order] // rb, np.arange(nblocks + 1))
+    i32 = torch.int32
+    tables = pruns.ExtractTables(
+        5, torch.tensor([0, 2, 2, 3], dtype=i32),
+        torch.tensor(off, dtype=i32),
+        torch.tensor(ov_rows[order] % rb, dtype=i32),
+        torch.tensor(np.array([1, 2, 3, 4])[order], dtype=i32),
+        torch.tensor(np.array([10., 20., 30., 40.])[order],
+                     dtype=torch.float32))
+    x = torch.tensor([0., 1., 2., 3., 4.])
+    y = pspmv_packed.packed_rows_kernel(
+        scan, torch.tensor([0, 1, 1], dtype=i32), esrc, x, tables,
+        rows=rows, step_tiles=8)
+    assert y.shape == (rows,)
+    assert y[0].item() == 5 + (8192 + 7) + 20 * 2 + 40 * 4
+    assert y[9].item() == 10 * 1
+    assert y[8200].item() == 30 * 3
+    assert y[2 * 8192 + 8191].item() == 8192 + 1
+    assert int((y != 0).sum()) == 4
 
 
 def test_packed_scan_matches_jax():
