@@ -18,9 +18,10 @@ roofline audit:
 3. Hybrid — the headline band plus ~2 nonzeros per row at random
    columns within +-512 of the diagonal;
 4. Chunk — ``tools/realistic.scircuit_like()``: 170,998^2, 926,915
-   nonzeros, power-law rows with 24 dense rail rows (a ChunkPlan with
-   heavy subwindow buckets, which placement gathers into kernel D's
-   slab);
+   nonzeros, power-law rows with 24 dense rail rows (a ChunkPlan whose
+   light buckets' real slots placement lists by lane row for the chunk
+   light route, and whose heavy subwindow buckets it gathers into kernel
+   D's slab);
 5. Packed — ``tools/realistic.mac_econ_like()``: 206,500^2, 1,316,368
    nonzeros, short rows spread +-12,000 columns (a PackedPlan);
 6. Cached — the zipf-column matrix of the reference's report
@@ -74,8 +75,8 @@ gate, and below 1e-11 in the float64 phases), checks the plan the
 planner picked, and checks that its run of the main path launched the
 phase's kernels (their launch counters, set to 0 just before the phase's
 apply and read just after; the chunk, SpMM and float64 phases must
-launch exactly their kernels, kernel D and C once and B once per light
-bucket in the chunk phase, and no other).  Each kernel is then
+launch exactly their kernels, the light route, kernel C and kernel D
+once each in the chunk phase, and no other).  Each kernel is then
 compared with its plain PyTorch version on the same inputs on the card,
 and both are timed with CUDA events beside the kernel's bound: the bytes
 it must move at 3.35 TB/s (and at the measured read bandwidth) or its
@@ -88,17 +89,19 @@ by the host clock.  One PyTorch call of the same function is timed
 beside kernels A, B, H, I, J, K, L and N, beside G on the cached tier 2
 (``torch.sparse.mm`` of the tier's matrix over ``x[hot_cols]``), beside
 D (``torch.sparse.mm`` of the heavy rows' CSR, the slab's nonzeros),
-beside B at the chunk shape (the light buckets' CSR; each bucket's
-bytes and bound logged), beside the packed apply (the matrix's CSR) and
-beside M (each shard's rows over its halo'd x), each checked against
-the float64 reference; the library calls beside A, B, D, G, J, K, L and
-the packed apply also by the profiler's device time.  The profiler's
+beside the chunk light route (the light records as a CSR over the lane
+rows), beside the packed apply (the matrix's CSR) and beside M (each
+shard's rows over its halo'd x), each checked against the float64
+reference; the library calls beside A, B, D, G, J, K, L, the light route
+and the packed apply, and the light route itself, also by the
+profiler's device time.  The profiler's
 by-kernel lists of ``spmm_sell``, ``spmm_hybrid`` and ``sharded_spmm``
 must hold kernel H and no ``index_add_``, those of ``deep``, ``stream``
 and ``wide`` kernel G and no ``scatter_reduce`` nor ``index_add_``, that
 of ``deep_f64`` kernel L alone, that of ``packed`` kernels E and F
-alone, once each, and that of ``chunk`` one launch of kernel D and the
-``index_add_`` of the light buckets and the heavy merge alone.  Every
+alone, once each, and that of ``chunk`` one launch each of the light
+route and kernel D and one ``index_add_``, the heavy merge's: none of
+the light buckets.  Every
 check raises; nothing is caught.  Needs one CUDA device; exits non-zero
 without one.
 
@@ -352,14 +355,17 @@ def main():
     from spmv_vector_cache_tpu_torch.ops.runs import (EXTRACT_BLOCK_ROWS,
                                                       RUN_ATOMIC,
                                                       extract_on, heavy_on,
-                                                      runs_on, tile_runs)
+                                                      light_on, runs_on,
+                                                      tile_runs)
     from spmv_vector_cache_tpu_torch.ops.spmm_dia import (spmm_dia_kernel,
                                                           spmm_dia_plain,
                                                           spmm_dia_tiling)
     from spmv_vector_cache_tpu_torch.ops.spmm_sell import (spmm_window_kernel,
                                                            spmm_window_plain)
     from spmv_vector_cache_tpu_torch.ops.spmv_chunk import (heavy_kernel,
-                                                            heavy_plain)
+                                                            heavy_plain,
+                                                            light_kernel,
+                                                            light_plain)
     from spmv_vector_cache_tpu_torch.ops.spmv_dia import (
         spmv_dia_df, spmv_dia_f64_kernel, spmv_dia_f64_plain,
         spmv_dia_halo_kernel, spmv_dia_halo_plain, spmv_dia_kernel,
@@ -558,7 +564,22 @@ def main():
     log(f"[chunk] the light buckets hold {light_heavy.numel()} tiles of "
         f"{int(torch.unique(light_heavy).numel())} heavy rows (of "
         f"{sum(b.num_tiles for b in p_chunk.buckets)} light tiles): the "
-        f"heavy merge after kernel B stays")
+        f"heavy merge after the light route stays")
+    light = light_on(p_chunk)
+    light_rows = light.row_off.shape[0] - 1
+    light_len = light.row_off.diff()
+    unit_rows, unit_recs = light.units.diff(dim=0).T
+    light_bytes = nbytes(light.row_off, light.cols, light.vals, light.tiled,
+                         light.units)
+    # the records are the buckets' real slots: every nonzero, no padding
+    assert light.vals.shape[0] == sum(b.stats.nnz for b in p_chunk.buckets)
+    log(f"[chunk] the light route's records: {light.vals.shape[0]} of the "
+        f"buckets' {sum(b.vals.numel() for b in p_chunk.buckets)} slots, "
+        f"{light_rows} lane rows ({int((light_len > 0).sum())} with "
+        f"records, at most {int(light_len.max())} a row), "
+        f"{light.units.shape[0] - 1} CTAs (at most "
+        f"{int(unit_rows.max())} rows and {int(unit_recs.max())} "
+        f"records each), {light_bytes} bytes on the card")
     p_packed = ops["packed"][0].plan
     assert isinstance(p_packed, PackedPlan) and \
         ops["packed"][0].strategy == "packed"
@@ -630,6 +651,7 @@ def main():
     # --- the main path, once per phase, counting the launches ---------------
     kernels = {"spmv_dia_f32": spmv_dia_kernel,
                "spmv_sell_window_f32": sell_window_kernel,
+               "spmv_chunk_light_f32": light_kernel,
                "lane_unpermute_f32": lane_unpermute,
                "spmv_subwin_f32": heavy_kernel,
                "packed_scan_f32": packed_scan_kernel,
@@ -645,7 +667,7 @@ def main():
     path_kernels = {"dia": ["spmv_dia_f32"],
                     "sell": ["spmv_sell_window_f32"],
                     "hybrid": ["spmv_dia_f32", "spmv_sell_window_f32"],
-                    "chunk": ["spmv_sell_window_f32", "lane_unpermute_f32",
+                    "chunk": ["spmv_chunk_light_f32", "lane_unpermute_f32",
                               "spmv_subwin_f32"],
                     "packed": ["packed_scan_f32", "packed_extract_f32"],
                     "cached": ["spmv_sell_window_f32",
@@ -666,7 +688,7 @@ def main():
     # runs the reference SpMM
     exact_launches = {"packed": {"packed_scan_f32": 1,
                                  "packed_extract_f32": 1},
-                      "chunk": {"spmv_sell_window_f32": len(p_chunk.buckets),
+                      "chunk": {"spmv_chunk_light_f32": 1,
                                 "lane_unpermute_f32": 1,
                                 "spmv_subwin_f32": 1},
                       "spmm_dia": {"spmm_dia_f32": 1},
@@ -873,6 +895,15 @@ def main():
                 + rows_out * plan.lane_rows * 4,
                 2 * plan.vals.numel())
 
+    # the chunk light route reads the records, their offsets and work
+    # list, the tiled bytes and the x they name; it writes every lane row
+    def light_pair(lr, x):
+        return (lambda: light_kernel(lr, x, semiring="plus_times"),
+                lambda: light_plain(lr, x, semiring="plus_times"),
+                nbytes(lr.row_off, lr.cols, lr.vals, lr.tiled, lr.units)
+                + x_bytes_read(x, lr.cols) + (lr.row_off.shape[0] - 1) * 4,
+                2 * lr.vals.shape[0])
+
     # kernel D adds each heavy row's sum into y in place: each version
     # updates its own copy of the chunk phase's y (the timed calls go on
     # adding); it reads and writes the heavy rows of y, no partials
@@ -1012,9 +1043,9 @@ def main():
               False),
              ("spmv_sell_window_f32", "hybrid", "",
               sell_pair(p_hyb.rest, ops["hybrid"][1]), False)]
-    cases += [("spmv_sell_window_f32", "chunk", f" K={b.stats.window_blocks}",
-               sell_pair(b, ops["chunk"][1]), False)
-              for b in p_chunk.buckets]
+    cases += [("spmv_chunk_light_f32", "chunk",
+               f" ({light.vals.shape[0]} records, {light_rows} lane rows)",
+               light_pair(light, ops["chunk"][1]), False)]
     cases += [("spmv_subwin_f32", "chunk",
                f" ({heavy.vals.shape[0]} tiles of W="
                f"{[h.window_blocks for h in p_chunk.hbuckets]})",
@@ -1115,6 +1146,7 @@ def main():
                 nbytes(noise) + noise.numel() // (STREAM_BLOCK * 256),
                 noise.numel()), False)]
     headline = {"spmv_dia_f32": "dia", "spmv_sell_window_f32": "sell",
+                "spmv_chunk_light_f32": "chunk",
                 "lane_unpermute_f32": "chunk", "spmv_subwin_f32": "chunk",
                 "packed_scan_f32": "packed", "packed_extract_f32": "packed",
                 "spmv_sell_global_f32": "deep", "spmm_dia_f32": "spmm_dia",
@@ -1315,38 +1347,36 @@ def main():
         f"apply: {lib_ms:.4f} ms, rel err {err:.3g} vs float64, on {card}")
     library_device_us("packed", "torch.sparse.mm of the matrix",
                       lambda: torch.sparse.mm(a_t, x_col))
-    # kernel B at the chunk shape: each light bucket's bytes and bound,
-    # and torch.sparse.mm of the light buckets' CSR (each slot with a
-    # nonzero value at its segment's lane row and its column) over x: the
-    # per-(segment, lane) sums that B's partials and their index_add_ make
-    nseg = p_chunk.num_blocks + p_chunk.num_heavy
-    lr, lc, lv = [], [], []
-    for b in p_chunk.buckets:
-        seg = b.tile_slice.long()[:, None, None].expand(b.vals.shape)
-        lane = torch.arange(128, device=dev).expand(b.vals.shape)
-        keep = b.vals != 0
-        lr.append((seg * 128 + lane)[keep])
-        lc.append(b.cols.long()[keep])
-        lv.append(b.vals[keep])
-        bb = nbytes(b.vals, b.cols_win, b.window_base) + b.num_tiles * 128 * 4
-        log(f"[chunk] kernel B bucket K={b.stats.window_blocks}: "
-            f"{b.num_tiles} tiles, {int(keep.sum())} nonzeros in "
-            f"{b.vals.numel()} slots (fill {b.stats.fill:.4f}), slab and "
-            f"partials {bb} bytes (x besides), "
-            f"{bb / PEAK_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s")
-    lr, lc, lv = (torch.cat(t).cpu().numpy() for t in (lr, lc, lv))
-    m_light = sp.csr_matrix((lv, (lr, lc)),
-                            shape=(nseg * 128, a_chunk.shape[1]))
+    # the chunk light route: torch.sparse.mm of the light records as a CSR
+    # (they are one: offsets by lane row, columns, values) over x, the
+    # per-(segment, lane) sums the route writes; beside it the route's own
+    # device time by the profiler, in the same run
+    m_light = sp.csr_matrix(
+        (light.vals.cpu().numpy(), light.cols.cpu().numpy(),
+         light.row_off.cpu().numpy()), shape=(light_rows, a_chunk.shape[1]))
     want_l = m_light.astype(np.float64) @ x_chunk.astype(np.float64)
     a_t, x_col = csr_on_card(m_light), ops["chunk"][1].reshape(-1, 1)
     err = rel_err(torch.sparse.mm(a_t, x_col).reshape(-1), want_l)
     assert err < Y_RTOL, err
     lib_ms = min(time_ms(lambda: torch.sparse.mm(a_t, x_col)) for _ in "ab")
-    log(f"[chunk] torch.sparse.mm of the light buckets' CSR (float32, "
+    rows["spmv_chunk_light_f32"]["library_ms"] = lib_ms
+    log(f"[chunk] torch.sparse.mm of the light records' CSR (float32, "
         f"{m_light.nnz} nnz in {m_light.shape[0]} lane rows, x as (cols, "
         f"1)): {lib_ms:.4f} ms, rel err {err:.3g} vs float64, on {card}")
-    library_device_us("chunk", "torch.sparse.mm of the light buckets",
-                      lambda: torch.sparse.mm(a_t, x_col))
+    lib_us = library_device_us("chunk", "torch.sparse.mm of the light "
+                               "buckets", lambda: torch.sparse.mm(a_t, x_col))
+    # the route's own sums against float64: a lane row with no record is
+    # 0 under plus_times, as the library's
+    err = rel_err(light_kernel(light, ops["chunk"][1],
+                               semiring="plus_times").reshape(-1), want_l)
+    assert err < Y_RTOL, err
+    route_us = library_device_us(
+        "chunk", "the light route (spmv_chunk_light_f32)",
+        lambda: light_kernel(light, ops["chunk"][1], semiring="plus_times"))
+    log(f"[chunk] the light route against torch.sparse.mm of the same "
+        f"records, profiler device time: {route_us:.2f} us against "
+        f"{lib_us:.2f} us (ratio {route_us / lib_us:.3f}); route vs "
+        f"float64 rel err {err:.3g}, on {card}")
     # kernel M: torch.sparse.mm of each shard's rows, their columns
     # shifted onto the shard's halo'd x, over that x; the four summed
     rps, halo = sp_dia.rows_per_shard, sp_dia.halo
@@ -1430,14 +1460,14 @@ def main():
             assert any("packed_scan_kernel" in k for k in by_kernel) and \
                 any("packed_rows_kernel" in k for k in by_kernel), by_kernel
         if name == "chunk":
-            # one launch of kernel D, and the index_add_s of the light
-            # buckets' segment reduce and of the heavy merge alone
-            d = [n for k, (_, n) in by_kernel.items()
-                 if "heavy_runs_kernel" in k]
-            assert d == [1], by_kernel
+            # one launch each of the light route and kernel D, and one
+            # index_add_, the heavy merge's: the light buckets have none
+            for kern in ("light_rows_kernel", "heavy_runs_kernel"):
+                n = [n for k, (_, n) in by_kernel.items() if kern in k]
+                assert n == [1], (kern, by_kernel)
             adds = sum(n for k, (_, n) in by_kernel.items()
                        if "indexFunc" in k)
-            assert adds == len(p_chunk.buckets) + 1, by_kernel
+            assert adds == 1, by_kernel
     for kname, plan in (("spmv_dia_f32", p_dia),
                         ("spmv_sell_window_f32", p_sell),
                         ("spmv_sell_global_f32", p_deep),
@@ -1558,6 +1588,9 @@ def main():
         "spmv_sell_window_f32": ("spmv_sell_window.cu",
                                  "spmv_vector_cache_tpu/ops/"
                                  "spmv_pallas.py:162"),
+        "spmv_chunk_light_f32": ("spmv_chunk_light.cu", ", ".join(
+            f"spmv_vector_cache_tpu/ops/spmv_pallas.py:{line}"
+            for line in (162, 620))),
         "lane_unpermute_f32": ("lane_perm.cu", "spmv_vector_cache_tpu/ops/"
                                "lane_perm.py:26"),
         "spmv_subwin_f32": ("spmv_subwin.cu", "spmv_vector_cache_tpu/ops/"

@@ -1,5 +1,7 @@
-// Semirings of the SELL kernels (B, D and G), as (init, step) pairs over
-// float32: step(acc, v, x) = acc (+) (v (x) x); add(a, b) = a (+) b and
+// Semirings of the SELL kernels (B, D, G and the chunk light route), as
+// (init, step) pairs over float32: step(acc, v, x) = acc (+) (v (x) x);
+// zero() the semiring's zero, the value of a plan's padding slots and,
+// for a finite x, the product of one; add(a, b) = a (+) b and
 // atomic(p, v): *p = *p (+) v in one atomic update, for kernel G's sums of
 // a slice split over several CTAs; finish(v): a sum as written out.  The
 // boolean semiring runs on a {0, 1} float encoding (and = *, or = max),
@@ -33,6 +35,7 @@ __device__ __forceinline__ void atomic_max_f32(float* p, float v) {
 
 struct PlusTimes {
     static __device__ float init() { return 0.0f; }
+    static __device__ float zero() { return 0.0f; }
     static __device__ float step(float acc, float v, float x) {
         return fmaf(v, x, acc);
     }
@@ -42,6 +45,7 @@ struct PlusTimes {
 };
 struct MinPlus {
     static __device__ float init() { return INFINITY; }
+    static __device__ float zero() { return INFINITY; }
     static __device__ float step(float acc, float v, float x) {
         return fminf(acc, v + x);
     }
@@ -51,6 +55,7 @@ struct MinPlus {
 };
 struct MaxPlus {
     static __device__ float init() { return -INFINITY; }
+    static __device__ float zero() { return -INFINITY; }
     static __device__ float step(float acc, float v, float x) {
         return fmaxf(acc, v + x);
     }
@@ -60,6 +65,7 @@ struct MaxPlus {
 };
 struct MaxTimes {
     static __device__ float init() { return -INFINITY; }
+    static __device__ float zero() { return 0.0f; }
     static __device__ float step(float acc, float v, float x) {
         return fmaxf(acc, v * x);
     }

@@ -54,6 +54,9 @@ SIGNATURES = {
     # positions, lanes, ncols, max_tiles, max_slices, semiring, stream
     "spmv_subwin_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _L, _I,
                         _I, _I, _P],
+    # row_off, cols, vals, tiled, units, x, y2d, num_units, ncols,
+    # semiring, stream
+    "spmv_chunk_light_f32": [_P, _P, _P, _P, _P, _P, _P, _L, _L, _I, _P],
     # vals, cols, cstep, x, out, rows, rows_per_step, chunk_cols, ncols,
     # stream
     "packed_scan_f32": [_P, _P, _P, _P, _P, _L, _I, _L, _L, _P],

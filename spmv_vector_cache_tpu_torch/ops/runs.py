@@ -10,7 +10,11 @@ at placement (``formats.plan.place``, ``parallel.place_on_mesh``), and
 :func:`runs_on` hands it to a launch.  Kernel D (``csrc/spmv_subwin.cu``)
 does the same over a ChunkPlan's heavy subwindow tiles, which placement
 gathers into one slab per plan (:func:`heavy_tiles`, :func:`heavy_on`),
-each heavy row's tiles one run.  Kernel F (``csrc/spmv_packed.cu``)
+each heavy row's tiles one run.  The chunk light route
+(``csrc/spmv_chunk_light.cu``) reads a ChunkPlan's light buckets as one
+list of their real slots by lane row, which placement builds
+(:func:`light_records`, :func:`light_on`), with a work list of row
+ranges balanced by their records.  Kernel F (``csrc/spmv_packed.cu``)
 takes a PackedPlan's visit range of each y window and its overflow
 entries grouped by the CTA that writes their rows (:func:`extract_tables`,
 :func:`extract_on`).
@@ -116,9 +120,9 @@ def place_plan_runs(plan) -> None:
     """:func:`place_runs` for every SellPlan of a placed plan — the plan
     itself, a HybridPlan's rest, a CachedPlan's tiers — which kernel G or
     L (any strategy but 'window') or kernel H (``op @ B`` on a window
-    plan) may run, :func:`place_heavy` for a ChunkPlan and
-    :func:`place_extract` for a PackedPlan (a ChunkPlan's residue and a
-    CachedPlan's cold part included)."""
+    plan) may run, :func:`place_light` and :func:`place_heavy` for a
+    ChunkPlan and :func:`place_extract` for a PackedPlan (a ChunkPlan's
+    residue and a CachedPlan's cold part included)."""
     if isinstance(plan, HybridPlan):
         place_plan_runs(plan.rest)
     elif isinstance(plan, CachedPlan):
@@ -128,6 +132,7 @@ def place_plan_runs(plan) -> None:
     elif isinstance(plan, SellPlan):
         place_runs(plan.tile_slice, plan.num_slices)
     elif isinstance(plan, ChunkPlan):
+        place_light(plan)
         place_heavy(plan)
         if isinstance(plan.residue, PackedPlan):
             place_extract(plan.residue)
@@ -236,6 +241,120 @@ def heavy_on(plan: ChunkPlan) -> HeavyTiles | None:
                          "ChunkPlan is placed: place the plan with "
                          "formats.plan.place")
     return _HEAVY[plan.hbuckets[0].vals]
+
+
+# ---------------------------------------------------------------------------
+# the chunk light route: a ChunkPlan's light buckets as records by lane row
+# ---------------------------------------------------------------------------
+
+#: records after which the light route's CTA over a segment stops taking
+#: rows: a segment of 128 lane rows that holds more is split at row
+#: boundaries over several CTAs (on an H100, 256 beat 512, 1024 and whole
+#: segments: probes_torch/light_shapes.py, PERF.md)
+LIGHT_UNIT_RECORDS = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class LightRecords:
+    """A placed ChunkPlan's light buckets as one list of their real slots
+    (the slots whose value is not the bucket's ``pad_value``, bit for
+    bit), sorted stably by lane row ``seg * 128 + lane`` of the unified
+    segment space, so that a row's records keep the order in which the
+    reference sums them: bucket, tile, position.  Lane row r owns records
+    ``[row_off[r], row_off[r+1])``, each a column of x and a value.
+    ``tiled[s]``: a tile of some bucket, padding included, maps to
+    segment s, so that the reference sums a padding slot into every lane
+    row of s (what matters under max_times, whose zero 0 is not its
+    empty sum -inf).  CTA u of the route sums lane rows ``[units[u, 0],
+    units[u+1, 0])``, which own records ``[units[u, 1], units[u+1,
+    1])``: at most one segment's 128 rows, split where a segment holds
+    more than ``LIGHT_UNIT_RECORDS`` records.  Bytes on the device: 8 a
+    record, 4 a lane row (plus one), 1 a segment, 8 a CTA."""
+
+    row_off: torch.Tensor     # (segments * 128 + 1,) int32
+    cols: torch.Tensor        # (records,) int32 column of x
+    vals: torch.Tensor        # (records,) float32
+    tiled: torch.Tensor       # (segments,) bool
+    units: torch.Tensor       # (CTAs + 1, 2) int32 (lane row, record)
+
+
+def light_units(row_off, unit_records: int = LIGHT_UNIT_RECORDS
+                ) -> np.ndarray:
+    """The light route's work list over ``row_off`` (numpy): (CTAs + 1,
+    2) int32 boundaries, each a lane row and its first record, at every
+    segment's first row and wherever a row starts past another
+    ``unit_records`` records of its segment."""
+    off = np.asarray(row_off, np.int64)
+    nrows = off.shape[0] - 1
+    if nrows % 128:
+        raise ValueError(f"{nrows} lane rows: not whole segments of 128")
+    r = np.arange(nrows)
+    seg = r // 128
+    rel = off[:-1] - off[seg * 128]
+    key = seg * (int(off[-1]) // max(1, unit_records) + 2) + \
+        rel // max(1, unit_records)
+    starts = np.append(np.flatnonzero(np.diff(key, prepend=-1) != 0), nrows)
+    return np.stack([starts, off[starts]], 1).astype(np.int32)
+
+
+def light_records(plan: ChunkPlan) -> LightRecords:
+    """The light route's records of ``plan`` (host or placed), on the
+    device of its ``perm_idx``.  The plan's own arrays are left as they
+    are."""
+    nseg = plan.num_blocks + plan.num_heavy
+    rows, vals, cols = [], [], []
+    tiled = np.zeros(nseg, bool)
+    for b in plan.buckets:
+        ts = _host(b.tile_slice).astype(np.int64)
+        tiled[ts] = True
+        v = _host(b.vals)
+        pad = np.asarray(b.stats.pad_value, v.dtype)
+        # bit for bit: a -0.0 or a NaN is a value when the pad is 0.0
+        t, p, l = np.nonzero(v.view(np.uint32) != pad.view(np.uint32))
+        rows.append(ts[t] * 128 + l)
+        cols.append(_host(b.window_base).astype(np.int64)[
+            t // b.stats.group_tiles] * b.stats.window_grain
+            + _host(b.cols_win)[t, p, l])
+        vals.append(v[t, p, l])
+    rows = np.concatenate(rows) if rows else np.zeros(0, np.int64)
+    order = np.argsort(rows, kind="stable")
+    count = np.bincount(rows, minlength=nseg * 128)
+    if rows.size >= 2 ** 31:
+        raise ValueError(f"{rows.size} light records: int32 offsets")
+    row_off = np.concatenate(([0], np.cumsum(count)))
+    device = plan.perm_idx.device if isinstance(plan.perm_idx,
+                                                torch.Tensor) else "cpu"
+
+    def put(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
+
+    return LightRecords(
+        put(row_off, np.int32),
+        put(np.concatenate(cols)[order] if cols else [], np.int32),
+        put(np.concatenate(vals)[order] if vals else [], np.float32),
+        put(tiled, np.bool_), put(light_units(row_off), np.int32))
+
+
+#: the light records of each placed ChunkPlan by its ``perm_idx`` tensor
+_LIGHT = WeakIdKeyDictionary()
+
+
+def place_light(plan: ChunkPlan) -> None:
+    """Build a placed ChunkPlan's light records and their work list,
+    once, so that no apply waits on them."""
+    if plan.perm_idx not in _LIGHT:
+        _LIGHT[plan.perm_idx] = light_records(plan)
+
+
+def light_on(plan: ChunkPlan) -> LightRecords:
+    """The light records of a placed ChunkPlan; raises for a plan no
+    placement saw."""
+    hit = _LIGHT.get(plan.perm_idx)
+    if hit is None:
+        raise ValueError("the light records of the chunk route are built "
+                         "when their ChunkPlan is placed: place the plan "
+                         "with formats.plan.place")
+    return hit
 
 
 # ---------------------------------------------------------------------------

@@ -1,18 +1,22 @@
 """ChunkPlan SpMV (counterpart of ``_subwin_partials`` and ``_spmv_chunk``
 in ``spmv_vector_cache_tpu/ops/spmv_pallas.py``).
 
-:func:`heavy_kernel` wraps kernel D (``csrc/spmv_subwin.cu``): one launch
-over all the plan's heavy subwindow tiles (the slab and work list that
-placement builds, ``ops/runs.py`` :func:`~.runs.heavy_on`), which adds
-each heavy row's sum into y in place; :func:`heavy_plain` is its plain
+:func:`light_kernel` wraps the chunk light route
+(``csrc/spmv_chunk_light.cu``): one launch over the real slots of all
+the plan's light buckets (the records by lane row that placement builds,
+``ops/runs.py`` :func:`~.runs.light_on`), which writes every lane row
+of the unified segment space once: what the reference's window kernel
+gives per bucket, its sorted segment reduce and the add across buckets
+give together.  :func:`light_plain` is its plain PyTorch version.
+:func:`heavy_kernel` wraps kernel D (``csrc/spmv_subwin.cu``): one
+launch over all the plan's heavy subwindow tiles (the slab and work
+list that placement builds, :func:`~.runs.heavy_on`), which adds each
+heavy row's sum into y in place; :func:`heavy_plain` is its plain
 PyTorch version, and :func:`subwin_plain` the reference's per-tile
-function (``_subwin_partials``).  The light buckets are window
-SellPlans and run on kernel B (``spmv_sell._window_partials``).  The
-rest is torch ops, as the reference computes it in XLA outside Pallas:
-each light bucket's sorted segment reduce over the unified segment
-space, the semiring add across buckets, the lane un-permutation of the
-light blocks (kernel C), the lane fold and merge of the heavy segments'
-light tiles, and the residue add.
+function (``_subwin_partials``).  The rest is as the reference computes
+it outside Pallas: the lane un-permutation of the light blocks (kernel
+C), the lane fold and merge of the heavy segments' light tiles (torch
+ops), and the residue add.
 """
 
 from __future__ import annotations
@@ -26,9 +30,72 @@ from ..utils import platform
 from . import _kernels
 from . import semiring as sr
 from .lane_perm import unpermute_plan_rows
-from .runs import heavy_on, runs_on
+from .runs import LightRecords, heavy_on, light_on, runs_on
 from .spmv_packed import spmv_packed
-from .spmv_sell import _spmv_coo, _window_partials
+from .spmv_sell import _spmv_coo
+
+# ---------------------------------------------------------------------------
+# light buckets: the chunk light route
+# ---------------------------------------------------------------------------
+
+def light_plain(light: LightRecords, x, *, semiring: str) -> torch.Tensor:
+    """Plain PyTorch version of the light route (same inputs, same
+    output): the sorted segment reduce of the records' products over
+    lane rows, a column past x reading 0; a lane row of a ``tiled``
+    segment also sums the semiring's zero.  (segments, 128)."""
+    s = sr.get(semiring)
+    mul, axis_reduce = sr.kernel_ops(semiring)
+    nrows = light.row_off.shape[0] - 1
+    rows = torch.repeat_interleave(
+        torch.arange(nrows, device=x.device), light.row_off.diff().long())
+    xz = torch.cat([x, x.new_zeros(1)])        # c >= cols reads 0
+    prod = mul(light.vals, xz[light.cols.long().clamp(max=x.shape[0])])
+    y2d = s.segment_reduce(prod, rows, num_segments=nrows).reshape(-1, 128)
+    padded = axis_reduce(torch.stack([y2d, torch.full_like(y2d, s.zero)]),
+                         0)
+    return torch.where(light.tiled[:, None], padded, y2d)
+
+
+def _check_light(light: LightRecords, x):
+    if x.dtype != torch.float32 or x.dim() != 1:
+        raise ValueError(f"x must be 1-D float32, got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    if light.row_off.shape != (light.tiled.shape[0] * 128 + 1,):
+        raise ValueError(f"row_off {tuple(light.row_off.shape)} and tiled "
+                         f"{tuple(light.tiled.shape)}: not one offset a "
+                         f"lane row of those segments")
+    if light.units.dim() != 2 or light.units.shape[1] != 2:
+        raise ValueError(f"units {tuple(light.units.shape)}: not (CTAs + "
+                         f"1, 2) bounds")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    if x.device != light.vals.device:
+        raise ValueError(f"the records on {light.vals.device}, x on "
+                         f"{x.device}")
+
+
+def light_kernel(light: LightRecords, x, *, semiring: str) -> torch.Tensor:
+    """The light route on CUDA tensors; the plain version on CPU tensors.
+    Returns the (segments, 128) float32 sums of the unified segment
+    space.  ``light`` is a placed plan's (``ops/runs.py``
+    :func:`~.runs.light_records`, which made its tensors contiguous and
+    typed)."""
+    _check_light(light, x)
+    if not platform.is_cuda(x):
+        return light_plain(light, x, semiring=semiring)
+    y2d = torch.empty((light.tiled.shape[0], 128), dtype=torch.float32,
+                      device=x.device)
+    _kernels.launch(
+        "spmv_chunk_light_f32", x.get_device(), light.row_off.data_ptr(),
+        light.cols.data_ptr(), light.vals.data_ptr(),
+        light.tiled.data_ptr(), light.units.data_ptr(), x.data_ptr(),
+        y2d.data_ptr(), light.units.shape[0] - 1, x.shape[0],
+        sr.KERNEL_CODE[semiring])
+    light_kernel.launches += 1
+    return y2d
+
+
+light_kernel.launches = 0
 
 # ---------------------------------------------------------------------------
 # heavy rows: kernel D
@@ -120,28 +187,17 @@ heavy_kernel.launches = 0
 
 def spmv_chunk(plan: ChunkPlan, x: torch.Tensor,
                semiring: str = "plus_times") -> torch.Tensor:
-    """Light buckets' kernels -> one sorted segment reduction over the
-    unified (light blocks + heavy rows) space -> lane un-permutation of
-    the light part, lane fold and merge of the heavy segments' light
-    tiles -> kernel D adds the heavy subwindow tiles into y -> residue
-    add."""
+    """The light route writes the unified (light blocks + heavy rows)
+    segment space -> lane un-permutation of the light part, lane fold
+    and merge of the heavy segments' light tiles -> kernel D adds the
+    heavy subwindow tiles into y -> residue add."""
     s = sr.get(semiring)
     _, axis_reduce = sr.kernel_ops(semiring)
     nblk = plan.num_blocks
     nheavy = plan.num_heavy
     rows = plan.shape[0]
-    y2d = None
-    for b in plan.buckets:
-        part, fold = _window_partials(b, x, semiring)
-        ids = b.tile_slice[::b.stats.group_tiles] if fold else b.tile_slice
-        y2b = s.segment_reduce(part, ids, num_segments=nblk + nheavy)
-        # or_and's logical add yields bool; restore the float encoding
-        y2d = y2b if y2d is None else s.add(y2d, y2b).to(y2b.dtype)
-    if y2d is None:                 # no light tiles: every segment empty
-        y2d = s.segment_reduce(
-            torch.zeros((0, 128), dtype=torch.float32, device=x.device),
-            torch.zeros(0, dtype=torch.int32, device=x.device),
-            num_segments=nblk + nheavy)
+    xf = x.to(torch.float32).contiguous()
+    y2d = light_kernel(light_on(plan), xf, semiring=semiring)
     y = unpermute_plan_rows(y2d[:nblk], plan.perm_idx).reshape(-1)[:rows]
     if nheavy:
         yh = axis_reduce(y2d[nblk:], 1)            # (nheavy,)
@@ -151,8 +207,7 @@ def spmv_chunk(plan: ChunkPlan, x: torch.Tensor,
         heavy = heavy_on(plan)
         if heavy is not None:
             y = heavy_kernel(heavy.vals, heavy.cols_win, heavy.bases,
-                             heavy.tile_row, heavy.rows,
-                             x.to(torch.float32).contiguous(), y,
+                             heavy.tile_row, heavy.rows, xf, y,
                              semiring=semiring)
     if isinstance(plan.residue, CooTail):
         y = s.add(y, _spmv_coo(plan.residue, x, semiring)).to(y.dtype)

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import warnings
 
+import numpy as np
 import torch
 
 from ..formats.cached import CachedPlan, CooTail
@@ -523,6 +524,17 @@ def _spmv_coo(plan: CooTail, x: torch.Tensor, semiring: str) -> torch.Tensor:
 # public entry
 # ---------------------------------------------------------------------------
 
+def check_x_length(x, cols: int) -> None:
+    """Raise ``ValueError`` unless x (a tensor or an array) is 1-D with
+    the plan's ``cols`` entries.  The reference raises too, when it
+    writes x into its padded x image; its CachedPlan and CooTail, whose
+    gathers clamp, return a y instead (ROADMAP.md queue 3)."""
+    shape = tuple(np.shape(x))
+    if shape != (cols,):
+        raise ValueError(f"x has shape {shape}; the plan has {cols} "
+                         f"columns")
+
+
 def spmv_plan(plan, x: torch.Tensor, *, strategy: str = "auto",
               semiring: str = "plus_times") -> torch.Tensor:
     """Run SpMV ``y = A (+).(x) x`` from a prebuilt plan on ``x.device``.
@@ -533,13 +545,15 @@ def spmv_plan(plan, x: torch.Tensor, *, strategy: str = "auto",
     plan's DIA part runs kernel J and its SELL plans kernels K and L,
     float64 y from any x, plus_times only), a
     CachedPlan its hot tier on ``x[hot_cols]`` and its cold part on x, a
-    ChunkPlan kernels B, D and C, a PackedPlan kernels E and F, a CooTail
+    ChunkPlan the chunk light route and kernels C and D, a PackedPlan
+    kernels E and F, a CooTail
     the gather + segment reduce.  DIA and packed plans support
     plus_times only; SELL and chunk plans must have been built with
     ``pad_value`` = the semiring's zero (``auto_plan(semiring=...)``
-    does this).
+    does this).  x must have the plan's column count (``ValueError``).
     """
     semiring = sr.get(semiring).name
+    check_x_length(x, plan.shape[1])
     if isinstance(plan, ChunkPlan):
         if strategy not in ("auto", "window", "chunk"):
             raise ValueError(f"ChunkPlan supports only the 'chunk' "

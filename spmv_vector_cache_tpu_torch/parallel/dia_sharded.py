@@ -25,6 +25,7 @@ import torch
 from ..formats.dia import DIA, csr_to_dia
 from ..formats.plan import _as_csr, _round_up
 from ..ops.spmv_dia import spmv_dia_halo_kernel
+from ..ops.spmv_sell import check_x_length
 from .mesh import (Mesh, device_scope, place_on_mesh, shard_vector,
                    with_halos)
 
@@ -112,7 +113,9 @@ def spmv_dia_sharded(sp: ShardedDiaPlan, x: Array, mesh: Mesh, *,
     plan not yet on ``mesh`` is placed there first (place it once with
     :func:`~.mesh.place_on_mesh` to apply it many times).  ``axis`` is
     accepted for the reference's signature.  Returns y on
-    ``mesh.devices[0]``."""
+    ``mesh.devices[0]``.  x must have the plan's column count
+    (``ValueError``)."""
+    check_x_length(x, sp.shape[1])
     sp = place_on_mesh(sp, mesh)
     D, rps, halo = sp.num_shards, sp.rows_per_shard, sp.halo
     xs = shard_vector(x, torch.float32, D, rps, mesh)

@@ -36,7 +36,7 @@ from ..formats.plan import (WINDOW_GROUP_TILES, PlanStats, SellPlan, _as_csr,
                             _round_up, build_sell_plan, compute_cols_win)
 from ..ops import semiring as sr
 from ..ops.spmm_sell import _spmm_window
-from ..ops.spmv_sell import spmv_plan
+from ..ops.spmv_sell import check_x_length, spmv_plan
 from .mesh import (Mesh, device_scope, make_mesh, place_on_mesh,
                    shard_vector, with_halos)
 
@@ -262,10 +262,12 @@ def spmv_sharded(sp: ShardedPlan, x: Array, mesh: Mesh, *,
     on ``mesh`` is placed there first (place it once with
     :func:`~.mesh.place_on_mesh` to apply it many times).  ``axis`` is
     accepted for the reference's signature.  Returns y on
-    ``mesh.devices[0]``.
+    ``mesh.devices[0]``.  x must have the plan's column count
+    (``ValueError``).
     """
     mode = exchange_mode(sp, mode)
     _check_cols(sp)
+    check_x_length(x, sp.shape[1])
     sp = place_on_mesh(sp, mesh)
     D, rps = sp.num_shards, sp.rows_per_shard
     xs = shard_vector(x, torch.float32, D, rps, mesh)

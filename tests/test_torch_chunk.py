@@ -10,6 +10,12 @@ packages:
   kernel in interpret mode exactly (it moves values, it adds nothing);
 * kernel D's heavy slab and work list (``ops/runs.py``): every real
   heavy tile once, no padding, each heavy row one run, a long row split;
+* the chunk light route's records (``ops/runs.py``): exactly the light
+  buckets' real slots, by lane row in the reference's order, and its
+  plain version against the reference's per-bucket ``_window_partials``,
+  segment reduce and add across buckets (float32 tolerance under
+  plus_times, exactly under the other semirings); a non-finite x at a
+  column that only padding reads (a deliberate difference);
 * ``subwin_plain`` (the reference's ``_subwin_partials``), kernel D's
   plain version and ``spmv_plan`` on a ChunkPlan (kernels B, D, C) agree
   with JAX in interpret mode to a max abs error <= 1e-5 * max(1,
@@ -433,6 +439,150 @@ def test_heavy_plain_matches_jax(case, semiring):
         assert got.numpy().tobytes() == want.tobytes()
     else:
         _assert_close(got.numpy(), want)
+
+
+# ---------------------------------------------------------------------------
+# the chunk light route: placement's records and the plain version
+# ---------------------------------------------------------------------------
+
+def _semiring_plans(m, semiring):
+    """(JAX plan, placed port plan) of ``m`` under ``semiring``: padded
+    with its zero, duplicates merged only under plus_times."""
+    ja, pa = both(m)
+    kw = dict(pad_value=float(jsr.get(semiring).zero),
+              merge_duplicates=semiring == "plus_times")
+    return (jchunk.build_chunk_plan(ja, **kw),
+            pplan.place(pchunk.build_chunk_plan(pa, **kw), "cpu"))
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_light_records_are_the_real_slots(case):
+    _, plan = _semiring_plans(CASES[case](), "plus_times")
+    light = pruns.light_on(plan)
+    nseg = plan.num_blocks + plan.num_heavy
+    row_off = light.row_off.numpy()
+    assert row_off.shape == (nseg * 128 + 1,) and row_off[0] == 0
+    assert np.all(np.diff(row_off) >= 0)
+    assert light.vals.shape[0] == sum(b.stats.nnz for b in plan.buckets)
+    # every record is one live slot (those build_chunk_plan counted), in
+    # the reference's order within a lane row: bucket, tile, position
+    want = []
+    for bi, b in enumerate(plan.buckets):
+        t, p, lane = np.nonzero(b.vals.numpy() != b.stats.pad_value)
+        want += [(int(b.tile_slice[ti]) * 128 + li, bi, ti, pi,
+                  int(b.cols[ti, pi, li]), float(b.vals[ti, pi, li]))
+                 for ti, pi, li in zip(t, p, lane)]
+    want.sort(key=lambda w: w[:4])
+    rows = np.repeat(np.arange(nseg * 128), np.diff(row_off))
+    got = list(zip(rows.tolist(), light.cols.tolist(),
+                   light.vals.tolist()))
+    assert got == [(w[0], w[4], w[5]) for w in want]
+    # a segment is tiled where some bucket tile, padding included, lands
+    tiled = np.zeros(nseg, bool)
+    for b in plan.buckets:
+        tiled[b.tile_slice.numpy()] = True
+    assert np.array_equal(light.tiled.numpy(), tiled)
+    # the work list: every segment's rows in order, at most 128 a CTA
+    units, first = light.units.numpy().T
+    assert np.array_equal(first, row_off[units])
+    assert units[0] == 0 and units[-1] == nseg * 128
+    assert np.all(np.diff(units) > 0) and np.all(np.diff(units) <= 128)
+    assert set(range(0, nseg * 128, 128)) <= set(units.tolist())
+
+
+def test_light_units_split_long_segments():
+    # a segment's rows start a new CTA each time another unit_records
+    # records have gone by since the segment's first; a row is never split
+    row_off = np.concatenate(([0], np.cumsum([300] + [1] * 127 + [0] * 128
+                                             + [10] * 128)))
+    units, first = pruns.light_units(row_off, 64).T
+    assert np.array_equal(first, row_off[units])
+    assert units[:6].tolist() == [0, 1, 21, 85, 128, 256]
+    assert units[-1] == 384
+    # the segment of 10-record rows: units of 6 or 7 rows, 60-70 records
+    per_unit = np.diff(units[5:])
+    assert set(per_unit.tolist()) == {6, 7}
+    assert pruns.light_units(row_off, 1 << 30)[:, 0].tolist() == \
+        [0, 128, 256, 384]
+    with pytest.raises(ValueError, match="128"):
+        pruns.light_units(row_off[:-1], 64)
+
+
+def test_light_records_need_a_placed_plan():
+    _, pa = both(pareto_banded(n=2048, seed=3, cap=512))
+    host = pchunk.build_chunk_plan(pa)
+    unplaced = pplan.map_arrays(host, torch.from_numpy)
+    with pytest.raises(ValueError, match="placed"):
+        pruns.light_on(unplaced)
+    placed = pplan.place(host, "cpu")
+    assert pruns.light_on(placed).vals.shape[0] == \
+        sum(b.stats.nnz for b in host.buckets)
+
+
+def _jax_light(jp, x, semiring):
+    """The reference's light part of ``_spmv_chunk``: each bucket's
+    ``_window_partials`` (interpret mode), its sorted segment reduce over
+    the unified segment space, the add across buckets."""
+    import jax.numpy as jnp
+
+    s = jsr.get(semiring)
+    nseg = jp.num_blocks + jp.num_heavy
+    y2d = s.segment_reduce(jnp.zeros((0, 128), jnp.float32),
+                           jnp.zeros(0, jnp.int32), num_segments=nseg)
+    for i, b in enumerate(_small_steps(jp).buckets):
+        part, fold = jsell._window_partials(b, x, True, semiring)
+        ids = jnp.asarray(b.tile_slice)
+        if fold:
+            ids = ids[::b.stats.group_tiles]
+        y2b = s.segment_reduce(part, ids, num_segments=nseg,
+                               indices_are_sorted=True)
+        y2d = y2b if i == 0 else s.add(y2d, y2b).astype(y2b.dtype)
+    return np.asarray(y2d)
+
+
+@pytest.mark.parametrize("semiring", SEMIRINGS)
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_light_plain_matches_jax(case, semiring):
+    m, x = _semiring_data(CASES[case](), semiring, 6)
+    jp, plan = _semiring_plans(m, semiring)
+    want = _jax_light(jp, x, semiring)
+    light = pruns.light_on(plan)
+    got = pspmv_chunk.light_plain(light, torch.from_numpy(x),
+                                  semiring=semiring)
+    # the wrapper takes the plain version on CPU tensors
+    assert torch.equal(pspmv_chunk.light_kernel(
+        light, torch.from_numpy(x), semiring=semiring), got)
+    if semiring == "plus_times":
+        _assert_close(got.numpy(), want)
+    else:
+        # min, max and or_and of the same float32 products: exact
+        assert got.numpy().tobytes() == want.tobytes()
+
+
+def test_light_route_ignores_x_that_only_padding_reads():
+    # x[c] = inf at a column that no nonzero reads but padding slots do
+    # (offset 0 of a window based there): the reference multiplies the
+    # padding's 0 by it and returns NaN in rows that never read column c;
+    # the light route reads no padding and returns A @ x
+    n = 1024
+    rng = np.random.default_rng(10)
+    r = np.repeat(np.arange(n), 3)
+    c = (rng.integers(0, 8, r.shape[0]) * 128 + 5) % n
+    m = sp.csr_matrix((rng.standard_normal(r.shape[0]).astype(np.float32),
+                       (r, c)), shape=(n, n))
+    m.sum_duplicates()
+    jp, plan = _semiring_plans(m, "plus_times")
+    bases = np.concatenate([np.asarray(b.window_base) for b in jp.buckets])
+    col = int(bases[0]) * 128
+    assert m.getcol(col).nnz == 0
+    x = rng.standard_normal(n).astype(np.float32)
+    x[col] = np.inf
+    want = np.asarray(jsell._spmv_chunk(_small_steps(jp), x, interpret=True))
+    assert np.isnan(want).any()
+    y = psell.spmv_plan(plan, torch.from_numpy(x)).numpy()
+    assert np.isfinite(y).all()
+    want64 = m.astype(np.float64) @ np.where(np.isfinite(x), x, 0.0)
+    assert np.abs(y - want64).max() / max(1.0, np.abs(want64).max()) < 1e-5
 
 
 # ---------------------------------------------------------------------------

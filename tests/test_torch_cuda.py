@@ -11,6 +11,8 @@ version sum the same float32 products in another order, so they agree
 to rtol = atol = 1e-5 relative to the output's largest magnitude.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import scipy.sparse as sp
@@ -133,6 +135,70 @@ def test_lane_unpermute_kernel_matches_plain(cuda):
         on_side = lane_perm.lane_unpermute(y2d, idx)
     side.synchronize()
     assert torch.equal(on_side, got)
+
+
+def _long_light_rows_matrix(semiring):
+    """Power-law light rows, up to 256 nonzeros a row within +-3000 of
+    the diagonal, so that a segment of 128 lane rows holds thousands of
+    records (several CTAs, or several staged chunks of one), plus
+    ``_heavy_rows_matrix``'s sparse heavy row; non-negative values ({0,
+    1} for or_and)."""
+    n = 8192
+    rng = np.random.default_rng(12)
+    lens = np.minimum((rng.pareto(1.0, n) * 12).astype(np.int64) + 1, 256)
+    r = np.concatenate([np.repeat(np.arange(n), lens), np.full(2000, 7)])
+    c = np.concatenate([np.clip(np.repeat(np.arange(n), lens)
+                                + rng.integers(-3000, 3000, lens.sum()),
+                                0, n - 1),
+                        np.sort(rng.choice(n, 2000, replace=False))])
+    v = np.abs(rng.standard_normal(r.shape[0])).astype(np.float32)
+    if semiring == "or_and":
+        v = (v > 0.5).astype(np.float32)
+    m = sp.csr_matrix((v, (r, c)), shape=(n, n))
+    m.sum_duplicates()
+    return m
+
+
+@pytest.mark.parametrize("unit_records", [16, pruns.LIGHT_UNIT_RECORDS,
+                                          1 << 30])
+@pytest.mark.parametrize("semiring", sorted(REGISTRY))
+def test_light_kernel_matches_plain(cuda, semiring, unit_records):
+    # the chunk light route over a placed ChunkPlan's light records: one
+    # launch, every lane row as the plain version writes it; a segment
+    # split over many CTAs, over a few, or whole (several staged chunks)
+    m = _long_light_rows_matrix(semiring)
+    kw = dict(pad_value=REGISTRY[semiring].zero, merge_duplicates=False)
+    plan = place(build_chunk_plan(from_scipy(m), **kw), cuda)
+    light = pruns.light_on(plan)
+    units = pruns.light_units(light.row_off.cpu().numpy(), unit_records)
+    light = dataclasses.replace(light, units=torch.from_numpy(units).to(cuda))
+    per_unit = np.diff(units[:, 1])
+    assert per_unit.max() > 1024 if unit_records > 1024 else \
+        (np.diff(units[:, 0]) < 128).any()
+    x = torch.from_numpy(np.abs(np.random.default_rng(4).standard_normal(
+        m.shape[1])).astype(np.float32)).to(cuda)
+    if semiring == "or_and":
+        x = (x > 0.5).float()
+    before = spmv_chunk.light_kernel.launches
+    got = spmv_chunk.light_kernel(light, x, semiring=semiring)
+    assert spmv_chunk.light_kernel.launches == before + 1
+    ref = spmv_chunk.light_plain(light, x, semiring=semiring)
+    if semiring == "plus_times":
+        _close(got, ref)
+    else:
+        # order-free min and max of the same float32 products
+        assert torch.equal(got, ref)
+    # the whole apply: one launch of the light route, y as on the CPU
+    cpu = place(build_chunk_plan(from_scipy(m), **kw), "cpu")
+    before = spmv_chunk.light_kernel.launches
+    y = spmv_sell.spmv_plan(plan, x, semiring=semiring)
+    torch.cuda.synchronize()
+    assert spmv_chunk.light_kernel.launches == before + 1
+    want = spmv_sell.spmv_plan(cpu, x.cpu(), semiring=semiring)
+    if semiring == "plus_times":
+        _close(y.cpu(), want)
+    else:
+        assert torch.equal(y.cpu(), want)
 
 
 @pytest.mark.parametrize("split", [False, True])
