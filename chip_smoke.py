@@ -67,7 +67,25 @@ roofline audit:
 12. ``marginal``: ``roofline.time_marginal`` of a chain of DIA applies
     beside the CUDA-event time of one; ``audit``:
     ``SparseOperator.audit`` of the DIA and shuffled-band operators at
-    the measured read bandwidth (a roofline fraction above 1.05 fails).
+    the measured read bandwidth (a roofline fraction above 1.05 fails);
+13. the solver layer (``solver_phases``), each phase against float64 on
+    the host: ``cg`` (the flagship: ``__graft_entry__``'s banded SPD
+    system at 2^20 rows, a DiaPlan on kernel A, one ``cg_step`` against
+    a float64 numpy step, then ``cg`` to 1e-6), ``cg_fem``
+    (``realistic.cant_like()`` made SPD, ``cg`` on the plan the planner
+    picks), ``pcg_ilu0`` (ILU(0) of an SPD band at 2^15 rows on the
+    host, its L and U swept on the card as the preconditioner, against
+    plain CG), ``trisolve`` (``tools/suite.py``'s lower band at 2^15
+    rows), ``spgemm`` (the suite's A @ A at 2^14 rows, symbolic on the
+    host, numeric on the card, and again with new values) and ``gcn``
+    (ogbn-arxiv's widths on a synthetic graph: forward, cross entropy and
+    ``backward()`` over ``reference.spmm``, then the forward over
+    ``op.matmat`` under ``torch.no_grad()``).  Each prints its CUDA
+    event time, device busy time and idle share by the profiler,
+    launches per call, bound and the library call beside it
+    (``torch.sparse.mm``, or ``torch.triangular_solve`` of the CSR
+    factors); the kernel launches of each counted run add to the
+    kernels' JSON line.
 
 Each phase checks y against a float64 host reference (scipy, or a
 min-plus reduce over the CSR rows; relative error below 1e-4, bench.py's
@@ -334,6 +352,523 @@ def host_cost(y2d, idx, img, gidx, card, n=10_000):
             torch.cuda.synchronize()
             log(f"[host_cost] {group}: {name}: {dt / n * 1e6:.3f} us per "
                 f"call ({n} calls, host clock) on {card}")
+
+
+# ---------------------------------------------------------------------------
+# the solver layer: CG, the ILU(0)-preconditioned CG with its triangular
+# sweeps, SpGEMM and a GCN, each against a float64 host computation
+# ---------------------------------------------------------------------------
+
+def banded_system(n, band=3, dtype=np.float32):
+    """``__graft_entry__._banded_system``'s SPD banded matrix (scipy CSR):
+    diagonally dominant, ``default_rng(0)``."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(0)
+    diags = [rng.standard_normal(n).astype(dtype) * 0.1
+             for _ in range(2 * band + 1)]
+    m = sp.spdiags(np.stack(diags), list(range(-band, band + 1)), n, n)
+    m = (m + m.T + sp.eye(n) * (2 * band + 2)).tocsr()
+    m.sort_indices()
+    return m.astype(dtype)
+
+
+def spd_banded(rng, n, band=3):
+    """``tests/test_spgemm_sptrsv.py``'s ``_spd_banded`` (float64)."""
+    import scipy.sparse as sp
+
+    m = sp.spdiags(rng.standard_normal((2 * band + 1, n)),
+                   list(range(-band, band + 1)), n, n).tocsr()
+    m = ((m + m.T) * 0.1 + sp.eye(n) * (2 * band + 2)).tocsr()
+    m.sort_indices()
+    return m
+
+
+def fem_spd(a):
+    """S = A + A^T of a container, its diagonal set to each row's sum of
+    absolute off-diagonal values plus 1: strictly diagonally dominant
+    and symmetric, so SPD (float64 scipy CSR)."""
+    import scipy.sparse as sp
+
+    m = sp.csr_matrix((a.data.astype(np.float64), a.indices, a.indptr),
+                      shape=a.shape)
+    s = (m + m.T).tocsr()
+    s.setdiag(0)
+    s.eliminate_zeros()
+    d = np.asarray(abs(s).sum(axis=1)).ravel() + 1.0
+    s = (s + sp.diags(d)).tocsr()
+    s.sort_indices()
+    return s
+
+
+def arxiv_like(seed=7, nodes=169_343, edges=1_166_243):
+    """A seeded graph with ogbn-arxiv's published node and edge counts
+    (Hu et al., OGB 2020): ``edges`` distinct directed pairs without
+    self loops at uniform endpoints, symmetrised to a 0/1 adjacency."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, nodes, int(edges * 1.05))
+    dst = rng.integers(0, nodes, src.shape[0])
+    keep = src != dst
+    key = rng.permutation(np.unique(src[keep] * nodes + dst[keep]))[:edges]
+    assert key.shape[0] == edges
+    s, d = key // nodes, key % nodes
+    adj = sp.csr_matrix((np.ones(2 * edges, np.float32),
+                         (np.concatenate([s, d]), np.concatenate([d, s]))),
+                        shape=(nodes, nodes))
+    adj.data[:] = 1.0             # an edge and its reverse drawn both: 1
+    adj.sort_indices()
+    return adj
+
+
+def csr_tensor(m, dev, dtype=np.float32):
+    """A scipy CSR as a torch CSR tensor on ``dev`` (for the library
+    calls timed beside a phase; the port never calls them)."""
+    return torch.sparse_csr_tensor(
+        torch.from_numpy(m.indptr.astype(np.int64)).to(dev),
+        torch.from_numpy(m.indices.astype(np.int64)).to(dev),
+        torch.from_numpy(m.data.astype(dtype)).to(dev), size=m.shape)
+
+
+def vec_rel(got, want):
+    """max |got - want| / max |want| (float64 host)."""
+    got = got.detach().cpu().numpy().astype(np.float64) \
+        if isinstance(got, torch.Tensor) else np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-300))
+
+
+def solver_phases(card, dev, kernels, launches, bw_read):
+    """The phases of the solver layer (``cg``, ``cg_fem``, ``pcg_ilu0``,
+    ``trisolve``, ``spgemm``, ``gcn``).  Each checks its result against a
+    float64 host computation and prints, for each timed call, its CUDA
+    event time (median of 30 after warm-ups), its device busy time and
+    idle share by the profiler, its launches per call, its bound in bytes
+    and microseconds at 3.35 TB/s and at the measured read bandwidth, and
+    the library call's time where there is one.  The launches of the
+    operator's kernels in each phase's counted run add to ``launches``."""
+    import scipy.sparse as sp
+
+    from spmv_vector_cache_tpu_torch.formats.convert import from_scipy
+    from spmv_vector_cache_tpu_torch.formats.dia import DiaPlan
+    from spmv_vector_cache_tpu_torch.formats.plan import place
+    from spmv_vector_cache_tpu_torch.models import gnn, solvers
+    from spmv_vector_cache_tpu_torch.ops import reference, spgemm, sptrsv
+    from spmv_vector_cache_tpu_torch.ops.operator import SparseOperator
+    from spmv_vector_cache_tpu_torch.tools import realistic
+
+    # full float32 products in every matmul (no TF32), as on the host
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def counted(name, run):
+        """One run of a phase's main path, its kernel launches counted
+        (set to 0 just before, read just after)."""
+        for k in kernels.values():
+            k.launches = 0
+        out = run()
+        torch.cuda.synchronize()
+        counts = {k: w.launches for k, w in kernels.items() if w.launches}
+        log(f"[{name}] main-path launches: {counts}")
+        for k, c in counts.items():
+            launches[k] += c
+        return out, counts
+
+    def measure(phase, what, fn, nbyte, library=None, nops=0):
+        """Event time, profiler busy time and idle share, launches per
+        call, bound (the larger of ``nbyte`` at the memory rate and
+        ``nops`` float32 operations at 67 TFLOP/s), and (name, call) of a
+        library call timed beside."""
+        ev_ms = time_ms(fn)
+        by_kernel = device_us_by_kernel(fn)
+        busy = sum(us for us, _ in by_kernel.values())
+        nlaunch = sum(n for _, n in by_kernel.values())
+        idle = 1.0 - busy / (ev_ms * 1e3)
+        ops_us = nops / PEAK_F32_PER_S * 1e6
+        bound_us = max(nbyte / PEAK_BYTES_PER_S * 1e6, ops_us)
+        log(f"[{phase}] {what}: events {ev_ms * 1e3:.2f} us (median of "
+            f"30), device busy {busy:.2f} us, idle share {idle:.4f}, "
+            f"{nlaunch} launches per call; bound {bound_us:.2f} us: "
+            f"{nbyte} bytes = {nbyte / PEAK_BYTES_PER_S * 1e6:.2f} us at "
+            f"{PEAK_BYTES_PER_S / 1e12:g} TB/s, "
+            f"{nbyte / bw_read * 1e6:.2f} us at the measured "
+            f"{bw_read / 1e12:.4f} TB/s; {nops} operations = "
+            f"{ops_us:.2f} us at 67 TFLOP/s; on {card}")
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:6]
+        log(f"[{phase}] {what}: device time by kernel (us, launches): "
+            + "; ".join(f"{k[:60]} {us:.2f} x{n}" for k, (us, n) in top))
+        out = dict(ev_us=ev_ms * 1e3, busy_us=busy, idle=idle,
+                   launches=nlaunch, bound_us=bound_us)
+        if library is not None:
+            lname, lcall = library
+            lib_ms = time_ms(lcall)
+            lib_busy = sum(us for us, _ in
+                           device_us_by_kernel(lcall).values())
+            log(f"[{phase}] beside it, {lname}: events "
+                f"{lib_ms * 1e3:.2f} us (median of 30), device busy "
+                f"{lib_busy:.2f} us; on {card}")
+            out["library_us"] = lib_ms * 1e3
+        return out
+
+    f4 = 4
+
+    # --- cg: the flagship, __graft_entry__.entry()'s step at n = 2^20 ------
+    n = 1 << 20
+    m = banded_system(n)
+    m64 = m.astype(np.float64)
+    op = SparseOperator.from_matrix(from_scipy(m), device=dev)
+    assert isinstance(op.plan, DiaPlan) and op.strategy == "dia", op
+    assert len(op.plan.offsets) == 7, op.plan.offsets
+    b_np = np.random.default_rng(1).standard_normal(n).astype(np.float32)
+    b = torch.from_numpy(b_np).to(dev)
+    state = (torch.zeros_like(b), b, b, torch.vdot(b, b))
+    step, counts = counted("cg", lambda: solvers.cg_step(op.matvec, state))
+    assert counts == {"spmv_dia_f32": 1}, counts
+    # the step from the same state in float64 on the host
+    b64 = b_np.astype(np.float64)
+    ap = m64 @ b64
+    alpha = (b64 @ b64) / (b64 @ ap)
+    r1 = b64 - alpha * ap
+    rz1 = r1 @ r1
+    want = (alpha * b64, r1, r1 + (rz1 / (b64 @ b64)) * b64, rz1)
+    errs = [vec_rel(g, w) for g, w in zip(step, want)]
+    log(f"[cg] cg_step vs float64 numpy step (x, r, p, rz): rel err "
+        f"{', '.join(f'{e:.3g}' for e in errs)} (limit 1e-05)")
+    assert all(e <= 1e-5 for e in errs), errs
+    res, counts = counted("cg", lambda: solvers.cg(op.matvec, b, tol=1e-6,
+                                                   maxiter=100))
+    k = res.iterations
+    assert counts == {"spmv_dia_f32": k + 1}, (k, counts)
+    resid = np.linalg.norm(b64 - m64 @ res.x.cpu().numpy().astype(
+        np.float64)) / np.linalg.norm(b64)
+    log(f"[cg] cg(op.matvec, b, tol=1e-6, maxiter=100): {k} iterations, "
+        f"float64 residual |b - A x| / |b| = {resid:.3g} (limit 1e-05)")
+    assert 0 < k < 100 and resid <= 1e-5, (k, resid)
+    vals = nbytes(op.plan.vals)
+    # the step's bytes: the DIA values once, and 14 vector passes: the
+    # matvec reads p and writes Ap (2), <p, Ap> (2), x + a p (3),
+    # r - a Ap (3), <r, r> (1), r + b p (3)
+    step_bytes = vals + 14 * n * f4
+    a_csr = csr_tensor(m, dev)
+    p_col = b.reshape(-1, 1)
+    lib = ("torch.sparse.mm (CSR) of the SpMV alone", lambda:
+           torch.sparse.mm(a_csr, p_col))
+    measure("cg", f"cg_step (kernel A: {vals} bytes of DIA values, 14 "
+            f"vector passes of {n * f4} bytes)",
+            lambda: solvers.cg_step(op.matvec, state), step_bytes,
+            library=lib)
+    measure("cg", "one SpMV, op.matvec (kernel A alone)",
+            lambda: op.matvec(b), vals + 2 * n * f4)
+    # the solve: one matvec and 5 vector passes to start, then per
+    # iteration the step's bytes and the condition's <r, r> (1 pass)
+    measure("cg", f"cg to 1e-6 ({k} iterations, one host sync each)",
+            lambda: solvers.cg(op.matvec, b, tol=1e-6, maxiter=100),
+            (k + 1) * vals + (5 + 15 * k) * n * f4)
+    del op, a_csr, state, step, res
+    torch.cuda.empty_cache()
+
+    # --- cg_fem: the cant-like FEM matrix made SPD -------------------------
+    t0 = time.perf_counter()
+    s64 = fem_spd(realistic.cant_like())
+    s32 = s64.astype(np.float32)
+    op = SparseOperator.from_matrix(from_scipy(s32), device=dev)
+    t_plan = time.perf_counter() - t0
+    nf = s32.shape[0]
+    log(f"[cg_fem] S = A + A^T of cant_like, strictly diagonally dominant: "
+        f"{s32.shape}, {s32.nnz} nonzeros; {op!r}; built and planned in "
+        f"{t_plan:.3f} s")
+    bf_np = np.random.default_rng(1).standard_normal(nf).astype(np.float32)
+    bf = torch.from_numpy(bf_np).to(dev)
+    res, counts = counted("cg_fem", lambda: solvers.cg(op.matvec, bf,
+                                                       tol=1e-6, maxiter=100))
+    k = res.iterations
+    assert counts and all(c % (k + 1) == 0 for c in counts.values()), counts
+    bf64 = bf_np.astype(np.float64)
+    resid = np.linalg.norm(bf64 - s64 @ res.x.cpu().numpy().astype(
+        np.float64)) / np.linalg.norm(bf64)
+    log(f"[cg_fem] cg to 1e-6: {k} iterations, float64 residual "
+        f"{resid:.3g} (limit 1e-05); the plan's kernels "
+        f"{sorted(counts)} per apply "
+        f"{ {c: n // (k + 1) for c, n in counts.items()} }")
+    assert 0 < k < 100 and resid <= 1e-5, (k, resid)
+    # the least an SpMV must move: the matrix as CSR (a value and a
+    # column a nonzero, the row pointers), x and y; the plan's own byte
+    # model (its padded tiles) is printed beside
+    spmv_bytes = s32.nnz * 8 + (nf + 1) * f4 + 2 * nf * f4
+    log(f"[cg_fem] an SpMV's bound counts {spmv_bytes} bytes (CSR, x, y); "
+        f"the plan's bytes_per_apply is {op.stats['bytes_per_apply']}")
+    measure("cg_fem", f"cg to 1e-6 ({k} iterations)",
+            lambda: solvers.cg(op.matvec, bf, tol=1e-6, maxiter=100),
+            (k + 1) * spmv_bytes + (5 + 15 * k) * nf * f4)
+    a_csr = csr_tensor(s32, dev)
+    measure("cg_fem", "one SpMV, op.matvec", lambda: op.matvec(bf),
+            spmv_bytes, library=("torch.sparse.mm (CSR)", lambda:
+                                 torch.sparse.mm(a_csr, bf.reshape(-1, 1))))
+    del op, a_csr, res
+    torch.cuda.empty_cache()
+
+    # --- pcg_ilu0: ILU(0) of the SPD band, L and U swept on the card -------
+    nb_ = 1 << 15
+    rng = np.random.default_rng(0)
+    a64 = spd_banded(rng, nb_)
+    bp_np = rng.standard_normal(nb_).astype(np.float32)
+    a32 = a64.astype(np.float32)
+    t0 = time.perf_counter()
+    L, U = sptrsv.ilu0(from_scipy(a64))
+    t_ilu = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lp = place(sptrsv.build_trisolve_plan(L, lower=True, unit_diag=True),
+               dev)
+    up = place(sptrsv.build_trisolve_plan(U, lower=False), dev)
+    t_tri = time.perf_counter() - t0
+    op = SparseOperator.from_matrix(from_scipy(a32), device=dev)
+    assert isinstance(op.plan, DiaPlan), op
+    log(f"[pcg_ilu0] n = {nb_}, band 3: ilu0 on the host {t_ilu:.3f} s, "
+        f"the two TriSolvePlans built and placed {t_tri:.3f} s ("
+        f"{lp.num_blocks} blocks, W = {lp.width} and {up.width}); {op!r}")
+    bp = torch.from_numpy(bp_np).to(dev)
+
+    def M(r):
+        return sptrsv.trisolve(up, sptrsv.trisolve(lp, r))
+
+    plain, _ = counted("pcg_ilu0", lambda: solvers.cg(
+        op.matvec, bp, tol=1e-6, maxiter=400))
+    pc, counts = counted("pcg_ilu0", lambda: solvers.cg(
+        op.matvec, bp, tol=1e-6, maxiter=400, M=M))
+    assert counts == {"spmv_dia_f32": pc.iterations + 1}, counts
+    bp64 = bp_np.astype(np.float64)
+    resid = np.linalg.norm(bp64 - a64 @ pc.x.cpu().numpy().astype(
+        np.float64)) / np.linalg.norm(bp64)
+    log(f"[pcg_ilu0] plain cg {plain.iterations} iterations, ILU(0)-"
+        f"preconditioned {pc.iterations}; float64 residual {resid:.3g} "
+        f"(limit 1e-04)")
+    assert pc.iterations < plain.iterations and resid <= 1e-4, \
+        (plain.iterations, pc.iterations, resid)
+    tri_bytes = (nbytes(lp.diag_blocks, lp.off_blocks)
+                 + nbytes(up.diag_blocks, up.off_blocks))
+    # the library pair: two sparse triangular solves of the CSR factors
+    l_csr = sp.csr_matrix((L.data, L.indices, L.indptr), shape=L.shape)
+    u_csr = sp.csr_matrix((U.data, U.indices, U.indptr), shape=U.shape)
+    l_t, u_t = csr_tensor(l_csr, dev), csr_tensor(u_csr, dev)
+    r_col = bp.reshape(-1, 1)
+
+    def lib_m():
+        y = torch.triangular_solve(r_col, l_t, upper=False,
+                                   unitriangular=True).solution
+        return torch.triangular_solve(y, u_t, upper=True).solution
+
+    err = vec_rel(lib_m().reshape(-1), M(bp).double().cpu().numpy())
+    log(f"[pcg_ilu0] M(r) vs torch.triangular_solve over the CSR factors: "
+        f"rel err {err:.3g} (limit 1e-04)")
+    assert err <= 1e-4, err
+    measure("pcg_ilu0", f"M(r) = U^-1 L^-1 r (two sweeps of "
+            f"{lp.num_blocks} blocks; {tri_bytes} bytes of blocks)",
+            lambda: M(bp), tri_bytes + 4 * nb_ * f4,
+            library=("torch.triangular_solve, sparse CSR L then U",
+                     lib_m))
+    vals = nbytes(op.plan.vals)
+    kp = pc.iterations
+    measure("pcg_ilu0", f"pcg to 1e-6 ({kp} iterations)",
+            lambda: solvers.cg(op.matvec, bp, tol=1e-6, maxiter=400, M=M),
+            (kp + 1) * (vals + tri_bytes) + (7 + 17 * kp) * nb_ * f4)
+    measure("pcg_ilu0", f"plain cg to 1e-6 ({plain.iterations} iterations)",
+            lambda: solvers.cg(op.matvec, bp, tol=1e-6, maxiter=400),
+            (plain.iterations + 1) * vals
+            + (5 + 15 * plain.iterations) * nb_ * f4)
+    del op, lp, up, l_t, u_t
+    torch.cuda.empty_cache()
+
+    # --- trisolve: tools/suite.py's lower band at n = 2^15 -----------------
+    nt = 1 << 15
+    rng = np.random.default_rng(0)
+    l6 = sp.spdiags(rng.standard_normal((5, nt)).astype(np.float32),
+                    [-4, -3, -2, -1, 0], nt, nt).tocsr()
+    l6 = sp.tril((l6 + sp.eye(nt) * 8).tocsr()).tocsr().astype(np.float32)
+    l6.sort_indices()
+    tplan = place(sptrsv.build_trisolve_plan(from_scipy(l6), lower=True),
+                  dev)
+    b6_np = rng.standard_normal(nt).astype(np.float32)
+    b6 = torch.from_numpy(b6_np).to(dev)
+    x6 = sptrsv.trisolve(tplan, b6)
+    torch.cuda.synchronize()
+    b6_64 = b6_np.astype(np.float64)
+    resid = np.linalg.norm(b6_64 - l6.astype(np.float64) @ x6.cpu().numpy(
+    ).astype(np.float64)) / np.linalg.norm(b6_64)
+    log(f"[trisolve] n = {nt}, {tplan.num_blocks} blocks, W = "
+        f"{tplan.width}: float64 residual {resid:.3g} (limit 1e-02, the "
+        f"suite's)")
+    assert resid <= 1e-2, resid
+    t_bytes = nbytes(tplan.diag_blocks, tplan.off_blocks) + 2 * nt * f4
+    l6_t = csr_tensor(l6, dev)
+    b6_col = b6.reshape(-1, 1)
+    err = vec_rel(torch.triangular_solve(b6_col, l6_t, upper=False)
+                  .solution.reshape(-1), x6.double().cpu().numpy())
+    log(f"[trisolve] torch.triangular_solve (sparse CSR) vs trisolve: rel "
+        f"err {err:.3g}")
+    r = measure("trisolve", f"trisolve ({tplan.num_blocks}-step dependency "
+                f"chain)", lambda: sptrsv.trisolve(tplan, b6), t_bytes,
+                library=("torch.triangular_solve, sparse CSR", lambda:
+                         torch.triangular_solve(b6_col, l6_t, upper=False)))
+    log(f"[trisolve] {r['launches']} launches for a chain of "
+        f"{tplan.num_blocks} dependent steps: "
+        f"{r['ev_us'] / tplan.num_blocks:.2f} us a step by events")
+    del tplan, l6_t
+    torch.cuda.empty_cache()
+
+    # --- spgemm: tools/suite.py's A @ A at n = 2^14 ------------------------
+    ng = 1 << 14
+    m5 = sp.random(ng, ng, density=16 / ng, format="csr",
+                   random_state=np.random.RandomState(0),
+                   dtype=np.float64).astype(np.float32)
+    m5.sort_indices()
+    a5 = from_scipy(m5)
+    t0 = time.perf_counter()
+    host = spgemm.spgemm_symbolic(a5, a5)
+    t_sym = time.perf_counter() - t0
+    gplan = place(host, dev)
+    ad = torch.from_numpy(m5.data).to(dev)
+    c_data = spgemm.spgemm_numeric(gplan, ad, ad)
+    torch.cuda.synchronize()
+    want5 = (m5.astype(np.float64) @ m5.astype(np.float64)).tocsr()
+    want5.sort_indices()
+    got5 = sp.csr_matrix((c_data.cpu().numpy().astype(np.float64),
+                          host.c_indices, host.c_indptr), shape=(ng, ng))
+    err = abs(got5 - want5).max() / abs(want5).max()
+    log(f"[spgemm] n = {ng}, {m5.nnz} nonzeros: symbolic on the host "
+        f"{t_sym:.3f} s, {host.a_src.shape[0]} products into {host.c_nnz} "
+        f"nonzeros of C; numeric vs float64 scipy rel err {err:.3g} (limit "
+        f"1e-05)")
+    assert host.c_nnz == want5.nnz and err <= 1e-5, (host.c_nnz, err)
+    # pattern reuse: new values on the same pattern
+    a2 = torch.from_numpy((m5.data * 1.5 + 0.25).astype(np.float32)).to(dev)
+    m5b = sp.csr_matrix((m5.data * 1.5 + 0.25, m5.indices, m5.indptr),
+                        shape=m5.shape).astype(np.float64)
+    want_b = (m5b @ m5.astype(np.float64)).tocsr()
+    got_b = sp.csr_matrix((spgemm.spgemm_numeric(gplan, a2, ad).cpu().numpy()
+                           .astype(np.float64), host.c_indices,
+                           host.c_indptr), shape=(ng, ng))
+    err = abs(got_b - want_b).max() / abs(want_b).max()
+    log(f"[spgemm] pattern reuse with new values of A: rel err {err:.3g}")
+    assert err <= 1e-5, err
+    g_bytes = (nbytes(gplan.a_src, gplan.b_src, gplan.out_id)
+               + host.c_nnz * f4 + 2 * nbytes(ad))
+    a5_t = csr_tensor(m5, dev)
+    measure("spgemm", f"spgemm_numeric ({host.a_src.shape[0]} products)",
+            lambda: spgemm.spgemm_numeric(gplan, ad, ad), g_bytes,
+            library=("torch.sparse.mm of two CSR tensors (symbolic and "
+                     "numeric together)",
+                     lambda: torch.sparse.mm(a5_t, a5_t)))
+    # the deterministic segment sum the numeric phase does not take:
+    # torch.segment_reduce over the sorted out_id, one segment a CTA
+    prods = ad.index_select(0, gplan.a_src) * ad.index_select(0, gplan.b_src)
+    bounds = torch.arange(host.c_nnz + 1, device=dev, dtype=torch.int32)
+    offsets = torch.searchsorted(gplan.out_id, bounds)
+
+    def seg_sum():
+        return torch.segment_reduce(prods, "sum", offsets=offsets,
+                                    unsafe=True)
+
+    err = max_abs(seg_sum(), c_data) / float(c_data.abs().max())
+    log(f"[spgemm] torch.segment_reduce vs index_add_ sums: rel err "
+        f"{err:.3g}")
+    assert err <= 1e-6, err
+    measure("spgemm", "the segment sum alone as torch.segment_reduce (not "
+            "taken: deterministic, one segment a CTA)", seg_sum,
+            nbytes(prods, gplan.out_id) + host.c_nnz * f4)
+    del gplan, a5_t
+    torch.cuda.empty_cache()
+
+    # --- gcn: ogbn-arxiv's widths, 3 layers, hidden 256 --------------------
+    t0 = time.perf_counter()
+    adj = arxiv_like()
+    a_norm = gnn.normalized_adjacency(from_scipy(adj))
+    t_graph = time.perf_counter() - t0
+    nn_, sizes = adj.shape[0], [128, 256, 256, 40]
+    a_dev = place(a_norm, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((nn_, sizes[0]), generator=gen, device=dev)
+    labels = torch.randint(0, sizes[-1], (nn_,), generator=gen, device=dev)
+    params = gnn.init_gcn_params(gen, sizes, device=dev)
+    for w, bias in params:
+        w.requires_grad_()
+        bias.requires_grad_()
+    log(f"[gcn] synthetic ogbn-arxiv: {nn_} nodes, {adj.nnz // 2} edges "
+        f"symmetrised, A-hat {a_norm.nnz} nonzeros with self loops; built "
+        f"in {t_graph:.3f} s")
+
+    def train_step():
+        for w, bias in params:
+            w.grad = bias.grad = None
+        logits = gnn.gcn_forward(a_dev, x, params)
+        loss = torch.nn.functional.cross_entropy(logits, labels)
+        loss.backward()
+        return logits
+
+    logits, counts = counted("gcn", train_step)
+    assert counts == {}, counts        # reference.spmm: no kernel of ours
+    grads = [g for w, bias in params for g in (w.grad, bias.grad)]
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    assert all(float(g.abs().max()) > 0 for g in grads)
+    # float64 forward on the host
+    an64 = sp.csr_matrix((a_norm.data.astype(np.float64), a_norm.indices,
+                          a_norm.indptr), shape=a_norm.shape)
+    h = x.double().cpu().numpy()
+    for i, (w, bias) in enumerate(params):
+        h = an64 @ (h @ w.detach().double().cpu().numpy()) \
+            + bias.detach().double().cpu().numpy()
+        if i < len(params) - 1:
+            h = np.maximum(h, 0.0)
+    err = vec_rel(logits, h)
+    log(f"[gcn] logits {tuple(logits.shape)} vs float64 host forward: rel "
+        f"err {err:.3g} (limit 1e-04); gradients finite and non-zero")
+    assert logits.shape == (nn_, sizes[-1]) and err <= 1e-4, err
+    t0 = time.perf_counter()
+    op = SparseOperator.from_matrix(a_norm, device=dev)
+    t_plan = time.perf_counter() - t0
+    with torch.no_grad():
+        fwd_ref = gnn.gcn_forward(a_dev, x, params)
+        fwd_op, counts = counted("gcn", lambda: gnn.gcn_forward(
+            a_dev, x, params, spmm=lambda _, mm: op.matmat(mm)))
+    assert counts == {}, counts        # a PackedPlan: reference.spmm
+    err = vec_rel(fwd_op, fwd_ref.double().cpu().numpy())
+    log(f"[gcn] op.matmat forward ({op!r}, planned in {t_plan:.3f} s, "
+        f"launches {counts}) vs the reference.spmm forward: rel err "
+        f"{err:.3g} (limit 1e-05)")
+    assert err <= 1e-5, err
+    an_t = csr_tensor(sp.csr_matrix((a_norm.data, a_norm.indices,
+                                     a_norm.indptr), shape=a_norm.shape), dev)
+    a_bytes = nbytes(a_dev.data, a_dev.indices, a_dev.indptr)
+    for kf in (256, 40):
+        hk = torch.randn((nn_, kf), generator=gen, device=dev)
+        # least bytes: A-hat once, H once, the output once; the rows of H
+        # a row gather reads (one per nonzero) given beside it
+        gather = a_norm.nnz * kf * f4
+        measure("gcn", f"aggregate reference.spmm, k = {kf} (rows of H "
+                f"gathered per nonzero: {gather} bytes)",
+                lambda: reference.spmm(a_dev, hk),
+                a_bytes + 2 * nn_ * kf * f4, nops=2 * a_norm.nnz * kf,
+                library=("torch.sparse.mm of A-hat's CSR", lambda:
+                         torch.sparse.mm(an_t, hk)))
+    # the forward: each layer's H W (dense operations) and aggregate (A-hat,
+    # its input and output once); the backward: the aggregates again
+    # (A-hat^T G) and the products for each W and each H but X's
+    dense = [2 * nn_ * a * b_ for a, b_ in zip(sizes, sizes[1:])]
+    fwd_ops = sum(dense) + sum(2 * a_norm.nnz * kf for kf in sizes[1:])
+    train_ops = 2 * fwd_ops + sum(dense[1:])
+    fwd_bytes = sum(a_bytes + 2 * nn_ * kf * f4 for kf in sizes[1:])
+    forward = torch.no_grad()(gnn.gcn_forward)
+    measure("gcn", "forward, reference.spmm aggregates (no grad)",
+            lambda: forward(a_dev, x, params), fwd_bytes,
+            nops=fwd_ops)
+    measure("gcn", "forward, op.matmat aggregates (no grad)",
+            lambda: forward(a_dev, x, params,
+                            spmm=lambda _, mm: op.matmat(mm)), fwd_bytes, nops=fwd_ops)
+    measure("gcn", "training step: forward, cross entropy, backward",
+            train_step, 2 * fwd_bytes, nops=train_ops)
+    log(f"[solvers] max_memory_allocated: "
+        f"{torch.cuda.max_memory_allocated()} bytes")
+
 
 
 def main():
@@ -1242,13 +1777,6 @@ def main():
 
     # kernels H and I: torch.sparse.mm of the same matrix, as a CSR tensor
     # on the card, with the same B (a yardstick, never on the path)
-    def csr_on_card(m, dtype=np.float32):
-        return torch.sparse_csr_tensor(
-            torch.from_numpy(m.indptr.astype(np.int64)).to(dev),
-            torch.from_numpy(m.indices.astype(np.int64)).to(dev),
-            torch.from_numpy(m.data.astype(dtype)).to(dev),
-            size=m.shape)
-
     def library_device_us(phase, what, call):
         """A library call's device time by the profiler (its event time
         on a sub-20-us function measures host dispatch)."""
@@ -1259,7 +1787,7 @@ def main():
             f"{card}")
         return us
 
-    csr_t = {"dia": csr_on_card(band), "sell": csr_on_card(m_sell)}
+    csr_t = {"dia": csr_tensor(band, dev), "sell": csr_tensor(m_sell, dev)}
     for kname, phase, base in (("spmm_dia_f32", "spmm_dia", "dia"),
                                ("spmm_sell_window_f32", "spmm_sell",
                                 "sell")):
@@ -1280,7 +1808,7 @@ def main():
              np.float64, Y_RTOL_F64),
             ("spmv_sell_global_f64", "deep_f64", ref_f64["deep_f64"][0],
              np.float64, Y_RTOL_F64)):
-        a_t = csr_t[phase] if phase in csr_t else csr_on_card(m, dtype)
+        a_t = csr_t[phase] if phase in csr_t else csr_tensor(m, dev, dtype)
         x_col = ops[phase][1].reshape(-1, 1)
         err = rel_err(torch.sparse.mm(a_t, x_col).reshape(-1),
                       want64[phase])
@@ -1298,7 +1826,7 @@ def main():
     # (its plan's slots as a CSR over the tier's columns) over x[hot_cols]
     m_t2 = plan_csr(tier2.hot)
     want_t2 = m_t2.astype(np.float64) @ x_tier2.double().cpu().numpy()
-    a_t, x_col = csr_on_card(m_t2), x_tier2.reshape(-1, 1)
+    a_t, x_col = csr_tensor(m_t2, dev), x_tier2.reshape(-1, 1)
     err = rel_err(torch.sparse.mm(a_t, x_col).reshape(-1), want_t2)
     assert err < Y_RTOL, err
     lib_ms = min(time_ms(lambda: torch.sparse.mm(a_t, x_col)) for _ in "ab")
@@ -1319,7 +1847,7 @@ def main():
                             shape=(heavy.rows.shape[0], a_chunk.shape[1]))
     x_chunk_t = ops["chunk"][1]
     want_h = m_heavy.astype(np.float64) @ x_chunk.astype(np.float64)
-    a_t, x_col = csr_on_card(m_heavy), x_chunk_t.reshape(-1, 1)
+    a_t, x_col = csr_tensor(m_heavy, dev), x_chunk_t.reshape(-1, 1)
     err = rel_err(torch.sparse.mm(a_t, x_col).reshape(-1), want_h)
     assert err < Y_RTOL, err
     # D's sums are what it adds to y: the plain version on a zero y
@@ -1338,7 +1866,7 @@ def main():
     # the packed apply (kernels E and F): torch.sparse.mm of the matrix's
     # CSR over x, by events and by the profiler (F alone computes no
     # function a PyTorch call does: its input is E's scan)
-    a_t, x_col = csr_on_card(scipy_of(a_packed)), x_pk.reshape(-1, 1)
+    a_t, x_col = csr_tensor(scipy_of(a_packed), dev), x_pk.reshape(-1, 1)
     err = rel_err(torch.sparse.mm(a_t, x_col).reshape(-1), want64["packed"])
     assert err < Y_RTOL, err
     lib_ms = min(time_ms(lambda: torch.sparse.mm(a_t, x_col)) for _ in "ab")
@@ -1355,7 +1883,7 @@ def main():
         (light.vals.cpu().numpy(), light.cols.cpu().numpy(),
          light.row_off.cpu().numpy()), shape=(light_rows, a_chunk.shape[1]))
     want_l = m_light.astype(np.float64) @ x_chunk.astype(np.float64)
-    a_t, x_col = csr_on_card(m_light), ops["chunk"][1].reshape(-1, 1)
+    a_t, x_col = csr_tensor(m_light, dev), ops["chunk"][1].reshape(-1, 1)
     err = rel_err(torch.sparse.mm(a_t, x_col).reshape(-1), want_l)
     assert err < Y_RTOL, err
     lib_ms = min(time_ms(lambda: torch.sparse.mm(a_t, x_col)) for _ in "ab")
@@ -1385,8 +1913,8 @@ def main():
         sub = band[d * rps:(d + 1) * rps]
         cols_d = sub.indices.astype(np.int64) - (d * rps - halo)
         assert cols_d.min() >= 0 and cols_d.max() < x_ext[d].shape[0]
-        a_t = csr_on_card(sp.csr_matrix((sub.data, cols_d, sub.indptr),
-                                        shape=(rps, x_ext[d].shape[0])))
+        a_t = csr_tensor(sp.csr_matrix((sub.data, cols_d, sub.indptr),
+                                       shape=(rps, x_ext[d].shape[0])), dev)
         x_col = x_ext[d].reshape(-1, 1)
         err = rel_err(torch.sparse.mm(a_t, x_col).reshape(-1),
                       want64["dia"][d * rps:(d + 1) * rps])
@@ -1579,6 +2107,11 @@ def main():
             f"measured {bw_read / 1e12:.4f} TB/s; kernel "
             f"{rows[kname]['ms']:.5f} ms")
     log(f"max_memory_allocated: {torch.cuda.max_memory_allocated()} bytes")
+
+    # --- the solver layer over the operator ---------------------------------
+    del ops, ys, csr_t, ramp, noise
+    torch.cuda.empty_cache()
+    solver_phases(card, dev, kernels, launches, bw_read)
 
     csrc = "spmv_vector_cache_tpu_torch/csrc/"
     meta = {

@@ -72,6 +72,46 @@ def csr_to_dia(a: CSR, *, max_diags: int = 512) -> DIA:
     return DIA(data=vd, offsets=offsets, shape=a.shape)
 
 
+def dia_to_csr(a: DIA) -> CSR:
+    """The stored nonzeros of a DIA container as a CSR with sorted
+    columns (a slot holding 0 is dropped)."""
+    data = np.asarray(a.data)
+    offsets = np.asarray(a.offsets)
+    rows, cols = a.shape
+    rr, kk = [], []
+    for k, off in enumerate(offsets):
+        r = np.arange(max(0, -off), min(rows, cols - off), dtype=np.int64)
+        r = r[data[k, r] != 0]
+        rr.append(r)
+        kk.append(np.full(r.shape, k, np.int64))
+    r = np.concatenate(rr) if rr else np.zeros(0, np.int64)
+    k = np.concatenate(kk) if kk else np.zeros(0, np.int64)
+    c = r + offsets[k] if r.size else r
+    order = np.lexsort((c, r))
+    r, c = r[order], c[order]
+    v = data[k[order], r]
+    indptr = np.zeros(rows + 1, np.int64)
+    np.add.at(indptr, r + 1, 1)
+    indptr = np.cumsum(indptr)
+    return CSR(data=v, indices=c.astype(np.int32), indptr=indptr,
+               shape=a.shape)
+
+
+def from_scipy_dia(m) -> DIA:
+    """scipy.sparse.dia_matrix -> row-major DIA (offsets sorted)."""
+    offsets = np.asarray(m.offsets, dtype=np.int64)
+    order = np.argsort(offsets)
+    offsets = offsets[order]
+    rows, cols = m.shape
+    vd = np.zeros((offsets.size, rows), m.data.dtype)
+    for k, off in enumerate(offsets):
+        r0, r1 = max(0, -off), min(rows, cols - off)
+        if r1 > r0:
+            r = np.arange(r0, r1)
+            vd[k, r] = m.data[order[k], r + off]
+    return DIA(data=vd, offsets=offsets, shape=m.shape)
+
+
 def split_diagonal(a: CSR, *, min_diag_fill: float = 0.5,
                    max_diags: int = 96
                    ) -> Tuple[Optional[DIA], Optional[CSR], float]:

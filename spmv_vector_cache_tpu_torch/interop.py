@@ -1,10 +1,13 @@
-"""Carry plans across from the JAX package and back to numpy.
+"""Carry plans and parameters across from the JAX package and back to
+numpy.
 
 :func:`plan_from_reference` reads a ``spmv_vector_cache_tpu`` plan's
 arrays with ``np.asarray`` — it never imports jax or the JAX package, it
 only reads the object it is given — and returns the port's plan with its
-arrays on ``device``.  :func:`plan_to_numpy` turns a port plan's tensors
-back into numpy arrays, for byte-for-byte comparisons in tests.
+arrays on ``device``.  :func:`gcn_params_from_reference` does the same
+for the GCN parameters of the reference's ``init_gcn_params``.
+:func:`plan_to_numpy` turns a port plan's tensors back into numpy
+arrays, for byte-for-byte comparisons in tests.
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ from .formats.chunk import ChunkPlan, ChunkStats, SubwinPlan
 from .formats.dia import DiaPlan, DiaStats, HybridPlan
 from .formats.packed import PackedPlan, PackedStats
 from .formats.plan import PlanStats, SellPlan, map_arrays, place
+from .ops.spgemm import SpGemmPlan
+from .ops.sptrsv import TriSolvePlan
 from .parallel.dia_sharded import ShardedDiaPlan
 from .parallel.mesh import make_mesh, place_on_mesh, stacked_numpy
 from .parallel.spmv_sharded import ShardedPlan
@@ -26,7 +31,7 @@ from .parallel.spmv_sharded import ShardedPlan
 #: port plan classes by the reference's class name, and their stats class
 _PLANS = {cls.__name__: cls for cls in
           (SellPlan, DiaPlan, CooTail, SubwinPlan, PackedPlan, ShardedPlan,
-           ShardedDiaPlan)}
+           ShardedDiaPlan, SpGemmPlan, TriSolvePlan)}
 _SHARDED = (ShardedPlan, ShardedDiaPlan)
 _STATS = {"SellPlan": PlanStats, "DiaPlan": DiaStats,
           "PackedPlan": PackedStats}
@@ -62,7 +67,7 @@ def _host(plan_ref):
         v = getattr(plan_ref, f.name)
         if f.name == "stats":
             v = _STATS[kind](**v.as_dict())
-        elif f.name == "shape":
+        elif f.name in ("shape", "c_shape"):
             v = tuple(v)
         elif f.name == "offsets":
             v = tuple(int(o) for o in v)
@@ -73,8 +78,9 @@ def _host(plan_ref):
 
 
 def plan_from_reference(plan_ref, device="cuda", *, mesh=None):
-    """A SellPlan, DiaPlan, HybridPlan, CachedPlan, CooTail, ChunkPlan or
-    PackedPlan of the JAX package as the port's plan, its arrays on
+    """A SellPlan, DiaPlan, HybridPlan, CachedPlan, CooTail, ChunkPlan,
+    PackedPlan, SpGemmPlan or TriSolvePlan of the JAX package as the
+    port's plan, its arrays on
     ``device`` (the card unless the caller asks for ``"cpu"``; without a
     card, torch's placement raises).  A ShardedPlan or ShardedDiaPlan
     comes across with shard d on ``mesh.devices[d]`` (default: one shard
@@ -93,3 +99,13 @@ def plan_to_numpy(plan):
         return stacked_numpy(plan)
     return map_arrays(plan, lambda v: v.cpu().numpy()
                       if isinstance(v, torch.Tensor) else v)
+
+
+def gcn_params_from_reference(params_ref, device="cuda"):
+    """The reference's GCN parameters, a list of ``(W, b)`` arrays (from
+    its ``init_gcn_params``, as JAX or numpy arrays), as the port's list
+    of ``(W, b)`` tensors on ``device`` (the card unless the caller asks
+    for ``"cpu"``): the same values, so both packages compute the same
+    forward."""
+    return [tuple(torch.from_numpy(np.array(v)).to(device) for v in layer)
+            for layer in params_ref]

@@ -1,6 +1,6 @@
 from . import operator, reference, semiring, spmv_dia, spmv_sell  # noqa: F401
 from . import lane_perm, spmv_chunk, spmv_packed, strategy  # noqa: F401
-from . import df64, spmm_dia, spmm_sell  # noqa: F401
+from . import df64, spgemm, spmm_dia, spmm_sell, sptrsv  # noqa: F401
 from .operator import SparseOperator  # noqa: F401
 from .reference import golden, spmm, spmv, spmv_numpy  # noqa: F401
 from .semiring import (MAX_PLUS, MAX_TIMES, MIN_PLUS, OR_AND,  # noqa: F401

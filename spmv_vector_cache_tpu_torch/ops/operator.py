@@ -113,7 +113,19 @@ class SparseOperator:
         return self.plan.shape
 
     def _as_x(self, x) -> torch.Tensor:
-        return torch.as_tensor(x, device=self.device)
+        """The operand on the operator's device.  The kernels launch
+        through ctypes and have no backward, as the reference's Pallas
+        kernels have none (``jax.grad`` through them fails): an operand
+        that requires a gradient while autograd records raises here,
+        rather than leave a result cut off from the graph."""
+        x = torch.as_tensor(x, device=self.device)
+        if x.requires_grad and torch.is_grad_enabled():
+            raise RuntimeError(
+                "SparseOperator has no gradient: its kernels are not "
+                "differentiable. Apply it under torch.no_grad(), to a "
+                "detached operand, or use ops.reference.spmv / .spmm, "
+                "which carry gradients to their dense operand")
+        return x
 
     def matvec(self, x: Array) -> torch.Tensor:
         return spmv_plan(self.plan, self._as_x(x), strategy=self.strategy,

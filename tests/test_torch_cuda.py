@@ -1057,3 +1057,70 @@ def _sharded_matches_cpu(kind, mesh):
     _close(y.cpu(), run(plan, torch.from_numpy(x), cpu, **kw))
     want = torch.from_numpy((m.astype(np.float64) @ x).astype(np.float32))
     _close(y.cpu(), want)
+
+
+# ---------------------------------------------------------------------------
+# the solver layer on the card: torch ops (SpGEMM's numeric phase, the
+# triangular sweep) and the CG step over kernel A, against the same calls
+# on the CPU
+# ---------------------------------------------------------------------------
+
+def test_spgemm_numeric_on_the_card_matches_cpu(cuda):
+    from spmv_vector_cache_tpu_torch.ops import spgemm
+
+    n = 4096
+    m = sp.random(n, n, density=16 / n, format="csr",
+                  random_state=np.random.RandomState(0),
+                  dtype=np.float64).astype(np.float32)
+    m.sort_indices()
+    a = from_scipy(m)
+    host = spgemm.spgemm_symbolic(a, a)
+    got = spgemm.spgemm_numeric(place(host, cuda), a.data, a.data)
+    want = spgemm.spgemm_numeric(place(host, torch.device("cpu")), a.data,
+                                 a.data)
+    assert got.device.type == "cuda" and got.shape == (host.c_nnz,)
+    # index_add_'s atomics sum an entry's products in no fixed order
+    _close(got.cpu(), want)
+
+
+@pytest.mark.parametrize("lower", [True, False])
+def test_trisolve_on_the_card_matches_cpu(cuda, lower):
+    from spmv_vector_cache_tpu_torch.ops import sptrsv
+
+    rng = np.random.default_rng(20)
+    n = 3000
+    m = sp.spdiags(rng.standard_normal((5, n)).astype(np.float32),
+                   [-4, -3, -2, -1, 0], n, n).tocsr()
+    m = sp.tril(m + sp.eye(n, dtype=np.float32) * 8).tocsr()
+    if not lower:
+        m = m.T.tocsr()
+    m.sort_indices()
+    plan = sptrsv.build_trisolve_plan(from_scipy(m), lower=lower)
+    b = rng.standard_normal(n).astype(np.float32)
+    got = sptrsv.trisolve(place(plan, cuda), torch.from_numpy(b).to(cuda))
+    want = sptrsv.trisolve(place(plan, torch.device("cpu")), b)
+    assert got.device.type == "cuda"
+    _close(got.cpu(), want)
+
+
+def test_cg_step_on_the_card_matches_cpu(cuda):
+    from spmv_vector_cache_tpu_torch.models import solvers
+    from spmv_vector_cache_tpu_torch.ops.operator import SparseOperator
+
+    rng = np.random.default_rng(0)
+    n, band = 1 << 14, 3
+    m = sp.spdiags(rng.standard_normal((2 * band + 1, n)).astype(
+        np.float32) * 0.1, list(range(-band, band + 1)), n, n)
+    m = (m + m.T + sp.eye(n) * (2 * band + 2)).tocsr().astype(np.float32)
+    m.sort_indices()
+    b = np.random.default_rng(1).standard_normal(n).astype(np.float32)
+    states = {}
+    for dev in ("cpu", "cuda"):
+        op = SparseOperator.from_matrix(from_scipy(m), device=dev)
+        bt = torch.from_numpy(b).to(dev)
+        before = spmv_dia.spmv_dia_kernel.launches
+        states[dev] = solvers.cg_step(op.matvec, (torch.zeros_like(bt), bt,
+                                                  bt, torch.vdot(bt, bt)))
+        assert spmv_dia.spmv_dia_kernel.launches == before + (dev == "cuda")
+    for got, want in zip(states["cuda"], states["cpu"]):
+        _close(got.cpu(), want)
