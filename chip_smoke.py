@@ -85,7 +85,33 @@ roofline audit:
     launches per call, bound and the library call beside it
     (``torch.sparse.mm``, or ``torch.triangular_solve`` of the CSR
     factors); the kernel launches of each counted run add to the
-    kernels' JSON line.
+    kernels' JSON line.  ``pcg_ilu0`` must factorise in the native
+    library;
+14. ``native`` (before the solver layer): the native host runtime's
+    build at first use (``native_lib``, the host C++ compiler), its
+    ``spmv_csc`` on ``realistic.scircuit_like()`` in float64 bit-equal to
+    ``ops/reference.spmv_numpy``, the ``spmv_bench`` CLI on the wire-format
+    directories of ``scircuit_like`` and ``mac_econ_like`` that
+    ``tools/matrixtools`` wrote (``diffFromGolden`` 0), and ILU(0) of
+    ``pcg_ilu0``'s matrix natively beside the numpy Doolittle;
+15. ``tune`` (after the solver layer): ``tune.autotune_plan`` with a
+    store on the shuffled band (a window SellPlan: grid-step and
+    uniform-split candidates), the packed matrix (chunk widths) and the
+    DIA headline (DIA sublanes and the SELL window plan): every
+    candidate built, placed, applied once to ones and checked against
+    float64 scipy, its kernels named by the profiler, before any is
+    timed (CUDA events, median of 20); a winner other than ``auto`` is
+    timed again beside ``auto`` in turns; then
+    ``SparseOperator.from_matrix(a, tune=True, tune_store=...)``, which
+    rebuilds the winner from the store with no timing and runs the
+    strategy sweep on it (the cached matrix is left out: its five
+    candidates plan for about 45 s on the host);
+16. ``tools``: ``suite.run_suite`` at the reference's sizes (every row
+    ok), ``benchapp.run_sweep`` over the two directories (diffFromSW and
+    diffFromGolden 0), ``scaling.weak_scaling`` at 1, 2 and 4 shards on
+    the one card in both modes, ``vecdiff`` of each golden against the
+    native y (exact) and the card's y (1e-4), and the report's
+    ``large_matrix_rows(quick=True)``.
 
 Each phase checks y against a float64 host reference (scipy, or a
 min-plus reduce over the CSR rows; relative error below 1e-4, bench.py's
@@ -128,10 +154,13 @@ nvidia-smi reports them, one JSON line with the kernels' measurements,
 and one JSON line ``{"ok": true, "device": {...}}``.
 """
 
+import io
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -614,9 +643,14 @@ def solver_phases(card, dev, kernels, launches, bw_read):
     a64 = spd_banded(rng, nb_)
     bp_np = rng.standard_normal(nb_).astype(np.float32)
     a32 = a64.astype(np.float32)
+    native_before = sptrsv._ilu0_values.native_calls
     t0 = time.perf_counter()
     L, U = sptrsv.ilu0(from_scipy(a64))
     t_ilu = time.perf_counter() - t0
+    # the factorisation ran in the native library (native_lib), not in
+    # the numpy Doolittle
+    assert sptrsv._ilu0_values.native_calls == native_before + 1, \
+        "ILU(0) did not take the native path"
     t0 = time.perf_counter()
     lp = place(sptrsv.build_trisolve_plan(L, lower=True, unit_diag=True),
                dev)
@@ -624,7 +658,8 @@ def solver_phases(card, dev, kernels, launches, bw_read):
     t_tri = time.perf_counter() - t0
     op = SparseOperator.from_matrix(from_scipy(a32), device=dev)
     assert isinstance(op.plan, DiaPlan), op
-    log(f"[pcg_ilu0] n = {nb_}, band 3: ilu0 on the host {t_ilu:.3f} s, "
+    log(f"[pcg_ilu0] n = {nb_}, band 3: ilu0 on the host (native) "
+        f"{t_ilu:.3f} s, "
         f"the two TriSolvePlans built and placed {t_tri:.3f} s ("
         f"{lp.num_blocks} blocks, W = {lp.width} and {up.width}); {op!r}")
     bp = torch.from_numpy(bp_np).to(dev)
@@ -869,6 +904,285 @@ def solver_phases(card, dev, kernels, launches, bw_read):
     log(f"[solvers] max_memory_allocated: "
         f"{torch.cuda.max_memory_allocated()} bytes")
 
+
+
+def counted_run(kernels, launches, name, run):
+    """One run of a phase's main path, its kernel launches counted (set
+    to 0 just before, read just after) and added to ``launches``."""
+    for k in kernels.values():
+        k.launches = 0
+    out = run()
+    torch.cuda.synchronize()
+    counts = {k: w.launches for k, w in kernels.items() if w.launches}
+    log(f"[{name}] main-path launches: {counts}")
+    for k, c in counts.items():
+        launches[k] += c
+    return out, counts
+
+
+def native_phase(card, matrix_dirs):
+    """The native host runtime (``native_lib``): its build from
+    ``native/`` at first use, ``spmv_csc`` on ``realistic.scircuit_like()``
+    in float64 bit-equal to ``ops/reference.spmv_numpy``, the
+    ``spmv_bench`` CLI on matrix directories written by the port's
+    ``matrixtools`` (``diffFromGolden`` 0), and ILU(0) of ``pcg_ilu0``'s
+    matrix natively beside the numpy Doolittle (values within 1e-12).
+    Every time here is the host's wall time on the card's machine."""
+    from spmv_vector_cache_tpu_torch import native_lib
+    from spmv_vector_cache_tpu_torch.formats.containers import CSC, CSR
+    from spmv_vector_cache_tpu_torch.formats.convert import csr_to_csc
+    from spmv_vector_cache_tpu_torch.ops import reference, sptrsv
+    from spmv_vector_cache_tpu_torch.tools import realistic
+
+    cxx = native_lib.compiler()
+    assert cxx is not None, "no C++ compiler on PATH"
+    t0 = time.perf_counter()
+    assert native_lib.build() and native_lib.available()
+    t_build = time.perf_counter() - t0
+    cxx_version = subprocess.run([cxx, "--version"], capture_output=True,
+                                 text=True).stdout.splitlines()[0]
+    log(f"[native] built at first use in {t_build:.3f} s ({cxx_version}; "
+        f"{native_lib.lib_path()}, {native_lib.cli_path()})")
+
+    csc = csr_to_csc(realistic.scircuit_like())
+    csc = CSC(data=np.asarray(csc.data, np.float64), indices=csc.indices,
+              indptr=csc.indptr, shape=csc.shape)
+    x = np.random.default_rng(5).standard_normal(csc.shape[1])
+    t0 = time.perf_counter()
+    y = native_lib.spmv_csc(csc, x)
+    t_nat = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = reference.spmv_numpy(csc, x)
+    t_np = time.perf_counter() - t0
+    assert y.tobytes() == want.tobytes(), "native spmv_csc not bit-equal"
+    log(f"[native] spmv_csc, scircuit_like {csc.shape} "
+        f"{csc.indices.shape[0]} nonzeros, float64: bit-equal to "
+        f"reference.spmv_numpy; host {t_nat * 1e3:.3f} ms native, "
+        f"{t_np * 1e3:.3f} ms numpy")
+
+    out = subprocess.run([native_lib.cli_path(), "-n", "3", "-p",
+                          *matrix_dirs], capture_output=True, text=True,
+                         timeout=600)
+    assert out.returncode == 0, (out.returncode, out.stderr)
+    lines = out.stdout.strip().splitlines()
+    header = lines[0].split(",")
+    rows = [dict(zip(header, line.split(","))) for line in lines[1:]]
+    assert len(rows) == len(matrix_dirs), out.stdout
+    for r in rows:
+        log(f"[native] spmv_bench -n 3 -p: " + ", ".join(
+            f"{k}={v}" for k, v in r.items()) + " (host times)")
+        assert r["diffFromGolden"] == "0", r
+
+    n = 1 << 15
+    m = spd_banded(np.random.default_rng(0), n)     # pcg_ilu0's matrix
+    a = CSR(data=m.data, indices=m.indices.astype(np.int32),
+            indptr=m.indptr.astype(np.int32), shape=m.shape)
+    t0 = time.perf_counter()
+    v_nat = native_lib.ilu0_inplace(a.indptr, a.indices, a.data)
+    t_nat = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    v_np = sptrsv._ilu0_numpy(a)
+    t_np = time.perf_counter() - t0
+    err = float(np.abs(v_nat - v_np).max() / np.abs(v_np).max())
+    log(f"[native] ilu0, n = {n}, band 3, {m.nnz} nonzeros: native "
+        f"{t_nat * 1e3:.3f} ms, numpy Doolittle {t_np * 1e3:.3f} ms (host, "
+        f"x{t_np / t_nat:.1f}); values rel err {err:.3g} (limit 1e-12)")
+    assert np.allclose(v_nat, v_np, rtol=1e-12, atol=1e-12), err
+
+
+def tune_phases(card, dev, kernels, launches, families):
+    """The plan-parameter sweep, then the strategy sweep, on each of
+    ``families`` (name, container, scipy CSR): ``tune.autotune_plan`` with
+    a store, every candidate built, placed, applied once and checked
+    (y = A @ ones against float64 scipy, the kernels the profiler saw)
+    before any is timed (CUDA events, median of 20); then
+    ``SparseOperator.from_matrix(a, tune=True, tune_store=...)``, which
+    must rebuild the winner from the store without timing and runs the
+    strategy sweep on it."""
+    from spmv_vector_cache_tpu_torch.ops import tune
+    from spmv_vector_cache_tpu_torch.ops.operator import SparseOperator
+    from spmv_vector_cache_tpu_torch.ops.spmv_sell import spmv_plan
+    from spmv_vector_cache_tpu_torch.ops.strategy import (
+        feasible_strategies, plan_nnz)
+
+    for name, a, m in families:
+        tag = f"tune {name}"
+        m64 = m.astype(np.float64)
+        want = m64 @ np.ones(m.shape[1])
+        ones = torch.ones(m.shape[1], device=dev)
+        seen, placed = {}, {}
+        mark = [time.perf_counter()]
+
+        def check(cand, plan, y):
+            torch.cuda.synchronize()
+            t_build = time.perf_counter() - mark[0]
+            err = rel_err(y, want)
+            names = sorted(device_us_by_kernel(
+                lambda: spmv_plan(plan, ones)))
+            seen[cand] = type(plan).__name__
+            placed[cand] = plan
+            log(f"[{tag}] {cand}: {type(plan).__name__}, "
+                f"{plan_nnz(plan)} nonzeros, built, placed and applied in "
+                f"{t_build:.3f} s (host); y = A @ ones rel err {err:.3g} "
+                f"(limit {Y_RTOL:g}); kernels: "
+                + "; ".join(k[:70] for k in names))
+            assert err <= Y_RTOL, (tag, cand, err)
+            mark[0] = time.perf_counter()
+
+        with tempfile.TemporaryDirectory() as tmp:
+            store = os.path.join(tmp, "tuned.json")
+            t0 = time.perf_counter()
+            res, counts = counted_run(
+                kernels, launches, tag,
+                lambda: tune.autotune_plan(a, store=store, iters=20,
+                                           check=check, device=dev))
+            t_sweep = time.perf_counter() - t0
+            assert counts, (tag, counts)
+            assert [e.name for e in res.table] == list(seen), (res, seen)
+            for cand, msg in res.skipped:
+                log(f"[{tag}] {cand}: refused by its plan builder: {msg}")
+            log(f"[{tag}] the sweep ({tune.plan_signature(a)}): "
+                f"{len(res.table)} candidates timed, {len(res.skipped)} "
+                f"infeasible, {t_sweep:.3f} s in all; CUDA events, median "
+                f"of 20 applies of A @ ones, on {card}:")
+            for e in res.table:
+                log(f"[{tag}]   {e.name} {e.params}: {seen[e.name]}, "
+                    f"{e.seconds * 1e6:.2f} us, {e.gnnz_per_s:.3f} Gnnz/s"
+                    + ("  <- best" if e.name == res.best else ""))
+            auto = next(e for e in res.table if e.name == "auto")
+            best = next(e for e in res.table if e.name == res.best)
+            if res.best == "auto":
+                log(f"[{tag}] auto won: no candidate beat the heuristic "
+                    f"plan ({auto.seconds * 1e6:.2f} us)")
+            else:
+                log(f"[{tag}] {best.name} beat auto: {best.seconds * 1e6:.2f}"
+                    f" us against {auto.seconds * 1e6:.2f} us "
+                    f"(x{auto.seconds / best.seconds:.3f})")
+                # the sweep times each candidate once, in order: time the
+                # two again in turns, auto, winner, winner, auto
+                turns = [time_ms(lambda p=placed[c]: spmv_plan(p, ones))
+                         for c in ("auto", best.name, best.name, "auto")]
+                held = max(turns[1:3]) < min(turns[0], turns[3])
+                log(f"[{tag}] in turns (auto, {best.name}, {best.name}, "
+                    f"auto), CUDA events, median of 30: "
+                    + " / ".join(f"{t * 1e3:.2f}" for t in turns)
+                    + f" us: the win {'holds' if held else 'does not hold'}"
+                    f" in turns")
+            del res, placed
+            torch.cuda.empty_cache()
+
+            t0 = time.perf_counter()
+            op, counts = counted_run(
+                kernels, launches, tag,
+                lambda: SparseOperator.from_matrix(a, tune=True,
+                                                   tune_store=store))
+            t_op = time.perf_counter() - t0
+            tuned = [k for k in op.stats.keys() if k.startswith("tune_")]
+            assert tuned == [f"tune_{best.name}_gnnz_per_s"], tuned
+            assert op.stats[tuned[0]] == 0.0, op.stats[tuned[0]]
+            assert op.stats["tuned"] == int(best.name != "auto")
+            sweep = {s: op.stats[f"{s}_seconds"]
+                     for s in feasible_strategies(op.plan)}
+            log(f"[{tag}] from_matrix(tune=True, tune_store): {best.name} "
+                f"rebuilt from the store with no timing (one entry at 0.0 "
+                f"s), then the strategy sweep, in {t_op:.3f} s: "
+                + ", ".join(f"{s} {v * 1e6:.2f} us" for s, v in sweep.items())
+                + f" (CUDA events, median of 5); strategy {op.strategy!r}; "
+                f"{op!r}")
+            x = np.random.default_rng(7).standard_normal(m.shape[1]).astype(
+                np.float32)
+            y, _ = counted_run(kernels, launches, tag, lambda: op @ x)
+            err = rel_err(y, m64 @ x.astype(np.float64))
+            log(f"[{tag}] the tuned operator's y vs float64 scipy: rel err "
+                f"{err:.3g} (limit {Y_RTOL:g})")
+            assert err <= Y_RTOL, (tag, err)
+            del op, y
+            torch.cuda.empty_cache()
+
+
+def tools_phases(card, dev, kernels, launches, matrix_dirs):
+    """The tools on the card: ``suite.run_suite`` at the reference's
+    sizes (every row ok), ``benchapp.run_sweep`` over ``matrix_dirs``
+    (diffFromSW and diffFromGolden 0), ``scaling.weak_scaling`` with up
+    to 4 shards on the one card in both modes, ``vecdiff`` on the
+    directories' goldens, and the report's large-matrix rows."""
+    from spmv_vector_cache_tpu_torch import native_lib
+    from spmv_vector_cache_tpu_torch.formats import refio
+    from spmv_vector_cache_tpu_torch.ops.operator import SparseOperator
+    from spmv_vector_cache_tpu_torch.tools import (benchapp, report,
+                                                   scaling, suite, vecdiff)
+
+    t0 = time.perf_counter()
+    rows, counts = counted_run(kernels, launches, "suite",
+                               lambda: suite.run_suite(log=sys.stdout))
+    log(f"[suite] {len(rows)} configs in {time.perf_counter() - t0:.3f} s "
+        f"(host planning included); on {card}")
+    assert [r["config"] for r in rows] == [
+        "spmv_banded", "spmv_banded_sell", "spmv_powerlaw", "spmm_bsr",
+        "spmm_fused", "spmm_dia", "spgemm_numeric", "trisolve"], rows
+    assert all(r["ok"] and r["rate"] for r in rows), rows
+    assert all(r["device"] == torch.cuda.get_device_name(0) for r in rows)
+    for k in ("spmv_dia_f32", "spmv_sell_window_f32", "spmm_dia_f32",
+              "spmm_sell_window_f32"):
+        assert counts.get(k, 0) > 0, (k, counts)
+
+    buf = io.StringIO()
+    rc, counts = counted_run(kernels, launches, "benchapp",
+                             lambda: benchapp.run_sweep(matrix_dirs,
+                                                        ["auto"], 10, buf))
+    log("[benchapp] run_sweep, strategy auto, on " + card + ":\n"
+        + buf.getvalue().rstrip())
+    lines = buf.getvalue().strip().splitlines()
+    header = lines[0].split(",")
+    swept = [dict(zip(header, line.split(","))) for line in lines[1:]]
+    assert rc == 0 and len(swept) == len(matrix_dirs), (rc, swept)
+    assert all(r["status"] == "ok" and r["diffFromSW"] == "0"
+               and r["diffFromGolden"] == "0" for r in swept), swept
+    assert counts, counts
+
+    for mode, path in (("sell", "spmv_sell_window_f32"),
+                       ("dia", "spmv_dia_halo_f32")):
+        res, counts = counted_run(
+            kernels, launches, f"scaling {mode}",
+            lambda: scaling.weak_scaling(device_counts=(1, 2, 4), mode=mode,
+                                         log=sys.stdout))
+        assert all(r["ok"] for r in res), res
+        assert all(r["hardware"] == f"{torch.cuda.get_device_name(0)} x1"
+                   for r in res), res
+        assert counts.get(path, 0) > 0, counts
+        log(f"[scaling {mode}] " + json.dumps(res))
+
+    for d in matrix_dirs:
+        gold = os.path.join(d, "golden.bin")
+        a = refio.load_reference_matrix(d)
+        host = os.path.join(d, "y_native.bin")
+        native_lib.spmv_csc(a, np.ones(a.shape[1])).astype("<f8").tofile(host)
+        op = SparseOperator.from_matrix(a)
+        y, _ = counted_run(kernels, launches, "vecdiff",
+                           lambda: op @ np.ones(a.shape[1], np.float32))
+        card_y = os.path.join(d, "y_card.bin")
+        y.double().cpu().numpy().astype("<f8").tofile(card_y)
+        scale = float(np.abs(refio.load_golden(d)).max())
+        for args, kw, code in (((gold, host), {}, 0),
+                               ((gold, card_y),
+                                dict(rtol=1e-4, atol=1e-4 * scale), 0)):
+            out = io.StringIO()
+            got = vecdiff.diff(*args, out=out, **kw)
+            log(f"[vecdiff] {os.path.basename(args[0])} vs "
+                f"{os.path.basename(args[1])} ({os.path.basename(d)}, "
+                f"{kw or 'exact'}): rc {got}, {out.getvalue().strip()}")
+            assert got == code, (d, args, got)
+
+    t0 = time.perf_counter()
+    large, counts = counted_run(kernels, launches, "report",
+                                lambda: report.large_matrix_rows(quick=True))
+    log(f"[report] large_matrix_rows(quick=True) in "
+        f"{time.perf_counter() - t0:.3f} s (host planning included), "
+        f"time_marginal of chained applies, on {card}:")
+    for r in large:
+        log("[report]   " + ", ".join(f"{k}={v}" for k, v in r.items()))
+    assert all(r["gnnz_per_s"] != "" for r in large), large
+    assert counts.get("stream_checksum_f32", 0) > 0, counts
 
 
 def main():
@@ -2108,10 +2422,26 @@ def main():
             f"{rows[kname]['ms']:.5f} ms")
     log(f"max_memory_allocated: {torch.cuda.max_memory_allocated()} bytes")
 
-    # --- the solver layer over the operator ---------------------------------
+    # --- the native runtime, the solver layer over the operator, the sweeps
+    # and the tools ----------------------------------------------------------
     del ops, ys, csr_t, ramp, noise
     torch.cuda.empty_cache()
-    solver_phases(card, dev, kernels, launches, bw_read)
+    from spmv_vector_cache_tpu_torch.tools import report
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        matrix_dirs = report.write_matrix_dirs(
+            tmp, ["scircuit_like", "mac_econ_like"])
+        log(f"[native] matrix directories (wire format and golden) written "
+            f"by matrixtools in {time.perf_counter() - t0:.3f} s: "
+            f"{[os.path.basename(d) for d in matrix_dirs]}")
+        native_phase(card, matrix_dirs)
+        solver_phases(card, dev, kernels, launches, bw_read)
+        tune_phases(card, dev, kernels, launches, [
+            ("band", a_sell, m_sell), ("packed", a_packed,
+                                       scipy_of(a_packed)),
+            ("dia", from_scipy(band), band)])
+        tools_phases(card, dev, kernels, launches, matrix_dirs)
 
     csrc = "spmv_vector_cache_tpu_torch/csrc/"
     meta = {

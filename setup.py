@@ -30,7 +30,9 @@ setup(
     package_data={"spmv_vector_cache_tpu.native": ["*.cpp", "*.h",
                                                    "Makefile"],
                   "spmv_vector_cache_tpu_torch": ["csrc/*.cu",
-                                                  "csrc/*.cuh"]},
+                                                  "csrc/*.cuh",
+                                                  "native/*.cpp",
+                                                  "native/*.h"]},
     python_requires=">=3.10",
     install_requires=["jax", "numpy", "scipy"],
     cmdclass={"build_py": BuildNative},

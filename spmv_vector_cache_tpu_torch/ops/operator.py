@@ -10,6 +10,7 @@ on a torch device once, and then applies it: ``op @ x``.
 >>> y64 = op64 @ x                         # float64 y, FP64 kernels
 >>> Y = op @ B                             # kernel SpMM, B: (cols, k)
 >>> op_cpu = SparseOperator.from_matrix(a, device="cpu")   # plain versions
+>>> op_t = SparseOperator.from_matrix(a, tune=True)  # timed sweeps
 >>> op.audit(stream_bw=roofline.measure_stream_bandwidth())  # roofline
 """
 
@@ -30,8 +31,8 @@ from . import reference
 from . import semiring as sr
 from .spmm_sell import NoFusedSpmm, has_fused_spmm, is_double, spmm_plan
 from .spmv_sell import spmv_plan
-from .strategy import (execution_counters, plan_bytes_per_apply, plan_nnz,
-                       select_strategy)
+from .strategy import (autotune, execution_counters, plan_bytes_per_apply,
+                       plan_nnz, select_strategy)
 
 Array = Any
 
@@ -87,24 +88,51 @@ class SparseOperator:
     def from_matrix(cls, a, *, strategy: str = "auto",
                     value_dtype=np.float32, tune: bool = False,
                     semiring: str = "plus_times",
+                    tune_store: Optional[str] = None,
                     device="cuda", **plan_kwargs) -> "SparseOperator":
         """Plan ``a`` (any container) on the host, place the plan on
         ``device`` (the card unless the caller asks for ``"cpu"``; without
         a card, torch's placement raises) and select an execution
         strategy.  ``semiring`` selects the algebra; the plan's padding
         is built to match.  ``value_dtype=np.float64`` builds a double
-        plan (plus_times): ``op @ x`` then returns a float64 y."""
-        if tune:
-            raise NotImplementedError("tune=True needs ops/tune.py, which "
-                                      "is not ported yet (ROADMAP.md "
-                                      "queue 1, item 13)")
+        plan (plus_times): ``op @ x`` then returns a float64 y.
+
+        ``tune=True`` runs the timing sweeps on ``device`` instead of the
+        structure heuristic alone: first the plan-parameter sweep
+        (:func:`.tune.autotune_plan`, when no ``plan_kwargs`` are given),
+        recorded as ``tuned`` and ``tune_<name>_gnnz_per_s`` in
+        ``op.stats``, then, with ``strategy="auto"``, the strategy sweep
+        on the placed winner (:func:`.strategy.autotune`).
+        ``tune_store`` persists winners keyed by structural signature."""
         t0 = time.perf_counter()
-        plan = auto_plan(a, value_dtype=value_dtype, semiring=semiring,
-                         **plan_kwargs)
+        res = None
+        if tune and not plan_kwargs:
+            from .tune import autotune_plan
+
+            res = autotune_plan(a, value_dtype=value_dtype,
+                                semiring=semiring, store=tune_store,
+                                device=device)
+            placed = res.plan
+        else:
+            plan = auto_plan(a, value_dtype=value_dtype, semiring=semiring,
+                             **plan_kwargs)
+            placed = place(plan, torch.device(device))
         t_plan = time.perf_counter() - t0
-        op = cls(place(plan, torch.device(device)), strategy=strategy,
-                 matrix=a, semiring=semiring)
+        op = cls(placed, strategy=strategy, matrix=a, semiring=semiring)
         op.stats["plan_seconds"] = t_plan
+        if res is not None:
+            op.stats["tuned"] = int(res.best != "auto")
+            for e in res.table:
+                op.stats[f"tune_{e.name}_gnnz_per_s"] = e.gnnz_per_s
+        if tune and strategy == "auto":
+            x = torch.ones(a.shape[1], device=op.device,
+                           dtype=torch.float64 if is_double(op.plan)
+                           else torch.float32)
+            results = autotune(op.plan, x, iters=5, stats=op.stats,
+                               semiring=op.semiring)
+            if results:
+                op.strategy = min(results.values(),
+                                  key=lambda r: r.seconds).strategy
         return op
 
     # -- application ------------------------------------------------------

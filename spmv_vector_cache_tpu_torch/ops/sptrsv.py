@@ -185,8 +185,25 @@ def trisolve(plan: TriSolvePlan, b) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _ilu0_values(a: CSR) -> np.ndarray:
-    """Factored CSR value array on A's pattern: the reference's
-    vectorized-numpy Doolittle (sorted columns required)."""
+    """Factored CSR value array on A's pattern (sorted columns required):
+    the native C++ factorisation (``native_lib.ilu0_inplace``) where a
+    C++ compiler is present, counted in ``_ilu0_values.native_calls``,
+    else the reference's vectorized-numpy Doolittle
+    (:func:`_ilu0_numpy`).  Both run on the host."""
+    from .. import native_lib
+
+    if native_lib.available():
+        out = native_lib.ilu0_inplace(a.indptr, a.indices, a.data)
+        _ilu0_values.native_calls += 1
+        return out
+    return _ilu0_numpy(a)
+
+
+_ilu0_values.native_calls = 0
+
+
+def _ilu0_numpy(a: CSR) -> np.ndarray:
+    """The vectorized-numpy Doolittle ILU(0) of CSR values."""
     n = a.shape[0]
     indptr = np.asarray(a.indptr, dtype=np.int64)
     cols = np.asarray(a.indices, dtype=np.int64)

@@ -1,20 +1,31 @@
-"""Strategy selection and plan-derived counters (counterpart of
-``spmv_vector_cache_tpu/ops/strategy.py``; Sell, Dia, Hybrid, Cached,
-CooTail, Chunk and Packed plans — the timing sweep ``autotune`` comes
-with ``ops/tune.py``)."""
+"""Strategy selection, plan-derived counters and the strategy sweep
+(counterpart of ``spmv_vector_cache_tpu/ops/strategy.py``; Sell, Dia,
+Hybrid, Cached, CooTail, Chunk and Packed plans).
+
+:func:`autotune` times every strategy the reference deems feasible for a
+plan and :func:`best_strategy` picks the fastest; on a card each apply
+is timed by CUDA events (:func:`_time_device`), each strategy in two
+rounds (:func:`_time_rounds`)."""
 
 from __future__ import annotations
 
-from typing import Dict
+import dataclasses
+import statistics
+import time
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
+import torch
 
 from ..formats.cached import CachedPlan, CooTail
 from ..formats.chunk import ChunkPlan
 from ..formats.dia import DiaPlan, HybridPlan
 from ..formats.packed import PackedPlan
 from ..formats.plan import DEEP_MAX_BLOCKS, RESIDENT_MAX_BLOCKS, SellPlan
-from .spmv_sell import warn_stream
+from ..utils.stats import StatRegistry
+from .spmv_sell import spmv_plan, warn_stream
+
+Array = Any
 
 
 def _itemsize(arr) -> int:
@@ -215,3 +226,122 @@ def execution_counters(plan, strategy: str = "auto") -> Dict[str, int]:
         "epilogue_segsum": int(not (fold and st.group_slice_identity)) +
         int(not plan.identity_map and not st.uniform_parts),
     }
+
+
+@dataclasses.dataclass
+class SweepResult:
+    strategy: str
+    seconds: float
+    gnnz_per_s: float
+
+
+#: applies run before the timed ones (the first carries the kernel build
+#: and the placement's one-time work lists)
+TIME_WARMUP = 3
+
+
+def _time_device(fn: Callable[..., Any], *args, iters: int = 10) -> float:
+    """Seconds per call of ``fn(*args)``.
+
+    On a card: ``TIME_WARMUP`` calls, then ``iters`` calls, each between
+    two CUDA events on the result's card, and the median of those
+    times; only the calls are timed (a placed plan's work lists are built
+    once, by ``place``, before any of them).  On the CPU: the reference's
+    wall time over ``iters`` calls, synchronised by a host read of one
+    element of the result."""
+    y = fn(*args)
+    if isinstance(y, torch.Tensor) and y.is_cuda:
+        with torch.cuda.device(y.device):
+            for _ in range(TIME_WARMUP):
+                fn(*args)
+            marks = []
+            for _ in range(iters):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn(*args)
+                end.record()
+                marks.append((start, end))
+            torch.cuda.synchronize()
+        return statistics.median(s.elapsed_time(e) for s, e in marks) / 1e3
+    float(y.reshape(-1)[0])                 # warm + sync
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        y = fn(*args)
+    float(y.reshape(-1)[0])
+    return (time.perf_counter() - t0) / iters
+
+
+def _time_rounds(fns: Dict[str, Callable[[], Any]],
+                 iters: int) -> Dict[str, float]:
+    """Seconds per call of each of ``fns`` (name -> nullary callable):
+    :func:`_time_device` in two rounds, the callables in order and then
+    in reverse, each keeping the lower of its two medians, so that a
+    drift of the card's clocks or of the host's state over a sweep
+    favours no position."""
+    items = list(fns.items())
+    rounds: Dict[str, list] = {name: [] for name, _ in items}
+    for order in (items, items[::-1]):
+        for name, fn in order:
+            rounds[name].append(_time_device(fn, iters=iters))
+    return {name: min(t) for name, t in rounds.items()}
+
+
+def feasible_strategies(plan) -> list:
+    """The strategies :func:`autotune` times: the reference's rule, which
+    lists the windowless ones under the v5e caps ``RESIDENT_MAX_BLOCKS``
+    and ``DEEP_MAX_BLOCKS``.  A ChunkPlan, which the reference's rule
+    omits (it reads a window width a ChunkPlan's stats lack), runs its
+    one route, as the other plan types do."""
+    if isinstance(plan, (DiaPlan, HybridPlan, CachedPlan, PackedPlan,
+                         CooTail, ChunkPlan)):
+        return ["dia" if isinstance(plan, DiaPlan) else "auto"]
+    nb = -(-plan.shape[1] // 128)
+    feasible = ["stream"]                # the explicit sweep measures it too
+    if nb <= DEEP_MAX_BLOCKS:
+        feasible.insert(0, "deep")
+    if nb <= RESIDENT_MAX_BLOCKS:
+        feasible.insert(0, "resident")
+    if plan.stats.window_blocks > 0:
+        feasible.insert(0, "window")
+    return feasible
+
+
+def autotune(plan, x: Array, *, iters: int = 10,
+             stats: Optional[StatRegistry] = None,
+             semiring: str = "plus_times") -> Dict[str, SweepResult]:
+    """Measure every feasible strategy of a placed plan on ``x``'s device
+    (:func:`_time_rounds`) and return the timings (fastest first is not
+    implied).
+
+    A strategy that the dispatcher refuses for this plan
+    (``ValueError`` or ``NotImplementedError``, raised before any
+    launch) is left out; anything else, a CUDA error included,
+    propagates."""
+    runs = {}
+    for name in feasible_strategies(plan):
+        def run(n=name):
+            return spmv_plan(plan, x, strategy=n, semiring=semiring)
+        try:
+            run()
+        except (ValueError, NotImplementedError):
+            continue                     # refused before any launch
+        runs[name] = run
+    nnz = plan_nnz(plan)
+    results: Dict[str, SweepResult] = {}
+    for name, dt in _time_rounds(runs, iters).items():
+        results[name] = SweepResult(
+            strategy=name, seconds=dt,
+            gnnz_per_s=nnz / dt / 1e9 if dt > 0 else 0.0)
+    if stats is not None:
+        for name, r in results.items():
+            stats[f"{name}_seconds"] = r.seconds
+            stats[f"{name}_gnnz_per_s"] = r.gnnz_per_s
+    return results
+
+
+def best_strategy(plan: SellPlan, x: Array, **kw) -> str:
+    results = autotune(plan, x, **kw)
+    if not results:
+        return select_strategy(plan)
+    return min(results.values(), key=lambda r: r.seconds).strategy

@@ -1,1 +1,1 @@
-from . import realistic  # noqa: F401
+from . import benchapp, matrixtools, realistic, scaling, suite, vecdiff  # noqa: F401

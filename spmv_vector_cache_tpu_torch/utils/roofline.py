@@ -49,12 +49,24 @@ def time_chained(make_fn: Callable[[], Any], *, iters: int,
     return best / iters
 
 
+#: the least time :func:`time_marginal` returns: a marginal lost in the
+#: noise even on the longer chains.  A time at this floor is not a
+#: measurement, and no rate is computed from it (:func:`at_floor`)
+TIMING_FLOOR = 1e-12
+
+
+def at_floor(seconds: float) -> bool:
+    """Whether a time from :func:`time_marginal` is its floor."""
+    return seconds <= TIMING_FLOOR
+
+
 def time_marginal(make_chain: Callable[[int], Callable[[], Any]],
                   i1: int = 30, i2: int = 90, repeats: int = 3) -> float:
     """Per-iteration time free of fixed call and sync costs: the two-point
     difference ``(T(i2) - T(i1)) / (i2 - i1)`` of ``make_chain(iters)``,
     a nullary callable running ``iters`` chained steps.  A marginal lost
-    in call-to-call variance is measured again on chains 8x longer."""
+    in call-to-call variance is measured again on chains 8x longer; one
+    lost there too returns :data:`TIMING_FLOOR`."""
     f1, f2 = make_chain(i1), make_chain(i2)
     t1 = time_chained(lambda: f1(), iters=1, repeats=repeats)
     t2 = time_chained(lambda: f2(), iters=1, repeats=repeats)
@@ -64,7 +76,7 @@ def time_marginal(make_chain: Callable[[int], Callable[[], Any]],
         t1 = time_chained(lambda: f1(), iters=1, repeats=repeats)
         t2 = time_chained(lambda: f2(), iters=1, repeats=repeats)
         dt = (t2 - t1) / (8 * (i2 - i1))
-    return max(dt, 1e-12)
+    return max(dt, TIMING_FLOOR)
 
 
 #: tiles one checksum of the read probe covers at most (64 tiles of

@@ -12,6 +12,7 @@ to rtol = atol = 1e-5 relative to the output's largest magnitude.
 """
 
 import dataclasses
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -22,6 +23,7 @@ from spmv_vector_cache_tpu_torch.formats.chunk import build_chunk_plan
 from spmv_vector_cache_tpu_torch.formats.convert import from_scipy
 from spmv_vector_cache_tpu_torch.formats.dia import build_dia_plan
 from spmv_vector_cache_tpu_torch.formats.packed import build_packed_plan
+from spmv_vector_cache_tpu_torch.formats import plan as pplan
 from spmv_vector_cache_tpu_torch.formats.plan import build_sell_plan, place
 from spmv_vector_cache_tpu_torch.ops import (_kernels, lane_perm, spmv_chunk,
                                              spmv_dia, spmv_packed, spmv_sell)
@@ -1124,3 +1126,94 @@ def test_cg_step_on_the_card_matches_cpu(cuda):
         assert spmv_dia.spmv_dia_kernel.launches == before + (dev == "cuda")
     for got, want in zip(states["cuda"], states["cpu"]):
         _close(got.cpu(), want)
+
+
+# ---------------------------------------------------------------------------
+# the plan-parameter and strategy sweeps on the card
+# ---------------------------------------------------------------------------
+
+def _band(n, offs, seed):
+    rng = np.random.default_rng(seed)
+    m = sp.spdiags(rng.standard_normal((len(offs), n)).astype(np.float32),
+                   offs, n, n).tocsr()
+    m.sort_indices()
+    return m
+
+
+@pytest.mark.parametrize("allow_dia", [True, False])
+def test_autotune_plan_every_candidate_on_the_card(cuda, allow_dia,
+                                                   tmp_path):
+    from spmv_vector_cache_tpu_torch.ops import tune
+
+    m = _band(1 << 15, list(range(-6, 7)), seed=30)
+    a = from_scipy(m)
+    want = m.astype(np.float64) @ np.ones(m.shape[1])
+    seen = {}
+
+    def check(name, plan, y):
+        assert y.device.type == "cuda"
+        err = np.abs(y.cpu().numpy() - want).max() / np.abs(want).max()
+        assert err < 1e-4, (name, err)
+        seen[name] = type(plan).__name__
+
+    store = str(tmp_path / "tuned.json")
+    if allow_dia:
+        res = tune.autotune_plan(a, iters=3, store=store, check=check)
+    else:
+        # a SELL-window base: the grid-step and group-tile candidates
+        with mock.patch.object(tune, "auto_plan",
+                               lambda a, **kw: pplan.auto_plan(
+                                   a, **{**kw, "allow_dia": False})):
+            res = tune.autotune_plan(a, iters=3, store=store, check=check)
+    assert [e.name for e in res.table] == list(seen)
+    assert len(res.table) >= 3 and not res.skipped
+    assert all(e.seconds > 0 and e.gnnz_per_s > 0 for e in res.table)
+    assert res.plan is not None and res.best in seen
+    # the store round trip: the winner again, placed, with no timing
+    again = tune.autotune_plan(a, iters=3, store=store)
+    assert again.best == res.best
+    assert [(e.seconds, e.gnnz_per_s) for e in again.table] == [(0.0, 0.0)]
+    y = spmv_sell.spmv_plan(again.plan, torch.ones(m.shape[1], device=cuda))
+    assert y.device.type == "cuda"
+    assert np.abs(y.cpu().numpy() - want).max() / np.abs(want).max() < 1e-4
+
+
+def test_strategy_sweep_on_the_card_all_four(cuda):
+    from spmv_vector_cache_tpu_torch.ops import strategy
+
+    m = _band(4096, list(range(-6, 7)), seed=31)
+    plan = place(build_sell_plan(from_scipy(m)), cuda)
+    assert strategy.feasible_strategies(plan) == [
+        "window", "resident", "deep", "stream"]
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        4096).astype(np.float32)).to(cuda)
+    stats = {}
+    res = strategy.autotune(plan, x, iters=5, stats=stats)
+    assert list(res) == ["window", "resident", "deep", "stream"]
+    assert all(r.seconds > 0 for r in res.values())
+    assert len(stats) == 8
+    best = strategy.best_strategy(plan, x, iters=5)
+    want = m.astype(np.float64) @ x.cpu().numpy().astype(np.float64)
+    for s in res:
+        y = spmv_sell.spmv_plan(plan, x, strategy=s).cpu().numpy()
+        assert np.abs(y - want).max() / np.abs(want).max() < 1e-4, s
+    assert best in res
+
+
+def test_from_matrix_tune_on_the_card(cuda, tmp_path):
+    from spmv_vector_cache_tpu_torch.ops.operator import SparseOperator
+
+    m = _band(1 << 14, list(range(-3, 4)), seed=32)
+    store = str(tmp_path / "tuned.json")
+    op = SparseOperator.from_matrix(from_scipy(m), tune=True,
+                                    tune_store=store)
+    assert op.device.type == "cuda"
+    assert any(k.startswith("tune_") for k in op.stats.keys())
+    x = np.random.default_rng(3).standard_normal(1 << 14).astype(np.float32)
+    want = m.astype(np.float64) @ x.astype(np.float64)
+    y = (op @ x).cpu().numpy()
+    assert np.abs(y - want).max() / np.abs(want).max() < 1e-4
+    again = SparseOperator.from_matrix(from_scipy(m), tune=True,
+                                       tune_store=store)
+    tuned = [k for k in again.stats.keys() if k.startswith("tune_")]
+    assert len(tuned) == 1 and again.stats[tuned[0]] == 0.0

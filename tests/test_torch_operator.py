@@ -76,10 +76,22 @@ def test_operator_exec_and_compare_golden():
     assert op.stats["diffFromGolden"] == 7
 
 
+def test_operator_tune_matches_jax():
+    # tune=True runs both sweeps (tests/test_torch_tune.py): the winners
+    # may differ between the packages, the product may not
+    m = banded(512, list(range(-3, 4)), seed=2)
+    ja, pa = both(m)
+    jop = joperator.SparseOperator.from_matrix(ja, tune=True)
+    op = SparseOperator.from_matrix(pa, tune=True, device="cpu")
+    assert any(k.startswith("tune_") for k in op.stats.keys())
+    assert type(op.plan).__name__ == type(jop.plan).__name__ == "DiaPlan"
+    x = np.random.default_rng(4).standard_normal(512).astype(np.float32)
+    np.testing.assert_allclose((op @ x).numpy(), np.asarray(jop @ x),
+                               rtol=2e-5, atol=2e-5)
+
+
 def test_operator_unported_paths_raise():
     _, pa = both(banded(512, [-1, 0, 1], seed=7))
-    with pytest.raises(NotImplementedError, match="tune"):
-        SparseOperator.from_matrix(pa, tune=True, device="cpu")
     # SpMM runs now (tests/test_torch_spmm.py), under plus_times only
     op = SparseOperator.from_matrix(pa, semiring="min_plus", device="cpu")
     with pytest.raises(NotImplementedError, match="SpMM"):
