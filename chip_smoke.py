@@ -111,14 +111,35 @@ roofline audit:
     diffFromGolden 0), ``scaling.weak_scaling`` at 1, 2 and 4 shards on
     the one card in both modes, ``vecdiff`` of each golden against the
     native y (exact) and the card's y (1e-4), and the report's
-    ``large_matrix_rows(quick=True)``.
+    ``large_matrix_rows(quick=True)``;
+17. the typed phases (``dtype_phases``, after the sharded phases): the
+    same draws as bfloat16, int32 and uint32 plans through
+    ``from_matrix(a, value_dtype=...)``: ``dia_bf16`` and
+    ``spmm_dia_bf16`` (kernels A and I), ``uint32`` (the headline band's
+    structure, values and x in [0, 9], under plus_times on A and
+    max_times on B) with ``spmm_dia_u32``, ``sharded_dia_u32``,
+    ``_i32`` and ``_bf16`` (kernel M), ``sell_bf16`` and
+    ``spmm_sell_bf16`` (B, H), ``spmm_sell_u32``, ``hybrid_i32`` and
+    ``spmm_hybrid_i32`` (A, B; I, H), ``deep_i32`` and ``deep_u32`` (G on
+    the deep and stream routes, on the windowless SellPlan),
+    ``packed_bf16`` / ``_i32`` / ``_u32`` (E, F), ``chunk_i32`` /
+    ``_bf16`` / ``_u32`` (the light route, C on the words, D) and
+    ``cached_bf16`` (B, G).  Each checks y: bfloat16 within 1e-4 of
+    float64 scipy over the rounded values, the integers exactly equal to
+    the int64 product mod 2^32; counts its launches by entry point
+    (``_kernels.launches``) and asserts them; prints its events time,
+    the profiler's kernels, device busy time and idle share, its bound
+    and ``torch.sparse.mm`` in that type ("none: refused" where CUDA
+    takes no such type); then holds each of the 29 new builds against
+    its plain version (1e-5 for bfloat16, exact for the integers) and
+    times both beside its bound.
 
 Each phase checks y against a float64 host reference (scipy, or a
 min-plus reduce over the CSR rows; relative error below 1e-4, bench.py's
 gate, and below 1e-11 in the float64 phases), checks the plan the
 planner picked, and checks that its run of the main path launched the
-phase's kernels (their launch counters, set to 0 just before the phase's
-apply and read just after; the chunk, SpMM and float64 phases must
+phase's kernels (their launches by C entry point, ``_kernels.launches``,
+set to 0 just before the phase's apply and read just after; the chunk, SpMM and float64 phases must
 launch exactly their kernels, the light route, kernel C and kernel D
 once each in the chunk phase, and no other).  Each kernel is then
 compared with its plain PyTorch version on the same inputs on the card,
@@ -316,7 +337,8 @@ def min_plus_host(a, x):
 
 
 def plan_csr(plan):
-    """The matrix a float32 SellPlan stores, as a scipy CSR: each slot
+    """The matrix a float32 or bfloat16 SellPlan stores, as a scipy CSR
+    (bfloat16 values as float32, exactly): each slot
     with a nonzero value at (the original row of its sub-row, its
     column)."""
     import scipy.sparse as sp
@@ -325,6 +347,8 @@ def plan_csr(plan):
     rows = plan.row_map.long().cpu().reshape(-1, R)[
         plan.tile_slice.long().cpu()][:, None, :].expand(plan.vals.shape)
     v, c = plan.vals.cpu(), plan.cols.cpu()
+    if v.dtype == torch.bfloat16:
+        v = v.float()                   # exact
     keep = (v != 0) & (rows < plan.shape[0])
     return sp.csr_matrix((v[keep].numpy(), (rows[keep].numpy(),
                                              c[keep].long().numpy())),
@@ -483,7 +507,8 @@ def solver_phases(card, dev, kernels, launches, bw_read):
     from spmv_vector_cache_tpu_torch.formats.dia import DiaPlan
     from spmv_vector_cache_tpu_torch.formats.plan import place
     from spmv_vector_cache_tpu_torch.models import gnn, solvers
-    from spmv_vector_cache_tpu_torch.ops import reference, spgemm, sptrsv
+    from spmv_vector_cache_tpu_torch.ops import (_kernels, reference, spgemm,
+                                                 sptrsv)
     from spmv_vector_cache_tpu_torch.ops.operator import SparseOperator
     from spmv_vector_cache_tpu_torch.tools import realistic
 
@@ -494,11 +519,11 @@ def solver_phases(card, dev, kernels, launches, bw_read):
     def counted(name, run):
         """One run of a phase's main path, its kernel launches counted
         (set to 0 just before, read just after)."""
-        for k in kernels.values():
-            k.launches = 0
+        _kernels.launches.clear()
         out = run()
         torch.cuda.synchronize()
-        counts = {k: w.launches for k, w in kernels.items() if w.launches}
+        counts = {k: _kernels.launches[k] for k in kernels
+                  if _kernels.launches[k]}
         log(f"[{name}] main-path launches: {counts}")
         for k, c in counts.items():
             launches[k] += c
@@ -909,11 +934,13 @@ def solver_phases(card, dev, kernels, launches, bw_read):
 def counted_run(kernels, launches, name, run):
     """One run of a phase's main path, its kernel launches counted (set
     to 0 just before, read just after) and added to ``launches``."""
-    for k in kernels.values():
-        k.launches = 0
+    from spmv_vector_cache_tpu_torch.ops import _kernels
+
+    _kernels.launches.clear()
     out = run()
     torch.cuda.synchronize()
-    counts = {k: w.launches for k, w in kernels.items() if w.launches}
+    counts = {k: _kernels.launches[k] for k in kernels
+              if _kernels.launches[k]}
     log(f"[{name}] main-path launches: {counts}")
     for k, c in counts.items():
         launches[k] += c
@@ -1183,6 +1210,685 @@ def tools_phases(card, dev, kernels, launches, matrix_dirs):
         log("[report]   " + ", ".join(f"{k}={v}" for k, v in r.items()))
     assert all(r["gnnz_per_s"] != "" for r in large), large
     assert counts.get("stream_checksum_f32", 0) > 0, counts
+
+
+
+#: a bfloat16 plan's y against float64 scipy over the bfloat16-rounded
+#: values: float32 sums of the same products (about 1e-7 expected)
+Y_RTOL_BF16 = 1e-4
+#: the typed builds' source files and the Pallas functions each replaces
+TYPED_META = {
+    "spmv_dia": ("spmv_dia.cu", "spmv_vector_cache_tpu/ops/spmv_dia.py:63, "
+                 "spmv_vector_cache_tpu/ops/spmv_dia.py:81"),
+    "spmv_dia_halo": ("spmv_dia.cu", "spmv_vector_cache_tpu/parallel/"
+                      "dia_sharded.py:120"),
+    "spmv_sell_window": ("spmv_sell_window.cu", "spmv_vector_cache_tpu/ops/"
+                         "spmv_pallas.py:162"),
+    "spmv_sell_global": ("spmv_sell_global.cu", ", ".join(
+        f"spmv_vector_cache_tpu/ops/spmv_pallas.py:{line}"
+        for line in (406, 508, 581))),
+    "spmv_chunk_light": ("spmv_chunk_light.cu", ", ".join(
+        f"spmv_vector_cache_tpu/ops/spmv_pallas.py:{line}"
+        for line in (162, 620))),
+    "spmv_subwin": ("spmv_subwin.cu", "spmv_vector_cache_tpu/ops/"
+                    "spmv_pallas.py:282"),
+    "packed_scan": ("spmv_packed.cu", "spmv_vector_cache_tpu/ops/"
+                    "spmv_packed.py:44"),
+    "packed_extract": ("spmv_packed.cu", "spmv_vector_cache_tpu/ops/"
+                       "spmv_packed.py:91"),
+    "spmm_dia": ("spmm_dia.cu", "spmv_vector_cache_tpu/ops/spmm_dia.py:36"),
+    "spmm_sell_window": ("spmm_sell_window.cu", ", ".join(
+        f"spmv_vector_cache_tpu/ops/spmm_pallas.py:{line}"
+        for line in (34, 104))),
+}
+
+
+def typed_matrix(m, kind, rng, nonneg=False):
+    """Scipy CSR ``m``'s structure with values for ``kind``: its own
+    values for bfloat16, integers in [-9, 9] for int32 ([0, 9] when
+    ``nonneg``) and in [0, 9] for uint32 (float64, cast by the
+    builders)."""
+    import scipy.sparse as sp
+
+    m = sp.csr_matrix(m, dtype=np.float64)
+    m.sort_indices()
+    if kind != "bf16":
+        lo = 0 if nonneg or kind == "u32" else -9
+        m.data = rng.integers(lo, 10, m.nnz).astype(np.float64)
+    return m
+
+
+def typed_vector(kind, n, rng, nonneg=False, k=None):
+    """x (or B, with ``k`` columns) in the sum type of ``kind``."""
+    shape = (n,) if k is None else (n, k)
+    if kind == "bf16":
+        return rng.standard_normal(shape).astype(np.float32)
+    lo = 0 if nonneg or kind == "u32" else -9
+    v = rng.integers(lo, 10, shape)
+    return v.astype(np.uint32 if kind == "u32" else np.int32)
+
+
+def exact_y(m, x, kind, semiring="plus_times"):
+    """An integer plan's y: the int64 product wrapped mod 2^32, or under
+    max_times (non-negative values) each row's largest product."""
+    mi, xi = m.astype(np.int64), x.astype(np.int64)
+    if semiring == "max_times":
+        y = np.asarray(mi.multiply(xi[None, :]).max(axis=1).todense()) \
+            .reshape(-1)
+    else:
+        y = mi @ xi
+    y = (y & 0xFFFFFFFF).astype(np.uint32)
+    return y if kind == "u32" else y.view(np.int32)
+
+
+def bf16_rounded(m):
+    """``m`` with its values rounded to bfloat16, held in float64."""
+    m = m.copy()
+    m.data = torch.from_numpy(m.data).to(torch.bfloat16).double().numpy()
+    return m
+
+
+def as_words(t):
+    """A 4-byte tensor as int32 words on the host (uint32 compares there)."""
+    return t.detach().cpu().view(torch.int32)
+
+
+def dtype_phases(card, dev, mesh4, draws):
+    """The bfloat16, int32 and uint32 plans on the card: each phase runs
+    ``SparseOperator.from_matrix(a, value_dtype=...)`` (or the sharded
+    DIA entry) once with the launches counted by entry point
+    (``_kernels.launches``, set to 0 just before and read just after),
+    checks y (bfloat16 within 1e-4 of float64 scipy over the rounded
+    values; the integers exactly equal to the int64 product mod 2^32),
+    prints its CUDA-event time, the profiler's kernels, device busy time
+    and idle share, the phase's bound at 3.35 TB/s and
+    ``torch.sparse.mm`` in that type (or "none: refused"); then holds
+    each new build against its plain version on the phase's inputs and
+    times both.  Returns (rows, launches, meta) of the new builds for the
+    kernels' JSON line."""
+    import scipy.sparse as sp
+
+    from spmv_vector_cache_tpu_torch.formats.convert import from_scipy
+    from spmv_vector_cache_tpu_torch.formats.plan import build_sell_plan, place
+    from spmv_vector_cache_tpu_torch.ops import _kernels
+    from spmv_vector_cache_tpu_torch.ops import semiring as sr
+    from spmv_vector_cache_tpu_torch.ops.operator import SparseOperator
+    from spmv_vector_cache_tpu_torch.ops.runs import (extract_on, heavy_on,
+                                                      light_on, tile_runs)
+    from spmv_vector_cache_tpu_torch.ops.spmm_dia import (spmm_dia_kernel,
+                                                          spmm_dia_plain)
+    from spmv_vector_cache_tpu_torch.ops.spmm_sell import (spmm_window_kernel,
+                                                           spmm_window_plain)
+    from spmv_vector_cache_tpu_torch.ops.spmv_chunk import (heavy_kernel,
+                                                            heavy_plain,
+                                                            light_kernel,
+                                                            light_plain)
+    from spmv_vector_cache_tpu_torch.ops.spmv_dia import (
+        spmv_dia_halo_kernel, spmv_dia_halo_plain, spmv_dia_kernel,
+        spmv_dia_plain)
+    from spmv_vector_cache_tpu_torch.ops.spmv_packed import (
+        packed_rows_kernel, packed_rows_plain, packed_scan_kernel,
+        packed_scan_plain)
+    from spmv_vector_cache_tpu_torch.ops.spmv_sell import (
+        folds_groups, row_parts, sell_global_kernel, sell_global_plain,
+        sell_window_kernel, sell_window_plain, spmv_plan)
+    from spmv_vector_cache_tpu_torch.parallel import (build_sharded_dia_plan,
+                                                      place_on_mesh,
+                                                      spmv_dia_sharded)
+    from spmv_vector_cache_tpu_torch.parallel.mesh import (shard_vector,
+                                                           with_halos)
+
+    VALUE = {"bf16": "bfloat16", "i32": np.int32, "u32": np.uint32}
+    TORCH = {"bf16": torch.bfloat16, "i32": torch.int32,
+             "u32": torch.uint32}
+    K = 16
+    rng = np.random.default_rng(14)
+    rows, launches, meta = {}, {}, {}
+
+    def cuda_x(v):
+        return torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+
+    def check(name, y, want, kind):
+        assert y.device.type == "cuda" and y.shape == want.shape, name
+        if kind == "bf16":
+            assert y.dtype == torch.float32 and bool(torch.isfinite(y).all())
+            err = rel_err(y, want)
+            log(f"[{name}] y vs float64 scipy over the bfloat16-rounded "
+                f"values: rel err {err:.3g} (limit {Y_RTOL_BF16:g})")
+            assert err < Y_RTOL_BF16, (name, err)
+        else:
+            assert y.dtype == (torch.uint32 if kind == "u32"
+                               else torch.int32), (name, y.dtype)
+            got = y.cpu().view(torch.int32).numpy()
+            bad = int((got != want.view(np.int32)).sum())
+            log(f"[{name}] y vs the int64 product mod 2^32: {bad} rows "
+                f"differ of {got.shape[0]} (exact)")
+            assert bad == 0, name
+
+    def counted(name, run, expect):
+        """The phase's main path once, its launches by entry point."""
+        _kernels.launches.clear()
+        out = run()
+        torch.cuda.synchronize()
+        counts = {k: c for k, c in _kernels.launches.items() if c}
+        log(f"[{name}] main-path launches: {counts}")
+        assert counts == expect, (name, counts, expect)
+        for k, c in counts.items():
+            launches[k] = launches.get(k, 0) + c
+        return out
+
+    def profile(name, run, nbyte, lib=None, none="refused"):
+        """Events time, profiler busy time and idle share of the apply,
+        its bound, and the library call beside it (``none``: why there
+        is none)."""
+        ev = time_ms(run)
+        by = device_us_by_kernel(run)
+        # a session may record fewer launches than ran: time per recorded
+        # launch, at least one launch a call
+        busy = sum(us / n * max(1, round(n)) for us, n in by.values())
+        seen = ", ".join(f"{k[:60]} x{n} {us:.2f} us"
+                         for k, (us, n) in sorted(by.items()))
+        bound = nbyte / PEAK_BYTES_PER_S * 1e3
+        lib_txt = f"none: {none}"
+        if lib is not None:
+            lib_txt = f"{lib:.4f} ms"
+        log(f"[{name}] events {ev:.4f} ms, device busy {busy:.2f} us, idle "
+            f"share {max(0.0, 1 - busy / (ev * 1e3)):.3f}, bound "
+            f"{bound:.4f} ms ({nbyte} bytes at 3.35 TB/s), torch.sparse.mm "
+            f"{lib_txt}; profiler saw: {seen}; on {card}")
+
+    def library(m, kind, x):
+        """torch.sparse.mm of the CSR in the plan's value type, or None
+        where CUDA refuses the type."""
+        xx = x.to(TORCH[kind])
+        xx = xx[:, None] if xx.dim() == 1 else xx
+        try:
+            vals = torch.from_numpy(m.data).to(TORCH[kind])
+            csr = torch.sparse_csr_tensor(
+                torch.from_numpy(m.indptr.astype(np.int64)),
+                torch.from_numpy(m.indices.astype(np.int64)), vals,
+                size=m.shape).to(dev)
+            torch.sparse.mm(csr, xx)
+            torch.cuda.synchronize()
+        except (RuntimeError, NotImplementedError) as e:
+            log(f"torch.sparse.mm refuses {TORCH[kind]}: "
+                f"{str(e).splitlines()[0][:120]}")
+            return None
+        return time_ms(lambda: torch.sparse.mm(csr, xx))
+
+    def light_csr(lr, ncols):
+        """The light records of a placed ChunkPlan as a CSR by lane row:
+        the per-(segment, lane) sums the light route writes."""
+        return sp.csr_matrix(
+            (lr.vals.cpu().float().numpy().astype(np.float64),
+             lr.cols.cpu().numpy(), lr.row_off.cpu().numpy()),
+            shape=(lr.row_off.shape[0] - 1, ncols))
+
+    def heavy_csr(h, ncols):
+        """The heavy slab's nonzeros as a CSR, one row per heavy row:
+        the sums kernel D adds into y."""
+        hv = h.vals.reshape(h.vals.shape[0], -1).cpu().float().numpy()
+        hc = (h.bases.long()[:, :, None] * 128 + h.cols_win.long())
+        hc = hc.reshape(hv.shape).cpu().numpy()
+        hr = np.repeat(h.tile_row.cpu().numpy(), hv.shape[1]).reshape(
+            hv.shape)
+        keep = hv != 0
+        return sp.csr_matrix((hv[keep].astype(np.float64),
+                              (hr[keep], hc[keep])),
+                             shape=(h.rows.shape[0], ncols))
+
+    def shard0_csr(m, spd, xe):
+        """Shard 0's rows of ``m`` as a CSR over its halo'd x ``xe``
+        (their columns shifted onto it): the function kernel M computes
+        on that shard."""
+        sub = m[:spd.rows_per_shard]
+        cols = sub.indices.astype(np.int64) + spd.halo
+        assert cols.min() >= 0 and cols.max() < xe.shape[0]
+        return sp.csr_matrix((sub.data, cols, sub.indptr),
+                             shape=(sub.shape[0], xe.shape[0]))
+
+    def case(entry, what, kern, plain, nbyte, nops, lib=None):
+        """A build against its plain version on the phase's inputs, both
+        timed in turns; the first case of each entry is its JSON row."""
+        got, ref = kern(), plain()
+        torch.cuda.synchronize()
+        assert got.shape == ref.shape and got.dtype == ref.dtype, entry
+        if got.dtype.is_floating_point:
+            err = max_abs(got, ref)
+            tol = KERNEL_RTOL * max(1.0, float(ref.abs().max().item()))
+            assert err <= tol, (entry, err, tol)
+        else:
+            err, tol = 0.0, 0.0
+            assert torch.equal(as_words(got), as_words(ref)), entry
+        p1, k1, k2, p2 = (time_ms(plain), time_ms(kern), time_ms(kern),
+                          time_ms(plain))
+        bytes_ms = nbyte / PEAK_BYTES_PER_S * 1e3
+        ops_ms = nops / PEAK_F32_PER_S * 1e3
+        log(f"[{what}] {entry} vs plain: max abs err {err:.3g} (limit "
+            f"{tol:.3g}); kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/"
+            f"{p2:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms ({nbyte} "
+            f"bytes, {nops} operations) on {card}")
+        # the first case of each typed build is its row
+        if entry not in rows:
+            rows[entry] = dict(
+                max_abs_err=err, ms=min(k1, k2), plain_ms=min(p1, p2),
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                library_ms=lib)
+            src, rep = TYPED_META[entry.rsplit("_", 1)[0]]
+            meta[entry] = (src, rep)
+
+    # --- pairs at the main path's shapes (bytes: each input once, each
+    # output once; a gather reads only the distinct x entries named) ----
+    def dia_case(plan, x, what, lib=None):
+        args = (plan.vals, plan.offsets, x, plan.shape[0])
+        case(_kernels.entry("spmv_dia_f32", plan.vals.dtype), what,
+             lambda: spmv_dia_kernel(*args), lambda: spmv_dia_plain(*args),
+             nbytes(plan.vals, x) + 4 * len(plan.offsets)
+             + plan.shape[0] * 4, 2 * plan.vals.numel(), lib)
+
+    def window_case(plan, x, semiring, what, lib=None):
+        st = plan.stats
+        args = (plan.vals, plan.cols_win, plan.window_base, x)
+        kw = dict(group_tiles=st.group_tiles, window_grain=st.window_grain,
+                  fold=folds_groups(plan), semiring=semiring)
+        rows_out = plan.num_tiles // (st.group_tiles if kw["fold"] else 1)
+        base = plan.window_base.long().repeat_interleave(
+            st.group_tiles) * st.window_grain
+        case(_kernels.entry("spmv_sell_window_f32", plan.vals.dtype), what,
+             lambda: sell_window_kernel(*args, **kw),
+             lambda: sell_window_plain(*args, **kw),
+             nbytes(*args[:3]) + x_bytes_read(
+                 x, base[:, None, None] + plan.cols_win.long())
+             + rows_out * plan.lane_rows * 4, 2 * plan.vals.numel(), lib)
+
+    def global_case(plan, x, semiring, what, lib=None):
+        parts = row_parts(plan)
+        args = (plan.vals, plan.cols, plan.tile_slice, x)
+        kw = dict(num_slices=plan.num_slices, parts=parts,
+                  rows=plan.shape[0], semiring=semiring)
+        out = plan.shape[0] if parts else plan.num_slices * plan.lane_rows
+        case(_kernels.entry("spmv_sell_global_f32", plan.vals.dtype), what,
+             lambda: sell_global_kernel(*args, **kw),
+             lambda: sell_global_plain(*args, **kw),
+             nbytes(*args[:3])
+             + tile_runs(plan.tile_slice, plan.num_slices).nbytes
+             + x_bytes_read(x, plan.cols) + out * 4,
+             2 * plan.vals.numel(), lib)
+
+    def spmm_dia_case(plan, b, what, lib=None):
+        args = (plan.vals, plan.offsets, b, plan.shape[0])
+        case(_kernels.entry("spmm_dia_f32", plan.vals.dtype), what,
+             lambda: spmm_dia_kernel(*args), lambda: spmm_dia_plain(*args),
+             nbytes(plan.vals, b) + 4 * len(plan.offsets)
+             + plan.shape[0] * b.shape[1] * 4,
+             2 * plan.vals.numel() * b.shape[1], lib)
+
+    def spmm_window_case(plan, b, what, lib=None):
+        st = plan.stats
+        parts = row_parts(plan)
+        args = (plan.vals, plan.cols_win, plan.window_base, plan.tile_slice,
+                b)
+        kw = dict(num_slices=plan.num_slices, group_tiles=st.group_tiles,
+                  window_grain=st.window_grain, parts=parts,
+                  rows=plan.shape[0])
+        out = plan.shape[0] if parts else plan.num_slices * plan.lane_rows
+        base = plan.window_base.long().repeat_interleave(
+            st.group_tiles) * st.window_grain
+        case(_kernels.entry("spmm_sell_window_f32", plan.vals.dtype), what,
+             lambda: spmm_window_kernel(*args, **kw),
+             lambda: spmm_window_plain(*args, **kw),
+             nbytes(*args[:4])
+             + tile_runs(plan.tile_slice, plan.num_slices).nbytes
+             + x_bytes_read(b, base[:, None, None] + plan.cols_win.long())
+             + out * b.shape[1] * 4, 2 * plan.vals.numel() * b.shape[1], lib)
+
+    def chunk_cases(plan, x, y, what, kind):
+        lr = light_on(plan)
+        ncols = plan.shape[1]
+        # the library call of the kernel's own function: the light
+        # records' CSR (CUDA has no torch.sparse.mm of the integer types,
+        # as each integer phase's whole-matrix call shows)
+        lib = library(light_csr(lr, ncols), kind, x) \
+            if kind == "bf16" else None
+        case(_kernels.entry("spmv_chunk_light_f32", lr.vals.dtype), what,
+             lambda: light_kernel(lr, x, semiring="plus_times"),
+             lambda: light_plain(lr, x, semiring="plus_times"),
+             nbytes(lr.row_off, lr.cols, lr.vals, lr.tiled, lr.units)
+             + x_bytes_read(x, lr.cols) + (lr.row_off.shape[0] - 1) * 4,
+             2 * lr.vals.shape[0], lib)
+        h = heavy_on(plan)
+        args = (h.vals, h.cols_win, h.bases, h.tile_row, h.rows, x)
+        y_k, y_p = y.clone(), y.clone()
+        cols = h.bases.long()[:, :, None] * 128 + h.cols_win.long()
+        lib = library(heavy_csr(h, ncols), kind, x) \
+            if kind == "bf16" else None
+        case(_kernels.entry("spmv_subwin_f32", h.vals.dtype), what,
+             lambda: heavy_kernel(*args, y_k, semiring="plus_times"),
+             lambda: heavy_plain(*args, y_p, semiring="plus_times"),
+             nbytes(*args[:5]) + x_bytes_read(x, cols)
+             + 2 * h.rows.shape[0] * 4, 2 * h.vals.numel(), lib)
+
+    def packed_cases(plan, x, what):
+        # as the float32 rows: E's scan and F's extract alone are no
+        # function a PyTorch call computes (the whole apply's library
+        # call is the phase's)
+        st = plan.stats
+        scan_args = (plan.vals, plan.cols, plan.cstep, x)
+        scan_kw = dict(chunk_blocks=st.chunk_blocks,
+                       step_tiles=st.step_tiles)
+        scan_cols = (plan.cstep.long().repeat_interleave(
+            st.step_tiles)[:, None, None] * (st.chunk_blocks * 128)
+            + (plan.cols.long() & 16383))
+        case(_kernels.entry("packed_scan_f32", plan.vals.dtype), what,
+             lambda: packed_scan_kernel(*scan_args, **scan_kw),
+             lambda: packed_scan_plain(*scan_args, **scan_kw),
+             nbytes(*scan_args[:3]) + x_bytes_read(x, scan_cols)
+             + plan.vals.numel() * 4, 2 * plan.vals.numel())
+        tables = extract_on(plan)
+        scan = packed_scan_plain(*scan_args, **scan_kw)
+        ext_args = (scan, plan.sblock, plan.esrc, x, tables)
+        ext_kw = dict(rows=plan.shape[0], step_tiles=st.step_tiles)
+        f_bytes = sum(packed_extract_bytes(plan, tables, x).values())
+        case(_kernels.entry("packed_extract_f32", tables.ov_vals.dtype),
+             what,
+             lambda: packed_rows_kernel(*ext_args, **ext_kw),
+             lambda: packed_rows_plain(*ext_args, **ext_kw), f_bytes,
+             2 * tables.ov_vals.shape[0])
+
+    def operator(name, m, kind, **kw):
+        t0 = time.perf_counter()
+        op = SparseOperator.from_matrix(from_scipy(m),
+                                        value_dtype=VALUE[kind], **kw)
+        log(f"[{name}] {op} plan_seconds={time.perf_counter() - t0:.3f} "
+            f"bytes_per_apply={op.stats['bytes_per_apply']}")
+        return op
+
+    band, m_sell, m_hyb, m_chunk, m_packed, m_cached, m_deep = draws
+
+    # --- dia_bf16 and spmm_dia_bf16: the headline band, kernels A and I --
+    m = typed_matrix(band, "bf16", rng)
+    m_r = bf16_rounded(m)
+    op = operator("dia_bf16", m, "bf16")
+    assert type(op.plan).__name__ == "DiaPlan"
+    assert op.plan.vals.dtype == torch.bfloat16
+    x = cuda_x(typed_vector("bf16", m.shape[1], rng))
+    y = counted("dia_bf16", lambda: op @ x, {"spmv_dia_bf16": 1})
+    check("dia_bf16", y, m_r @ x.cpu().double().numpy(), "bf16")
+    lib = library(m_r, "bf16", x)
+    profile("dia_bf16", lambda: op @ x,
+            nbytes(op.plan.vals, x) + m.shape[0] * 4, lib)
+    dia_case(op.plan, x, "dia_bf16", lib)
+    b = cuda_x(typed_vector("bf16", m.shape[1], rng, k=K))
+    Y = counted("spmm_dia_bf16", lambda: op @ b, {"spmm_dia_bf16": 1})
+    check("spmm_dia_bf16", Y, m_r @ b.cpu().double().numpy(), "bf16")
+    lib = library(m_r, "bf16", b)
+    profile("spmm_dia_bf16", lambda: op @ b,
+            nbytes(op.plan.vals, b) + m.shape[0] * K * 4, lib)
+    spmm_dia_case(op.plan, b, f"spmm_dia_bf16 k={K}", lib)
+    del op, m, m_r, x, b, y, Y
+
+    # --- uint32: the headline band's structure, plus_times (kernel A) and
+    # max_times (a window SELL plan, kernel B), then B of k=16 (kernel I)
+    # and the sharded DIA (kernel M) ------------------------------------
+    m = typed_matrix(band, "u32", rng)
+    xh = typed_vector("u32", m.shape[1], rng)
+    x = cuda_x(xh)
+    op = operator("uint32", m, "u32")
+    assert type(op.plan).__name__ == "DiaPlan"
+    y = counted("uint32", lambda: op @ x, {"spmv_dia_u32": 1})
+    check("uint32", y, exact_y(m, xh, "u32"), "u32")
+    lib = library(m, "u32", x)
+    profile("uint32", lambda: op @ x,
+            nbytes(op.plan.vals, x) + m.shape[0] * 4, lib)
+    dia_case(op.plan, x, "uint32 plus_times", lib)
+    bh = typed_vector("u32", m.shape[1], rng, k=K)
+    b = cuda_x(bh)
+    Y = counted("spmm_dia_u32", lambda: op @ b, {"spmm_dia_u32": 1})
+    want = np.stack([exact_y(m, bh[:, j], "u32") for j in range(K)], 1)
+    assert torch.equal(as_words(Y), torch.from_numpy(want.view(np.int32)))
+    log(f"[spmm_dia_u32] Y vs the int64 product mod 2^32: exact")
+    spmm_dia_case(op.plan, b, f"spmm_dia_u32 k={K}", library(m, "u32", b))
+    op_max = operator("uint32 max_times", m, "u32", semiring="max_times")
+    assert type(op_max.plan).__name__ == "SellPlan"
+    y = counted("uint32 max_times", lambda: op_max @ x,
+                {"spmv_sell_window_u32": 1})
+    check("uint32 max_times", y, exact_y(m, xh, "u32", "max_times"), "u32")
+    profile("uint32 max_times", lambda: op_max @ x,
+            nbytes(op_max.plan.vals, op_max.plan.cols_win) + nbytes(x)
+            + m.shape[0] * 4, none="torch.sparse.mm sums plus_times only")
+    window_case(op_max.plan, x, "max_times", "uint32 max_times")
+    del op, op_max, b, Y
+    for kind in ("u32", "i32"):
+        name = f"sharded_dia_{kind}"
+        if kind == "i32":
+            m = typed_matrix(band, "i32", rng)
+            xh = typed_vector("i32", m.shape[1], rng)
+            x = cuda_x(xh)
+        t0 = time.perf_counter()
+        spd = place_on_mesh(build_sharded_dia_plan(
+            from_scipy(m), 4, value_dtype=VALUE[kind]), mesh4)
+        t_plan = time.perf_counter() - t0
+        log(f"[{name}] 4 shards on one card, plan {t_plan:.3f} s, halo "
+            f"{spd.halo}")
+        y = counted(name, lambda: spmv_dia_sharded(spd, x, mesh4),
+                    {f"spmv_dia_halo_{kind}": 4})
+        check(name, y, exact_y(m, xh, kind), kind)
+        xs = shard_vector(x, x.dtype, 4, spd.rows_per_shard, mesh4)
+        xe = with_halos(xs, 0, spd.halo, dev)
+        args = (spd.vals[0], spd.offsets, xe, spd.rows_per_shard, spd.halo)
+        case(f"spmv_dia_halo_{kind}", f"{name} shard 0",
+             lambda: spmv_dia_halo_kernel(*args),
+             lambda: spmv_dia_halo_plain(*args),
+             nbytes(spd.vals[0], xe) + 4 * len(spd.offsets)
+             + spd.rows_per_shard * 4, 2 * spd.vals[0].numel())
+        del spd
+
+    # --- sharded_dia_bf16: kernel M's bfloat16 build ---------------------
+    m = typed_matrix(band, "bf16", rng)
+    x = cuda_x(typed_vector("bf16", m.shape[1], rng))
+    spd = place_on_mesh(build_sharded_dia_plan(from_scipy(m), 4,
+                                               value_dtype="bfloat16"), mesh4)
+    y = counted("sharded_dia_bf16", lambda: spmv_dia_sharded(spd, x, mesh4),
+                {"spmv_dia_halo_bf16": 4})
+    m_r = bf16_rounded(m)
+    check("sharded_dia_bf16", y, m_r @ x.cpu().double().numpy(), "bf16")
+    profile("sharded_dia_bf16", lambda: spmv_dia_sharded(spd, x, mesh4),
+            sum(nbytes(v) for v in spd.vals) + nbytes(x) + m.shape[0] * 4,
+            library(m_r, "bf16", x))
+    xs = shard_vector(x, x.dtype, 4, spd.rows_per_shard, mesh4)
+    xe = with_halos(xs, 0, spd.halo, dev)
+    args = (spd.vals[0], spd.offsets, xe, spd.rows_per_shard, spd.halo)
+    # kernel M's row is shard 0's launch, beside the library call of
+    # the same function: shard 0's rows over its halo'd x
+    case("spmv_dia_halo_bf16", "sharded_dia_bf16 shard 0",
+         lambda: spmv_dia_halo_kernel(*args),
+         lambda: spmv_dia_halo_plain(*args),
+         nbytes(spd.vals[0], xe) + 4 * len(spd.offsets)
+         + spd.rows_per_shard * 4, 2 * spd.vals[0].numel(),
+         library(shard0_csr(m_r, spd, xe), "bf16", xe))
+    del spd, m, m_r, x, y
+
+    # --- sell_bf16 and spmm_sell_bf16: the shuffled band, kernels B, H ---
+    m = typed_matrix(m_sell, "bf16", rng)
+    m_r = bf16_rounded(m)
+    op = operator("sell_bf16", m, "bf16")
+    assert type(op.plan).__name__ == "SellPlan" and op.strategy == "window"
+    x = cuda_x(typed_vector("bf16", m.shape[1], rng))
+    y = counted("sell_bf16", lambda: op @ x, {"spmv_sell_window_bf16": 1})
+    check("sell_bf16", y, m_r @ x.cpu().double().numpy(), "bf16")
+    lib = library(m_r, "bf16", x)
+    profile("sell_bf16", lambda: op @ x,
+            nbytes(op.plan.vals, op.plan.cols_win) + nbytes(x)
+            + m.shape[0] * 4, lib)
+    window_case(op.plan, x, "plus_times", "sell_bf16", lib)
+    b = cuda_x(typed_vector("bf16", m.shape[1], rng, k=K))
+    Y = counted("spmm_sell_bf16", lambda: op @ b,
+                {"spmm_sell_window_bf16": 1})
+    check("spmm_sell_bf16", Y, m_r @ b.cpu().double().numpy(), "bf16")
+    lib = library(m_r, "bf16", b)
+    profile("spmm_sell_bf16", lambda: op @ b,
+            nbytes(op.plan.vals, op.plan.cols_win) + nbytes(b)
+            + m.shape[0] * K * 4, lib)
+    spmm_window_case(op.plan, b, f"spmm_sell_bf16 k={K}", lib)
+    # the sweeps on the bfloat16 band: every candidate placed and applied
+    # to ones in float32, timed by CUDA events, then the strategy sweep
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        op_t = SparseOperator.from_matrix(
+            from_scipy(m), value_dtype="bfloat16", tune=True,
+            tune_store=os.path.join(tmp, "tuned.json"))
+        table = {k[5:-11]: round(v, 2) for k, v in
+                 op_t.stats.as_dict().items()
+                 if k.startswith("tune_") and k.endswith("_gnnz_per_s")}
+        log(f"[tune sell_bf16] from_matrix(tune=True) in "
+            f"{time.perf_counter() - t0:.3f} s: Gnnz/s {table}, tuned "
+            f"{op_t.stats['tuned']}, strategy {op_t.strategy!r}, on {card}")
+        y_t = op_t @ x
+        torch.cuda.synchronize()
+        check("tune sell_bf16", y_t, m_r @ x.cpu().double().numpy(), "bf16")
+        del op_t, y_t
+    del op, m, m_r, x, b, y, Y
+    # kernel H's uint32 build on the same draw
+    m = typed_matrix(m_sell, "u32", rng)
+    op = operator("spmm_sell_u32", m, "u32")
+    bh = typed_vector("u32", m.shape[1], rng, k=K)
+    b = cuda_x(bh)
+    Y = counted("spmm_sell_u32", lambda: op @ b,
+                {"spmm_sell_window_u32": 1})
+    want = np.stack([exact_y(m, bh[:, j], "u32") for j in range(K)], 1)
+    assert torch.equal(as_words(Y), torch.from_numpy(want.view(np.int32)))
+    log("[spmm_sell_u32] Y vs the int64 product mod 2^32: exact")
+    spmm_window_case(op.plan, b, f"spmm_sell_u32 k={K}", library(m, "u32", b))
+    del op, m, b, Y
+
+    # --- hybrid_i32 and spmm_hybrid_i32: kernels A, B and the COO tail, I
+    # and H ---------------------------------------------------------------
+    m = typed_matrix(m_hyb, "i32", rng)
+    op = operator("hybrid_i32", m, "i32")
+    assert type(op.plan).__name__ == "HybridPlan"
+    xh = typed_vector("i32", m.shape[1], rng)
+    x = cuda_x(xh)
+    rest = type(op.plan.rest).__name__
+    expect = {"spmv_dia_i32": 1}
+    if rest == "SellPlan":
+        expect[_kernels.entry(
+            "spmv_sell_window_f32" if op.plan.rest.stats.window_blocks
+            else "spmv_sell_global_f32", torch.int32)] = 1
+    y = counted("hybrid_i32", lambda: op @ x, expect)
+    check("hybrid_i32", y, exact_y(m, xh, "i32"), "i32")
+    lib = library(m, "i32", x)
+    profile("hybrid_i32", lambda: op @ x,
+            nbytes(op.plan.dia.vals, x) + m.shape[0] * 4, lib)
+    dia_case(op.plan.dia, x, "hybrid_i32 DIA part", lib)
+    if rest == "SellPlan" and op.plan.rest.stats.window_blocks:
+        window_case(op.plan.rest, x, "plus_times", "hybrid_i32 rest")
+    bh = typed_vector("i32", m.shape[1], rng, k=K)
+    b = cuda_x(bh)
+    Y = counted("spmm_hybrid_i32", lambda: op @ b,
+                {"spmm_dia_i32": 1, "spmm_sell_window_i32": 1})
+    want = np.stack([exact_y(m, bh[:, j], "i32") for j in range(K)], 1)
+    assert torch.equal(as_words(Y), torch.from_numpy(want))
+    log("[spmm_hybrid_i32] Y vs the int64 product mod 2^32: exact")
+    spmm_dia_case(op.plan.dia, b, f"spmm_hybrid_i32 DIA part k={K}")
+    spmm_window_case(op.plan.rest, b, f"spmm_hybrid_i32 rest k={K}")
+    del op, m, x, b, y, Y
+
+    # --- deep_i32 and deep_u32: kernel G on the deep and stream routes
+    # (under plus_times the planner would pick a PackedPlan for this draw:
+    # the operator is built on the windowless SellPlan, as deep_f64's is)
+    for kind in ("i32", "u32"):
+        name = f"deep_{kind}"
+        m = typed_matrix(m_deep, kind, rng)
+        t0 = time.perf_counter()
+        op = SparseOperator(place(build_sell_plan(
+            from_scipy(m), value_dtype=VALUE[kind]), dev))
+        log(f"[{name}] {op} plan_seconds={time.perf_counter() - t0:.3f}")
+        assert op.plan.stats.window_blocks == 0 and op.strategy == "deep"
+        xh = typed_vector(kind, m.shape[1], rng)
+        x = cuda_x(xh)
+        entry = f"spmv_sell_global_{kind}"
+        y = counted(name, lambda: op @ x, {entry: 1})
+        check(name, y, exact_y(m, xh, kind), kind)
+        ys = counted(f"{name} stream",
+                     lambda: spmv_plan(op.plan, x, strategy="stream"),
+                     {entry: 1})
+        assert torch.equal(as_words(ys), as_words(y))
+        lib = library(m, kind, x)
+        profile(name, lambda: op @ x, nbytes(op.plan.vals, op.plan.cols)
+                + x_bytes_read(x, op.plan.cols) + m.shape[0] * 4, lib)
+        global_case(op.plan, x, "plus_times", name, lib)
+        del op, m, x, y, ys
+
+    # --- packed: mac_econ_like, kernels E and F ---------------------------
+    for kind in ("bf16", "i32", "u32"):
+        name = f"packed_{kind}"
+        m = typed_matrix(m_packed, kind, rng)
+        op = operator(name, m, kind)
+        assert type(op.plan).__name__ == "PackedPlan"
+        xh = typed_vector(kind, m.shape[1], rng)
+        x = cuda_x(xh)
+        y = counted(name, lambda: op @ x,
+                    {f"packed_scan_{kind}": 1, f"packed_extract_{kind}": 1})
+        want = bf16_rounded(m) @ xh.astype(np.float64) if kind == "bf16" \
+            else exact_y(m, xh, kind)
+        check(name, y, want, kind)
+        lib = library(bf16_rounded(m) if kind == "bf16" else m, kind, x)
+        profile(name, lambda: op @ x, nbytes(op.plan.vals, op.plan.cols)
+                + nbytes(x) + m.shape[0] * 4, lib)
+        packed_cases(op.plan, x, name)
+        del op, m, x, y
+
+    # --- chunk: scircuit_like, the light route, kernel C (float32 words)
+    # and kernel D ---------------------------------------------------------
+    for kind in ("i32", "bf16", "u32"):
+        name = f"chunk_{kind}"
+        m = typed_matrix(m_chunk, kind, rng)
+        op = operator(name, m, kind)
+        assert type(op.plan).__name__ == "ChunkPlan"
+        assert op.plan.residue is None and op.plan.hbuckets
+        xh = typed_vector(kind, m.shape[1], rng)
+        x = cuda_x(xh)
+        y = counted(name, lambda: op @ x,
+                    {f"spmv_chunk_light_{kind}": 1, "lane_unpermute_f32": 1,
+                     f"spmv_subwin_{kind}": 1})
+        want = bf16_rounded(m) @ xh.astype(np.float64) if kind == "bf16" \
+            else exact_y(m, xh, kind)
+        check(name, y, want, kind)
+        lib = library(bf16_rounded(m) if kind == "bf16" else m, kind, x)
+        lr = light_on(op.plan)
+        profile(name, lambda: op @ x, nbytes(lr.vals, lr.cols, lr.row_off)
+                + nbytes(x) + m.shape[0] * 4, lib)
+        chunk_cases(op.plan, x, y, name, kind)
+        del op, m, x, y
+
+    # --- cached_bf16: the zipf draw, kernels B (tier 1) and G (tier 2) ---
+    m = typed_matrix(m_cached, "bf16", rng)
+    m_r = bf16_rounded(m)
+    op = operator("cached_bf16", m, "bf16")
+    p = op.plan
+    assert type(p).__name__ == "CachedPlan" and p.cold is not None
+    x = cuda_x(typed_vector("bf16", m.shape[1], rng))
+    y = counted("cached_bf16", lambda: op @ x,
+                {"spmv_sell_window_bf16": 1, "spmv_sell_global_bf16": 1})
+    check("cached_bf16", y, m_r @ x.cpu().double().numpy(), "bf16")
+    lib = library(m_r, "bf16", x)
+    profile("cached_bf16", lambda: op @ x,
+            nbytes(p.hot.vals, p.hot.cols_win, p.cold.hot.vals,
+                   p.cold.hot.cols) + nbytes(x) + m.shape[0] * 4, lib)
+    window_case(p.hot, sr.take(x, p.hot_cols), "plus_times",
+                "cached_bf16 tier 1")
+    # kernel G's row: the library call of tier 2 alone, its CSR over
+    # x[hot_cols], as the float32 cached phase times it
+    x_t2 = sr.take(x, p.cold.hot_cols)
+    global_case(p.cold.hot, x_t2, "plus_times", "cached_bf16 tier 2",
+                library(plan_csr(p.cold.hot), "bf16", x_t2))
+    del op, p, m, m_r, x, y
+    torch.cuda.empty_cache()
+    # every typed build launched on a main path, and measured
+    typed = {k for k in launches if not k.endswith("_f32")}
+    assert typed == set(rows), sorted(typed ^ set(rows))
+    return rows, launches, meta
 
 
 def main():
@@ -1498,21 +2204,13 @@ def main():
         f"{p_deep64.stats.fill:.4f}")
 
     # --- the main path, once per phase, counting the launches ---------------
-    kernels = {"spmv_dia_f32": spmv_dia_kernel,
-               "spmv_sell_window_f32": sell_window_kernel,
-               "spmv_chunk_light_f32": light_kernel,
-               "lane_unpermute_f32": lane_unpermute,
-               "spmv_subwin_f32": heavy_kernel,
-               "packed_scan_f32": packed_scan_kernel,
-               "packed_extract_f32": packed_rows_kernel,
-               "spmv_sell_global_f32": sell_global_kernel,
-               "spmm_dia_f32": spmm_dia_kernel,
-               "spmm_sell_window_f32": spmm_window_kernel,
-               "spmv_dia_f64": spmv_dia_f64_kernel,
-               "spmv_sell_window_f64": sell_window_f64_kernel,
-               "spmv_sell_global_f64": sell_global_f64_kernel,
-               "spmv_dia_halo_f32": spmv_dia_halo_kernel,
-               "stream_checksum_f32": checksum_stream}
+    # the C entry points of the float32 and float64 phases
+    kernels = ("spmv_dia_f32", "spmv_sell_window_f32", "spmv_chunk_light_f32",
+               "lane_unpermute_f32", "spmv_subwin_f32", "packed_scan_f32",
+               "packed_extract_f32", "spmv_sell_global_f32", "spmm_dia_f32",
+               "spmm_sell_window_f32", "spmv_dia_f64", "spmv_sell_window_f64",
+               "spmv_sell_global_f64", "spmv_dia_halo_f32",
+               "stream_checksum_f32")
     path_kernels = {"dia": ["spmv_dia_f32"],
                     "sell": ["spmv_sell_window_f32"],
                     "hybrid": ["spmv_dia_f32", "spmv_sell_window_f32"],
@@ -1553,11 +2251,10 @@ def main():
     launches = dict.fromkeys(kernels, 0)
     ys = {}
     for name, (op, x) in ops.items():
-        for k in kernels.values():
-            k.launches = 0
+        _kernels.launches.clear()
         ys[name] = op @ x
         torch.cuda.synchronize()
-        counts = {k: w.launches for k, w in kernels.items()}
+        counts = {k: _kernels.launches[k] for k in kernels}
         log(f"[{name}] main-path launches: {counts}")
         assert all(counts[k] > 0 for k in path_kernels[name]), (name, counts)
         if name in exact_launches:
@@ -1611,11 +2308,10 @@ def main():
                          {"spmm_sell_window_f32": 4}),
     }
     for name, (run, exact) in more_paths.items():
-        for k in kernels.values():
-            k.launches = 0
+        _kernels.launches.clear()
         ys[name] = run()
         torch.cuda.synchronize()
-        counts = {k: w.launches for k, w in kernels.items()}
+        counts = {k: _kernels.launches[k] for k in kernels}
         log(f"[{name}] main-path launches: {counts}")
         want = dict.fromkeys(kernels, 0)
         want.update(exact)
@@ -2349,9 +3045,9 @@ def main():
 
     # --- stream_checksum: the read probe on kernel N (the bandwidth every
     # roofline fraction below divides by) and the readwrite probe ---------
-    checksum_stream.launches = 0
+    _kernels.launches.clear()
     bw_read = roofline.measure_stream_bandwidth(mode="read")
-    n_probe = checksum_stream.launches
+    n_probe = _kernels.launches["stream_checksum_f32"]
     assert n_probe > 0, n_probe
     bw_rw = roofline.measure_stream_bandwidth(mode="readwrite")
     log(f"[stream_checksum] measure_stream_bandwidth (256 MiB): read "
@@ -2381,9 +3077,9 @@ def main():
             return y[:1]
         return go
 
-    spmv_dia_kernel.launches = 0
+    _kernels.launches.clear()
     t_marg = roofline.time_marginal(dia_chain, i1=30, i2=90)
-    n_chain = spmv_dia_kernel.launches
+    n_chain = _kernels.launches["spmv_dia_f32"]
     assert n_chain > 0, n_chain
     ev_ms = time_ms(lambda: op_dia @ x_d)
     log(f"[marginal] time_marginal, DIA headline ({n_chain} launches of "
@@ -2395,10 +3091,9 @@ def main():
     for name, path in (("dia", ["spmv_dia_f32"]),
                        ("sell", ["spmv_sell_window_f32"])):
         op = ops[name][0]
-        for k in kernels.values():
-            k.launches = 0
+        _kernels.launches.clear()
         out = op.audit(stream_bw=bw_read)
-        assert all(kernels[k].launches > 0 for k in path), name
+        assert all(_kernels.launches[k] > 0 for k in path), name
         log(f"[audit] {name}: seconds {out['seconds'] * 1e6:.2f} us per "
             f"apply (profiler device busy "
             f"{busy_us.get(name, float('nan')):.2f} us), gnnz_per_s "
@@ -2426,6 +3121,15 @@ def main():
     # and the tools ----------------------------------------------------------
     del ops, ys, csr_t, ramp, noise
     torch.cuda.empty_cache()
+
+    # --- the bfloat16, int32 and uint32 plans --------------------------------
+    typed_rows, typed_launches, typed_meta = dtype_phases(
+        card, dev, mesh4, (band, m_sell, m_hyb, scipy_of(a_chunk),
+                           scipy_of(a_packed), scipy_of(a_cached),
+                           scipy_of(a_deep)))
+    rows.update(typed_rows)
+    for k, c in typed_launches.items():
+        launches[k] = launches.get(k, 0) + c
     from spmv_vector_cache_tpu_torch.tools import report
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -2483,6 +3187,7 @@ def main():
                               "parallel/dia_sharded.py:120"),
         "stream_checksum_f32": ("stream_checksum.cu",
                                 "tests/test_backend_stream.py:26"),
+        **typed_meta,
     }
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": csrc + meta[k][0],

@@ -1,0 +1,121 @@
+#!/usr/bin/env python3
+"""The float32 applies of the smoke's SpMV phases, timed in one tree.
+
+    python3 probes_torch/apply_ab.py [--tree DIR] [--rounds N] [--tag T]
+
+Imports the port and ``chip_smoke.py`` from ``DIR`` (default: this
+checkout; a ``git archive`` of another commit to compare with), plans
+the smoke's float32 draws at their full size (``dia``, ``sell``,
+``hybrid``, ``chunk``, ``packed``, ``cached``, ``deep`` and ``stream``,
+made as ``chip_smoke.main`` makes them, from the same seeds), and times
+``op @ x`` of each phase ``N`` rounds over (default 3): the CUDA-event
+median of 30 calls and the profiler's device busy time of 20, as the
+smoke's "the apply, end to end" section does.  Prints one JSON line,
+``{"tree": ..., "tag": ..., "card": ..., "phases": {name: {"ev_us":
+[...], "busy_us": [...]}}}``, a value a round.  To compare two trees on
+one card, run it in turns in one chip call (parent, change, change,
+parent) and compare the rounds' medians.  Needs one CUDA device.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--tree", default=os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__))))
+    ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--tag", default="")
+    args = ap.parse_args()
+    tree = os.path.abspath(args.tree)
+    sys.path.insert(0, tree)
+    os.chdir(tree)          # the kernels build into the tree's _build/
+
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    import chip_smoke as cs
+    from spmv_vector_cache_tpu_torch.formats.convert import (COO, coo_to_csr,
+                                                             from_scipy)
+    from spmv_vector_cache_tpu_torch.ops import _kernels
+    from spmv_vector_cache_tpu_torch.ops.operator import SparseOperator
+    from spmv_vector_cache_tpu_torch.tools import realistic
+
+    assert torch.cuda.is_available(), "needs a CUDA device"
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    _kernels.build()
+    _kernels.library()
+    dev = torch.device("cuda")
+
+    # the draws, as chip_smoke.main makes them (same seeds, same order)
+    n, ndiag = 1 << 20, 27
+    rng = np.random.default_rng(0)
+    offs = list(range(-(ndiag // 2), ndiag // 2 + 1))
+    band = sp.spdiags(rng.standard_normal((ndiag, n)).astype(np.float32),
+                      offs, n, n).tocsr()
+    band.sort_indices()
+    x_dia = rng.standard_normal(n).astype(np.float32)
+    ns, blk = n >> 1, 128
+    rsh = np.repeat(np.arange(ns, dtype=np.int64), ndiag)
+    csh = ((rsh // blk) * blk
+           + rng.integers(0, blk, rsh.shape[0])).astype(np.int32)
+    a_sell = coo_to_csr(COO(
+        data=rng.standard_normal(rsh.shape[0]).astype(np.float32),
+        row=rsh.astype(np.int32), col=csh, shape=(ns, ns)))
+    x_sell = rng.standard_normal(ns).astype(np.float32)
+    rng_h = np.random.default_rng(0)
+    rr = np.repeat(np.arange(n, dtype=np.int64), 2)
+    cc = np.clip(rr + rng_h.integers(-512, 513, rr.shape[0]), 0, n - 1)
+    resid = sp.csr_matrix((rng_h.standard_normal(rr.shape[0]).astype(
+        np.float32), (rr, cc)), shape=(n, n))
+    m_hyb = (band + resid).tocsr().astype(np.float32)
+    m_hyb.sort_indices()
+    x_hyb = rng_h.standard_normal(n).astype(np.float32)
+    a_chunk = realistic.scircuit_like()
+    a_packed = realistic.mac_econ_like()
+    rng_x = np.random.default_rng(0)
+    x_chunk = rng_x.standard_normal(a_chunk.shape[1]).astype(np.float32)
+    x_packed = rng_x.standard_normal(a_packed.shape[1]).astype(np.float32)
+    rng_z = np.random.default_rng(3)
+    a_cached = cs.zipf_cols_matrix(rng_z)
+    x_cached = rng_z.standard_normal(a_cached.shape[1]).astype(np.float32)
+    rng_u = np.random.default_rng(3)
+    a_deep = cs.uniform_matrix(rng_u)
+    x_deep = np.abs(rng_u.standard_normal(a_deep.shape[1])).astype(
+        np.float32)
+
+    ops = {}
+    for name, a, x, semiring in (
+            ("dia", from_scipy(band), x_dia, "plus_times"),
+            ("sell", a_sell, x_sell, "plus_times"),
+            ("hybrid", from_scipy(m_hyb), x_hyb, "plus_times"),
+            ("chunk", a_chunk, x_chunk, "plus_times"),
+            ("packed", a_packed, x_packed, "plus_times"),
+            ("cached", a_cached, x_cached, "plus_times"),
+            ("deep", a_deep, x_deep, "min_plus")):
+        op = SparseOperator.from_matrix(a, semiring=semiring)
+        ops[name] = (op, torch.from_numpy(x).to(dev))
+    ops["stream"] = (SparseOperator(ops["deep"][0].plan, strategy="stream",
+                                    semiring="min_plus"), ops["deep"][1])
+
+    out = {name: {"ev_us": [], "busy_us": []} for name in ops}
+    for _ in range(args.rounds):
+        for name, (op, x) in ops.items():
+            run = (lambda op=op, x=x: op @ x)
+            out[name]["ev_us"].append(cs.time_ms(run) * 1e3)
+            out[name]["busy_us"].append(sum(
+                us for us, _ in cs.device_us_by_kernel(run).values()))
+    print(json.dumps({"tree": tree, "tag": args.tag, "card": card,
+                      "phases": out}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

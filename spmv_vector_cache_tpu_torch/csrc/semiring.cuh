@@ -9,10 +9,22 @@
 // them back to {0, 1} as the reference's or_and segment reduce does.
 // Codes match ops/semiring.py KERNEL_CODE:
 // 0 plus_times, 1 min_plus, 2 max_plus, 3 max_times, 4 or_and.
+//
+// The integer semirings (IntPlusTimes, IntMaxTimes, IntOrAnd) run the
+// same (init, step) pairs over T = int or unsigned, for the int32 and
+// uint32 plans: sums and products in unsigned, so that they wrap mod 2^32
+// (signed overflow is undefined in C++), max in T's own order, a split
+// slice's pieces combined by the integer atomicAdd and atomicMax.
+// min_plus and max_plus have no integer form (their zero is infinite):
+// with_semiring refuses them there.  The float32 structs are the ones
+// the float32 builds always compiled (a run-time choice of type there
+// once cost kernel A 6 % of its device time on an H100, spmv_dia.cu).
 #pragma once
 
+#include <climits>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <type_traits>
 
 namespace spmv {
 
@@ -81,17 +93,62 @@ struct OrAnd : MaxTimes {
     static __device__ float finish(float v) { return v >= 1.0f ? 1.0f : 0.0f; }
 };
 
-// Calls launch(S{}) with the semiring of `code`; an unknown code is
-// cudaErrorInvalidValue.
-template <class F>
+template <class T>
+struct IntPlusTimes {
+    static __device__ T init() { return T(0); }
+    static __device__ T zero() { return T(0); }
+    static __device__ T step(T acc, T v, T x) {
+        return T((unsigned)v * (unsigned)x + (unsigned)acc);
+    }
+    static __device__ T add(T a, T b) { return T((unsigned)a + (unsigned)b); }
+    static __device__ void atomic(T* p, T v) {
+        atomicAdd(reinterpret_cast<unsigned*>(p), (unsigned)v);
+    }
+    static __device__ T finish(T v) { return v; }
+};
+// the empty max: INT_MIN for int, 0 for unsigned (what the reference's
+// segment max fills an empty segment with)
+template <class T>
+struct IntMaxTimes {
+    static __device__ T init() {
+        return std::is_signed<T>::value ? T(INT_MIN) : T(0);
+    }
+    static __device__ T zero() { return T(0); }
+    static __device__ T step(T acc, T v, T x) {
+        const T p = T((unsigned)v * (unsigned)x);
+        return p > acc ? p : acc;
+    }
+    static __device__ T add(T a, T b) { return a > b ? a : b; }
+    static __device__ void atomic(T* p, T v) { atomicMax(p, v); }
+    static __device__ T finish(T v) { return v; }
+};
+template <class T>
+struct IntOrAnd : IntMaxTimes<T> {
+    static __device__ T finish(T v) { return v >= T(1) ? T(1) : T(0); }
+};
+
+// Calls launch(S{}) with the semiring of `code` over sums of type T
+// (float: the five float32 semirings; int, unsigned: the three integer
+// ones); an unknown code, or min_plus and max_plus over an integer T,
+// is cudaErrorInvalidValue.
+template <class T = float, class F>
 cudaError_t with_semiring(int code, F&& launch) {
-    switch (code) {
-        case 0: launch(PlusTimes{}); return cudaSuccess;
-        case 1: launch(MinPlus{}); return cudaSuccess;
-        case 2: launch(MaxPlus{}); return cudaSuccess;
-        case 3: launch(MaxTimes{}); return cudaSuccess;
-        case 4: launch(OrAnd{}); return cudaSuccess;
-        default: return cudaErrorInvalidValue;
+    if constexpr (std::is_same<T, float>::value) {
+        switch (code) {
+            case 0: launch(PlusTimes{}); return cudaSuccess;
+            case 1: launch(MinPlus{}); return cudaSuccess;
+            case 2: launch(MaxPlus{}); return cudaSuccess;
+            case 3: launch(MaxTimes{}); return cudaSuccess;
+            case 4: launch(OrAnd{}); return cudaSuccess;
+            default: return cudaErrorInvalidValue;
+        }
+    } else {
+        switch (code) {
+            case 0: launch(IntPlusTimes<T>{}); return cudaSuccess;
+            case 3: launch(IntMaxTimes<T>{}); return cudaSuccess;
+            case 4: launch(IntOrAnd<T>{}); return cudaSuccess;
+            default: return cudaErrorInvalidValue;
+        }
     }
 }
 

@@ -36,11 +36,27 @@
 // spread: the neighbours' halo rows, 20 % more than B at R = 128 on the
 // bench.py offsets, come mostly from L2) instead of once per diagonal
 // through L1.
+//
+// I has a build for each value policy of values.cuh: the float32 entry
+// point, and `_bf16`, `_i32` and `_u32` entry points with the same
+// arguments.  The bf16 build sums in float32 with a float32 B and Y (the
+// reference rounds B to bfloat16 and sums and returns Y in bfloat16,
+// ROADMAP.md queue 3); it stages its 2-byte values with plain loads,
+// widened to float32 in shared memory, where the 4-byte types copy them
+// with cp.async.  The integer builds sum wrapping mod 2^32.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "values.cuh"
+
 namespace {
+
+// the 16-byte vector of four T
+template <class T> struct Vec4;
+template <> struct Vec4<float> { using type = float4; };
+template <> struct Vec4<int> { using type = int4; };
+template <> struct Vec4<unsigned> { using type = uint4; };
 
 constexpr int kMaxThreads = 512;
 // diagonals whose values and offsets a thread reads before it uses them
@@ -78,16 +94,23 @@ __device__ __forceinline__ void cp_async_wait() {
 // holding the float4 pieces q, q + tpr, q + 2 tpr, ... of the chunk.
 // bands[b] = {first diagonal, end diagonal}; a buffer holds buf_rows
 // rows of B, `stride` floats each, then band_diags runs of rpc values.
-template <int KC>
+template <class P, int KC>
 __global__ void __launch_bounds__(kMaxThreads)
-spmm_dia_kernel(const float* __restrict__ vals, const float* __restrict__ b,
+spmm_dia_kernel(const typename P::Slot* __restrict__ vals,
+                const typename P::T* __restrict__ b,
                 const int* __restrict__ offsets,
-                const int2* __restrict__ bands, float* __restrict__ y,
+                const int2* __restrict__ bands, typename P::T* __restrict__ y,
                 long long rows, long long cols, int k, int ndiag,
                 int rows_per_step, int nbands, int rpc, int tpr, int stride,
                 int buf_rows, int band_diags, int buffers, int bvec,
                 int vvec, int yvec) {
-    extern __shared__ __align__(16) float smem[];
+    using T = typename P::T;
+    using Slot = typename P::Slot;
+    using Q = typename Vec4<T>::type;
+    // a widened copy of the values: the 4-byte types copy their bits
+    constexpr bool kCopy = sizeof(Slot) == sizeof(T);
+    extern __shared__ __align__(16) unsigned char smem_bytes[];
+    T* smem = reinterpret_cast<T*>(smem_bytes);
     const int chunks = (rows_per_step + rpc - 1) / rpc;
     const long long t = blockIdx.x / chunks;
     const int c0 = (int)(blockIdx.x - t * chunks) * rpc;
@@ -102,12 +125,12 @@ spmm_dia_kernel(const float* __restrict__ vals, const float* __restrict__ b,
     const int q = tid - i * tpr;
     const int b_floats = buf_rows * stride;
     const int buf_floats = (b_floats + band_diags * rpc + 3) / 4 * 4;
-    const float* v = vals + t * ndiag * (long long)rows_per_step + c0;
+    const Slot* v = vals + t * ndiag * (long long)rows_per_step + c0;
 
     // B rows [r0 + lo, r0 + nrow + hi) of band `band`, columns [j0, j0 +
     // ncol), into `dst`, then the band's values of rows [r0, r0 + nrow)
     // into rows of rpc floats after them; one commit group
-    auto stage = [&](int band, float* dst) {
+    auto stage = [&](int band, T* dst) {
         const int2 bd = __ldg(bands + band);
         const int lo = __ldg(offsets + bd.x);
         const int span = nrow + __ldg(offsets + bd.y - 1) - lo;
@@ -117,47 +140,53 @@ spmm_dia_kernel(const float* __restrict__ vals, const float* __restrict__ b,
             for (int e = tid; e < span * per; e += blockDim.x) {
                 const int rho = e / per, m = e - rho * per;
                 const long long g = g0 + rho;
-                float* d = dst + rho * stride + 4 * m;
+                T* d = dst + rho * stride + 4 * m;
                 if (g >= 0 && g < cols)
                     cp_async16(d, b + g * k + j0 + 4 * m);
                 else
-                    *reinterpret_cast<float4*>(d) = make_float4(0, 0, 0, 0);
+                    *reinterpret_cast<Q*>(d) = Q{};
             }
         } else {
             for (int e = tid; e < span * ncol; e += blockDim.x) {
                 const int rho = e / ncol, m = e - rho * ncol;
                 const long long g = g0 + rho;
-                float* d = dst + rho * stride + m;
+                T* d = dst + rho * stride + m;
                 if (g >= 0 && g < cols)
                     cp_async4(d, b + g * k + j0 + m);
                 else
-                    *d = 0.0f;
+                    *d = T(0);
             }
         }
-        float* dv = dst + b_floats;
-        const float* sv = v + bd.x * (long long)rows_per_step;
+        T* dv = dst + b_floats;
+        const Slot* sv = v + bd.x * (long long)rows_per_step;
         const int per = (nrow + 3) / 4;
         for (int e = tid; e < (bd.y - bd.x) * per; e += blockDim.x) {
             const int d = e / per, m = 4 * (e - d * per);
-            const float* src = sv + d * (long long)rows_per_step + m;
-            float* dd = dv + d * rpc + m;
-            if (vvec && m + 4 <= nrow) {
-                cp_async16(dd, src);
+            const Slot* src = sv + d * (long long)rows_per_step + m;
+            T* dd = dv + d * rpc + m;
+            if constexpr (kCopy) {
+                if (vvec && m + 4 <= nrow) {
+                    cp_async16(dd, src);
+                } else {
+                    for (int j = 0; j < 4 && m + j < nrow; ++j)
+                        cp_async4(dd + j, src + j);
+                }
             } else {
+                // read before the barrier that precedes their use
                 for (int j = 0; j < 4 && m + j < nrow; ++j)
-                    cp_async4(dd + j, src + j);
+                    dd[j] = spmv::widen(__ldg(src + j));
             }
         }
         cp_async_commit();
     };
 
-    float acc[KC];
+    T acc[KC];
 #pragma unroll
-    for (int e = 0; e < KC; ++e) acc[e] = 0.0f;
+    for (int e = 0; e < KC; ++e) acc[e] = T(0);
 
     if (nbands > 0) stage(0, smem);
     for (int bnd = 0; bnd < nbands; ++bnd) {
-        const float* cur = smem + (bnd % buffers) * buf_floats;
+        const T* cur = smem + (bnd % buffers) * buf_floats;
         // the next band streams in while this one is summed; an empty
         // group past the last band keeps the wait below uniform
         if (bnd + 1 < nbands)
@@ -169,29 +198,32 @@ spmm_dia_kernel(const float* __restrict__ vals, const float* __restrict__ b,
         const int2 bd = __ldg(bands + bnd);
         const int lo = __ldg(offsets + bd.x);
         if (i < nrow) {
-            const float* base = cur + (i - lo) * stride + 4 * q;
-            const float* wv = cur + b_floats + i - bd.x * rpc;
+            const T* base = cur + (i - lo) * stride + 4 * q;
+            const T* wv = cur + b_floats + i - bd.x * rpc;
             for (int d = bd.x; d < bd.y; d += kBatch) {
-                float w[kBatch];
+                T w[kBatch];
                 int o[kBatch];
 #pragma unroll
                 for (int u = 0; u < kBatch; ++u) {
                     const bool ok = d + u < bd.y;
-                    w[u] = ok ? wv[(d + u) * rpc] : 0.0f;
+                    w[u] = ok ? wv[(d + u) * rpc] : T(0);
                     o[u] = ok ? __ldg(offsets + d + u) : lo;
                 }
 #pragma unroll
                 for (int u = 0; u < kBatch; ++u) {
                     if (d + u < bd.y) {         // uniform over the CTA
-                        const float* row = base + o[u] * stride;
+                        const T* row = base + o[u] * stride;
 #pragma unroll
                         for (int m = 0; m < KC / 4; ++m) {
-                            const float4 bv = *reinterpret_cast<const float4*>(
+                            const Q bv = *reinterpret_cast<const Q*>(
                                 row + 4 * tpr * m);
-                            acc[4 * m] = fmaf(w[u], bv.x, acc[4 * m]);
-                            acc[4 * m + 1] = fmaf(w[u], bv.y, acc[4 * m + 1]);
-                            acc[4 * m + 2] = fmaf(w[u], bv.z, acc[4 * m + 2]);
-                            acc[4 * m + 3] = fmaf(w[u], bv.w, acc[4 * m + 3]);
+                            acc[4 * m] = spmv::madd(w[u], bv.x, acc[4 * m]);
+                            acc[4 * m + 1] =
+                                spmv::madd(w[u], bv.y, acc[4 * m + 1]);
+                            acc[4 * m + 2] =
+                                spmv::madd(w[u], bv.z, acc[4 * m + 2]);
+                            acc[4 * m + 3] =
+                                spmv::madd(w[u], bv.w, acc[4 * m + 3]);
                         }
                     }
                 }
@@ -201,14 +233,17 @@ spmm_dia_kernel(const float* __restrict__ vals, const float* __restrict__ b,
     }
 
     if (i < nrow) {
-        float* yr = y + (r0 + i) * k;
+        T* yr = y + (r0 + i) * k;
 #pragma unroll
         for (int m = 0; m < KC / 4; ++m) {
             const int col = j0 + 4 * (q + tpr * m);
             if (yvec && col + 3 < k) {
-                *reinterpret_cast<float4*>(yr + col) = make_float4(
-                    acc[4 * m], acc[4 * m + 1], acc[4 * m + 2],
-                    acc[4 * m + 3]);
+                Q out;
+                out.x = acc[4 * m];
+                out.y = acc[4 * m + 1];
+                out.z = acc[4 * m + 2];
+                out.w = acc[4 * m + 3];
+                *reinterpret_cast<Q*>(yr + col) = out;
             } else {
 #pragma unroll
                 for (int e = 0; e < 4; ++e)
@@ -218,41 +253,39 @@ spmm_dia_kernel(const float* __restrict__ vals, const float* __restrict__ b,
     }
 }
 
-template <int KC>
+template <class P, int KC>
 cudaError_t launch(dim3 grid, int threads, size_t smem, cudaStream_t stream,
-                   const float* vals, const float* b, const int* offsets,
-                   const int* bands, float* y, long long rows,
+                   const typename P::Slot* vals, const typename P::T* b,
+                   const int* offsets, const int* bands, typename P::T* y,
+                   long long rows,
                    long long cols, int k, int ndiag, int rows_per_step,
                    int nbands, int rpc, int tpr, int stride, int buf_rows,
                    int band_diags, int buffers, int bvec, int vvec,
                    int yvec) {
     if (smem > 48 * 1024) {
         cudaError_t err = cudaFuncSetAttribute(
-            spmm_dia_kernel<KC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)smem);
+            spmm_dia_kernel<P, KC>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (err != cudaSuccess) return err;
     }
-    spmm_dia_kernel<KC><<<grid, threads, smem, stream>>>(
+    spmm_dia_kernel<P, KC><<<grid, threads, smem, stream>>>(
         vals, b, offsets, reinterpret_cast<const int2*>(bands), y, rows, cols,
         k, ndiag, rows_per_step, nbands, rpc, tpr, stride, buf_rows,
         band_diags, buffers, bvec, vvec, yvec);
     return cudaSuccess;
 }
 
-}  // namespace
-
-// bands: (nbands, 2) int32 {first, end} diagonal indices, increasing
-// offsets within and across bands; rows_per_cta * threads_per_row <=
-// 512; a band's span (rows_per_cta + its last offset - its first) <=
-// buf_rows and its diagonals <= band_diags; stride >= threads_per_row *
-// cols_per_thread, a multiple of 4 (ops/spmm_dia.py spmm_dia_tiling).
-extern "C" int spmm_dia_f32(const float* vals, const float* b,
-                            const int* offsets, const int* bands, float* y,
-                            long long rows, long long cols, int k, int ndiag,
-                            int rows_per_step, int nbands, int rows_per_cta,
-                            int cols_per_thread, int threads_per_row,
-                            int stride, int buf_rows, int band_diags,
-                            int buffers, void* stream) {
+template <class P>
+int launch_spmm_dia(const void* vals_, const void* b_, const int* offsets,
+                    const int* bands, void* y_, long long rows,
+                    long long cols, int k, int ndiag, int rows_per_step,
+                    int nbands, int rows_per_cta, int cols_per_thread,
+                    int threads_per_row, int stride, int buf_rows,
+                    int band_diags, int buffers, void* stream) {
+    using T = typename P::T;
+    const auto* vals = static_cast<const typename P::Slot*>(vals_);
+    const auto* b = static_cast<const T*>(b_);
+    auto* y = static_cast<T*>(y_);
     const int kc = cols_per_thread, tpr = threads_per_row;
     if (k < 1 || rows_per_cta < 1 || tpr < 1 ||
         rows_per_cta * tpr > kMaxThreads || stride % 4 ||
@@ -267,7 +300,7 @@ extern "C" int spmm_dia_f32(const float* vals, const float* b,
     const size_t smem = (size_t)buffers *
                         (((size_t)buf_rows * stride +
                           (size_t)band_diags * rows_per_cta + 3) / 4 * 4) *
-                        sizeof(float);
+                        sizeof(T);
     const int bvec = (uintptr_t)b % 16 == 0 && k % 4 == 0;
     const int vvec = (uintptr_t)vals % 16 == 0 && rows_per_step % 4 == 0 &&
                      rows_per_cta % 4 == 0;
@@ -277,25 +310,25 @@ extern "C" int spmm_dia_f32(const float* vals, const float* b,
     cudaError_t err;
     switch (kc) {
         case 4:
-            err = launch<4>(grid, threads, smem, s, vals, b, offsets, bands,
-                            y, rows, cols, k, ndiag, rows_per_step, nbands,
+            err = launch<P, 4>(grid, threads, smem, s, vals, b, offsets,
+                               bands, y, rows, cols, k, ndiag, rows_per_step, nbands,
                             rows_per_cta, tpr, stride, buf_rows, band_diags,
                             buffers, bvec, vvec, yvec);
             break;
         case 8:
-            err = launch<8>(grid, threads, smem, s, vals, b, offsets, bands,
+            err = launch<P, 8>(grid, threads, smem, s, vals, b, offsets, bands,
                             y, rows, cols, k, ndiag, rows_per_step, nbands,
                             rows_per_cta, tpr, stride, buf_rows, band_diags,
                             buffers, bvec, vvec, yvec);
             break;
         case 16:
-            err = launch<16>(grid, threads, smem, s, vals, b, offsets, bands,
+            err = launch<P, 16>(grid, threads, smem, s, vals, b, offsets, bands,
                              y, rows, cols, k, ndiag, rows_per_step, nbands,
                              rows_per_cta, tpr, stride, buf_rows, band_diags,
                              buffers, bvec, vvec, yvec);
             break;
         case 32:
-            err = launch<32>(grid, threads, smem, s, vals, b, offsets, bands,
+            err = launch<P, 32>(grid, threads, smem, s, vals, b, offsets, bands,
                              y, rows, cols, k, ndiag, rows_per_step, nbands,
                              rows_per_cta, tpr, stride, buf_rows, band_diags,
                              buffers, bvec, vvec, yvec);
@@ -306,3 +339,30 @@ extern "C" int spmm_dia_f32(const float* vals, const float* b,
     if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
 }
+
+}  // namespace
+
+// bands: (nbands, 2) int32 {first, end} diagonal indices, increasing
+// offsets within and across bands; rows_per_cta * threads_per_row <=
+// 512; a band's span (rows_per_cta + its last offset - its first) <=
+// buf_rows and its diagonals <= band_diags; stride >= threads_per_row *
+// cols_per_thread, a multiple of 4 (ops/spmm_dia.py spmm_dia_tiling).
+// vals: the policy's slots; b and y: its sum type
+#define SPMM_DIA_BUILD(sfx, P)                                              \
+    extern "C" int spmm_dia_##sfx(                                          \
+        const void* vals, const void* b, const int* offsets,                \
+        const int* bands, void* y, long long rows, long long cols, int k,   \
+        int ndiag, int rows_per_step, int nbands, int rows_per_cta,         \
+        int cols_per_thread, int threads_per_row, int stride,               \
+        int buf_rows, int band_diags, int buffers, void* stream) {          \
+        return launch_spmm_dia<P>(vals, b, offsets, bands, y, rows, cols,   \
+                                  k, ndiag, rows_per_step, nbands,          \
+                                  rows_per_cta, cols_per_thread,            \
+                                  threads_per_row, stride, buf_rows,        \
+                                  band_diags, buffers, stream);             \
+    }
+
+SPMM_DIA_BUILD(f32, spmv::F32Values)
+SPMM_DIA_BUILD(bf16, spmv::Bf16Values)
+SPMM_DIA_BUILD(i32, spmv::I32Values)
+SPMM_DIA_BUILD(u32, spmv::U32Values)

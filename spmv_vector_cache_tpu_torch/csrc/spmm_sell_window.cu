@@ -46,9 +46,18 @@
 //   through shared memory.
 // B stays in device memory, read through L1 and L2: a group's window
 // spans K*128 rows of B, a few KB at K = 1.
+//
+// H has a build for each value policy of values.cuh: the float32 entry
+// point, and `_bf16` (2 B values staged as they are and widened to
+// float32 as they are read; B and Y float32, as the reference's SELL
+// SpMM sums a bfloat16 plan), `_i32` and `_u32` (B and Y of the value
+// type, sums wrapping mod 2^32, a split slice's pieces combined with the
+// integer atomicAdd, one a column) entry points with the same arguments.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "values.cuh"
 
 namespace {
 
@@ -76,16 +85,23 @@ __device__ __forceinline__ void cp_async_wait() {
     asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// the 16-byte vector of four T
+template <class T> struct Vec4;
+template <> struct Vec4<float> { using type = float4; };
+template <> struct Vec4<int> { using type = int4; };
+template <> struct Vec4<unsigned> { using type = uint4; };
+
 // v[0:V] = p[0:V]; V = 1 or a multiple of 4 (16-byte aligned p).
-template <int V>
-__device__ __forceinline__ void load_row(const float* __restrict__ p,
-                                         float (&v)[V]) {
+template <int V, class T>
+__device__ __forceinline__ void load_row(const T* __restrict__ p,
+                                         T (&v)[V]) {
+    using Q = typename Vec4<T>::type;
     if constexpr (V == 1) {
         v[0] = __ldg(p);
     } else {
 #pragma unroll
         for (int i = 0; i < V; i += 4) {
-            float4 q = __ldg(reinterpret_cast<const float4*>(p + i));
+            Q q = __ldg(reinterpret_cast<const Q*>(p + i));
             v[i] = q.x;
             v[i + 1] = q.y;
             v[i + 2] = q.z;
@@ -94,24 +110,49 @@ __device__ __forceinline__ void load_row(const float* __restrict__ p,
     }
 }
 
+// *p += v atomically: float32 in one vector atomic (sm_90), an integer
+// type a column at a time, in unsigned (wrapping)
+__device__ __forceinline__ void atomic_add4(float* p, const float* v) {
+    atomicAdd(reinterpret_cast<float4*>(p),
+              make_float4(v[0], v[1], v[2], v[3]));
+}
+template <class T>
+__device__ __forceinline__ void atomic_add4(T* p, const T* v) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+        atomicAdd(reinterpret_cast<unsigned*>(p + i), (unsigned)v[i]);
+}
+__device__ __forceinline__ void atomic_add1(float* p, float v) {
+    atomicAdd(p, v);
+}
+template <class T>
+__device__ __forceinline__ void atomic_add1(T* p, T v) {
+    atomicAdd(reinterpret_cast<unsigned*>(p), (unsigned)v);
+}
+
 // p[0:V] = v, or += v atomically (p zeroed beforehand).
-template <int V>
-__device__ __forceinline__ void put(float* __restrict__ p,
-                                    const float (&v)[V], bool atomic) {
+template <int V, class T>
+__device__ __forceinline__ void put(T* __restrict__ p, const T (&v)[V],
+                                    bool atomic) {
+    using Q = typename Vec4<T>::type;
     if constexpr (V == 1) {
         if (atomic)
-            atomicAdd(p, v[0]);
+            atomic_add1(p, v[0]);
         else
             *p = v[0];
     } else {
 #pragma unroll
         for (int i = 0; i < V; i += 4) {
-            float4 q = make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]);
-            float4* d = reinterpret_cast<float4*>(p + i);
-            if (atomic)
-                atomicAdd(d, q);       // sm_90: one vector atomic
-            else
-                *d = q;
+            if (atomic) {
+                atomic_add4(p + i, v + i);
+            } else {
+                Q q;
+                q.x = v[i];
+                q.y = v[i + 1];
+                q.z = v[i + 2];
+                q.w = v[i + 3];
+                *reinterpret_cast<Q*>(p + i) = q;
+            }
         }
     }
 }
@@ -119,31 +160,35 @@ __device__ __forceinline__ void put(float* __restrict__ p,
 // blockIdx.x = run record, blockIdx.y = RHS chunk; threadIdx.x =
 // lane * lane_threads + g, thread g of a lane holding columns
 // j = blockIdx.y * lane_threads * V + g * V .. + V.
-template <int V>
+template <class P, int V>
 __global__ void __launch_bounds__(kMaxThreads)
-spmm_runs_kernel(const float* __restrict__ vals,
+spmm_runs_kernel(const typename P::Slot* __restrict__ vals,
                  const int16_t* __restrict__ cols_win,
                  const int* __restrict__ window_base,
                  const int* __restrict__ tile_slice,
-                 const int4* __restrict__ runs, const float* __restrict__ b,
-                 float* __restrict__ out, int positions, int lanes,
+                 const int4* __restrict__ runs,
+                 const typename P::T* __restrict__ b,
+                 typename P::T* __restrict__ out, int positions, int lanes,
                  int lane_threads, int group_tiles, int window_grain,
                  long long cols, int k, int parts, long long out_rows) {
+    using T = typename P::T;
+    using Slot = typename P::Slot;
     constexpr int kUnroll = V == 8 ? 4 : 8;
+    constexpr int kSlotBytes = (int)sizeof(Slot);
     extern __shared__ __align__(16) unsigned char smem[];
     // kStages tile buffers of `slots` values then `slots` offsets (6
-    // bytes a slot, 16-byte aligned as slots % 8 == 0), then the lane
-    // fold's
+    // bytes a slot, 4 for bf16; 16-byte aligned as slots % 8 == 0), then
+    // the lane fold's
     const int slots = positions * lanes;                  // per tile
-    const int tile_bytes = slots * 6;
+    const int tile_bytes = slots * (kSlotBytes + 2);
     auto sv = [&](int buf) {
-        return reinterpret_cast<float*>(smem + buf * tile_bytes);
+        return reinterpret_cast<Slot*>(smem + buf * tile_bytes);
     };
     auto sc = [&](int buf) {
         return reinterpret_cast<int16_t*>(smem + buf * tile_bytes +
-                                          slots * 4);
+                                          slots * kSlotBytes);
     };
-    float* red = reinterpret_cast<float*>(smem + kStages * tile_bytes);
+    T* red = reinterpret_cast<T*>(smem + kStages * tile_bytes);
 
     const int tid = threadIdx.x;
     const int lane = tid / lane_threads;
@@ -156,24 +201,25 @@ spmm_runs_kernel(const float* __restrict__ vals,
     int cur = run.z;
     const int s1 = run.w & ~kAtomic;
     const bool atomic = (run.w & kAtomic) != 0;
-    const int vchunks = slots / 4, cchunks = slots / 8;   // 16-byte pieces
+    constexpr int kPer = 16 / kSlotBytes;                  // slots a piece
+    const int vchunks = slots / kPer, cchunks = slots / 8; // 16-byte pieces
 
     auto load_tile = [&](long long t, int buf) {
-        const float* gv = vals + t * slots;
+        const Slot* gv = vals + t * slots;
         const int16_t* gc = cols_win + t * slots;
-        float* dv = sv(buf);
+        Slot* dv = sv(buf);
         int16_t* dc = sc(buf);
         for (int i = tid; i < vchunks + cchunks; i += blockDim.x) {
             if (i < vchunks)
-                cp_async16(dv + 4 * i, gv + 4 * i);
+                cp_async16(dv + kPer * i, gv + kPer * i);
             else
                 cp_async16(dc + 8 * (i - vchunks), gc + 8 * (i - vchunks));
         }
     };
 
-    float acc[V];
+    T acc[V];
 #pragma unroll
-    for (int i = 0; i < V; ++i) acc[i] = 0.0f;
+    for (int i = 0; i < V; ++i) acc[i] = T(0);
 
     // write slice s's sums (every thread of the CTA calls it), then zero
     auto flush = [&](int s) {
@@ -191,14 +237,15 @@ spmm_runs_kernel(const float* __restrict__ vals,
             for (int i = 0; i < V; ++i) red[lane * ck + g * V + i] = acc[i];
             __syncthreads();
             if (lane < rps && active) {
-                float sum[V];
+                T sum[V];
 #pragma unroll
                 for (int i = 0; i < V; ++i)
                     sum[i] = red[lane * ck + g * V + i];
                 for (int q = 1; q < parts; ++q) {
-                    const float* r = red + (q * rps + lane) * ck + g * V;
+                    const T* r = red + (q * rps + lane) * ck + g * V;
 #pragma unroll
-                    for (int i = 0; i < V; ++i) sum[i] += r[i];
+                    for (int i = 0; i < V; ++i)
+                        sum[i] = spmv::add_rn(sum[i], r[i]);
                 }
                 long long row = (long long)s * rps + lane;
                 if (row < out_rows) put<V>(out + row * k + j, sum, atomic);
@@ -206,7 +253,7 @@ spmm_runs_kernel(const float* __restrict__ vals,
             __syncthreads();
         }
 #pragma unroll
-        for (int i = 0; i < V; ++i) acc[i] = 0.0f;
+        for (int i = 0; i < V; ++i) acc[i] = T(0);
     };
 
     // one commit group per tile, empty past the run's end, so that
@@ -229,18 +276,18 @@ spmm_runs_kernel(const float* __restrict__ vals,
         const long long base =
             (long long)__ldg(window_base + t / group_tiles) * window_grain;
         if (active) {
-            const float* v = sv(buf) + lane;
+            const Slot* v = sv(buf) + lane;
             const int16_t* c = sc(buf) + lane;
 #pragma unroll kUnroll
             for (int p = 0; p < positions; ++p) {
-                const float w = v[p * lanes];
+                const T w = spmv::widen(v[p * lanes]);
                 const long long col = base + c[p * lanes];
                 if (col < cols) {
-                    float bv[V];
+                    T bv[V];
                     load_row<V>(b + col * k + j, bv);
 #pragma unroll
                     for (int i = 0; i < V; ++i)
-                        acc[i] = fmaf(w, bv[i], acc[i]);
+                        acc[i] = spmv::madd(w, bv[i], acc[i]);
                 }
             }
         }
@@ -248,44 +295,41 @@ spmm_runs_kernel(const float* __restrict__ vals,
     while (cur < s1) flush(cur++);
 }
 
-template <int V>
-cudaError_t launch(const float* vals, const int16_t* cols_win,
+template <class P, int V>
+cudaError_t launch(const void* vals, const int16_t* cols_win,
                    const int* window_base, const int* tile_slice,
-                   const int* runs, const float* b, float* out,
+                   const int* runs, const void* b, void* out,
                    long long num_runs, int positions, int lanes,
                    int lane_threads, int group_tiles, int window_grain,
                    long long cols, int k, int parts, long long out_rows,
                    cudaStream_t stream) {
+    using T = typename P::T;
     const int ck = lane_threads * V;
     const size_t slots = (size_t)positions * lanes;
-    const size_t smem = kStages * slots * 6 +
-                        (parts > 1 ? (size_t)lanes * ck * sizeof(float) : 0);
+    const size_t smem = kStages * slots * (sizeof(typename P::Slot) + 2) +
+                        (parts > 1 ? (size_t)lanes * ck * sizeof(T) : 0);
     if (smem > 48 * 1024) {
         cudaError_t err = cudaFuncSetAttribute(
-            spmm_runs_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)smem);
+            spmm_runs_kernel<P, V>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (err != cudaSuccess) return err;
     }
     dim3 grid((unsigned)num_runs, (unsigned)((k + ck - 1) / ck));
-    spmm_runs_kernel<V><<<grid, lanes * lane_threads, smem, stream>>>(
-        vals, cols_win, window_base, tile_slice,
-        reinterpret_cast<const int4*>(runs), b, out, positions, lanes,
+    spmm_runs_kernel<P, V><<<grid, lanes * lane_threads, smem, stream>>>(
+        static_cast<const typename P::Slot*>(vals), cols_win, window_base,
+        tile_slice, reinterpret_cast<const int4*>(runs),
+        static_cast<const T*>(b), static_cast<T*>(out), positions, lanes,
         lane_threads, group_tiles, window_grain, cols, k, parts, out_rows);
     return cudaSuccess;
 }
 
-}  // namespace
-
-// runs: (num_runs, 4) int32 records; out: (num_slices, lanes, k) when
-// parts == 0, else (out_rows, k), zeroed by the caller when a record
-// carries kAtomic.  positions * lanes must be a multiple of 8, and vals,
-// cols_win and runs 16-byte aligned (cp.async and int4 reads).
-extern "C" int spmm_sell_window_f32(
-    const float* vals, const int16_t* cols_win, const int* window_base,
-    const int* tile_slice, const int* runs, const float* b, float* out,
-    long long num_runs, int positions, int lanes, int group_tiles,
-    int window_grain, long long cols, int k, int parts, long long out_rows,
-    void* stream) {
+template <class P>
+int launch_spmm(const void* vals, const int16_t* cols_win,
+                const int* window_base, const int* tile_slice,
+                const int* runs, const void* b, void* out,
+                long long num_runs, int positions, int lanes,
+                int group_tiles, int window_grain, long long cols, int k,
+                int parts, long long out_rows, void* stream) {
     if (k < 1 || positions < 1 || lanes < 1 || lanes > kMaxThreads ||
         (positions * lanes) % 8 || parts < 0 || (parts > 1 && lanes % parts))
         return (int)cudaErrorInvalidValue;
@@ -305,23 +349,48 @@ extern "C" int spmm_sell_window_f32(
     cudaError_t err;
     switch (v) {
         case 1:
-            err = launch<1>(vals, cols_win, window_base, tile_slice, runs, b,
-                            out, num_runs, positions, lanes, lane_threads,
-                            group_tiles, window_grain, cols, k, parts,
-                            out_rows, s);
+            err = launch<P, 1>(vals, cols_win, window_base, tile_slice, runs,
+                               b, out, num_runs, positions, lanes,
+                               lane_threads, group_tiles, window_grain, cols,
+                               k, parts, out_rows, s);
             break;
         case 4:
-            err = launch<4>(vals, cols_win, window_base, tile_slice, runs, b,
-                            out, num_runs, positions, lanes, lane_threads,
-                            group_tiles, window_grain, cols, k, parts,
-                            out_rows, s);
+            err = launch<P, 4>(vals, cols_win, window_base, tile_slice, runs,
+                               b, out, num_runs, positions, lanes,
+                               lane_threads, group_tiles, window_grain, cols,
+                               k, parts, out_rows, s);
             break;
         default:
-            err = launch<8>(vals, cols_win, window_base, tile_slice, runs, b,
-                            out, num_runs, positions, lanes, lane_threads,
-                            group_tiles, window_grain, cols, k, parts,
-                            out_rows, s);
+            err = launch<P, 8>(vals, cols_win, window_base, tile_slice, runs,
+                               b, out, num_runs, positions, lanes,
+                               lane_threads, group_tiles, window_grain, cols,
+                               k, parts, out_rows, s);
     }
     if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
 }
+
+}  // namespace
+
+// runs: (num_runs, 4) int32 records; out: (num_slices, lanes, k) when
+// parts == 0, else (out_rows, k), zeroed by the caller when a record
+// carries kAtomic.  positions * lanes must be a multiple of 8, and vals,
+// cols_win and runs 16-byte aligned (cp.async and int4 reads).  b and
+// out: the policy's sum type.
+#define SPMM_SELL_WINDOW_BUILD(sfx, P)                                      \
+    extern "C" int spmm_sell_window_##sfx(                                  \
+        const void* vals, const int16_t* cols_win, const int* window_base,  \
+        const int* tile_slice, const int* runs, const void* b, void* out,   \
+        long long num_runs, int positions, int lanes, int group_tiles,      \
+        int window_grain, long long cols, int k, int parts,                 \
+        long long out_rows, void* stream) {                                 \
+        return launch_spmm<P>(vals, cols_win, window_base, tile_slice,      \
+                              runs, b, out, num_runs, positions, lanes,     \
+                              group_tiles, window_grain, cols, k, parts,    \
+                              out_rows, stream);                            \
+    }
+
+SPMM_SELL_WINDOW_BUILD(f32, spmv::F32Values)
+SPMM_SELL_WINDOW_BUILD(bf16, spmv::Bf16Values)
+SPMM_SELL_WINDOW_BUILD(i32, spmv::I32Values)
+SPMM_SELL_WINDOW_BUILD(u32, spmv::U32Values)

@@ -29,11 +29,18 @@
 // kernel is latency-bound (PERF.md): the unit's bounds, its records and
 // their x entries are three dependent loads.  Each lane row has one owner and no atomics: y is the same on
 // every run.
+//
+// The route has a build for each value policy of values.cuh: the float32
+// entry point, and `_bf16` (2 B record values widened to float32, x and
+// y2d float32: 6 B a record instead of 8), `_i32` and `_u32` (plus_times,
+// max_times and or_and, sums wrapping mod 2^32) entry points with the
+// same arguments.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "semiring.cuh"
+#include "values.cuh"
 
 // LIGHT_CHUNK: records a CTA stages through shared memory at a time;
 // LIGHT_MIN_CTAS: the CTAs an SM must be able to hold at once (a register
@@ -59,18 +66,19 @@ static_assert(LIGHT_CHUNK % LIGHT_ROWS == 0,
 
 namespace {
 
-template <class S>
+template <class S, class V>
 __global__ void __launch_bounds__(LIGHT_ROWS, LIGHT_MIN_CTAS)
     light_rows_kernel(const int* __restrict__ row_off,
                       const int* __restrict__ cols,
-                      const float* __restrict__ vals,
+                      const typename V::Slot* __restrict__ vals,
                       const uint8_t* __restrict__ tiled,
                       const int2* __restrict__ units,
-                      const float* __restrict__ x, float* __restrict__ y2d,
-                      long long ncols) {
+                      const typename V::T* __restrict__ x,
+                      typename V::T* __restrict__ y2d, long long ncols) {
+    using T = typename V::T;
     constexpr int kPer = LIGHT_CHUNK / LIGHT_ROWS;
-    __shared__ float sv[LIGHT_CHUNK];
-    __shared__ float sx[LIGHT_CHUNK];
+    __shared__ T sv[LIGHT_CHUNK];
+    __shared__ T sx[LIGHT_CHUNK];
     // the unit's (lane row, record) bounds: the records' first chunk, the
     // thread's row offsets and its segment's byte all load together
     const int2 lo = __ldg(units + blockIdx.x);
@@ -84,24 +92,24 @@ __global__ void __launch_bounds__(LIGHT_ROWS, LIGHT_MIN_CTAS)
         k1 = __ldg(row_off + r + 1);
         pad = __ldg(tiled + r / 128) != 0;
     }
-    float acc = S::init();
+    T acc = S::init();
     for (int c0 = lo.y; c0 < hi.y; c0 += LIGHT_CHUNK) {
         const int n = min(LIGHT_CHUNK, hi.y - c0);
         int c[kPer];
-        float v[kPer];
+        T v[kPer];
 #pragma unroll
         for (int j = 0; j < kPer; ++j) {
             const int i = (int)threadIdx.x + j * LIGHT_ROWS;
             if (i < n) {
                 c[j] = __ldg(cols + c0 + i);
-                v[j] = __ldg(vals + c0 + i);
+                v[j] = V::load(vals + c0 + i, 0);
             }
         }
 #pragma unroll
         for (int j = 0; j < kPer; ++j) {
             const int i = (int)threadIdx.x + j * LIGHT_ROWS;
             if (i < n) {
-                sx[i] = (long long)c[j] < ncols ? __ldg(x + c[j]) : 0.0f;
+                sx[i] = (long long)c[j] < ncols ? __ldg(x + c[j]) : T(0);
                 sv[i] = v[j];
             }
         }
@@ -116,28 +124,44 @@ __global__ void __launch_bounds__(LIGHT_ROWS, LIGHT_MIN_CTAS)
     }
 }
 
-}  // namespace
-
-// row_off: (rows + 1) int32; cols, vals: the records; tiled: a byte (0
-// or 1) a segment of 128 rows; units: (num_units + 1, 2) int32 (lane
-// row, record) boundaries, 8-byte aligned, at most 128 rows a unit;
-// y2d: (rows,) float32, every row written; semiring: a code of
-// semiring.cuh
-extern "C" int spmv_chunk_light_f32(const int* row_off, const int* cols,
-                                    const float* vals, const uint8_t* tiled,
-                                    const int* units, const float* x,
-                                    float* y2d, long long num_units,
-                                    long long ncols, int semiring,
-                                    void* stream) {
+template <class V>
+int launch_light(const int* row_off, const int* cols, const void* vals,
+                 const uint8_t* tiled, const int* units, const void* x,
+                 void* y2d, long long num_units, long long ncols,
+                 int semiring, void* stream) {
+    using T = typename V::T;
     if (num_units > 0) {
-        cudaError_t err = spmv::with_semiring(semiring, [&](auto s) {
-            light_rows_kernel<decltype(s)>
+        cudaError_t err = spmv::with_semiring<T>(semiring, [&](auto s) {
+            light_rows_kernel<decltype(s), V>
                 <<<(unsigned)num_units, LIGHT_ROWS, 0,
                    (cudaStream_t)stream>>>(
-                    row_off, cols, vals, tiled,
-                    reinterpret_cast<const int2*>(units), x, y2d, ncols);
+                    row_off, cols, static_cast<const typename V::Slot*>(vals),
+                    tiled, reinterpret_cast<const int2*>(units),
+                    static_cast<const T*>(x), static_cast<T*>(y2d), ncols);
         });
         if (err != cudaSuccess) return (int)err;
     }
     return (int)cudaGetLastError();
 }
+
+}  // namespace
+
+// row_off: (rows + 1) int32; cols, vals: the records; tiled: a byte (0
+// or 1) a segment of 128 rows; units: (num_units + 1, 2) int32 (lane
+// row, record) boundaries, 8-byte aligned, at most 128 rows a unit;
+// y2d: (rows,) of the policy's sum type, every row written; semiring: a
+// code of semiring.cuh
+#define SPMV_CHUNK_LIGHT_BUILD(sfx, V)                                      \
+    extern "C" int spmv_chunk_light_##sfx(                                  \
+        const int* row_off, const int* cols, const void* vals,              \
+        const uint8_t* tiled, const int* units, const void* x, void* y2d,   \
+        long long num_units, long long ncols, int semiring,                 \
+        void* stream) {                                                     \
+        return launch_light<V>(row_off, cols, vals, tiled, units, x, y2d,   \
+                               num_units, ncols, semiring, stream);         \
+    }
+
+SPMV_CHUNK_LIGHT_BUILD(f32, spmv::F32Values)
+SPMV_CHUNK_LIGHT_BUILD(bf16, spmv::Bf16Values)
+SPMV_CHUNK_LIGHT_BUILD(i32, spmv::I32Values)
+SPMV_CHUNK_LIGHT_BUILD(u32, spmv::U32Values)

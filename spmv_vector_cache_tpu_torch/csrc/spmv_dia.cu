@@ -33,6 +33,11 @@
 // (coalesced); the k-sum runs in the order of the plain PyTorch version;
 // the offsets are a small int32 device array read through the read-only
 // cache.
+//
+// A and M have a build for each value policy of values.cuh: the float32
+// entry points, and `_bf16` (2 B a slot widened to float32, x and y
+// float32: 2 B of the stream a slot instead of 4), `_i32` and `_u32`
+// (sums wrapping mod 2^32) entry points with the same arguments.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -45,7 +50,7 @@ namespace {
 // without it, so their code is what it was before M (a run-time origin
 // of 0 cost A 6 % of its device time on an H100)
 template <class V, bool kHalo>
-__global__ void spmv_dia_kernel(const float* __restrict__ vals,
+__global__ void spmv_dia_kernel(const typename V::Slot* __restrict__ vals,
                                 const typename V::T* __restrict__ x,
                                 const int* __restrict__ offsets,
                                 typename V::T* __restrict__ y,
@@ -58,7 +63,7 @@ __global__ void spmv_dia_kernel(const float* __restrict__ vals,
     long long t = r / rows_per_step;
     long long rem = r - t * rows_per_step;
     const long long half = (long long)ndiag * rows_per_step;
-    const float* v = vals + t * V::kChannels * half + rem;
+    const typename V::Slot* v = vals + t * V::kChannels * half + rem;
     const long long r_x = kHalo ? r + x_origin : r;
     T acc = T(0);
     for (int k = 0; k < ndiag; ++k) {
@@ -71,7 +76,8 @@ __global__ void spmv_dia_kernel(const float* __restrict__ vals,
 }
 
 template <class V, bool kHalo>
-int launch(const float* vals, const typename V::T* x, const int* offsets,
+int launch(const typename V::Slot* vals, const typename V::T* x,
+           const int* offsets,
            typename V::T* y, long long rows, long long x_len,
            long long x_origin, int ndiag, int rows_per_step, void* stream) {
     if (rows > 0) {
@@ -87,25 +93,35 @@ int launch(const float* vals, const typename V::T* x, const int* offsets,
 
 }  // namespace
 
-extern "C" int spmv_dia_f32(const float* vals, const float* x,
-                            const int* offsets, float* y, long long rows,
-                            long long cols, int ndiag, int rows_per_step,
-                            void* stream) {
-    return launch<spmv::F32Values, false>(vals, x, offsets, y, rows, cols,
-                                          0, ndiag, rows_per_step, stream);
-}
+// A and M for each value policy: vals (T, D, S*128) of the policy's
+// slots, x and y of its sum type.  Kernel M: x_ext holds the shard's x
+// with the left halo first, so the shard's row r reads
+// x_ext[x_origin + r + off_k]
+#define SPMV_DIA_BUILD(sfx, V)                                              \
+    extern "C" int spmv_dia_##sfx(const void* vals, const void* x,          \
+                                  const int* offsets, void* y,              \
+                                  long long rows, long long cols,           \
+                                  int ndiag, int rows_per_step,             \
+                                  void* stream) {                           \
+        return launch<V, false>(static_cast<const V::Slot*>(vals),          \
+                                static_cast<const V::T*>(x), offsets,       \
+                                static_cast<V::T*>(y), rows, cols, 0,       \
+                                ndiag, rows_per_step, stream);              \
+    }                                                                       \
+    extern "C" int spmv_dia_halo_##sfx(                                     \
+        const void* vals, const void* x_ext, const int* offsets, void* y,   \
+        long long rows, long long x_len, long long x_origin, int ndiag,     \
+        int rows_per_step, void* stream) {                                  \
+        return launch<V, true>(static_cast<const V::Slot*>(vals),           \
+                               static_cast<const V::T*>(x_ext), offsets,    \
+                               static_cast<V::T*>(y), rows, x_len,          \
+                               x_origin, ndiag, rows_per_step, stream);     \
+    }
 
-// kernel M: x_ext holds the shard's x with the left halo first, so the
-// shard's row r reads x_ext[x_origin + r + off_k]
-extern "C" int spmv_dia_halo_f32(const float* vals, const float* x_ext,
-                                 const int* offsets, float* y,
-                                 long long rows, long long x_len,
-                                 long long x_origin, int ndiag,
-                                 int rows_per_step, void* stream) {
-    return launch<spmv::F32Values, true>(vals, x_ext, offsets, y, rows,
-                                         x_len, x_origin, ndiag,
-                                         rows_per_step, stream);
-}
+SPMV_DIA_BUILD(f32, spmv::F32Values)
+SPMV_DIA_BUILD(bf16, spmv::Bf16Values)
+SPMV_DIA_BUILD(i32, spmv::I32Values)
+SPMV_DIA_BUILD(u32, spmv::U32Values)
 
 // vals: the double plan's (T, 2D, S*128) hi/lo slab; x, y: float64
 extern "C" int spmv_dia_f64(const float* vals, const double* x,

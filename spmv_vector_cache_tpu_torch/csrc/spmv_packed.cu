@@ -51,24 +51,73 @@
 // threads took 10.8 us before the overflow ops (probes_torch/
 // extract_shapes.py; PERF.md).  Issuing the next batch's esrc loads
 // before this batch's gathers, or S gathers that skip L1, were slower.
+//
+// E and F have a build for each value policy of values.cuh: the float32
+// entry point, and `_bf16`, `_i32` and `_u32` (sums wrapping mod 2^32)
+// entry points with the same arguments.  E's bf16 build loads 8 B of
+// values a thread and widens them to float32 (x and the scan float32:
+// 4 B of the stream a slot instead of 6); F's reads the float32 scan and
+// x and 2 B an overflow value, widened as it is loaded.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "values.cuh"
+
 namespace {
+
+using spmv::add_rn;
+using spmv::mul_rn;
+
+// four consecutive slots from 16-byte (8-byte for bf16) aligned p, as
+// the sum type
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+}
+__device__ __forceinline__ void load4(const uint16_t* p, float (&v)[4]) {
+    const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
+    v[0] = __uint_as_float(q.x << 16);
+    v[1] = __uint_as_float(q.x & 0xffff0000u);
+    v[2] = __uint_as_float(q.y << 16);
+    v[3] = __uint_as_float(q.y & 0xffff0000u);
+}
+__device__ __forceinline__ void load4(const int* p, int (&v)[4]) {
+    const int4 q = __ldg(reinterpret_cast<const int4*>(p));
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+}
+__device__ __forceinline__ void load4(const unsigned* p, unsigned (&v)[4]) {
+    const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+}
+
+// p[0:4] = a, b, c, d as one 16-byte store (p 16-byte aligned)
+__device__ __forceinline__ void store4(float* p, float a, float b, float c,
+                                       float d) {
+    *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+__device__ __forceinline__ void store4(int* p, int a, int b, int c, int d) {
+    *reinterpret_cast<int4*>(p) = make_int4(a, b, c, d);
+}
+__device__ __forceinline__ void store4(unsigned* p, unsigned a, unsigned b,
+                                       unsigned c, unsigned d) {
+    *reinterpret_cast<uint4*>(p) = make_uint4(a, b, c, d);
+}
 
 constexpr int kRowSlots = 128;        // slots per scanned row
 constexpr int kWindowRows = 8192;     // y rows per pass-B window
 constexpr unsigned kFullMask = 0xffffffffu;
 
 // blockDim.x = 256: 8 warps, one 128-slot row each
-__global__ void packed_scan_kernel(const float* __restrict__ vals,
+template <class V>
+__global__ void packed_scan_kernel(const typename V::Slot* __restrict__ vals,
                                    const int16_t* __restrict__ cols,
                                    const int* __restrict__ cstep,
-                                   const float* __restrict__ x,
-                                   float* __restrict__ out, long long rows,
-                                   int rows_per_step, long long chunk_cols,
-                                   long long ncols) {
+                                   const typename V::T* __restrict__ x,
+                                   typename V::T* __restrict__ out,
+                                   long long rows, int rows_per_step,
+                                   long long chunk_cols, long long ncols) {
+    using T = typename V::T;
     long long row = (long long)blockIdx.x * (blockDim.x / 32) +
                     threadIdx.x / 32;
     if (row >= rows) return;              // uniform over the warp
@@ -76,38 +125,37 @@ __global__ void packed_scan_kernel(const float* __restrict__ vals,
     long long xbase =
         (long long)__ldg(cstep + row / rows_per_step) * chunk_cols;
     long long off = row * kRowSlots + 4 * k;
-    float4 v4 = __ldg(reinterpret_cast<const float4*>(vals + off));
+    T v[4];
+    load4(vals + off, v);
     short4 c4 = __ldg(reinterpret_cast<const short4*>(cols + off));
-    float v[4] = {v4.x, v4.y, v4.z, v4.w};
     int c[4] = {c4.x, c4.y, c4.z, c4.w};
-    float s[4];
+    T s[4];
     bool start[4];
     for (int j = 0; j < 4; ++j) {
         long long g = xbase + (c[j] & 16383);
-        float xv = g < ncols ? __ldg(x + g) : 0.0f;
-        float p = __fmul_rn(v[j], xv);
+        T xv = g < ncols ? __ldg(x + g) : T(0);
+        T p = mul_rn(v[j], xv);
         start[j] = (c[j] >> 14) & 1;
-        s[j] = (j == 0 || start[j]) ? p : __fadd_rn(s[j - 1], p);
+        s[j] = (j == 0 || start[j]) ? p : add_rn(s[j - 1], p);
     }
     // segmented inclusive scan of the threads' (sum, any-start) pairs
-    float inc = s[3];
+    T inc = s[3];
     int flag = start[0] | start[1] | start[2] | start[3];
     for (int d = 1; d < 32; d <<= 1) {
-        float up = __shfl_up_sync(kFullMask, inc, d);
+        T up = __shfl_up_sync(kFullMask, inc, d);
         int up_flag = __shfl_up_sync(kFullMask, flag, d);
         if (k >= d) {
-            if (!flag) inc = __fadd_rn(up, inc);
+            if (!flag) inc = add_rn(up, inc);
             flag |= up_flag;
         }
     }
-    float carry = __shfl_up_sync(kFullMask, inc, 1);
+    T carry = __shfl_up_sync(kFullMask, inc, 1);
     if (k > 0) {
         // the carry runs into this thread's slots up to its first start
         for (int j = 0; j < 4 && !start[j]; ++j)
-            s[j] = __fadd_rn(carry, s[j]);
+            s[j] = add_rn(carry, s[j]);
     }
-    *reinterpret_cast<float4*>(out + off) = make_float4(s[0], s[1], s[2],
-                                                        s[3]);
+    store4(out + off, s[0], s[1], s[2], s[3]);
 }
 
 // Kernel F's launch shape, chosen on the H100 by
@@ -143,20 +191,30 @@ __device__ __forceinline__ int esrc_at(const int4& v, int j) {
     return (int)(short)(j & 1 ? (word >> 16) : word);
 }
 
+// an overflow value as the sum type: bfloat16 bits widened exactly,
+// any other as it is
+__device__ __forceinline__ float ov_value(uint16_t v) {
+    return __uint_as_float((unsigned)v << 16);
+}
+template <class T>
+__device__ __forceinline__ T ov_value(T v) { return v; }
+
 // blockDim (kTX, kGroups): kTX threads own the CTA's kBlockRows rows,
-// kGroups groups of them split the window's visits
+// kGroups groups of them split the window's visits; T: the sum type, OV:
+// the overflow values' type
+template <class T, class OV>
 __global__ void __launch_bounds__(kThreads) packed_rows_kernel(
-        const float* __restrict__ scan, const int* __restrict__ sblock,
+        const T* __restrict__ scan, const int* __restrict__ sblock,
         const int* __restrict__ woff, const int16_t* __restrict__ esrc,
         const int* __restrict__ ov_off, const int* __restrict__ ov_lane,
-        const int* __restrict__ ov_cols, const float* __restrict__ ov_vals,
-        const float* __restrict__ x, float* __restrict__ y, long long rows,
+        const int* __restrict__ ov_cols, const OV* __restrict__ ov_vals,
+        const T* __restrict__ x, T* __restrict__ y, long long rows,
         long long block_slots) {
     // the sums of groups 1.. for group 0 to add; the overflow products of
     // a round, their rows in the block, and each thread's run of them
-    __shared__ __align__(16) float part[kGroups > 1 ? kGroups - 1 : 1]
-                                       [kBlockRows];
-    __shared__ float ov_prod[kThreads];
+    __shared__ __align__(16) T part[kGroups > 1 ? kGroups - 1 : 1]
+                                   [kBlockRows];
+    __shared__ T ov_prod[kThreads];
     __shared__ int ov_row[kThreads];
     __shared__ int ov_first[kTX], ov_last[kTX];
     const int tx = threadIdx.x, g = threadIdx.y;
@@ -169,16 +227,16 @@ __global__ void __launch_bounds__(kThreads) packed_rows_kernel(
     const int o0 = ov_off ? __ldg(ov_off + blockIdx.x) : 0;
     const int o1 = ov_off ? __ldg(ov_off + blockIdx.x + 1) : 0;
     int lane = 0, col = 0;
-    float val = 0.0f;
+    T val = T(0);
     if (o0 + tid < o1) {
         lane = __ldg(ov_lane + o0 + tid);
         col = __ldg(ov_cols + o0 + tid);
-        val = __ldg(ov_vals + o0 + tid);
+        val = ov_value(__ldg(ov_vals + o0 + tid));
     }
 
-    float acc[kRowsPerThread];
+    T acc[kRowsPerThread];
 #pragma unroll
-    for (int j = 0; j < kRowsPerThread; ++j) acc[j] = 0.0f;
+    for (int j = 0; j < kRowsPerThread; ++j) acc[j] = T(0);
     const int v0 = __ldg(woff + w), v1 = __ldg(woff + w + 1);
     for (int i0 = v0 + g * kBatch; i0 < v1; i0 += kGroups * kBatch) {
         int4 ev[kBatch];
@@ -195,28 +253,27 @@ __global__ void __launch_bounds__(kThreads) packed_rows_kernel(
                 base[u] = 0;
             }
         }
-        float v[kBatch][kRowsPerThread];
+        T v[kBatch][kRowsPerThread];
 #pragma unroll
         for (int u = 0; u < kBatch; ++u) {
 #pragma unroll
             for (int j = 0; j < kRowsPerThread; ++j) {
                 const int src = esrc_at(ev[u], j);
-                v[u][j] = src >= 0 ? __ldg(scan + base[u] + src) : 0.0f;
+                v[u][j] = src >= 0 ? __ldg(scan + base[u] + src) : T(0);
             }
         }
 #pragma unroll
         for (int u = 0; u < kBatch; ++u) {
 #pragma unroll
             for (int j = 0; j < kRowsPerThread; ++j)
-                acc[j] = __fadd_rn(acc[j], v[u][j]);
+                acc[j] = add_rn(acc[j], v[u][j]);
         }
     }
     if (kGroups > 1) {
         if (g > 0) {
-            float4* mine = reinterpret_cast<float4*>(
-                &part[g - 1][tx * kRowsPerThread]);
-            mine[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
-            mine[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+            T* mine = &part[g - 1][tx * kRowsPerThread];
+            store4(mine, acc[0], acc[1], acc[2], acc[3]);
+            store4(mine + 4, acc[4], acc[5], acc[6], acc[7]);
         }
         __syncthreads();
         if (g == 0) {
@@ -224,8 +281,8 @@ __global__ void __launch_bounds__(kThreads) packed_rows_kernel(
             for (int h = 1; h < kGroups; ++h) {
 #pragma unroll
                 for (int j = 0; j < kRowsPerThread; ++j)
-                    acc[j] = __fadd_rn(acc[j],
-                                       part[h - 1][tx * kRowsPerThread + j]);
+                    acc[j] = add_rn(acc[j],
+                                    part[h - 1][tx * kRowsPerThread + j]);
             }
         }
     }
@@ -238,11 +295,11 @@ __global__ void __launch_bounds__(kThreads) packed_rows_kernel(
         if (r0 > o0 && tid < m) {
             lane = __ldg(ov_lane + r0 + tid);
             col = __ldg(ov_cols + r0 + tid);
-            val = __ldg(ov_vals + r0 + tid);
+            val = ov_value(__ldg(ov_vals + r0 + tid));
         }
         if (tid < kTX) ov_first[tid] = ov_last[tid] = 0;
         if (tid < m) {
-            ov_prod[tid] = __fmul_rn(val, __ldg(x + col));
+            ov_prod[tid] = mul_rn(val, __ldg(x + col));
             ov_row[tid] = lane;
         }
         __syncthreads();
@@ -257,10 +314,10 @@ __global__ void __launch_bounds__(kThreads) packed_rows_kernel(
         if (g == 0) {
             for (int k = ov_first[tx]; k < ov_last[tx]; ++k) {
                 const int jk = ov_row[k] % kRowsPerThread;
-                const float p = ov_prod[k];
+                const T p = ov_prod[k];
 #pragma unroll
                 for (int j = 0; j < kRowsPerThread; ++j)
-                    if (j == jk) acc[j] = __fadd_rn(acc[j], p);
+                    if (j == jk) acc[j] = add_rn(acc[j], p);
             }
         }
         __syncthreads();
@@ -269,9 +326,8 @@ __global__ void __launch_bounds__(kThreads) packed_rows_kernel(
     if (g == 0) {
         const long long r = row0 + tx * kRowsPerThread;
         if (r + kRowsPerThread <= rows) {
-            float4* out = reinterpret_cast<float4*>(y + r);
-            out[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
-            out[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+            store4(y + r, acc[0], acc[1], acc[2], acc[3]);
+            store4(y + r + 4, acc[4], acc[5], acc[6], acc[7]);
         } else {
 #pragma unroll
             for (int j = 0; j < kRowsPerThread; ++j)
@@ -280,42 +336,76 @@ __global__ void __launch_bounds__(kThreads) packed_rows_kernel(
     }
 }
 
-}  // namespace
-
-// rows = T * 8 scanned rows; rows_per_step = 8 * step_tiles;
-// chunk_cols = chunk_blocks * 128; ncols = columns of x
-extern "C" int packed_scan_f32(const float* vals, const int16_t* cols,
-                               const int* cstep, const float* x, float* out,
-                               long long rows, int rows_per_step,
-                               long long chunk_cols, long long ncols,
-                               void* stream) {
+template <class V>
+int launch_scan(const void* vals, const int16_t* cols, const int* cstep,
+                const void* x, void* out, long long rows, int rows_per_step,
+                long long chunk_cols, long long ncols, void* stream) {
+    using T = typename V::T;
     if (rows > 0) {
         constexpr int threads = 256;
         long long blocks = (rows + threads / 32 - 1) / (threads / 32);
-        packed_scan_kernel<<<(unsigned)blocks, threads, 0,
-                             (cudaStream_t)stream>>>(
-            vals, cols, cstep, x, out, rows, rows_per_step, chunk_cols,
-            ncols);
+        packed_scan_kernel<V><<<(unsigned)blocks, threads, 0,
+                                (cudaStream_t)stream>>>(
+            static_cast<const typename V::Slot*>(vals), cols, cstep,
+            static_cast<const T*>(x), static_cast<T*>(out), rows,
+            rows_per_step, chunk_cols, ncols);
     }
     return (int)cudaGetLastError();
 }
 
-// y: rows floats, written, in CTAs of PACKED_F_BLOCK_ROWS rows; ov_off:
-// one offset a CTA and one more, or null for no overflow (x is then not
-// read); block_slots = step_tiles * 1024
-extern "C" int packed_extract_f32(const float* scan, const int* sblock,
-                                  const int* woff, const int16_t* esrc,
-                                  const int* ov_off, const int* ov_lane,
-                                  const int* ov_cols, const float* ov_vals,
-                                  const float* x, float* y, long long rows,
-                                  long long block_slots, void* stream) {
+template <class T, class OV>
+int launch_rows(const void* scan, const int* sblock, const int* woff,
+                const int16_t* esrc, const int* ov_off, const int* ov_lane,
+                const int* ov_cols, const void* ov_vals, const void* x,
+                void* y, long long rows, long long block_slots,
+                void* stream) {
     if (rows > 0) {
         const unsigned grid = (unsigned)((rows + kBlockRows - 1) /
                                          kBlockRows);
-        packed_rows_kernel<<<grid, dim3(kTX, kGroups), 0,
-                             (cudaStream_t)stream>>>(
-            scan, sblock, woff, esrc, ov_off, ov_lane, ov_cols, ov_vals, x,
-            y, rows, block_slots);
+        packed_rows_kernel<T, OV><<<grid, dim3(kTX, kGroups), 0,
+                                    (cudaStream_t)stream>>>(
+            static_cast<const T*>(scan), sblock, woff, esrc, ov_off, ov_lane,
+            ov_cols, static_cast<const OV*>(ov_vals),
+            static_cast<const T*>(x), static_cast<T*>(y), rows, block_slots);
     }
     return (int)cudaGetLastError();
 }
+
+}  // namespace
+
+// rows = T * 8 scanned rows; rows_per_step = 8 * step_tiles;
+// chunk_cols = chunk_blocks * 128; ncols = columns of x; vals 16-byte
+// aligned; x and out of the policy's sum type
+#define PACKED_SCAN_BUILD(sfx, V)                                           \
+    extern "C" int packed_scan_##sfx(                                       \
+        const void* vals, const int16_t* cols, const int* cstep,            \
+        const void* x, void* out, long long rows, int rows_per_step,        \
+        long long chunk_cols, long long ncols, void* stream) {              \
+        return launch_scan<V>(vals, cols, cstep, x, out, rows,              \
+                              rows_per_step, chunk_cols, ncols, stream);    \
+    }
+
+PACKED_SCAN_BUILD(f32, spmv::F32Values)
+PACKED_SCAN_BUILD(bf16, spmv::Bf16Values)
+PACKED_SCAN_BUILD(i32, spmv::I32Values)
+PACKED_SCAN_BUILD(u32, spmv::U32Values)
+
+// y: rows sums, written, in CTAs of PACKED_F_BLOCK_ROWS rows; ov_off:
+// one offset a CTA and one more, or null for no overflow (x is then not
+// read); block_slots = step_tiles * 1024; scan, x and y of the sum type
+// T, ov_vals of the value type OV
+#define PACKED_EXTRACT_BUILD(sfx, T, OV)                                    \
+    extern "C" int packed_extract_##sfx(                                    \
+        const void* scan, const int* sblock, const int* woff,               \
+        const int16_t* esrc, const int* ov_off, const int* ov_lane,         \
+        const int* ov_cols, const void* ov_vals, const void* x, void* y,    \
+        long long rows, long long block_slots, void* stream) {              \
+        return launch_rows<T, OV>(scan, sblock, woff, esrc, ov_off,         \
+                                  ov_lane, ov_cols, ov_vals, x, y, rows,    \
+                                  block_slots, stream);                     \
+    }
+
+PACKED_EXTRACT_BUILD(f32, float, float)
+PACKED_EXTRACT_BUILD(bf16, float, uint16_t)
+PACKED_EXTRACT_BUILD(i32, int, int)
+PACKED_EXTRACT_BUILD(u32, unsigned, unsigned)

@@ -70,6 +70,12 @@
 // on uniform columns; x is 2 MB of float64 on the deep draw, past a
 // CTA's 227 KB of shared memory, and the on-chip homes of x lost to L2
 // for G on the same draw, PERF.md).
+//
+// G has a build for each value policy of values.cuh: the float32 entry
+// point, and `_bf16` (2 B values widened to float32, x and y float32),
+// `_i32` and `_u32` (plus_times, max_times and or_and; sums wrapping mod
+// 2^32, a split slice's pieces combined with the integer atomicAdd and
+// atomicMax) entry points with the same arguments.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -98,12 +104,12 @@ constexpr size_t kMaxSmem = 227 * 1024;
 // and value loads, each batch issued before its x gathers.
 template <class S, class V, int batch>
 __device__ __forceinline__ typename V::T tile_sum(
-    const float* __restrict__ vals, const int* __restrict__ cols,
+    const typename V::Slot* __restrict__ vals, const int* __restrict__ cols,
     const typename V::T* __restrict__ x, long long t, int lane,
     int positions, int lanes, long long ncols) {
     using T = typename V::T;
     const long long slots = (long long)positions * lanes;   // one channel
-    const float* v = vals + t * slots * V::kChannels + lane;
+    const typename V::Slot* v = vals + t * slots * V::kChannels + lane;
     const int* c = cols + t * slots + lane;
     T acc = S::init();
     for (int p0 = 0; p0 < positions; p0 += batch) {
@@ -143,7 +149,7 @@ __device__ __forceinline__ void put(T* out, long long row, T acc,
 // PairValues: kernel L, its lo word `slots` floats after the hi word).
 template <class S, class V>
 __global__ void __launch_bounds__(kThreadsG)
-global_runs_kernel(const float* __restrict__ vals,
+global_runs_kernel(const typename V::Slot* __restrict__ vals,
                    const int* __restrict__ cols,
                    const int* __restrict__ tile_slice,
                    const int4* __restrict__ runs,
@@ -200,7 +206,7 @@ global_runs_kernel(const float* __restrict__ vals,
 // the record, threadIdx.x % lanes = the lane; a warp holds one record.
 template <class S, class V>
 __global__ void __launch_bounds__(kThreadsG)
-global_rows_kernel(const float* __restrict__ vals,
+global_rows_kernel(const typename V::Slot* __restrict__ vals,
                    const int* __restrict__ cols,
                    const int* __restrict__ tile_slice,
                    const int4* __restrict__ runs,
@@ -255,7 +261,7 @@ int resident(const void* fn, int threads, size_t smem) {
 }
 
 template <class S, class V>
-cudaError_t launch_runs(const float* vals, const int* cols,
+cudaError_t launch_runs(const typename V::Slot* vals, const int* cols,
                         const int* tile_slice, const int* runs,
                         const typename V::T* x, typename V::T* out,
                         long long num_runs, int positions, int lanes,
@@ -304,6 +310,31 @@ int refuse(const int* runs, int positions, int lanes, int parts,
     return 0;
 }
 
+template <class V>
+int launch_global(const void* vals, const int* cols, const int* tile_slice,
+                  const int* runs, const void* x, void* out,
+                  long long num_runs, int positions, int lanes,
+                  long long ncols, int parts, long long out_rows,
+                  int max_tiles, int max_slices, int semiring,
+                  void* stream) {
+    using T = typename V::T;
+    if (int bad = refuse(runs, positions, lanes, parts, max_tiles,
+                         max_slices))
+        return bad;
+    if (num_runs <= 0) return (int)cudaGetLastError();
+    cudaError_t err = cudaErrorInvalidValue;
+    cudaError_t bad = spmv::with_semiring<T>(semiring, [&](auto sr) {
+        err = launch_runs<decltype(sr), V>(
+            static_cast<const typename V::Slot*>(vals), cols, tile_slice,
+            runs, static_cast<const T*>(x), static_cast<T*>(out), num_runs,
+            positions, lanes, ncols, parts, out_rows, max_tiles, max_slices,
+            (cudaStream_t)stream);
+    });
+    if (bad != cudaSuccess) return (int)bad;
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // vals, cols: (tiles, positions, lanes); runs: (num_runs, 4) int32
@@ -311,30 +342,24 @@ int refuse(const int* runs, int positions, int lanes, int parts,
 // (num_slices, lanes) when parts == 0, else (out_rows,),
 // preset to the semiring's init by the caller when a record carries
 // kAtomic.  lanes a multiple of 32, runs 16-byte aligned.  semiring: a
-// code of semiring.cuh
-extern "C" int spmv_sell_global_f32(const float* vals, const int* cols,
-                                    const int* tile_slice, const int* runs,
-                                    const float* x, float* out,
-                                    long long num_runs, int positions,
-                                    int lanes, long long ncols, int parts,
-                                    long long out_rows, int max_tiles,
-                                    int max_slices, int semiring,
-                                    void* stream) {
-    if (int bad = refuse(runs, positions, lanes, parts, max_tiles,
-                         max_slices))
-        return bad;
-    if (num_runs <= 0) return (int)cudaGetLastError();
-    cudaError_t err = cudaErrorInvalidValue;
-    cudaError_t bad = spmv::with_semiring(semiring, [&](auto sr) {
-        err = launch_runs<decltype(sr), spmv::F32Values>(
-            vals, cols, tile_slice, runs, x, out, num_runs, positions, lanes,
-            ncols, parts, out_rows, max_tiles, max_slices,
-            (cudaStream_t)stream);
-    });
-    if (bad != cudaSuccess) return (int)bad;
-    if (err != cudaSuccess) return (int)err;
-    return (int)cudaGetLastError();
-}
+// code of semiring.cuh.  x and out: the policy's sum type.
+#define SPMV_SELL_GLOBAL_BUILD(sfx, V)                                      \
+    extern "C" int spmv_sell_global_##sfx(                                  \
+        const void* vals, const int* cols, const int* tile_slice,           \
+        const int* runs, const void* x, void* out, long long num_runs,      \
+        int positions, int lanes, long long ncols, int parts,               \
+        long long out_rows, int max_tiles, int max_slices, int semiring,    \
+        void* stream) {                                                     \
+        return launch_global<V>(vals, cols, tile_slice, runs, x, out,       \
+                                num_runs, positions, lanes, ncols, parts,   \
+                                out_rows, max_tiles, max_slices, semiring,  \
+                                stream);                                    \
+    }
+
+SPMV_SELL_GLOBAL_BUILD(f32, spmv::F32Values)
+SPMV_SELL_GLOBAL_BUILD(bf16, spmv::Bf16Values)
+SPMV_SELL_GLOBAL_BUILD(i32, spmv::I32Values)
+SPMV_SELL_GLOBAL_BUILD(u32, spmv::U32Values)
 
 // Kernel L: as spmv_sell_global_f32, plus_times, over a double plan:
 // vals the (tiles, 2*positions, lanes) hi/lo slab, cols (tiles,

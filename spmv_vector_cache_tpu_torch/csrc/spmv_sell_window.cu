@@ -28,6 +28,12 @@
 // over the group's tiles and each tile's positions, so a warp reads 32
 // consecutive values and offsets (coalesced).  All five semirings are one
 // template on the (init, step) pairs of semiring.cuh.
+//
+// B has a build for each value policy of values.cuh: the float32 entry
+// point, and `_bf16` (2 B values widened to float32, x and the partials
+// float32: 4 B of the stream a slot instead of 6), `_i32` and `_u32`
+// (plus_times, max_times and or_and, sums wrapping mod 2^32) entry
+// points with the same arguments.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -40,7 +46,7 @@ namespace {
 // blockIdx.x = output row: a tile (tiles_per_row = 1) or a group
 // (tiles_per_row = wg); threadIdx.x = lane.
 template <class S, class V>
-__global__ void window_kernel(const float* __restrict__ vals,
+__global__ void window_kernel(const typename V::Slot* __restrict__ vals,
                               const int16_t* __restrict__ cols_win,
                               const int* __restrict__ window_base,
                               const typename V::T* __restrict__ x,
@@ -55,7 +61,7 @@ __global__ void window_kernel(const float* __restrict__ vals,
         (long long)__ldg(window_base + t0 / group_tiles) * window_grain;
     const long long pr = (long long)positions * lanes;  // one channel
     long long slot = t0 * pr + lane;
-    const float* v = vals + t0 * V::kChannels * pr + lane;
+    const typename V::Slot* v = vals + t0 * V::kChannels * pr + lane;
     T acc = S::init();
     for (int tt = 0; tt < tiles_per_row; ++tt, v += (V::kChannels - 1) * pr) {
         for (int p = 0; p < positions; ++p, slot += lanes, v += lanes) {
@@ -67,29 +73,47 @@ __global__ void window_kernel(const float* __restrict__ vals,
     out[row * lanes + lane] = acc;
 }
 
-}  // namespace
-
 // semiring: a code of semiring.cuh
-extern "C" int spmv_sell_window_f32(const float* vals,
-                                    const int16_t* cols_win,
-                                    const int* window_base, const float* x,
-                                    float* out, long long out_rows,
-                                    int positions, int lanes,
-                                    int group_tiles, int fold,
-                                    int window_grain, long long cols,
-                                    int semiring, void* stream) {
+template <class V>
+int launch_window(const void* vals, const int16_t* cols_win,
+                  const int* window_base, const void* x, void* out,
+                  long long out_rows, int positions, int lanes,
+                  int group_tiles, int fold, int window_grain,
+                  long long cols, int semiring, void* stream) {
+    using T = typename V::T;
     if (out_rows > 0) {
         int tpr = fold ? group_tiles : 1;
-        cudaError_t err = spmv::with_semiring(semiring, [&](auto s) {
-            window_kernel<decltype(s), spmv::F32Values>
+        cudaError_t err = spmv::with_semiring<T>(semiring, [&](auto s) {
+            window_kernel<decltype(s), V>
                 <<<(unsigned)out_rows, lanes, 0, (cudaStream_t)stream>>>(
-                    vals, cols_win, window_base, x, out, positions, lanes,
-                    group_tiles, tpr, window_grain, cols);
+                    static_cast<const typename V::Slot*>(vals), cols_win,
+                    window_base, static_cast<const T*>(x),
+                    static_cast<T*>(out), positions, lanes, group_tiles,
+                    tpr, window_grain, cols);
         });
         if (err != cudaSuccess) return (int)err;
     }
     return (int)cudaGetLastError();
 }
+
+}  // namespace
+
+#define SPMV_SELL_WINDOW_BUILD(sfx, V)                                      \
+    extern "C" int spmv_sell_window_##sfx(                                  \
+        const void* vals, const int16_t* cols_win, const int* window_base,  \
+        const void* x, void* out, long long out_rows, int positions,        \
+        int lanes, int group_tiles, int fold, int window_grain,             \
+        long long cols, int semiring, void* stream) {                       \
+        return launch_window<V>(vals, cols_win, window_base, x, out,        \
+                                out_rows, positions, lanes, group_tiles,    \
+                                fold, window_grain, cols, semiring,         \
+                                stream);                                    \
+    }
+
+SPMV_SELL_WINDOW_BUILD(f32, spmv::F32Values)
+SPMV_SELL_WINDOW_BUILD(bf16, spmv::Bf16Values)
+SPMV_SELL_WINDOW_BUILD(i32, spmv::I32Values)
+SPMV_SELL_WINDOW_BUILD(u32, spmv::U32Values)
 
 // vals: the double plan's (T, 2*positions, lanes) hi/lo slab; x, out:
 // float64; plus_times

@@ -34,11 +34,17 @@
 // record's heavy rows of y loaded while the tiles are, and the tiles'
 // sums folded over lanes with warp shuffles and over tiles in shared
 // memory, in tile order, so no partials reach device memory.
+//
+// D has a build for each value policy of values.cuh: the float32 entry
+// point, and `_bf16` (2 B values widened to float32, x and y float32),
+// `_i32` and `_u32` (plus_times, max_times and or_and, sums wrapping mod
+// 2^32) entry points with the same arguments.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "semiring.cuh"
+#include "values.cuh"
 
 namespace {
 
@@ -55,17 +61,19 @@ constexpr int kBatch = 8;
 
 // blockIdx.x: records in a grid-stride loop; threadIdx.x = group g *
 // lanes + lane
-template <class S>
+template <class S, class V>
 __global__ void __launch_bounds__(kMaxGroups * 128)
-heavy_runs_kernel(const float* __restrict__ vals,
+heavy_runs_kernel(const typename V::Slot* __restrict__ vals,
                   const int16_t* __restrict__ cols_win,
                   const int* __restrict__ bases,
                   const int* __restrict__ tile_row,
                   const int* __restrict__ rows,
-                  const int4* __restrict__ runs, const float* __restrict__ x,
-                  float* __restrict__ y, long long num_runs, int positions,
-                  int lanes, long long ncols) {
-    __shared__ float wsum[kMaxTiles * kMaxWarps];   // a tile's warp sums
+                  const int4* __restrict__ runs,
+                  const typename V::T* __restrict__ x,
+                  typename V::T* __restrict__ y, long long num_runs,
+                  int positions, int lanes, long long ncols) {
+    using T = typename V::T;
+    __shared__ T wsum[kMaxTiles * kMaxWarps];       // a tile's warp sums
     __shared__ int ts[kMaxTiles];
     const int groups = blockDim.x / lanes;
     const int g = threadIdx.x / lanes;
@@ -82,8 +90,8 @@ heavy_runs_kernel(const float* __restrict__ vals,
             ts[j] = __ldg(tile_row + run.x + j);
         // thread si < ns writes heavy row s0 + si: its row of y, and the
         // value there, ahead of the sums (ns <= blockDim.x, checked)
-        float* dst = nullptr;
-        float old = 0.0f;
+        T* dst = nullptr;
+        T old = T(0);
         if (threadIdx.x < ns) {
             dst = y + __ldg(rows + s0 + threadIdx.x);
             if (!atomic) old = *dst;
@@ -94,10 +102,10 @@ heavy_runs_kernel(const float* __restrict__ vals,
             const long long t = run.x + j;
             const int* base = bases + t * positions;
             const long long slot = t * slots + lane;
-            float acc = S::init();
+            T acc = S::init();
             for (int p0 = 0; p0 < positions; p0 += kBatch) {
                 long long cc[kBatch];
-                float vv[kBatch];
+                T vv[kBatch];
 #pragma unroll
                 for (int u = 0; u < kBatch; ++u) {
                     const bool ok = p0 + u < positions;
@@ -105,14 +113,14 @@ heavy_runs_kernel(const float* __restrict__ vals,
                     cc[u] = ok ? (long long)__ldg(base + p0 + u) * kBlock +
                                      __ldg(cols_win + s)
                                : ncols;
-                    vv[u] = ok ? __ldg(vals + s) : 0.0f;
+                    vv[u] = ok ? V::load(vals + s, 0) : T(0);
                 }
 #pragma unroll
                 for (int u = 0; u < kBatch; ++u)
                     if (p0 + u < positions)
                         acc = S::step(acc, vv[u],
                                       cc[u] < ncols ? __ldg(x + cc[u])
-                                                    : 0.0f);
+                                                    : T(0));
             }
             // the tile's lanes: a warp's 32 by shuffles, then its warps
             for (int off = 16; off > 0; off >>= 1)
@@ -122,7 +130,7 @@ heavy_runs_kernel(const float* __restrict__ vals,
         __syncthreads();
         // 2. each heavy row of the record: its tiles in tile order
         if (threadIdx.x < ns) {
-            float acc = S::init();
+            T acc = S::init();
             for (int j = 0; j < nt; ++j)
                 if (ts[j] == s0 + (int)threadIdx.x)
                     for (int w = 0; w < warps; ++w)
@@ -136,22 +144,13 @@ heavy_runs_kernel(const float* __restrict__ vals,
     }
 }
 
-}  // namespace
-
-// vals, cols_win: (tiles, positions, lanes) float32 / int16; bases:
-// (tiles, positions) int32; tile_row: (tiles,) int32, nondecreasing;
-// rows: (heavy rows,) int32 rows of y; runs: (num_runs, 4) int32 records
-// of at most max_tiles tiles and max_slices heavy rows each; x: (ncols,);
-// y: updated in place.
-// lanes a multiple of 32, at most 256; runs 16-byte aligned.  semiring:
-// a code of semiring.cuh
-extern "C" int spmv_subwin_f32(const float* vals, const int16_t* cols_win,
-                               const int* bases, const int* tile_row,
-                               const int* rows, const int* runs,
-                               const float* x, float* y, long long num_runs,
-                               int positions, int lanes, long long ncols,
-                               int max_tiles, int max_slices, int semiring,
-                               void* stream) {
+template <class V>
+int launch_heavy(const void* vals, const int16_t* cols_win, const int* bases,
+                 const int* tile_row, const int* rows, const int* runs,
+                 const void* x, void* y, long long num_runs, int positions,
+                 int lanes, long long ncols, int max_tiles, int max_slices,
+                 int semiring, void* stream) {
+    using T = typename V::T;
     if (positions < 1 || lanes < 32 || lanes % 32 ||
         lanes > 32 * kMaxWarps || max_tiles < 1 || max_tiles > kMaxTiles ||
         max_slices < 1 || max_slices > lanes)
@@ -163,13 +162,40 @@ extern "C" int spmv_subwin_f32(const float* vals, const int16_t* cols_win,
     if (groups * lanes > kMaxGroups * 128) groups = kMaxGroups * 128 / lanes;
     const unsigned blocks =
         (unsigned)(num_runs < (1LL << 20) ? num_runs : (1LL << 20));
-    cudaError_t err = spmv::with_semiring(semiring, [&](auto s) {
-        heavy_runs_kernel<decltype(s)>
+    cudaError_t err = spmv::with_semiring<T>(semiring, [&](auto s) {
+        heavy_runs_kernel<decltype(s), V>
             <<<blocks, groups * lanes, 0, (cudaStream_t)stream>>>(
-                vals, cols_win, bases, tile_row, rows,
-                reinterpret_cast<const int4*>(runs), x, y, num_runs,
+                static_cast<const typename V::Slot*>(vals), cols_win, bases,
+                tile_row, rows, reinterpret_cast<const int4*>(runs),
+                static_cast<const T*>(x), static_cast<T*>(y), num_runs,
                 positions, lanes, ncols);
     });
     if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
 }
+
+}  // namespace
+
+// vals, cols_win: (tiles, positions, lanes) values / int16; bases:
+// (tiles, positions) int32; tile_row: (tiles,) int32, nondecreasing;
+// rows: (heavy rows,) int32 rows of y; runs: (num_runs, 4) int32 records
+// of at most max_tiles tiles and max_slices heavy rows each; x: (ncols,);
+// y: updated in place.
+// lanes a multiple of 32, at most 256; runs 16-byte aligned.  semiring:
+// a code of semiring.cuh
+#define SPMV_SUBWIN_BUILD(sfx, V)                                           \
+    extern "C" int spmv_subwin_##sfx(                                       \
+        const void* vals, const int16_t* cols_win, const int* bases,        \
+        const int* tile_row, const int* rows, const int* runs,              \
+        const void* x, void* y, long long num_runs, int positions,          \
+        int lanes, long long ncols, int max_tiles, int max_slices,          \
+        int semiring, void* stream) {                                       \
+        return launch_heavy<V>(vals, cols_win, bases, tile_row, rows, runs, \
+                               x, y, num_runs, positions, lanes, ncols,     \
+                               max_tiles, max_slices, semiring, stream);    \
+    }
+
+SPMV_SUBWIN_BUILD(f32, spmv::F32Values)
+SPMV_SUBWIN_BUILD(bf16, spmv::Bf16Values)
+SPMV_SUBWIN_BUILD(i32, spmv::I32Values)
+SPMV_SUBWIN_BUILD(u32, spmv::U32Values)

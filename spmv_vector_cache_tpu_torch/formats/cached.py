@@ -70,8 +70,10 @@ def coo_tail_from_csr(csr: CSR, value_dtype=np.float32) -> CooTail:
     lens = np.diff(np.asarray(csr.indptr, dtype=np.int64))
     rows_idx = np.repeat(np.arange(csr.shape[0], dtype=np.int32),
                          lens.astype(np.int64))
+    from .plan import finish_values, host_values
+
     return CooTail(
-        vals=np.asarray(csr.data).astype(value_dtype),
+        vals=finish_values(host_values(csr.data, value_dtype), value_dtype),
         cols=(np.asarray(csr.indices, dtype=np.int64)
               & 0x3FFFFFFF).astype(np.int32),
         rows_idx=rows_idx, shape=csr.shape)

@@ -31,7 +31,8 @@ import numpy as np
 import torch
 
 from .plan import (TILES_PER_STEP, PlanStats, SellPlan, _as_csr, _cdiv,
-                   _require_f32, compute_window_rows)
+                   build_dtype, check_pad, compute_window_rows,
+                   finish_values, host_values, value_kind)
 
 Array = Any
 
@@ -223,7 +224,11 @@ def build_chunk_plan(a, *, value_dtype=np.float32,
     if sigma != CHUNK_SIGMA:
         raise ValueError(f"sigma must be {CHUNK_SIGMA} (the lane-perm "
                          f"kernel's reach); got {sigma}")
-    _require_f32(value_dtype)
+    if value_kind(value_dtype) == "f64":
+        raise NotImplementedError("chunk plans hold no float64 values (the "
+                                  "planner never builds one, as in the "
+                                  "reference)")
+    check_pad(value_dtype, pad_value)
     csr = _as_csr(a)
     rows, cols_n = csr.shape
     indptr = np.asarray(csr.indptr, dtype=np.int64)
@@ -443,10 +448,10 @@ def build_chunk_plan(a, *, value_dtype=np.float32,
         l_k = slot_lane[ssel]
         s_k = slot_src[ssel]
 
-        vals = np.full((T, P, R), pad_value, dtype=value_dtype)
+        vals = np.full((T, P, R), pad_value, dtype=build_dtype(value_dtype))
         colsg = np.zeros((T, P, R), dtype=np.int64)
         live = np.zeros((T, P, R), dtype=bool)
-        vals[t_k, p_k, l_k] = data[s_k].astype(value_dtype)
+        vals[t_k, p_k, l_k] = host_values(data[s_k], value_dtype)
         colsg[t_k, p_k, l_k] = indices[s_k]
         live[t_k, p_k, l_k] = True
 
@@ -473,7 +478,8 @@ def build_chunk_plan(a, *, value_dtype=np.float32,
             group_slice_identity=False, double=False, window_grain=128)
         window_rows = compute_window_rows(wb, K, cols_n, 128)
         buckets.append(SellPlan(
-            vals=vals, cols=cols_glob, cols_win=cols_win,
+            vals=finish_values(vals, value_dtype), cols=cols_glob,
+            cols_win=cols_win,
             tile_slice=tile_slice, window_base=wb.astype(np.int32),
             row_map=row_map_np, window_rows=window_rows,
             shape=(rows, cols_n), lane_rows=R, positions=P,
@@ -506,11 +512,12 @@ def build_chunk_plan(a, *, value_dtype=np.float32,
             T = _cdiv(T0, step) * step
             ssel = np.flatnonzero(new_tid[h_slot_tile] >= 0)
             t_k = new_tid[h_slot_tile[ssel]]
-            vals = np.full((T, P, R), pad_value, dtype=value_dtype)
+            vals = np.full((T, P, R), pad_value,
+                           dtype=build_dtype(value_dtype))
             offs = np.zeros((T, P, R), dtype=np.int64)
             srow_sel = h_slot_sub[ssel]
             vals[t_k, srow_sel, h_slot_lane[ssel]] = \
-                data[h_src[ssel]].astype(value_dtype)
+                host_values(data[h_src[ssel]], value_dtype)
             offs[t_k, srow_sel, h_slot_lane[ssel]] = \
                 indices[h_src[ssel]] - \
                 h_base[h_slot_tile[ssel], srow_sel] * R
@@ -520,7 +527,8 @@ def build_chunk_plan(a, *, value_dtype=np.float32,
             tile_seg = np.full(T, nseg - 1, dtype=np.int32)
             tile_seg[:T0] = h_tseg[tids].astype(np.int32)
             hbuckets.append(SubwinPlan(
-                vals=vals, cols_win=offs.astype(np.int16),
+                vals=finish_values(vals, value_dtype),
+                cols_win=offs.astype(np.int16),
                 bases=bases.astype(np.int32), tile_seg=tile_seg,
                 shape=(rows, cols_n), window_blocks=W,
                 groups_per_step=step // TILES_PER_STEP))

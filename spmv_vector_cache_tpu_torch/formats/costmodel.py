@@ -86,7 +86,10 @@ def _sell_seconds(plan) -> float:
 
 def _dia_seconds(plan) -> float:
     vals = plan.vals
-    nbytes = int(np.prod(vals.shape)) * np.dtype(vals.dtype).itemsize
+    # a bfloat16 slab is a torch tensor (numpy has no bfloat16 here)
+    size = vals.element_size() if hasattr(vals, "element_size") \
+        else np.dtype(vals.dtype).itemsize
+    nbytes = int(np.prod(tuple(vals.shape))) * size
     steps = max(1, vals.shape[0])
     return (_NS_LAUNCH + nbytes / _BYTES_PER_NS
             + steps * _NS_PER_GRID_STEP) * 1e-9

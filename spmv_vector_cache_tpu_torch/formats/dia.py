@@ -199,10 +199,13 @@ def build_dia_plan(a, *, sublanes: int = DIA_SUBLANES,
     """Build the (T, D, S, 128) tile plan from a DIA/CSR/CSC/COO
     container.  ``value_dtype=np.float64`` builds a double plan: each
     value as a (hi, lo) float32 pair, highs and lows stacked along the
-    diagonal axis, (T, 2D, S, 128)."""
-    from .plan import _require_f32_or_f64
+    diagonal axis, (T, 2D, S, 128).  bfloat16, int32, int64 and uint32
+    build the plans of ``formats.plan.value_kind`` (a bfloat16 slab is a
+    CPU ``torch.bfloat16`` tensor)."""
+    from .plan import finish_values, host_values, value_kind
 
-    double = _require_f32_or_f64(value_dtype)
+    kind = value_kind(value_dtype)
+    double = kind == "f64"
     if not isinstance(a, DIA):
         if isinstance(a, (CSC, COO)):
             from .convert import coo_to_csr, csc_to_csr
@@ -215,16 +218,18 @@ def build_dia_plan(a, *, sublanes: int = DIA_SUBLANES,
     D = len(offsets)
     nr = rows + ((-rows) % RS)
     T = nr // RS
-    vd = np.zeros((D, nr), value_dtype)
-    vd[:, :rows] = np.asarray(a.data, value_dtype)
+    data = host_values(a.data, value_dtype)
+    vd = np.zeros((D, nr), data.dtype)
+    vd[:, :rows] = data
     store = vd
     if double:
         from ..ops.df64 import split_f64
 
         hi, lo = split_f64(vd)
         store = np.concatenate([hi, lo], axis=0)       # (2D, nr) f32
-    vals = np.ascontiguousarray(
-        store.reshape(store.shape[0], T, S, 128).transpose(1, 0, 2, 3))
+    vals = finish_values(np.ascontiguousarray(
+        store.reshape(store.shape[0], T, S, 128).transpose(1, 0, 2, 3)),
+        value_dtype)
 
     omin = min(offsets) if offsets else 0
     pad_left = ((max(0, -omin)) + 127) // 128 * 128
@@ -233,7 +238,9 @@ def build_dia_plan(a, *, sublanes: int = DIA_SUBLANES,
     x_rows = max(x_rows, (pad_left + cols + 127) // 128)
 
     nnz = int((vd != 0).sum())
-    streamed = store.shape[0] * nr * store.itemsize
+    # a bfloat16 slab streams 2 bytes a slot (built in float32)
+    streamed = store.shape[0] * nr * (2 if kind == "bf16" else
+                                      store.itemsize)
     stats = DiaStats(
         nnz=nnz, ndiag=D, num_steps=T,
         fill=float(nnz) / float(D * nr) if D else 0.0,

@@ -28,7 +28,8 @@ from typing import Any, Tuple
 
 import numpy as np
 
-from .plan import _as_csr, _cdiv, _ensure_sorted, _require_f32
+from .plan import (_as_csr, _cdiv, _ensure_sorted, build_dtype,
+                   finish_values, host_values, value_kind)
 
 Array = Any
 
@@ -105,7 +106,11 @@ def build_packed_plan(a, *, chunk_blocks: int = PACKED_CHUNK_BLOCKS,
                          "columns + piece-start flag in bit 14)")
     if step_tiles * 1024 > 32768:
         raise ValueError("step_tiles > 32 would overflow int16 esrc")
-    _require_f32(value_dtype)
+    if value_kind(value_dtype) == "f64":
+        raise NotImplementedError("packed plans hold no float64 values (the "
+                                  "planner never builds one, as in the "
+                                  "reference)")
+    vdt = build_dtype(value_dtype)
     csr = _ensure_sorted(_as_csr(a))
     rows, ncols = csr.shape
     RW = PACKED_WINDOW_BLOCKS * 128
@@ -120,13 +125,14 @@ def build_packed_plan(a, *, chunk_blocks: int = PACKED_CHUNK_BLOCKS,
 
     if nnz == 0:
         return PackedPlan(
-            vals=np.zeros((step_tiles, 8, 128), value_dtype),
+            vals=finish_values(np.zeros((step_tiles, 8, 128), vdt),
+                               value_dtype),
             cols=np.zeros((step_tiles, 8, 128), np.int16),
             cstep=np.zeros(1, np.int32), sblock=np.zeros(1, np.int32),
             wstep=np.zeros(1, np.int32), wfirst=np.ones(1, np.int32),
             esrc=np.full((1, 64, 128), -1, np.int16),
-            window_mask=np.zeros(nwin, value_dtype),
-            ov_vals=np.zeros(0, value_dtype),
+            window_mask=finish_values(np.zeros(nwin, vdt), value_dtype),
+            ov_vals=finish_values(np.zeros(0, vdt), value_dtype),
             ov_cols=np.zeros(0, np.int32), ov_rows=np.zeros(0, np.int32),
             shape=(rows, ncols),
             stats=PackedStats(nnz=0, num_tiles=step_tiles, num_steps_a=1,
@@ -142,7 +148,7 @@ def build_packed_plan(a, *, chunk_blocks: int = PACKED_CHUNK_BLOCKS,
     order = np.argsort(c_of, kind="stable")   # (chunk, row, col)
     rows_o = nz_row[order]
     cols_o = (indices[order] % C).astype(np.int16)
-    vals_o = data[order].astype(value_dtype)
+    vals_o = host_values(data[order], value_dtype)
     chunks_o = c_of[order]
 
     nchunks = int(chunks_o[-1]) + 1
@@ -156,7 +162,7 @@ def build_packed_plan(a, *, chunk_blocks: int = PACKED_CHUNK_BLOCKS,
     T = total_slots // 1024
     steps_a = total_slots // sps
 
-    vals = np.zeros(total_slots, value_dtype)
+    vals = np.zeros(total_slots, vdt)
     vals[slot] = vals_o
     cols16 = np.zeros(total_slots, np.int16)
     cols16[slot] = cols_o
@@ -216,14 +222,15 @@ def build_packed_plan(a, *, chunk_blocks: int = PACKED_CHUNK_BLOCKS,
     esrc[vstep, o, j] = (pe - sblock[vstep].astype(np.int64) * sps
                          ).astype(np.int16)
 
-    wmask = np.zeros(nwin, value_dtype)
+    wmask = np.zeros(nwin, vdt)
     wmask[np.unique(wstep)] = 1
 
     return PackedPlan(
-        vals=vals.reshape(T, 8, 128), cols=cols16.reshape(T, 8, 128),
+        vals=finish_values(vals.reshape(T, 8, 128), value_dtype),
+        cols=cols16.reshape(T, 8, 128),
         cstep=cstep, sblock=sblock, wstep=wstep, wfirst=wfirst,
-        esrc=esrc, window_mask=wmask,
-        ov_vals=ov_vals.astype(value_dtype), ov_cols=ov_cols,
+        esrc=esrc, window_mask=finish_values(wmask, value_dtype),
+        ov_vals=finish_values(ov_vals, value_dtype), ov_cols=ov_cols,
         ov_rows=ov_rows, shape=(rows, ncols),
         stats=PackedStats(
             nnz=nnz, num_tiles=T, num_steps_a=steps_a,

@@ -5,9 +5,10 @@ The plan builders are the JAX package's host-side numpy code, carried
 over unchanged so that both packages build byte-equal plans for the same
 matrix; the port's kernels are checked against the reference on
 identical layouts.  Every plan family the reference planner builds
-for f32 values (SELL, DIA, Hybrid, Chunk, Packed, Cached, CooTail) is
-ported, and the double (``value_dtype=np.float64``) SELL, DIA and Hybrid
-plans, whose values are hi/lo float32 pairs.
+(SELL, DIA, Hybrid, Chunk, Packed, Cached, CooTail) is ported for
+float32, bfloat16, int32, int64 (stored as int32) and uint32 values
+(:func:`value_kind`), and the double (``value_dtype=np.float64``) SELL,
+DIA and Hybrid plans, whose values are hi/lo float32 pairs.
 
 The layout is a **sliced-ELLPACK (SELL) tile plan** over CSR:
 
@@ -60,23 +61,106 @@ RESIDENT_MAX_BLOCKS = 64
 DEEP_MAX_BLOCKS = 2048
 
 
-def _require_f32(value_dtype) -> None:
-    """The chunk and packed builders: float32 values only (the planner
-    never gives them float64, as in the reference)."""
-    if np.dtype(value_dtype) != np.float32:
-        raise NotImplementedError(
-            f"value_dtype {np.dtype(value_dtype)}: this plan family is "
-            f"built for float32 values only")
+#: value kinds the plan builders take, by the numpy name of the
+#: ``value_dtype`` asked for: float32, float64 (stored as hi/lo float32
+#: pairs), bfloat16 (summed in float32), int32 and uint32 (summed
+#: exactly, wrapping mod 2^32); int64 values are stored as int32, as the
+#: reference's device plan holds them (``to_device`` with x64 off), after
+#: a range check the reference does not make (ROADMAP.md queue 3)
+_KINDS = {"float32": "f32", "float64": "f64", "bfloat16": "bf16",
+          "int32": "i32", "int64": "i32", "uint32": "u32"}
+#: the numpy type a builder lays each kind's values out in: bf16 values
+#: are rounded to bfloat16 (nearest even) and held exactly in float32
+#: until :func:`finish_values` makes them a bfloat16 tensor (numpy has
+#: no bfloat16 without ``ml_dtypes``, which the port does not import)
+_BUILD = {"f32": np.float32, "f64": np.float64, "bf16": np.float32,
+          "i32": np.int32, "u32": np.uint32}
 
 
-def _require_f32_or_f64(value_dtype) -> bool:
-    """The SELL and DIA builders: float32, or float64 stored as hi/lo
-    float32 pairs; returns whether the plan is double."""
-    if np.dtype(value_dtype) not in (np.float32, np.float64):
+def _dtype_name(value_dtype) -> str:
+    """The numpy name of ``value_dtype``: a numpy type or name, a torch
+    dtype, or any object numpy reads as a dtype (``jnp.bfloat16`` where
+    ``ml_dtypes`` is loaded); "bfloat16" is never handed to numpy."""
+    if isinstance(value_dtype, torch.dtype):
+        return str(value_dtype).rsplit(".", 1)[-1]
+    if isinstance(value_dtype, str) and value_dtype == "bfloat16":
+        return value_dtype
+    return np.dtype(value_dtype).name
+
+
+def value_kind(value_dtype) -> str:
+    """The kind of plan ``value_dtype`` builds: ``f32``, ``f64``,
+    ``bf16``, ``i32`` (int32 or int64) or ``u32``.  Every builder calls
+    it; any other type (float16, int8, int16, uint64, ...) raises
+    ``NotImplementedError``."""
+    name = _dtype_name(value_dtype)
+    if name not in _KINDS:
         raise NotImplementedError(
-            f"value_dtype {np.dtype(value_dtype)}: float32 and float64 "
-            f"plans are ported (bf16 is ROADMAP.md queue 1, item 2)")
-    return np.dtype(value_dtype) == np.float64
+            f"value_dtype {name}: the port builds float32, float64, "
+            f"bfloat16, int32, int64 and uint32 plans (ROADMAP.md queue 1, "
+            f"item 2, records what the reference does with the others)")
+    return _KINDS[name]
+
+
+def build_dtype(value_dtype):
+    """The numpy type a builder lays ``value_dtype``'s values out in."""
+    return _BUILD[value_kind(value_dtype)]
+
+
+def host_values(data, value_dtype) -> np.ndarray:
+    """``data`` as a builder stores it for ``value_dtype``, value by
+    value what the reference's ``astype(value_dtype)`` stores: bfloat16
+    rounded to nearest even (held in float32), int32 and uint32 as numpy
+    casts; int64 as int32, refused when a value does not fit (the
+    reference narrows it on the device and wraps it silently)."""
+    name = _dtype_name(value_dtype)
+    kind = value_kind(value_dtype)
+    d = np.asarray(data)
+    if kind == "bf16":
+        t = torch.from_numpy(np.ascontiguousarray(d))
+        return t.to(torch.bfloat16).to(torch.float32).numpy()
+    if name == "int64":
+        d = d.astype(np.int64)
+        info = np.iinfo(np.int32)
+        if d.size and (d.min() < info.min or d.max() > info.max):
+            bad = d[(d < info.min) | (d > info.max)][0]
+            raise ValueError(
+                f"int64 value {bad} does not fit int32: int64 plans are "
+                f"stored as int32 (the reference wraps such a value "
+                f"silently, ROADMAP.md queue 3)")
+    return d.astype(_BUILD[kind])
+
+
+def finish_values(arr, value_dtype):
+    """A builder's value array as the plan holds it on the host: a CPU
+    ``torch.bfloat16`` tensor for a bf16 plan (exact: the values were
+    rounded by :func:`host_values`), else the numpy array itself."""
+    if value_kind(value_dtype) == "bf16":
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(torch.bfloat16)
+    return arr
+
+
+def host_numpy(v) -> np.ndarray:
+    """A value array of a host or placed plan as numpy: a bfloat16
+    tensor as float32 (exact), any other tensor copied to the host."""
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu()
+        return (v.float() if v.dtype == torch.bfloat16 else v).numpy()
+    return np.asarray(v)
+
+
+def check_pad(value_dtype, pad_value: float) -> None:
+    """Integer plans take only the semirings whose zero is finite
+    (plus_times, max_times, or_and): the reference casts min_plus's +inf
+    and max_plus's -inf to INT_MIN and returns a y off by 2^31
+    (ROADMAP.md queue 3)."""
+    if value_kind(value_dtype) in ("i32", "u32") and \
+            not np.isfinite(pad_value):
+        raise ValueError(
+            f"an integer plan has no {pad_value} for its padding: integer "
+            f"plans run plus_times, max_times and or_and only (the "
+            f"reference casts the infinite zero of min_plus and max_plus "
+            f"to INT_MIN, ROADMAP.md queue 3)")
 
 
 def map_arrays(plan, fn):
@@ -355,7 +439,9 @@ def build_sell_plan(a, *, lane_rows: int = 128, positions: int = 8,
                          f"TILES_PER_STEP ({TILES_PER_STEP})")
     if uniform_split and (split is None or stripe_width is not None):
         raise ValueError("uniform_split requires split= and no striping")
-    double = _require_f32_or_f64(value_dtype)
+    kind = value_kind(value_dtype)
+    double = kind == "f64"
+    check_pad(value_dtype, pad_value)
     if double and pad_value != 0.0:
         raise ValueError("double-float plans support plus_times only "
                          "(pad_value must be 0)")
@@ -367,7 +453,7 @@ def build_sell_plan(a, *, lane_rows: int = 128, positions: int = 8,
     rows, cols_n = csr.shape
     indptr = np.asarray(csr.indptr, dtype=np.int64)
     indices = (np.asarray(csr.indices, dtype=np.int64) & 0x3FFFFFFF)
-    data = np.asarray(csr.data)
+    data = host_values(csr.data, value_dtype)
     nnz = int(indptr[-1])
     R, P, B = lane_rows, positions, TILES_PER_STEP
 
@@ -540,7 +626,7 @@ def build_sell_plan(a, *, lane_rows: int = 128, positions: int = 8,
     tile_base = np.concatenate(([0], np.cumsum(ntiles_padded)))
     T = int(tile_base[-1])
 
-    vals = np.full((T, P, R), pad_value, dtype=value_dtype)
+    vals = np.full((T, P, R), pad_value, dtype=_BUILD[kind])
     cols = np.zeros((T, P, R), dtype=np.int32)
     live = np.zeros((T, P, R), dtype=bool)
     if nnz:
@@ -555,7 +641,7 @@ def build_sell_plan(a, *, lane_rows: int = 128, positions: int = 8,
         j = k % R
         t = tile_base[s] + q // P
         p = q % P
-        vals[t, p, j] = data[src].astype(value_dtype)
+        vals[t, p, j] = data[src]
         cols[t, p, j] = indices[src].astype(np.int32)
         live[t, p, j] = True
 
@@ -650,6 +736,7 @@ def build_sell_plan(a, *, lane_rows: int = 128, positions: int = 8,
 
         hi, lo = split_f64(vals)
         vals = np.concatenate([hi, lo], axis=1)        # (T, 2P, R)
+    vals = finish_values(vals, value_dtype)
     window_rows = compute_window_rows(wb, window_blocks, cols_n, grain)
 
     return SellPlan(vals=vals, cols=cols, cols_win=cols_win,
@@ -685,6 +772,7 @@ def auto_plan(a, *, value_dtype=np.float32, max_window_blocks: int = 16,
     from ..ops import semiring as sr
 
     s = sr.get(semiring)
+    check_pad(value_dtype, s.zero)
     csr = _as_csr(a)
     if s.requires_nonnegative and csr.nnz:
         vmin = np.asarray(csr.data).min()
@@ -774,7 +862,7 @@ def _coo_backstop(csr: CSR, plan, value_dtype):
     """Prefer the COO gather+scatter path when it prices below the
     structured plan (plus-times f32 only; fires mostly on tiny
     scatter-epilogue layouts like hybrid residues)."""
-    if csr.nnz == 0 or np.dtype(value_dtype) == np.float64:
+    if csr.nnz == 0 or value_kind(value_dtype) == "f64":
         return plan
     from .cached import COO_TAIL_MAX, CooTail, coo_tail_from_csr
     from .costmodel import estimate_seconds
@@ -807,7 +895,7 @@ def _auto_sell_plan(csr: CSR, *, value_dtype, max_window_blocks,
             # split/sigma scatter epilogue; take it when the cost model
             # prices it below the split/sigma plan and the layout stays
             # dtype/shape-compatible
-            if np.dtype(value_dtype) != np.float64 and \
+            if value_kind(value_dtype) != "f64" and \
                     lane_rows == 128 and positions == 8:
                 from .chunk import build_chunk_plan
                 from .costmodel import estimate_seconds
@@ -859,7 +947,7 @@ def _auto_sell_plan(csr: CSR, *, value_dtype, max_window_blocks,
     from . import analysis
 
     ws = analysis.column_working_set(csr)
-    if ws <= 2048 and np.dtype(value_dtype) != np.float64:
+    if ws <= 2048 and value_kind(value_dtype) != "f64":
         # bounded x working set: a compact tier keeps every live column
         # resident, beating striping's sub-row merge outright
         from .cached import _compact_full_cover
@@ -906,17 +994,17 @@ def _auto_sell_plan(csr: CSR, *, value_dtype, max_window_blocks,
     from .cached import (COO_TAIL_MAX, _compact_full_cover,
                          coo_tail_from_csr)
 
-    if np.dtype(value_dtype) != np.float64 and csr.nnz <= (1 << 20):
+    if value_kind(value_dtype) != "f64" and csr.nnz <= (1 << 20):
         # windowless but narrow working set: remap the distinct columns
         # into one compact tier (resident/deep kernel, 100% coverage)
         fc = _compact_full_cover(csr, kw)
         if fc is not None:
             return fc
-    if csr.nnz <= COO_TAIL_MAX and np.dtype(value_dtype) != np.float64:
+    if csr.nnz <= COO_TAIL_MAX and value_kind(value_dtype) != "f64":
         # tiny and windowless: the element gather + segment scatter
         # beats every tiled kernel's fixed machinery
         return coo_tail_from_csr(csr, value_dtype=value_dtype)
-    if allow_cached and np.dtype(value_dtype) != np.float64:
+    if allow_cached and value_kind(value_dtype) != "f64":
         from .cached import build_cached_plan
 
         cp = build_cached_plan(csr, value_dtype=value_dtype,
@@ -926,7 +1014,7 @@ def _auto_sell_plan(csr: CSR, *, value_dtype, max_window_blocks,
                                allow_packed=allow_packed)
         if cp is not None:
             return cp
-    if allow_packed and np.dtype(value_dtype) != np.float64:
+    if allow_packed and value_kind(value_dtype) != "f64":
         from .packed import build_packed_plan
 
         return build_packed_plan(csr, value_dtype=value_dtype)
@@ -963,7 +1051,7 @@ def validate_plan(plan: SellPlan, a=None) -> None:
         raise ValueError("tile_slice out of range")
 
     cols = np.asarray(plan.cols)
-    vals = np.asarray(plan.vals)
+    vals = host_numpy(plan.vals)
     if plan.stats.double:      # rejoin the hi/lo channel pairs to f64
         vals = vals[:, :P].astype(np.float64) + vals[:, P:]
     pad = plan.stats.pad_value

@@ -8,6 +8,13 @@ arrays on ``device``.  :func:`gcn_params_from_reference` does the same
 for the GCN parameters of the reference's ``init_gcn_params``.
 :func:`plan_to_numpy` turns a port plan's tensors back into numpy
 arrays, for byte-for-byte comparisons in tests.
+
+Value arrays cross as the port holds them: a JAX bfloat16 array (an
+``ml_dtypes`` array on the host) by its bits, viewed as uint16 and then
+as a ``torch.bfloat16`` tensor, so neither side needs ``ml_dtypes``; an
+int64 plan's values (the reference's host plan keeps int64, its device
+plan int32) as int32 after a range check (``formats.plan.host_values``);
+and a bfloat16 tensor back to numpy as its uint16 bits.
 """
 
 from __future__ import annotations
@@ -21,7 +28,8 @@ from .formats.cached import CachedPlan, CooTail
 from .formats.chunk import ChunkPlan, ChunkStats, SubwinPlan
 from .formats.dia import DiaPlan, DiaStats, HybridPlan
 from .formats.packed import PackedPlan, PackedStats
-from .formats.plan import PlanStats, SellPlan, map_arrays, place
+from .formats.plan import (PlanStats, SellPlan, host_values, map_arrays,
+                           place)
 from .ops.spgemm import SpGemmPlan
 from .ops.sptrsv import TriSolvePlan
 from .parallel.dia_sharded import ShardedDiaPlan
@@ -35,6 +43,19 @@ _PLANS = {cls.__name__: cls for cls in
 _SHARDED = (ShardedPlan, ShardedDiaPlan)
 _STATS = {"SellPlan": PlanStats, "DiaPlan": DiaStats,
           "PackedPlan": PackedStats}
+#: the fields of a plan that hold matrix values
+_VALUE_FIELDS = ("vals", "ov_vals", "window_mask")
+
+
+def _array(v, field: str):
+    """A reference array as the port holds it on the host."""
+    a = np.asarray(v)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.uint16)) \
+            .view(torch.bfloat16)
+    if a.dtype == np.int64 and field in _VALUE_FIELDS:
+        return host_values(a, np.int64)
+    return a
 
 
 def _host(plan_ref):
@@ -72,7 +93,7 @@ def _host(plan_ref):
         elif f.name == "offsets":
             v = tuple(int(o) for o in v)
         elif getattr(v, "ndim", 0) >= 1:        # a numpy or JAX array
-            v = np.asarray(v)
+            v = _array(v, f.name)
         kw[f.name] = v
     return cls(**kw)
 
@@ -97,8 +118,18 @@ def plan_to_numpy(plan):
     sharded plan's per-shard tensors stacked back into one array)."""
     if isinstance(plan, _SHARDED):
         return stacked_numpy(plan)
-    return map_arrays(plan, lambda v: v.cpu().numpy()
-                      if isinstance(v, torch.Tensor) else v)
+    return map_arrays(plan, _numpy)
+
+
+def _numpy(v):
+    """A plan field as numpy: a bfloat16 tensor as its uint16 bits (numpy
+    has no bfloat16 here, and ``.numpy()`` of one raises)."""
+    if not isinstance(v, torch.Tensor):
+        return v
+    v = v.detach().cpu()
+    if v.dtype == torch.bfloat16:
+        return v.view(torch.int16).numpy().view(np.uint16)
+    return v.numpy()
 
 
 def gcn_params_from_reference(params_ref, device="cuda"):

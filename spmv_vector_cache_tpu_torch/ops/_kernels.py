@@ -11,11 +11,20 @@ time: the CPU tests import every module of the port.
 Every wrapper launches through :func:`launch`, the port's one launch
 path: it binds each C entry point once, passes the raw handle of the
 current stream of the operands' card (:func:`current_stream`, no Python
-``Stream`` object), and raises on a launch error.
+``Stream`` object), raises on a launch error, and counts the launch by
+entry point in :data:`launches`, the port's one launch count: a test or
+the smoke clears it just before the path it checks and reads it just
+after.
+
+Kernels A, B, D, E, F, G, H, I, M and the chunk light route have one
+build per value type of a plan (:data:`BUILDS`): the ``_f32`` entry
+point, and ``_bf16``, ``_i32`` and ``_u32`` entry points with the same
+arguments; :func:`entry` names the one for a value slab's type.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -97,6 +106,37 @@ SIGNATURES = {
     # data, out, num_blocks, block_elems, stream
     "stream_checksum_f32": [_P, _P, _L, _L, _P],
 }
+
+#: the entry-point suffix of each value slab type (a plan's ``vals``
+#: dtype; a double plan's hi/lo float32 slab has its own ``_f64``
+#: entry points)
+BUILDS = {torch.float32: "f32", torch.bfloat16: "bf16",
+          torch.int32: "i32", torch.uint32: "u32"}
+#: the kernels with more builds than float32, by their float32 entry,
+#: and the value types they are built for
+TYPED = {name: tuple(BUILDS.values()) for name in (
+    "spmv_dia_f32", "spmv_dia_halo_f32", "spmv_sell_window_f32",
+    "spmv_sell_global_f32", "spmv_subwin_f32", "spmv_chunk_light_f32",
+    "packed_scan_f32", "packed_extract_f32", "spmm_sell_window_f32",
+    "spmm_dia_f32")}
+for _name, _sfxs in TYPED.items():
+    for _sfx in _sfxs:
+        SIGNATURES[_name[:-3] + _sfx] = SIGNATURES[_name]
+
+
+def entry(name: str, vals_dtype: torch.dtype) -> str:
+    """The entry point of kernel ``name`` (its float32 entry, one of
+    :data:`TYPED`) for a value slab of ``vals_dtype``; raises
+    ``NotImplementedError`` for a type it has no build for."""
+    sfx = BUILDS.get(vals_dtype)
+    if sfx not in TYPED.get(name, ()):
+        raise NotImplementedError(f"{name} has no build for {vals_dtype} "
+                                  f"values")
+    return name[:-3] + sfx
+
+
+#: launches of each C entry point, counted by :func:`launch`
+launches: collections.Counter = collections.Counter()
 
 
 def sources():
@@ -189,3 +229,4 @@ def launch(name: str, device_index: int, *args) -> None:
     if err:             # cudaGetLastError() after the launch, or a refusal
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError_t {err}")
+    launches[name] += 1

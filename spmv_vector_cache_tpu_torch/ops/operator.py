@@ -16,6 +16,7 @@ on a torch device once, and then applies it: ``op @ x``.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Any, Optional
 
@@ -25,12 +26,12 @@ import torch
 from ..formats.cached import CachedPlan, CooTail
 from ..formats.chunk import ChunkPlan
 from ..formats.dia import HybridPlan
-from ..formats.plan import auto_plan, place
+from ..formats.plan import auto_plan, finish_values, host_values, place
 from ..utils.stats import StatRegistry
 from . import reference
 from . import semiring as sr
 from .spmm_sell import NoFusedSpmm, has_fused_spmm, is_double, spmm_plan
-from .spmv_sell import spmv_plan
+from .spmv_sell import plan_vals_dtype, plan_x_dtype, spmv_plan
 from .strategy import (autotune, execution_counters, plan_bytes_per_apply,
                        plan_nnz, select_strategy)
 
@@ -125,9 +126,10 @@ class SparseOperator:
             for e in res.table:
                 op.stats[f"tune_{e.name}_gnnz_per_s"] = e.gnnz_per_s
         if tune and strategy == "auto":
+            # ones in the plan's x type, as the reference's
+            # np.ones(cols, value_dtype)
             x = torch.ones(a.shape[1], device=op.device,
-                           dtype=torch.float64 if is_double(op.plan)
-                           else torch.float32)
+                           dtype=plan_x_dtype(op.plan))
             results = autotune(op.plan, x, iters=5, stats=op.stats,
                                semiring=op.semiring)
             if results:
@@ -182,7 +184,7 @@ class SparseOperator:
                                       "ported: the reference has no "
                                       "float64 SpMM kernel (ROADMAP.md "
                                       "queue 3)")
-        b = self._as_x(b).to(torch.float32).contiguous()
+        b = self._as_x(b).to(plan_x_dtype(self.plan)).contiguous()
         if has_fused_spmm(self.plan):
             return spmm_plan(self.plan, b)
         if self._matrix is None:
@@ -190,7 +192,14 @@ class SparseOperator:
                               f"SpMM kernel and the operator holds no "
                               f"matrix to run reference.spmm on")
         if self._matrix_on_device is None:
-            self._matrix_on_device = place(self._matrix, self.device)
+            # the matrix's values as the plan stores them (bfloat16
+            # rounded, integers cast), so that Y sums what op @ x sums
+            a = self._matrix
+            vdt = plan_vals_dtype(self.plan)
+            if vdt != torch.float32:
+                a = dataclasses.replace(a, data=finish_values(
+                    host_values(a.data, vdt), vdt))
+            self._matrix_on_device = place(a, self.device)
         return reference.spmm(self._matrix_on_device, b)
 
     def __matmul__(self, x: Array) -> torch.Tensor:
@@ -232,7 +241,7 @@ class SparseOperator:
 
         rows, cols = self.plan.shape
         if x is None:
-            x = torch.ones(cols, dtype=torch.float32)
+            x = torch.ones(cols, dtype=plan_x_dtype(self.plan))
         x = self._as_x(x)
         square = rows == cols
 
@@ -242,7 +251,11 @@ class SparseOperator:
                 for _ in range(n):
                     w = self.matvec(u)
                     if square:
-                        u = w / torch.linalg.vector_norm(w).clamp(min=1e-30)
+                        # an integer y is normalised in float64 (the next
+                        # apply casts it back to the plan's x type)
+                        norm = torch.linalg.vector_norm(
+                            w if w.is_floating_point() else w.double())
+                        u = w / norm.clamp(min=1e-30)
                     else:
                         u = u * (1 + w.reshape(-1)[0] * 1e-30)
                 return u[:1]

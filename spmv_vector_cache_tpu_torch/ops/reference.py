@@ -171,5 +171,7 @@ def spmm(a, b, semiring=sr.PLUS_TIMES) -> torch.Tensor:
         out = contrib.new_zeros((rows // br, br, k))
         return out.index_add_(0, block_row, contrib).reshape(rows, k)
     row, col, data = _triples(a, b.device)
-    products = data[:, None] * b[col]
-    return products.new_zeros((rows, k)).index_add_(0, row, products)
+    products = sr.widen(data)[:, None] * sr.widen(b)[col]
+    y = products.new_zeros((rows, k)).index_add_(0, row, products)
+    # a bfloat16 matrix sums in float32; a uint32 one in its int32 view
+    return sr.narrow(y, b.dtype) if data.dtype == torch.uint32 else y

@@ -33,6 +33,7 @@ from ..formats.chunk import ChunkPlan
 from ..formats.dia import HybridPlan
 from ..formats.packed import PackedPlan
 from ..formats.plan import SellPlan
+from . import semiring as sr
 
 #: most tiles one record sums; a longer slice is split over several
 #: records that combine atomically into a preset output.  Untuned: no
@@ -206,8 +207,8 @@ def heavy_tiles(plan: ChunkPlan) -> HeavyTiles | None:
     idx = torch.from_numpy(order).to(dev)
 
     def slab(field):
-        return torch.cat([getattr(h, field)[:n] for h, n in keep])[idx] \
-            .contiguous()
+        return sr.take(torch.cat([getattr(h, field)[:n] for h, n in keep]),
+                       idx).contiguous()
 
     rows = plan.heavy_rows.cpu().numpy()[heavy]
     return HeavyTiles(slab("vals"), slab("cols_win"), slab("bases"),
@@ -273,7 +274,7 @@ class LightRecords:
 
     row_off: torch.Tensor     # (segments * 128 + 1,) int32
     cols: torch.Tensor        # (records,) int32 column of x
-    vals: torch.Tensor        # (records,) float32
+    vals: torch.Tensor        # (records,) the buckets' value type
     tiled: torch.Tensor       # (segments,) bool
     units: torch.Tensor       # (CTAs + 1, 2) int32 (lane row, record)
 
@@ -307,15 +308,16 @@ def light_records(plan: ChunkPlan) -> LightRecords:
     for b in plan.buckets:
         ts = _host(b.tile_slice).astype(np.int64)
         tiled[ts] = True
-        v = _host(b.vals)
-        pad = np.asarray(b.stats.pad_value, v.dtype)
+        v = torch.as_tensor(b.vals).cpu()
+        pad = torch.tensor([b.stats.pad_value]).to(v.dtype)
         # bit for bit: a -0.0 or a NaN is a value when the pad is 0.0
-        t, p, l = np.nonzero(v.view(np.uint32) != pad.view(np.uint32))
+        t, p, l = np.nonzero(_bits(v) != _bits(pad)[0])
         rows.append(ts[t] * 128 + l)
         cols.append(_host(b.window_base).astype(np.int64)[
             t // b.stats.group_tiles] * b.stats.window_grain
             + _host(b.cols_win)[t, p, l])
-        vals.append(v[t, p, l])
+        vals.append(v[torch.from_numpy(t), torch.from_numpy(p),
+                      torch.from_numpy(l)])
     rows = np.concatenate(rows) if rows else np.zeros(0, np.int64)
     order = np.argsort(rows, kind="stable")
     count = np.bincount(rows, minlength=nseg * 128)
@@ -328,10 +330,12 @@ def light_records(plan: ChunkPlan) -> LightRecords:
     def put(a, dtype):
         return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
 
+    vals = torch.cat(vals)[torch.from_numpy(order)] if vals else \
+        torch.zeros(0)
     return LightRecords(
         put(row_off, np.int32),
         put(np.concatenate(cols)[order] if cols else [], np.int32),
-        put(np.concatenate(vals)[order] if vals else [], np.float32),
+        vals.contiguous().to(device),
         put(tiled, np.bool_), put(light_units(row_off), np.int32))
 
 
@@ -383,11 +387,18 @@ class ExtractTables:
     ov_off: torch.Tensor      # (blocks + 1,) int32
     ov_lane: torch.Tensor     # (novf,) int32 row within its block
     ov_cols: torch.Tensor     # (novf,) int32 column of x
-    ov_vals: torch.Tensor     # (novf,) float32
+    ov_vals: torch.Tensor     # (novf,) the plan's value type
 
 
 def _host(t) -> np.ndarray:
     return np.asarray(t.cpu() if isinstance(t, torch.Tensor) else t)
+
+
+def _bits(t: torch.Tensor) -> np.ndarray:
+    """The bits of a CPU tensor of 2-, 4- or 8-byte elements, as signed
+    integers of that width (for comparing values bit for bit)."""
+    width = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return t.view(width[t.element_size()]).numpy()
 
 
 def window_offsets(wstep, num_windows: int) -> np.ndarray:
@@ -429,7 +440,8 @@ def extract_tables(plan: PackedPlan) -> ExtractTables:
         put(ov_off, np.int32),
         put(rows_s - block * EXTRACT_BLOCK_ROWS, np.int32),
         put(ov_cols[order], np.int32),
-        put(_host(plan.ov_vals)[order], np.float32))
+        sr.take(torch.as_tensor(plan.ov_vals).cpu(),
+                torch.from_numpy(order)).to(device))
 
 
 #: kernel F's tables of each placed PackedPlan by its ``esrc`` tensor

@@ -5,6 +5,17 @@ Each semiring is (add, mul, zero) over float tensors; the boolean
 semiring runs on a {0.0, 1.0} float encoding (and = *, or = max), so
 every semiring lowers to float mul/add/min/max — in the plain versions
 here and in the CUDA kernels alike.
+
+The value policy of the ported plans, as the reference computes them: a
+bfloat16 plan reads x, sums and returns y in float32 (:func:`x_dtype`);
+an int32 or uint32 plan sums exactly in its own type, wrapping mod 2^32,
+under plus_times, max_times and or_and only (the reference's infinite
+zeros of min_plus and max_plus do not exist in an integer type).  The
+plain versions and the epilogues compute in :func:`widen`'s types,
+because torch has no uint32 add, max or ``index_add_``: uint32 as its
+int32 view under plus_times (the same bits mod 2^32) and as int64 under
+the max semirings, where :func:`kernel_ops`' product wraps mod 2^32;
+:func:`narrow` returns the result to its type.
 """
 
 from __future__ import annotations
@@ -35,8 +46,15 @@ class Semiring:
     def segment_reduce(self, values: torch.Tensor, segment_ids: torch.Tensor,
                        num_segments: int) -> torch.Tensor:
         """Reduce ``values`` along dim 0 by segment with this semiring's
-        ``add``.  Empty segments get what ``jax.ops.segment_*`` gives
-        them: 0 (sum), -inf (max), +inf (min), and 0 for or_and."""
+        ``add``, in ``values``' type.  Empty segments get what
+        ``jax.ops.segment_*`` gives them: 0 (sum), the type's least value
+        (max: -inf, INT_MIN, 0 for uint32), +inf (min), and 0 for
+        or_and."""
+        dtype = values.dtype
+        return narrow(self._segment_reduce(widen(values, self.name),
+                                           segment_ids, num_segments), dtype)
+
+    def _segment_reduce(self, values, segment_ids, num_segments):
         shape = (num_segments,) + tuple(values.shape[1:])
         if self.name == "plus_times":
             out = torch.zeros(shape, dtype=values.dtype, device=values.device)
@@ -51,13 +69,87 @@ class Semiring:
             m = m.scatter_reduce_(0, _expand(ids, v), v, "amax")
             return (m > 0).to(values.dtype)
         if self.name in ("max_times", "max_plus"):
-            init, how = -torch.inf, "amax"
+            init, how = init_value(self.name, values.dtype), "amax"
         elif self.name == "min_plus":
             init, how = torch.inf, "amin"
         else:
             raise NotImplementedError(f"segment reduce for semiring {self.name}")
         out = torch.full(shape, init, dtype=values.dtype, device=values.device)
         return out.scatter_reduce_(0, _expand(ids, values), values, how)
+
+
+    def combine(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """``a (+) b`` in ``a``'s type (or_and's logical add yields bool,
+        which returns to the {0, 1} encoding)."""
+        return narrow(self.add(widen(a, self.name), widen(b, self.name)),
+                      a.dtype)
+
+
+def x_dtype(vals_dtype: torch.dtype) -> torch.dtype:
+    """The type a plan with ``vals_dtype`` values reads x in, sums in and
+    returns y in: float32 for a bfloat16 plan, else the value type."""
+    return torch.float32 if vals_dtype == torch.bfloat16 else vals_dtype
+
+
+def widen(t: torch.Tensor, semiring: str = "plus_times") -> torch.Tensor:
+    """``t`` in the type the plain versions compute it in: bfloat16 as
+    float32 (exact), uint32 as its int32 view under plus_times and as
+    int64 under the max semirings; any other type as it is."""
+    if t.dtype == torch.bfloat16:
+        return t.float()
+    if t.dtype == torch.uint32:
+        return t.view(torch.int32) if semiring == "plus_times" \
+            else t.to(torch.int64)
+    return t
+
+
+def narrow(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A result computed in :func:`widen`'s types, back in ``dtype``."""
+    if t.dtype == dtype:
+        return t
+    if dtype == torch.uint32 and t.dtype == torch.int32:
+        return t.view(torch.uint32)
+    if dtype == torch.uint32 and t.dtype == torch.int64:
+        t = t & 0xFFFFFFFF
+    return t.to(dtype)
+
+
+def take(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``t.index_select(0, idx)`` for a 1-D ``idx``, else ``t[idx]``; a
+    uint32 ``t`` through its int32 view (torch indexes no uint32 on the
+    card, and ``index_select`` none on the host)."""
+    if t.dtype == torch.uint32:
+        return take(t.view(torch.int32), idx).view(torch.uint32)
+    return t.index_select(0, idx) if idx.dim() == 1 else t[idx]
+
+
+def init_value(name: str, dtype: torch.dtype):
+    """The empty sum of semiring ``name`` in ``dtype`` (or_and runs as
+    max_times): what a split slice's pieces combine into, and an empty
+    segment's max.  int64 stands for a widened uint32 (:func:`widen`)."""
+    if name == "plus_times":
+        return 0
+    if name == "min_plus":
+        return float("inf")
+    if dtype.is_floating_point:
+        return float("-inf")
+    return 0 if dtype in (torch.uint32, torch.int64) else \
+        torch.iinfo(dtype).min
+
+
+def check_integer(name: str, dtype: torch.dtype) -> None:
+    """An integer plan runs plus_times, max_times and or_and only."""
+    if not dtype.is_floating_point and name in ("min_plus", "max_plus"):
+        raise ValueError(
+            f"integer plans run plus_times, max_times and or_and; got "
+            f"{name!r}, whose zero is infinite (the reference casts it to "
+            f"INT_MIN, ROADMAP.md queue 3)")
+
+
+def _mul(a, b):
+    p = torch.mul(a, b)
+    # int64 holds a widened uint32 (widen): its product wraps mod 2^32
+    return p & 0xFFFFFFFF if p.dtype == torch.int64 else p
 
 
 def _expand(ids: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
@@ -79,13 +171,13 @@ def _amin(a, dim):
 def kernel_ops(name: str):
     """(mul, axis_reduce) float ops of the SELL kernels' plain versions."""
     if name == "plus_times":
-        return torch.mul, _sum
+        return _mul, _sum
     if name == "min_plus":
         return torch.add, _amin
     if name == "max_plus":
         return torch.add, _amax
     if name in ("max_times", "or_and"):
-        return torch.mul, _amax
+        return _mul, _amax
     raise NotImplementedError(f"kernel ops for semiring {name}")
 
 

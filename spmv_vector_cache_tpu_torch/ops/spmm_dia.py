@@ -8,7 +8,11 @@ kernel I (``csrc/spmm_dia.cu``), which replaces the reference's
 version.  Kernel I stages the span of B that a run of rows reads, and
 the run's values, in shared memory, band by band: :func:`spmm_dia_tiling`
 picks the run, the columns a thread holds and the bands
-(:func:`dia_bands`) on the host, once per (offset pattern, k).
+(:func:`dia_bands`) on the host, once per (offset pattern, k).  Kernel
+I has a build for each value type of ``ops/semiring.py``'s policy: a
+bfloat16 plan sums in float32 with a float32 B and Y, where the
+reference rounds B to bfloat16, sums in bfloat16 and returns a bfloat16
+Y (ROADMAP.md queue 3); int32 and uint32 sum exactly.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import torch
 from ..formats.dia import DiaPlan
 from ..utils import platform
 from . import _kernels
+from . import semiring as sr
 from .spmv_dia import _offsets_on, spmv_dia_plain
 
 #: most threads of one CTA of kernel I: small CTAs, many to an SM,
@@ -141,9 +146,11 @@ def _check(vals: torch.Tensor, offsets, b: torch.Tensor) -> None:
     if len(offsets) != vals.shape[1]:
         raise ValueError(f"{len(offsets)} offsets for {vals.shape[1]} "
                          f"diagonals")
-    if vals.dtype != torch.float32 or b.dtype != torch.float32:
+    if vals.dtype not in _kernels.BUILDS or \
+            b.dtype != sr.x_dtype(vals.dtype):
         raise NotImplementedError(
-            f"DIA SpMM runs float32 only (vals {vals.dtype}, B {b.dtype})")
+            f"DIA SpMM runs float32, bfloat16, int32 or uint32 values with "
+            f"a B of their sum type (vals {vals.dtype}, B {b.dtype})")
     if b.dim() != 2 or b.shape[1] < 1:
         raise ValueError(f"B must be (cols, k) with k >= 1, got shape "
                          f"{tuple(b.shape)}")
@@ -173,17 +180,14 @@ def spmm_dia_kernel(vals: torch.Tensor, offsets, b: torch.Tensor,
     offs = _offsets_on(offsets, b.device)
     t = _tiling(offsets, k)
     bands = _bands_on(t.bands, b.device)
-    y = torch.empty((rows, k), dtype=torch.float32, device=b.device)
+    y = torch.empty((rows, k), dtype=b.dtype, device=b.device)
     _kernels.launch(
-        "spmm_dia_f32", b.get_device(), vals.data_ptr(), b.data_ptr(),
+        _kernels.entry("spmm_dia_f32", vals.dtype), b.get_device(),
+        vals.data_ptr(), b.data_ptr(),
         offs.data_ptr(), bands.data_ptr(), y.data_ptr(), rows, b.shape[0], k,
         D, S * L, len(t.bands), t.rows_per_cta, t.cols_per_thread,
         t.threads_per_row, t.stride, t.buf_rows, t.band_diags, t.buffers)
-    spmm_dia_kernel.launches += 1
     return y
-
-
-spmm_dia_kernel.launches = 0
 
 
 def spmm_dia(plan: DiaPlan, b: torch.Tensor) -> torch.Tensor:
@@ -202,4 +206,5 @@ def spmm_dia(plan: DiaPlan, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"B has shape {tuple(b.shape)}, the plan needs "
                          f"({plan.shape[1]}, k)")
     return spmm_dia_kernel(plan.vals, plan.offsets,
-                           b.to(plan.vals.dtype).contiguous(), plan.shape[0])
+                           b.to(sr.x_dtype(plan.vals.dtype)).contiguous(),
+                           plan.shape[0])

@@ -27,7 +27,7 @@ from . import _kernels
 from . import semiring as sr
 from .runs import runs_on
 from .spmm_dia import spmm_dia
-from .spmv_sell import (_fixup_rows, fold_lanes, row_parts,
+from .spmv_sell import (_fixup_rows, fold_lanes, plan_x_dtype, row_parts,
                         sell_window_plain)
 
 
@@ -49,9 +49,9 @@ def is_double(plan) -> bool:
 
 
 def has_fused_spmm(plan) -> bool:
-    """Whether :func:`spmm_plan` runs ``plan``: a CooTail, a float32
-    DiaPlan, a float32 window SellPlan, or a HybridPlan of those (the
-    reference has no float64 SpMM kernel)."""
+    """Whether :func:`spmm_plan` runs ``plan``: a CooTail, a DiaPlan, a
+    window SellPlan, or a HybridPlan of those, of float32, bfloat16,
+    int32 or uint32 values (the reference has no float64 SpMM kernel)."""
     if is_double(plan):
         return False
     if isinstance(plan, (CooTail, DiaPlan)):
@@ -71,7 +71,7 @@ def spmm_window_plain(vals, cols_win, window_base, tile_slice, b, *,
     """Plain PyTorch version of kernel H (same inputs, same output):
     kernel B's per-tile partials under plus_times over B's trailing k
     axis, their segment sums over ``tile_slice``, then, for ``parts`` >=
-    1, the lane fold to Y's (rows, k)."""
+    1, the lane fold to Y's (rows, k), in B's type."""
     partials = sell_window_plain(vals, cols_win, window_base, b,
                                  group_tiles=group_tiles,
                                  window_grain=window_grain, fold=False,
@@ -86,9 +86,11 @@ def _check_window(vals, cols_win, window_base, tile_slice, b, group_tiles,
     if vals.dim() != 3 or cols_win.shape != vals.shape:
         raise ValueError(f"vals {tuple(vals.shape)} and cols_win "
                          f"{tuple(cols_win.shape)} must be equal (T, P, R)")
-    if vals.dtype != torch.float32 or b.dtype != torch.float32:
-        raise NotImplementedError(f"window SpMM runs float32 only (vals "
-                                  f"{vals.dtype}, B {b.dtype})")
+    if vals.dtype not in _kernels.BUILDS or \
+            b.dtype != sr.x_dtype(vals.dtype):
+        raise NotImplementedError(
+            f"window SpMM runs float32, bfloat16, int32 or uint32 values "
+            f"with a B of their sum type (vals {vals.dtype}, B {b.dtype})")
     if cols_win.dtype != torch.int16 or window_base.dtype != torch.int32 or \
             tile_slice.dtype != torch.int32:
         raise ValueError("cols_win must be int16, window_base and "
@@ -135,18 +137,15 @@ def spmm_window_kernel(vals, cols_win, window_base, tile_slice, b, *,
     else:
         shape, covered = (num_slices, R, k), True
     alloc = torch.empty if covered and not work.split else torch.zeros
-    out = alloc(shape, dtype=torch.float32, device=b.device)
+    out = alloc(shape, dtype=b.dtype, device=b.device)
     _kernels.launch(
-        "spmm_sell_window_f32", b.get_device(), vals.data_ptr(),
+        _kernels.entry("spmm_sell_window_f32", vals.dtype), b.get_device(),
+        vals.data_ptr(),
         cols_win.data_ptr(), window_base.data_ptr(), tile_slice.data_ptr(),
         work.runs.data_ptr(), b.data_ptr(), out.data_ptr(),
         work.runs.shape[0], P, R, group_tiles, window_grain, b.shape[0], k,
         parts, rows)
-    spmm_window_kernel.launches += 1
     return out
-
-
-spmm_window_kernel.launches = 0
 
 
 def _spmm_window(plan: SellPlan, b: torch.Tensor) -> torch.Tensor:
@@ -167,11 +166,12 @@ def _spmm_window(plan: SellPlan, b: torch.Tensor) -> torch.Tensor:
 
 def _spmm_coo(plan: CooTail, b: torch.Tensor) -> torch.Tensor:
     """COO tail: a gather of B's rows + ``index_add_`` (torch ops, as the
-    reference runs it in XLA)."""
-    prod = plan.vals.to(b.dtype)[:, None] * b[plan.cols.long()]
+    reference runs it in XLA), in B's type."""
+    bw = sr.widen(b)
+    prod = sr.widen(plan.vals.to(b.dtype))[:, None] * bw[plan.cols.long()]
     rows = plan.shape[0]
-    y = b.new_zeros((rows + 1, b.shape[1]))
-    return y.index_add_(0, plan.rows_idx, prod)[:rows]
+    y = bw.new_zeros((rows + 1, b.shape[1]))
+    return sr.narrow(y.index_add_(0, plan.rows_idx, prod)[:rows], b.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -194,11 +194,12 @@ def spmm_plan(plan, b: torch.Tensor) -> torch.Tensor:
     if not has_fused_spmm(plan):
         raise NoFusedSpmm(f"{type(plan).__name__} has no fused SpMM kernel; "
                           f"run reference.spmm on the matrix")
-    b = b.to(torch.float32).contiguous()
+    b = b.to(plan_x_dtype(plan)).contiguous()
     if isinstance(plan, CooTail):
         return _spmm_coo(plan, b)
     if isinstance(plan, DiaPlan):
         return spmm_dia(plan, b)
     if isinstance(plan, HybridPlan):
-        return spmm_dia(plan.dia, b) + spmm_plan(plan.rest, b)
+        return sr.PLUS_TIMES.combine(spmm_dia(plan.dia, b),
+                                     spmm_plan(plan.rest, b))
     return _spmm_window(plan, b)

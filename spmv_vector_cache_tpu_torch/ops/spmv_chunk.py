@@ -16,7 +16,9 @@ PyTorch version, and :func:`subwin_plain` the reference's per-tile
 function (``_subwin_partials``).  The rest is as the reference computes
 it outside Pallas: the lane un-permutation of the light blocks (kernel
 C), the lane fold and merge of the heavy segments' light tiles (torch
-ops), and the residue add.
+ops), and the residue add.  The light route and kernel D have a build
+for each value type of ``ops/semiring.py``'s policy, and the heavy
+merge runs in the sums' type.
 """
 
 from __future__ import annotations
@@ -42,23 +44,29 @@ def light_plain(light: LightRecords, x, *, semiring: str) -> torch.Tensor:
     """Plain PyTorch version of the light route (same inputs, same
     output): the sorted segment reduce of the records' products over
     lane rows, a column past x reading 0; a lane row of a ``tiled``
-    segment also sums the semiring's zero.  (segments, 128)."""
+    segment also sums the semiring's zero.  (segments, 128), in x's
+    type."""
     s = sr.get(semiring)
     mul, axis_reduce = sr.kernel_ops(semiring)
+    out_dtype = x.dtype
+    vals, x = sr.widen(light.vals, semiring), sr.widen(x, semiring)
     nrows = light.row_off.shape[0] - 1
     rows = torch.repeat_interleave(
         torch.arange(nrows, device=x.device), light.row_off.diff().long())
     xz = torch.cat([x, x.new_zeros(1)])        # c >= cols reads 0
-    prod = mul(light.vals, xz[light.cols.long().clamp(max=x.shape[0])])
+    prod = mul(vals, xz[light.cols.long().clamp(max=x.shape[0])])
     y2d = s.segment_reduce(prod, rows, num_segments=nrows).reshape(-1, 128)
     padded = axis_reduce(torch.stack([y2d, torch.full_like(y2d, s.zero)]),
                          0)
-    return torch.where(light.tiled[:, None], padded, y2d)
+    return sr.narrow(torch.where(light.tiled[:, None], padded, y2d),
+                     out_dtype)
 
 
 def _check_light(light: LightRecords, x):
-    if x.dtype != torch.float32 or x.dim() != 1:
-        raise ValueError(f"x must be 1-D float32, got {x.dtype} "
+    if light.vals.dtype not in _kernels.BUILDS or x.dim() != 1 or \
+            x.dtype != sr.x_dtype(light.vals.dtype):
+        raise ValueError(f"x must be 1-D of the records' sum type "
+                         f"({light.vals.dtype} values), got {x.dtype} "
                          f"{tuple(x.shape)}")
     if light.row_off.shape != (light.tiled.shape[0] * 128 + 1,):
         raise ValueError(f"row_off {tuple(light.row_off.shape)} and tiled "
@@ -76,26 +84,25 @@ def _check_light(light: LightRecords, x):
 
 def light_kernel(light: LightRecords, x, *, semiring: str) -> torch.Tensor:
     """The light route on CUDA tensors; the plain version on CPU tensors.
-    Returns the (segments, 128) float32 sums of the unified segment
-    space.  ``light`` is a placed plan's (``ops/runs.py``
+    Returns the (segments, 128) sums of the unified segment space, in
+    x's type.  ``light`` is a placed plan's (``ops/runs.py``
     :func:`~.runs.light_records`, which made its tensors contiguous and
     typed)."""
     _check_light(light, x)
+    sr.check_integer(semiring, light.vals.dtype)
     if not platform.is_cuda(x):
         return light_plain(light, x, semiring=semiring)
-    y2d = torch.empty((light.tiled.shape[0], 128), dtype=torch.float32,
+    y2d = torch.empty((light.tiled.shape[0], 128), dtype=x.dtype,
                       device=x.device)
     _kernels.launch(
-        "spmv_chunk_light_f32", x.get_device(), light.row_off.data_ptr(),
+        _kernels.entry("spmv_chunk_light_f32", light.vals.dtype),
+        x.get_device(), light.row_off.data_ptr(),
         light.cols.data_ptr(), light.vals.data_ptr(),
         light.tiled.data_ptr(), light.units.data_ptr(), x.data_ptr(),
         y2d.data_ptr(), light.units.shape[0] - 1, x.shape[0],
         sr.KERNEL_CODE[semiring])
-    light_kernel.launches += 1
     return y2d
 
-
-light_kernel.launches = 0
 
 # ---------------------------------------------------------------------------
 # heavy rows: kernel D
@@ -104,8 +111,10 @@ light_kernel.launches = 0
 def subwin_plain(vals, cols_win, bases, x, *, semiring: str) -> torch.Tensor:
     """The reference's ``_subwin_partials`` on tensors: per tile t and
     lane l, (+)_p vals (x) x[bases[t, p] * 128 + cols_win[t, p, l]], a
-    column past x reading 0; (T, 128)."""
+    column past x reading 0; (T, 128), in :func:`~.semiring.widen`'s
+    types."""
     mul, axis_reduce = sr.kernel_ops(semiring)
+    vals, x = sr.widen(vals, semiring), sr.widen(x, semiring)
     cols = x.shape[0]
     c = bases.long()[:, :, None] * 128 + cols_win.long()
     xz = torch.cat([x, x.new_zeros(1)])        # c >= cols reads 0
@@ -123,10 +132,13 @@ def heavy_plain(vals, cols_win, bases, tile_row, rows, x, y, *,
     _, axis_reduce = sr.kernel_ops(semiring)
     per_tile = axis_reduce(subwin_plain(vals, cols_win, bases, x,
                                         semiring=semiring), 1)
-    sums = s.segment_reduce(per_tile, tile_row, num_segments=rows.shape[0])
+    sums = s.segment_reduce(sr.narrow(per_tile, y.dtype), tile_row,
+                            num_segments=rows.shape[0])
     idx = rows.long()
-    # or_and's logical add yields bool; restore the float encoding
-    y[idx] = s.add(y[idx], sums).to(y.dtype)
+    new = s.combine(sr.take(y, idx), sums)
+    # torch writes no uint32 by index: its int32 view takes the same bits
+    dst = y.view(torch.int32) if y.dtype == torch.uint32 else y
+    dst[idx] = new.view(dst.dtype)
     return y
 
 
@@ -138,10 +150,12 @@ def _check_heavy(vals, cols_win, bases, tile_row, rows, x, y):
         raise ValueError(f"bases {tuple(bases.shape)} and tile_row "
                          f"{tuple(tile_row.shape)} must be (T, P) and (T,) "
                          f"for T, P = {tuple(vals.shape[:2])}")
-    if vals.dtype != torch.float32 or x.dtype != torch.float32 or \
-            y.dtype != torch.float32:
-        raise NotImplementedError(f"subwindow SpMV runs float32 only (vals "
-                                  f"{vals.dtype}, x {x.dtype}, y {y.dtype})")
+    if vals.dtype not in _kernels.BUILDS or \
+            not x.dtype == y.dtype == sr.x_dtype(vals.dtype):
+        raise NotImplementedError(
+            f"subwindow SpMV runs float32, bfloat16, int32 or uint32 "
+            f"values with x and y of their sum type (vals {vals.dtype}, x "
+            f"{x.dtype}, y {y.dtype})")
     if cols_win.dtype != torch.int16 or bases.dtype != torch.int32 or \
             tile_row.dtype != torch.int32 or rows.dtype != torch.int32:
         raise ValueError("cols_win must be int16, bases, tile_row and rows "
@@ -163,22 +177,20 @@ def heavy_kernel(vals, cols_win, bases, tile_row, rows, x, y, *,
     placed plan's heavy slab's (its work list, ``ops/runs.py``, is built
     at placement)."""
     _check_heavy(vals, cols_win, bases, tile_row, rows, x, y)
+    sr.check_integer(semiring, vals.dtype)
     if not platform.is_cuda(x):
         return heavy_plain(vals, cols_win, bases, tile_row, rows, x, y,
                            semiring=semiring)
     T, P, R = vals.shape
     work = runs_on(tile_row, rows.shape[0])
     _kernels.launch(
-        "spmv_subwin_f32", x.get_device(), vals.data_ptr(),
+        _kernels.entry("spmv_subwin_f32", vals.dtype), x.get_device(),
+        vals.data_ptr(),
         cols_win.data_ptr(), bases.data_ptr(), tile_row.data_ptr(),
         rows.data_ptr(), work.runs.data_ptr(), x.data_ptr(), y.data_ptr(),
         work.runs.shape[0], P, R, x.shape[0], work.max_tiles,
         work.max_slices, sr.KERNEL_CODE[semiring])
-    heavy_kernel.launches += 1
     return y
-
-
-heavy_kernel.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -196,22 +208,23 @@ def spmv_chunk(plan: ChunkPlan, x: torch.Tensor,
     nblk = plan.num_blocks
     nheavy = plan.num_heavy
     rows = plan.shape[0]
-    xf = x.to(torch.float32).contiguous()
-    y2d = light_kernel(light_on(plan), xf, semiring=semiring)
+    light = light_on(plan)
+    xf = x.to(sr.x_dtype(light.vals.dtype)).contiguous()
+    y2d = light_kernel(light, xf, semiring=semiring)
     y = unpermute_plan_rows(y2d[:nblk], plan.perm_idx).reshape(-1)[:rows]
     if nheavy:
-        yh = axis_reduce(y2d[nblk:], 1)            # (nheavy,)
+        yh = sr.narrow(axis_reduce(sr.widen(y2d[nblk:], semiring), 1),
+                       y2d.dtype)                  # (nheavy,)
         yh = s.segment_reduce(yh, plan.heavy_rows,
                               num_segments=rows + 1)[:rows]
-        y = s.add(y, yh).to(y.dtype)               # a new y: D adds in place
+        y = s.combine(y, yh)                       # a new y: D adds in place
         heavy = heavy_on(plan)
         if heavy is not None:
             y = heavy_kernel(heavy.vals, heavy.cols_win, heavy.bases,
                              heavy.tile_row, heavy.rows, xf, y,
                              semiring=semiring)
     if isinstance(plan.residue, CooTail):
-        y = s.add(y, _spmv_coo(plan.residue, x, semiring)).to(y.dtype)
+        y = s.combine(y, _spmv_coo(plan.residue, x, semiring))
     elif isinstance(plan.residue, PackedPlan):
-        y = s.add(y, spmv_packed(plan.residue, x,
-                                 semiring=semiring)).to(y.dtype)
+        y = s.combine(y, spmv_packed(plan.residue, x, semiring=semiring))
     return y

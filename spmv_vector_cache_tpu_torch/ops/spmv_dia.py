@@ -12,7 +12,10 @@ carrying both neighbours' halos, ``parallel/dia_sharded.py``);
 (``value_dtype=np.float64``, hi/lo float32 pairs) :func:`spmv_dia_double`
 (float64 in and out) and :func:`spmv_dia_df` (the reference's pair API)
 run kernel J, the float64 build of A (:func:`spmv_dia_f64_kernel`),
-which replaces the reference's double-float kernels.
+which replaces the reference's double-float kernels.  A and M have a
+build for each value type of ``ops/semiring.py``'s policy: bfloat16
+values summed in float32 with a float32 x and y, int32 and uint32 summed
+exactly in their own type.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import torch
 from ..formats.dia import DiaPlan
 from ..utils import platform
 from . import _kernels, df64
+from . import semiring as sr
 
 
 def _check(vals: torch.Tensor, offsets, x: torch.Tensor,
@@ -35,11 +39,16 @@ def _check(vals: torch.Tensor, offsets, x: torch.Tensor,
     if channels * len(offsets) != vals.shape[1]:
         raise ValueError(f"{len(offsets)} offsets for {vals.shape[1]} "
                          f"diagonal channels")
-    want_x = torch.float64 if double else torch.float32
-    if vals.dtype != torch.float32 or x.dtype != want_x:
+    if double:
+        ok = vals.dtype == torch.float32 and x.dtype == torch.float64
+    else:
+        ok = vals.dtype in _kernels.BUILDS and \
+            x.dtype == sr.x_dtype(vals.dtype)
+    if not ok:
         raise NotImplementedError(
-            f"DIA SpMV runs float32 values with a {want_x} x (vals "
-            f"{vals.dtype}, x {x.dtype})")
+            f"DIA SpMV runs float32, bfloat16, int32 or uint32 values with "
+            f"an x of their sum type, or a double plan's pairs with a "
+            f"float64 x (vals {vals.dtype}, x {x.dtype})")
     if x.dim() != 1:
         raise ValueError(f"x must be 1-D, got shape {tuple(x.shape)}")
     if vals.device != x.device:
@@ -51,7 +60,10 @@ def _check(vals: torch.Tensor, offsets, x: torch.Tensor,
 def spmv_dia_halo_plain(vals: torch.Tensor, offsets, x: torch.Tensor,
                         rows: int, origin: int) -> torch.Tensor:
     """Plain PyTorch version of kernel M: row r reads
-    ``x[origin + r + off_k]``, and 0 outside ``[0, len(x))``."""
+    ``x[origin + r + off_k]``, and 0 outside ``[0, len(x))``; the sums
+    in :func:`~.semiring.widen`'s types, y in x's."""
+    out_dtype = x.dtype
+    vals, x = sr.widen(vals), sr.widen(x)
     T, D, S, L = vals.shape
     tail = (1,) * (x.dim() - 1)            # broadcast over B's RHS axis
     v = vals.permute(1, 0, 2, 3).reshape(D, T * S * L)[:, :rows]
@@ -65,7 +77,7 @@ def spmv_dia_halo_plain(vals: torch.Tensor, offsets, x: torch.Tensor,
         xv = torch.where(ok.view(-1, *tail), x[c.clamp(0, max(cols - 1, 0))],
                          torch.zeros((), dtype=x.dtype, device=x.device))
         acc = acc + v[k].view(-1, *tail) * xv
-    return acc
+    return sr.narrow(acc, out_dtype)
 
 
 def spmv_dia_plain(vals: torch.Tensor, offsets, x: torch.Tensor,
@@ -94,15 +106,12 @@ def spmv_dia_kernel(vals: torch.Tensor, offsets, x: torch.Tensor,
     if rows > T * S * L:
         raise ValueError(f"rows={rows} exceeds the plan's {T * S * L}")
     offs = _offsets_on(tuple(int(o) for o in offsets), x.device)
-    y = torch.empty(rows, dtype=torch.float32, device=x.device)
+    y = torch.empty(rows, dtype=x.dtype, device=x.device)
     _kernels.launch(
-        "spmv_dia_f32", x.get_device(), vals.data_ptr(), x.data_ptr(),
+        _kernels.entry("spmv_dia_f32", vals.dtype), x.get_device(),
+        vals.data_ptr(), x.data_ptr(),
         offs.data_ptr(), y.data_ptr(), rows, x.shape[0], D, S * L)
-    spmv_dia_kernel.launches += 1
     return y
-
-
-spmv_dia_kernel.launches = 0
 
 
 def spmv_dia_halo_kernel(vals: torch.Tensor, offsets, x_ext: torch.Tensor,
@@ -118,16 +127,13 @@ def spmv_dia_halo_kernel(vals: torch.Tensor, offsets, x_ext: torch.Tensor,
     if rows > T * S * L:
         raise ValueError(f"rows={rows} exceeds the plan's {T * S * L}")
     offs = _offsets_on(tuple(int(o) for o in offsets), x_ext.device)
-    y = torch.empty(rows, dtype=torch.float32, device=x_ext.device)
+    y = torch.empty(rows, dtype=x_ext.dtype, device=x_ext.device)
     _kernels.launch(
-        "spmv_dia_halo_f32", x_ext.get_device(), vals.data_ptr(),
+        _kernels.entry("spmv_dia_halo_f32", vals.dtype), x_ext.get_device(),
+        vals.data_ptr(),
         x_ext.data_ptr(), offs.data_ptr(), y.data_ptr(), rows, x_ext.shape[0],
         int(origin), D, S * L)
-    spmv_dia_halo_kernel.launches += 1
     return y
-
-
-spmv_dia_halo_kernel.launches = 0
 
 
 def spmv_dia_f64_plain(vals: torch.Tensor, offsets, x: torch.Tensor,
@@ -153,11 +159,7 @@ def spmv_dia_f64_kernel(vals: torch.Tensor, offsets, x: torch.Tensor,
     _kernels.launch(
         "spmv_dia_f64", x.get_device(), vals.data_ptr(), x.data_ptr(),
         offs.data_ptr(), y.data_ptr(), rows, x.shape[0], D2 // 2, S * L)
-    spmv_dia_f64_kernel.launches += 1
     return y
-
-
-spmv_dia_f64_kernel.launches = 0
 
 
 def _check_x(plan: DiaPlan, x: torch.Tensor) -> None:
@@ -167,8 +169,10 @@ def _check_x(plan: DiaPlan, x: torch.Tensor) -> None:
 
 
 def spmv_dia(plan: DiaPlan, x: torch.Tensor) -> torch.Tensor:
-    """``y = A @ x`` from a prebuilt float32 :class:`DiaPlan` on
-    ``x.device``.
+    """``y = A @ x`` from a prebuilt :class:`DiaPlan` of float32,
+    bfloat16, int32 or uint32 values on ``x.device`` (x cast to the
+    plan's sum type, :func:`~.semiring.x_dtype`, as the reference casts
+    it).
 
     The reference's ``resident`` argument is dropped: it chose between
     keeping the x image in VMEM and streaming sliding blocks, a capacity
@@ -180,7 +184,8 @@ def spmv_dia(plan: DiaPlan, x: torch.Tensor) -> torch.Tensor:
                          "x and y) or spmv_dia_df (hi/lo float32 pairs)")
     _check_x(plan, x)
     return spmv_dia_kernel(plan.vals, plan.offsets,
-                           x.to(plan.vals.dtype).contiguous(), plan.shape[0])
+                           x.to(sr.x_dtype(plan.vals.dtype)).contiguous(),
+                           plan.shape[0])
 
 
 def spmv_dia_double(plan: DiaPlan, x: torch.Tensor) -> torch.Tensor:

@@ -22,6 +22,7 @@ import torch
 from ..formats.packed import PACKED_WINDOW_BLOCKS, PackedPlan
 from ..utils import platform
 from . import _kernels
+from . import semiring as sr
 from .runs import (EXTRACT_BLOCK_ROWS, ExtractTables, extract_on,
                    window_offsets)
 
@@ -42,7 +43,10 @@ def _check_same_device(ref, *ts):
 def packed_scan_plain(vals, cols, cstep, x, *, chunk_blocks: int,
                       step_tiles: int) -> torch.Tensor:
     """Plain PyTorch version of kernel E: the reference's Hillis-Steele
-    segmented scan over lane shifts, in the reference's order."""
+    segmented scan over lane shifts, in the reference's order, in
+    :func:`~.semiring.widen`'s types; the scan in x's type."""
+    out_dtype = x.dtype
+    vals, x = sr.widen(vals), sr.widen(x)
     T = vals.shape[0]
     N = T * 8
     craw = cols.reshape(N, 128).to(torch.int32)
@@ -59,7 +63,7 @@ def packed_scan_plain(vals, cols, cstep, x, *, chunk_blocks: int,
         fs = torch.where(lane >= d, torch.roll(f, d, 1), 0)
         S = S + torch.where(f == 1, zero, vs)
         f = f | fs
-    return S.reshape(T, 8, 128)
+    return sr.narrow(S.reshape(T, 8, 128), out_dtype)
 
 
 def _check_scan(vals, cols, cstep, x, step_tiles):
@@ -70,9 +74,11 @@ def _check_scan(vals, cols, cstep, x, step_tiles):
     if vals.shape[0] != cstep.shape[0] * step_tiles:
         raise ValueError(f"{vals.shape[0]} tiles, but cstep has "
                          f"{cstep.shape[0]} steps of {step_tiles}")
-    if vals.dtype != torch.float32 or x.dtype != torch.float32:
-        raise NotImplementedError(f"packed SpMV runs float32 only (vals "
-                                  f"{vals.dtype}, x {x.dtype})")
+    if vals.dtype not in _kernels.BUILDS or \
+            x.dtype != sr.x_dtype(vals.dtype):
+        raise NotImplementedError(
+            f"packed SpMV runs float32, bfloat16, int32 or uint32 values "
+            f"with an x of their sum type (vals {vals.dtype}, x {x.dtype})")
     if cols.dtype != torch.int16 or cstep.dtype != torch.int32:
         raise ValueError("cols must be int16 and cstep int32")
     if x.dim() != 1:
@@ -86,22 +92,19 @@ def _check_scan(vals, cols, cstep, x, step_tiles):
 def packed_scan_kernel(vals, cols, cstep, x, *, chunk_blocks: int,
                        step_tiles: int) -> torch.Tensor:
     """Kernel E on CUDA tensors; the plain version on CPU tensors.
-    Returns the scan S, (T, 8, 128) float32."""
+    Returns the scan S, (T, 8, 128) in x's type."""
     _check_scan(vals, cols, cstep, x, step_tiles)
     if not platform.is_cuda(x):
         return packed_scan_plain(vals, cols, cstep, x,
                                  chunk_blocks=chunk_blocks,
                                  step_tiles=step_tiles)
-    out = torch.empty_like(vals)
+    out = torch.empty(vals.shape, dtype=x.dtype, device=x.device)
     _kernels.launch(
-        "packed_scan_f32", x.get_device(), vals.data_ptr(), cols.data_ptr(),
+        _kernels.entry("packed_scan_f32", vals.dtype), x.get_device(),
+        vals.data_ptr(), cols.data_ptr(),
         cstep.data_ptr(), x.data_ptr(), out.data_ptr(), vals.shape[0] * 8,
         step_tiles * 8, chunk_blocks * 128, x.shape[0])
-    packed_scan_kernel.launches += 1
     return out
-
-
-packed_scan_kernel.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -112,11 +115,14 @@ def packed_extract_plain(scan, sblock, wstep, esrc, *, num_windows: int,
                          step_tiles: int) -> torch.Tensor:
     """Plain PyTorch version of kernel F: each visit's piece sums, added
     into their windows in visit order; unvisited windows are 0."""
+    out_dtype = scan.dtype
+    scan = sr.widen(scan)
     e = esrc.long()
     src = sblock.long()[:, None, None] * (step_tiles * 1024) + e.clamp(min=0)
     contrib = torch.where(e >= 0, scan.reshape(-1)[src], scan.new_zeros(()))
     out = scan.new_zeros((num_windows, PACKED_WINDOW_BLOCKS, 128))
-    return out.index_add_(0, wstep, contrib).reshape(-1, 128)
+    return sr.narrow(out.index_add_(0, wstep, contrib).reshape(-1, 128),
+                     out_dtype)
 
 
 def _check_pass_b(scan, sblock, esrc, num_windows, *more):
@@ -124,9 +130,9 @@ def _check_pass_b(scan, sblock, esrc, num_windows, *more):
     if tuple(esrc.shape) != (steps_b, PACKED_WINDOW_BLOCKS, 128):
         raise ValueError(f"esrc {tuple(esrc.shape)} must be (steps_b, 64, "
                          f"128) with steps_b = {steps_b} visits")
-    if scan.dtype != torch.float32:
-        raise NotImplementedError(f"packed SpMV runs float32 only (scan "
-                                  f"{scan.dtype})")
+    if scan.dtype not in (torch.float32, torch.int32, torch.uint32):
+        raise NotImplementedError(f"packed SpMV sums in float32, int32 or "
+                                  f"uint32 (scan {scan.dtype})")
     if esrc.dtype != torch.int16 or sblock.dtype != torch.int32:
         raise ValueError("esrc must be int16 and sblock int32")
     if not 0 < num_windows < 65536:
@@ -155,12 +161,13 @@ def packed_rows_plain(scan, sblock, esrc, x, tables: ExtractTables, *,
         (tables.woff[1:] - tables.woff[:-1]).long())
     y = packed_extract_plain(scan, sblock, wstep, esrc, num_windows=nwin,
                              step_tiles=step_tiles).reshape(-1)[:rows]
-    y = y.contiguous()
+    y = sr.widen(y.contiguous())
     block = torch.repeat_interleave(
         torch.arange(tables.ov_off.shape[0] - 1, device=scan.device),
         (tables.ov_off[1:] - tables.ov_off[:-1]).long())
-    prod = tables.ov_vals * x[tables.ov_cols.long()]
-    return y.index_add_(0, block * EXTRACT_BLOCK_ROWS + tables.ov_lane, prod)
+    prod = sr.widen(tables.ov_vals) * sr.widen(x)[tables.ov_cols.long()]
+    return sr.narrow(y.index_add_(0, block * EXTRACT_BLOCK_ROWS
+                                  + tables.ov_lane, prod), scan.dtype)
 
 
 def _check_rows(scan, sblock, esrc, x, tables, rows):
@@ -170,9 +177,13 @@ def _check_rows(scan, sblock, esrc, x, tables, rows):
     if tables.ov_off.shape != (-(-rows // EXTRACT_BLOCK_ROWS) + 1,):
         raise ValueError(f"ov_off {tuple(tables.ov_off.shape)}: the tables "
                          f"are not those of a plan of {rows} rows")
-    if x.dtype != torch.float32 or x.dim() != 1:
-        raise ValueError(f"x must be 1-D float32, got {x.dtype} "
-                         f"{tuple(x.shape)}")
+    if x.dtype != scan.dtype or x.dim() != 1 or \
+            tables.ov_vals.dtype not in _kernels.BUILDS or \
+            sr.x_dtype(tables.ov_vals.dtype) != scan.dtype:
+        raise ValueError(f"x must be 1-D of the scan's type {scan.dtype} "
+                         f"and the overflow values of a plan that sums in "
+                         f"it, got {x.dtype} {tuple(x.shape)} and "
+                         f"{tables.ov_vals.dtype}")
     if x.shape[0] < tables.ncols:
         raise ValueError(f"x has {x.shape[0]} entries; the plan has "
                          f"{tables.ncols} columns")
@@ -181,37 +192,37 @@ def _check_rows(scan, sblock, esrc, x, tables, rows):
 def packed_rows_kernel(scan, sblock, esrc, x, tables: ExtractTables, *,
                        rows: int, step_tiles: int) -> torch.Tensor:
     """Kernel F on CUDA tensors; the plain version on CPU tensors.
-    Returns y, (rows,) float32: the visits of each row's window, then
-    the row's overflow."""
+    Returns y, (rows,) in the scan's type: the visits of each row's
+    window, then the row's overflow."""
     _check_rows(scan, sblock, esrc, x, tables, rows)
     if not platform.is_cuda(scan):
         return packed_rows_plain(scan, sblock, esrc, x, tables, rows=rows,
                                  step_tiles=step_tiles)
-    y = torch.empty(rows, dtype=torch.float32, device=scan.device)
+    y = torch.empty(rows, dtype=scan.dtype, device=scan.device)
     _launch_f(scan, sblock, tables.woff, esrc, tables, x, y, step_tiles)
     return y
 
 
 def _launch_f(scan, sblock, woff, esrc, tables, x, y, step_tiles):
-    """One launch of kernel F into ``y`` (no overflow without tables)."""
+    """One launch of kernel F into ``y`` (no overflow without tables),
+    the build of the plan's value type (the overflow's; the scan's when
+    there is none)."""
     ov = (None,) * 4 if tables is None else (
         tables.ov_off.data_ptr(), tables.ov_lane.data_ptr(),
         tables.ov_cols.data_ptr(), tables.ov_vals.data_ptr())
+    vals_t = scan.dtype if tables is None else tables.ov_vals.dtype
     _kernels.launch(
-        "packed_extract_f32", scan.get_device(), scan.data_ptr(),
+        _kernels.entry("packed_extract_f32", vals_t), scan.get_device(),
+        scan.data_ptr(),
         sblock.data_ptr(), woff.data_ptr(), esrc.data_ptr(), *ov,
         None if x is None else x.data_ptr(), y.data_ptr(), y.shape[0],
         step_tiles * 1024)
-    packed_rows_kernel.launches += 1
-
-
-packed_rows_kernel.launches = 0
 
 
 def packed_extract_kernel(scan, sblock, wstep, esrc, *, num_windows: int,
                           step_tiles: int) -> torch.Tensor:
-    """Kernel F over whole windows with no overflow on CUDA tensors (its
-    launches count on :func:`packed_rows_kernel`); the plain version on
+    """Kernel F over whole windows with no overflow on CUDA tensors (the
+    ``packed_extract_*`` entry of the scan's type); the plain version on
     CPU tensors.  Returns (num_windows * 64, 128) float32.  ``wstep``
     must be nondecreasing (``build_packed_plan``'s window-major visit
     order).  Both versions write 0 to unvisited windows, so the plan's
@@ -225,7 +236,7 @@ def packed_extract_kernel(scan, sblock, wstep, esrc, *, num_windows: int,
     woff = torch.from_numpy(window_offsets(wstep, num_windows)).to(
         scan.device)
     out = torch.empty((num_windows * PACKED_WINDOW_BLOCKS, 128),
-                      dtype=torch.float32, device=scan.device)
+                      dtype=scan.dtype, device=scan.device)
     _launch_f(scan, sblock, woff, esrc, None, None, out.reshape(-1),
               step_tiles)
     return out
@@ -247,7 +258,7 @@ def spmv_packed(plan: PackedPlan, x: torch.Tensor, *,
             f"segmented prefix sum); got {semiring!r}")
     st = plan.stats
     tables = extract_on(plan)
-    x = x.to(plan.vals.dtype).contiguous()
+    x = x.to(sr.x_dtype(plan.vals.dtype)).contiguous()
     scan = packed_scan_kernel(plan.vals, plan.cols, plan.cstep, x,
                               chunk_blocks=st.chunk_blocks,
                               step_tiles=st.step_tiles)

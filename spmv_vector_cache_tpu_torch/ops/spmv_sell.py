@@ -20,6 +20,10 @@ and CachedPlan joins and the COO tail — are torch ops,
 as the reference computes them in XLA outside Pallas; over a double
 plan's float64 partials they are plain float64 sums, where the
 reference needs compensated pair additions over dense fold matrices.
+B and G have a build for each value type of ``ops/semiring.py``'s
+policy (bfloat16 summed in float32; int32 and uint32 summed exactly,
+under plus_times, max_times and or_and), and the epilogues run in the
+same types.
 :func:`spmv_plan` dispatches every plan type, ChunkPlan
 (``ops/spmv_chunk.py``) and PackedPlan (``ops/spmv_packed.py``)
 included.
@@ -60,9 +64,8 @@ def fold_lanes(y2d: torch.Tensor, parts: int, rows: int,
     acc = y2d[:, :rps]
     s = sr.get(semiring)
     for j in range(1, parts):
-        acc = s.add(acc, y2d[:, j * rps:(j + 1) * rps])
-    # or_and's logical add yields bool; restore the float encoding
-    return acc.to(y2d.dtype).reshape((-1,) + tail)[:rows]
+        acc = s.combine(acc, y2d[:, j * rps:(j + 1) * rps])
+    return acc.reshape((-1,) + tail)[:rows]
 
 
 def _fixup_rows(plan: SellPlan, y2d: torch.Tensor,
@@ -113,8 +116,11 @@ def sell_window_plain(vals, cols_win, window_base, x, *, group_tiles: int,
                       semiring: str) -> torch.Tensor:
     """Plain PyTorch version of kernel B (same inputs, same output).  An
     x with a trailing RHS axis, B of shape (cols, k), gives partials with
-    that axis: kernel H's plain version (``ops/spmm_sell.py``)."""
+    that axis: kernel H's plain version (``ops/spmm_sell.py``).  The
+    sums in :func:`~.semiring.widen`'s types, the partials in x's."""
     mul, axis_reduce = sr.kernel_ops(semiring)
+    out_dtype = x.dtype
+    vals, x = sr.widen(vals, semiring), sr.widen(x, semiring)
     T, P, R = vals.shape
     cols, tail = x.shape[0], tuple(x.shape[1:])
     base = window_base.long().repeat_interleave(group_tiles) * window_grain
@@ -122,26 +128,31 @@ def sell_window_plain(vals, cols_win, window_base, x, *, group_tiles: int,
     xz = torch.cat([x, x.new_zeros((1,) + tail)])      # c >= cols reads 0
     prod = mul(vals.reshape(vals.shape + (1,) * len(tail)), xz[c])
     if fold:
-        return axis_reduce(
-            prod.reshape((T // group_tiles, group_tiles * P, R) + tail), 1)
-    return axis_reduce(prod, 1)
+        prod = prod.reshape((T // group_tiles, group_tiles * P, R) + tail)
+    return sr.narrow(axis_reduce(prod, 1), out_dtype)
 
 
 def _check_slab(vals, idx, x, name: str, double: bool) -> None:
-    """``vals`` (T, P, R) float32 and its index array ``idx`` (T, P, R);
-    a double slab holds hi and lo halves, (T, 2P, R), beside a (T, P, R)
-    index array and a float64 x."""
+    """``vals`` (T, P, R) float32, bfloat16, int32 or uint32, x of their
+    sum type (:func:`~.semiring.x_dtype`), and the index array ``idx``
+    (T, P, R); a double slab holds float32 hi and lo halves, (T, 2P, R),
+    beside a (T, P, R) index array and a float64 x."""
     channels = 2 if double else 1
     if vals.dim() != 3 or idx.dim() != 3 or tuple(vals.shape) != (
             idx.shape[0], channels * idx.shape[1], idx.shape[2]):
         raise ValueError(f"vals {tuple(vals.shape)} and {name} "
                          f"{tuple(idx.shape)} must be equal (T, P, R)"
                          f"{'; double vals are (T, 2P, R)' if double else ''}")
-    want_x = torch.float64 if double else torch.float32
-    if vals.dtype != torch.float32 or x.dtype != want_x:
-        raise NotImplementedError(f"SELL SpMV runs float32 values with a "
-                                  f"{want_x} x (vals {vals.dtype}, x "
-                                  f"{x.dtype})")
+    if double:
+        ok = vals.dtype == torch.float32 and x.dtype == torch.float64
+    else:
+        ok = vals.dtype in _kernels.BUILDS and \
+            x.dtype == sr.x_dtype(vals.dtype)
+    if not ok:
+        raise NotImplementedError(
+            f"SELL SpMV runs float32, bfloat16, int32 or uint32 values with "
+            f"an x of their sum type, or a double plan's pairs with a "
+            f"float64 x (vals {vals.dtype}, x {x.dtype})")
 
 
 def _check_window(vals, cols_win, window_base, x, group_tiles,
@@ -166,6 +177,7 @@ def sell_window_kernel(vals, cols_win, window_base, x, *, group_tiles: int,
                        semiring: str) -> torch.Tensor:
     """Kernel B on CUDA tensors; the plain version on CPU tensors."""
     _check_window(vals, cols_win, window_base, x, group_tiles)
+    sr.check_integer(semiring, vals.dtype)
     if not platform.is_cuda(x):
         return sell_window_plain(vals, cols_win, window_base, x,
                                  group_tiles=group_tiles,
@@ -173,17 +185,14 @@ def sell_window_kernel(vals, cols_win, window_base, x, *, group_tiles: int,
                                  semiring=semiring)
     T, P, R = vals.shape
     out_rows = T // group_tiles if fold else T
-    out = torch.empty((out_rows, R), dtype=torch.float32, device=x.device)
+    out = torch.empty((out_rows, R), dtype=x.dtype, device=x.device)
     _kernels.launch(
-        "spmv_sell_window_f32", x.get_device(), vals.data_ptr(),
+        _kernels.entry("spmv_sell_window_f32", vals.dtype), x.get_device(),
+        vals.data_ptr(),
         cols_win.data_ptr(), window_base.data_ptr(), x.data_ptr(),
         out.data_ptr(), out_rows, P, R, group_tiles, int(fold), window_grain,
         x.shape[0], sr.KERNEL_CODE[semiring])
-    sell_window_kernel.launches += 1
     return out
-
-
-sell_window_kernel.launches = 0
 
 
 def sell_window_f64_plain(vals, cols_win, window_base, x, *,
@@ -216,11 +225,7 @@ def sell_window_f64_kernel(vals, cols_win, window_base, x, *,
         cols_win.data_ptr(), window_base.data_ptr(), x.data_ptr(),
         out.data_ptr(), out_rows, P2 // 2, R, group_tiles, int(fold),
         window_grain, x.shape[0])
-    sell_window_f64_kernel.launches += 1
     return out
-
-
-sell_window_f64_kernel.launches = 0
 
 
 def folds_groups(plan: SellPlan) -> bool:
@@ -247,7 +252,8 @@ def _window_partials(plan: SellPlan, x: torch.Tensor, semiring: str):
     fold = folds_groups(plan)
     out = sell_window_kernel(
         plan.vals, plan.cols_win, plan.window_base,
-        x.to(plan.vals.dtype).contiguous(), group_tiles=st.group_tiles,
+        x.to(sr.x_dtype(plan.vals.dtype)).contiguous(),
+        group_tiles=st.group_tiles,
         window_grain=st.window_grain, fold=fold, semiring=semiring)
     return out, fold
 
@@ -271,9 +277,10 @@ def row_parts(plan: SellPlan) -> int:
 
 
 def _tile_sums(vals, cols, x, semiring: str) -> torch.Tensor:
-    """(T, R) per-tile sums (+)_p vals (x) x[cols]; a column past x reads
-    as 0."""
+    """(T, R) per-tile sums (+)_p vals (x) x[cols], in
+    :func:`~.semiring.widen`'s types; a column past x reads as 0."""
     mul, axis_reduce = sr.kernel_ops(semiring)
+    vals, x = sr.widen(vals, semiring), sr.widen(x, semiring)
     n = x.shape[0]
     c = cols.long()
     c = torch.where((c >= 0) & (c < n), c, n)  # out of range reads 0
@@ -286,8 +293,9 @@ def sell_global_plain(vals, cols, tile_slice, x, *, num_slices: int,
     per-tile sums, their semiring reduce over ``tile_slice`` to
     (num_slices, R) slice sums, then, for ``parts`` >= 1, the lane fold
     to y's ``rows`` rows."""
-    y2d = sr.get(semiring).segment_reduce(_tile_sums(vals, cols, x, semiring),
-                                          tile_slice, num_segments=num_slices)
+    y2d = sr.get(semiring).segment_reduce(
+        sr.narrow(_tile_sums(vals, cols, x, semiring), x.dtype), tile_slice,
+        num_segments=num_slices)
     return fold_lanes(y2d, parts, rows, semiring) if parts else y2d
 
 
@@ -317,13 +325,6 @@ def _check_slices(tile_slice, T, device, num_slices, parts, rows, R):
         raise ValueError(f"{num_slices} slices do not cover {rows} rows")
 
 
-#: what a kernel-G or -L output that split slices combine into holds first:
-#: the kernel's init of each semiring (or_and runs as max_times)
-_INIT = {"plus_times": 0.0, "min_plus": float("inf"),
-         "max_plus": float("-inf"), "max_times": float("-inf"),
-         "or_and": float("-inf")}
-
-
 def _launch_global(entry, vals, cols, tile_slice, x, positions, num_slices,
                    parts, rows, semiring, *code):
     """Launch kernel G or L (C entry point ``entry``, then ``code``) on
@@ -332,8 +333,8 @@ def _launch_global(entry, vals, cols, tile_slice, x, positions, num_slices,
     work = runs_on(tile_slice, num_slices)
     R = vals.shape[2]
     shape = (rows,) if parts else (num_slices, R)
-    out = torch.full(shape, _INIT[semiring], dtype=x.dtype,
-                     device=x.device) if work.split else \
+    out = torch.full(shape, sr.init_value(semiring, x.dtype),
+                     dtype=x.dtype, device=x.device) if work.split else \
         torch.empty(shape, dtype=x.dtype, device=x.device)
     _kernels.launch(
         entry, x.get_device(), vals.data_ptr(), cols.data_ptr(),
@@ -354,20 +355,18 @@ def sell_global_kernel(vals, cols, tile_slice, x, *, num_slices: int,
     placed plan's (its work list, ``ops/runs.py``, is built at
     placement); x is gathered through L1 and L2."""
     _check_global(vals, cols, x)
+    sr.check_integer(semiring, vals.dtype)
     T, P, R = vals.shape
     _check_slices(tile_slice, T, vals.device, num_slices, parts, rows, R)
     if not platform.is_cuda(x):
         return sell_global_plain(vals, cols, tile_slice, x,
                                  num_slices=num_slices, parts=parts,
                                  rows=rows, semiring=semiring)
-    out = _launch_global("spmv_sell_global_f32", vals, cols, tile_slice, x,
+    out = _launch_global(_kernels.entry("spmv_sell_global_f32", vals.dtype),
+                         vals, cols, tile_slice, x,
                          P, num_slices, parts, rows, semiring,
                          sr.KERNEL_CODE[semiring])
-    sell_global_kernel.launches += 1
     return out
-
-
-sell_global_kernel.launches = 0
 
 
 def sell_global_f64_plain(vals, cols, tile_slice, x, *, num_slices: int,
@@ -397,11 +396,7 @@ def sell_global_f64_kernel(vals, cols, tile_slice, x, *, num_slices: int,
                                      rows=rows)
     out = _launch_global("spmv_sell_global_f64", vals, cols, tile_slice, x,
                          P2 // 2, num_slices, parts, rows, "plus_times")
-    sell_global_f64_kernel.launches += 1
     return out
-
-
-sell_global_f64_kernel.launches = 0
 
 
 def _x_blocks(plan: SellPlan) -> int:
@@ -437,7 +432,7 @@ def _spmv_global(plan: SellPlan, x: torch.Tensor, semiring: str,
                              f"({cap}); {advice}")
     parts = row_parts(plan)
     out = sell_global_kernel(plan.vals, plan.cols, plan.tile_slice,
-                             x.to(plan.vals.dtype).contiguous(),
+                             x.to(sr.x_dtype(plan.vals.dtype)).contiguous(),
                              num_slices=plan.num_slices, parts=parts,
                              rows=plan.shape[0], semiring=semiring)
     return out if parts else _fixup_rows(plan, out, semiring)
@@ -512,17 +507,53 @@ def spmv_sell_double_pair(plan: SellPlan, xh: torch.Tensor,
 
 def _spmv_coo(plan: CooTail, x: torch.Tensor, semiring: str) -> torch.Tensor:
     """COO tail: element gather + segment reduce (torch ops, as the
-    reference runs it in XLA)."""
+    reference runs it in XLA), in x's type as the reference computes it
+    (the values cast to it)."""
     s = sr.get(semiring)
     mul, _ = sr.kernel_ops(semiring)
-    prod = mul(plan.vals.to(x.dtype), x[plan.cols.long()])
+    sr.check_integer(semiring, plan.vals.dtype)
+    prod = mul(sr.widen(plan.vals.to(x.dtype), semiring),
+               sr.widen(x, semiring)[plan.cols.long()])
     rows = plan.shape[0]
-    return s.segment_reduce(prod, plan.rows_idx, num_segments=rows + 1)[:rows]
+    y = s.segment_reduce(sr.narrow(prod, x.dtype), plan.rows_idx,
+                         num_segments=rows + 1)
+    return y[:rows]
 
 
 # ---------------------------------------------------------------------------
 # public entry
 # ---------------------------------------------------------------------------
+
+def plan_vals_dtype(plan) -> torch.dtype:
+    """The torch type of ``plan``'s value slab (a double plan's is its
+    float32 pairs'; a host plan's numpy slab read as torch's)."""
+    if isinstance(plan, HybridPlan):
+        plan = plan.dia
+    elif isinstance(plan, CachedPlan):
+        plan = plan.hot
+    elif isinstance(plan, ChunkPlan):
+        parts = (*plan.buckets, *plan.hbuckets, plan.residue)
+        plan = next((p for p in parts if p is not None), None)
+        if plan is None:
+            raise ValueError("the ChunkPlan has no bucket and no residue: "
+                             "it holds no values")
+    vals = plan.vals
+    if not isinstance(vals, torch.Tensor):
+        vals = torch.from_numpy(np.asarray(vals).reshape(-1)[:0])
+    return vals.dtype
+
+
+def plan_x_dtype(plan) -> torch.dtype:
+    """The type an apply of ``plan`` reads x (B) in and returns y (Y)
+    in: float64 for a double plan, float32 for a float32 or bfloat16
+    plan, the value type of an integer plan."""
+    if isinstance(plan, HybridPlan):
+        plan = plan.dia
+    if (isinstance(plan, DiaPlan) and plan.double) or (
+            isinstance(plan, SellPlan) and plan.stats.double):
+        return torch.float64
+    return sr.x_dtype(plan_vals_dtype(plan))
+
 
 def check_x_length(x, cols: int) -> None:
     """Raise ``ValueError`` unless x (a tensor or an array) is 1-D with
@@ -575,12 +606,10 @@ def spmv_plan(plan, x: torch.Tensor, *, strategy: str = "auto",
         # each nonzero lives in exactly one part, so the join is one
         # semiring add
         s = sr.get(semiring)
-        y = spmv_plan(plan.hot, x.index_select(0, plan.hot_cols),
+        y = spmv_plan(plan.hot, sr.take(x, plan.hot_cols),
                       semiring=semiring)
         if plan.cold is not None:
-            yc = spmv_plan(plan.cold, x, semiring=semiring)
-            # or_and's logical add yields bool; restore the float encoding
-            y = s.add(y, yc).to(yc.dtype)
+            y = s.combine(y, spmv_plan(plan.cold, x, semiring=semiring))
         return y
     if isinstance(plan, (DiaPlan, HybridPlan)) and semiring != "plus_times":
         raise ValueError("DIA plans encode absence as 0 and support only "
@@ -598,8 +627,8 @@ def spmv_plan(plan, x: torch.Tensor, *, strategy: str = "auto",
         # passes 'dia' on to a SELL residual, which rejects it.
         rest_strategy = "auto" if strategy == "dia" else strategy
         dia = spmv_dia_double if plan.dia.double else spmv_dia
-        return (dia(plan.dia, x) +
-                spmv_plan(plan.rest, x, strategy=rest_strategy))
+        return sr.PLUS_TIMES.combine(
+            dia(plan.dia, x), spmv_plan(plan.rest, x, strategy=rest_strategy))
     if not isinstance(plan, SellPlan):
         raise NotImplementedError(
             f"{type(plan).__name__} is not ported yet (ROADMAP.md queue 1)")

@@ -77,7 +77,10 @@ def plan_nnz(plan) -> int:
 
 def plan_bytes_per_apply(plan, strategy: str = "auto") -> int:
     """Device-memory bytes one SpMV moves, as the reference counts them:
-    the streamed plan arrays, the dense vector and the result."""
+    the streamed plan arrays, the dense vector and the result.  The
+    streamed values count at the slab's itemsize; x, y, the partials and
+    the scan at the sum type's (``sum_size``: float32 for a bfloat16
+    plan, whose value stream alone is halved)."""
     if isinstance(plan, ChunkPlan):
         b = sum(plan_bytes_per_apply(bk, "window") for bk in plan.buckets)
         for h in plan.hbuckets:
@@ -96,8 +99,9 @@ def plan_bytes_per_apply(plan, strategy: str = "auto") -> int:
             b += plan_bytes_per_apply(plan.cold)
         return b
     itemsize = _itemsize(plan.vals)
+    sum_size = max(itemsize, 4)
     rows, cols = plan.shape
-    vec = (rows + cols) * itemsize
+    vec = (rows + cols) * sum_size
     if isinstance(plan, CooTail):
         return plan.nnz * (itemsize + 8) + vec
     if isinstance(plan, PackedPlan):
@@ -128,11 +132,11 @@ def plan_bytes_per_apply(plan, strategy: str = "auto") -> int:
     else:
         idx_b = T * P * R * 4 * 3                # cols + gathered x (r+w)
     if st.group_fold and strategy in ("window", "resident"):
-        partials_b = (T // st.group_tiles) * R * itemsize
+        partials_b = (T // st.group_tiles) * R * sum_size
         if not st.group_slice_identity:
             partials_b *= 3                      # + segment fold r/w
     else:
-        partials_b = T * R * itemsize * 3        # kernel write + fold r/w
+        partials_b = T * R * sum_size * 3        # kernel write + fold r/w
     return vals_b + idx_b + xw_b + partials_b + vec
 
 

@@ -36,7 +36,7 @@ from ..formats.packed import PackedPlan, build_packed_plan
 from ..formats.plan import (SellPlan, _as_csr, auto_plan, build_sell_plan,
                             place)
 from . import semiring as sr
-from .spmv_sell import spmv_plan
+from .spmv_sell import plan_x_dtype, spmv_plan
 from .strategy import _time_rounds, plan_nnz
 
 #: default on-disk store of the port's tuned configurations (the
@@ -213,9 +213,9 @@ def autotune_plan(a, *, value_dtype=np.float32,
                     signature=sig, best=want, plan=place(build(), device),
                     table=[TuneEntry(name=want, seconds=0.0,
                                      gnnz_per_s=0.0, params=params)])
-    x = torch.ones(a.shape[1], dtype=torch.float64
-                   if np.dtype(value_dtype) == np.float64 else torch.float32,
-                   device=device)
+    # ones in the plan's x type, as the reference's np.ones(cols,
+    # value_dtype)
+    x = torch.ones(a.shape[1], dtype=plan_x_dtype(base), device=device)
     built, skipped = [], []
     for name, params, build in cands:
         try:

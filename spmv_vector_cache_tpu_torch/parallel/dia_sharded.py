@@ -7,7 +7,10 @@ span of its own rows, so each shard takes one left and one right halo of
 O(band) bytes moved between shards instead of the O(n) all-gather of
 the general SELL path (``spmv_sharded.py``).  Each shard then runs
 kernel M (``ops/spmv_dia.py``, :func:`spmv_dia_halo_kernel`), the DIA
-kernel with its x origin at the left halo.
+kernel with its x origin at the left halo: its float32 build, or its
+bfloat16 (summed in float32, y float32, where the reference rounds x to
+bfloat16 and sums in bfloat16, ROADMAP.md queue 3), int32 or uint32
+build.
 
 Ring wrap-around at the edge shards delivers the other end's values into
 the halo, but every value slot referencing out-of-matrix columns is zero
@@ -23,7 +26,9 @@ import numpy as np
 import torch
 
 from ..formats.dia import DIA, csr_to_dia
-from ..formats.plan import _as_csr, _round_up
+from ..formats.plan import (_as_csr, _round_up, build_dtype, finish_values,
+                            host_values, value_kind)
+from ..ops import semiring as sr
 from ..ops.spmv_dia import spmv_dia_halo_kernel
 from ..ops.spmv_sell import check_x_length
 from .mesh import (Mesh, device_scope, place_on_mesh, shard_vector,
@@ -61,13 +66,14 @@ def build_sharded_dia_plan(a, num_shards: int, *, sublanes: int = 64,
     """Partition rows into ``num_shards`` blocks, one DIA plan each.
 
     Requires a square matrix (row-partitioned x) whose diagonal span fits
-    one shard (``halo <= rows_per_shard``), and float32 values."""
-    if np.dtype(value_dtype) != np.float32:
+    one shard (``halo <= rows_per_shard``), and float32, bfloat16, int32,
+    int64 (stored int32) or uint32 values."""
+    if value_kind(value_dtype) == "f64":
         raise NotImplementedError(
-            f"value_dtype {np.dtype(value_dtype)}: sharded DIA plans run "
-            f"float32 values only (bf16 is ROADMAP.md queue 1, item 2; "
-            f"double plans run unsharded, from_matrix(a, "
-            f"value_dtype=np.float64))")
+            "value_dtype float64: sharded DIA plans run float32, bfloat16, "
+            "int32 and uint32 values; double plans run unsharded, "
+            "from_matrix(a, value_dtype=np.float64) (the reference builds "
+            "no double sharded plan: ROADMAP.md queue 1, item 2)")
     if not isinstance(a, DIA):
         a = csr_to_dia(_as_csr(a))
     rows, cols = a.shape
@@ -84,14 +90,15 @@ def build_sharded_dia_plan(a, num_shards: int, *, sublanes: int = 64,
         raise ValueError(
             f"diagonal span {span} exceeds rows_per_shard {rps}; "
             "use fewer shards or the all-gather SELL path")
-    data = np.asarray(a.data)
+    data = host_values(a.data, value_dtype)
     T = rps // RS
     D = len(offsets)
-    vals = np.zeros((num_shards, T, D, sublanes, 128), value_dtype)
+    vdt = build_dtype(value_dtype)
+    vals = np.zeros((num_shards, T, D, sublanes, 128), vdt)
     for d in range(num_shards):
         r0, r1 = min(d * rps, rows), min((d + 1) * rps, rows)
         if r1 > r0:
-            block = np.zeros((D, rps), value_dtype)
+            block = np.zeros((D, rps), vdt)
             block[:, :r1 - r0] = data[:, r0:r1]
             vals[d] = block.reshape(D, T, sublanes, 128).transpose(1, 0, 2, 3)
 
@@ -100,7 +107,8 @@ def build_sharded_dia_plan(a, num_shards: int, *, sublanes: int = 64,
     max_rowq = max((8 * ((halo + o) // 1024) for o in offsets), default=0)
     x_rows = max(T * sublanes + max_rowq + sublanes + 8,
                  (halo + rps + halo + 127) // 128)
-    return ShardedDiaPlan(vals=vals, offsets=offsets, shape=(rows, cols),
+    return ShardedDiaPlan(vals=finish_values(vals, value_dtype),
+                          offsets=offsets, shape=(rows, cols),
                           num_shards=num_shards, rows_per_shard=rps,
                           sublanes=sublanes, halo=halo, x_rows=x_rows)
 
@@ -118,7 +126,7 @@ def spmv_dia_sharded(sp: ShardedDiaPlan, x: Array, mesh: Mesh, *,
     check_x_length(x, sp.shape[1])
     sp = place_on_mesh(sp, mesh)
     D, rps, halo = sp.num_shards, sp.rows_per_shard, sp.halo
-    xs = shard_vector(x, torch.float32, D, rps, mesh)
+    xs = shard_vector(x, sr.x_dtype(sp.vals[0].dtype), D, rps, mesh)
     ys = []
     for d, dev in enumerate(mesh.devices):
         # one shard's SpMV: kernel M, its x origin at the left halo

@@ -104,8 +104,12 @@ def stacked_numpy(plan):
     changes = {}
     for name in plan._array_fields:
         v = getattr(plan, name)
-        changes[name] = (np.stack([t.cpu().numpy() for t in v])
-                         if isinstance(v, tuple) else np.asarray(v))
+        if isinstance(v, tuple):
+            v = torch.stack([t.cpu() for t in v])
+        if isinstance(v, torch.Tensor) and v.dtype == torch.bfloat16:
+            # numpy has no bfloat16 here: the bits, as plan_to_numpy
+            v = v.view(torch.int16).numpy().view(np.uint16)
+        changes[name] = np.asarray(v)
     return dataclasses.replace(plan, **changes)
 
 

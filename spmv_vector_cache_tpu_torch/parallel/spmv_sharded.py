@@ -33,7 +33,9 @@ import torch
 from ..formats import analysis
 from ..formats.containers import CSR
 from ..formats.plan import (WINDOW_GROUP_TILES, PlanStats, SellPlan, _as_csr,
-                            _round_up, build_sell_plan, compute_cols_win)
+                            _round_up, build_dtype, build_sell_plan,
+                            compute_cols_win, finish_values, host_numpy,
+                            value_kind)
 from ..ops import semiring as sr
 from ..ops.spmm_sell import _spmm_window
 from ..ops.spmv_sell import check_x_length, spmv_plan
@@ -86,13 +88,14 @@ def build_sharded_plan(a, num_shards: int, *, value_dtype=np.float32,
                        sigma: Optional[int] = None,
                        split: Optional[int] = None,
                        max_window_blocks: int = 16) -> ShardedPlan:
-    """Partition rows into ``num_shards`` blocks and plan each (host)."""
-    if np.dtype(value_dtype) != np.float32:
+    """Partition rows into ``num_shards`` blocks and plan each (host):
+    float32, bfloat16, int32, int64 (stored int32) or uint32 values."""
+    if value_kind(value_dtype) == "f64":
         raise NotImplementedError(
-            f"value_dtype {np.dtype(value_dtype)}: sharded SELL plans run "
-            f"float32 values only (bf16 is ROADMAP.md queue 1, item 2; "
-            f"double plans run unsharded, from_matrix(a, "
-            f"value_dtype=np.float64))")
+            "value_dtype float64: sharded SELL plans run float32, bfloat16, "
+            "int32 and uint32 values; double plans run unsharded, "
+            "from_matrix(a, value_dtype=np.float64) (the reference builds "
+            "no double sharded plan: ROADMAP.md queue 1, item 2)")
     csr = _as_csr(a)
     rows, cols_n = csr.shape
     rps = _round_up(_round_up(rows, num_shards) // num_shards, 128)
@@ -122,14 +125,14 @@ def build_sharded_plan(a, num_shards: int, *, value_dtype=np.float32,
     S = max(p.num_slices for p in plans)
     D = num_shards
     Pp, R = plans[0].positions, plans[0].lane_rows
-    vals = np.zeros((D, T, Pp, R), dtype=value_dtype)
+    vals = np.zeros((D, T, Pp, R), dtype=build_dtype(value_dtype))
     cols = np.zeros((D, T, Pp, R), dtype=np.int32)
     tile_slice = np.zeros((D, T), dtype=np.int32)
     window_base = np.zeros((D, T // WINDOW_GROUP_TILES), dtype=np.int32)
     row_map = np.full((D, S * R), rps, dtype=np.int32)
     for d, p in enumerate(plans):
         t = p.num_tiles
-        vals[d, :t] = p.vals
+        vals[d, :t] = host_numpy(p.vals)
         cols[d, :t] = p.cols
         tile_slice[d, :t] = p.tile_slice
         tile_slice[d, t:] = S - 1          # padding tiles: last slice, zeros
@@ -156,7 +159,8 @@ def build_sharded_plan(a, num_shards: int, *, value_dtype=np.float32,
     bw = analysis.bandwidth(csr)
     halo = _round_up(int(bw), 128) if 0 < bw <= rps else 0
 
-    return ShardedPlan(vals=vals, cols=cols, cols_win=cols_win,
+    return ShardedPlan(vals=finish_values(vals, value_dtype), cols=cols,
+                       cols_win=cols_win,
                        tile_slice=tile_slice,
                        window_base=window_base, row_map=row_map,
                        shape=(rows, cols_n), num_shards=D,
@@ -209,10 +213,11 @@ def _local_spmv_plain(vals, cols, tile_slice, row_map, x_full, *,
                       num_slices: int, rows_local: int,
                       identity: bool) -> torch.Tensor:
     """Per-shard SpMV in plain torch: the reference's non-kernel route,
-    taken when the plan has no window (a gather of x per slot)."""
-    partial_t = (vals * x_full[cols.long()]).sum(1)          # (T, R)
-    y2d = sr.PLUS_TIMES.segment_reduce(partial_t, tile_slice,
-                                       num_segments=num_slices)
+    taken when the plan has no window (a gather of x per slot), in
+    ``ops/semiring.widen``'s types."""
+    partial_t = (sr.widen(vals) * sr.widen(x_full)[cols.long()]).sum(1)
+    y2d = sr.PLUS_TIMES.segment_reduce(sr.narrow(partial_t, x_full.dtype),
+                                       tile_slice, num_segments=num_slices)
     return _slices_to_rows(y2d, row_map, rows_local=rows_local,
                            identity=identity)
 
@@ -270,7 +275,7 @@ def spmv_sharded(sp: ShardedPlan, x: Array, mesh: Mesh, *,
     check_x_length(x, sp.shape[1])
     sp = place_on_mesh(sp, mesh)
     D, rps = sp.num_shards, sp.rows_per_shard
-    xs = shard_vector(x, torch.float32, D, rps, mesh)
+    xs = shard_vector(x, sr.x_dtype(sp.vals[0].dtype), D, rps, mesh)
     gathered = None
     if mode == "all_gather":
         gathered = _replicated(xs, mesh)
@@ -324,7 +329,7 @@ def spmm_sharded(sp: ShardedPlan, b: Array, mesh: Mesh, *,
     D, rps = sp.num_shards, sp.rows_per_shard
     b = torch.as_tensor(b)
     k = b.shape[1]
-    bp = b.new_zeros((D * rps, k), dtype=torch.float32)
+    bp = b.new_zeros((D * rps, k), dtype=sr.x_dtype(sp.vals[0].dtype))
     bp[:b.shape[0]] = b
     ys = []
     for d, b_full in enumerate(_replicated([bp], mesh)):
@@ -339,9 +344,14 @@ def _shard_spmm(sp: ShardedPlan, d: int, b_full) -> torch.Tensor:
         lp = _local_plan(sp, d, sp.cols[d], sp.window_base[d],
                          b_full.shape[0], sp.max_window_base)
         return _spmm_window(lp, b_full)
-    bg = b_full[sp.cols[d].long()]                           # (T, P, R, k)
-    contrib = torch.einsum("tpr,tprk->trk", sp.vals[d], bg)
-    y3d = sr.PLUS_TIMES.segment_reduce(contrib, sp.tile_slice[d],
+    bg = sr.widen(b_full)[sp.cols[d].long()]                 # (T, P, R, k)
+    vals = sr.widen(sp.vals[d])
+    if vals.is_floating_point():
+        contrib = torch.einsum("tpr,tprk->trk", vals, bg)
+    else:                       # torch multiplies no integer matrices
+        contrib = (vals[..., None] * bg).sum(1)
+    y3d = sr.PLUS_TIMES.segment_reduce(sr.narrow(contrib, b_full.dtype),
+                                       sp.tile_slice[d],
                                        num_segments=sp.num_slices)
     return _slices_to_rows(y3d, sp.row_map[d], rows_local=sp.rows_per_shard,
                            identity=sp.identity_map)

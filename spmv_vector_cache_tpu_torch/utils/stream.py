@@ -56,8 +56,4 @@ def checksum_stream(data: torch.Tensor, block: int) -> torch.Tensor:
     _kernels.launch(
         "stream_checksum_f32", data.get_device(), data.data_ptr(),
         out.data_ptr(), num_blocks, block_elems)
-    checksum_stream.launches += 1
     return out
-
-
-checksum_stream.launches = 0

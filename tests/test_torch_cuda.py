@@ -59,9 +59,9 @@ def test_dia_kernel_matches_plain(cuda, offs, rows, cols):
     plan = place(build_dia_plan(from_scipy(m), sublanes=8), cuda)
     x = torch.from_numpy(rng.standard_normal(cols).astype(np.float32)).to(
         cuda)
-    before = spmv_dia.spmv_dia_kernel.launches
+    before = _kernels.launches["spmv_dia_f32"]
     got = spmv_dia.spmv_dia_kernel(plan.vals, plan.offsets, x, rows)
-    assert spmv_dia.spmv_dia_kernel.launches == before + 1
+    assert _kernels.launches["spmv_dia_f32"] == before + 1
     _close(got, spmv_dia.spmv_dia_plain(plan.vals, plan.offsets, x, rows))
 
 
@@ -122,9 +122,9 @@ def test_lane_unpermute_kernel_matches_plain(cuda):
                            .astype(np.int16).reshape(S, 128)).to(cuda)
     y2d = torch.from_numpy(rng.standard_normal((S, 128)).astype(
         np.float32)).to(cuda)
-    before = lane_perm.lane_unpermute.launches
+    before = _kernels.launches["lane_unpermute_f32"]
     got = lane_perm.lane_unpermute(y2d, idx)
-    assert lane_perm.lane_unpermute.launches == before + 1
+    assert _kernels.launches["lane_unpermute_f32"] == before + 1
     # a permutation moves values: exact
     assert torch.equal(got, lane_perm.lane_unpermute_plain(y2d, idx))
     # on a caller's stream, the launch goes into that stream
@@ -181,9 +181,9 @@ def test_light_kernel_matches_plain(cuda, semiring, unit_records):
         m.shape[1])).astype(np.float32)).to(cuda)
     if semiring == "or_and":
         x = (x > 0.5).float()
-    before = spmv_chunk.light_kernel.launches
+    before = _kernels.launches["spmv_chunk_light_f32"]
     got = spmv_chunk.light_kernel(light, x, semiring=semiring)
-    assert spmv_chunk.light_kernel.launches == before + 1
+    assert _kernels.launches["spmv_chunk_light_f32"] == before + 1
     ref = spmv_chunk.light_plain(light, x, semiring=semiring)
     if semiring == "plus_times":
         _close(got, ref)
@@ -192,10 +192,10 @@ def test_light_kernel_matches_plain(cuda, semiring, unit_records):
         assert torch.equal(got, ref)
     # the whole apply: one launch of the light route, y as on the CPU
     cpu = place(build_chunk_plan(from_scipy(m), **kw), "cpu")
-    before = spmv_chunk.light_kernel.launches
+    before = _kernels.launches["spmv_chunk_light_f32"]
     y = spmv_sell.spmv_plan(plan, x, semiring=semiring)
     torch.cuda.synchronize()
-    assert spmv_chunk.light_kernel.launches == before + 1
+    assert _kernels.launches["spmv_chunk_light_f32"] == before + 1
     want = spmv_sell.spmv_plan(cpu, x.cpu(), semiring=semiring)
     if semiring == "plus_times":
         _close(y.cpu(), want)
@@ -224,9 +224,9 @@ def test_subwin_kernel_matches_plain(cuda, semiring, split):
         x, y0 = (x > 0.5).float(), (y0 > 0).float()
     args = (heavy.vals, heavy.cols_win, heavy.bases, heavy.tile_row,
             heavy.rows, x)
-    before = spmv_chunk.heavy_kernel.launches
+    before = _kernels.launches["spmv_subwin_f32"]
     got = spmv_chunk.heavy_kernel(*args, y0.clone(), semiring=semiring)
-    assert spmv_chunk.heavy_kernel.launches == before + 1
+    assert _kernels.launches["spmv_subwin_f32"] == before + 1
     ref = spmv_chunk.heavy_plain(*args, y0.clone(), semiring=semiring)
     if semiring == "plus_times":
         _close(got, ref)
@@ -234,10 +234,10 @@ def test_subwin_kernel_matches_plain(cuda, semiring, split):
         # order-free min and max of the same float32 products
         assert torch.equal(got, ref)
     cpu = place(build_chunk_plan(from_scipy(m), **kw), "cpu")
-    before = spmv_chunk.heavy_kernel.launches
+    before = _kernels.launches["spmv_subwin_f32"]
     y = spmv_sell.spmv_plan(plan, x, semiring=semiring)
     torch.cuda.synchronize()
-    assert spmv_chunk.heavy_kernel.launches == before + 1
+    assert _kernels.launches["spmv_subwin_f32"] == before + 1
     want = spmv_sell.spmv_plan(cpu, x.cpu(), semiring=semiring)
     if semiring == "plus_times":
         _close(y.cpu(), want)
@@ -316,9 +316,9 @@ def test_packed_rows_kernel_matches_plain(cuda, chunk_blocks, overflow):
                                          step_tiles=st.step_tiles)
     args = (scan, plan.sblock, plan.esrc, x, tables)
     kw = dict(rows=m.shape[0], step_tiles=st.step_tiles)
-    before = spmv_packed.packed_rows_kernel.launches
+    before = _kernels.launches["packed_extract_f32"]
     got = spmv_packed.packed_rows_kernel(*args, **kw)
-    assert spmv_packed.packed_rows_kernel.launches == before + 1
+    assert _kernels.launches["packed_extract_f32"] == before + 1
     _close(got, spmv_packed.packed_rows_plain(*args, **kw))
 
 
@@ -341,8 +341,8 @@ def test_packed_apply_launches_e_and_f_alone(cuda):
     op, x = _packed_operator(cuda)
     op @ x                                      # builds the kernels
     torch.cuda.synchronize()
-    counts = (spmv_packed.packed_scan_kernel.launches,
-              spmv_packed.packed_rows_kernel.launches)
+    counts = (_kernels.launches["packed_scan_f32"],
+              _kernels.launches["packed_extract_f32"])
     names, applies = [], 0
     while not names and applies < 3:    # a session now and then records
         with profile(activities=[ProfilerActivity.CUDA]) as prof:  # nothing
@@ -354,8 +354,8 @@ def test_packed_apply_launches_e_and_f_alone(cuda):
     assert len(names) == 2, names
     assert any("packed_scan_kernel" in n for n in names) and \
         any("packed_rows_kernel" in n for n in names), names
-    assert (spmv_packed.packed_scan_kernel.launches - counts[0],
-            spmv_packed.packed_rows_kernel.launches - counts[1]) == \
+    assert (_kernels.launches["packed_scan_f32"] - counts[0],
+            _kernels.launches["packed_extract_f32"] - counts[1]) == \
         (applies, applies)
 
 
@@ -411,9 +411,9 @@ def test_global_kernel_matches_plain(cuda, semiring, fold):
     if semiring == "or_and":
         x = (x > 0.5).float()
     args, kwargs = _global_args(plan, x, semiring)
-    before = spmv_sell.sell_global_kernel.launches
+    before = _kernels.launches["spmv_sell_global_f32"]
     got = spmv_sell.sell_global_kernel(*args, **kwargs)
-    assert spmv_sell.sell_global_kernel.launches == before + 1
+    assert _kernels.launches["spmv_sell_global_f32"] == before + 1
     _check_global(got, spmv_sell.sell_global_plain(*args, **kwargs),
                   semiring)
 
@@ -502,11 +502,11 @@ def test_global_kernel_needs_a_placed_plan(cuda):
     plan = place(build_sell_plan(from_scipy(m)), cuda)
     x = torch.ones(50000, device=cuda)
     args, kwargs = _global_args(plan, x, "plus_times")
-    before = spmv_sell.sell_global_kernel.launches
+    before = _kernels.launches["spmv_sell_global_f32"]
     with pytest.raises(ValueError, match="placed"):
         spmv_sell.sell_global_kernel(args[0], args[1], args[2].clone(), x,
                                      **kwargs)
-    assert spmv_sell.sell_global_kernel.launches == before
+    assert _kernels.launches["spmv_sell_global_f32"] == before
 
 
 @pytest.mark.parametrize("semiring", ["plus_times", "min_plus"])
@@ -529,10 +529,10 @@ def test_cached_operator_on_the_card_matches_cpu(cuda, semiring):
     assert isinstance(op.plan, CachedPlan) and op.strategy == "cached"
     assert op.device.type == "cuda"
     x = np.abs(rng.standard_normal(cols)).astype(np.float32)
-    before = spmv_sell.sell_global_kernel.launches
+    before = _kernels.launches["spmv_sell_global_f32"]
     y = op @ x
     torch.cuda.synchronize()
-    assert spmv_sell.sell_global_kernel.launches > before
+    assert _kernels.launches["spmv_sell_global_f32"] > before
     want = cpu @ x
     if semiring == "plus_times":
         _close(y.cpu(), want)
@@ -562,9 +562,9 @@ def test_spmm_dia_kernel_matches_plain(cuda, offs, rows, cols, k):
     plan = place(build_dia_plan(from_scipy(m), sublanes=8), cuda)
     b = torch.from_numpy(rng.standard_normal((cols, k)).astype(
         np.float32)).to(cuda)
-    before = spmm_dia.spmm_dia_kernel.launches
+    before = _kernels.launches["spmm_dia_f32"]
     got = spmm_dia.spmm_dia_kernel(plan.vals, plan.offsets, b, rows)
-    assert spmm_dia.spmm_dia_kernel.launches == before + 1
+    assert _kernels.launches["spmm_dia_f32"] == before + 1
     _close(got, spmm_dia.spmm_dia_plain(plan.vals, plan.offsets, b, rows))
     _close(got.cpu(), torch.from_numpy((m.astype(np.float64) @ b.cpu()
                                         .double().numpy()).astype(
@@ -608,9 +608,9 @@ def test_spmm_dia_kernel_tails_match_plain(cuda, case, k):
         assert b.is_contiguous() and b.data_ptr() % 16 == 4
     else:
         b = b_host.to(cuda)
-    before = spmm_dia.spmm_dia_kernel.launches
+    before = _kernels.launches["spmm_dia_f32"]
     got = spmm_dia.spmm_dia_kernel(plan.vals, plan.offsets, b, rows)
-    assert spmm_dia.spmm_dia_kernel.launches == before + 1
+    assert _kernels.launches["spmm_dia_f32"] == before + 1
     _close(got, spmm_dia.spmm_dia_plain(plan.vals, plan.offsets, b, rows))
 
 
@@ -670,9 +670,9 @@ def test_spmm_window_kernel_matches_plain(cuda, layout, k):
     kwargs = dict(num_slices=plan.num_slices, group_tiles=st.group_tiles,
                   window_grain=st.window_grain, parts=parts,
                   rows=plan.shape[0])
-    before = spmm_sell.spmm_window_kernel.launches
+    before = _kernels.launches["spmm_sell_window_f32"]
     got = spmm_sell.spmm_window_kernel(*args, **kwargs)
-    assert spmm_sell.spmm_window_kernel.launches == before + 1
+    assert _kernels.launches["spmm_sell_window_f32"] == before + 1
     _close(got, spmm_sell.spmm_window_plain(*args, **kwargs))
     if not split:
         # one CTA writes each output, in a fixed order: bit for bit again
@@ -695,17 +695,16 @@ def test_spmm_window_kernel_needs_a_placed_plan(cuda):
                   group_tiles=plan.stats.group_tiles,
                   window_grain=plan.stats.window_grain,
                   parts=spmv_sell.row_parts(plan), rows=1024)
-    before = spmm_sell.spmm_window_kernel.launches
+    before = _kernels.launches["spmm_sell_window_f32"]
     with pytest.raises(ValueError, match="placed"):
         spmm_sell.spmm_window_kernel(plan.vals, plan.cols_win,
                                      plan.window_base,
                                      plan.tile_slice.clone(), b, **kwargs)
-    assert spmm_sell.spmm_window_kernel.launches == before
+    assert _kernels.launches["spmm_sell_window_f32"] == before
 
 
 @pytest.mark.parametrize("kind", ["dia", "window", "hybrid", "packed"])
 def test_spmm_operator_on_the_card_matches_cpu(cuda, kind):
-    from spmv_vector_cache_tpu_torch.ops import spmm_dia, spmm_sell
     from spmv_vector_cache_tpu_torch.ops.operator import SparseOperator
 
     rng = np.random.default_rng(11)
@@ -734,12 +733,12 @@ def test_spmm_operator_on_the_card_matches_cpu(cuda, kind):
     op = SparseOperator.from_matrix(a)                      # the card
     cpu = SparseOperator.from_matrix(a, device="cpu")
     b = rng.standard_normal((m.shape[1], 16)).astype(np.float32)
-    counts = (spmm_dia.spmm_dia_kernel.launches,
-              spmm_sell.spmm_window_kernel.launches)
+    counts = (_kernels.launches["spmm_dia_f32"],
+              _kernels.launches["spmm_sell_window_f32"])
     y = op @ b
     torch.cuda.synchronize()
-    launched = (spmm_dia.spmm_dia_kernel.launches - counts[0],
-                spmm_sell.spmm_window_kernel.launches - counts[1])
+    launched = (_kernels.launches["spmm_dia_f32"] - counts[0],
+                _kernels.launches["spmm_sell_window_f32"] - counts[1])
     assert launched == {"dia": (1, 0), "window": (0, 1), "hybrid": (1, 1),
                         "packed": (0, 0)}[kind], (type(op.plan), launched)
     assert y.device.type == "cuda" and y.shape == (m.shape[0], 16)
@@ -776,9 +775,9 @@ def test_dia_f64_kernel_matches_plain(cuda, offs, rows, cols):
                                 value_dtype=np.float64), cuda)
     assert plan.double
     x = torch.from_numpy(rng.standard_normal(cols)).to(cuda)
-    before = spmv_dia.spmv_dia_f64_kernel.launches
+    before = _kernels.launches["spmv_dia_f64"]
     got = spmv_dia.spmv_dia_f64_kernel(plan.vals, plan.offsets, x, rows)
-    assert spmv_dia.spmv_dia_f64_kernel.launches == before + 1
+    assert _kernels.launches["spmv_dia_f64"] == before + 1
     _close64(got, spmv_dia.spmv_dia_f64_plain(plan.vals, plan.offsets, x,
                                               rows))
     _close64(got.cpu(), torch.from_numpy(m @ x.cpu().numpy()))
@@ -806,9 +805,9 @@ def test_window_f64_kernel_matches_plain(cuda, layout):
     args = (plan.vals, plan.cols_win, plan.window_base, x)
     kwargs = dict(group_tiles=st.group_tiles, window_grain=st.window_grain,
                   fold=fold)
-    before = spmv_sell.sell_window_f64_kernel.launches
+    before = _kernels.launches["spmv_sell_window_f64"]
     got = spmv_sell.sell_window_f64_kernel(*args, **kwargs)
-    assert spmv_sell.sell_window_f64_kernel.launches == before + 1
+    assert _kernels.launches["spmv_sell_window_f64"] == before + 1
     _close64(got, spmv_sell.sell_window_f64_plain(*args, **kwargs))
     # through the dispatch: y against float64 scipy over the full x
     xf = rng.standard_normal(n + 300)
@@ -841,15 +840,15 @@ def test_global_f64_kernel_matches_plain(cuda, strategy, layout):
     args = (plan.vals, plan.cols, plan.tile_slice, x)
     kwargs = dict(num_slices=plan.num_slices, parts=parts,
                   rows=plan.shape[0])
-    before = spmv_sell.sell_global_f64_kernel.launches
+    before = _kernels.launches["spmv_sell_global_f64"]
     got = spmv_sell.sell_global_f64_kernel(*args, **kwargs)
-    assert spmv_sell.sell_global_f64_kernel.launches == before + 1
+    assert _kernels.launches["spmv_sell_global_f64"] == before + 1
     _close64(got, spmv_sell.sell_global_f64_plain(*args, **kwargs))
     xf = rng.standard_normal(cols)
-    before = spmv_sell.sell_global_f64_kernel.launches
+    before = _kernels.launches["spmv_sell_global_f64"]
     y = spmv_sell.spmv_sell_double(plan, torch.from_numpy(xf).to(cuda),
                                    strategy=strategy)
-    assert spmv_sell.sell_global_f64_kernel.launches == before + 1
+    assert _kernels.launches["spmv_sell_global_f64"] == before + 1
     _close64(y.cpu(), torch.from_numpy(m @ xf))
 
 
@@ -887,12 +886,13 @@ def test_f64_operator_on_the_card_matches_cpu(cuda, kind):
                                       "hybrid": "HybridPlan"}.get(
                                           kind, "SellPlan")
     x = rng.standard_normal(m.shape[1])
-    kernels = (spmv_dia.spmv_dia_f64_kernel, spmv_sell.sell_window_f64_kernel,
-               spmv_sell.sell_global_f64_kernel)
-    counts = [k.launches for k in kernels]
+    kernels = ("spmv_dia_f64", "spmv_sell_window_f64",
+               "spmv_sell_global_f64")
+    counts = [_kernels.launches[k] for k in kernels]
     y = op @ x
     torch.cuda.synchronize()
-    launched = tuple(k.launches - c for k, c in zip(kernels, counts))
+    launched = tuple(_kernels.launches[k] - c
+                     for k, c in zip(kernels, counts))
     assert launched == {"dia": (1, 0, 0), "hybrid": (1, 1, 0),
                         "window": (0, 1, 0), "windowless": (0, 0, 1)}[kind]
     assert y.device.type == "cuda" and y.dtype == torch.float64
@@ -917,9 +917,9 @@ def test_dia_halo_kernel_origin_zero_is_kernel_a(cuda, offs, rows):
     plan = place(build_dia_plan(from_scipy(m), sublanes=8), cuda)
     x = torch.from_numpy(rng.standard_normal(rows).astype(np.float32)).to(
         cuda)
-    before = spmv_dia.spmv_dia_halo_kernel.launches
+    before = _kernels.launches["spmv_dia_halo_f32"]
     got = spmv_dia.spmv_dia_halo_kernel(plan.vals, plan.offsets, x, rows, 0)
-    assert spmv_dia.spmv_dia_halo_kernel.launches == before + 1
+    assert _kernels.launches["spmv_dia_halo_f32"] == before + 1
     assert torch.equal(got, spmv_dia.spmv_dia_kernel(plan.vals, plan.offsets,
                                                      x, rows))
     _close(got, spmv_dia.spmv_dia_halo_plain(plan.vals, plan.offsets, x,
@@ -957,9 +957,9 @@ def test_stream_checksum_kernel_ramp_closed_form(cuda, T, block):
 
     tile_vals = torch.arange(T, dtype=torch.float32, device=cuda)
     data = tile_vals[:, None, None].expand(T, 8, 128).contiguous()
-    before = stream.checksum_stream.launches
+    before = _kernels.launches["stream_checksum_f32"]
     got = stream.checksum_stream(data, block)
-    assert stream.checksum_stream.launches == before + 1
+    assert _kernels.launches["stream_checksum_f32"] == before + 1
     want = tile_vals.reshape(T // block, block).sum(1) * 1024
     assert torch.equal(got, want)
 
@@ -1015,7 +1015,6 @@ def test_sharded_over_several_cards_matches_cpu(cuda, kind,
 
 
 def _sharded_matches_cpu(kind, mesh):
-    from spmv_vector_cache_tpu_torch.ops import spmm_sell
     from spmv_vector_cache_tpu_torch.parallel import (
         build_sharded_dia_plan, build_sharded_plan, make_mesh,
         spmm_sharded, spmv_dia_sharded, spmv_sharded)
@@ -1040,21 +1039,21 @@ def _sharded_matches_cpu(kind, mesh):
     assert all(d.type == "cuda" for d in mesh.devices)
     if kind == "dia":
         plan = build_sharded_dia_plan(a, D, sublanes=8)
-        kernel, run = spmv_dia.spmv_dia_halo_kernel, spmv_dia_sharded
+        kernel, run = "spmv_dia_halo_f32", spmv_dia_sharded
         kw = {}
     elif kind == "spmm":
         plan = build_sharded_plan(a, D)
-        kernel, run = spmm_sell.spmm_window_kernel, spmm_sharded
+        kernel, run = "spmm_sell_window_f32", spmm_sharded
         kw = {}
     else:
         plan = build_sharded_plan(a, D)
-        kernel, run = spmv_sell.sell_window_kernel, spmv_sharded
+        kernel, run = "spmv_sell_window_f32", spmv_sharded
         kw = dict(mode=kind)
-    before = kernel.launches
+    before = _kernels.launches[kernel]
     y = run(plan, torch.from_numpy(x).to(mesh.devices[0]), mesh, **kw)
     for dev in set(mesh.devices):
         torch.cuda.synchronize(dev)
-    assert kernel.launches == before + D
+    assert _kernels.launches[kernel] == before + D
     assert y.device == mesh.devices[0]
     _close(y.cpu(), run(plan, torch.from_numpy(x), cpu, **kw))
     want = torch.from_numpy((m.astype(np.float64) @ x).astype(np.float32))
@@ -1120,10 +1119,10 @@ def test_cg_step_on_the_card_matches_cpu(cuda):
     for dev in ("cpu", "cuda"):
         op = SparseOperator.from_matrix(from_scipy(m), device=dev)
         bt = torch.from_numpy(b).to(dev)
-        before = spmv_dia.spmv_dia_kernel.launches
+        before = _kernels.launches["spmv_dia_f32"]
         states[dev] = solvers.cg_step(op.matvec, (torch.zeros_like(bt), bt,
                                                   bt, torch.vdot(bt, bt)))
-        assert spmv_dia.spmv_dia_kernel.launches == before + (dev == "cuda")
+        assert _kernels.launches["spmv_dia_f32"] == before + (dev == "cuda")
     for got, want in zip(states["cuda"], states["cpu"]):
         _close(got.cpu(), want)
 
@@ -1217,3 +1216,281 @@ def test_from_matrix_tune_on_the_card(cuda, tmp_path):
                                        tune_store=store)
     tuned = [k for k in again.stats.keys() if k.startswith("tune_")]
     assert len(tuned) == 1 and again.stats[tuned[0]] == 0.0
+
+
+# ---------------------------------------------------------------------------
+# bfloat16, int32 and uint32 plans: each typed build of kernels A, M, B,
+# G, D, E, F, H, I and the chunk light route against its plain version on
+# the same inputs (bfloat16 sums float32 products in another order: rtol
+# and atol 1e-5 of max|y|; the integer sums wrap mod 2^32 in any order:
+# exactly), and the operator on the card against the CPU
+# ---------------------------------------------------------------------------
+
+TYPED = {"bf16": "bfloat16", "i32": np.int32, "u32": np.uint32}
+
+
+def _typed_values(kind, n, rng, nonneg=False):
+    """``n`` matrix values (float64, cast by the builders): normal for
+    bfloat16 (its absolute value under the max semirings), integers in
+    [-9, 9] for int32 ([0, 9] under max_times) and [0, 9] for uint32."""
+    if kind == "bf16":
+        v = rng.standard_normal(n)
+        return np.abs(v) if nonneg else v
+    lo = 0 if nonneg or kind == "u32" else -9
+    return rng.integers(lo, 10, n).astype(np.float64)
+
+
+def _typed_x(kind, n, rng, device, nonneg=False):
+    """x in the plan's sum type: float32, int32 or uint32."""
+    if kind == "bf16":
+        x = rng.standard_normal(n).astype(np.float32)
+        return torch.from_numpy(np.abs(x) if nonneg else x).to(device)
+    lo = 0 if nonneg or kind == "u32" else -9
+    x = rng.integers(lo, 10, n)
+    return torch.from_numpy(x.astype(np.int32)).to(device).to(
+        torch.int32 if kind == "i32" else torch.uint32)
+
+
+def _same(got, ref):
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    if got.dtype.is_floating_point:
+        _close(got, ref)
+    else:
+        assert torch.equal(got.cpu().view(torch.int32),
+                           ref.cpu().view(torch.int32))
+
+
+def _typed_semirings(kind):
+    return ["plus_times", "max_times"] if kind != "bf16" else \
+        ["plus_times", "min_plus", "max_times"]
+
+
+@pytest.mark.parametrize("kind", sorted(TYPED))
+def test_typed_dia_kernels_match_plain(cuda, kind):
+    # kernel A and kernel M (a shard's rows over a halo'd x)
+    rng = np.random.default_rng(21)
+    offs, n = [-130, -7, 0, 3, 200], 3000
+    m = sp.spdiags(_typed_values(kind, len(offs) * n, rng).reshape(
+        len(offs), n), offs, n, n).tocsr()
+    plan = place(build_dia_plan(from_scipy(m), sublanes=8,
+                                value_dtype=TYPED[kind]), cuda)
+    assert plan.vals.dtype == {"bf16": torch.bfloat16, "i32": torch.int32,
+                               "u32": torch.uint32}[kind]
+    x = _typed_x(kind, n, rng, cuda)
+    before = _kernels.launches["spmv_dia_" + kind]
+    got = spmv_dia.spmv_dia_kernel(plan.vals, plan.offsets, x, n)
+    assert _kernels.launches["spmv_dia_" + kind] == before + 1
+    _same(got, spmv_dia.spmv_dia_plain(plan.vals, plan.offsets, x, n))
+    x_ext = _typed_x(kind, n + 256, rng, cuda)
+    args = (plan.vals, plan.offsets, x_ext, n - 128, 128)
+    _same(spmv_dia.spmv_dia_halo_kernel(*args),
+          spmv_dia.spmv_dia_halo_plain(*args))
+
+
+@pytest.mark.parametrize("fold", [True, False])
+@pytest.mark.parametrize("kind", sorted(TYPED))
+def test_typed_window_kernel_matches_plain(cuda, kind, fold):
+    rng = np.random.default_rng(22)
+    n = 2048
+    r = np.repeat(np.arange(n), 20)
+    c = (r // 128) * 128 + rng.integers(0, 128, r.shape[0])
+    for semiring in _typed_semirings(kind):
+        nonneg = semiring == "max_times"
+        m = sp.csr_matrix((_typed_values(kind, r.shape[0], rng, nonneg),
+                           (r, c)), shape=(n, n + 300))
+        m.sum_duplicates()
+        m.sort_indices()
+        kw = dict(split=16, uniform_split=True, window_group_tiles=2) \
+            if fold else {}
+        plan = place(build_sell_plan(
+            from_scipy(m), window_grain=32, value_dtype=TYPED[kind],
+            pad_value=REGISTRY[semiring].zero, **kw), cuda)
+        x = _typed_x(kind, n + 300, rng, cuda, nonneg)
+        st = plan.stats
+        args = (plan.vals, plan.cols_win, plan.window_base, x)
+        kwargs = dict(group_tiles=st.group_tiles,
+                      window_grain=st.window_grain, fold=fold,
+                      semiring=semiring)
+        got = spmv_sell.sell_window_kernel(*args, **kwargs)
+        _same(got, spmv_sell.sell_window_plain(*args, **kwargs))
+
+
+@pytest.mark.parametrize("layout", ["identity", "fold", "long_row"])
+@pytest.mark.parametrize("kind", sorted(TYPED))
+def test_typed_global_kernel_matches_plain(cuda, kind, layout):
+    # kernel G; a 2,000-nonzero row makes a slice of 250 tiles, split over
+    # records that combine with the integer atomics
+    rng = np.random.default_rng(23)
+    n, cols = 2048, 40000
+    r = np.repeat(np.arange(n), 24)
+    c = rng.integers(0, cols, r.shape[0])
+    if layout == "long_row":
+        r = np.concatenate([r, np.full(2000, 9)])
+        c = np.concatenate([c, rng.choice(cols, 2000, replace=False)])
+    for semiring in _typed_semirings(kind):
+        nonneg = semiring == "max_times"
+        m = sp.csr_matrix((_typed_values(kind, r.shape[0], rng, nonneg),
+                           (r, c)), shape=(n, cols))
+        m.sum_duplicates()
+        m.sort_indices()
+        kw = dict(split=16, uniform_split=True, window_group_tiles=2) \
+            if layout == "fold" else {}
+        plan = place(build_sell_plan(
+            from_scipy(m), value_dtype=TYPED[kind],
+            pad_value=REGISTRY[semiring].zero, **kw), cuda)
+        if layout == "long_row":
+            assert pruns.runs_on(plan.tile_slice, plan.num_slices).split
+        x = _typed_x(kind, cols, rng, cuda, nonneg)
+        args, kwargs = _global_args(plan, x, semiring)
+        before = _kernels.launches["spmv_sell_global_" + kind]
+        got = spmv_sell.sell_global_kernel(*args, **kwargs)
+        assert _kernels.launches["spmv_sell_global_" + kind] == before + 1
+        _same(got, spmv_sell.sell_global_plain(*args, **kwargs))
+
+
+@pytest.mark.parametrize("kind", sorted(TYPED))
+def test_typed_chunk_kernels_match_plain(cuda, kind):
+    # the light route and kernel D over a ChunkPlan with heavy rows, then
+    # the whole apply (kernel C moves an integer y as its float32 words)
+    for semiring in ("plus_times", "max_times"):
+        m = _heavy_rows_matrix(semiring, long_row=True)
+        m.data = _typed_values(kind, m.nnz, np.random.default_rng(24),
+                               semiring != "plus_times")
+        kw = dict(pad_value=REGISTRY[semiring].zero, merge_duplicates=False,
+                  value_dtype=TYPED[kind])
+        plan = place(build_chunk_plan(from_scipy(m), **kw), cuda)
+        light, heavy = pruns.light_on(plan), pruns.heavy_on(plan)
+        rng = np.random.default_rng(25)
+        x = _typed_x(kind, m.shape[1], rng, cuda, semiring != "plus_times")
+        _same(spmv_chunk.light_kernel(light, x, semiring=semiring),
+              spmv_chunk.light_plain(light, x, semiring=semiring))
+        y0 = _typed_x(kind, m.shape[0], rng, cuda, True)
+        args = (heavy.vals, heavy.cols_win, heavy.bases, heavy.tile_row,
+                heavy.rows, x)
+        _same(spmv_chunk.heavy_kernel(*args, y0.clone(), semiring=semiring),
+              spmv_chunk.heavy_plain(*args, y0.clone(), semiring=semiring))
+        cpu = place(build_chunk_plan(from_scipy(m), **kw), "cpu")
+        _same(spmv_sell.spmv_plan(plan, x, semiring=semiring).cpu(),
+              spmv_sell.spmv_plan(cpu, x.cpu(), semiring=semiring))
+
+
+@pytest.mark.parametrize("kind", sorted(TYPED))
+def test_typed_packed_kernels_match_plain(cuda, kind):
+    # kernel E, then kernel F with overflow, each the build of the plan's
+    # value type (F's bfloat16 build reads the float32 scan and x and the
+    # 2-byte overflow values)
+    m = _packed_matrix(True)
+    m.data = _typed_values(kind, m.nnz, np.random.default_rng(26))
+    plan = place(build_packed_plan(from_scipy(m), chunk_blocks=4,
+                                   value_dtype=TYPED[kind]), cuda)
+    st = plan.stats
+    x = _typed_x(kind, m.shape[1], np.random.default_rng(27), cuda)
+    scan_args = (plan.vals, plan.cols, plan.cstep, x)
+    scan_kw = dict(chunk_blocks=4, step_tiles=st.step_tiles)
+    scan = spmv_packed.packed_scan_kernel(*scan_args, **scan_kw)
+    _same(scan, spmv_packed.packed_scan_plain(*scan_args, **scan_kw))
+    tables = pruns.extract_on(plan)
+    assert tables.ov_vals.dtype == plan.vals.dtype
+    assert tables.ov_vals.shape[0] > 0
+    rows_args = (scan, plan.sblock, plan.esrc, x, tables)
+    rows_kw = dict(rows=m.shape[0], step_tiles=st.step_tiles)
+    before = _kernels.launches["packed_extract_" + kind]
+    got = spmv_packed.packed_rows_kernel(*rows_args, **rows_kw)
+    assert _kernels.launches["packed_extract_" + kind] == before + 1
+    _same(got, spmv_packed.packed_rows_plain(*rows_args, **rows_kw))
+
+
+@pytest.mark.parametrize("kind", sorted(TYPED))
+def test_typed_spmm_kernels_match_plain(cuda, kind):
+    # kernel I, and kernel H on a plan whose long row splits a slice
+    # (the integer builds add its pieces with integer atomics)
+    from spmv_vector_cache_tpu_torch.ops import spmm_dia, spmm_sell
+
+    rng = np.random.default_rng(28)
+    offs, n, k = [-1025, -1, 0, 3, 1300], 3000, 16
+    m = sp.spdiags(_typed_values(kind, len(offs) * n, rng).reshape(
+        len(offs), n), offs, n, n).tocsr()
+    plan = place(build_dia_plan(from_scipy(m), value_dtype=TYPED[kind]),
+                 cuda)
+    b = torch.stack([_typed_x(kind, n, rng, cuda) for _ in range(k)], 1) \
+        .contiguous()
+    args = (plan.vals, plan.offsets, b, n)
+    _same(spmm_dia.spmm_dia_kernel(*args), spmm_dia.spmm_dia_plain(*args))
+    n = 2048
+    r = np.repeat(np.arange(n), 20)
+    c = (r // 128) * 128 + rng.integers(0, 128, r.shape[0])
+    r = np.concatenate([r, np.full(600, 5)])
+    c = np.concatenate([c, rng.choice(np.arange(128, 1700), 600,
+                                      replace=False)])
+    m = sp.csr_matrix((_typed_values(kind, r.shape[0], rng), (r, c)),
+                      shape=(n, n))
+    m.sum_duplicates()
+    m.sort_indices()
+    plan = place(build_sell_plan(from_scipy(m), window_grain=32,
+                                 groups_per_step=1, value_dtype=TYPED[kind]),
+                 cuda)
+    assert pruns.runs_on(plan.tile_slice, plan.num_slices).split
+    st = plan.stats
+    b = torch.stack([_typed_x(kind, n, rng, cuda) for _ in range(k)], 1) \
+        .contiguous()
+    args = (plan.vals, plan.cols_win, plan.window_base, plan.tile_slice, b)
+    kwargs = dict(num_slices=plan.num_slices, group_tiles=st.group_tiles,
+                  window_grain=st.window_grain,
+                  parts=spmv_sell.row_parts(plan), rows=n)
+    _same(spmm_sell.spmm_window_kernel(*args, **kwargs),
+          spmm_sell.spmm_window_plain(*args, **kwargs))
+
+
+@pytest.mark.parametrize("family", ["dia", "window", "hybrid", "deep",
+                                    "packed", "cached"])
+@pytest.mark.parametrize("kind", sorted(TYPED))
+def test_typed_operator_on_the_card_matches_cpu(cuda, kind, family):
+    # op @ x (and op @ B where a fused kernel serves the plan) on the card
+    # against the same operator on the CPU
+    from spmv_vector_cache_tpu_torch.ops.operator import SparseOperator
+    from spmv_vector_cache_tpu_torch.tools import realistic
+
+    rng = np.random.default_rng(29)
+    n = 4096
+    if family in ("dia", "hybrid"):
+        m = sp.spdiags(np.ones((27, n)), list(range(-13, 14)), n, n).tocsr()
+        if family == "hybrid":
+            n = 32768
+            m = sp.spdiags(np.ones((27, n)), list(range(-13, 14)), n,
+                           n).tocsr()
+            rr = np.repeat(np.arange(n), 2)
+            cc = np.clip(rr + rng.integers(-512, 513, rr.shape[0]), 0, n - 1)
+            m = (m + sp.csr_matrix((np.ones(rr.shape[0]), (rr, cc)),
+                                   shape=(n, n))).tocsr()
+    elif family == "window":
+        r = np.repeat(np.arange(n), 27)
+        c = (r // 128) * 128 + rng.integers(0, 128, r.shape[0])
+        m = sp.csr_matrix((np.ones(r.shape[0]), (r, c)), shape=(n, n))
+    elif family == "deep":
+        m = _uniform(rng, n, 40000, 16, "plus_times").astype(np.float64)
+    elif family == "packed":
+        m = None                          # realistic.mac_econ_like()
+    else:
+        r = np.repeat(np.arange(1 << 15), 16)
+        w = (np.arange(1 << 16) + 10.0) ** -2.5
+        c = rng.permutation(1 << 16)[rng.choice(1 << 16, r.shape[0],
+                                                p=w / w.sum())]
+        m = sp.csr_matrix((np.ones(r.shape[0]), (r, c)),
+                          shape=(1 << 15, 1 << 16))
+    if m is None:
+        a = realistic.mac_econ_like()
+    else:
+        m.sum_duplicates()
+        m.sort_indices()
+        a = from_scipy(m)
+    a.data[:] = _typed_values(kind, a.data.shape[0], rng)
+    op = SparseOperator.from_matrix(a, value_dtype=TYPED[kind])
+    cpu = SparseOperator.from_matrix(a, value_dtype=TYPED[kind],
+                                     device="cpu")
+    assert type(op.plan) is type(cpu.plan)
+    x = _typed_x(kind, a.shape[1], rng, "cpu")
+    _same((op @ x).cpu(), cpu @ x)
+    if family in ("dia", "window", "hybrid"):
+        b = torch.stack([_typed_x(kind, a.shape[1], rng, "cpu")
+                         for _ in range(16)], 1)
+        _same((op @ b).cpu(), cpu @ b)
