@@ -132,7 +132,24 @@ roofline audit:
     and ``torch.sparse.mm`` in that type ("none: refused" where CUDA
     takes no such type); then holds each of the 29 new builds against
     its plain version (1e-5 for bfloat16, exact for the integers) and
-    times both beside its bound.
+    times both beside its bound.  Then the narrow plans: float16
+    (``dia_f16``, ``spmm_dia_f16``, ``sharded_dia_f16``, ``sell_f16``,
+    ``spmm_sell_f16``, ``deep_f16``, ``chunk_f16``, ``packed_f16``,
+    ``cached_f16`` at the draws' published sizes; y within one float16
+    ulp of max(1, max|y|) of float64 over the rounded values and x),
+    int8, uint8, int16 and uint16 (values and x from [0, 15] for 8 bits,
+    [0, 255] for 16, so that products wrap: ``dia_*``, ``sharded_dia_*``,
+    ``hybrid_*`` and ``spmm_hybrid_*`` on the band and the Hybrid cut to
+    their leading ``NARROW_ROWS`` rows, ``sell_* max_times`` for the
+    unsigned ones on the cut band, ``deep_*``, ``chunk_*`` and
+    ``packed_*`` at full size; y exactly the int64 product narrowed to
+    the type, or under max_times the max of the products wrapped to
+    it) and ``sell_u64`` (the shuffled band as a uint64 plan, values
+    from [0, 2^16), run as uint32): the 50 narrow builds of A, M, B, G,
+    D, the light route, E, F, H and I, each launched on its phase's main
+    path (the same launches as the int32 or bfloat16 phase of the draw;
+    y narrowed by one torch cast after them), held against its plain
+    version and timed beside its bound.
 
 Each phase checks y against a float64 host reference (scipy, or a
 min-plus reduce over the CSR rows; relative error below 1e-4, bench.py's
@@ -271,20 +288,23 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def x_bytes_read(x, cols):
+def x_bytes_read(x, cols, w=None):
     """Bytes of x (or of the rows of a row-major B) that a gather at
     column ids ``cols`` must read: each distinct in-range column once
-    (out of range reads 0, no memory)."""
+    (out of range reads 0, no memory), at ``w`` bytes an entry (x's own
+    width by default)."""
     c = cols.reshape(-1)
     c = c[(c >= 0) & (c < x.shape[0])]
-    return int(torch.unique(c).numel()) * x.stride(0) * x.element_size()
+    w = x.element_size() if w is None else w
+    return int(torch.unique(c).numel()) * x.stride(0) * w
 
 
-def packed_extract_bytes(plan, tables, x):
+def packed_extract_bytes(plan, tables, x, w=4):
     """Bytes kernel F must move on a placed PackedPlan, by part: ``esrc``
     over the rows of each visit's window that y has (2 B each: the last
-    window is partial), the S entries those rows pick, y, and sblock, the
-    tables, the overflow triples and the x they read."""
+    window is partial), the S entries those rows pick, y (both at ``w``
+    bytes an entry), and sblock, the tables, the overflow triples and
+    the x they read."""
     window = plan.esrc.shape[1] * plan.esrc.shape[2]
     in_y = (plan.shape[0] - plan.wstep.long() * window).clamp(max=window)
     lanes = torch.arange(window, device=in_y.device)
@@ -292,9 +312,9 @@ def packed_extract_bytes(plan, tables, x):
                   & (lanes[None, :] < in_y[:, None])).sum().item())
     rest = (nbytes(plan.sblock, tables.woff, tables.ov_off, tables.ov_lane,
                    tables.ov_cols, tables.ov_vals)
-            + x_bytes_read(x, tables.ov_cols))
+            + x_bytes_read(x, tables.ov_cols, w))
     return {"esrc": 2 * int(in_y.sum().item()), "picked S entries":
-            picked * 4, "y": plan.shape[0] * 4,
+            picked * w, "y": plan.shape[0] * w,
             "sblock, the tables and the overflow with its x": rest}
 
 
@@ -1216,6 +1236,9 @@ def tools_phases(card, dev, kernels, launches, matrix_dirs):
 #: a bfloat16 plan's y against float64 scipy over the bfloat16-rounded
 #: values: float32 sums of the same products (about 1e-7 expected)
 Y_RTOL_BF16 = 1e-4
+#: rows (and columns) of the 28.3M-nonzero band and of the Hybrid draw in
+#: the narrow integer phases, to keep the smoke within its time
+NARROW_ROWS = 1 << 18
 #: the typed builds' source files and the Pallas functions each replaces
 TYPED_META = {
     "spmv_dia": ("spmv_dia.cu", "spmv_vector_cache_tpu/ops/spmv_dia.py:63, "
@@ -1243,42 +1266,69 @@ TYPED_META = {
 }
 
 
+#: the integers each integer kind draws: int32 and uint32 from [-9, 9]
+#: and [0, 9]; the narrow types values whose products wrap (8 bits from
+#: [0, 15], 16 bits from [0, 255]); uint64 past 2^32 from [0, 2^16)
+TYPED_RANGE = {"i32": (-9, 10), "u32": (0, 10), "i8": (0, 16),
+               "u8": (0, 16), "i16": (0, 256), "u16": (0, 256),
+               "u64": (0, 1 << 16)}
+#: the numpy type of an integer kind's y (a uint64 plan runs as uint32)
+TYPED_Y = {"i32": np.int32, "u32": np.uint32, "i8": np.int8, "u8": np.uint8,
+           "i16": np.int16, "u16": np.uint16, "u64": np.uint32}
+
+
 def typed_matrix(m, kind, rng, nonneg=False):
     """Scipy CSR ``m``'s structure with values for ``kind``: its own
-    values for bfloat16, integers in [-9, 9] for int32 ([0, 9] when
-    ``nonneg``) and in [0, 9] for uint32 (float64, cast by the
-    builders)."""
+    values for bfloat16 and float16, integers of :data:`TYPED_RANGE`
+    otherwise (int32 from 0 when ``nonneg``), float64, cast by the
+    builders."""
     import scipy.sparse as sp
 
     m = sp.csr_matrix(m, dtype=np.float64)
     m.sort_indices()
-    if kind != "bf16":
-        lo = 0 if nonneg or kind == "u32" else -9
-        m.data = rng.integers(lo, 10, m.nnz).astype(np.float64)
+    if kind not in ("bf16", "f16"):
+        lo, hi = TYPED_RANGE[kind]
+        m.data = rng.integers(0 if nonneg else lo, hi, m.nnz).astype(
+            np.float64)
     return m
 
 
 def typed_vector(kind, n, rng, nonneg=False, k=None):
-    """x (or B, with ``k`` columns) in the sum type of ``kind``."""
+    """x (or B, with ``k`` columns): float32 for bfloat16, else the value
+    type itself (int32 for int32, float16 for float16, ...), as a user
+    of such a plan holds it."""
     shape = (n,) if k is None else (n, k)
-    if kind == "bf16":
-        return rng.standard_normal(shape).astype(np.float32)
-    lo = 0 if nonneg or kind == "u32" else -9
-    v = rng.integers(lo, 10, shape)
-    return v.astype(np.uint32 if kind == "u32" else np.int32)
+    if kind in ("bf16", "f16"):
+        v = rng.standard_normal(shape).astype(np.float32)
+        return v.astype(np.float16) if kind == "f16" else v
+    lo, hi = TYPED_RANGE[kind]
+    v = rng.integers(0 if nonneg else lo, hi, shape)
+    return v.astype({"i32": np.int32, "u32": np.uint32, "i8": np.int8,
+                     "u8": np.uint8, "i16": np.int16, "u16": np.uint16,
+                     "u64": np.uint64}[kind])
 
 
 def exact_y(m, x, kind, semiring="plus_times"):
-    """An integer plan's y: the int64 product wrapped mod 2^32, or under
-    max_times (non-negative values) each row's largest product."""
+    """An integer plan's y: the int64 product narrowed to the y type
+    (mod 2^32, 2^16 or 2^8), or under max_times (non-negative values)
+    each row's largest product, wrapped to the value type first."""
     mi, xi = m.astype(np.int64), x.astype(np.int64)
+    yt = TYPED_Y[kind]
     if semiring == "max_times":
-        y = np.asarray(mi.multiply(xi[None, :]).max(axis=1).todense()) \
-            .reshape(-1)
+        p = mi.multiply(xi[None, :]).tocsr()
+        p.data = p.data.astype(yt).astype(np.int64)
+        y = np.asarray(p.max(axis=1).todense()).reshape(-1)
     else:
         y = mi @ xi
-    y = (y & 0xFFFFFFFF).astype(np.uint32)
-    return y if kind == "u32" else y.view(np.int32)
+    return y.astype(yt)
+
+
+def f16_rounded(m):
+    """``m`` with its values rounded to float16 (once, from float64),
+    held in float64."""
+    m = m.copy()
+    m.data = m.data.astype(np.float16).astype(np.float64)
+    return m
 
 
 def bf16_rounded(m):
@@ -1331,16 +1381,23 @@ def dtype_phases(card, dev, mesh4, draws):
         packed_scan_plain)
     from spmv_vector_cache_tpu_torch.ops.spmv_sell import (
         folds_groups, row_parts, sell_global_kernel, sell_global_plain,
-        sell_window_kernel, sell_window_plain, spmv_plan)
+        plan_vals_dtype, sell_window_kernel, sell_window_plain, spmv_plan)
     from spmv_vector_cache_tpu_torch.parallel import (build_sharded_dia_plan,
                                                       place_on_mesh,
                                                       spmv_dia_sharded)
     from spmv_vector_cache_tpu_torch.parallel.mesh import (shard_vector,
                                                            with_halos)
 
-    VALUE = {"bf16": "bfloat16", "i32": np.int32, "u32": np.uint32}
+    VALUE = {"bf16": "bfloat16", "i32": np.int32, "u32": np.uint32,
+             "f16": np.float16, "i8": np.int8, "u8": np.uint8,
+             "i16": np.int16, "u16": np.uint16, "u64": np.uint64}
     TORCH = {"bf16": torch.bfloat16, "i32": torch.int32,
-             "u32": torch.uint32}
+             "u32": torch.uint32, "f16": torch.float16, "i8": torch.int8,
+             "u8": torch.uint8, "i16": torch.int16, "u16": torch.uint16,
+             "u64": torch.uint32}
+    # bytes of a value of each type: a narrow plan's x and y
+    WIDTH = {k: torch.empty((), dtype=t).element_size()
+             for k, t in TORCH.items()}
     K = 16
     rng = np.random.default_rng(14)
     rows, launches, meta = {}, {}, {}
@@ -1350,7 +1407,26 @@ def dtype_phases(card, dev, mesh4, draws):
 
     def check(name, y, want, kind):
         assert y.device.type == "cuda" and y.shape == want.shape, name
-        if kind == "bf16":
+        if kind == "f16":
+            # one float16 rounding of float32 sums: within one float16 ulp
+            # of max(1, max|y|)
+            assert y.dtype == torch.float16 and bool(torch.isfinite(y).all())
+            top = max(1.0, float(np.abs(want).max()))
+            ulp = 2.0 ** (np.floor(np.log2(top)) - 10)
+            err = float(np.abs(y.cpu().double().numpy() - want).max())
+            log(f"[{name}] y vs float64 scipy over the float16-rounded "
+                f"values and x: max abs err {err:.3g} (limit one float16 "
+                f"ulp of max(1, max|y|): {ulp:.3g}), rel err "
+                f"{rel_err(y.float(), want):.3g}")
+            assert err <= ulp, (name, err, ulp)
+        elif kind not in ("bf16", "i32", "u32"):
+            assert y.dtype == TORCH[kind], (name, y.dtype)
+            got = y.cpu().to(torch.int64).numpy()
+            bad = int((got != want.astype(np.int64)).sum())
+            log(f"[{name}] y vs the int64 product narrowed to "
+                f"{y.dtype}: {bad} rows differ of {got.shape[0]} (exact)")
+            assert bad == 0, name
+        elif kind == "bf16":
             assert y.dtype == torch.float32 and bool(torch.isfinite(y).all())
             err = rel_err(y, want)
             log(f"[{name}] y vs float64 scipy over the bfloat16-rounded "
@@ -1479,15 +1555,24 @@ def dtype_phases(card, dev, mesh4, draws):
             meta[entry] = (src, rep)
 
     # --- pairs at the main path's shapes (bytes: each input once, each
-    # output once; a gather reads only the distinct x entries named) ----
-    def dia_case(plan, x, what, lib=None):
+    # output once; a gather reads only the distinct x entries named).  x
+    # (B) is counted at ``w`` bytes an entry and every output at ``w``
+    # too: by default x's own width and 4-byte sums, for a narrow plan
+    # the value type's width, the least its function must move (its
+    # kernels read x widened to 4 bytes and write 4-byte sums) ----------
+    def widths(x, w):
+        return (x.element_size(), 4) if w is None else (w, w)
+
+    def dia_case(plan, x, what, lib=None, w=None):
+        xw, ow = widths(x, w)
         args = (plan.vals, plan.offsets, x, plan.shape[0])
         case(_kernels.entry("spmv_dia_f32", plan.vals.dtype), what,
              lambda: spmv_dia_kernel(*args), lambda: spmv_dia_plain(*args),
-             nbytes(plan.vals, x) + 4 * len(plan.offsets)
-             + plan.shape[0] * 4, 2 * plan.vals.numel(), lib)
+             nbytes(plan.vals) + x.numel() * xw + 4 * len(plan.offsets)
+             + plan.shape[0] * ow, 2 * plan.vals.numel(), lib)
 
-    def window_case(plan, x, semiring, what, lib=None):
+    def window_case(plan, x, semiring, what, lib=None, w=None):
+        xw, ow = widths(x, w)
         st = plan.stats
         args = (plan.vals, plan.cols_win, plan.window_base, x)
         kw = dict(group_tiles=st.group_tiles, window_grain=st.window_grain,
@@ -1499,10 +1584,11 @@ def dtype_phases(card, dev, mesh4, draws):
              lambda: sell_window_kernel(*args, **kw),
              lambda: sell_window_plain(*args, **kw),
              nbytes(*args[:3]) + x_bytes_read(
-                 x, base[:, None, None] + plan.cols_win.long())
-             + rows_out * plan.lane_rows * 4, 2 * plan.vals.numel(), lib)
+                 x, base[:, None, None] + plan.cols_win.long(), xw)
+             + rows_out * plan.lane_rows * ow, 2 * plan.vals.numel(), lib)
 
-    def global_case(plan, x, semiring, what, lib=None):
+    def global_case(plan, x, semiring, what, lib=None, w=None):
+        xw, ow = widths(x, w)
         parts = row_parts(plan)
         args = (plan.vals, plan.cols, plan.tile_slice, x)
         kw = dict(num_slices=plan.num_slices, parts=parts,
@@ -1513,18 +1599,20 @@ def dtype_phases(card, dev, mesh4, draws):
              lambda: sell_global_plain(*args, **kw),
              nbytes(*args[:3])
              + tile_runs(plan.tile_slice, plan.num_slices).nbytes
-             + x_bytes_read(x, plan.cols) + out * 4,
+             + x_bytes_read(x, plan.cols, xw) + out * ow,
              2 * plan.vals.numel(), lib)
 
-    def spmm_dia_case(plan, b, what, lib=None):
+    def spmm_dia_case(plan, b, what, lib=None, w=None):
+        xw, ow = widths(b, w)
         args = (plan.vals, plan.offsets, b, plan.shape[0])
         case(_kernels.entry("spmm_dia_f32", plan.vals.dtype), what,
              lambda: spmm_dia_kernel(*args), lambda: spmm_dia_plain(*args),
-             nbytes(plan.vals, b) + 4 * len(plan.offsets)
-             + plan.shape[0] * b.shape[1] * 4,
+             nbytes(plan.vals) + b.numel() * xw + 4 * len(plan.offsets)
+             + plan.shape[0] * b.shape[1] * ow,
              2 * plan.vals.numel() * b.shape[1], lib)
 
-    def spmm_window_case(plan, b, what, lib=None):
+    def spmm_window_case(plan, b, what, lib=None, w=None):
+        xw, ow = widths(b, w)
         st = plan.stats
         parts = row_parts(plan)
         args = (plan.vals, plan.cols_win, plan.window_base, plan.tile_slice,
@@ -1540,36 +1628,40 @@ def dtype_phases(card, dev, mesh4, draws):
              lambda: spmm_window_plain(*args, **kw),
              nbytes(*args[:4])
              + tile_runs(plan.tile_slice, plan.num_slices).nbytes
-             + x_bytes_read(b, base[:, None, None] + plan.cols_win.long())
-             + out * b.shape[1] * 4, 2 * plan.vals.numel() * b.shape[1], lib)
+             + x_bytes_read(b, base[:, None, None] + plan.cols_win.long(),
+                            xw)
+             + out * b.shape[1] * ow, 2 * plan.vals.numel() * b.shape[1],
+             lib)
 
-    def chunk_cases(plan, x, y, what, kind):
+    def chunk_cases(plan, x, y, what, kind, w=None):
+        xw, ow = widths(x, w)
         lr = light_on(plan)
         ncols = plan.shape[1]
         # the library call of the kernel's own function: the light
         # records' CSR (CUDA has no torch.sparse.mm of the integer types,
         # as each integer phase's whole-matrix call shows)
         lib = library(light_csr(lr, ncols), kind, x) \
-            if kind == "bf16" else None
+            if kind in ("bf16", "f16") else None
         case(_kernels.entry("spmv_chunk_light_f32", lr.vals.dtype), what,
              lambda: light_kernel(lr, x, semiring="plus_times"),
              lambda: light_plain(lr, x, semiring="plus_times"),
              nbytes(lr.row_off, lr.cols, lr.vals, lr.tiled, lr.units)
-             + x_bytes_read(x, lr.cols) + (lr.row_off.shape[0] - 1) * 4,
+             + x_bytes_read(x, lr.cols, xw) + (lr.row_off.shape[0] - 1) * ow,
              2 * lr.vals.shape[0], lib)
         h = heavy_on(plan)
         args = (h.vals, h.cols_win, h.bases, h.tile_row, h.rows, x)
         y_k, y_p = y.clone(), y.clone()
         cols = h.bases.long()[:, :, None] * 128 + h.cols_win.long()
         lib = library(heavy_csr(h, ncols), kind, x) \
-            if kind == "bf16" else None
+            if kind in ("bf16", "f16") else None
         case(_kernels.entry("spmv_subwin_f32", h.vals.dtype), what,
              lambda: heavy_kernel(*args, y_k, semiring="plus_times"),
              lambda: heavy_plain(*args, y_p, semiring="plus_times"),
-             nbytes(*args[:5]) + x_bytes_read(x, cols)
-             + 2 * h.rows.shape[0] * 4, 2 * h.vals.numel(), lib)
+             nbytes(*args[:5]) + x_bytes_read(x, cols, xw)
+             + 2 * h.rows.shape[0] * ow, 2 * h.vals.numel(), lib)
 
-    def packed_cases(plan, x, what):
+    def packed_cases(plan, x, what, w=None):
+        xw, ow = widths(x, w)
         # as the float32 rows: E's scan and F's extract alone are no
         # function a PyTorch call computes (the whole apply's library
         # call is the phase's)
@@ -1583,13 +1675,13 @@ def dtype_phases(card, dev, mesh4, draws):
         case(_kernels.entry("packed_scan_f32", plan.vals.dtype), what,
              lambda: packed_scan_kernel(*scan_args, **scan_kw),
              lambda: packed_scan_plain(*scan_args, **scan_kw),
-             nbytes(*scan_args[:3]) + x_bytes_read(x, scan_cols)
-             + plan.vals.numel() * 4, 2 * plan.vals.numel())
+             nbytes(*scan_args[:3]) + x_bytes_read(x, scan_cols, xw)
+             + plan.vals.numel() * ow, 2 * plan.vals.numel())
         tables = extract_on(plan)
         scan = packed_scan_plain(*scan_args, **scan_kw)
         ext_args = (scan, plan.sblock, plan.esrc, x, tables)
         ext_kw = dict(rows=plan.shape[0], step_tiles=st.step_tiles)
-        f_bytes = sum(packed_extract_bytes(plan, tables, x).values())
+        f_bytes = sum(packed_extract_bytes(plan, tables, x, ow).values())
         case(_kernels.entry("packed_extract_f32", tables.ov_vals.dtype),
              what,
              lambda: packed_rows_kernel(*ext_args, **ext_kw),
@@ -1885,6 +1977,289 @@ def dtype_phases(card, dev, mesh4, draws):
                 library(plan_csr(p.cold.hot), "bf16", x_t2))
     del op, p, m, m_r, x, y
     torch.cuda.empty_cache()
+
+    # --- the narrow plans: float16 (2-byte slabs, float32 sums, y rounded
+    # once) and int8, uint8, int16, uint16 (1- and 2-byte slabs, 32-bit
+    # sums, y narrowed once), and a uint64 plan (stored as uint32).  The
+    # kernels read x and write their sums in the 32-bit type
+    # (``sr.as_x``); the bound of a phase and of each build counts x (B)
+    # and y (Y, the sums) at the value type's bytes, the least the
+    # function must move ------------------------------------------------
+    t_narrow = time.perf_counter()
+
+    def narrow_x(op, x):
+        """x as the plan's kernels read it (float16 rounded to float32,
+        the integers wrapped and read as int32)."""
+        return sr.as_x(x, plan_vals_dtype(op.plan))
+
+    def want_of(m, xh, kind, semiring="plus_times"):
+        """float64 over the float16-rounded values and x, or the exact
+        narrowed product."""
+        if kind == "f16":
+            return f16_rounded(m) @ xh.astype(np.float16).astype(np.float64)
+        return exact_y(m, xh, kind, semiring)
+
+    def out_bytes(y):
+        return y.numel() * y.element_size()
+
+    def dia_phases(kind, src, spmm):
+        """DIA (kernel A) on ``src``, with ``op @ B`` (kernel I) when
+        ``spmm``."""
+        name = f"dia_{kind}"
+        m = typed_matrix(src, kind, rng)
+        op = operator(name, m, kind)
+        assert type(op.plan).__name__ == "DiaPlan"
+        assert op.plan.vals.dtype == TORCH[kind]
+        xh = typed_vector(kind, m.shape[1], rng)
+        x = cuda_x(xh)
+        y = counted(name, lambda: op @ x, {f"spmv_dia_{kind}": 1})
+        check(name, y, want_of(m, xh, kind), kind)
+        mr = f16_rounded(m) if kind == "f16" else m
+        lib = library(mr, kind, x)
+        profile(name, lambda: op @ x, nbytes(op.plan.vals, x) + out_bytes(y),
+                lib)
+        dia_case(op.plan, narrow_x(op, x), name, lib, WIDTH[kind])
+        if spmm:
+            bh = typed_vector(kind, m.shape[1], rng, k=K)
+            b = cuda_x(bh)
+            Y = counted(f"spmm_dia_{kind}", lambda: op @ b,
+                        {f"spmm_dia_{kind}": 1})
+            for j in (0, K - 1):
+                check(f"spmm_dia_{kind} column {j}", Y[:, j].contiguous(),
+                      want_of(m, bh[:, j], kind), kind)
+            lib = library(mr, kind, b)
+            profile(f"spmm_dia_{kind}", lambda: op @ b,
+                    nbytes(op.plan.vals, b) + out_bytes(Y), lib)
+            spmm_dia_case(op.plan, narrow_x(op, b),
+                          f"spmm_dia_{kind} k={K}", lib, WIDTH[kind])
+
+    def sharded_dia_phase(kind, src):
+        """The sharded DIA on four shards of the card (kernel M)."""
+        name = f"sharded_dia_{kind}"
+        m = typed_matrix(src, kind, rng)
+        xh = typed_vector(kind, m.shape[1], rng)
+        x = cuda_x(xh)
+        t0 = time.perf_counter()
+        spd = place_on_mesh(build_sharded_dia_plan(
+            from_scipy(m), 4, value_dtype=VALUE[kind]), mesh4)
+        log(f"[{name}] 4 shards on one card, plan "
+            f"{time.perf_counter() - t0:.3f} s, halo {spd.halo}")
+        y = counted(name, lambda: spmv_dia_sharded(spd, x, mesh4),
+                    {f"spmv_dia_halo_{kind}": 4})
+        check(name, y, want_of(m, xh, kind), kind)
+        profile(name, lambda: spmv_dia_sharded(spd, x, mesh4),
+                sum(nbytes(v) for v in spd.vals) + nbytes(x) + out_bytes(y),
+                library(f16_rounded(m) if kind == "f16" else m, kind, x))
+        xk = sr.as_x(x, spd.vals[0].dtype)
+        xs = shard_vector(xk, xk.dtype, 4, spd.rows_per_shard, mesh4)
+        xe = with_halos(xs, 0, spd.halo, dev)
+        args = (spd.vals[0], spd.offsets, xe, spd.rows_per_shard, spd.halo)
+        # beside the library call of the same function where CUDA has
+        # one: shard 0's rows over its halo'd x
+        lib = library(shard0_csr(f16_rounded(m), spd, xe), kind, xe) \
+            if kind == "f16" else None
+        w = WIDTH[kind]
+        case(f"spmv_dia_halo_{kind}", f"{name} shard 0",
+             lambda: spmv_dia_halo_kernel(*args),
+             lambda: spmv_dia_halo_plain(*args),
+             nbytes(spd.vals[0]) + xe.numel() * w + 4 * len(spd.offsets)
+             + spd.rows_per_shard * w, 2 * spd.vals[0].numel(), lib)
+
+    def window_phases(kind, src, semiring="plus_times", spmm=True):
+        """A window SellPlan (kernel B), with ``op @ B`` (kernel H)."""
+        name = f"sell_{kind}" + ("" if semiring == "plus_times"
+                                 else f" {semiring}")
+        nonneg = semiring != "plus_times"
+        m = typed_matrix(src, kind, rng, nonneg)
+        op = operator(name, m, kind, semiring=semiring)
+        assert type(op.plan).__name__ == "SellPlan" and op.strategy == \
+            "window"
+        xh = typed_vector(kind, m.shape[1], rng, nonneg)
+        x = cuda_x(xh)
+        entry = _kernels.entry("spmv_sell_window_f32", op.plan.vals.dtype)
+        y = counted(name, lambda: op @ x, {entry: 1})
+        check(name, y, want_of(m, xh, kind, semiring), kind)
+        mr = f16_rounded(m) if kind == "f16" else m
+        lib = library(mr, kind, x) if semiring == "plus_times" else None
+        profile(name, lambda: op @ x, nbytes(op.plan.vals, op.plan.cols_win)
+                + nbytes(x) + out_bytes(y), lib,
+                none="torch.sparse.mm sums plus_times only")
+        window_case(op.plan, narrow_x(op, x), semiring, name, lib,
+                    WIDTH[kind])
+        if spmm:
+            bh = typed_vector(kind, m.shape[1], rng, k=K)
+            b = cuda_x(bh)
+            Y = counted(f"spmm_sell_{kind}", lambda: op @ b,
+                        {_kernels.entry("spmm_sell_window_f32",
+                                        op.plan.vals.dtype): 1})
+            for j in (0, K - 1):
+                check(f"spmm_sell_{kind} column {j}", Y[:, j].contiguous(),
+                      want_of(m, bh[:, j], kind), kind)
+            lib = library(mr, kind, b)
+            profile(f"spmm_sell_{kind}", lambda: op @ b,
+                    nbytes(op.plan.vals, op.plan.cols_win) + nbytes(b)
+                    + out_bytes(Y), lib)
+            spmm_window_case(op.plan, narrow_x(op, b),
+                             f"spmm_sell_{kind} k={K}", lib, WIDTH[kind])
+
+    def hybrid_phases(kind, src):
+        """A HybridPlan (kernels A and B) and its ``op @ B`` (I and H)."""
+        name = f"hybrid_{kind}"
+        m = typed_matrix(src, kind, rng)
+        op = operator(name, m, kind)
+        assert type(op.plan).__name__ == "HybridPlan"
+        rest = op.plan.rest
+        assert type(rest).__name__ == "SellPlan" and rest.stats.window_blocks
+        xh = typed_vector(kind, m.shape[1], rng)
+        x = cuda_x(xh)
+        y = counted(name, lambda: op @ x,
+                    {f"spmv_dia_{kind}": 1, f"spmv_sell_window_{kind}": 1})
+        check(name, y, want_of(m, xh, kind), kind)
+        lib = library(m, kind, x)
+        profile(name, lambda: op @ x, nbytes(op.plan.dia.vals, rest.vals,
+                                             rest.cols_win, x)
+                + out_bytes(y), lib)
+        xk = narrow_x(op, x)
+        dia_case(op.plan.dia, xk, f"{name} DIA part", lib, WIDTH[kind])
+        window_case(rest, xk, "plus_times", f"{name} rest", w=WIDTH[kind])
+        bh = typed_vector(kind, m.shape[1], rng, k=K)
+        b = cuda_x(bh)
+        Y = counted(f"spmm_hybrid_{kind}", lambda: op @ b,
+                    {f"spmm_dia_{kind}": 1, f"spmm_sell_window_{kind}": 1})
+        for j in (0, K - 1):
+            check(f"spmm_hybrid_{kind} column {j}", Y[:, j].contiguous(),
+                  want_of(m, bh[:, j], kind), kind)
+        lib = library(m, kind, b)
+        profile(f"spmm_hybrid_{kind}", lambda: op @ b,
+                nbytes(op.plan.dia.vals, rest.vals, rest.cols_win, b)
+                + out_bytes(Y), lib)
+        bk = narrow_x(op, b)
+        spmm_dia_case(op.plan.dia, bk, f"spmm_hybrid_{kind} DIA part k={K}",
+                      lib, WIDTH[kind])
+        spmm_window_case(rest, bk, f"spmm_hybrid_{kind} rest k={K}",
+                         w=WIDTH[kind])
+
+    def deep_phases(kind, src):
+        """Kernel G on the deep and stream routes of the windowless
+        SellPlan (as deep_i32's)."""
+        name = f"deep_{kind}"
+        m = typed_matrix(src, kind, rng)
+        t0 = time.perf_counter()
+        op = SparseOperator(place(build_sell_plan(
+            from_scipy(m), value_dtype=VALUE[kind]), dev))
+        log(f"[{name}] {op} plan_seconds={time.perf_counter() - t0:.3f}")
+        assert op.plan.stats.window_blocks == 0 and op.strategy == "deep"
+        xh = typed_vector(kind, m.shape[1], rng)
+        x = cuda_x(xh)
+        entry = f"spmv_sell_global_{kind}"
+        y = counted(name, lambda: op @ x, {entry: 1})
+        check(name, y, want_of(m, xh, kind), kind)
+        ys = counted(f"{name} stream",
+                     lambda: spmv_plan(op.plan, x, strategy="stream"),
+                     {entry: 1})
+        if kind == "f16":     # split slices add atomically, in any order
+            check(f"{name} stream", ys, want_of(m, xh, kind), kind)
+        else:
+            assert torch.equal(sr.signed(ys.cpu()), sr.signed(y.cpu()))
+        lib = library(f16_rounded(m) if kind == "f16" else m, kind, x)
+        profile(name, lambda: op @ x, nbytes(op.plan.vals, op.plan.cols)
+                + x_bytes_read(x, op.plan.cols) + out_bytes(y), lib)
+        global_case(op.plan, narrow_x(op, x), "plus_times", name, lib,
+                    WIDTH[kind])
+
+    def packed_phase(kind, src):
+        """A PackedPlan: kernels E and F."""
+        name = f"packed_{kind}"
+        m = typed_matrix(src, kind, rng)
+        op = operator(name, m, kind)
+        assert type(op.plan).__name__ == "PackedPlan"
+        xh = typed_vector(kind, m.shape[1], rng)
+        x = cuda_x(xh)
+        y = counted(name, lambda: op @ x,
+                    {f"packed_scan_{kind}": 1, f"packed_extract_{kind}": 1})
+        check(name, y, want_of(m, xh, kind), kind)
+        lib = library(f16_rounded(m) if kind == "f16" else m, kind, x)
+        profile(name, lambda: op @ x, nbytes(op.plan.vals, op.plan.cols)
+                + nbytes(x) + out_bytes(y), lib)
+        packed_cases(op.plan, narrow_x(op, x), name, WIDTH[kind])
+
+    def chunk_phase(kind, src):
+        """A ChunkPlan: the light route, kernel C on the 4-byte sums
+        before y is narrowed, and kernel D."""
+        name = f"chunk_{kind}"
+        m = typed_matrix(src, kind, rng)
+        op = operator(name, m, kind)
+        assert type(op.plan).__name__ == "ChunkPlan"
+        assert op.plan.residue is None and op.plan.hbuckets
+        xh = typed_vector(kind, m.shape[1], rng)
+        x = cuda_x(xh)
+        y = counted(name, lambda: op @ x,
+                    {f"spmv_chunk_light_{kind}": 1, "lane_unpermute_f32": 1,
+                     f"spmv_subwin_{kind}": 1})
+        check(name, y, want_of(m, xh, kind), kind)
+        lib = library(f16_rounded(m) if kind == "f16" else m, kind, x)
+        lr = light_on(op.plan)
+        profile(name, lambda: op @ x, nbytes(lr.vals, lr.cols, lr.row_off)
+                + nbytes(x) + out_bytes(y), lib)
+        xk = narrow_x(op, x)
+        chunk_cases(op.plan, xk, sr.as_x(y, plan_vals_dtype(op.plan)), name,
+                    kind, WIDTH[kind])
+
+    def cached_phase(kind, src):
+        """A CachedPlan: kernels B (tier 1) and G (tier 2)."""
+        name = f"cached_{kind}"
+        m = typed_matrix(src, kind, rng)
+        op = operator(name, m, kind)
+        p = op.plan
+        assert type(p).__name__ == "CachedPlan" and p.cold is not None
+        xh = typed_vector(kind, m.shape[1], rng)
+        x = cuda_x(xh)
+        y = counted(name, lambda: op @ x,
+                    {f"spmv_sell_window_{kind}": 1,
+                     f"spmv_sell_global_{kind}": 1})
+        check(name, y, want_of(m, xh, kind), kind)
+        profile(name, lambda: op @ x,
+                nbytes(p.hot.vals, p.hot.cols_win, p.cold.hot.vals,
+                       p.cold.hot.cols) + nbytes(x) + out_bytes(y),
+                library(f16_rounded(m) if kind == "f16" else m, kind, x))
+        xk = narrow_x(op, x)
+        window_case(p.hot, sr.take(xk, p.hot_cols), "plus_times",
+                    f"{name} tier 1", w=WIDTH[kind])
+        x_t2 = sr.take(xk, p.cold.hot_cols)
+        global_case(p.cold.hot, x_t2, "plus_times", f"{name} tier 2",
+                    w=WIDTH[kind])
+
+    # float16 at the draws' published sizes
+    dia_phases("f16", band, spmm=True)
+    sharded_dia_phase("f16", band)
+    window_phases("f16", m_sell)
+    deep_phases("f16", m_deep)
+    chunk_phase("f16", m_chunk)
+    packed_phase("f16", m_packed)
+    cached_phase("f16", m_cached)
+    torch.cuda.empty_cache()
+    # the narrow integers: the 28.3M-nonzero band and the Hybrid cut to
+    # their leading NARROW_ROWS rows and columns (PERF.md section 4);
+    # the other draws at their published sizes
+    band_cut = band[:NARROW_ROWS, :NARROW_ROWS]
+    hyb_cut = m_hyb[:NARROW_ROWS, :NARROW_ROWS]
+    for kind in ("i8", "u8", "i16", "u16"):
+        dia_phases(kind, band_cut, spmm=False)
+        sharded_dia_phase(kind, band_cut)
+        hybrid_phases(kind, hyb_cut)
+        if kind.startswith("u"):
+            # products wrap to the value type before the max
+            window_phases(kind, band_cut, "max_times", spmm=False)
+        deep_phases(kind, m_deep)
+        chunk_phase(kind, m_chunk)
+        packed_phase(kind, m_packed)
+        torch.cuda.empty_cache()
+    # uint64: the shuffled band as a uint32 plan (values from [0, 2^16),
+    # products past 2^32)
+    window_phases("u64", m_sell, spmm=False)
+    log(f"[narrow] the float16, narrow integer and uint64 phases took "
+        f"{time.perf_counter() - t_narrow:.1f} s")
+    torch.cuda.empty_cache()
     # every typed build launched on a main path, and measured
     typed = {k for k in launches if not k.endswith("_f32")}
     assert typed == set(rows), sorted(typed ^ set(rows))
@@ -1892,6 +2267,7 @@ def dtype_phases(card, dev, mesh4, draws):
 
 
 def main():
+    t_main = time.perf_counter()
     import scipy.sparse as sp
 
     from spmv_vector_cache_tpu_torch.formats.cached import CachedPlan
@@ -3189,6 +3565,7 @@ def main():
                                 "tests/test_backend_stream.py:26"),
         **typed_meta,
     }
+    log(f"[total] the smoke took {time.perf_counter() - t_main:.1f} s")
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": csrc + meta[k][0],
          "replaces": meta[k][1], "launches": launches[k], **r}

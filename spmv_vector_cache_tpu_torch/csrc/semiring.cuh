@@ -15,6 +15,13 @@
 // uint32 plans: sums and products in unsigned, so that they wrap mod 2^32
 // (signed overflow is undefined in C++), max in T's own order, a split
 // slice's pieces combined by the integer atomicAdd and atomicMax.
+// The narrow integer plans (int8, uint8, int16, uint16) sum as int; W,
+// their value type, is what IntMaxTimes wraps each product to (and
+// sign-extends, for a signed W) before the max, as the reference takes
+// the max of products computed in the value type.  The empty max stays
+// T's least value: the caller narrows y, and first raises it to W's least
+// value (ops/semiring.py finish_y), so that kernel and plain version
+// agree on the sums they hand over.
 // min_plus and max_plus have no integer form (their zero is infinite):
 // with_semiring refuses them there.  The float32 structs are the ones
 // the float32 builds always compiled (a run-time choice of type there
@@ -107,31 +114,32 @@ struct IntPlusTimes {
     static __device__ T finish(T v) { return v; }
 };
 // the empty max: INT_MIN for int, 0 for unsigned (what the reference's
-// segment max fills an empty segment with)
-template <class T>
+// segment max fills an empty segment with); W: the type each product is
+// wrapped to before the max
+template <class T, class W = T>
 struct IntMaxTimes {
     static __device__ T init() {
         return std::is_signed<T>::value ? T(INT_MIN) : T(0);
     }
     static __device__ T zero() { return T(0); }
     static __device__ T step(T acc, T v, T x) {
-        const T p = T((unsigned)v * (unsigned)x);
+        const T p = T(W((unsigned)v * (unsigned)x));
         return p > acc ? p : acc;
     }
     static __device__ T add(T a, T b) { return a > b ? a : b; }
     static __device__ void atomic(T* p, T v) { atomicMax(p, v); }
     static __device__ T finish(T v) { return v; }
 };
-template <class T>
-struct IntOrAnd : IntMaxTimes<T> {
+template <class T, class W = T>
+struct IntOrAnd : IntMaxTimes<T, W> {
     static __device__ T finish(T v) { return v >= T(1) ? T(1) : T(0); }
 };
 
 // Calls launch(S{}) with the semiring of `code` over sums of type T
 // (float: the five float32 semirings; int, unsigned: the three integer
-// ones); an unknown code, or min_plus and max_plus over an integer T,
-// is cudaErrorInvalidValue.
-template <class T = float, class F>
+// ones, their products wrapped to W before a max); an unknown code, or
+// min_plus and max_plus over an integer T, is cudaErrorInvalidValue.
+template <class T = float, class W = T, class F>
 cudaError_t with_semiring(int code, F&& launch) {
     if constexpr (std::is_same<T, float>::value) {
         switch (code) {
@@ -145,8 +153,8 @@ cudaError_t with_semiring(int code, F&& launch) {
     } else {
         switch (code) {
             case 0: launch(IntPlusTimes<T>{}); return cudaSuccess;
-            case 3: launch(IntMaxTimes<T>{}); return cudaSuccess;
-            case 4: launch(IntOrAnd<T>{}); return cudaSuccess;
+            case 3: launch(IntMaxTimes<T, W>{}); return cudaSuccess;
+            case 4: launch(IntOrAnd<T, W>{}); return cudaSuccess;
             default: return cudaErrorInvalidValue;
         }
     }

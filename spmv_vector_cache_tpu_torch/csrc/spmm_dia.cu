@@ -44,6 +44,11 @@
 // ROADMAP.md queue 3); it stages its 2-byte values with plain loads,
 // widened to float32 in shared memory, where the 4-byte types copy them
 // with cp.async.  The integer builds sum wrapping mod 2^32.
+// The `_f16`, `_i8`, `_u8`, `_i16` and `_u16` builds read 2- and 1-byte
+// slots, widened to float32 (float16) or int (the integers, sign- or
+// zero-extended) as they load; B and the sums stay in that 32-bit type,
+// and the wrapper narrows Y once (ops/semiring.py finish_y).  Their 1- and
+// 2-byte values are staged as bf16's are, by plain loads, widened.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -174,7 +179,7 @@ spmm_dia_kernel(const typename P::Slot* __restrict__ vals,
             } else {
                 // read before the barrier that precedes their use
                 for (int j = 0; j < 4 && m + j < nrow; ++j)
-                    dd[j] = spmv::widen(__ldg(src + j));
+                    dd[j] = P::widen(__ldg(src + j));
             }
         }
         cp_async_commit();
@@ -366,3 +371,8 @@ SPMM_DIA_BUILD(f32, spmv::F32Values)
 SPMM_DIA_BUILD(bf16, spmv::Bf16Values)
 SPMM_DIA_BUILD(i32, spmv::I32Values)
 SPMM_DIA_BUILD(u32, spmv::U32Values)
+SPMM_DIA_BUILD(f16, spmv::F16Values)
+SPMM_DIA_BUILD(i8, spmv::I8Values)
+SPMM_DIA_BUILD(u8, spmv::U8Values)
+SPMM_DIA_BUILD(i16, spmv::I16Values)
+SPMM_DIA_BUILD(u16, spmv::U16Values)

@@ -53,6 +53,12 @@
 // SpMM sums a bfloat16 plan), `_i32` and `_u32` (B and Y of the value
 // type, sums wrapping mod 2^32, a split slice's pieces combined with the
 // integer atomicAdd, one a column) entry points with the same arguments.
+// The `_f16`, `_i8`, `_u8`, `_i16` and `_u16` builds read 2- and 1-byte
+// slots, widened to float32 (float16) or int (the integers, sign- or
+// zero-extended) as they load; B and the sums stay in that 32-bit type,
+// and the wrapper narrows Y once (ops/semiring.py finish_y).  Their
+// slots are staged by the same 16-byte cp.async pieces, 8 or 16 slots a
+// piece.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -280,7 +286,7 @@ spmm_runs_kernel(const typename P::Slot* __restrict__ vals,
             const int16_t* c = sc(buf) + lane;
 #pragma unroll kUnroll
             for (int p = 0; p < positions; ++p) {
-                const T w = spmv::widen(v[p * lanes]);
+                const T w = P::widen(v[p * lanes]);
                 const long long col = base + c[p * lanes];
                 if (col < cols) {
                     T bv[V];
@@ -394,3 +400,8 @@ SPMM_SELL_WINDOW_BUILD(f32, spmv::F32Values)
 SPMM_SELL_WINDOW_BUILD(bf16, spmv::Bf16Values)
 SPMM_SELL_WINDOW_BUILD(i32, spmv::I32Values)
 SPMM_SELL_WINDOW_BUILD(u32, spmv::U32Values)
+SPMM_SELL_WINDOW_BUILD(f16, spmv::F16Values)
+SPMM_SELL_WINDOW_BUILD(i8, spmv::I8Values)
+SPMM_SELL_WINDOW_BUILD(u8, spmv::U8Values)
+SPMM_SELL_WINDOW_BUILD(i16, spmv::I16Values)
+SPMM_SELL_WINDOW_BUILD(u16, spmv::U16Values)

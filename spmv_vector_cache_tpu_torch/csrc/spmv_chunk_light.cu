@@ -35,6 +35,10 @@
 // y2d float32: 6 B a record instead of 8), `_i32` and `_u32` (plus_times,
 // max_times and or_and, sums wrapping mod 2^32) entry points with the
 // same arguments.
+// The `_f16`, `_i8`, `_u8`, `_i16` and `_u16` builds read 2- and 1-byte
+// slots, widened to float32 (float16) or int (the integers, sign- or
+// zero-extended) as they load; x and the sums stay in that 32-bit type,
+// and the wrapper narrows y once (ops/semiring.py finish_y).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -131,7 +135,8 @@ int launch_light(const int* row_off, const int* cols, const void* vals,
                  int semiring, void* stream) {
     using T = typename V::T;
     if (num_units > 0) {
-        cudaError_t err = spmv::with_semiring<T>(semiring, [&](auto s) {
+        using W = typename V::Wrap;
+        cudaError_t err = spmv::with_semiring<T, W>(semiring, [&](auto s) {
             light_rows_kernel<decltype(s), V>
                 <<<(unsigned)num_units, LIGHT_ROWS, 0,
                    (cudaStream_t)stream>>>(
@@ -165,3 +170,8 @@ SPMV_CHUNK_LIGHT_BUILD(f32, spmv::F32Values)
 SPMV_CHUNK_LIGHT_BUILD(bf16, spmv::Bf16Values)
 SPMV_CHUNK_LIGHT_BUILD(i32, spmv::I32Values)
 SPMV_CHUNK_LIGHT_BUILD(u32, spmv::U32Values)
+SPMV_CHUNK_LIGHT_BUILD(f16, spmv::F16Values)
+SPMV_CHUNK_LIGHT_BUILD(i8, spmv::I8Values)
+SPMV_CHUNK_LIGHT_BUILD(u8, spmv::U8Values)
+SPMV_CHUNK_LIGHT_BUILD(i16, spmv::I16Values)
+SPMV_CHUNK_LIGHT_BUILD(u16, spmv::U16Values)

@@ -38,6 +38,10 @@
 // entry points, and `_bf16` (2 B a slot widened to float32, x and y
 // float32: 2 B of the stream a slot instead of 4), `_i32` and `_u32`
 // (sums wrapping mod 2^32) entry points with the same arguments.
+// The `_f16`, `_i8`, `_u8`, `_i16` and `_u16` builds read 2- and 1-byte
+// slots, widened to float32 (float16) or int (the integers, sign- or
+// zero-extended) as they load; x and the sums stay in that 32-bit type,
+// and the wrapper narrows y once (ops/semiring.py finish_y).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -122,6 +126,11 @@ SPMV_DIA_BUILD(f32, spmv::F32Values)
 SPMV_DIA_BUILD(bf16, spmv::Bf16Values)
 SPMV_DIA_BUILD(i32, spmv::I32Values)
 SPMV_DIA_BUILD(u32, spmv::U32Values)
+SPMV_DIA_BUILD(f16, spmv::F16Values)
+SPMV_DIA_BUILD(i8, spmv::I8Values)
+SPMV_DIA_BUILD(u8, spmv::U8Values)
+SPMV_DIA_BUILD(i16, spmv::I16Values)
+SPMV_DIA_BUILD(u16, spmv::U16Values)
 
 // vals: the double plan's (T, 2D, S*128) hi/lo slab; x, y: float64
 extern "C" int spmv_dia_f64(const float* vals, const double* x,

@@ -58,9 +58,17 @@
 // values a thread and widens them to float32 (x and the scan float32:
 // 4 B of the stream a slot instead of 6); F's reads the float32 scan and
 // x and 2 B an overflow value, widened as it is loaded.
+// The `_f16`, `_i8`, `_u8`, `_i16` and `_u16` builds read 2- and 1-byte
+// slots, widened to float32 (float16) or int (the integers, sign- or
+// zero-extended) as they load; x and the sums stay in that 32-bit type,
+// and the wrapper narrows y once (ops/semiring.py finish_y).  E loads four
+// slots a thread as one 8- or 4-byte word; F reads the 32-bit scan and
+// x and the overflow values in the slab's width.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "values.cuh"
 
@@ -89,6 +97,29 @@ __device__ __forceinline__ void load4(const int* p, int (&v)[4]) {
 __device__ __forceinline__ void load4(const unsigned* p, unsigned (&v)[4]) {
     const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
     v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+}
+
+// four consecutive slots of a policy from p, widened to the sum type:
+// the 4-byte types and bfloat16 by the loads above, the float16 and the
+// narrow integer slots by one 8-byte (2-byte slots) or 4-byte (1-byte
+// slots) load from p, aligned to that size
+template <class V>
+__device__ __forceinline__ void load4v(const typename V::Slot* p,
+                                       typename V::T (&v)[4]) {
+    using Slot = typename V::Slot;
+    if constexpr (sizeof(Slot) == 4 ||
+                  std::is_same<V, spmv::Bf16Values>::value) {
+        load4(p, v);
+    } else {
+        using Word = std::conditional_t<sizeof(Slot) == 2, uint2, unsigned>;
+        union {
+            Word w;
+            Slot s[4];
+        } u;
+        u.w = __ldg(reinterpret_cast<const Word*>(p));
+#pragma unroll
+        for (int j = 0; j < 4; ++j) v[j] = V::widen(u.s[j]);
+    }
 }
 
 // p[0:4] = a, b, c, d as one 16-byte store (p 16-byte aligned)
@@ -126,7 +157,7 @@ __global__ void packed_scan_kernel(const typename V::Slot* __restrict__ vals,
         (long long)__ldg(cstep + row / rows_per_step) * chunk_cols;
     long long off = row * kRowSlots + 4 * k;
     T v[4];
-    load4(vals + off, v);
+    load4v<V>(vals + off, v);
     short4 c4 = __ldg(reinterpret_cast<const short4*>(cols + off));
     int c[4] = {c4.x, c4.y, c4.z, c4.w};
     T s[4];
@@ -191,18 +222,10 @@ __device__ __forceinline__ int esrc_at(const int4& v, int j) {
     return (int)(short)(j & 1 ? (word >> 16) : word);
 }
 
-// an overflow value as the sum type: bfloat16 bits widened exactly,
-// any other as it is
-__device__ __forceinline__ float ov_value(uint16_t v) {
-    return __uint_as_float((unsigned)v << 16);
-}
-template <class T>
-__device__ __forceinline__ T ov_value(T v) { return v; }
-
 // blockDim (kTX, kGroups): kTX threads own the CTA's kBlockRows rows,
-// kGroups groups of them split the window's visits; T: the sum type, OV:
-// the overflow values' type
-template <class T, class OV>
+// kGroups groups of them split the window's visits; V: the value policy
+// (T the sum type, the overflow values its slots, widened as they load)
+template <class V, class T = typename V::T, class OV = typename V::Slot>
 __global__ void __launch_bounds__(kThreads) packed_rows_kernel(
         const T* __restrict__ scan, const int* __restrict__ sblock,
         const int* __restrict__ woff, const int16_t* __restrict__ esrc,
@@ -231,7 +254,7 @@ __global__ void __launch_bounds__(kThreads) packed_rows_kernel(
     if (o0 + tid < o1) {
         lane = __ldg(ov_lane + o0 + tid);
         col = __ldg(ov_cols + o0 + tid);
-        val = ov_value(__ldg(ov_vals + o0 + tid));
+        val = V::widen(__ldg(ov_vals + o0 + tid));
     }
 
     T acc[kRowsPerThread];
@@ -295,7 +318,7 @@ __global__ void __launch_bounds__(kThreads) packed_rows_kernel(
         if (r0 > o0 && tid < m) {
             lane = __ldg(ov_lane + r0 + tid);
             col = __ldg(ov_cols + r0 + tid);
-            val = ov_value(__ldg(ov_vals + r0 + tid));
+            val = V::widen(__ldg(ov_vals + r0 + tid));
         }
         if (tid < kTX) ov_first[tid] = ov_last[tid] = 0;
         if (tid < m) {
@@ -353,19 +376,20 @@ int launch_scan(const void* vals, const int16_t* cols, const int* cstep,
     return (int)cudaGetLastError();
 }
 
-template <class T, class OV>
+template <class V>
 int launch_rows(const void* scan, const int* sblock, const int* woff,
                 const int16_t* esrc, const int* ov_off, const int* ov_lane,
                 const int* ov_cols, const void* ov_vals, const void* x,
                 void* y, long long rows, long long block_slots,
                 void* stream) {
+    using T = typename V::T;
     if (rows > 0) {
         const unsigned grid = (unsigned)((rows + kBlockRows - 1) /
                                          kBlockRows);
-        packed_rows_kernel<T, OV><<<grid, dim3(kTX, kGroups), 0,
+        packed_rows_kernel<V><<<grid, dim3(kTX, kGroups), 0,
                                     (cudaStream_t)stream>>>(
             static_cast<const T*>(scan), sblock, woff, esrc, ov_off, ov_lane,
-            ov_cols, static_cast<const OV*>(ov_vals),
+            ov_cols, static_cast<const typename V::Slot*>(ov_vals),
             static_cast<const T*>(x), static_cast<T*>(y), rows, block_slots);
     }
     return (int)cudaGetLastError();
@@ -389,23 +413,33 @@ PACKED_SCAN_BUILD(f32, spmv::F32Values)
 PACKED_SCAN_BUILD(bf16, spmv::Bf16Values)
 PACKED_SCAN_BUILD(i32, spmv::I32Values)
 PACKED_SCAN_BUILD(u32, spmv::U32Values)
+PACKED_SCAN_BUILD(f16, spmv::F16Values)
+PACKED_SCAN_BUILD(i8, spmv::I8Values)
+PACKED_SCAN_BUILD(u8, spmv::U8Values)
+PACKED_SCAN_BUILD(i16, spmv::I16Values)
+PACKED_SCAN_BUILD(u16, spmv::U16Values)
 
 // y: rows sums, written, in CTAs of PACKED_F_BLOCK_ROWS rows; ov_off:
 // one offset a CTA and one more, or null for no overflow (x is then not
 // read); block_slots = step_tiles * 1024; scan, x and y of the sum type
-// T, ov_vals of the value type OV
-#define PACKED_EXTRACT_BUILD(sfx, T, OV)                                    \
+// T, ov_vals of the policy's slots
+#define PACKED_EXTRACT_BUILD(sfx, V)                                    \
     extern "C" int packed_extract_##sfx(                                    \
         const void* scan, const int* sblock, const int* woff,               \
         const int16_t* esrc, const int* ov_off, const int* ov_lane,         \
         const int* ov_cols, const void* ov_vals, const void* x, void* y,    \
         long long rows, long long block_slots, void* stream) {              \
-        return launch_rows<T, OV>(scan, sblock, woff, esrc, ov_off,         \
+        return launch_rows<V>(scan, sblock, woff, esrc, ov_off,         \
                                   ov_lane, ov_cols, ov_vals, x, y, rows,    \
                                   block_slots, stream);                     \
     }
 
-PACKED_EXTRACT_BUILD(f32, float, float)
-PACKED_EXTRACT_BUILD(bf16, float, uint16_t)
-PACKED_EXTRACT_BUILD(i32, int, int)
-PACKED_EXTRACT_BUILD(u32, unsigned, unsigned)
+PACKED_EXTRACT_BUILD(f32, spmv::F32Values)
+PACKED_EXTRACT_BUILD(bf16, spmv::Bf16Values)
+PACKED_EXTRACT_BUILD(i32, spmv::I32Values)
+PACKED_EXTRACT_BUILD(u32, spmv::U32Values)
+PACKED_EXTRACT_BUILD(f16, spmv::F16Values)
+PACKED_EXTRACT_BUILD(i8, spmv::I8Values)
+PACKED_EXTRACT_BUILD(u8, spmv::U8Values)
+PACKED_EXTRACT_BUILD(i16, spmv::I16Values)
+PACKED_EXTRACT_BUILD(u16, spmv::U16Values)

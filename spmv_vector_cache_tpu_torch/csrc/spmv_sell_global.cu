@@ -76,6 +76,12 @@
 // `_i32` and `_u32` (plus_times, max_times and or_and; sums wrapping mod
 // 2^32, a split slice's pieces combined with the integer atomicAdd and
 // atomicMax) entry points with the same arguments.
+// The `_f16`, `_i8`, `_u8`, `_i16` and `_u16` builds read 2- and 1-byte
+// slots, widened to float32 (float16) or int (the integers, sign- or
+// zero-extended) as they load; x and the sums stay in that 32-bit type,
+// and the wrapper narrows y once (ops/semiring.py finish_y).  The narrow
+// integers' split slices combine in 32 bits too (there are no 8- or
+// 16-bit atomics), before y is narrowed.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -323,7 +329,8 @@ int launch_global(const void* vals, const int* cols, const int* tile_slice,
         return bad;
     if (num_runs <= 0) return (int)cudaGetLastError();
     cudaError_t err = cudaErrorInvalidValue;
-    cudaError_t bad = spmv::with_semiring<T>(semiring, [&](auto sr) {
+    using W = typename V::Wrap;
+    cudaError_t bad = spmv::with_semiring<T, W>(semiring, [&](auto sr) {
         err = launch_runs<decltype(sr), V>(
             static_cast<const typename V::Slot*>(vals), cols, tile_slice,
             runs, static_cast<const T*>(x), static_cast<T*>(out), num_runs,
@@ -360,6 +367,11 @@ SPMV_SELL_GLOBAL_BUILD(f32, spmv::F32Values)
 SPMV_SELL_GLOBAL_BUILD(bf16, spmv::Bf16Values)
 SPMV_SELL_GLOBAL_BUILD(i32, spmv::I32Values)
 SPMV_SELL_GLOBAL_BUILD(u32, spmv::U32Values)
+SPMV_SELL_GLOBAL_BUILD(f16, spmv::F16Values)
+SPMV_SELL_GLOBAL_BUILD(i8, spmv::I8Values)
+SPMV_SELL_GLOBAL_BUILD(u8, spmv::U8Values)
+SPMV_SELL_GLOBAL_BUILD(i16, spmv::I16Values)
+SPMV_SELL_GLOBAL_BUILD(u16, spmv::U16Values)
 
 // Kernel L: as spmv_sell_global_f32, plus_times, over a double plan:
 // vals the (tiles, 2*positions, lanes) hi/lo slab, cols (tiles,

@@ -34,6 +34,12 @@
 // float32: 4 B of the stream a slot instead of 6), `_i32` and `_u32`
 // (plus_times, max_times and or_and, sums wrapping mod 2^32) entry
 // points with the same arguments.
+// The `_f16`, `_i8`, `_u8`, `_i16` and `_u16` builds read 2- and 1-byte
+// slots, widened to float32 (float16) or int (the integers, sign- or
+// zero-extended) as they load; x and the sums stay in that 32-bit type,
+// and the wrapper narrows y once (ops/semiring.py finish_y).  Under
+// max_times an integer product wraps to the value type before the max
+// (semiring.cuh).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -83,7 +89,8 @@ int launch_window(const void* vals, const int16_t* cols_win,
     using T = typename V::T;
     if (out_rows > 0) {
         int tpr = fold ? group_tiles : 1;
-        cudaError_t err = spmv::with_semiring<T>(semiring, [&](auto s) {
+        using W = typename V::Wrap;
+        cudaError_t err = spmv::with_semiring<T, W>(semiring, [&](auto s) {
             window_kernel<decltype(s), V>
                 <<<(unsigned)out_rows, lanes, 0, (cudaStream_t)stream>>>(
                     static_cast<const typename V::Slot*>(vals), cols_win,
@@ -114,6 +121,11 @@ SPMV_SELL_WINDOW_BUILD(f32, spmv::F32Values)
 SPMV_SELL_WINDOW_BUILD(bf16, spmv::Bf16Values)
 SPMV_SELL_WINDOW_BUILD(i32, spmv::I32Values)
 SPMV_SELL_WINDOW_BUILD(u32, spmv::U32Values)
+SPMV_SELL_WINDOW_BUILD(f16, spmv::F16Values)
+SPMV_SELL_WINDOW_BUILD(i8, spmv::I8Values)
+SPMV_SELL_WINDOW_BUILD(u8, spmv::U8Values)
+SPMV_SELL_WINDOW_BUILD(i16, spmv::I16Values)
+SPMV_SELL_WINDOW_BUILD(u16, spmv::U16Values)
 
 // vals: the double plan's (T, 2*positions, lanes) hi/lo slab; x, out:
 // float64; plus_times

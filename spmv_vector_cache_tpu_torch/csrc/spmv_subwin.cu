@@ -39,6 +39,11 @@
 // point, and `_bf16` (2 B values widened to float32, x and y float32),
 // `_i32` and `_u32` (plus_times, max_times and or_and, sums wrapping mod
 // 2^32) entry points with the same arguments.
+// The `_f16`, `_i8`, `_u8`, `_i16` and `_u16` builds read 2- and 1-byte
+// slots, widened to float32 (float16) or int (the integers, sign- or
+// zero-extended) as they load; x and the sums stay in that 32-bit type,
+// and y, which D updates in place, is narrowed once after it
+// (ops/semiring.py finish_y).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -162,7 +167,8 @@ int launch_heavy(const void* vals, const int16_t* cols_win, const int* bases,
     if (groups * lanes > kMaxGroups * 128) groups = kMaxGroups * 128 / lanes;
     const unsigned blocks =
         (unsigned)(num_runs < (1LL << 20) ? num_runs : (1LL << 20));
-    cudaError_t err = spmv::with_semiring<T>(semiring, [&](auto s) {
+    using W = typename V::Wrap;
+    cudaError_t err = spmv::with_semiring<T, W>(semiring, [&](auto s) {
         heavy_runs_kernel<decltype(s), V>
             <<<blocks, groups * lanes, 0, (cudaStream_t)stream>>>(
                 static_cast<const typename V::Slot*>(vals), cols_win, bases,
@@ -199,3 +205,8 @@ SPMV_SUBWIN_BUILD(f32, spmv::F32Values)
 SPMV_SUBWIN_BUILD(bf16, spmv::Bf16Values)
 SPMV_SUBWIN_BUILD(i32, spmv::I32Values)
 SPMV_SUBWIN_BUILD(u32, spmv::U32Values)
+SPMV_SUBWIN_BUILD(f16, spmv::F16Values)
+SPMV_SUBWIN_BUILD(i8, spmv::I8Values)
+SPMV_SUBWIN_BUILD(u8, spmv::U8Values)
+SPMV_SUBWIN_BUILD(i16, spmv::I16Values)
+SPMV_SUBWIN_BUILD(u16, spmv::U16Values)

@@ -19,8 +19,21 @@
 // uint32 plan sums in its own type, wrapping mod 2^32 as the reference's
 // int32 and uint32 sums do: the arithmetic below runs in unsigned, where
 // wrapping is defined, and reinterprets.
+//
+// The narrow policies store a slot in the value type's own width and
+// widen it to the sum type as it is loaded: a float16 plan (2 B a slot)
+// sums in float32 (its y is rounded to float16 once, by the caller); an
+// int8, uint8, int16 or uint16 plan (1 or 2 B a slot) sums in 32 bits,
+// sign-extended for the signed types and zero-extended for the unsigned,
+// and its y is narrowed once, by the caller (narrowing mod 2^8 or 2^16
+// commutes with the wrapping + and *).  `Wrap` is the type a product is
+// wrapped to before a max (semiring.cuh IntMaxTimes), as the reference
+// takes the max of products in the value type.  Every policy's
+// `widen(slot)` is the value of a stored slot in the sum type, for the
+// kernels that stage slots before they read them (H, I, E).
 #pragma once
 
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -29,7 +42,9 @@ namespace spmv {
 struct F32Values {
     using T = float;
     using Slot = float;
+    using Wrap = float;
     static constexpr int kChannels = 1;
+    static __device__ float widen(float v) { return v; }
     static __device__ float load(const float* v, long long /*half*/) {
         return __ldg(v);
     }
@@ -38,6 +53,7 @@ struct F32Values {
 struct PairValues {
     using T = double;
     using Slot = float;
+    using Wrap = double;
     static constexpr int kChannels = 2;
     static __device__ double load(const float* v, long long half) {
         return (double)__ldg(v) + (double)__ldg(v + half);
@@ -47,7 +63,11 @@ struct PairValues {
 struct Bf16Values {
     using T = float;
     using Slot = uint16_t;
+    using Wrap = float;
     static constexpr int kChannels = 1;
+    static __device__ float widen(uint16_t v) {
+        return __uint_as_float((unsigned)v << 16);
+    }
     static __device__ float load(const uint16_t* v, long long /*half*/) {
         return __uint_as_float((unsigned)__ldg(v) << 16);
     }
@@ -56,7 +76,9 @@ struct Bf16Values {
 struct I32Values {
     using T = int;
     using Slot = int;
+    using Wrap = int;
     static constexpr int kChannels = 1;
+    static __device__ int widen(int v) { return v; }
     static __device__ int load(const int* v, long long /*half*/) {
         return __ldg(v);
     }
@@ -65,21 +87,45 @@ struct I32Values {
 struct U32Values {
     using T = unsigned;
     using Slot = unsigned;
+    using Wrap = unsigned;
     static constexpr int kChannels = 1;
+    static __device__ unsigned widen(unsigned v) { return v; }
     static __device__ unsigned load(const unsigned* v, long long /*half*/) {
         return __ldg(v);
     }
 };
 
-// a stored slot as the sum type, outside a kernel's load path (kernel I
-// widens staged bf16 values with it)
-__device__ inline float widen(uint16_t v) {
-    return __uint_as_float((unsigned)v << 16);
-}
-template <class T>
-__device__ inline T widen(T v) {
-    return v;
-}
+// float16 slots (their IEEE half bits), widened exactly to float32
+struct F16Values {
+    using T = float;
+    using Slot = uint16_t;
+    using Wrap = float;
+    static constexpr int kChannels = 1;
+    static __device__ float widen(uint16_t v) {
+        return __half2float(__ushort_as_half(v));
+    }
+    static __device__ float load(const uint16_t* v, long long /*half*/) {
+        return widen(__ldg(v));
+    }
+};
+
+// int8, uint8, int16 and uint16 slots, summed as int: the conversion
+// sign-extends a signed slot and zero-extends an unsigned one
+template <class S>
+struct NarrowIntValues {
+    using T = int;
+    using Slot = S;
+    using Wrap = S;
+    static constexpr int kChannels = 1;
+    static __device__ int widen(S v) { return (int)v; }
+    static __device__ int load(const S* v, long long /*half*/) {
+        return (int)__ldg(v);
+    }
+};
+using I8Values = NarrowIntValues<int8_t>;
+using U8Values = NarrowIntValues<uint8_t>;
+using I16Values = NarrowIntValues<int16_t>;
+using U16Values = NarrowIntValues<uint16_t>;
 
 // acc + v * x, rounded once, in the policy's type; integers wrap
 __device__ inline float madd(float v, float x, float acc) {

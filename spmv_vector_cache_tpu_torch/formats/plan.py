@@ -6,7 +6,8 @@ over unchanged so that both packages build byte-equal plans for the same
 matrix; the port's kernels are checked against the reference on
 identical layouts.  Every plan family the reference planner builds
 (SELL, DIA, Hybrid, Chunk, Packed, Cached, CooTail) is ported for
-float32, bfloat16, int32, int64 (stored as int32) and uint32 values
+float32, bfloat16, float16, int8, uint8, int16, uint16, int32, uint32,
+int64 (stored as int32) and uint64 (stored as uint32) values
 (:func:`value_kind`), and the double (``value_dtype=np.float64``) SELL,
 DIA and Hybrid plans, whose values are hi/lo float32 pairs.
 
@@ -63,18 +64,34 @@ DEEP_MAX_BLOCKS = 2048
 
 #: value kinds the plan builders take, by the numpy name of the
 #: ``value_dtype`` asked for: float32, float64 (stored as hi/lo float32
-#: pairs), bfloat16 (summed in float32), int32 and uint32 (summed
-#: exactly, wrapping mod 2^32); int64 values are stored as int32, as the
+#: pairs), bfloat16 and float16 (summed in float32), int32 and uint32
+#: (summed exactly, wrapping mod 2^32), int8, uint8, int16 and uint16
+#: (stored in their own width, summed in 32 bits, y narrowed once);
+#: int64 and uint64 values are stored as int32 and uint32, as the
 #: reference's device plan holds them (``to_device`` with x64 off), after
 #: a range check the reference does not make (ROADMAP.md queue 3)
 _KINDS = {"float32": "f32", "float64": "f64", "bfloat16": "bf16",
-          "int32": "i32", "int64": "i32", "uint32": "u32"}
+          "float16": "f16", "int8": "i8", "uint8": "u8", "int16": "i16",
+          "uint16": "u16", "int32": "i32", "int64": "i32", "uint32": "u32",
+          "uint64": "u32"}
 #: the numpy type a builder lays each kind's values out in: bf16 values
 #: are rounded to bfloat16 (nearest even) and held exactly in float32
 #: until :func:`finish_values` makes them a bfloat16 tensor (numpy has
 #: no bfloat16 without ``ml_dtypes``, which the port does not import)
 _BUILD = {"f32": np.float32, "f64": np.float64, "bf16": np.float32,
-          "i32": np.int32, "u32": np.uint32}
+          "f16": np.float16, "i8": np.int8, "u8": np.uint8, "i16": np.int16,
+          "u16": np.uint16, "i32": np.int32, "u32": np.uint32}
+#: the 64-bit integer types, stored in 32 bits after a range check
+_NARROWED = {"int64": np.int32, "uint64": np.uint32}
+#: why the types the reference half-takes are refused, by name prefix
+_REFUSED = {
+    "bool": "the reference's DIA plan returns a wrong y for bool values "
+            "and its SELL window plan raises",
+    "float8": "the reference sums float8 in float8, off by several units "
+              "on small integer draws",
+    "complex": "the reference raises NotImplementedError for complex "
+               "values",
+}
 
 
 def _dtype_name(value_dtype) -> str:
@@ -90,15 +107,18 @@ def _dtype_name(value_dtype) -> str:
 
 def value_kind(value_dtype) -> str:
     """The kind of plan ``value_dtype`` builds: ``f32``, ``f64``,
-    ``bf16``, ``i32`` (int32 or int64) or ``u32``.  Every builder calls
-    it; any other type (float16, int8, int16, uint64, ...) raises
-    ``NotImplementedError``."""
+    ``bf16``, ``f16``, ``i8``, ``u8``, ``i16``, ``u16``, ``i32`` (int32
+    or int64) or ``u32`` (uint32 or uint64).  Every builder calls it; any
+    other type (bool, float8, complex, ...) raises
+    ``NotImplementedError`` with the reason."""
     name = _dtype_name(value_dtype)
     if name not in _KINDS:
+        why = next((w for p, w in _REFUSED.items() if name.startswith(p)),
+                   "the reference has no plan of that type")
         raise NotImplementedError(
-            f"value_dtype {name}: the port builds float32, float64, "
-            f"bfloat16, int32, int64 and uint32 plans (ROADMAP.md queue 1, "
-            f"item 2, records what the reference does with the others)")
+            f"value_dtype {name}: {why} (ROADMAP.md queue 3); the port "
+            f"builds float32, float64, bfloat16, float16, int8, uint8, "
+            f"int16, uint16, int32, uint32, int64 and uint64 plans")
     return _KINDS[name]
 
 
@@ -110,24 +130,26 @@ def build_dtype(value_dtype):
 def host_values(data, value_dtype) -> np.ndarray:
     """``data`` as a builder stores it for ``value_dtype``, value by
     value what the reference's ``astype(value_dtype)`` stores: bfloat16
-    rounded to nearest even (held in float32), int32 and uint32 as numpy
-    casts; int64 as int32, refused when a value does not fit (the
-    reference narrows it on the device and wraps it silently)."""
+    rounded to nearest even (held in float32), float16 rounded once,
+    straight from ``data``'s type (numpy's cast, the reference's), the
+    other integers as numpy casts; int64 and uint64 as int32 and uint32,
+    refused when a value does not fit (the reference narrows it on the
+    device and wraps it silently)."""
     name = _dtype_name(value_dtype)
     kind = value_kind(value_dtype)
     d = np.asarray(data)
     if kind == "bf16":
         t = torch.from_numpy(np.ascontiguousarray(d))
         return t.to(torch.bfloat16).to(torch.float32).numpy()
-    if name == "int64":
-        d = d.astype(np.int64)
-        info = np.iinfo(np.int32)
+    if name in _NARROWED:
+        d = d.astype(name)
+        info = np.iinfo(_NARROWED[name])
         if d.size and (d.min() < info.min or d.max() > info.max):
             bad = d[(d < info.min) | (d > info.max)][0]
             raise ValueError(
-                f"int64 value {bad} does not fit int32: int64 plans are "
-                f"stored as int32 (the reference wraps such a value "
-                f"silently, ROADMAP.md queue 3)")
+                f"{name} value {bad} does not fit {info.dtype}: {name} "
+                f"plans are stored as {info.dtype} (the reference wraps "
+                f"such a value silently, ROADMAP.md queue 3)")
     return d.astype(_BUILD[kind])
 
 
@@ -154,7 +176,7 @@ def check_pad(value_dtype, pad_value: float) -> None:
     (plus_times, max_times, or_and): the reference casts min_plus's +inf
     and max_plus's -inf to INT_MIN and returns a y off by 2^31
     (ROADMAP.md queue 3)."""
-    if value_kind(value_dtype) in ("i32", "u32") and \
+    if np.dtype(build_dtype(value_dtype)).kind in "iu" and \
             not np.isfinite(pad_value):
         raise ValueError(
             f"an integer plan has no {pad_value} for its padding: integer "

@@ -12,9 +12,10 @@ arrays, for byte-for-byte comparisons in tests.
 Value arrays cross as the port holds them: a JAX bfloat16 array (an
 ``ml_dtypes`` array on the host) by its bits, viewed as uint16 and then
 as a ``torch.bfloat16`` tensor, so neither side needs ``ml_dtypes``; an
-int64 plan's values (the reference's host plan keeps int64, its device
-plan int32) as int32 after a range check (``formats.plan.host_values``);
-and a bfloat16 tensor back to numpy as its uint16 bits.
+int64 or uint64 plan's values (the reference's host plan keeps 64 bits,
+its device plan 32) as int32 or uint32 after a range check
+(``formats.plan.host_values``); the float16 and narrow integer slabs as
+they are; and a bfloat16 tensor back to numpy as its uint16 bits.
 """
 
 from __future__ import annotations
@@ -53,8 +54,8 @@ def _array(v, field: str):
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(np.ascontiguousarray(a).view(np.uint16)) \
             .view(torch.bfloat16)
-    if a.dtype == np.int64 and field in _VALUE_FIELDS:
-        return host_values(a, np.int64)
+    if a.dtype in (np.int64, np.uint64) and field in _VALUE_FIELDS:
+        return host_values(a, a.dtype)
     return a
 
 

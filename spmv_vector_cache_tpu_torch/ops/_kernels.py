@@ -18,8 +18,9 @@ after.
 
 Kernels A, B, D, E, F, G, H, I, M and the chunk light route have one
 build per value type of a plan (:data:`BUILDS`): the ``_f32`` entry
-point, and ``_bf16``, ``_i32`` and ``_u32`` entry points with the same
-arguments; :func:`entry` names the one for a value slab's type.
+point, and ``_bf16``, ``_i32``, ``_u32``, ``_f16``, ``_i8``, ``_u8``,
+``_i16`` and ``_u16`` entry points with the same arguments; :func:`entry`
+names the one for a value slab's type.
 """
 
 from __future__ import annotations
@@ -111,7 +112,9 @@ SIGNATURES = {
 #: dtype; a double plan's hi/lo float32 slab has its own ``_f64``
 #: entry points)
 BUILDS = {torch.float32: "f32", torch.bfloat16: "bf16",
-          torch.int32: "i32", torch.uint32: "u32"}
+          torch.int32: "i32", torch.uint32: "u32", torch.float16: "f16",
+          torch.int8: "i8", torch.uint8: "u8", torch.int16: "i16",
+          torch.uint16: "u16"}
 #: the kernels with more builds than float32, by their float32 entry,
 #: and the value types they are built for
 TYPED = {name: tuple(BUILDS.values()) for name in (

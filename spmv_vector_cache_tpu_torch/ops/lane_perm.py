@@ -11,7 +11,9 @@ plan's own ``perm_idx`` (placement made them once,
 ``formats/chunk.check_perm_idx``) and un-permutes in place.  Kernel C
 moves 4-byte words and computes nothing, so its one build serves the
 int32 and uint32 sums of an integer plan bit for bit as it serves
-float32 (the pointers are handed over as they are).
+float32 (the pointers are handed over as they are), and the float32 or
+int32 sums of a float16 or 8- or 16-bit plan, which y is narrowed from
+only after it.
 """
 
 from __future__ import annotations

@@ -31,7 +31,7 @@ from ..utils.stats import StatRegistry
 from . import reference
 from . import semiring as sr
 from .spmm_sell import NoFusedSpmm, has_fused_spmm, is_double, spmm_plan
-from .spmv_sell import plan_vals_dtype, plan_x_dtype, spmv_plan
+from .spmv_sell import plan_as_x, plan_vals_dtype, plan_x_dtype, spmv_plan
 from .strategy import (autotune, execution_counters, plan_bytes_per_apply,
                        plan_nnz, select_strategy)
 
@@ -184,9 +184,9 @@ class SparseOperator:
                                       "ported: the reference has no "
                                       "float64 SpMM kernel (ROADMAP.md "
                                       "queue 3)")
-        b = self._as_x(b).to(plan_x_dtype(self.plan)).contiguous()
+        b = self._as_x(b)
         if has_fused_spmm(self.plan):
-            return spmm_plan(self.plan, b)
+            return spmm_plan(self.plan, b)       # B cast there, once
         if self._matrix is None:
             raise NoFusedSpmm(f"{type(self.plan).__name__} has no fused "
                               f"SpMM kernel and the operator holds no "
@@ -200,7 +200,9 @@ class SparseOperator:
                 a = dataclasses.replace(a, data=finish_values(
                     host_values(a.data, vdt), vdt))
             self._matrix_on_device = place(a, self.device)
-        return reference.spmm(self._matrix_on_device, b)
+        return sr.finish_y(reference.spmm(self._matrix_on_device,
+                                          plan_as_x(self.plan, b)),
+                           plan_vals_dtype(self.plan))
 
     def __matmul__(self, x: Array) -> torch.Tensor:
         x = self._as_x(x)

@@ -180,7 +180,7 @@ def padding_tiles(h, num_segments: int) -> int:
     of the last heavy row that looks the same holds no column but 0
     and one value in all 1024 slots."""
     T = h.vals.shape[0]
-    flat = h.vals.reshape(T, -1)
+    flat = sr.signed(h.vals).reshape(T, -1)
     pad = ((flat == flat[:, :1]).all(1) & (h.cols_win.reshape(T, -1) == 0)
            .all(1) & (h.bases == 0).all(1) & (h.tile_seg == num_segments - 1))
     real = np.flatnonzero(~pad.cpu().numpy())
@@ -395,9 +395,9 @@ def _host(t) -> np.ndarray:
 
 
 def _bits(t: torch.Tensor) -> np.ndarray:
-    """The bits of a CPU tensor of 2-, 4- or 8-byte elements, as signed
-    integers of that width (for comparing values bit for bit)."""
-    width = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    """The bits of a CPU tensor of 1-, 2-, 4- or 8-byte elements, as
+    signed integers of that width (for comparing values bit for bit)."""
+    width = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
     return t.view(width[t.element_size()]).numpy()
 
 

@@ -16,6 +16,17 @@ because torch has no uint32 add, max or ``index_add_``: uint32 as its
 int32 view under plus_times (the same bits mod 2^32) and as int64 under
 the max semirings, where :func:`kernel_ops`' product wraps mod 2^32;
 :func:`narrow` returns the result to its type.
+
+The narrow plans (:data:`NARROW`) read x rounded or wrapped to the value
+type (:func:`as_x`, as the reference's cast does) and sum in 32 bits: a
+float16 plan in float32, an int8, uint8, int16 or uint16 plan in int32,
+its products wrapped to the value type before a max (:func:`kernel_ops`),
+as the reference takes the max of products computed in the value type.
+The sums travel in that 32-bit type through every kernel and epilogue;
+:func:`finish_y` narrows y once at the end (:func:`y_dtype`): float16
+rounded once, where the reference sums in float16 (ROADMAP.md queue 3),
+the integers mod 2^8 or 2^16, which commutes with the wrapping sums, so
+the integer y is the reference's exactly.
 """
 
 from __future__ import annotations
@@ -85,18 +96,65 @@ class Semiring:
                       a.dtype)
 
 
+#: the narrow value types: stored in their own width, summed in 32 bits
+#: (float32 or int32) and narrowed once at the end
+NARROW = {torch.float16: torch.float32, torch.int8: torch.int32,
+          torch.uint8: torch.int32, torch.int16: torch.int32,
+          torch.uint16: torch.int32}
+
+
 def x_dtype(vals_dtype: torch.dtype) -> torch.dtype:
-    """The type a plan with ``vals_dtype`` values reads x in, sums in and
-    returns y in: float32 for a bfloat16 plan, else the value type."""
-    return torch.float32 if vals_dtype == torch.bfloat16 else vals_dtype
+    """The type a plan with ``vals_dtype`` values sums in, and the
+    kernels read x and write y in: float32 for a bfloat16 or float16
+    plan, int32 for an int8, uint8, int16 or uint16 one, else the value
+    type."""
+    if vals_dtype == torch.bfloat16:
+        return torch.float32
+    return NARROW.get(vals_dtype, vals_dtype)
+
+
+def y_dtype(vals_dtype: torch.dtype) -> torch.dtype:
+    """The type an apply returns y in: a narrow plan's value type, else
+    :func:`x_dtype`."""
+    return vals_dtype if vals_dtype in NARROW else x_dtype(vals_dtype)
+
+
+def as_x(x: torch.Tensor, vals_dtype: torch.dtype) -> torch.Tensor:
+    """x as the kernels of a plan with ``vals_dtype`` values read it, in
+    :func:`x_dtype`, contiguous: a narrow plan's x first cast to the
+    value type (float16 rounded, the integers wrapped, as the
+    reference's ``jnp.asarray(x, value_dtype)``), unless it is of that
+    type already (one cast then, to the sum type)."""
+    if vals_dtype in NARROW and x.dtype != vals_dtype:
+        x = x.to(vals_dtype)
+    return x.to(x_dtype(vals_dtype)).contiguous()
+
+
+def finish_y(y: torch.Tensor, vals_dtype: torch.dtype,
+             semiring: str = "plus_times") -> torch.Tensor:
+    """An apply's sums, in :func:`x_dtype`, as it returns them
+    (:func:`y_dtype`), by one cast: a float16 plan's rounded once, an
+    integer one's narrowed mod 2^8 or 2^16 (torch's integer casts wrap).
+    Under the max semirings an empty row's int32 least value first rises
+    to the value type's, what the reference's segment max fills it
+    with."""
+    if vals_dtype not in NARROW or y.dtype == vals_dtype:
+        return y
+    if not vals_dtype.is_floating_point and semiring in ("max_times",
+                                                         "or_and"):
+        y = y.clamp(min=torch.iinfo(vals_dtype).min)
+    return y.to(vals_dtype)
 
 
 def widen(t: torch.Tensor, semiring: str = "plus_times") -> torch.Tensor:
     """``t`` in the type the plain versions compute it in: bfloat16 as
-    float32 (exact), uint32 as its int32 view under plus_times and as
-    int64 under the max semirings; any other type as it is."""
+    float32 (exact), a narrow type as :func:`x_dtype`'s (exact), uint32
+    as its int32 view under plus_times and as int64 under the max
+    semirings; any other type as it is."""
     if t.dtype == torch.bfloat16:
         return t.float()
+    if t.dtype in NARROW:
+        return t.to(NARROW[t.dtype])
     if t.dtype == torch.uint32:
         return t.view(torch.int32) if semiring == "plus_times" \
             else t.to(torch.int64)
@@ -114,12 +172,23 @@ def narrow(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return t.to(dtype)
 
 
+#: the signed type of each unsigned type torch supports only in part
+_SIGNED = {torch.uint16: torch.int16, torch.uint32: torch.int32,
+           torch.uint64: torch.int64}
+
+
+def signed(t: torch.Tensor) -> torch.Tensor:
+    """A uint16, uint32 or uint64 ``t`` as its signed view of the same
+    bits (for indexing and comparing them), any other as it is."""
+    return t.view(_SIGNED[t.dtype]) if t.dtype in _SIGNED else t
+
+
 def take(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``t.index_select(0, idx)`` for a 1-D ``idx``, else ``t[idx]``; a
-    uint32 ``t`` through its int32 view (torch indexes no uint32 on the
-    card, and ``index_select`` none on the host)."""
-    if t.dtype == torch.uint32:
-        return take(t.view(torch.int32), idx).view(torch.uint32)
+    uint16, uint32 or uint64 ``t`` through its signed view (torch has no
+    indexing of them on the card, and no ``index_select`` on the host)."""
+    if t.dtype in _SIGNED:
+        return take(signed(t), idx).view(t.dtype)
     return t.index_select(0, idx) if idx.dim() == 1 else t[idx]
 
 
@@ -168,8 +237,10 @@ def _amin(a, dim):
     return torch.amin(a, dim=dim)
 
 
-def kernel_ops(name: str):
-    """(mul, axis_reduce) float ops of the SELL kernels' plain versions."""
+def kernel_ops(name: str, vals_dtype: torch.dtype = torch.float32):
+    """(mul, axis_reduce) ops of the SELL kernels' plain versions, for a
+    plan with ``vals_dtype`` values: a narrow integer plan's products
+    wrapped to its value type under the max semirings."""
     if name == "plus_times":
         return _mul, _sum
     if name == "min_plus":
@@ -177,6 +248,10 @@ def kernel_ops(name: str):
     if name == "max_plus":
         return torch.add, _amax
     if name in ("max_times", "or_and"):
+        if vals_dtype in NARROW and not vals_dtype.is_floating_point:
+            # torch's integer casts wrap; back to int32, sign-extended
+            return (lambda a, b: torch.mul(a, b).to(vals_dtype).to(
+                torch.int32)), _amax
         return _mul, _amax
     raise NotImplementedError(f"kernel ops for semiring {name}")
 

@@ -12,7 +12,9 @@ picks the run, the columns a thread holds and the bands
 I has a build for each value type of ``ops/semiring.py``'s policy: a
 bfloat16 plan sums in float32 with a float32 B and Y, where the
 reference rounds B to bfloat16, sums in bfloat16 and returns a bfloat16
-Y (ROADMAP.md queue 3); int32 and uint32 sum exactly.
+Y (ROADMAP.md queue 3); a float16 plan likewise sums in float32 (its Y
+rounded once, by ``spmm_plan``); the integers sum exactly, the 8- and
+16-bit ones in int32 (Y narrowed once).
 """
 
 from __future__ import annotations
@@ -149,8 +151,9 @@ def _check(vals: torch.Tensor, offsets, b: torch.Tensor) -> None:
     if vals.dtype not in _kernels.BUILDS or \
             b.dtype != sr.x_dtype(vals.dtype):
         raise NotImplementedError(
-            f"DIA SpMM runs float32, bfloat16, int32 or uint32 values with "
-            f"a B of their sum type (vals {vals.dtype}, B {b.dtype})")
+            f"DIA SpMM runs float32, bfloat16, float16 and 8-, 16- and "
+            f"32-bit integer values with a B of their sum type (vals "
+            f"{vals.dtype}, B {b.dtype})")
     if b.dim() != 2 or b.shape[1] < 1:
         raise ValueError(f"B must be (cols, k) with k >= 1, got shape "
                          f"{tuple(b.shape)}")
@@ -206,5 +209,5 @@ def spmm_dia(plan: DiaPlan, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"B has shape {tuple(b.shape)}, the plan needs "
                          f"({plan.shape[1]}, k)")
     return spmm_dia_kernel(plan.vals, plan.offsets,
-                           b.to(sr.x_dtype(plan.vals.dtype)).contiguous(),
+                           sr.as_x(b, plan.vals.dtype),
                            plan.shape[0])

@@ -26,9 +26,9 @@ from ..utils import platform
 from . import _kernels
 from . import semiring as sr
 from .runs import runs_on
-from .spmm_dia import spmm_dia
-from .spmv_sell import (_fixup_rows, fold_lanes, plan_x_dtype, row_parts,
-                        sell_window_plain)
+from .spmm_dia import spmm_dia_kernel
+from .spmv_sell import (_fixup_rows, fold_lanes, plan_as_x,
+                        plan_vals_dtype, row_parts, sell_window_plain)
 
 
 class NoFusedSpmm(ValueError):
@@ -50,8 +50,8 @@ def is_double(plan) -> bool:
 
 def has_fused_spmm(plan) -> bool:
     """Whether :func:`spmm_plan` runs ``plan``: a CooTail, a DiaPlan, a
-    window SellPlan, or a HybridPlan of those, of float32, bfloat16,
-    int32 or uint32 values (the reference has no float64 SpMM kernel)."""
+    window SellPlan, or a HybridPlan of those, of any value type but
+    float64 (the reference has no float64 SpMM kernel)."""
     if is_double(plan):
         return False
     if isinstance(plan, (CooTail, DiaPlan)):
@@ -89,8 +89,9 @@ def _check_window(vals, cols_win, window_base, tile_slice, b, group_tiles,
     if vals.dtype not in _kernels.BUILDS or \
             b.dtype != sr.x_dtype(vals.dtype):
         raise NotImplementedError(
-            f"window SpMM runs float32, bfloat16, int32 or uint32 values "
-            f"with a B of their sum type (vals {vals.dtype}, B {b.dtype})")
+            f"window SpMM runs float32, bfloat16, float16 and 8-, 16- and "
+            f"32-bit integer values with a B of their sum type (vals "
+            f"{vals.dtype}, B {b.dtype})")
     if cols_win.dtype != torch.int16 or window_base.dtype != torch.int32 or \
             tile_slice.dtype != torch.int32:
         raise ValueError("cols_win must be int16, window_base and "
@@ -194,12 +195,18 @@ def spmm_plan(plan, b: torch.Tensor) -> torch.Tensor:
     if not has_fused_spmm(plan):
         raise NoFusedSpmm(f"{type(plan).__name__} has no fused SpMM kernel; "
                           f"run reference.spmm on the matrix")
-    b = b.to(plan_x_dtype(plan)).contiguous()
+    return sr.finish_y(_spmm_sums(plan, plan_as_x(plan, b)),
+                       plan_vals_dtype(plan))
+
+
+def _spmm_sums(plan, b: torch.Tensor) -> torch.Tensor:
+    """:func:`spmm_plan`'s dispatch, B (cast once, by the caller) and Y
+    in the plan's sum type."""
     if isinstance(plan, CooTail):
         return _spmm_coo(plan, b)
     if isinstance(plan, DiaPlan):
-        return spmm_dia(plan, b)
+        return spmm_dia_kernel(plan.vals, plan.offsets, b, plan.shape[0])
     if isinstance(plan, HybridPlan):
-        return sr.PLUS_TIMES.combine(spmm_dia(plan.dia, b),
-                                     spmm_plan(plan.rest, b))
+        return sr.PLUS_TIMES.combine(_spmm_sums(plan.dia, b),
+                                     _spmm_sums(plan.rest, b))
     return _spmm_window(plan, b)

@@ -47,7 +47,7 @@ def light_plain(light: LightRecords, x, *, semiring: str) -> torch.Tensor:
     segment also sums the semiring's zero.  (segments, 128), in x's
     type."""
     s = sr.get(semiring)
-    mul, axis_reduce = sr.kernel_ops(semiring)
+    mul, axis_reduce = sr.kernel_ops(semiring, light.vals.dtype)
     out_dtype = x.dtype
     vals, x = sr.widen(light.vals, semiring), sr.widen(x, semiring)
     nrows = light.row_off.shape[0] - 1
@@ -113,7 +113,7 @@ def subwin_plain(vals, cols_win, bases, x, *, semiring: str) -> torch.Tensor:
     lane l, (+)_p vals (x) x[bases[t, p] * 128 + cols_win[t, p, l]], a
     column past x reading 0; (T, 128), in :func:`~.semiring.widen`'s
     types."""
-    mul, axis_reduce = sr.kernel_ops(semiring)
+    mul, axis_reduce = sr.kernel_ops(semiring, vals.dtype)
     vals, x = sr.widen(vals, semiring), sr.widen(x, semiring)
     cols = x.shape[0]
     c = bases.long()[:, :, None] * 128 + cols_win.long()
@@ -153,9 +153,9 @@ def _check_heavy(vals, cols_win, bases, tile_row, rows, x, y):
     if vals.dtype not in _kernels.BUILDS or \
             not x.dtype == y.dtype == sr.x_dtype(vals.dtype):
         raise NotImplementedError(
-            f"subwindow SpMV runs float32, bfloat16, int32 or uint32 "
-            f"values with x and y of their sum type (vals {vals.dtype}, x "
-            f"{x.dtype}, y {y.dtype})")
+            f"subwindow SpMV runs float32, bfloat16, float16 and 8-, 16- "
+            f"and 32-bit integer values with x and y of their sum type "
+            f"(vals {vals.dtype}, x {x.dtype}, y {y.dtype})")
     if cols_win.dtype != torch.int16 or bases.dtype != torch.int32 or \
             tile_row.dtype != torch.int32 or rows.dtype != torch.int32:
         raise ValueError("cols_win must be int16, bases, tile_row and rows "
@@ -209,7 +209,7 @@ def spmv_chunk(plan: ChunkPlan, x: torch.Tensor,
     nheavy = plan.num_heavy
     rows = plan.shape[0]
     light = light_on(plan)
-    xf = x.to(sr.x_dtype(light.vals.dtype)).contiguous()
+    xf = sr.as_x(x, light.vals.dtype)
     y2d = light_kernel(light, xf, semiring=semiring)
     y = unpermute_plan_rows(y2d[:nblk], plan.perm_idx).reshape(-1)[:rows]
     if nheavy:

@@ -14,8 +14,9 @@ carrying both neighbours' halos, ``parallel/dia_sharded.py``);
 run kernel J, the float64 build of A (:func:`spmv_dia_f64_kernel`),
 which replaces the reference's double-float kernels.  A and M have a
 build for each value type of ``ops/semiring.py``'s policy: bfloat16
-values summed in float32 with a float32 x and y, int32 and uint32 summed
-exactly in their own type.
+and float16 values summed in float32 with a float32 x and y, int32 and
+uint32 summed exactly in their own type, int8, uint8, int16 and uint16
+in int32.
 """
 
 from __future__ import annotations
@@ -46,9 +47,10 @@ def _check(vals: torch.Tensor, offsets, x: torch.Tensor,
             x.dtype == sr.x_dtype(vals.dtype)
     if not ok:
         raise NotImplementedError(
-            f"DIA SpMV runs float32, bfloat16, int32 or uint32 values with "
-            f"an x of their sum type, or a double plan's pairs with a "
-            f"float64 x (vals {vals.dtype}, x {x.dtype})")
+            f"DIA SpMV runs float32, bfloat16, float16 and 8-, 16- and "
+            f"32-bit integer values with an x of their sum type, or a double "
+            f"plan's pairs with a float64 x (vals {vals.dtype}, x "
+            f"{x.dtype})")
     if x.dim() != 1:
         raise ValueError(f"x must be 1-D, got shape {tuple(x.shape)}")
     if vals.device != x.device:
@@ -169,10 +171,10 @@ def _check_x(plan: DiaPlan, x: torch.Tensor) -> None:
 
 
 def spmv_dia(plan: DiaPlan, x: torch.Tensor) -> torch.Tensor:
-    """``y = A @ x`` from a prebuilt :class:`DiaPlan` of float32,
-    bfloat16, int32 or uint32 values on ``x.device`` (x cast to the
-    plan's sum type, :func:`~.semiring.x_dtype`, as the reference casts
-    it).
+    """``y = A @ x`` from a prebuilt :class:`DiaPlan` of any value type
+    but float64 on ``x.device`` (x cast to the plan's sum type as the
+    reference casts it, :func:`~.semiring.as_x`), y in the sum type
+    (``spmv_plan`` narrows a narrow plan's y).
 
     The reference's ``resident`` argument is dropped: it chose between
     keeping the x image in VMEM and streaming sliding blocks, a capacity
@@ -184,7 +186,7 @@ def spmv_dia(plan: DiaPlan, x: torch.Tensor) -> torch.Tensor:
                          "x and y) or spmv_dia_df (hi/lo float32 pairs)")
     _check_x(plan, x)
     return spmv_dia_kernel(plan.vals, plan.offsets,
-                           x.to(sr.x_dtype(plan.vals.dtype)).contiguous(),
+                           sr.as_x(x, plan.vals.dtype),
                            plan.shape[0])
 
 

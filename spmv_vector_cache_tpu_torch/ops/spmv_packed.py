@@ -77,8 +77,9 @@ def _check_scan(vals, cols, cstep, x, step_tiles):
     if vals.dtype not in _kernels.BUILDS or \
             x.dtype != sr.x_dtype(vals.dtype):
         raise NotImplementedError(
-            f"packed SpMV runs float32, bfloat16, int32 or uint32 values "
-            f"with an x of their sum type (vals {vals.dtype}, x {x.dtype})")
+            f"packed SpMV runs float32, bfloat16, float16 and 8-, 16- and "
+            f"32-bit integer values with an x of their sum type (vals "
+            f"{vals.dtype}, x {x.dtype})")
     if cols.dtype != torch.int16 or cstep.dtype != torch.int32:
         raise ValueError("cols must be int16 and cstep int32")
     if x.dim() != 1:
@@ -258,7 +259,7 @@ def spmv_packed(plan: PackedPlan, x: torch.Tensor, *,
             f"segmented prefix sum); got {semiring!r}")
     st = plan.stats
     tables = extract_on(plan)
-    x = x.to(sr.x_dtype(plan.vals.dtype)).contiguous()
+    x = sr.as_x(x, plan.vals.dtype)
     scan = packed_scan_kernel(plan.vals, plan.cols, plan.cstep, x,
                               chunk_blocks=st.chunk_blocks,
                               step_tiles=st.step_tiles)

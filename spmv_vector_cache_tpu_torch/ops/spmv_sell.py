@@ -21,9 +21,10 @@ as the reference computes them in XLA outside Pallas; over a double
 plan's float64 partials they are plain float64 sums, where the
 reference needs compensated pair additions over dense fold matrices.
 B and G have a build for each value type of ``ops/semiring.py``'s
-policy (bfloat16 summed in float32; int32 and uint32 summed exactly,
-under plus_times, max_times and or_and), and the epilogues run in the
-same types.
+policy (bfloat16 and float16 summed in float32; the integers summed
+exactly, the 8- and 16-bit ones in int32, under plus_times, max_times
+and or_and), and the epilogues run in the same types; :func:`spmv_plan`
+narrows a narrow plan's y once, at the end.
 :func:`spmv_plan` dispatches every plan type, ChunkPlan
 (``ops/spmv_chunk.py``) and PackedPlan (``ops/spmv_packed.py``)
 included.
@@ -118,7 +119,7 @@ def sell_window_plain(vals, cols_win, window_base, x, *, group_tiles: int,
     x with a trailing RHS axis, B of shape (cols, k), gives partials with
     that axis: kernel H's plain version (``ops/spmm_sell.py``).  The
     sums in :func:`~.semiring.widen`'s types, the partials in x's."""
-    mul, axis_reduce = sr.kernel_ops(semiring)
+    mul, axis_reduce = sr.kernel_ops(semiring, vals.dtype)
     out_dtype = x.dtype
     vals, x = sr.widen(vals, semiring), sr.widen(x, semiring)
     T, P, R = vals.shape
@@ -133,8 +134,8 @@ def sell_window_plain(vals, cols_win, window_base, x, *, group_tiles: int,
 
 
 def _check_slab(vals, idx, x, name: str, double: bool) -> None:
-    """``vals`` (T, P, R) float32, bfloat16, int32 or uint32, x of their
-    sum type (:func:`~.semiring.x_dtype`), and the index array ``idx``
+    """``vals`` (T, P, R) of a value type of ``_kernels.BUILDS``, x of
+    their sum type (:func:`~.semiring.x_dtype`), and the index array ``idx``
     (T, P, R); a double slab holds float32 hi and lo halves, (T, 2P, R),
     beside a (T, P, R) index array and a float64 x."""
     channels = 2 if double else 1
@@ -150,9 +151,10 @@ def _check_slab(vals, idx, x, name: str, double: bool) -> None:
             x.dtype == sr.x_dtype(vals.dtype)
     if not ok:
         raise NotImplementedError(
-            f"SELL SpMV runs float32, bfloat16, int32 or uint32 values with "
-            f"an x of their sum type, or a double plan's pairs with a "
-            f"float64 x (vals {vals.dtype}, x {x.dtype})")
+            f"SELL SpMV runs float32, bfloat16, float16 and 8-, 16- and "
+            f"32-bit integer values with an x of their sum type, or a double "
+            f"plan's pairs with a float64 x (vals {vals.dtype}, x "
+            f"{x.dtype})")
 
 
 def _check_window(vals, cols_win, window_base, x, group_tiles,
@@ -252,7 +254,7 @@ def _window_partials(plan: SellPlan, x: torch.Tensor, semiring: str):
     fold = folds_groups(plan)
     out = sell_window_kernel(
         plan.vals, plan.cols_win, plan.window_base,
-        x.to(sr.x_dtype(plan.vals.dtype)).contiguous(),
+        sr.as_x(x, plan.vals.dtype),
         group_tiles=st.group_tiles,
         window_grain=st.window_grain, fold=fold, semiring=semiring)
     return out, fold
@@ -279,7 +281,7 @@ def row_parts(plan: SellPlan) -> int:
 def _tile_sums(vals, cols, x, semiring: str) -> torch.Tensor:
     """(T, R) per-tile sums (+)_p vals (x) x[cols], in
     :func:`~.semiring.widen`'s types; a column past x reads as 0."""
-    mul, axis_reduce = sr.kernel_ops(semiring)
+    mul, axis_reduce = sr.kernel_ops(semiring, vals.dtype)
     vals, x = sr.widen(vals, semiring), sr.widen(x, semiring)
     n = x.shape[0]
     c = cols.long()
@@ -432,7 +434,7 @@ def _spmv_global(plan: SellPlan, x: torch.Tensor, semiring: str,
                              f"({cap}); {advice}")
     parts = row_parts(plan)
     out = sell_global_kernel(plan.vals, plan.cols, plan.tile_slice,
-                             x.to(sr.x_dtype(plan.vals.dtype)).contiguous(),
+                             sr.as_x(x, plan.vals.dtype),
                              num_slices=plan.num_slices, parts=parts,
                              rows=plan.shape[0], semiring=semiring)
     return out if parts else _fixup_rows(plan, out, semiring)
@@ -508,10 +510,13 @@ def spmv_sell_double_pair(plan: SellPlan, xh: torch.Tensor,
 def _spmv_coo(plan: CooTail, x: torch.Tensor, semiring: str) -> torch.Tensor:
     """COO tail: element gather + segment reduce (torch ops, as the
     reference runs it in XLA), in x's type as the reference computes it
-    (the values cast to it)."""
+    (the values cast to it); an integer or narrow plan's x first as its
+    kernels read it (:func:`~.semiring.as_x`)."""
     s = sr.get(semiring)
-    mul, _ = sr.kernel_ops(semiring)
+    mul, _ = sr.kernel_ops(semiring, plan.vals.dtype)
     sr.check_integer(semiring, plan.vals.dtype)
+    if plan.vals.dtype in sr.NARROW or not plan.vals.dtype.is_floating_point:
+        x = sr.as_x(x, plan.vals.dtype)
     prod = mul(sr.widen(plan.vals.to(x.dtype), semiring),
                sr.widen(x, semiring)[plan.cols.long()])
     rows = plan.shape[0]
@@ -543,16 +548,30 @@ def plan_vals_dtype(plan) -> torch.dtype:
     return vals.dtype
 
 
-def plan_x_dtype(plan) -> torch.dtype:
-    """The type an apply of ``plan`` reads x (B) in and returns y (Y)
-    in: float64 for a double plan, float32 for a float32 or bfloat16
-    plan, the value type of an integer plan."""
+def _double(plan) -> bool:
     if isinstance(plan, HybridPlan):
         plan = plan.dia
-    if (isinstance(plan, DiaPlan) and plan.double) or (
-            isinstance(plan, SellPlan) and plan.stats.double):
+    return (isinstance(plan, DiaPlan) and plan.double) or (
+        isinstance(plan, SellPlan) and plan.stats.double)
+
+
+def plan_x_dtype(plan) -> torch.dtype:
+    """The type an apply of ``plan`` sums in, and its kernels read x (B)
+    in: float64 for a double plan, float32 for a float32, bfloat16 or
+    float16 plan, int32 for an int8, uint8, int16 or uint16 plan, the
+    value type of any other integer plan."""
+    if _double(plan):
         return torch.float64
     return sr.x_dtype(plan_vals_dtype(plan))
+
+
+def plan_as_x(plan, x: torch.Tensor) -> torch.Tensor:
+    """x (or B) as ``plan``'s kernels read it: float64 for a double
+    plan, else :func:`~.semiring.as_x` (a narrow plan's x rounded or
+    wrapped to its value type first)."""
+    if _double(plan):
+        return x.to(torch.float64).contiguous()
+    return sr.as_x(x, plan_vals_dtype(plan))
 
 
 def check_x_length(x, cols: int) -> None:
@@ -582,9 +601,19 @@ def spmv_plan(plan, x: torch.Tensor, *, strategy: str = "auto",
     plus_times only; SELL and chunk plans must have been built with
     ``pad_value`` = the semiring's zero (``auto_plan(semiring=...)``
     does this).  x must have the plan's column count (``ValueError``).
+    y comes back in :func:`~.semiring.y_dtype`: a narrow plan (float16,
+    int8, uint8, int16, uint16) sums in 32 bits and narrows y once, here.
     """
     semiring = sr.get(semiring).name
     check_x_length(x, plan.shape[1])
+    return sr.finish_y(_spmv_sums(plan, x, strategy, semiring),
+                       plan_vals_dtype(plan), semiring)
+
+
+def _spmv_sums(plan, x: torch.Tensor, strategy: str,
+               semiring: str) -> torch.Tensor:
+    """:func:`spmv_plan`'s dispatch, y in the plan's sum type
+    (:func:`plan_x_dtype`)."""
     if isinstance(plan, ChunkPlan):
         if strategy not in ("auto", "window", "chunk"):
             raise ValueError(f"ChunkPlan supports only the 'chunk' "
@@ -606,10 +635,10 @@ def spmv_plan(plan, x: torch.Tensor, *, strategy: str = "auto",
         # each nonzero lives in exactly one part, so the join is one
         # semiring add
         s = sr.get(semiring)
-        y = spmv_plan(plan.hot, sr.take(x, plan.hot_cols),
-                      semiring=semiring)
+        y = _spmv_sums(plan.hot, sr.take(x, plan.hot_cols), "auto",
+                       semiring)
         if plan.cold is not None:
-            y = s.combine(y, spmv_plan(plan.cold, x, semiring=semiring))
+            y = s.combine(y, _spmv_sums(plan.cold, x, "auto", semiring))
         return y
     if isinstance(plan, (DiaPlan, HybridPlan)) and semiring != "plus_times":
         raise ValueError("DIA plans encode absence as 0 and support only "
@@ -628,7 +657,8 @@ def spmv_plan(plan, x: torch.Tensor, *, strategy: str = "auto",
         rest_strategy = "auto" if strategy == "dia" else strategy
         dia = spmv_dia_double if plan.dia.double else spmv_dia
         return sr.PLUS_TIMES.combine(
-            dia(plan.dia, x), spmv_plan(plan.rest, x, strategy=rest_strategy))
+            dia(plan.dia, x), _spmv_sums(plan.rest, x, rest_strategy,
+                                         semiring))
     if not isinstance(plan, SellPlan):
         raise NotImplementedError(
             f"{type(plan).__name__} is not ported yet (ROADMAP.md queue 1)")

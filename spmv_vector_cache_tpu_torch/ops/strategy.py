@@ -79,8 +79,9 @@ def plan_bytes_per_apply(plan, strategy: str = "auto") -> int:
     """Device-memory bytes one SpMV moves, as the reference counts them:
     the streamed plan arrays, the dense vector and the result.  The
     streamed values count at the slab's itemsize; x, y, the partials and
-    the scan at the sum type's (``sum_size``: float32 for a bfloat16
-    plan, whose value stream alone is halved)."""
+    the scan at the sum type's (``sum_size``: 4 bytes for a bfloat16,
+    float16 or 8- or 16-bit integer plan, whose value stream alone
+    narrows)."""
     if isinstance(plan, ChunkPlan):
         b = sum(plan_bytes_per_apply(bk, "window") for bk in plan.buckets)
         for h in plan.hbuckets:

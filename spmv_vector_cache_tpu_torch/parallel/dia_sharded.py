@@ -7,10 +7,11 @@ span of its own rows, so each shard takes one left and one right halo of
 O(band) bytes moved between shards instead of the O(n) all-gather of
 the general SELL path (``spmv_sharded.py``).  Each shard then runs
 kernel M (``ops/spmv_dia.py``, :func:`spmv_dia_halo_kernel`), the DIA
-kernel with its x origin at the left halo: its float32 build, or its
-bfloat16 (summed in float32, y float32, where the reference rounds x to
-bfloat16 and sums in bfloat16, ROADMAP.md queue 3), int32 or uint32
-build.
+kernel with its x origin at the left halo: its build for the plan's
+value type (``ops/semiring.py``'s policy; bfloat16 summed in float32, y
+float32, where the reference rounds x to bfloat16 and sums in bfloat16,
+ROADMAP.md queue 3).  A narrow plan's y (float16, int8, uint8, int16,
+uint16) is narrowed once, after the shards' rows are joined.
 
 Ring wrap-around at the edge shards delivers the other end's values into
 the halo, but every value slot referencing out-of-matrix columns is zero
@@ -66,12 +67,12 @@ def build_sharded_dia_plan(a, num_shards: int, *, sublanes: int = 64,
     """Partition rows into ``num_shards`` blocks, one DIA plan each.
 
     Requires a square matrix (row-partitioned x) whose diagonal span fits
-    one shard (``halo <= rows_per_shard``), and float32, bfloat16, int32,
-    int64 (stored int32) or uint32 values."""
+    one shard (``halo <= rows_per_shard``), and values of any type of
+    ``formats.plan.value_kind`` but float64."""
     if value_kind(value_dtype) == "f64":
         raise NotImplementedError(
-            "value_dtype float64: sharded DIA plans run float32, bfloat16, "
-            "int32 and uint32 values; double plans run unsharded, "
+            "value_dtype float64: sharded DIA plans run every value type "
+            "but float64; double plans run unsharded, "
             "from_matrix(a, value_dtype=np.float64) (the reference builds "
             "no double sharded plan: ROADMAP.md queue 1, item 2)")
     if not isinstance(a, DIA):
@@ -126,7 +127,9 @@ def spmv_dia_sharded(sp: ShardedDiaPlan, x: Array, mesh: Mesh, *,
     check_x_length(x, sp.shape[1])
     sp = place_on_mesh(sp, mesh)
     D, rps, halo = sp.num_shards, sp.rows_per_shard, sp.halo
-    xs = shard_vector(x, sr.x_dtype(sp.vals[0].dtype), D, rps, mesh)
+    vdt = sp.vals[0].dtype
+    xs = shard_vector(sr.as_x(torch.as_tensor(x), vdt), sr.x_dtype(vdt), D,
+                      rps, mesh)
     ys = []
     for d, dev in enumerate(mesh.devices):
         # one shard's SpMV: kernel M, its x origin at the left halo
@@ -135,4 +138,4 @@ def spmv_dia_sharded(sp: ShardedDiaPlan, x: Array, mesh: Mesh, *,
             y = spmv_dia_halo_kernel(sp.vals[d], sp.offsets, x_ext, rps,
                                      halo)
             ys.append(y.to(mesh.devices[0]))
-    return torch.cat(ys)[:sp.shape[0]]
+    return sr.finish_y(torch.cat(ys)[:sp.shape[0]], vdt)

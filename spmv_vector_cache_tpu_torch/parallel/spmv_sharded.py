@@ -11,8 +11,9 @@
   - ``halo`` (banded matrices): only its ring neighbours' halos, when the
     plan's bandwidth permits (``halo <= rows_per_shard``).
 * Each shard runs the single-device path: its arrays reassemble into a
-  :class:`SellPlan` (:func:`_local_plan`) that ``spmv_plan`` runs on the
-  window strategy, kernel B, and ``op @ B``'s window SpMM, kernel H.  A
+  :class:`SellPlan` (:func:`_local_plan`) that ``spmv_plan``'s dispatch
+  runs on the window strategy, kernel B, and ``op @ B``'s window SpMM,
+  kernel H (a narrow plan's y narrowed once, after the join).  A
   plan with no window somewhere (``window_blocks == 0``) runs the
   reference's own non-kernel route in plain torch; that choice is made
   from plan fields before anything runs.  Results concatenate along the
@@ -38,7 +39,7 @@ from ..formats.plan import (WINDOW_GROUP_TILES, PlanStats, SellPlan, _as_csr,
                             value_kind)
 from ..ops import semiring as sr
 from ..ops.spmm_sell import _spmm_window
-from ..ops.spmv_sell import check_x_length, spmv_plan
+from ..ops.spmv_sell import _spmv_sums, check_x_length
 from .mesh import (Mesh, device_scope, make_mesh, place_on_mesh,
                    shard_vector, with_halos)
 
@@ -89,11 +90,11 @@ def build_sharded_plan(a, num_shards: int, *, value_dtype=np.float32,
                        split: Optional[int] = None,
                        max_window_blocks: int = 16) -> ShardedPlan:
     """Partition rows into ``num_shards`` blocks and plan each (host):
-    float32, bfloat16, int32, int64 (stored int32) or uint32 values."""
+    values of any type of ``formats.plan.value_kind`` but float64."""
     if value_kind(value_dtype) == "f64":
         raise NotImplementedError(
-            "value_dtype float64: sharded SELL plans run float32, bfloat16, "
-            "int32 and uint32 values; double plans run unsharded, "
+            "value_dtype float64: sharded SELL plans run every value type "
+            "but float64; double plans run unsharded, "
             "from_matrix(a, value_dtype=np.float64) (the reference builds "
             "no double sharded plan: ROADMAP.md queue 1, item 2)")
     csr = _as_csr(a)
@@ -275,7 +276,9 @@ def spmv_sharded(sp: ShardedPlan, x: Array, mesh: Mesh, *,
     check_x_length(x, sp.shape[1])
     sp = place_on_mesh(sp, mesh)
     D, rps = sp.num_shards, sp.rows_per_shard
-    xs = shard_vector(x, sr.x_dtype(sp.vals[0].dtype), D, rps, mesh)
+    vdt = sp.vals[0].dtype
+    xs = shard_vector(sr.as_x(torch.as_tensor(x), vdt), sr.x_dtype(vdt), D,
+                      rps, mesh)
     gathered = None
     if mode == "all_gather":
         gathered = _replicated(xs, mesh)
@@ -290,7 +293,7 @@ def spmv_sharded(sp: ShardedPlan, x: Array, mesh: Mesh, *,
         with device_scope(dev):
             ys.append(_shard_spmv(sp, d, dev, xs, gathered, mode, x_len,
                                   max_wb).to(mesh.devices[0]))
-    return torch.cat(ys)[:sp.shape[0]]
+    return sr.finish_y(torch.cat(ys)[:sp.shape[0]], vdt)
 
 
 def _shard_spmv(sp: ShardedPlan, d: int, dev, xs: list, gathered, mode: str,
@@ -309,8 +312,8 @@ def _shard_spmv(sp: ShardedPlan, d: int, dev, xs: list, gathered, mode: str,
             # plain route needs the shifted column ids
             cols = (cols - shift).clamp_(0, x_len - 1)
     if sp.window_blocks:
-        return spmv_plan(_local_plan(sp, d, cols, wb, x_len, max_wb),
-                         x_full, strategy="window")
+        return _spmv_sums(_local_plan(sp, d, cols, wb, x_len, max_wb),
+                          x_full, "window", "plus_times")
     return _local_spmv_plain(sp.vals[d], cols, sp.tile_slice[d],
                              sp.row_map[d], x_full,
                              num_slices=sp.num_slices,
@@ -327,15 +330,16 @@ def spmm_sharded(sp: ShardedPlan, b: Array, mesh: Mesh, *,
     _check_cols(sp)
     sp = place_on_mesh(sp, mesh)
     D, rps = sp.num_shards, sp.rows_per_shard
-    b = torch.as_tensor(b)
+    vdt = sp.vals[0].dtype
+    b = sr.as_x(torch.as_tensor(b), vdt)
     k = b.shape[1]
-    bp = b.new_zeros((D * rps, k), dtype=sr.x_dtype(sp.vals[0].dtype))
+    bp = b.new_zeros((D * rps, k))
     bp[:b.shape[0]] = b
     ys = []
     for d, b_full in enumerate(_replicated([bp], mesh)):
         with device_scope(mesh.devices[d]):
             ys.append(_shard_spmm(sp, d, b_full).to(mesh.devices[0]))
-    return torch.cat(ys)[:sp.shape[0]]
+    return sr.finish_y(torch.cat(ys)[:sp.shape[0]], vdt)
 
 
 def _shard_spmm(sp: ShardedPlan, d: int, b_full) -> torch.Tensor:

@@ -1219,50 +1219,92 @@ def test_from_matrix_tune_on_the_card(cuda, tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# bfloat16, int32 and uint32 plans: each typed build of kernels A, M, B,
-# G, D, E, F, H, I and the chunk light route against its plain version on
-# the same inputs (bfloat16 sums float32 products in another order: rtol
-# and atol 1e-5 of max|y|; the integer sums wrap mod 2^32 in any order:
-# exactly), and the operator on the card against the CPU
+# bfloat16, float16, int8, uint8, int16, uint16, int32 and uint32 plans:
+# each typed build of kernels A, M, B, G, D, E, F, H, I and the chunk
+# light route against its plain version on the same inputs (bfloat16 and
+# float16 sum float32 products in another order: rtol and atol 1e-5 of
+# max|y|; the integer sums wrap mod 2^32 in any order: exactly), and the
+# operator on the card against the CPU (a float16 y within one float16
+# ulp of max(1, max|y|))
 # ---------------------------------------------------------------------------
 
-TYPED = {"bf16": "bfloat16", "i32": np.int32, "u32": np.uint32}
+TYPED = {"bf16": "bfloat16", "i32": np.int32, "u32": np.uint32,
+         "f16": np.float16, "i8": np.int8, "u8": np.uint8, "i16": np.int16,
+         "u16": np.uint16}
+#: the integers each kind draws (8 and 16 bits: products that wrap)
+TYPED_RANGE = {"i32": (-9, 10), "u32": (0, 10), "i8": (-15, 16),
+               "u8": (0, 16), "i16": (-255, 256), "u16": (0, 256)}
+#: the torch type of each kind's slab
+TYPED_SLAB = {"bf16": torch.bfloat16, "f16": torch.float16,
+              "i32": torch.int32, "u32": torch.uint32, "i8": torch.int8,
+              "u8": torch.uint8, "i16": torch.int16, "u16": torch.uint16}
 
 
 def _typed_values(kind, n, rng, nonneg=False):
     """``n`` matrix values (float64, cast by the builders): normal for
-    bfloat16 (its absolute value under the max semirings), integers in
-    [-9, 9] for int32 ([0, 9] under max_times) and [0, 9] for uint32."""
-    if kind == "bf16":
+    bfloat16 and float16 (its absolute value under the max semirings),
+    else integers of :data:`TYPED_RANGE` (from 0 under max_times)."""
+    if kind in ("bf16", "f16"):
         v = rng.standard_normal(n)
         return np.abs(v) if nonneg else v
-    lo = 0 if nonneg or kind == "u32" else -9
-    return rng.integers(lo, 10, n).astype(np.float64)
+    lo, hi = TYPED_RANGE[kind]
+    return rng.integers(0 if nonneg else lo, hi, n).astype(np.float64)
 
 
 def _typed_x(kind, n, rng, device, nonneg=False):
-    """x in the plan's sum type: float32, int32 or uint32."""
-    if kind == "bf16":
+    """x in the plan's sum type: float32 (a float16 plan's rounded to
+    float16 first), int32 (the 8- and 16-bit plans' too) or uint32."""
+    if kind in ("bf16", "f16"):
         x = rng.standard_normal(n).astype(np.float32)
-        return torch.from_numpy(np.abs(x) if nonneg else x).to(device)
-    lo = 0 if nonneg or kind == "u32" else -9
-    x = rng.integers(lo, 10, n)
+        x = np.abs(x) if nonneg else x
+        if kind == "f16":
+            x = x.astype(np.float16).astype(np.float32)
+        return torch.from_numpy(x).to(device)
+    lo, hi = TYPED_RANGE[kind]
+    x = rng.integers(0 if nonneg else lo, hi, n)
     return torch.from_numpy(x.astype(np.int32)).to(device).to(
-        torch.int32 if kind == "i32" else torch.uint32)
+        torch.uint32 if kind == "u32" else torch.int32)
 
 
 def _same(got, ref):
     assert got.dtype == ref.dtype and got.shape == ref.shape
-    if got.dtype.is_floating_point:
+    if got.dtype == torch.float16:
+        got, ref = got.cpu().double(), ref.cpu().double()
+        ulp = 2.0 ** -10 * max(1.0, float(ref.abs().max()))
+        assert float((got - ref).abs().max()) <= ulp
+    elif got.dtype.is_floating_point:
         _close(got, ref)
     else:
-        assert torch.equal(got.cpu().view(torch.int32),
-                           ref.cpu().view(torch.int32))
+        from spmv_vector_cache_tpu_torch.ops.semiring import signed
+
+        assert torch.equal(signed(got.cpu()), signed(ref.cpu()))
 
 
 def _typed_semirings(kind):
-    return ["plus_times", "max_times"] if kind != "bf16" else \
+    return ["plus_times", "max_times"] if kind not in ("bf16", "f16") else \
         ["plus_times", "min_plus", "max_times"]
+
+
+@pytest.mark.parametrize("kind", ["f16", "i8", "u8", "i16", "u16"])
+def test_typed_finish_y_narrows_on_the_card(cuda, kind):
+    # y's one cast on the card: float16 rounded once, the integers
+    # wrapped mod 2^8 or 2^16, as numpy's casts give them on the host
+    from spmv_vector_cache_tpu_torch.ops import semiring as sr
+
+    dt = TYPED_SLAB[kind]
+    rng = np.random.default_rng(30)
+    if kind == "f16":
+        y = rng.standard_normal(100000).astype(np.float32) * 1e3
+    else:
+        y = rng.integers(-(1 << 31), 1 << 31, 100000).astype(np.int32)
+    got = sr.finish_y(torch.from_numpy(y).to(cuda), dt).cpu()
+    assert got.dtype == dt
+    want = y.astype(TYPED[kind])
+    if kind == "f16":
+        assert np.array_equal(got.numpy().view(np.uint16),
+                              want.view(np.uint16))
+    else:
+        assert np.array_equal(got.to(torch.int64).numpy(), want)
 
 
 @pytest.mark.parametrize("kind", sorted(TYPED))
@@ -1274,8 +1316,7 @@ def test_typed_dia_kernels_match_plain(cuda, kind):
         len(offs), n), offs, n, n).tocsr()
     plan = place(build_dia_plan(from_scipy(m), sublanes=8,
                                 value_dtype=TYPED[kind]), cuda)
-    assert plan.vals.dtype == {"bf16": torch.bfloat16, "i32": torch.int32,
-                               "u32": torch.uint32}[kind]
+    assert plan.vals.dtype == TYPED_SLAB[kind]
     x = _typed_x(kind, n, rng, cuda)
     before = _kernels.launches["spmv_dia_" + kind]
     got = spmv_dia.spmv_dia_kernel(plan.vals, plan.offsets, x, n)

@@ -243,15 +243,21 @@ def test_value_kind(dtype, kind):
     assert pplan.value_kind(dtype) == kind
 
 
-@pytest.mark.parametrize("dtype", [np.float16, np.int8, np.int16, np.uint64,
-                                   torch.float16])
-def test_other_value_dtypes_refused(dtype):
+@pytest.mark.parametrize("dtype,why", [
+    (np.bool_, "wrong y"), (torch.bool, "wrong y"),
+    (torch.float8_e4m3fn, "in float8"), (jnp.float8_e5m2, "in float8"),
+    (np.complex64, "raises"), (torch.complex128, "raises")])
+def test_other_value_dtypes_refused(dtype, why):
+    # the types the reference half-takes are refused, with the reason
     m = banded(512, [-1, 0, 1], seed=0)
     _, pa = both(m)
+    for build in (pplan.auto_plan, pdia.build_dia_plan):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            build(pa, value_dtype=dtype)
+        with pytest.raises(NotImplementedError, match=why):
+            build(pa, value_dtype=dtype)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pplan.auto_plan(pa, value_dtype=dtype)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pdia.build_dia_plan(pa, value_dtype=dtype)
+        SparseOperator.from_matrix(pa, value_dtype=dtype, device="cpu")
 
 
 def test_bf16_rounding_equals_ml_dtypes():
@@ -436,19 +442,40 @@ def test_bytes_per_apply_counts_bf16_sums_as_float32(family):
 # reference faults the port does not copy
 # ---------------------------------------------------------------------------
 
+#: the integer types of every width, for the refusals below
+INTEGER_KINDS = {**{k: KINDS[k] for k in ("i32", "u32", "i64")},
+                 "i8": np.int8, "u8": np.uint8, "i16": np.int16,
+                 "u16": np.uint16, "u64": np.uint64}
+
+
 @pytest.mark.parametrize("semiring", ["min_plus", "max_plus"])
-@pytest.mark.parametrize("kind", ["i32", "u32", "i64"])
+@pytest.mark.parametrize("kind", list(INTEGER_KINDS))
 def test_integer_plans_refuse_infinite_zero_semirings(kind, semiring):
     n = 4096
     m = typed(banded(n, [-1, 0, 1], seed=2), kind, nonneg=True)
     ja, pa = both(m)
     x = typed_x(kind, n, nonneg=True)
     with pytest.raises(ValueError, match="integer plans"):
-        SparseOperator.from_matrix(pa, value_dtype=KINDS[kind],
+        SparseOperator.from_matrix(pa, value_dtype=INTEGER_KINDS[kind],
                                    semiring=semiring, device="cpu")
     with pytest.raises(ValueError, match="integer plans"):
-        pplan.build_sell_plan(pa, value_dtype=KINDS[kind],
+        pplan.build_sell_plan(pa, value_dtype=INTEGER_KINDS[kind],
                               pad_value=float("inf"))
+    if kind in ("i8", "i16") and semiring == "min_plus":
+        # the reference pads with +inf cast to the narrow type: its y
+        # falls below the true minimum in a tenth of the rows or more
+        # (the int32 plan's below, by about 2^31, in every row)
+        op = joperator.SparseOperator.from_matrix(
+            ja, value_dtype=INTEGER_KINDS[kind], semiring="min_plus")
+        y = np.asarray(op @ x.astype(INTEGER_KINDS[kind]))
+        coo = m.tocoo()
+        true = np.full(n, np.iinfo(np.int64).max)
+        np.minimum.at(true, coo.row, coo.data.astype(np.int64)
+                      + x[coo.col].astype(np.int64))
+        wrong = y.astype(np.int64) != true
+        assert wrong.sum() > n // 10
+        assert np.all(y[wrong] < true[wrong])
+        return
     if kind != "i32" or semiring != "min_plus":
         return
     # the reference casts the +inf padding to INT_MIN: every row of the
