@@ -149,7 +149,16 @@ roofline audit:
     D, the light route, E, F, H and I, each launched on its phase's main
     path (the same launches as the int32 or bfloat16 phase of the draw;
     y narrowed by one torch cast after them), held against its plain
-    version and timed beside its bound.
+    version and timed beside its bound.  Then kernels A and M in int8 at
+    the DIA headline's full size, alone (``uncut_i8``): A over a random
+    int8 slab of the headline's shape, M over four shards of 262,144
+    rows, made on the card from a seeded generator, each held exactly
+    against its plain version and timed by events and the profiler,
+    beside a one-row launch of the same build.
+
+Every phase that runs kernel A or M prints the launch shape the wrapper
+picks (``ops/spmv_dia.py`` ``kernel_shape``: rows a thread, threads a
+CTA, CTAs, x staged in shared memory or read through L1).
 
 Each phase checks y against a float64 host reference (scipy, or a
 min-plus reduce over the CSR rows; relative error below 1e-4, bench.py's
@@ -286,6 +295,18 @@ def max_abs(a, b):
 
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def log_dia_shape(what, vals, offsets, rows, kernel="A"):
+    """The launch shape kernel A or M takes for ``rows`` rows of the slab
+    ``vals`` (``ops/spmv_dia.py`` ``kernel_shape``)."""
+    from spmv_vector_cache_tpu_torch.ops.spmv_dia import kernel_shape
+
+    sh = kernel_shape(vals, offsets, rows)
+    log(f"[{what}] kernel {kernel} launch shape: {sh.rows_per_thread} rows "
+        f"a thread, {sh.threads} threads a CTA, {sh.ctas} CTAs, x "
+        + (f"staged ({sh.smem_bytes} bytes of shared memory a CTA)"
+           if sh.staged else "through L1"))
 
 
 def x_bytes_read(x, cols, w=None):
@@ -594,6 +615,7 @@ def solver_phases(card, dev, kernels, launches, bw_read):
     op = SparseOperator.from_matrix(from_scipy(m), device=dev)
     assert isinstance(op.plan, DiaPlan) and op.strategy == "dia", op
     assert len(op.plan.offsets) == 7, op.plan.offsets
+    log_dia_shape("cg", op.plan.vals, op.plan.offsets, n)
     b_np = np.random.default_rng(1).standard_normal(n).astype(np.float32)
     b = torch.from_numpy(b_np).to(dev)
     state = (torch.zeros_like(b), b, b, torch.vdot(b, b))
@@ -703,6 +725,7 @@ def solver_phases(card, dev, kernels, launches, bw_read):
     t_tri = time.perf_counter() - t0
     op = SparseOperator.from_matrix(from_scipy(a32), device=dev)
     assert isinstance(op.plan, DiaPlan), op
+    log_dia_shape("pcg_ilu0", op.plan.vals, op.plan.offsets, op.shape[0])
     log(f"[pcg_ilu0] n = {nb_}, band 3: ilu0 on the host (native) "
         f"{t_ilu:.3f} s, "
         f"the two TriSolvePlans built and placed {t_tri:.3f} s ("
@@ -1566,6 +1589,7 @@ def dtype_phases(card, dev, mesh4, draws):
     def dia_case(plan, x, what, lib=None, w=None):
         xw, ow = widths(x, w)
         args = (plan.vals, plan.offsets, x, plan.shape[0])
+        log_dia_shape(what, *args[:2], plan.shape[0])
         case(_kernels.entry("spmv_dia_f32", plan.vals.dtype), what,
              lambda: spmv_dia_kernel(*args), lambda: spmv_dia_plain(*args),
              nbytes(plan.vals) + x.numel() * xw + 4 * len(plan.offsets)
@@ -1769,6 +1793,8 @@ def dtype_phases(card, dev, mesh4, draws):
         xs = shard_vector(x, x.dtype, 4, spd.rows_per_shard, mesh4)
         xe = with_halos(xs, 0, spd.halo, dev)
         args = (spd.vals[0], spd.offsets, xe, spd.rows_per_shard, spd.halo)
+        log_dia_shape(name, spd.vals[0], spd.offsets, spd.rows_per_shard,
+                      "M")
         case(f"spmv_dia_halo_{kind}", f"{name} shard 0",
              lambda: spmv_dia_halo_kernel(*args),
              lambda: spmv_dia_halo_plain(*args),
@@ -1791,6 +1817,8 @@ def dtype_phases(card, dev, mesh4, draws):
     xs = shard_vector(x, x.dtype, 4, spd.rows_per_shard, mesh4)
     xe = with_halos(xs, 0, spd.halo, dev)
     args = (spd.vals[0], spd.offsets, xe, spd.rows_per_shard, spd.halo)
+    log_dia_shape("sharded_dia_bf16", spd.vals[0], spd.offsets,
+                  spd.rows_per_shard, "M")
     # kernel M's row is shard 0's launch, beside the library call of
     # the same function: shard 0's rows over its halo'd x
     case("spmv_dia_halo_bf16", "sharded_dia_bf16 shard 0",
@@ -2054,6 +2082,8 @@ def dtype_phases(card, dev, mesh4, draws):
         xs = shard_vector(xk, xk.dtype, 4, spd.rows_per_shard, mesh4)
         xe = with_halos(xs, 0, spd.halo, dev)
         args = (spd.vals[0], spd.offsets, xe, spd.rows_per_shard, spd.halo)
+        log_dia_shape(name, spd.vals[0], spd.offsets, spd.rows_per_shard,
+                      "M")
         # beside the library call of the same function where CUDA has
         # one: shard 0's rows over its halo'd x
         lib = library(shard0_csr(f16_rounded(m), spd, xe), kind, xe) \
@@ -2064,6 +2094,61 @@ def dtype_phases(card, dev, mesh4, draws):
              lambda: spmv_dia_halo_plain(*args),
              nbytes(spd.vals[0]) + xe.numel() * w + 4 * len(spd.offsets)
              + spd.rows_per_shard * w, 2 * spd.vals[0].numel(), lib)
+
+    def uncut_i8():
+        """Kernels A and M in int8 at the DIA headline's full size, alone:
+        A over a random int8 slab of its shape (2^20 rows, 27 diagonals,
+        128 steps of 8192 rows), M over four shards of 262,144 rows, each
+        slab and x (values from [0, 16)) made on the card from a seeded
+        generator; each held exactly against its plain version, timed by
+        events and by the profiler, beside a one-row launch of the same
+        build (the device time of a launch that does almost nothing)."""
+        g = torch.Generator(device=dev).manual_seed(16)
+        offs = tuple(range(-13, 14))
+
+        def draw(*shape):
+            return torch.randint(0, 16, shape, generator=g, device=dev,
+                                 dtype=torch.int32)
+
+        def device_us(run):
+            return sum(us for us, _ in device_us_by_kernel(run).values())
+
+        n, step, halo = 1 << 20, 8192, 128
+        vals = draw(n // step, len(offs), step // 128, 128).to(torch.int8)
+        x = draw(n)
+        log_dia_shape("dia_i8 uncut", vals, offs, n)
+        args = (vals, offs, x, n)
+        case("spmv_dia_i8", "dia_i8 uncut (2^20 rows)",
+             lambda: spmv_dia_kernel(*args), lambda: spmv_dia_plain(*args),
+             nbytes(vals) + 2 * n + 4 * len(offs), 2 * vals.numel())
+        one_row = device_us(lambda: spmv_dia_kernel(vals, offs, x, 1))
+        log(f"[dia_i8 uncut] kernel A i8 device time "
+            f"{device_us(lambda: spmv_dia_kernel(*args)):.2f} us; a one-row "
+            f"launch {one_row:.2f} us; on {card}")
+        rps = n // 4
+        shards = [(draw(rps // step, len(offs), step // 128,
+                        128).to(torch.int8), draw(rps + 2 * halo))
+                  for _ in range(4)]
+        log_dia_shape("sharded_dia_i8 uncut", shards[0][0], offs, rps, "M")
+        for d, (v, xe) in enumerate(shards):
+            a = (v, offs, xe, rps, halo)
+            case("spmv_dia_halo_i8", f"sharded_dia_i8 uncut shard {d}",
+                 lambda a=a: spmv_dia_halo_kernel(*a),
+                 lambda a=a: spmv_dia_halo_plain(*a),
+                 nbytes(v) + xe.numel() + rps + 4 * len(offs),
+                 2 * v.numel())
+
+        v0, x0 = shards[0]
+
+        def four():
+            for v, xe in shards:
+                spmv_dia_halo_kernel(v, offs, xe, rps, halo)
+
+        one_row = device_us(lambda: spmv_dia_halo_kernel(v0, offs, x0, 1,
+                                                         halo))
+        log(f"[sharded_dia_i8 uncut] kernel M i8 device time for the four "
+            f"shards {device_us(four):.2f} us; a one-row launch "
+            f"{one_row:.2f} us; on {card}")
 
     def window_phases(kind, src, semiring="plus_times", spmm=True):
         """A window SellPlan (kernel B), with ``op @ B`` (kernel H)."""
@@ -2257,6 +2342,7 @@ def dtype_phases(card, dev, mesh4, draws):
     # uint64: the shuffled band as a uint32 plan (values from [0, 2^16),
     # products past 2^32)
     window_phases("u64", m_sell, spmm=False)
+    uncut_i8()
     log(f"[narrow] the float16, narrow integer and uint64 phases took "
         f"{time.perf_counter() - t_narrow:.1f} s")
     torch.cuda.empty_cache()
@@ -3059,6 +3145,11 @@ def main():
             f"(atomic) pieces")
     log(f"[spmm_dia] kernel I tiling at k={K_RHS}: "
         f"{spmm_dia_tiling(p_dia.offsets, K_RHS)}")
+    log_dia_shape("dia", p_dia.vals, p_dia.offsets, p_dia.shape[0])
+    log_dia_shape("hybrid", p_hyb.dia.vals, p_hyb.dia.offsets,
+                  p_hyb.dia.shape[0])
+    log_dia_shape("sharded_dia", sp_dia.vals[0], sp_dia.offsets,
+                  sp_dia.rows_per_shard, "M")
     # kernel N on the random stream: one add per float read
     cases += [("stream_checksum_f32", "stream_checksum",
                f" block={STREAM_BLOCK} tiles",

@@ -1,20 +1,31 @@
 #!/usr/bin/env python3
-"""The float32 applies of the smoke's SpMV phases, timed in one tree.
+"""The applies of the smoke's SpMV phases, timed in one tree.
 
     python3 probes_torch/apply_ab.py [--tree DIR] [--rounds N] [--tag T]
+        [--phases dia,sharded_dia,...]
 
 Imports the port and ``chip_smoke.py`` from ``DIR`` (default: this
 checkout; a ``git archive`` of another commit to compare with), plans
 the smoke's float32 draws at their full size (``dia``, ``sell``,
 ``hybrid``, ``chunk``, ``packed``, ``cached``, ``deep`` and ``stream``,
-made as ``chip_smoke.main`` makes them, from the same seeds), and times
-``op @ x`` of each phase ``N`` rounds over (default 3): the CUDA-event
-median of 30 calls and the profiler's device busy time of 20, as the
-smoke's "the apply, end to end" section does.  Prints one JSON line,
+made as ``chip_smoke.main`` makes them, from the same seeds), the
+sharded DIA headline (``sharded_dia``, four shards on the card), the
+SpMV of the solver phases' DIA systems (``cg``: the 2^20-row band of
+``chip_smoke.banded_system``; ``pcg_ilu0``: ``chip_smoke.spd_banded`` at
+2^15 rows), and the headline's bfloat16 and float16 plans, whole and
+sharded (``dia_bf16``, ``dia_f16``, ``sharded_dia_bf16``,
+``sharded_dia_f16``), and the headline band's leading 8192 rows
+(``dia_small``: a few us on the card, so its events time is the apply's
+host dispatch), or only the ``--phases`` named, and times each apply
+``N`` rounds over (default
+3): the CUDA-event median of 30 calls, the profiler's device busy time
+of 20, as the smoke's "the apply, end to end" section does, and the
+device time of its DIA kernel (A or M) within it.  Prints one JSON line,
 ``{"tree": ..., "tag": ..., "card": ..., "phases": {name: {"ev_us":
-[...], "busy_us": [...]}}}``, a value a round.  To compare two trees on
-one card, run it in turns in one chip call (parent, change, change,
-parent) and compare the rounds' medians.  Needs one CUDA device.
+[...], "busy_us": [...], "dia_us": [...]}}}``, a value a round.  To
+compare two trees on one card, run it in turns in one chip call
+(parent, change, change, parent) and compare the rounds' medians.
+Needs one CUDA device.
 """
 
 import argparse
@@ -30,7 +41,14 @@ def main():
         os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--tag", default="")
+    ap.add_argument("--phases", default="",
+                    help="comma-separated phases to time (default: all)")
     args = ap.parse_args()
+    picked = set(filter(None, args.phases.split(",")))
+
+    def wanted(name):
+        return not picked or name in picked
+
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
     os.chdir(tree)          # the kernels build into the tree's _build/
@@ -44,6 +62,10 @@ def main():
                                                              from_scipy)
     from spmv_vector_cache_tpu_torch.ops import _kernels
     from spmv_vector_cache_tpu_torch.ops.operator import SparseOperator
+    from spmv_vector_cache_tpu_torch.parallel import (build_sharded_dia_plan,
+                                                      make_mesh,
+                                                      place_on_mesh,
+                                                      spmv_dia_sharded)
     from spmv_vector_cache_tpu_torch.tools import realistic
 
     assert torch.cuda.is_available(), "needs a CUDA device"
@@ -100,19 +122,58 @@ def main():
             ("chunk", a_chunk, x_chunk, "plus_times"),
             ("packed", a_packed, x_packed, "plus_times"),
             ("cached", a_cached, x_cached, "plus_times"),
-            ("deep", a_deep, x_deep, "min_plus")):
-        op = SparseOperator.from_matrix(a, semiring=semiring)
-        ops[name] = (op, torch.from_numpy(x).to(dev))
-    ops["stream"] = (SparseOperator(ops["deep"][0].plan, strategy="stream",
-                                    semiring="min_plus"), ops["deep"][1])
+            ("deep", a_deep, x_deep, "min_plus"),
+            # the band's leading 8192 rows: one step, a few us on the
+            # card, so the apply's time is its host dispatch
+            ("dia_small", from_scipy(band[:8192, :8192]), x_dia[:8192],
+             "plus_times")):
+        if wanted(name) or (name == "deep" and wanted("stream")):
+            op = SparseOperator.from_matrix(a, semiring=semiring)
+            ops[name] = (op, torch.from_numpy(x).to(dev))
+    if wanted("stream"):
+        ops["stream"] = (SparseOperator(ops["deep"][0].plan,
+                                        strategy="stream",
+                                        semiring="min_plus"), ops["deep"][1])
+    for name, m in (("cg", lambda: cs.banded_system(n)),
+                    ("pcg_ilu0", lambda: cs.spd_banded(
+                        np.random.default_rng(0), 1 << 15).astype(
+                            np.float32))):
+        if wanted(name):
+            m = m()
+            x = np.random.default_rng(1).standard_normal(m.shape[1])
+            ops[name] = (SparseOperator.from_matrix(from_scipy(m)),
+                         torch.from_numpy(x.astype(np.float32)).to(dev))
+    for kind, vdt in (("bf16", "bfloat16"), ("f16", np.float16)):
+        if wanted(f"dia_{kind}"):
+            x = torch.from_numpy(x_dia).to(dev)
+            ops[f"dia_{kind}"] = (SparseOperator.from_matrix(
+                from_scipy(band), value_dtype=vdt),
+                x.half() if kind == "f16" else x)
+    runs = {name: (lambda op=op, x=x: op @ x) for name, (op, x) in
+            ops.items() if wanted(name)}
+    mesh = make_mesh(4, device="cuda")
+    x = torch.from_numpy(x_dia).to(dev)
+    for kind, vdt in (("", np.float32), ("_bf16", "bfloat16"),
+                      ("_f16", np.float16)):
+        if wanted("sharded_dia" + kind):
+            spd = place_on_mesh(build_sharded_dia_plan(
+                from_scipy(band), 4, value_dtype=vdt), mesh)
+            xk = x.half() if kind == "_f16" else x
+            runs["sharded_dia" + kind] = (
+                lambda spd=spd, xk=xk: spmv_dia_sharded(spd, xk, mesh))
 
-    out = {name: {"ev_us": [], "busy_us": []} for name in ops}
+    out = {name: {"ev_us": [], "busy_us": [], "dia_us": []}
+           for name in runs}
     for _ in range(args.rounds):
-        for name, (op, x) in ops.items():
-            run = (lambda op=op, x=x: op @ x)
+        for name, run in runs.items():
             out[name]["ev_us"].append(cs.time_ms(run) * 1e3)
-            out[name]["busy_us"].append(sum(
-                us for us, _ in cs.device_us_by_kernel(run).values()))
+            by = cs.device_us_by_kernel(run)
+            out[name]["busy_us"].append(sum(us for us, _ in by.values()))
+            # kernels A and M: this tree's dia_rows_kernel or the one-row
+            # spmv_dia_kernel before it
+            out[name]["dia_us"].append(sum(
+                us for k, (us, _) in by.items()
+                if "dia_rows_kernel" in k or "spmv_dia_kernel" in k))
     print(json.dumps({"tree": tree, "tag": args.tag, "card": card,
                       "phases": out}), flush=True)
 

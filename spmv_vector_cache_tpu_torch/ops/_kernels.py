@@ -52,8 +52,9 @@ _L = ctypes.c_longlong
 #: C entry points and their argument types (pointers and the stream as
 #: c_void_p, so ctypes never truncates them to 32 bits)
 SIGNATURES = {
-    # vals, x, offsets, y, rows, cols, ndiag, rows_per_step, stream
-    "spmv_dia_f32": [_P, _P, _P, _P, _L, _L, _I, _I, _P],
+    # vals, x, offsets, host_offsets, y, rows, cols, ndiag,
+    # rows_per_step, rows_per_thread, threads, staged, stream
+    "spmv_dia_f32": [_P, _P, _P, _P, _P, _L, _L, _I, _I, _I, _I, _I, _P],
     # vals, cols_win, window_base, x, out, out_rows, positions, lanes,
     # group_tiles, fold, window_grain, cols, semiring, stream
     "spmv_sell_window_f32": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I,
@@ -101,9 +102,10 @@ SIGNATURES = {
     # out_rows, stream
     "spmm_sell_window_f32": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I,
                              _I, _L, _I, _I, _L, _P],
-    # vals, x_ext, offsets, y, rows, x_len, x_origin, ndiag,
-    # rows_per_step, stream
-    "spmv_dia_halo_f32": [_P, _P, _P, _P, _L, _L, _L, _I, _I, _P],
+    # vals, x_ext, offsets, host_offsets, y, rows, x_len, x_origin, ndiag,
+    # rows_per_step, rows_per_thread, threads, staged, stream
+    "spmv_dia_halo_f32": [_P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I,
+                          _I, _P],
     # data, out, num_blocks, block_elems, stream
     "stream_checksum_f32": [_P, _P, _L, _L, _P],
 }

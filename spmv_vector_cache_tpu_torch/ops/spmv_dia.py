@@ -16,11 +16,16 @@ which replaces the reference's double-float kernels.  A and M have a
 build for each value type of ``ops/semiring.py``'s policy: bfloat16
 and float16 values summed in float32 with a float32 x and y, int32 and
 uint32 summed exactly in their own type, int8, uint8, int16 and uint16
-in int32.
+in int32.  :func:`dia_launch_shape` picks A's and M's launch shape (rows
+a thread, threads a CTA, x staged in shared memory or read through L1)
+from the rows, the slot width, the offsets' span and the card's SM
+count; :func:`kernel_shape` is the shape a wrapper launches a slab with.
 """
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -98,44 +103,178 @@ def _offsets_on(offsets: tuple, device: torch.device) -> torch.Tensor:
     return torch.tensor(offsets, dtype=torch.int32, device=device)
 
 
+@functools.lru_cache(maxsize=64)
+def _offsets_host(offsets: tuple):
+    """The same offsets as a C int array on the host, which kernels A and
+    M copy into their launch's parameters (kept alive by the cache)."""
+    return (ctypes.c_int * max(1, len(offsets)))(*offsets)
+
+
+#: the most threads a CTA of kernels A and M has, and the shared memory
+#: a CTA may stage its x window in (``csrc/spmv_dia.cu`` kMaxThreads,
+#: kStageBytes: the 48 KB a kernel gets without opting in)
+MAX_THREADS = 256
+STAGE_BYTES = 48 * 1024
+#: the slot bytes a thread loads a diagonal (one 16-byte vector), and the
+#: most rows it takes (``csrc/spmv_dia.cu`` builds R = 1, 2, 4 and 8)
+VECTOR_BYTES = 16
+MAX_ROWS = 8
+#: threads a CTA of A or M has, and the threads a launch keeps on each SM
+#: before a thread takes more rows: ``probes_torch/dia_shapes.py`` on an
+#: H100 found each build fastest at the largest R (up to 8) that still
+#: launches about 65,536 threads (2^18 rows at R = 4, 65,536 at R = 1),
+#: and 128 threads a CTA within 2 % of the best CTA size
+THREADS = 128
+FILL_THREADS_PER_SM = 448
+#: the H100 SXM's SMs: the shape of a launch planned without a card
+H100_SMS = 132
+
+
+@dataclasses.dataclass(frozen=True)
+class DiaShape:
+    """A launch of kernel A or M: R rows a thread (consecutive rows of one
+    step), threads a CTA, CTAs, and whether each CTA stages its x window
+    in shared memory (``smem_bytes`` of it) or reads x through L1."""
+
+    rows_per_thread: int
+    threads: int
+    ctas: int
+    staged: bool
+    smem_bytes: int
+
+
+def stage_words(threads: int, rows_per_thread: int, span: int) -> int:
+    """Words of a staged CTA's x window: thread i of a diagonal at
+    ``c = off - min(offsets)`` reads the group ``i + c // R``, and group g
+    holds window entries ``[g R, g R + 2R - 1)`` (see
+    :func:`stage_address`)."""
+    R = rows_per_thread
+    return (threads + span // R) * (2 * R - 1)
+
+
+def stage_address(thread: int, c: int, j: int, rows_per_thread: int) -> int:
+    """The shared-memory word that holds x for row j of ``thread`` on the
+    diagonal at ``c = off - min(offsets)``, as kernels A and M read it:
+    window entry ``thread * R + c + j`` in the overlapping groups of
+    ``2R - 1`` words (an odd stride between a warp's threads)."""
+    R = rows_per_thread
+    return (thread + c // R) * (2 * R - 1) + c % R + j
+
+
+def stage_entry(word: int, rows_per_thread: int) -> int:
+    """The x window entry that staging writes into ``word``."""
+    R = rows_per_thread
+    g, o = divmod(word, 2 * R - 1)
+    return g * R + o
+
+
+@functools.lru_cache(maxsize=256)
+def dia_launch_shape(rows: int, rows_per_step: int, slot_bytes: int,
+                     offsets: tuple, *, sm_count: int = H100_SMS,
+                     align: int = VECTOR_BYTES) -> DiaShape:
+    """Kernel A's or M's launch for ``rows`` rows of a slab with
+    ``rows_per_step`` rows a step, ``slot_bytes`` a slot and diagonals
+    at ``offsets`` (a tuple: the shape is kept per pattern).
+
+    R starts at one 16-byte vector of slots a diagonal and at most
+    :data:`MAX_ROWS` (4 rows of 4-byte slots, 8 of 2- and 1-byte ones;
+    fewer where the slab's address is aligned to less, ``align``) and
+    halves while the launch would give the card's ``sm_count`` SMs fewer
+    than :data:`FILL_THREADS_PER_SM` threads each; a CTA has
+    :data:`THREADS` threads, and stages its x window (x read 4 bytes an
+    entry) where that fits :data:`STAGE_BYTES`."""
+    span = max(offsets) - min(offsets) if offsets else 0
+    R = max(1, min(MAX_ROWS, min(VECTOR_BYTES, align) // slot_bytes))
+    while R > 1 and (rows_per_step % R
+                     or -(-rows // R) < sm_count * FILL_THREADS_PER_SM):
+        R //= 2
+    smem = 4 * stage_words(THREADS, R, span)
+    staged = smem <= STAGE_BYTES
+    return DiaShape(rows_per_thread=R, threads=THREADS,
+                    ctas=-(-rows // (R * THREADS)), staged=staged,
+                    smem_bytes=smem if staged else 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def _align(ptr: int) -> int:
+    """The power of two (at most 16) that a slab's address is aligned to."""
+    return min(VECTOR_BYTES, ptr & -ptr) if ptr else VECTOR_BYTES
+
+
+def kernel_shape(vals: torch.Tensor, offsets, rows: int) -> DiaShape:
+    """The launch shape kernel A or M takes for ``rows`` rows of ``vals``
+    (T, D, S, 128): :func:`dia_launch_shape` with the SM count of the
+    slab's card (the H100's for a slab on the host) and the alignment of
+    its address."""
+    sms = _sm_count(vals.get_device()) if vals.is_cuda else H100_SMS
+    return dia_launch_shape(
+        rows, vals.shape[2] * vals.shape[3], vals.element_size(),
+        tuple(offsets), sm_count=sms, align=_align(vals.data_ptr()))
+
+
+@functools.lru_cache(maxsize=256)
+def _launch_consts(offsets: tuple, device: torch.device, rows: int,
+                   rows_per_step: int, slot_bytes: int, align: int):
+    """The launch shape of kernel A or M for this offset pattern and row
+    count on ``device``, and the addresses of the offsets on the card and
+    on the host (with the objects that hold them): worked out once, not
+    on every apply."""
+    shape = dia_launch_shape(rows, rows_per_step, slot_bytes, offsets,
+                             sm_count=_sm_count(device.index), align=align)
+    on_card, on_host = _offsets_on(offsets, device), _offsets_host(offsets)
+    return (shape, on_card.data_ptr(), ctypes.addressof(on_host), on_card,
+            on_host)
+
+
+def _launch(name: str, vals: torch.Tensor, offsets, x: torch.Tensor,
+            rows: int, origin, shape) -> torch.Tensor:
+    """Kernel A (``origin`` None) or M on the card, at ``shape`` or the
+    one :func:`dia_launch_shape` picks."""
+    T, D, S, L = vals.shape
+    if rows > T * S * L:
+        raise ValueError(f"rows={rows} exceeds the plan's {T * S * L}")
+    ptr = vals.data_ptr()
+    picked, on_card, on_host, *_ = _launch_consts(
+        tuple(offsets), x.device, rows, S * L, vals.element_size(),
+        _align(ptr))
+    shape = shape or picked
+    y = torch.empty(rows, dtype=x.dtype, device=x.device)
+    _kernels.launch(
+        _kernels.entry(name, vals.dtype), x.get_device(), ptr, x.data_ptr(),
+        on_card, on_host, y.data_ptr(), rows, x.shape[0],
+        *(() if origin is None else (int(origin),)), D, S * L,
+        shape.rows_per_thread, shape.threads, int(shape.staged))
+    return y
+
+
 def spmv_dia_kernel(vals: torch.Tensor, offsets, x: torch.Tensor,
-                    rows: int) -> torch.Tensor:
-    """Kernel A on a CUDA tensor; the plain version on a CPU tensor."""
+                    rows: int, shape: DiaShape | None = None
+                    ) -> torch.Tensor:
+    """Kernel A on a CUDA tensor; the plain version on a CPU tensor.
+    ``shape``: the launch (:class:`DiaShape`), else :func:`kernel_shape`'s."""
     _check(vals, offsets, x)
     if not platform.is_cuda(x):
         return spmv_dia_plain(vals, offsets, x, rows)
-    T, D, S, L = vals.shape
-    if rows > T * S * L:
-        raise ValueError(f"rows={rows} exceeds the plan's {T * S * L}")
-    offs = _offsets_on(tuple(int(o) for o in offsets), x.device)
-    y = torch.empty(rows, dtype=x.dtype, device=x.device)
-    _kernels.launch(
-        _kernels.entry("spmv_dia_f32", vals.dtype), x.get_device(),
-        vals.data_ptr(), x.data_ptr(),
-        offs.data_ptr(), y.data_ptr(), rows, x.shape[0], D, S * L)
-    return y
+    return _launch("spmv_dia_f32", vals, offsets, x, rows, None, shape)
 
 
 def spmv_dia_halo_kernel(vals: torch.Tensor, offsets, x_ext: torch.Tensor,
-                         rows: int, origin: int) -> torch.Tensor:
+                         rows: int, origin: int,
+                         shape: DiaShape | None = None) -> torch.Tensor:
     """Kernel M on a CUDA tensor; the plain version on a CPU tensor.
     One shard's DIA SpMV (``parallel/dia_sharded.py``): ``x_ext`` is the
     left halo, the shard's x and the right halo, and ``origin`` the left
-    halo's width, so row r reads ``x_ext[origin + r + off_k]``."""
+    halo's width, so row r reads ``x_ext[origin + r + off_k]``.
+    ``shape`` as for :func:`spmv_dia_kernel`."""
     _check(vals, offsets, x_ext)
     if not platform.is_cuda(x_ext):
         return spmv_dia_halo_plain(vals, offsets, x_ext, rows, origin)
-    T, D, S, L = vals.shape
-    if rows > T * S * L:
-        raise ValueError(f"rows={rows} exceeds the plan's {T * S * L}")
-    offs = _offsets_on(tuple(int(o) for o in offsets), x_ext.device)
-    y = torch.empty(rows, dtype=x_ext.dtype, device=x_ext.device)
-    _kernels.launch(
-        _kernels.entry("spmv_dia_halo_f32", vals.dtype), x_ext.get_device(),
-        vals.data_ptr(),
-        x_ext.data_ptr(), offs.data_ptr(), y.data_ptr(), rows, x_ext.shape[0],
-        int(origin), D, S * L)
-    return y
+    return _launch("spmv_dia_halo_f32", vals, offsets, x_ext, rows, origin,
+                   shape)
 
 
 def spmv_dia_f64_plain(vals: torch.Tensor, offsets, x: torch.Tensor,

@@ -1328,6 +1328,178 @@ def test_typed_dia_kernels_match_plain(cuda, kind):
           spmv_dia.spmv_dia_halo_plain(*args))
 
 
+# kernels A and M at every launch shape: R rows a thread, threads a CTA,
+# x staged in shared memory or read through L1; every shape sums a row's
+# diagonals in the same order, so all give one y bit for bit
+
+DIA_KINDS = ["f32"] + sorted(TYPED)
+
+
+def _dia_plan(kind, offs, n, rng, cuda, cols=None):
+    cols = n if cols is None else cols
+    vals = rng.standard_normal(len(offs) * max(n, cols)) if kind == "f32" \
+        else _typed_values(kind, len(offs) * max(n, cols), rng)
+    m = sp.spdiags(vals.reshape(len(offs), max(n, cols)), offs, n,
+                   cols).tocsr()
+    plan = place(build_dia_plan(from_scipy(m), sublanes=8, value_dtype=(
+        np.float32 if kind == "f32" else TYPED[kind])), cuda)
+    x = torch.from_numpy(rng.standard_normal(cols).astype(np.float32)).to(
+        cuda) if kind == "f32" else _typed_x(kind, cols, rng, cuda)
+    return plan, x
+
+
+def _dia_shapes(vals, rows):
+    """Every shape the build takes: R up to one 16-byte vector of slots
+    and 8 rows, 64 and 256 threads, staged where the window fits."""
+    out = []
+    r = 1
+    while r * vals.element_size() <= 16 and r <= spmv_dia.MAX_ROWS:
+        for threads in (64, 256):
+            ctas = -(-rows // (r * threads))
+            out += [spmv_dia.DiaShape(r, threads, ctas, staged, 0)
+                    for staged in (False, True)]
+        r *= 2
+    return out
+
+
+def _fits(shape, offsets):
+    span = max(offsets) - min(offsets)
+    return 4 * spmv_dia.stage_words(shape.threads, shape.rows_per_thread,
+                                    span) <= spmv_dia.STAGE_BYTES
+
+
+@pytest.mark.parametrize("rows", [100, 5037, 20000])
+@pytest.mark.parametrize("kind", DIA_KINDS)
+def test_dia_kernels_every_shape_match_plain(cuda, kind, rows):
+    # rows below one CTA, and rows that are no multiple of R or of a CTA
+    rng = np.random.default_rng(40)
+    offs = list(range(-13, 14))
+    plan, x = _dia_plan(kind, offs, rows, rng, cuda)
+    entry = _kernels.entry("spmv_dia_f32", plan.vals.dtype)
+    before = _kernels.launches[entry]
+    want = spmv_dia.spmv_dia_kernel(plan.vals, plan.offsets, x, rows)
+    assert _kernels.launches[entry] == before + 1
+    _same(want, spmv_dia.spmv_dia_plain(plan.vals, plan.offsets, x, rows))
+    x_ext = torch.cat([x.new_zeros(128), x, x.new_zeros(128)])
+    for shape in _dia_shapes(plan.vals, rows):
+        if shape.staged and not _fits(shape, offs):
+            continue
+        got = spmv_dia.spmv_dia_kernel(plan.vals, plan.offsets, x, rows,
+                                       shape=shape)
+        assert torch.equal(got, want), shape
+        # M at origin 128 over x with a 128-entry halo each side: A's y
+        got = spmv_dia.spmv_dia_halo_kernel(plan.vals, plan.offsets, x_ext,
+                                            rows, 128, shape=shape)
+        assert torch.equal(got, want), shape
+
+
+@pytest.mark.parametrize("kind", DIA_KINDS)
+def test_dia_kernels_unstaged_wide_span(cuda, kind):
+    # a span no CTA can stage (x through L1), and 70 diagonals (the
+    # offsets past the launch's parameters come from the device array)
+    rng = np.random.default_rng(41)
+    n = 30000
+    for offs in ([-9000, -1, 0, 5, 9000], list(range(-40, 30))):
+        plan, x = _dia_plan(kind, offs, n, rng, cuda)
+        shape = spmv_dia.kernel_shape(plan.vals, plan.offsets, n)
+        assert shape.staged == (max(offs) - min(offs) < 100), shape
+        got = spmv_dia.spmv_dia_kernel(plan.vals, plan.offsets, x, n)
+        _same(got, spmv_dia.spmv_dia_plain(plan.vals, plan.offsets, x, n))
+        args = (plan.vals, plan.offsets, x, n - 1000, 700)
+        _same(spmv_dia.spmv_dia_halo_kernel(*args),
+              spmv_dia.spmv_dia_halo_plain(*args))
+
+
+@pytest.mark.parametrize("kind", DIA_KINDS)
+def test_dia_halo_kernel_every_build_on_shards(cuda, kind):
+    """Both ring edges (the wrapped halo entries meet zero values) and an
+    inner shard of a 4-shard plan, each build."""
+    from spmv_vector_cache_tpu_torch.parallel import build_sharded_dia_plan
+
+    rng = np.random.default_rng(42)
+    n = 4 * 2048
+    offs = [-130, -1, 0, 1, 130]
+    vals = rng.standard_normal(5 * n) if kind == "f32" else \
+        _typed_values(kind, 5 * n, rng)
+    m = sp.spdiags(vals.reshape(5, n), offs, n, n).tocsr()
+    sp_plan = build_sharded_dia_plan(from_scipy(m), 4, sublanes=8,
+                                     value_dtype=np.float32 if kind == "f32"
+                                     else TYPED[kind])
+    halo, rps = sp_plan.halo, sp_plan.rows_per_shard
+    for shard in (0, 1, 3):
+        v = torch.from_numpy(np.ascontiguousarray(sp_plan.vals[shard])) \
+            if isinstance(sp_plan.vals, np.ndarray) else sp_plan.vals[shard]
+        v = v.to(cuda)
+        x_ext = torch.from_numpy(rng.standard_normal(rps + 2 * halo).astype(
+            np.float32)).to(cuda) if kind == "f32" else \
+            _typed_x(kind, rps + 2 * halo, rng, cuda)
+        args = (v, sp_plan.offsets, x_ext, rps, halo)
+        _same(spmv_dia.spmv_dia_halo_kernel(*args),
+              spmv_dia.spmv_dia_halo_plain(*args))
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "f16"])
+def test_sharded_dia_equals_kernel_a_bit_for_bit(cuda, kind):
+    # M on four shards against A on the whole, at shapes that differ
+    # between the two: A's own and every R over the shards
+    from spmv_vector_cache_tpu_torch.parallel import (build_sharded_dia_plan,
+                                                      make_mesh,
+                                                      place_on_mesh,
+                                                      spmv_dia_sharded)
+
+    rng = np.random.default_rng(43)
+    n = 4 * 16384
+    offs = list(range(-13, 14))
+    vals = rng.standard_normal(27 * n) if kind == "f32" else \
+        _typed_values(kind, 27 * n, rng)
+    m = sp.spdiags(vals.reshape(27, n), offs, n, n).tocsr()
+    vdt = np.float32 if kind == "f32" else TYPED[kind]
+    plan = place(build_dia_plan(from_scipy(m), value_dtype=vdt), cuda)
+    x = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(cuda)
+    if kind == "f16":
+        x = x.half().float()
+    want = spmv_dia.spmv_dia_kernel(plan.vals, plan.offsets, x, n)
+    mesh = make_mesh(4, device="cuda")
+    spd = place_on_mesh(build_sharded_dia_plan(from_scipy(m), 4,
+                                               value_dtype=vdt), mesh)
+    y = spmv_dia_sharded(spd, x, mesh)
+    assert torch.equal(y, want.half() if kind == "f16" else want)
+    rps = spd.rows_per_shard
+    assert spmv_dia.kernel_shape(spd.vals[0], offs, rps) != \
+        spmv_dia.kernel_shape(plan.vals, offs, n)
+    xs = torch.cat([x.new_zeros(spd.halo), x, x.new_zeros(spd.halo)])
+    for shape in _dia_shapes(spd.vals[0], rps):
+        if shape.staged and not _fits(shape, offs):
+            continue
+        for d in range(4):
+            x_ext = xs[d * rps:(d + 1) * rps + 2 * spd.halo].contiguous()
+            got = spmv_dia.spmv_dia_halo_kernel(spd.vals[d], spd.offsets,
+                                                x_ext, rps, spd.halo,
+                                                shape=shape)
+            assert torch.equal(got, want[d * rps:(d + 1) * rps]), (shape, d)
+
+
+def test_dia_kernels_refuse_a_shape_the_build_lacks(cuda):
+    rng = np.random.default_rng(44)
+    plan, x = _dia_plan("f32", [0, 1], 1000, rng, cuda)
+    i8, xi = _dia_plan("i8", [0, 1], 1000, rng, cuda)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        spmv_dia.spmv_dia_kernel(i8.vals, i8.offsets, xi, 1000,
+                                 shape=spmv_dia.DiaShape(16, 128, 1, False,
+                                                         0))
+    for shape in (spmv_dia.DiaShape(8, 256, 1, False, 0),    # 32 B a load
+                  spmv_dia.DiaShape(4, 512, 1, False, 0),    # > 256 threads
+                  spmv_dia.DiaShape(3, 256, 1, False, 0)):
+        with pytest.raises(RuntimeError, match="failed to launch"):
+            spmv_dia.spmv_dia_kernel(plan.vals, plan.offsets, x, 1000,
+                                     shape=shape)
+    wide = spmv_dia.DiaShape(1, 256, 1, True, 0)
+    plan, x = _dia_plan("f32", [-30000, 0, 30000], 40000, rng, cuda)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        spmv_dia.spmv_dia_kernel(plan.vals, plan.offsets, x, 40000,
+                                 shape=wide)
+
+
 @pytest.mark.parametrize("fold", [True, False])
 @pytest.mark.parametrize("kind", sorted(TYPED))
 def test_typed_window_kernel_matches_plain(cuda, kind, fold):

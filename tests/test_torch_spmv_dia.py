@@ -74,3 +74,77 @@ def test_spmv_dia_kernel_rejects_offsets_of_another_plan():
     with pytest.raises(ValueError, match="offsets"):
         pdia_ops.spmv_dia_kernel(torch.from_numpy(plan.vals), (0, 1, 2),
                                  torch.zeros(300), 300)
+
+
+# ---------------------------------------------------------------------------
+# kernels A and M's launch shape (``dia_launch_shape``) and the staged x
+# window's layout, as the kernels index it
+# ---------------------------------------------------------------------------
+
+HEADLINE = tuple(range(-13, 14))
+
+
+@pytest.mark.parametrize("offsets", [HEADLINE, (-1025, 0, 1300),
+                                     (-20000, 0, 20000)],
+                         ids=["headline", "wide", "over_budget"])
+@pytest.mark.parametrize("rows", [100, 5037, 65536, 1 << 18, 1 << 20])
+@pytest.mark.parametrize("slot_bytes", [1, 2, 4])
+def test_dia_launch_shape(slot_bytes, rows, offsets):
+    # one shard of the cut band (65,536 rows), a full shard and the cut
+    # band (2^18), the DIA headline (2^20); 128 steps of 8192 rows
+    step = 8192
+    shape = pdia_ops.dia_launch_shape(rows, step, slot_bytes, offsets)
+    R, threads = shape.rows_per_thread, shape.threads
+    assert R & (R - 1) == 0 and R * slot_bytes <= pdia_ops.VECTOR_BYTES
+    assert R <= pdia_ops.MAX_ROWS
+    assert step % R == 0
+    assert threads % 32 == 0 and threads <= pdia_ops.MAX_THREADS
+    # every row exactly once: thread t sums rows [tR, tR + R), the last
+    # CTA holds a row
+    assert shape.ctas == -(-rows // (R * threads))
+    owned = np.arange(shape.ctas * threads * R).reshape(-1, R)
+    owned = owned[owned < rows]
+    assert owned.size == rows and np.array_equal(np.sort(owned),
+                                                 np.arange(rows))
+    assert (shape.ctas - 1) * threads * R < rows
+    # R shrinks only for a launch that would not fill the card
+    if R < min(pdia_ops.MAX_ROWS, pdia_ops.VECTOR_BYTES // slot_bytes):
+        assert -(-rows // (2 * R)) < (pdia_ops.H100_SMS
+                                       * pdia_ops.FILL_THREADS_PER_SM)
+    # the staged window fits the budget and holds every entry read
+    span = max(offsets) - min(offsets)
+    words = pdia_ops.stage_words(threads, R, span)
+    assert shape.staged == (4 * words <= pdia_ops.STAGE_BYTES)
+    assert shape.smem_bytes == (4 * words if shape.staged else 0)
+    assert shape.smem_bytes <= pdia_ops.STAGE_BYTES
+    assert pdia_ops.stage_address(threads - 1, span, R - 1, R) < words
+    if offsets != (-1025, 0, 1300):       # the wide span: either path
+        assert shape.staged == (offsets == HEADLINE)
+
+
+@pytest.mark.parametrize("span", [0, 26, 69, 2325])
+@pytest.mark.parametrize("R", [1, 2, 4, 8])
+def test_dia_stage_layout(R, span):
+    # thread i's row j on the diagonal at c = off - min(offsets) reads
+    # window entry iR + c + j, and a warp's 32 threads read 32 banks
+    i = np.arange(64)[:, None, None]
+    c = np.arange(span + 1)[None, :, None]
+    j = np.arange(R)[None, None, :]
+    addr = pdia_ops.stage_address(i, c, j, R)
+    assert np.array_equal(pdia_ops.stage_entry(addr, R), i * R + c + j)
+    assert addr.max() < pdia_ops.stage_words(64, R, span)
+    for warp in (addr[:32], addr[32:]):
+        banks = np.sort(warp % 32, axis=0)
+        assert (np.diff(banks, axis=0) != 0).all()
+
+
+def test_dia_kernel_shape_of_a_host_slab():
+    _, pa = both(banded(3000, list(HEADLINE), seed=9))
+    from spmv_vector_cache_tpu_torch.formats.dia import build_dia_plan
+    from spmv_vector_cache_tpu_torch.formats.plan import place
+
+    plan = place(build_dia_plan(pa, sublanes=8), torch.device("cpu"))
+    ptr = plan.vals.data_ptr()
+    assert pdia_ops.kernel_shape(plan.vals, plan.offsets, 3000) == \
+        pdia_ops.dia_launch_shape(3000, 1024, 4, HEADLINE,
+                                  align=min(16, ptr & -ptr))
