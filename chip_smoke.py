@@ -154,11 +154,23 @@ roofline audit:
     int8 slab of the headline's shape, M over four shards of 262,144
     rows, made on the card from a seeded generator, each held exactly
     against its plain version and timed by events and the profiler,
-    beside a one-row launch of the same build.
+    beside a one-row launch of the same build.  Then kernels E and F in
+    int8 over the ``deep`` draw as the planner's PackedPlan (4,344
+    tiles) and kernel B in int8 over the whole shuffled band as a window
+    SellPlan, alone (``uncut_narrow``): each held exactly against its
+    plain version, timed by events and the profiler, beside a launch of
+    one step (E) or one output row (B) of the same build.
 
 Every phase that runs kernel A or M prints the launch shape the wrapper
 picks (``ops/spmv_dia.py`` ``kernel_shape``: rows a thread, threads a
-CTA, CTAs, x staged in shared memory or read through L1).
+CTA, CTAs, x staged in shared memory or read through L1); every case of
+kernel B and E prints its shape too (``ops/spmv_sell.py``
+``kernel_window_shape``: lanes a thread, output rows a CTA;
+``ops/spmv_packed.py`` ``kernel_scan_shape``:
+slots a thread, threads a CTA).  Kernel E writes the scan of an int8,
+uint8, int16 or uint16 plan in the value type, and its bound counts S
+so; a float16 or bfloat16 plan's S is float32, and its bound is printed
+both with S at 2 bytes and at 4.
 
 Each phase checks y against a float64 host reference (scipy, or a
 min-plus reduce over the CSR rows; relative error below 1e-4, bench.py's
@@ -284,6 +296,15 @@ def device_us_by_kernel(fn, iters=20):
     return out
 
 
+def launch_us(fn):
+    """Device microseconds of the kernels one call of ``fn`` launches:
+    each kernel's time per recorded launch times its launches a call
+    (at least one), so that a profiler session that records only some
+    of the launches reads neither shorter nor longer."""
+    return sum(us / n * max(1, round(n))
+               for us, n in device_us_by_kernel(fn).values())
+
+
 def rel_err(y, want):
     y = y.detach().cpu().numpy().astype(np.float64)
     return float(np.abs(y - want).max() / max(1.0, np.abs(want).max()))
@@ -307,6 +328,28 @@ def log_dia_shape(what, vals, offsets, rows, kernel="A"):
         f"a thread, {sh.threads} threads a CTA, {sh.ctas} CTAs, x "
         + (f"staged ({sh.smem_bytes} bytes of shared memory a CTA)"
            if sh.staged else "through L1"))
+
+
+def log_window_shape(what, plan, fold):
+    """The launch shape kernel B takes for the window SellPlan ``plan``
+    (``ops/spmv_sell.py`` ``kernel_window_shape``)."""
+    from spmv_vector_cache_tpu_torch.ops.spmv_sell import kernel_window_shape
+
+    sh = kernel_window_shape(plan.vals, plan.stats.group_tiles, fold)
+    log(f"[{what}] kernel B launch shape: {sh.lanes_per_thread} lanes a "
+        f"thread, {sh.rows_per_cta} output rows ({sh.threads} threads) a "
+        f"CTA, {sh.ctas} CTAs")
+
+
+def log_scan_shape(what, vals):
+    """The launch shape kernel E takes for the PackedPlan slab ``vals``
+    (``ops/spmv_packed.py`` ``kernel_scan_shape``)."""
+    from spmv_vector_cache_tpu_torch.ops.spmv_packed import kernel_scan_shape
+
+    sh = kernel_scan_shape(vals)
+    log(f"[{what}] kernel E launch shape: {sh.slots_per_thread} slots a "
+        f"thread ({128 // sh.slots_per_thread} threads a row), "
+        f"{sh.threads} threads a CTA, {sh.ctas} CTAs")
 
 
 def x_bytes_read(x, cols, w=None):
@@ -1401,7 +1444,7 @@ def dtype_phases(card, dev, mesh4, draws):
         spmv_dia_plain)
     from spmv_vector_cache_tpu_torch.ops.spmv_packed import (
         packed_rows_kernel, packed_rows_plain, packed_scan_kernel,
-        packed_scan_plain)
+        packed_scan_plain, scan_dtype)
     from spmv_vector_cache_tpu_torch.ops.spmv_sell import (
         folds_groups, row_parts, sell_global_kernel, sell_global_plain,
         plan_vals_dtype, sell_window_kernel, sell_window_plain, spmv_plan)
@@ -1604,6 +1647,7 @@ def dtype_phases(card, dev, mesh4, draws):
         rows_out = plan.num_tiles // (st.group_tiles if kw["fold"] else 1)
         base = plan.window_base.long().repeat_interleave(
             st.group_tiles) * st.window_grain
+        log_window_shape(what, plan, kw["fold"])
         case(_kernels.entry("spmv_sell_window_f32", plan.vals.dtype), what,
              lambda: sell_window_kernel(*args, **kw),
              lambda: sell_window_plain(*args, **kw),
@@ -1696,11 +1740,25 @@ def dtype_phases(card, dev, mesh4, draws):
         scan_cols = (plan.cstep.long().repeat_interleave(
             st.step_tiles)[:, None, None] * (st.chunk_blocks * 128)
             + (plan.cols.long() & 16383))
+        log_scan_shape(what, plan.vals)
+        # S as E writes it: in the value type for the 8- and 16-bit
+        # integers (``ow``), in float32 for float16 and bfloat16, whose
+        # bound is also given with S at the value width
+        e_in = nbytes(*scan_args[:3]) + x_bytes_read(x, scan_cols, xw)
+        s_w = scan_dtype(plan.vals.dtype).itemsize
+        if plan.vals.dtype in (torch.float16, torch.bfloat16):
+            at2, at4 = (
+                (e_in + plan.vals.numel() * sw) / PEAK_BYTES_PER_S * 1e3
+                for sw in (2, 4))
+            log(f"[{what}] kernel E's bound: {at2:.5f} ms with S at the "
+                f"value width (2 B), {at4:.5f} ms at the 4 B its float32 "
+                f"sums need (it writes 4 B)")
+        else:
+            assert s_w == ow, (what, s_w, ow)
         case(_kernels.entry("packed_scan_f32", plan.vals.dtype), what,
              lambda: packed_scan_kernel(*scan_args, **scan_kw),
              lambda: packed_scan_plain(*scan_args, **scan_kw),
-             nbytes(*scan_args[:3]) + x_bytes_read(x, scan_cols, xw)
-             + plan.vals.numel() * ow, 2 * plan.vals.numel())
+             e_in + plan.vals.numel() * ow, 2 * plan.vals.numel())
         tables = extract_on(plan)
         scan = packed_scan_plain(*scan_args, **scan_kw)
         ext_args = (scan, plan.sblock, plan.esrc, x, tables)
@@ -1790,6 +1848,9 @@ def dtype_phases(card, dev, mesh4, draws):
         y = counted(name, lambda: spmv_dia_sharded(spd, x, mesh4),
                     {f"spmv_dia_halo_{kind}": 4})
         check(name, y, exact_y(m, xh, kind), kind)
+        profile(name, lambda: spmv_dia_sharded(spd, x, mesh4),
+                sum(nbytes(v) for v in spd.vals) + nbytes(x)
+                + m.shape[0] * 4)
         xs = shard_vector(x, x.dtype, 4, spd.rows_per_shard, mesh4)
         xe = with_halos(xs, 0, spd.halo, dev)
         args = (spd.vals[0], spd.offsets, xe, spd.rows_per_shard, spd.halo)
@@ -2110,9 +2171,7 @@ def dtype_phases(card, dev, mesh4, draws):
             return torch.randint(0, 16, shape, generator=g, device=dev,
                                  dtype=torch.int32)
 
-        def device_us(run):
-            return sum(us for us, _ in device_us_by_kernel(run).values())
-
+        device_us = launch_us
         n, step, halo = 1 << 20, 8192, 128
         vals = draw(n // step, len(offs), step // 128, 128).to(torch.int8)
         x = draw(n)
@@ -2149,6 +2208,59 @@ def dtype_phases(card, dev, mesh4, draws):
         log(f"[sharded_dia_i8 uncut] kernel M i8 device time for the four "
             f"shards {device_us(four):.2f} us; a one-row launch "
             f"{one_row:.2f} us; on {card}")
+
+    def uncut_narrow():
+        """Kernels E and F in int8 over the ``deep`` draw as the
+        planner's PackedPlan (2^18 x 2^18, 16 nonzeros a row: 4,344
+        tiles), and kernel B in int8 over the whole shuffled band as a
+        window SellPlan (2^19 rows, 14,155,776 nonzeros), each alone,
+        values and x from [0, 16): held exactly against its plain
+        version, timed by events and by the profiler, beside a launch of
+        one step (E) or of one output row (B) of the same build."""
+        device_us = launch_us
+        m = typed_matrix(m_deep, "i8", rng)
+        op = operator("packed_i8 uncut", m, "i8")
+        plan = op.plan
+        assert type(plan).__name__ == "PackedPlan"
+        x = narrow_x(op, cuda_x(typed_vector("i8", m.shape[1], rng)))
+        what = "packed_i8 uncut (the deep draw)"
+        packed_cases(plan, x, what, WIDTH["i8"])
+        st = plan.stats
+        kw = dict(chunk_blocks=st.chunk_blocks, step_tiles=st.step_tiles)
+        e_args = (plan.vals, plan.cols, plan.cstep, x)
+        scan = packed_scan_kernel(*e_args, **kw)
+        f_args = (scan, plan.sblock, plan.esrc, x, extract_on(plan))
+        f_kw = dict(rows=plan.shape[0], step_tiles=st.step_tiles)
+        one = (plan.vals[:st.step_tiles], plan.cols[:st.step_tiles],
+               plan.cstep[:1], x)
+        log(f"[{what}] kernel E i8 device time "
+            f"{device_us(lambda: packed_scan_kernel(*e_args, **kw)):.2f} us,"
+            f" kernel F i8 "
+            f"{device_us(lambda: packed_rows_kernel(*f_args, **f_kw)):.2f}"
+            f" us; a launch of E over one step "
+            f"{device_us(lambda: packed_scan_kernel(*one, **kw)):.2f} us; "
+            f"on {card}")
+        del op, plan, scan, f_args, e_args, one
+        m = typed_matrix(m_sell, "i8", rng)
+        op = operator("sell_i8 uncut", m, "i8")
+        plan = op.plan
+        assert type(plan).__name__ == "SellPlan" and op.strategy == "window"
+        x = narrow_x(op, cuda_x(typed_vector("i8", m.shape[1], rng)))
+        what = "sell_i8 uncut (the shuffled band)"
+        window_case(plan, x, "plus_times", what, w=WIDTH["i8"])
+        st = plan.stats
+        fold = folds_groups(plan)
+        kw = dict(group_tiles=st.group_tiles, window_grain=st.window_grain,
+                  fold=fold, semiring="plus_times")
+        args = (plan.vals, plan.cols_win, plan.window_base, x)
+        t = st.group_tiles
+        one = (plan.vals[:t], plan.cols_win[:t], plan.window_base[:1], x)
+        log(f"[{what}] kernel B i8 device time "
+            f"{device_us(lambda: sell_window_kernel(*args, **kw)):.2f} us; "
+            f"a launch of one output row "
+            f"{device_us(lambda: sell_window_kernel(*one, **kw)):.2f} us; "
+            f"on {card}")
+        del op, plan, args, one
 
     def window_phases(kind, src, semiring="plus_times", spmm=True):
         """A window SellPlan (kernel B), with ``op @ B`` (kernel H)."""
@@ -2343,6 +2455,7 @@ def dtype_phases(card, dev, mesh4, draws):
     # products past 2^32)
     window_phases("u64", m_sell, spmm=False)
     uncut_i8()
+    uncut_narrow()
     log(f"[narrow] the float16, narrow integer and uint64 phases took "
         f"{time.perf_counter() - t_narrow:.1f} s")
     torch.cuda.empty_cache()
@@ -2896,6 +3009,7 @@ def main():
         base = plan.window_base.long().repeat_interleave(
             plan.stats.group_tiles) * plan.stats.window_grain
         cols = base[:, None, None] + plan.cols_win.long()
+        log_window_shape("kernel B case", plan, kw["fold"])
         return (lambda: sell_window_kernel(*args, **kw),
                 lambda: sell_window_plain(*args, **kw),
                 nbytes(*args[:3]) + x_bytes_read(x, cols)

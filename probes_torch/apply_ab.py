@@ -9,23 +9,30 @@ checkout; a ``git archive`` of another commit to compare with), plans
 the smoke's float32 draws at their full size (``dia``, ``sell``,
 ``hybrid``, ``chunk``, ``packed``, ``cached``, ``deep`` and ``stream``,
 made as ``chip_smoke.main`` makes them, from the same seeds), the
-sharded DIA headline (``sharded_dia``, four shards on the card), the
-SpMV of the solver phases' DIA systems (``cg``: the 2^20-row band of
+sharded DIA headline (``sharded_dia``) and the sharded shuffled band
+(``sharded_sell``, halo exchange), four shards on the card, the SpMV of
+the solver phases' DIA systems (``cg``: the 2^20-row band of
 ``chip_smoke.banded_system``; ``pcg_ilu0``: ``chip_smoke.spd_banded`` at
-2^15 rows), and the headline's bfloat16 and float16 plans, whole and
+2^15 rows), the headline's bfloat16 and float16 plans, whole and
 sharded (``dia_bf16``, ``dia_f16``, ``sharded_dia_bf16``,
-``sharded_dia_f16``), and the headline band's leading 8192 rows
+``sharded_dia_f16``), the headline band's leading 8192 rows
 (``dia_small``: a few us on the card, so its events time is the apply's
-host dispatch), or only the ``--phases`` named, and times each apply
-``N`` rounds over (default
-3): the CUDA-event median of 30 calls, the profiler's device busy time
-of 20, as the smoke's "the apply, end to end" section does, and the
-device time of its DIA kernel (A or M) within it.  Prints one JSON line,
-``{"tree": ..., "tag": ..., "card": ..., "phases": {name: {"ev_us":
-[...], "busy_us": [...], "dia_us": [...]}}}``, a value a round.  To
-compare two trees on one card, run it in turns in one chip call
-(parent, change, change, parent) and compare the rounds' medians.
-Needs one CUDA device.
+host dispatch), and the typed applies of kernels B, E and F, values and
+x drawn as ``chip_smoke.dtype_phases`` draws them: ``packed_<kind>``
+(``mac_econ_like`` in bf16, f16, i8, u8, i16, u16, i32 and u32),
+``sell_bf16`` and ``sell_f16`` (the shuffled band), ``hybrid_i8``,
+``_u8``, ``_i16`` and ``_u16`` (the Hybrid cut to 2^18 rows) and
+``sell_u8_max`` (the cut band under max_times); or only the
+``--phases`` named.  Times each apply ``N`` rounds over (default 3): the
+CUDA-event median of 30 calls, the profiler's device busy time of 20,
+as the smoke's "the apply, end to end" section does, and the device
+time within it of kernels A and M (``dia_us``), B (``b_us``), E
+(``e_us``) and F (``f_us``).  Prints one JSON line, ``{"tree": ...,
+"tag": ..., "card": ..., "phases": {name: {"ev_us": [...], "busy_us":
+[...], "dia_us": [...], "b_us": [...], "e_us": [...], "f_us":
+[...]}}}``, a value a round.  To compare two trees on one card, run it
+in turns in one chip call (parent, change, change, parent) and compare
+the rounds' medians.  Needs one CUDA device.
 """
 
 import argparse
@@ -63,9 +70,11 @@ def main():
     from spmv_vector_cache_tpu_torch.ops import _kernels
     from spmv_vector_cache_tpu_torch.ops.operator import SparseOperator
     from spmv_vector_cache_tpu_torch.parallel import (build_sharded_dia_plan,
+                                                      build_sharded_plan,
                                                       make_mesh,
                                                       place_on_mesh,
-                                                      spmv_dia_sharded)
+                                                      spmv_dia_sharded,
+                                                      spmv_sharded)
     from spmv_vector_cache_tpu_torch.tools import realistic
 
     assert torch.cuda.is_available(), "needs a CUDA device"
@@ -149,9 +158,45 @@ def main():
             ops[f"dia_{kind}"] = (SparseOperator.from_matrix(
                 from_scipy(band), value_dtype=vdt),
                 x.half() if kind == "f16" else x)
+    # the typed applies of kernels B, E and F: mac_econ_like's PackedPlan
+    # in every value type but float32 (``packed_<kind>``), the shuffled
+    # band in bfloat16 and float16 (``sell_<kind>``), the Hybrid cut to
+    # its leading 2^18 rows in the 8- and 16-bit integers
+    # (``hybrid_<kind>``), the cut band under max_times in uint8
+    # (``sell_u8_max``); values and x as chip_smoke.dtype_phases draws
+    # them
+    value = {"bf16": "bfloat16", "f16": np.float16, "i8": np.int8,
+             "u8": np.uint8, "i16": np.int16, "u16": np.uint16,
+             "i32": np.int32, "u32": np.uint32}
+    cut = 1 << 18
+    typed = [(f"packed_{k}", a_packed, k, "plus_times") for k in
+             ("bf16", "f16", "i8", "u8", "i16", "u16", "i32", "u32")]
+    typed += [(f"sell_{k}", a_sell, k, "plus_times") for k in ("bf16",
+                                                               "f16")]
+    typed += [(f"hybrid_{k}", m_hyb[:cut, :cut], k, "plus_times")
+              for k in ("i8", "u8", "i16", "u16")]
+    typed += [("sell_u8_max", band[:cut, :cut], "u8", "max_times")]
+    for name, src, kind, semiring in typed:
+        if not wanted(name):
+            continue
+        rng_t = np.random.default_rng(14)
+        nonneg = semiring != "plus_times"
+        if not isinstance(src, sp.spmatrix):
+            src = sp.csr_matrix((src.data, src.indices, src.indptr),
+                                shape=src.shape)
+        m = cs.typed_matrix(src, kind, rng_t, nonneg)
+        xh = cs.typed_vector(kind, m.shape[1], rng_t, nonneg)
+        ops[name] = (SparseOperator.from_matrix(
+            from_scipy(m), value_dtype=value[kind], semiring=semiring),
+            torch.from_numpy(np.ascontiguousarray(xh)).to(dev))
     runs = {name: (lambda op=op, x=x: op @ x) for name, (op, x) in
             ops.items() if wanted(name)}
     mesh = make_mesh(4, device="cuda")
+    if wanted("sharded_sell"):
+        # the shuffled band as four shards on the card, halo exchange
+        ssp = place_on_mesh(build_sharded_plan(a_sell, 4), mesh)
+        xs = torch.from_numpy(x_sell).to(dev)
+        runs["sharded_sell"] = lambda: spmv_sharded(ssp, xs, mesh)
     x = torch.from_numpy(x_dia).to(dev)
     for kind, vdt in (("", np.float32), ("_bf16", "bfloat16"),
                       ("_f16", np.float16)):
@@ -162,18 +207,26 @@ def main():
             runs["sharded_dia" + kind] = (
                 lambda spd=spd, xk=xk: spmv_dia_sharded(spd, xk, mesh))
 
-    out = {name: {"ev_us": [], "busy_us": [], "dia_us": []}
+    # the kernels each apply's device time is read for, by a part of
+    # their names in this tree or an older one: A and M (dia_rows_kernel,
+    # or the older one-row spmv_dia_kernel), B (window_lanes_kernel, or
+    # the older one-lane window_kernel), E (packed_scan_kernel) and F
+    # (packed_rows_kernel)
+    kernels = {"dia_us": ("dia_rows_kernel", "spmv_dia_kernel"),
+               "b_us": ("window_lanes_kernel", "window_kernel"),
+               "e_us": ("packed_scan_kernel",),
+               "f_us": ("packed_rows_kernel",)}
+    out = {name: {"ev_us": [], "busy_us": [], **{k: [] for k in kernels}}
            for name in runs}
     for _ in range(args.rounds):
         for name, run in runs.items():
             out[name]["ev_us"].append(cs.time_ms(run) * 1e3)
             by = cs.device_us_by_kernel(run)
             out[name]["busy_us"].append(sum(us for us, _ in by.values()))
-            # kernels A and M: this tree's dia_rows_kernel or the one-row
-            # spmv_dia_kernel before it
-            out[name]["dia_us"].append(sum(
-                us for k, (us, _) in by.items()
-                if "dia_rows_kernel" in k or "spmv_dia_kernel" in k))
+            for key, parts in kernels.items():
+                out[name][key].append(sum(
+                    us for k, (us, _) in by.items()
+                    if any(part in k for part in parts)))
     print(json.dumps({"tree": tree, "tag": args.tag, "card": card,
                       "phases": out}), flush=True)
 

@@ -101,12 +101,7 @@ constexpr int kStageLoads = 8;
 constexpr int kGroup = SPMV_DIA_GROUP_DIAGS;
 
 // the vector type of N bytes of slots
-template <int N> struct VecOf;
-template <> struct VecOf<1> { using type = unsigned char; };
-template <> struct VecOf<2> { using type = unsigned short; };
-template <> struct VecOf<4> { using type = unsigned; };
-template <> struct VecOf<8> { using type = uint2; };
-template <> struct VecOf<16> { using type = uint4; };
+using spmv::VecOf;
 
 // R slots, loaded as one vector and read one by one
 template <class Slot, int R>

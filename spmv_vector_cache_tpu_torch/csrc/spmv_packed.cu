@@ -9,10 +9,13 @@
 //   S[r, l] = p[l0] + ... + p[l], l0 the last lane <= l whose cols carry
 //          the piece-start flag (bit 14), or lane 0
 // so each piece's sum lands at its end slot.  The reference runs a
-// Hillis-Steele scan over lane rolls; here one warp owns a row, each
-// thread scans its 4 consecutive slots serially and the warp combines
-// the 32 partial results with a segmented shuffle scan — the same piece
-// sums, added in another order.
+// Hillis-Steele scan over lane rolls; here each thread scans SL
+// consecutive slots of a row serially and the row's 128 / SL threads
+// combine their partial results with a segmented shuffle scan — the
+// same piece sums, added in another order.  S is written in the value
+// type for the 8- and 16-bit integer builds (`Scan` of values.cuh: what
+// y, narrowed once, keeps of a piece sum, and the reference's own scan
+// type), in the 32-bit sum type for the others.
 //
 // Kernel F replaces the Pallas kernel `_make_extract_kernel` (same
 // file) and also computes what the reference does after that call
@@ -30,9 +33,20 @@
 // its rows of y once: no atomic, no partial buffer, y the same every
 // run.
 //
-// Bound: bytes.  Pass A streams 6 B per slot in and 4 B out (vectorised:
-// 16 B of values and 8 B of columns per thread); its x reads fall in one
-// chunk of CB*128 columns, served by L1/L2.  Pass B reads 2 B of esrc per
+// Bound: bytes.  Pass A streams the slot (1, 2 or 4 B) and its 2-B
+// column in and writes S (1 or 2 B for the narrow integers, else 4 B);
+// its x reads fall in one chunk of CB*128 columns, served by L1/L2.
+// E's one warp a row (4 slots a thread, S in 32 bits) barely gained from
+// a narrower slab (mac_econ_like: 7.0 us in int8 against 7.4 in float32
+// on an H100): a short chain of dependent loads a thread and 1.5 waves
+// of small CTAs.  So a thread takes 8 slots (one vector load of slots,
+// one of columns), issues every load, then every x gather, then
+// multiplies, in CTAs of 512 threads (32 rows): of 4, 8 and 16 slots a
+// thread and 128 to 1024 threads a CTA, the fastest in every build on
+// the uncut uniform draw but bfloat16, and within 6 % of the fastest on
+// mac_econ_like, where 4 slots suit the 4-byte scans better
+// (probes_torch/scan_shapes.py: mac_econ_like int8 6.8 -> 4.6 us,
+// float32 7.4 -> 6.3).  Pass B reads 2 B of esrc per
 // y row and visit of its window, sblock, the S entries esrc picks, the
 // overflow triples and their x, and writes 4 B per row of y.  With a
 // thread per row and visit loads issued one after another it was
@@ -54,16 +68,16 @@
 //
 // E and F have a build for each value policy of values.cuh: the float32
 // entry point, and `_bf16`, `_i32` and `_u32` (sums wrapping mod 2^32)
-// entry points with the same arguments.  E's bf16 build loads 8 B of
-// values a thread and widens them to float32 (x and the scan float32:
-// 4 B of the stream a slot instead of 6); F's reads the float32 scan and
-// x and 2 B an overflow value, widened as it is loaded.
+// entry points with the same arguments.  E's bf16 build loads 2 B of
+// value a slot and widens it to float32 (x and the scan float32); F's
+// reads the float32 scan and x and 2 B an overflow value, widened as it
+// is loaded.
 // The `_f16`, `_i8`, `_u8`, `_i16` and `_u16` builds read 2- and 1-byte
 // slots, widened to float32 (float16) or int (the integers, sign- or
 // zero-extended) as they load; x and the sums stay in that 32-bit type,
-// and the wrapper narrows y once (ops/semiring.py finish_y).  E loads four
-// slots a thread as one 8- or 4-byte word; F reads the 32-bit scan and
-// x and the overflow values in the slab's width.
+// and the wrapper narrows y once (ops/semiring.py finish_y).  F reads the
+// scan in the build's Scan type (the narrow integers' sign- or
+// zero-extended) and the overflow values in the slab's width.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -76,51 +90,6 @@ namespace {
 
 using spmv::add_rn;
 using spmv::mul_rn;
-
-// four consecutive slots from 16-byte (8-byte for bf16) aligned p, as
-// the sum type
-__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
-    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
-    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-}
-__device__ __forceinline__ void load4(const uint16_t* p, float (&v)[4]) {
-    const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
-    v[0] = __uint_as_float(q.x << 16);
-    v[1] = __uint_as_float(q.x & 0xffff0000u);
-    v[2] = __uint_as_float(q.y << 16);
-    v[3] = __uint_as_float(q.y & 0xffff0000u);
-}
-__device__ __forceinline__ void load4(const int* p, int (&v)[4]) {
-    const int4 q = __ldg(reinterpret_cast<const int4*>(p));
-    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-}
-__device__ __forceinline__ void load4(const unsigned* p, unsigned (&v)[4]) {
-    const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
-    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-}
-
-// four consecutive slots of a policy from p, widened to the sum type:
-// the 4-byte types and bfloat16 by the loads above, the float16 and the
-// narrow integer slots by one 8-byte (2-byte slots) or 4-byte (1-byte
-// slots) load from p, aligned to that size
-template <class V>
-__device__ __forceinline__ void load4v(const typename V::Slot* p,
-                                       typename V::T (&v)[4]) {
-    using Slot = typename V::Slot;
-    if constexpr (sizeof(Slot) == 4 ||
-                  std::is_same<V, spmv::Bf16Values>::value) {
-        load4(p, v);
-    } else {
-        using Word = std::conditional_t<sizeof(Slot) == 2, uint2, unsigned>;
-        union {
-            Word w;
-            Slot s[4];
-        } u;
-        u.w = __ldg(reinterpret_cast<const Word*>(p));
-#pragma unroll
-        for (int j = 0; j < 4; ++j) v[j] = V::widen(u.s[j]);
-    }
-}
 
 // p[0:4] = a, b, c, d as one 16-byte store (p 16-byte aligned)
 __device__ __forceinline__ void store4(float* p, float a, float b, float c,
@@ -139,54 +108,75 @@ constexpr int kRowSlots = 128;        // slots per scanned row
 constexpr int kWindowRows = 8192;     // y rows per pass-B window
 constexpr unsigned kFullMask = 0xffffffffu;
 
-// blockDim.x = 256: 8 warps, one 128-slot row each
-template <class V>
-__global__ void packed_scan_kernel(const typename V::Slot* __restrict__ vals,
-                                   const int16_t* __restrict__ cols,
-                                   const int* __restrict__ cstep,
-                                   const typename V::T* __restrict__ x,
-                                   typename V::T* __restrict__ out,
-                                   long long rows, int rows_per_step,
-                                   long long chunk_cols, long long ncols) {
+// Kernel E's launch shape: SL consecutive slots of a row a thread (8 at
+// 512 threads a CTA, the wrapper's choice, ops/spmv_packed.py
+// scan_launch_shape; 4 and 16, and 128 to 1024 threads, for
+// probes_torch/scan_shapes.py to time beside it), so G = 128 / SL
+// threads a row and 32 / G rows a warp; at most kScanMaxThreads threads
+// a CTA, a multiple of 32
+constexpr int kScanMaxThreads = 1024;
+
+template <class V, int SL>
+__global__ void __launch_bounds__(kScanMaxThreads) packed_scan_kernel(
+        const typename V::Slot* __restrict__ vals,
+        const int16_t* __restrict__ cols, const int* __restrict__ cstep,
+        const typename V::T* __restrict__ x,
+        typename V::Scan* __restrict__ out, long long rows,
+        int rows_per_step, long long chunk_cols, long long ncols) {
     using T = typename V::T;
-    long long row = (long long)blockIdx.x * (blockDim.x / 32) +
-                    threadIdx.x / 32;
-    if (row >= rows) return;              // uniform over the warp
-    int k = threadIdx.x & 31;
-    long long xbase =
+    using Scan = typename V::Scan;
+    constexpr int G = kRowSlots / SL;
+    const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    const long long row = tid / G;
+    // uniform over a warp: rows is a multiple of 8, a warp holds 32 / G
+    // rows (at most 8) from a multiple of 32 / G
+    if (row >= rows) return;
+    const int k = (int)(tid % G);
+    const long long off = row * kRowSlots + (long long)k * SL;
+    // every load first: the slots, their columns and the row's chunk
+    spmv::Run<typename V::Slot, SL> v;
+    v.load(vals + off);
+    spmv::Run<int16_t, SL> c;
+    c.load(cols + off);
+    const long long xbase =
         (long long)__ldg(cstep + row / rows_per_step) * chunk_cols;
-    long long off = row * kRowSlots + 4 * k;
-    T v[4];
-    load4v<V>(vals + off, v);
-    short4 c4 = __ldg(reinterpret_cast<const short4*>(cols + off));
-    int c[4] = {c4.x, c4.y, c4.z, c4.w};
-    T s[4];
-    bool start[4];
-    for (int j = 0; j < 4; ++j) {
-        long long g = xbase + (c[j] & 16383);
-        T xv = g < ncols ? __ldg(x + g) : T(0);
-        T p = mul_rn(v[j], xv);
-        start[j] = (c[j] >> 14) & 1;
-        s[j] = (j == 0 || start[j]) ? p : add_rn(s[j - 1], p);
+    // then every x gather
+    T xv[SL];
+#pragma unroll
+    for (int j = 0; j < SL; ++j) {
+        const long long g = xbase + (c.e[j] & 16383);
+        xv[j] = g < ncols ? __ldg(x + g) : T(0);
     }
-    // segmented inclusive scan of the threads' (sum, any-start) pairs
-    T inc = s[3];
-    int flag = start[0] | start[1] | start[2] | start[3];
-    for (int d = 1; d < 32; d <<= 1) {
-        T up = __shfl_up_sync(kFullMask, inc, d);
-        int up_flag = __shfl_up_sync(kFullMask, flag, d);
+    // then the products and the thread's own segmented scan
+    T s[SL];
+    unsigned starts = 0;
+#pragma unroll
+    for (int j = 0; j < SL; ++j) {
+        const T p = mul_rn(V::widen(v.e[j]), xv[j]);
+        const bool st = (c.e[j] >> 14) & 1;
+        starts |= (unsigned)st << j;
+        s[j] = (j == 0 || st) ? p : add_rn(s[j - 1], p);
+    }
+    // segmented inclusive scan of the row's G (sum, any-start) pairs
+    T inc = s[SL - 1];
+    int flag = starts != 0;
+#pragma unroll
+    for (int d = 1; d < G; d <<= 1) {
+        const T up = __shfl_up_sync(kFullMask, inc, d, G);
+        const int up_flag = __shfl_up_sync(kFullMask, flag, d, G);
         if (k >= d) {
             if (!flag) inc = add_rn(up, inc);
             flag |= up_flag;
         }
     }
-    T carry = __shfl_up_sync(kFullMask, inc, 1);
-    if (k > 0) {
-        // the carry runs into this thread's slots up to its first start
-        for (int j = 0; j < 4 && !start[j]; ++j)
-            s[j] = add_rn(carry, s[j]);
-    }
-    store4(out + off, s[0], s[1], s[2], s[3]);
+    const T carry = __shfl_up_sync(kFullMask, inc, 1, G);
+    // the carry runs into this thread's slots up to its first start
+    const int first = starts ? __ffs(starts) - 1 : SL;
+    spmv::Run<Scan, SL> o;
+#pragma unroll
+    for (int j = 0; j < SL; ++j)
+        o.e[j] = (Scan)((k > 0 && j < first) ? add_rn(carry, s[j]) : s[j]);
+    o.store(out + off);
 }
 
 // Kernel F's launch shape, chosen on the H100 by
@@ -227,7 +217,8 @@ __device__ __forceinline__ int esrc_at(const int4& v, int j) {
 // (T the sum type, the overflow values its slots, widened as they load)
 template <class V, class T = typename V::T, class OV = typename V::Slot>
 __global__ void __launch_bounds__(kThreads) packed_rows_kernel(
-        const T* __restrict__ scan, const int* __restrict__ sblock,
+        const typename V::Scan* __restrict__ scan,
+        const int* __restrict__ sblock,
         const int* __restrict__ woff, const int16_t* __restrict__ esrc,
         const int* __restrict__ ov_off, const int* __restrict__ ov_lane,
         const int* __restrict__ ov_cols, const OV* __restrict__ ov_vals,
@@ -282,7 +273,8 @@ __global__ void __launch_bounds__(kThreads) packed_rows_kernel(
 #pragma unroll
             for (int j = 0; j < kRowsPerThread; ++j) {
                 const int src = esrc_at(ev[u], j);
-                v[u][j] = src >= 0 ? __ldg(scan + base[u] + src) : T(0);
+                // a narrow integer scan sign- or zero-extends to int
+                v[u][j] = src >= 0 ? (T)__ldg(scan + base[u] + src) : T(0);
             }
         }
 #pragma unroll
@@ -359,21 +351,52 @@ __global__ void __launch_bounds__(kThreads) packed_rows_kernel(
     }
 }
 
-template <class V>
-int launch_scan(const void* vals, const int16_t* cols, const int* cstep,
-                const void* x, void* out, long long rows, int rows_per_step,
-                long long chunk_cols, long long ncols, void* stream) {
+template <class V, int SL>
+int launch_scan_at(const void* vals, const int16_t* cols, const int* cstep,
+                   const void* x, void* out, long long rows,
+                   int rows_per_step, long long chunk_cols, long long ncols,
+                   int threads, void* stream) {
     using T = typename V::T;
+    using Slot = typename V::Slot;
+    using Scan = typename V::Scan;
+    constexpr int kV = spmv::Run<Slot, SL>::kVec;
+    constexpr int kC = spmv::Run<int16_t, SL>::kVec;
+    constexpr int kO = spmv::Run<Scan, SL>::kVec;
+    if (threads < 32 || threads > kScanMaxThreads || threads % 32 ||
+        rows % 8 || reinterpret_cast<uintptr_t>(vals) % kV ||
+        reinterpret_cast<uintptr_t>(cols) % kC ||
+        reinterpret_cast<uintptr_t>(out) % kO)
+        return (int)cudaErrorInvalidValue;
     if (rows > 0) {
-        constexpr int threads = 256;
-        long long blocks = (rows + threads / 32 - 1) / (threads / 32);
-        packed_scan_kernel<V><<<(unsigned)blocks, threads, 0,
-                                (cudaStream_t)stream>>>(
-            static_cast<const typename V::Slot*>(vals), cols, cstep,
-            static_cast<const T*>(x), static_cast<T*>(out), rows,
+        const long long per_cta = (long long)threads * SL / kRowSlots;
+        const long long blocks = (rows + per_cta - 1) / per_cta;
+        packed_scan_kernel<V, SL><<<(unsigned)blocks, threads, 0,
+                                    (cudaStream_t)stream>>>(
+            static_cast<const Slot*>(vals), cols, cstep,
+            static_cast<const T*>(x), static_cast<Scan*>(out), rows,
             rows_per_step, chunk_cols, ncols);
     }
     return (int)cudaGetLastError();
+}
+
+// SL from the launch shape: 4, 8 or 16 slots a thread
+template <class V>
+int launch_scan(const void* vals, const int16_t* cols, const int* cstep,
+                const void* x, void* out, long long rows, int rows_per_step,
+                long long chunk_cols, long long ncols, int slots_per_thread,
+                int threads, void* stream) {
+    switch (slots_per_thread) {
+#define PACKED_SCAN_SL(SL)                                                  \
+        case SL:                                                            \
+            return launch_scan_at<V, SL>(vals, cols, cstep, x, out, rows,   \
+                                         rows_per_step, chunk_cols, ncols,  \
+                                         threads, stream);
+        PACKED_SCAN_SL(4)
+        PACKED_SCAN_SL(8)
+        PACKED_SCAN_SL(16)
+#undef PACKED_SCAN_SL
+    }
+    return (int)cudaErrorInvalidValue;
 }
 
 template <class V>
@@ -388,8 +411,9 @@ int launch_rows(const void* scan, const int* sblock, const int* woff,
                                          kBlockRows);
         packed_rows_kernel<V><<<grid, dim3(kTX, kGroups), 0,
                                     (cudaStream_t)stream>>>(
-            static_cast<const T*>(scan), sblock, woff, esrc, ov_off, ov_lane,
-            ov_cols, static_cast<const typename V::Slot*>(ov_vals),
+            static_cast<const typename V::Scan*>(scan), sblock, woff, esrc,
+            ov_off, ov_lane, ov_cols,
+            static_cast<const typename V::Slot*>(ov_vals),
             static_cast<const T*>(x), static_cast<T*>(y), rows, block_slots);
     }
     return (int)cudaGetLastError();
@@ -398,15 +422,19 @@ int launch_rows(const void* scan, const int* sblock, const int* woff,
 }  // namespace
 
 // rows = T * 8 scanned rows; rows_per_step = 8 * step_tiles;
-// chunk_cols = chunk_blocks * 128; ncols = columns of x; vals 16-byte
-// aligned; x and out of the policy's sum type
+// chunk_cols = chunk_blocks * 128; ncols = columns of x; vals, cols and
+// out aligned to the vectors a thread moves (16 bytes at most); x of
+// the policy's sum type, out of its Scan type; slots_per_thread (4, 8
+// or 16) and threads a CTA: the launch shape
 #define PACKED_SCAN_BUILD(sfx, V)                                           \
     extern "C" int packed_scan_##sfx(                                       \
         const void* vals, const int16_t* cols, const int* cstep,            \
         const void* x, void* out, long long rows, int rows_per_step,        \
-        long long chunk_cols, long long ncols, void* stream) {              \
+        long long chunk_cols, long long ncols, int slots_per_thread,        \
+        int threads, void* stream) {                                        \
         return launch_scan<V>(vals, cols, cstep, x, out, rows,              \
-                              rows_per_step, chunk_cols, ncols, stream);    \
+                              rows_per_step, chunk_cols, ncols,             \
+                              slots_per_thread, threads, stream);           \
     }
 
 PACKED_SCAN_BUILD(f32, spmv::F32Values)
@@ -421,8 +449,8 @@ PACKED_SCAN_BUILD(u16, spmv::U16Values)
 
 // y: rows sums, written, in CTAs of PACKED_F_BLOCK_ROWS rows; ov_off:
 // one offset a CTA and one more, or null for no overflow (x is then not
-// read); block_slots = step_tiles * 1024; scan, x and y of the sum type
-// T, ov_vals of the policy's slots
+// read); block_slots = step_tiles * 1024; scan of the policy's Scan
+// type, x and y of its sum type T, ov_vals of its slots
 #define PACKED_EXTRACT_BUILD(sfx, V)                                    \
     extern "C" int packed_extract_##sfx(                                    \
         const void* scan, const int* sblock, const int* woff,               \

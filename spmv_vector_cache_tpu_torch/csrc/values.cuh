@@ -30,7 +30,11 @@
 // wrapped to before a max (semiring.cuh IntMaxTimes), as the reference
 // takes the max of products in the value type.  Every policy's
 // `widen(slot)` is the value of a stored slot in the sum type, for the
-// kernels that stage slots before they read them (H, I, E).
+// kernels that stage slots before they read them (H, I, E).  `Scan` is
+// the type kernel E writes its scan in and kernel F reads it in: the
+// slot type of the narrow integers (a piece sum narrowed to 8 or 16 bits
+// is all that y, narrowed once at the end, keeps of it: narrowing
+// commutes with F's wrapping sums), else the sum type.
 #pragma once
 
 #include <cuda_fp16.h>
@@ -42,6 +46,7 @@ namespace spmv {
 struct F32Values {
     using T = float;
     using Slot = float;
+    using Scan = float;
     using Wrap = float;
     static constexpr int kChannels = 1;
     static __device__ float widen(float v) { return v; }
@@ -63,6 +68,7 @@ struct PairValues {
 struct Bf16Values {
     using T = float;
     using Slot = uint16_t;
+    using Scan = float;
     using Wrap = float;
     static constexpr int kChannels = 1;
     static __device__ float widen(uint16_t v) {
@@ -76,6 +82,7 @@ struct Bf16Values {
 struct I32Values {
     using T = int;
     using Slot = int;
+    using Scan = int;
     using Wrap = int;
     static constexpr int kChannels = 1;
     static __device__ int widen(int v) { return v; }
@@ -87,6 +94,7 @@ struct I32Values {
 struct U32Values {
     using T = unsigned;
     using Slot = unsigned;
+    using Scan = unsigned;
     using Wrap = unsigned;
     static constexpr int kChannels = 1;
     static __device__ unsigned widen(unsigned v) { return v; }
@@ -99,6 +107,7 @@ struct U32Values {
 struct F16Values {
     using T = float;
     using Slot = uint16_t;
+    using Scan = float;
     using Wrap = float;
     static constexpr int kChannels = 1;
     static __device__ float widen(uint16_t v) {
@@ -115,6 +124,7 @@ template <class S>
 struct NarrowIntValues {
     using T = int;
     using Slot = S;
+    using Scan = S;
     using Wrap = S;
     static constexpr int kChannels = 1;
     static __device__ int widen(S v) { return (int)v; }
@@ -126,6 +136,37 @@ using I8Values = NarrowIntValues<int8_t>;
 using U8Values = NarrowIntValues<uint8_t>;
 using I16Values = NarrowIntValues<int16_t>;
 using U16Values = NarrowIntValues<uint16_t>;
+
+// N consecutive elements of E, loaded and stored as vectors of up to 16
+// bytes (the address aligned to min(16, N * sizeof(E))), read and written
+// one element at a time: a thread's run of slots, offsets or sums
+template <int N> struct VecOf;
+template <> struct VecOf<1> { using type = unsigned char; };
+template <> struct VecOf<2> { using type = unsigned short; };
+template <> struct VecOf<4> { using type = unsigned; };
+template <> struct VecOf<8> { using type = uint2; };
+template <> struct VecOf<16> { using type = uint4; };
+
+template <class E, int N>
+struct Run {
+    static constexpr int kBytes = N * (int)sizeof(E);
+    static constexpr int kVec = kBytes < 16 ? kBytes : 16;
+    using Vec = typename VecOf<kVec>::type;
+    union {
+        Vec v[kBytes / kVec];
+        E e[N];
+    };
+    __device__ __forceinline__ void load(const E* p) {
+#pragma unroll
+        for (int i = 0; i < kBytes / kVec; ++i)
+            v[i] = __ldg(reinterpret_cast<const Vec*>(p) + i);
+    }
+    __device__ __forceinline__ void store(E* p) const {
+#pragma unroll
+        for (int i = 0; i < kBytes / kVec; ++i)
+            reinterpret_cast<Vec*>(p)[i] = v[i];
+    }
+};
 
 // acc + v * x, rounded once, in the policy's type; integers wrap
 __device__ inline float madd(float v, float x, float acc) {

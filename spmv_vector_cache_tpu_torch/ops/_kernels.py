@@ -56,9 +56,10 @@ SIGNATURES = {
     # rows_per_step, rows_per_thread, threads, staged, stream
     "spmv_dia_f32": [_P, _P, _P, _P, _P, _L, _L, _I, _I, _I, _I, _I, _P],
     # vals, cols_win, window_base, x, out, out_rows, positions, lanes,
-    # group_tiles, fold, window_grain, cols, semiring, stream
+    # group_tiles, fold, window_grain, cols, semiring, lanes_per_thread,
+    # rows_per_cta, stream
     "spmv_sell_window_f32": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I,
-                             _L, _I, _P],
+                             _L, _I, _I, _I, _P],
     # y2d, idx, out, n, stream
     "lane_unpermute_f32": [_P, _P, _P, _L, _P],
     # vals, cols_win, bases, tile_row, rows, runs, x, y, num_runs,
@@ -69,8 +70,8 @@ SIGNATURES = {
     # semiring, stream
     "spmv_chunk_light_f32": [_P, _P, _P, _P, _P, _P, _P, _L, _L, _I, _P],
     # vals, cols, cstep, x, out, rows, rows_per_step, chunk_cols, ncols,
-    # stream
-    "packed_scan_f32": [_P, _P, _P, _P, _P, _L, _I, _L, _L, _P],
+    # slots_per_thread, threads, stream
+    "packed_scan_f32": [_P, _P, _P, _P, _P, _L, _I, _L, _L, _I, _I, _P],
     # scan, sblock, woff, esrc, ov_off, ov_lane, ov_cols, ov_vals, x, y,
     # rows, block_slots, stream
     "packed_extract_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L,

@@ -13,9 +13,17 @@ COO), from the tables that placement builds (``ops/runs.py``
 :func:`~.runs.extract_on`).  :func:`packed_extract_kernel` is F over
 whole windows with no overflow, the reference's extract kernel alone.
 See ``formats/packed.py`` for the layout.
+
+Kernel E's launch shape (slots a thread, threads a CTA) comes from
+:func:`scan_launch_shape`, kept per shape; an int8, uint8, int16 or
+uint16 plan's scan is written in its value type (:func:`scan_dtype`),
+which F reads widened.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import functools
 
 import torch
 
@@ -40,12 +48,53 @@ def _check_same_device(ref, *ts):
 # pass A: kernel E
 # ---------------------------------------------------------------------------
 
+#: the value types whose scan kernel E writes in the value type itself:
+#: a piece sum narrowed to 8 or 16 bits is all of it that y keeps (F's
+#: wrapping sums, narrowed once by ``finish_y``, commute with narrowing),
+#: and it is the reference's own scan type (``_compute_dtype``)
+NARROW_SCAN = (torch.int8, torch.uint8, torch.int16, torch.uint16)
+
+#: kernel E's launch: 8 slots a thread (16 threads a row, two rows a
+#: warp) and 512 threads a CTA (32 rows, four tiles), the fastest shape
+#: of every build on both PackedPlans ``probes_torch/scan_shapes.py``
+#: times, on an H100; mirrored by ``csrc/spmv_packed.cu``
+SCAN_SLOTS = 8
+SCAN_THREADS = 512
+
+
+def scan_dtype(vals_dtype: torch.dtype) -> torch.dtype:
+    """The type of the scan S of a plan with ``vals_dtype`` values: the
+    value type for :data:`NARROW_SCAN`, else the sum type
+    (:func:`~.semiring.x_dtype`)."""
+    return vals_dtype if vals_dtype in NARROW_SCAN else sr.x_dtype(
+        vals_dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class ScanShape:
+    """Kernel E's launch: ``slots_per_thread`` consecutive slots of a
+    128-slot row a thread (128 / it threads a row), ``threads`` a CTA,
+    ``ctas`` CTAs."""
+    slots_per_thread: int
+    threads: int
+    ctas: int
+
+
+@functools.lru_cache(maxsize=256)
+def scan_launch_shape(rows: int) -> ScanShape:
+    """Kernel E's launch for ``rows`` 128-slot rows, the same at every
+    value width: :data:`SCAN_SLOTS` a thread, :data:`SCAN_THREADS` a
+    CTA."""
+    return ScanShape(SCAN_SLOTS, SCAN_THREADS,
+                     -(-rows * 128 // (SCAN_THREADS * SCAN_SLOTS)))
+
+
 def packed_scan_plain(vals, cols, cstep, x, *, chunk_blocks: int,
                       step_tiles: int) -> torch.Tensor:
     """Plain PyTorch version of kernel E: the reference's Hillis-Steele
     segmented scan over lane shifts, in the reference's order, in
-    :func:`~.semiring.widen`'s types; the scan in x's type."""
-    out_dtype = x.dtype
+    :func:`~.semiring.widen`'s types; the scan in :func:`scan_dtype`."""
+    out_dtype = scan_dtype(vals.dtype)
     vals, x = sr.widen(vals), sr.widen(x)
     T = vals.shape[0]
     N = T * 8
@@ -85,26 +134,37 @@ def _check_scan(vals, cols, cstep, x, step_tiles):
     if x.dim() != 1:
         raise ValueError(f"x must be 1-D, got shape {tuple(x.shape)}")
     _check_same_device(vals, cols, cstep, x)
-    if vals.data_ptr() % 16 or cols.data_ptr() % 8:
-        raise ValueError("kernel E reads vals 16 B and cols 8 B at a "
-                         "time: both must be aligned to that")
+    if vals.data_ptr() % 16 or cols.data_ptr() % 16:
+        raise ValueError("kernel E reads vals and cols up to 16 B at a "
+                         "time: both must be aligned to 16 B")
+
+
+def kernel_scan_shape(vals: torch.Tensor) -> ScanShape:
+    """The launch shape kernel E takes for the slab ``vals`` (T, 8,
+    128)."""
+    return scan_launch_shape(vals.shape[0] * 8)
 
 
 def packed_scan_kernel(vals, cols, cstep, x, *, chunk_blocks: int,
-                       step_tiles: int) -> torch.Tensor:
+                       step_tiles: int,
+                       shape: ScanShape | None = None) -> torch.Tensor:
     """Kernel E on CUDA tensors; the plain version on CPU tensors.
-    Returns the scan S, (T, 8, 128) in x's type."""
+    Returns the scan S, (T, 8, 128) in :func:`scan_dtype`.  ``shape``:
+    the launch (:class:`ScanShape`), else :func:`kernel_scan_shape`'s."""
     _check_scan(vals, cols, cstep, x, step_tiles)
     if not platform.is_cuda(x):
         return packed_scan_plain(vals, cols, cstep, x,
                                  chunk_blocks=chunk_blocks,
                                  step_tiles=step_tiles)
-    out = torch.empty(vals.shape, dtype=x.dtype, device=x.device)
+    shape = shape or kernel_scan_shape(vals)
+    out = torch.empty(vals.shape, dtype=scan_dtype(vals.dtype),
+                      device=x.device)
     _kernels.launch(
         _kernels.entry("packed_scan_f32", vals.dtype), x.get_device(),
         vals.data_ptr(), cols.data_ptr(),
         cstep.data_ptr(), x.data_ptr(), out.data_ptr(), vals.shape[0] * 8,
-        step_tiles * 8, chunk_blocks * 128, x.shape[0])
+        step_tiles * 8, chunk_blocks * 128, x.shape[0],
+        shape.slots_per_thread, shape.threads)
     return out
 
 
@@ -115,8 +175,9 @@ def packed_scan_kernel(vals, cols, cstep, x, *, chunk_blocks: int,
 def packed_extract_plain(scan, sblock, wstep, esrc, *, num_windows: int,
                          step_tiles: int) -> torch.Tensor:
     """Plain PyTorch version of kernel F: each visit's piece sums, added
-    into their windows in visit order; unvisited windows are 0."""
-    out_dtype = scan.dtype
+    into their windows in visit order; unvisited windows are 0.  The
+    sums in the scan's sum type (a narrow scan widened)."""
+    out_dtype = sr.x_dtype(scan.dtype)
     scan = sr.widen(scan)
     e = esrc.long()
     src = sblock.long()[:, None, None] * (step_tiles * 1024) + e.clamp(min=0)
@@ -131,9 +192,11 @@ def _check_pass_b(scan, sblock, esrc, num_windows, *more):
     if tuple(esrc.shape) != (steps_b, PACKED_WINDOW_BLOCKS, 128):
         raise ValueError(f"esrc {tuple(esrc.shape)} must be (steps_b, 64, "
                          f"128) with steps_b = {steps_b} visits")
-    if scan.dtype not in (torch.float32, torch.int32, torch.uint32):
-        raise NotImplementedError(f"packed SpMV sums in float32, int32 or "
-                                  f"uint32 (scan {scan.dtype})")
+    if scan.dtype not in (torch.float32, torch.int32, torch.uint32,
+                          *NARROW_SCAN):
+        raise NotImplementedError(f"packed SpMV scans in float32, int32, "
+                                  f"uint32 or a narrow integer type (scan "
+                                  f"{scan.dtype})")
     if esrc.dtype != torch.int16 or sblock.dtype != torch.int32:
         raise ValueError("esrc must be int16 and sblock int32")
     if not 0 < num_windows < 65536:
@@ -155,7 +218,7 @@ def packed_rows_plain(scan, sblock, esrc, x, tables: ExtractTables, *,
                       rows: int, step_tiles: int) -> torch.Tensor:
     """Plain PyTorch version of kernel F: each window's visits added into
     its rows in visit order (``index_add_``), then each row's overflow
-    products in the plan's order; y of length ``rows``."""
+    products in the plan's order; y of length ``rows`` in x's type."""
     nwin = tables.woff.shape[0] - 1
     wstep = torch.repeat_interleave(
         torch.arange(nwin, device=scan.device),
@@ -168,7 +231,7 @@ def packed_rows_plain(scan, sblock, esrc, x, tables: ExtractTables, *,
         (tables.ov_off[1:] - tables.ov_off[:-1]).long())
     prod = sr.widen(tables.ov_vals) * sr.widen(x)[tables.ov_cols.long()]
     return sr.narrow(y.index_add_(0, block * EXTRACT_BLOCK_ROWS
-                                  + tables.ov_lane, prod), scan.dtype)
+                                  + tables.ov_lane, prod), x.dtype)
 
 
 def _check_rows(scan, sblock, esrc, x, tables, rows):
@@ -178,13 +241,13 @@ def _check_rows(scan, sblock, esrc, x, tables, rows):
     if tables.ov_off.shape != (-(-rows // EXTRACT_BLOCK_ROWS) + 1,):
         raise ValueError(f"ov_off {tuple(tables.ov_off.shape)}: the tables "
                          f"are not those of a plan of {rows} rows")
-    if x.dtype != scan.dtype or x.dim() != 1 or \
-            tables.ov_vals.dtype not in _kernels.BUILDS or \
-            sr.x_dtype(tables.ov_vals.dtype) != scan.dtype:
-        raise ValueError(f"x must be 1-D of the scan's type {scan.dtype} "
-                         f"and the overflow values of a plan that sums in "
-                         f"it, got {x.dtype} {tuple(x.shape)} and "
-                         f"{tables.ov_vals.dtype}")
+    if x.dim() != 1 or tables.ov_vals.dtype not in _kernels.BUILDS or \
+            scan_dtype(tables.ov_vals.dtype) != scan.dtype or \
+            sr.x_dtype(tables.ov_vals.dtype) != x.dtype:
+        raise ValueError(f"the scan ({scan.dtype}) and x ({x.dtype}, "
+                         f"{tuple(x.shape)}) must be the scan and the 1-D "
+                         f"sum type of a plan of the overflow values' "
+                         f"type {tables.ov_vals.dtype}")
     if x.shape[0] < tables.ncols:
         raise ValueError(f"x has {x.shape[0]} entries; the plan has "
                          f"{tables.ncols} columns")
@@ -193,13 +256,13 @@ def _check_rows(scan, sblock, esrc, x, tables, rows):
 def packed_rows_kernel(scan, sblock, esrc, x, tables: ExtractTables, *,
                        rows: int, step_tiles: int) -> torch.Tensor:
     """Kernel F on CUDA tensors; the plain version on CPU tensors.
-    Returns y, (rows,) in the scan's type: the visits of each row's
-    window, then the row's overflow."""
+    Returns y, (rows,) in x's type (the plan's sum type): the visits of
+    each row's window, then the row's overflow."""
     _check_rows(scan, sblock, esrc, x, tables, rows)
     if not platform.is_cuda(scan):
         return packed_rows_plain(scan, sblock, esrc, x, tables, rows=rows,
                                  step_tiles=step_tiles)
-    y = torch.empty(rows, dtype=scan.dtype, device=scan.device)
+    y = torch.empty(rows, dtype=x.dtype, device=scan.device)
     _launch_f(scan, sblock, tables.woff, esrc, tables, x, y, step_tiles)
     return y
 
@@ -224,11 +287,11 @@ def packed_extract_kernel(scan, sblock, wstep, esrc, *, num_windows: int,
                           step_tiles: int) -> torch.Tensor:
     """Kernel F over whole windows with no overflow on CUDA tensors (the
     ``packed_extract_*`` entry of the scan's type); the plain version on
-    CPU tensors.  Returns (num_windows * 64, 128) float32.  ``wstep``
-    must be nondecreasing (``build_packed_plan``'s window-major visit
-    order).  Both versions write 0 to unvisited windows, so the plan's
-    ``wfirst`` and ``window_mask`` (the reference's overwrite flag and
-    mask) are not read."""
+    CPU tensors.  Returns (num_windows * 64, 128) in the scan's sum
+    type.  ``wstep`` must be nondecreasing (``build_packed_plan``'s
+    window-major visit order).  Both versions write 0 to unvisited
+    windows, so the plan's ``wfirst`` and ``window_mask`` (the
+    reference's overwrite flag and mask) are not read."""
     _check_extract(scan, sblock, wstep, esrc, num_windows)
     if not platform.is_cuda(scan):
         return packed_extract_plain(scan, sblock, wstep, esrc,
@@ -237,7 +300,7 @@ def packed_extract_kernel(scan, sblock, wstep, esrc, *, num_windows: int,
     woff = torch.from_numpy(window_offsets(wstep, num_windows)).to(
         scan.device)
     out = torch.empty((num_windows * PACKED_WINDOW_BLOCKS, 128),
-                      dtype=scan.dtype, device=scan.device)
+                      dtype=sr.x_dtype(scan.dtype), device=scan.device)
     _launch_f(scan, sblock, woff, esrc, None, None, out.reshape(-1),
               step_tiles)
     return out

@@ -32,6 +32,8 @@ included.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import warnings
 
 import numpy as np
@@ -174,10 +176,49 @@ def _check_window(vals, cols_win, window_base, x, group_tiles,
         raise ValueError("window operands must be contiguous")
 
 
+#: kernel B's launch: 4 lanes a thread (one vector load of slots a
+#: position: 4 B of 1-byte slots, 16 B of 4-byte ones) and 4 output rows
+#: a CTA of 128 threads, at every value width: within a few per cent of
+#: the fastest shape on every window plan ``probes_torch/window_shapes.py``
+#: times, on an H100; mirrored by ``csrc/spmv_sell_window.cu``
+#: (``SPMV_WINDOW_LANES``)
+WINDOW_LANES = 4
+WINDOW_ROWS_PER_CTA = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class WindowShape:
+    """Kernel B's launch: ``lanes_per_thread`` consecutive lanes of an
+    output row (a tile, or a group when folding) a thread,
+    ``rows_per_cta`` output rows a CTA of ``threads``, ``ctas`` CTAs."""
+    lanes_per_thread: int
+    rows_per_cta: int
+    threads: int
+    ctas: int
+
+
+@functools.lru_cache(maxsize=256)
+def window_launch_shape(out_rows: int, lanes: int) -> WindowShape:
+    """Kernel B's launch for ``out_rows`` output rows of ``lanes`` lanes,
+    the same at every value width: :data:`WINDOW_LANES` lanes a thread,
+    :data:`WINDOW_ROWS_PER_CTA` output rows a CTA."""
+    n = WINDOW_ROWS_PER_CTA
+    return WindowShape(WINDOW_LANES, n, n * lanes // WINDOW_LANES,
+                       -(-out_rows // n))
+
+
+def kernel_window_shape(vals, group_tiles: int, fold: bool) -> WindowShape:
+    """The launch shape kernel B takes for the slab ``vals`` (T, P, R)."""
+    T, _, R = vals.shape
+    return window_launch_shape(T // group_tiles if fold else T, R)
+
+
 def sell_window_kernel(vals, cols_win, window_base, x, *, group_tiles: int,
-                       window_grain: int, fold: bool,
-                       semiring: str) -> torch.Tensor:
-    """Kernel B on CUDA tensors; the plain version on CPU tensors."""
+                       window_grain: int, fold: bool, semiring: str,
+                       shape: WindowShape | None = None) -> torch.Tensor:
+    """Kernel B on CUDA tensors; the plain version on CPU tensors.
+    ``shape``: the launch (:class:`WindowShape`), else
+    :func:`kernel_window_shape`'s."""
     _check_window(vals, cols_win, window_base, x, group_tiles)
     sr.check_integer(semiring, vals.dtype)
     if not platform.is_cuda(x):
@@ -186,6 +227,13 @@ def sell_window_kernel(vals, cols_win, window_base, x, *, group_tiles: int,
                                  window_grain=window_grain, fold=fold,
                                  semiring=semiring)
     T, P, R = vals.shape
+    shape = shape or kernel_window_shape(vals, group_tiles, fold)
+    if vals.data_ptr() % min(16, shape.lanes_per_thread
+                             * vals.element_size()) or \
+            cols_win.data_ptr() % min(16, 2 * shape.lanes_per_thread):
+        raise ValueError(f"kernel B reads {shape.lanes_per_thread} lanes "
+                         f"of vals and cols_win at a time: both must be "
+                         f"aligned to that")
     out_rows = T // group_tiles if fold else T
     out = torch.empty((out_rows, R), dtype=x.dtype, device=x.device)
     _kernels.launch(
@@ -193,7 +241,8 @@ def sell_window_kernel(vals, cols_win, window_base, x, *, group_tiles: int,
         vals.data_ptr(),
         cols_win.data_ptr(), window_base.data_ptr(), x.data_ptr(),
         out.data_ptr(), out_rows, P, R, group_tiles, int(fold), window_grain,
-        x.shape[0], sr.KERNEL_CODE[semiring])
+        x.shape[0], sr.KERNEL_CODE[semiring], shape.lanes_per_thread,
+        shape.rows_per_cta)
     return out
 
 

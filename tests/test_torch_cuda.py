@@ -11,6 +11,7 @@ version sum the same float32 products in another order, so they agree
 to rtol = atol = 1e-5 relative to the output's largest magnitude.
 """
 
+import contextlib
 import dataclasses
 from unittest import mock
 
@@ -1156,20 +1157,20 @@ def test_autotune_plan_every_candidate_on_the_card(cuda, allow_dia,
         seen[name] = type(plan).__name__
 
     store = str(tmp_path / "tuned.json")
-    if allow_dia:
+    # without DIA, a SELL-window base: the grid-step and group-tile
+    # candidates; the store round trip runs under the same base, so that
+    # the winner is one of its candidates whichever the timing picked
+    base = contextlib.nullcontext() if allow_dia else mock.patch.object(
+        tune, "auto_plan", lambda a, **kw: pplan.auto_plan(
+            a, **{**kw, "allow_dia": False}))
+    with base:
         res = tune.autotune_plan(a, iters=3, store=store, check=check)
-    else:
-        # a SELL-window base: the grid-step and group-tile candidates
-        with mock.patch.object(tune, "auto_plan",
-                               lambda a, **kw: pplan.auto_plan(
-                                   a, **{**kw, "allow_dia": False})):
-            res = tune.autotune_plan(a, iters=3, store=store, check=check)
+        # the store round trip: the winner again, placed, with no timing
+        again = tune.autotune_plan(a, iters=3, store=store)
     assert [e.name for e in res.table] == list(seen)
     assert len(res.table) >= 3 and not res.skipped
     assert all(e.seconds > 0 and e.gnnz_per_s > 0 for e in res.table)
     assert res.plan is not None and res.best in seen
-    # the store round trip: the winner again, placed, with no timing
-    again = tune.autotune_plan(a, iters=3, store=store)
     assert again.best == res.best
     assert [(e.seconds, e.gnnz_per_s) for e in again.table] == [(0.0, 0.0)]
     y = spmv_sell.spmv_plan(again.plan, torch.ones(m.shape[1], device=cuda))
@@ -1611,6 +1612,134 @@ def test_typed_packed_kernels_match_plain(cuda, kind):
     got = spmv_packed.packed_rows_kernel(*rows_args, **rows_kw)
     assert _kernels.launches["packed_extract_" + kind] == before + 1
     _same(got, spmv_packed.packed_rows_plain(*rows_args, **rows_kw))
+
+
+#: every value kind of kernels E and B: float32 and the typed ones
+ALL_KINDS = ["f32"] + sorted(TYPED)
+
+
+def _kind_values(kind, n, rng, nonneg=False):
+    if kind == "f32":
+        v = rng.standard_normal(n)
+        return np.abs(v) if nonneg else v
+    return _typed_values(kind, n, rng, nonneg)
+
+
+def _kind_x(kind, n, rng, device, nonneg=False):
+    if kind == "f32":
+        x = rng.standard_normal(n).astype(np.float32)
+        return torch.from_numpy(np.abs(x) if nonneg else x).to(device)
+    return _typed_x(kind, n, rng, device, nonneg)
+
+
+def _misaligned(t):
+    """A tensor of ``t``'s shape and type whose address is not 16-byte
+    aligned (its contents unset)."""
+    buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    return buf[1:1 + t.numel()].view(t.shape)
+
+
+@pytest.mark.parametrize("kind", ALL_KINDS)
+def test_scan_kernel_every_shape_matches_plain(cuda, kind):
+    # kernel E at every launch shape (4, 8 and 16 slots a thread, 128 to
+    # 1024 threads a CTA) over 20,003 rows with overflow, against its
+    # plain version: S in the value type for the 8- and 16-bit integers,
+    # exactly; a refused shape raises, and so does a misaligned slab
+    m = _packed_matrix(True)
+    m.data = _kind_values(kind, m.nnz, np.random.default_rng(28))
+    vdt = np.float32 if kind == "f32" else TYPED[kind]
+    plan = place(build_packed_plan(from_scipy(m), chunk_blocks=4,
+                                   value_dtype=vdt), cuda)
+    st = plan.stats
+    x = _kind_x(kind, m.shape[1], np.random.default_rng(29), cuda)
+    args = (plan.vals, plan.cols, plan.cstep, x)
+    kw = dict(chunk_blocks=4, step_tiles=st.step_tiles)
+    ref = spmv_packed.packed_scan_plain(*args, **kw)
+    assert ref.dtype == spmv_packed.scan_dtype(plan.vals.dtype)
+    if kind in ("i8", "u8", "i16", "u16"):
+        assert ref.dtype == plan.vals.dtype
+    rows = plan.vals.shape[0] * 8
+    entry = _kernels.entry("packed_scan_f32", plan.vals.dtype)
+    for sl in (4, 8, 16):
+        for threads in (128, 256, 512, 1024):
+            shape = spmv_packed.ScanShape(sl, threads,
+                                          -(-rows * 128 // (threads * sl)))
+            before = _kernels.launches[entry]
+            got = spmv_packed.packed_scan_kernel(*args, **kw, shape=shape)
+            assert _kernels.launches[entry] == before + 1
+            _same(got, ref)
+    for shape in (spmv_packed.ScanShape(32, 256, 1),      # 32 slots
+                  spmv_packed.ScanShape(8, 2048, 1),      # > 1024 threads
+                  spmv_packed.ScanShape(8, 96 + 8, 1)):   # not whole warps
+        with pytest.raises(RuntimeError, match="failed to launch"):
+            spmv_packed.packed_scan_kernel(*args, **kw, shape=shape)
+    with pytest.raises(ValueError, match="aligned"):
+        spmv_packed.packed_scan_kernel(_misaligned(plan.vals), *args[1:],
+                                       **kw)
+    with pytest.raises(ValueError, match="aligned"):
+        spmv_packed.packed_scan_kernel(plan.vals, _misaligned(plan.cols),
+                                       *args[2:], **kw)
+
+
+@pytest.mark.parametrize("fold", [True, False])
+@pytest.mark.parametrize("kind", ALL_KINDS)
+def test_window_kernel_every_shape_matches_plain(cuda, kind, fold):
+    # kernel B at 1, 2, 4 and 8 output rows a CTA over the tiles of 19
+    # groups (19 output rows when folding, 76 when not: a last CTA part
+    # full), under each semiring the build runs, against its plain
+    # version (the integers exactly); the wrong lanes a thread for the
+    # build is refused, and a misaligned slab raises
+    rng = np.random.default_rng(31)
+    n = 2048 + 3 * 128
+    r = np.repeat(np.arange(n), 20)
+    c = (r // 128) * 128 + rng.integers(0, 128, r.shape[0])
+    vdt = np.float32 if kind == "f32" else TYPED[kind]
+    semirings = sorted(REGISTRY) if kind == "f32" else _typed_semirings(kind)
+    for semiring in semirings:
+        nonneg = semiring in ("max_times", "or_and")
+        v = _kind_values(kind, r.shape[0], rng, nonneg)
+        if semiring == "or_and":
+            v = (v > 0.5).astype(np.float64)
+        m = sp.csr_matrix((v, (r, c)), shape=(n, n + 300))
+        m.sum_duplicates()
+        m.sort_indices()
+        kw = dict(split=16, uniform_split=True, window_group_tiles=2) \
+            if fold else {}
+        plan = place(build_sell_plan(
+            from_scipy(m), window_grain=32, value_dtype=vdt,
+            pad_value=REGISTRY[semiring].zero, **kw), cuda)
+        st = plan.stats
+        x = _kind_x(kind, n + 300, rng, cuda, nonneg)
+        tiles = 19 * st.group_tiles
+        args = (plan.vals[:tiles], plan.cols_win[:tiles],
+                plan.window_base[:19], x)
+        kwargs = dict(group_tiles=st.group_tiles,
+                      window_grain=st.window_grain, fold=fold,
+                      semiring=semiring)
+        ref = spmv_sell.sell_window_plain(*args, **kwargs)
+        picked = spmv_sell.kernel_window_shape(args[0], st.group_tiles,
+                                               fold)
+        L = picked.lanes_per_thread
+        tpo = plan.vals.shape[2] // L
+        out_rows = ref.shape[0]
+        assert out_rows % 8
+        entry = _kernels.entry("spmv_sell_window_f32", plan.vals.dtype)
+        for n_cta in (1, 2, 4, 8):
+            if n_cta * tpo % 32 or n_cta * tpo > 256:
+                continue
+            shape = spmv_sell.WindowShape(L, n_cta, n_cta * tpo,
+                                          -(-out_rows // n_cta))
+            before = _kernels.launches[entry]
+            got = spmv_sell.sell_window_kernel(*args, **kwargs, shape=shape)
+            assert _kernels.launches[entry] == before + 1
+            _same(got, ref)
+        wrong = dataclasses.replace(picked, lanes_per_thread=2 * L,
+                                    threads=picked.threads // 2)
+        with pytest.raises(RuntimeError, match="failed to launch"):
+            spmv_sell.sell_window_kernel(*args, **kwargs, shape=wrong)
+    with pytest.raises(ValueError, match="aligned"):
+        spmv_sell.sell_window_kernel(_misaligned(args[0]), *args[1:],
+                                     **kwargs)
 
 
 @pytest.mark.parametrize("kind", sorted(TYPED))

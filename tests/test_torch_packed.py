@@ -40,6 +40,7 @@ from spmv_vector_cache_tpu_torch.formats import packed as ppacked
 from spmv_vector_cache_tpu_torch.formats import plan as pplan
 from spmv_vector_cache_tpu_torch.interop import plan_from_reference
 from spmv_vector_cache_tpu_torch.ops import runs as pruns
+from spmv_vector_cache_tpu_torch.ops import semiring as psr
 from spmv_vector_cache_tpu_torch.ops import spmv_packed as pspmv_packed
 from spmv_vector_cache_tpu_torch.ops import spmv_sell as psell
 from spmv_vector_cache_tpu_torch.ops import strategy as pstrategy
@@ -287,17 +288,42 @@ def test_packed_rows_plain_adds_overflow_after_the_visits():
     assert int((y != 0).sum()) == 4
 
 
-def test_packed_scan_matches_jax():
-    """Pass A alone: the plain scan against the Pallas scan kernel, on
-    the grid the JAX package's ``_spmv_packed`` gives it."""
+#: the value types of the pass-A parity tests: float32 and the narrow
+#: integers whose scan is in the value type
+SCAN_TYPES = {"float32": (np.float32, jnp.float32),
+              "int8": (np.int8, jnp.int8), "uint8": (np.uint8, jnp.uint8),
+              "int16": (np.int16, jnp.int16)}
+
+
+def _typed_case(dtype):
+    """``dense_rows_overflow``'s matrix, with integer values for the
+    integer types (from [-15, 16), [0, 16) or [-255, 256): products and
+    sums that wrap), and an x of the same range."""
     make, cb = CASES["dense_rows_overflow"]
-    ja, _ = both(make())
-    jp = jpacked.build_packed_plan(ja, chunk_blocks=cb)
+    m = make()
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal(m.shape[1]).astype(np.float32)
+    if dtype != np.float32:
+        lo, hi = {np.int8: (-15, 16), np.uint8: (0, 16),
+                  np.int16: (-255, 256)}[dtype]
+        m.data = rng.integers(lo, hi, m.nnz).astype(np.float32)
+        x = rng.integers(lo, hi, m.shape[1]).astype(dtype)
+    return m, x, cb
+
+
+@pytest.mark.parametrize("kind", sorted(SCAN_TYPES))
+def test_packed_scan_matches_jax(kind):
+    """Pass A alone: the plain scan against the Pallas scan kernel, on
+    the grid the JAX package's ``_spmv_packed`` gives it: float32 to the
+    module's tolerance, the 8- and 16-bit integers byte for byte (both
+    scans in the value type: the reference's ``_compute_dtype``)."""
+    dtype, jdt = SCAN_TYPES[kind]
+    m, x, cb = _typed_case(dtype)
+    ja, _ = both(m)
+    jp = jpacked.build_packed_plan(ja, chunk_blocks=cb, value_dtype=dtype)
     st = jp.stats
-    x = np.random.default_rng(8).standard_normal(ja.shape[1]).astype(
-        np.float32)
     nchunks = -(-ja.shape[1] // (cb * 128))
-    x2d = np.zeros(nchunks * cb * 128, np.float32)
+    x2d = np.zeros(nchunks * cb * 128, dtype)
     x2d[:ja.shape[1]] = x
     spec = pltpu.PrefetchScalarGridSpec(
         num_scalar_prefetch=1, grid=(st.num_steps_a,),
@@ -307,16 +333,111 @@ def test_packed_scan_matches_jax():
         out_specs=pl.BlockSpec((st.step_tiles, 8, 128),
                                lambda i, cs: (i, 0, 0)))
     want = pl.pallas_call(
-        jspmv_packed._make_scan_kernel(cb, st.step_tiles, True,
-                                       jnp.float32),
+        jspmv_packed._make_scan_kernel(cb, st.step_tiles, True, jdt),
         grid_spec=spec, interpret=True,
-        out_shape=jax.ShapeDtypeStruct(jp.vals.shape, jnp.float32))(
+        out_shape=jax.ShapeDtypeStruct(jp.vals.shape, jdt))(
         jp.cstep, jp.vals, jp.cols, x2d.reshape(-1, 128))
     p = plan_from_reference(jp, "cpu")
     got = pspmv_packed.packed_scan_kernel(
-        p.vals, p.cols, p.cstep, torch.from_numpy(x), chunk_blocks=cb,
-        step_tiles=st.step_tiles)
-    _assert_close(got.numpy(), want)
+        p.vals, p.cols, p.cstep, psr.as_x(torch.from_numpy(x), p.vals.dtype),
+        chunk_blocks=cb, step_tiles=st.step_tiles)
+    if dtype == np.float32:
+        _assert_close(got.numpy(), want)
+    else:
+        assert got.dtype == p.vals.dtype
+        assert got.numpy().tobytes() == np.asarray(want).tobytes()
+
+
+@pytest.mark.parametrize("kind", ["int8", "uint8", "int16"])
+def test_narrow_spmv_packed_matches_jax_exactly(kind):
+    # the whole apply, E's narrow scan then F: y equal to the JAX
+    # package's (interpret mode), which sums in the value type
+    dtype, _ = SCAN_TYPES[kind]
+    m, x, cb = _typed_case(dtype)
+    ja, pa = both(m)
+    jp = jpacked.build_packed_plan(ja, chunk_blocks=cb, value_dtype=dtype)
+    want = np.asarray(jspmv_packed._spmv_packed(jp.to_device(), x,
+                                                interpret=True))
+    plan = pplan.place(ppacked.build_packed_plan(pa, chunk_blocks=cb,
+                                                 value_dtype=dtype), "cpu")
+    got = psell.spmv_plan(plan, torch.from_numpy(x))
+    assert got.dtype == plan.vals.dtype and want.dtype == dtype
+    assert got.numpy().tobytes() == want.tobytes()
+
+
+@pytest.mark.parametrize("kind", ["int8", "uint8", "int16"])
+def test_packed_rows_plain_reads_a_narrow_scan(kind):
+    # kernel F's plain version on the narrow scan equals it on that scan
+    # widened, and, narrowed once, equals y from the 32-bit scan of the
+    # same values (narrowing commutes with the wrapping sums)
+    dtype, _ = SCAN_TYPES[kind]
+    m, x, cb = _typed_case(dtype)
+    _, pa = both(m)
+    plan = pplan.place(ppacked.build_packed_plan(pa, chunk_blocks=cb,
+                                                 value_dtype=dtype), "cpu")
+    st = plan.stats
+    tables = pruns.extract_on(plan)
+    xk = psr.as_x(torch.from_numpy(x), plan.vals.dtype)
+    kw = dict(chunk_blocks=cb, step_tiles=st.step_tiles)
+    scan = pspmv_packed.packed_scan_plain(plan.vals, plan.cols, plan.cstep,
+                                          xk, **kw)
+    assert scan.dtype == plan.vals.dtype
+    scan32 = pspmv_packed.packed_scan_plain(
+        plan.vals.to(torch.int32), plan.cols, plan.cstep, xk, **kw)
+    assert scan32.dtype == torch.int32
+    assert torch.equal(scan32.to(plan.vals.dtype), scan)
+    rows = dict(rows=plan.shape[0], step_tiles=st.step_tiles)
+    y = pspmv_packed.packed_rows_kernel(scan, plan.sblock, plan.esrc, xk,
+                                        tables, **rows)
+    assert y.dtype == torch.int32
+    assert torch.equal(y, pspmv_packed.packed_rows_plain(
+        psr.widen(scan), plan.sblock, plan.esrc, xk, tables, **rows))
+    wide = dataclasses.replace(tables, ov_vals=tables.ov_vals.to(
+        torch.int32))
+    y32 = pspmv_packed.packed_rows_plain(scan32, plan.sblock, plan.esrc, xk,
+                                         wide, **rows)
+    assert torch.equal(psr.finish_y(y, plan.vals.dtype),
+                       psr.finish_y(y32, plan.vals.dtype))
+    with pytest.raises(ValueError, match="scan"):
+        # a 32-bit scan with the narrow plan's tables: F's narrow build
+        # would read it as 1- or 2-byte slots
+        pspmv_packed.packed_rows_kernel(scan32, plan.sblock, plan.esrc, xk,
+                                        tables, **rows)
+
+
+# kernel E's launch shape: the rows of mac_econ_like's PackedPlan (1,576
+# tiles), of the `deep` draw's (4,344 tiles, the uncut row), of a small
+# plan and of one step
+@pytest.mark.parametrize("rows", [8 * 8, 8 * 264, 12608, 34752, 1 << 20])
+def test_scan_launch_shape(rows):
+    shape = pspmv_packed.scan_launch_shape(rows)
+    sl, threads = shape.slots_per_thread, shape.threads
+    # 8 slots a thread (16 threads a row, two rows a warp), 512 threads
+    assert (sl, threads) == (8, 512)
+    per_cta = threads * sl // 128
+    # every row once: CTA c holds rows [c * 32, (c + 1) * 32)
+    assert shape.ctas == -(-rows // per_cta)
+    assert (shape.ctas - 1) * per_cta < rows
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16, torch.int32, torch.uint32,
+                                   torch.int8, torch.uint8, torch.int16,
+                                   torch.uint16])
+def test_kernel_scan_shape_of_every_build(dtype):
+    # one shape at every value width: mac_econ_like's 1,576 tiles
+    vals = torch.zeros((1576, 8, 128), dtype=dtype)
+    assert pspmv_packed.kernel_scan_shape(vals) == \
+        pspmv_packed.scan_launch_shape(12608) == \
+        pspmv_packed.ScanShape(8, 512, 394)
+
+
+def test_scan_dtype_of_every_value_type():
+    narrow = {torch.int8, torch.uint8, torch.int16, torch.uint16}
+    for dt in (torch.float32, torch.bfloat16, torch.float16, torch.int32,
+               torch.uint32, *narrow):
+        want = dt if dt in narrow else psr.x_dtype(dt)
+        assert pspmv_packed.scan_dtype(dt) == want
 
 
 def test_packed_extract_plain_sums_visits_in_order():

@@ -128,3 +128,41 @@ def test_unported_strategies_raise():
         y = psell.spmv_plan(plan, torch.from_numpy(x),
                             strategy=strategy).numpy()
         np.testing.assert_allclose(y, want, rtol=2e-5, atol=2e-5)
+
+
+# kernel B's launch shape on the main path's window plans, by output
+# rows: the shuffled band (16,384 tiles folded in groups of 2), a shard
+# of sharded_sell (4,096 tiles, per tile), the Hybrid's rest (8,192
+# tiles, per tile), its 2^18-row cut (2,048), the cut band under
+# max_times (8,192 tiles folded) and the cached tier 1 (16,384 tiles
+# folded); then a few output rows
+WINDOW_CASES = {"band": 8192, "shard": 4096, "hybrid": 8192,
+                "hybrid_cut": 2048, "band_cut_max": 4096, "cached": 8192,
+                "few": 19, "one": 1}
+
+
+@pytest.mark.parametrize("case", sorted(WINDOW_CASES))
+def test_window_launch_shape(case):
+    out_rows = WINDOW_CASES[case]
+    shape = psell.window_launch_shape(out_rows, 128)
+    L, n = shape.lanes_per_thread, shape.rows_per_cta
+    # 4 lanes a thread, 4 output rows a CTA of 128 threads (whole warps)
+    assert (L, n, shape.threads) == (4, 4, 128)
+    assert shape.threads == n * 128 // L and shape.threads % 32 == 0
+    # every output row once: CTA c holds rows [cn, (c + 1)n)
+    assert shape.ctas == -(-out_rows // n) and (shape.ctas - 1) * n < out_rows
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16, torch.int32, torch.uint32,
+                                   torch.int8, torch.uint8, torch.int16,
+                                   torch.uint16])
+@pytest.mark.parametrize("fold", [True, False])
+def test_kernel_window_shape_of_every_build(fold, dtype):
+    # one shape at every value width: the shuffled band's slab (16,384
+    # tiles, groups of 2), folded or per tile
+    vals = torch.zeros((16384, 8, 128), dtype=dtype)
+    rows = 8192 if fold else 16384
+    assert psell.kernel_window_shape(vals, 2, fold) == \
+        psell.window_launch_shape(rows, 128) == \
+        psell.WindowShape(4, 4, 128, rows // 4)
