@@ -287,6 +287,8 @@ def device_us_by_kernel(fn, iters=20):
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue                   # host ops: their kernels count below
+        if getattr(ev, "is_user_annotation", False):
+            continue                   # a span's range, not device work
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
             us = ev.self_cuda_time_total

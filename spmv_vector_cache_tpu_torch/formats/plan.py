@@ -772,7 +772,8 @@ def build_sell_plan(a, *, lane_rows: int = 128, positions: int = 8,
 def auto_plan(a, *, value_dtype=np.float32, max_window_blocks: int = 16,
               lane_rows: int = 128, positions: int = 8,
               allow_dia: bool = True, min_diag_fill: float = 0.5,
-              min_dia_coverage: float = 0.3, semiring="plus_times"):
+              min_dia_coverage: float = 0.3, semiring="plus_times",
+              stages: Optional[dict] = None):
     """Heuristic plan selection driven by structure analyses.
 
     Decision features are the TPU ports of the reference's preprocessing
@@ -790,29 +791,52 @@ def auto_plan(a, *, value_dtype=np.float32, max_window_blocks: int = 16,
     3. else, if rows touch few column stripes on average -> stripe the
        columns so the windowed kernel applies;
     4. else leave window-infeasible (the stream strategy handles it).
+
+    Planning runs in two stages, spans of ``utils/stats.py``:
+    ``spmv.plan.detect`` (the CSR check and, for a plus-times plan, the
+    diagonal detection) and ``spmv.plan.build`` (the rest); given a dict
+    ``stages``, each adds its host seconds there under its name.
     """
     from ..ops import semiring as sr
+    from ..utils.stats import span
 
     s = sr.get(semiring)
     check_pad(value_dtype, s.zero)
-    csr = _as_csr(a)
-    if s.requires_nonnegative and csr.nnz:
-        vmin = np.asarray(csr.data).min()
-        if vmin < 0:
-            raise ValueError(
-                f"semiring {s.name!r} is only a semiring on the "
-                f"non-negative domain (its zero={s.zero} must annihilate "
-                f"under mul), but the matrix has a negative value "
-                f"({vmin}); padding slots would out-reduce true negative "
-                f"products.  x must be non-negative too.")
-    # the DIA container encodes absence as 0, which is only the additive
-    # identity of plus-times; other semirings run the SELL path with
-    # padding set to their own zero
-    if allow_dia and csr.nnz and s.name == "plus_times":
-        plan = _try_dia_plan(csr, value_dtype=value_dtype,
+    with span("spmv.plan.detect", stages):
+        csr = _as_csr(a)
+        if s.requires_nonnegative and csr.nnz:
+            vmin = np.asarray(csr.data).min()
+            if vmin < 0:
+                raise ValueError(
+                    f"semiring {s.name!r} is only a semiring on the "
+                    f"non-negative domain (its zero={s.zero} must "
+                    f"annihilate under mul), but the matrix has a negative "
+                    f"value ({vmin}); padding slots would out-reduce true "
+                    f"negative products.  x must be non-negative too.")
+        # the DIA container encodes absence as 0, which is only the
+        # additive identity of plus-times; other semirings run the SELL
+        # path with padding set to their own zero
+        split = None
+        if allow_dia and csr.nnz and s.name == "plus_times":
+            from .dia import split_diagonal
+
+            split = split_diagonal(csr, min_diag_fill=min_diag_fill)
+    with span("spmv.plan.build", stages):
+        return _plan_csr(csr, split, s, value_dtype=value_dtype,
+                         max_window_blocks=max_window_blocks,
+                         lane_rows=lane_rows, positions=positions,
+                         min_dia_coverage=min_dia_coverage)
+
+
+def _plan_csr(csr: CSR, split, s, *, value_dtype, max_window_blocks,
+              lane_rows, positions, min_dia_coverage):
+    """:func:`auto_plan`'s choice for a checked CSR, given its diagonal
+    split (``split_diagonal``'s result, or None where DIA is not
+    tried) and the semiring ``s``."""
+    if split is not None:
+        plan = _try_dia_plan(csr, split, value_dtype=value_dtype,
                              max_window_blocks=max_window_blocks,
                              lane_rows=lane_rows, positions=positions,
-                             min_diag_fill=min_diag_fill,
                              min_dia_coverage=min_dia_coverage)
         if plan is not None:
             from .dia import HybridPlan
@@ -849,14 +873,14 @@ def auto_plan(a, *, value_dtype=np.float32, max_window_blocks: int = 16,
     return plan
 
 
-def _try_dia_plan(csr: CSR, *, value_dtype, max_window_blocks, lane_rows,
-                  positions, min_diag_fill, min_dia_coverage):
+def _try_dia_plan(csr: CSR, split, *, value_dtype, max_window_blocks,
+                  lane_rows, positions, min_dia_coverage):
     """DiaPlan / HybridPlan if the diagonal structure pays for it, else
     None (the reference's feasibility rules, kept so that both packages
-    pick the same plans)."""
-    from .dia import HybridPlan, build_dia_plan, split_diagonal
+    pick the same plans); ``split`` is ``split_diagonal(csr)``."""
+    from .dia import HybridPlan, build_dia_plan
 
-    dia, rest, coverage = split_diagonal(csr, min_diag_fill=min_diag_fill)
+    dia, rest, coverage = split
     if dia is None or coverage < min_dia_coverage:
         return None
     # the shift kernel streams sliding x blocks when x exceeds VMEM, but

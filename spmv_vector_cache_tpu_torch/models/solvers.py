@@ -19,6 +19,12 @@ The reference's loops are ``lax.while_loop`` and ``lax.scan``.  Here:
 The arithmetic is the reference's, operation for operation; its dot
 products reduce in another order, so near the tolerance an iteration
 count may differ by one.
+
+:func:`cg` counts its solves and its host reads in ``utils.stats.counters``
+(``cg.solves``, ``cg.host_syncs``): an early exit at iteration k reads
+k + 1 times, a solve that runs to ``maxiter`` reads ``maxiter`` times.
+While a torch profiler records, the solve is the span ``spmv.cg`` and
+each read ``spmv.cg.read``.
 """
 
 from __future__ import annotations
@@ -26,6 +32,8 @@ from __future__ import annotations
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
+
+from ..utils.stats import counters, spanned
 
 MatVec = Callable[[torch.Tensor], torch.Tensor]
 
@@ -41,10 +49,20 @@ def _atol2(b: torch.Tensor, tol: float) -> torch.Tensor:
     return (tol * torch.linalg.vector_norm(b).clamp(min=1e-30)) ** 2
 
 
+@spanned("spmv.cg.read")
+def _cg_above(r: torch.Tensor, atol2: torch.Tensor) -> bool:
+    """CG's residual test, ``bool(r . r > atol2)``: the host's read of
+    the device (the sync) each iteration, counted as ``cg.host_syncs``."""
+    counters["cg.host_syncs"] += 1
+    return bool(torch.vdot(r, r) > atol2)
+
+
+@spanned("spmv.cg")
 def cg(matvec: MatVec, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
        *, tol: float = 1e-6, maxiter: int = 100,
        M: Optional[MatVec] = None) -> SolveResult:
     """Conjugate gradient for SPD systems, optionally preconditioned."""
+    counters["cg.solves"] += 1
     x = torch.zeros_like(b) if x0 is None else x0
     r = b - matvec(x)
     z = r if M is None else M(r)
@@ -52,7 +70,7 @@ def cg(matvec: MatVec, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
     rz = torch.vdot(r, z)
     atol2 = _atol2(b, tol)
     k = 0
-    while k < maxiter and bool(torch.vdot(r, r) > atol2):
+    while k < maxiter and _cg_above(r, atol2):
         ap = matvec(p)
         alpha = rz / torch.vdot(p, ap)
         x = x + alpha * p

@@ -14,7 +14,9 @@ current stream of the operands' card (:func:`current_stream`, no Python
 ``Stream`` object), raises on a launch error, and counts the launch by
 entry point in :data:`launches`, the port's one launch count: a test or
 the smoke clears it just before the path it checks and reads it just
-after.
+after.  While a torch profiler records, the C call is the span
+``spmv.launch`` (``utils/stats.py``): where the card's launch queue is
+full, that call is where the host waits.
 
 Kernels A, B, D, E, F, G, H, I, M and the chunk light route have one
 build per value type of a plan (:data:`BUILDS`): the ``_f32`` entry
@@ -36,6 +38,8 @@ import tempfile
 from pathlib import Path
 
 import torch
+
+from ..utils.stats import spanned
 
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
@@ -224,6 +228,12 @@ def current_stream(device_index: int) -> int:
 _BOUND: dict = {}
 
 
+@spanned("spmv.launch")
+def _call(fn, args, device_index: int) -> int:
+    """The C call of :func:`launch`, where a full launch queue blocks."""
+    return fn(*args, current_stream(device_index))
+
+
 def launch(name: str, device_index: int, *args) -> None:
     """Call the C entry point ``name`` with ``args`` and the current
     stream of CUDA device ``device_index`` (the operands' card, from
@@ -231,7 +241,7 @@ def launch(name: str, device_index: int, *args) -> None:
     fn = _BOUND.get(name)
     if fn is None:
         fn = _BOUND[name] = getattr(library(), name)
-    err = fn(*args, current_stream(device_index))
+    err = _call(fn, args, device_index)
     if err:             # cudaGetLastError() after the launch, or a refusal
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError_t {err}")

@@ -12,6 +12,12 @@ on a torch device once, and then applies it: ``op @ x``.
 >>> op_cpu = SparseOperator.from_matrix(a, device="cpu")   # plain versions
 >>> op_t = SparseOperator.from_matrix(a, tune=True)  # timed sweeps
 >>> op.audit(stream_bw=roofline.measure_stream_bandwidth())  # roofline
+
+``from_matrix`` records its stages' host seconds in ``op.stats``
+(``detect_seconds``, ``build_seconds``, ``place_seconds`` inside
+``plan_seconds``); while a torch profiler records, they are spans
+(``spmv.plan`` and ``spmv.plan.<stage>``), as is each apply
+(``spmv.apply``, in ``matvec`` and ``matmat``; ``utils/stats.py``).
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ from ..formats.cached import CachedPlan, CooTail
 from ..formats.chunk import ChunkPlan
 from ..formats.dia import HybridPlan
 from ..formats.plan import auto_plan, finish_values, host_values, place
-from ..utils.stats import StatRegistry
+from ..utils.stats import StatRegistry, span, spanned
 from . import reference
 from . import semiring as sr
 from .spmm_sell import NoFusedSpmm, has_fused_spmm, is_double, spmm_plan
@@ -105,22 +111,28 @@ class SparseOperator:
         ``op.stats``, then, with ``strategy="auto"``, the strategy sweep
         on the placed winner (:func:`.strategy.autotune`).
         ``tune_store`` persists winners keyed by structural signature."""
-        t0 = time.perf_counter()
+        stages: dict = {}
         res = None
-        if tune and not plan_kwargs:
-            from .tune import autotune_plan
+        with span("spmv.plan", stages):
+            if tune and not plan_kwargs:
+                from .tune import autotune_plan
 
-            res = autotune_plan(a, value_dtype=value_dtype,
-                                semiring=semiring, store=tune_store,
-                                device=device)
-            placed = res.plan
-        else:
-            plan = auto_plan(a, value_dtype=value_dtype, semiring=semiring,
-                             **plan_kwargs)
-            placed = place(plan, torch.device(device))
-        t_plan = time.perf_counter() - t0
+                res = autotune_plan(a, value_dtype=value_dtype,
+                                    semiring=semiring, store=tune_store,
+                                    device=device)
+                placed = res.plan
+            else:
+                plan = auto_plan(a, value_dtype=value_dtype,
+                                 semiring=semiring, stages=stages,
+                                 **plan_kwargs)
+                with span("spmv.plan.place", stages):
+                    placed = place(plan, torch.device(device))
         op = cls(placed, strategy=strategy, matrix=a, semiring=semiring)
-        op.stats["plan_seconds"] = t_plan
+        op.stats["plan_seconds"] = stages.pop("spmv.plan")
+        # spmv.plan.<stage> -> <stage>_seconds; none after a sweep, which
+        # plans and places many candidates
+        for name, seconds in stages.items():
+            op.stats[name.rsplit(".", 1)[1] + "_seconds"] = seconds
         if res is not None:
             op.stats["tuned"] = int(res.best != "auto")
             for e in res.table:
@@ -157,10 +169,12 @@ class SparseOperator:
                 "which carry gradients to their dense operand")
         return x
 
+    @spanned("spmv.apply")
     def matvec(self, x: Array) -> torch.Tensor:
         return spmv_plan(self.plan, self._as_x(x), strategy=self.strategy,
                          semiring=self.semiring)
 
+    @spanned("spmv.apply")
     def matmat(self, b: Array) -> torch.Tensor:
         """Multi-RHS ``Y = A @ B``, B of shape (cols, k), plus_times only.
 
@@ -205,7 +219,9 @@ class SparseOperator:
                            plan_vals_dtype(self.plan))
 
     def __matmul__(self, x: Array) -> torch.Tensor:
-        x = self._as_x(x)
+        # matvec and matmat place the operand (and open the apply's span)
+        if not isinstance(x, torch.Tensor):
+            x = self._as_x(x)
         if x.dim() == 1:
             return self.matvec(x)
         return self.matmat(x)

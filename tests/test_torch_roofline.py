@@ -85,21 +85,26 @@ def test_roofline_helpers_match_jax():
     assert roofline.sync(np.array([3.0])) == 3.0
 
 
-def test_time_marginal_counts_steps():
-    """A chain whose steps each sleep 2 ms: the marginal is about 2 ms per
-    step, free of the chain's fixed cost."""
-    import time
+def test_time_marginal_counts_steps(monkeypatch):
+    """A chain whose calls each cost 2^-5 s and whose steps each cost 2^-9
+    s, on a fake clock that only the chain moves: the marginal is exactly
+    the step's cost, free of the chain's fixed cost (the times are exact
+    in binary, so no rounding enters)."""
+    import types
+
+    now = [0.0]
+    monkeypatch.setattr(roofline, "time", types.SimpleNamespace(
+        perf_counter=lambda: now[0]))
 
     def make(n):
         def go():
-            time.sleep(0.02)                     # fixed cost per call
+            now[0] += 2.0 ** -5                  # fixed cost per call
             for _ in range(n):
-                time.sleep(0.002)
+                now[0] += 2.0 ** -9
             return torch.zeros(1)
         return go
 
-    dt = roofline.time_marginal(make, i1=2, i2=6, repeats=2)
-    assert 0.0015 < dt < 0.01
+    assert roofline.time_marginal(make, i1=2, i2=6, repeats=2) == 2.0 ** -9
 
 
 @pytest.mark.parametrize("mode", ["read", "readwrite"])
