@@ -1129,6 +1129,76 @@ def test_cg_step_on_the_card_matches_cpu(cuda):
         _close(got.cpu(), want)
 
 
+@pytest.mark.parametrize("tol,maxiter", [(0.0, 12), (1e-8, 400)])
+def test_cg_on_the_card_equals_the_synchronous_loop(cuda, tol, maxiter):
+    # on a float64 DiaPlan (kernel J), to maxiter and to an early exit,
+    # against the synchronous loop that the CPU tests hold it to
+    from spmv_vector_cache_tpu_torch.models import solvers
+    from cg_reference import assert_same, sync_cg
+
+    op, b = _f64_stencil_operator(cuda)
+    before = _kernels.launches["spmv_dia_f64"]
+    want = sync_cg(op.matvec, b, tol=tol, maxiter=maxiter)
+    assert _kernels.launches["spmv_dia_f64"] == before + want[1] + 1
+    assert 10 < want[1] <= maxiter
+    for _ in range(2):          # a fresh ring of slots, then a reused one
+        assert_same(solvers.cg(op.matvec, b, tol=tol, maxiter=maxiter),
+                    want)
+
+
+def _f64_stencil_operator(cuda):
+    from spmv_vector_cache_tpu_torch.formats.dia import DiaPlan
+    from spmv_vector_cache_tpu_torch.ops.operator import SparseOperator
+
+    n = 1 << 16
+    m = sp.diags([-1.0, -1.0, 4.2, -1.0, -1.0], [-256, -1, 0, 1, 256],
+                 shape=(n, n), dtype=np.float64).tocsr()
+    m.sort_indices()
+    op = SparseOperator.from_matrix(from_scipy(m), value_dtype=np.float64,
+                                    device=cuda)
+    assert isinstance(op.plan, DiaPlan)
+    b = torch.from_numpy(np.random.default_rng(21).standard_normal(n)).to(
+        cuda)
+    return op, b
+
+
+def test_cg_queues_the_next_iteration_before_each_overlapped_read(cuda):
+    # host order under the profiler: the copy of r_k . r_k, then the
+    # next iteration's kernel J, then the wait for that copy, for every
+    # read from r_2 on; the reads of r_0 and r_1 wait before J.  r_0's
+    # read is two copies, r_0 . r_0 and atol2, into one slot
+    from torch.profiler import ProfilerActivity, profile
+
+    from spmv_vector_cache_tpu_torch.models import solvers
+
+    op, b = _f64_stencil_operator(cuda)
+    maxiter = 10
+    solvers.cg(op.matvec, b, tol=0.0, maxiter=maxiter)    # warm
+    torch.cuda.synchronize()
+    marks, tries = [], 0
+    while not marks and tries < 3:      # a session now and then records
+        with profile(activities=[ProfilerActivity.CPU,      # nothing
+                                 ProfilerActivity.CUDA]) as prof:
+            solvers.cg(op.matvec, b, tol=0.0, maxiter=maxiter)
+            torch.cuda.synchronize()
+        tries += 1
+        named = {"cudaMemcpyAsync": "copy", "spmv.launch": "J",
+                 "spmv.cg.read": "wait"}
+        marks = [named[e.name] for e in sorted(
+            (e for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CPU
+             and e.name in named), key=lambda e: e.time_range.start)]
+    first = marks.index("copy")
+    assert marks[first + 1] == "copy", marks
+    del marks[first]
+    assert marks.count("copy") == marks.count("wait") == maxiter, marks
+    assert marks.count("J") == maxiter + 1, marks
+    copies = [i for i, m in enumerate(marks) if m == "copy"]
+    waits = [i for i, m in enumerate(marks) if m == "wait"]
+    between = [marks[c:w].count("J") for c, w in zip(copies, waits)]
+    assert between == [0, 0] + [1] * (maxiter - 2), marks
+
+
 # ---------------------------------------------------------------------------
 # the plan-parameter and strategy sweeps on the card
 # ---------------------------------------------------------------------------

@@ -9,8 +9,10 @@
   and leave out the child's profiler range too; a launch is the child
   ``spmv.launch`` of the apply around it.
 * ``cg`` counts one solve and one host read of the residual per
-  iteration, plus the read that ends an early exit; ``bicgstab`` counts
-  nothing and records no span.
+  iteration, plus the read that ends an early exit, and of those reads
+  the ones made with the next iteration queued, and the queued
+  iterations an exit threw away; ``bicgstab`` counts nothing and
+  records no span.
 * ``from_matrix`` times its planner stages into ``op.stats``, and their
   sum stays inside ``plan_seconds``.
 * Every span the port names is ``spmv.<...>``: never the benchmark's
@@ -73,7 +75,9 @@ def test_without_a_profiler_spans_record_nothing_and_counters_count():
     op @ b
     solvers.cg(op.matvec, b, tol=0.0, maxiter=3)
     assert stats.span_totals == {}
-    assert stats.counters == {"cg.solves": 1, "cg.host_syncs": 3}
+    assert stats.counters == {"cg.solves": 1, "cg.host_syncs": 3,
+                              "cg.reads_overlapped": 1,
+                              "cg.spec_discarded": 0}
 
 
 CALLS = {
@@ -215,7 +219,9 @@ def test_cg_to_maxiter_reads_the_host_maxiter_times(maxiter):
     b = torch.ones(256, dtype=torch.float64)
     res = solvers.cg(op.matvec, b, tol=0.0, maxiter=maxiter)
     assert res.iterations == maxiter
-    assert stats.counters == {"cg.solves": 1, "cg.host_syncs": maxiter}
+    assert stats.counters == {"cg.solves": 1, "cg.host_syncs": maxiter,
+                              "cg.reads_overlapped": max(maxiter - 2, 0),
+                              "cg.spec_discarded": 0}
 
 
 def _distinct_eigenvalues(k, n=300):
@@ -231,7 +237,9 @@ def test_an_early_exit_at_iteration_k_reads_the_host_k_plus_1_times(k):
     with torch.profiler.profile(activities=CPU):
         res = solvers.cg(matvec, b, tol=1e-10, maxiter=50)
     assert res.iterations == k
-    assert stats.counters == {"cg.solves": 1, "cg.host_syncs": k + 1}
+    assert stats.counters == {"cg.solves": 1, "cg.host_syncs": k + 1,
+                              "cg.reads_overlapped": k - 1,
+                              "cg.spec_discarded": 1}
     assert stats.span_totals["spmv.cg.read"].count == k + 1
     assert stats.span_totals["spmv.cg.read"].parents == {"spmv.cg": k + 1}
     assert stats.span_totals["spmv.cg"].count == 1
