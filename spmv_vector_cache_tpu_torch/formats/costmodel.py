@@ -1,6 +1,7 @@
 """Plan cost model (counterpart of
 ``spmv_vector_cache_tpu/formats/costmodel.py``; Sell, Dia, Hybrid,
-Cached, CooTail, Chunk and Packed plans).
+Cached, CooTail, Chunk and Packed plans, and SELL and Chunk plans priced
+from their statistics alone, ``plan.SellPrice`` and ``chunk.ChunkPrice``).
 
 A closed-form per-apply time estimate per plan family, which the planner
 uses to veto mis-selections.  The constants are the reference's, measured
@@ -34,12 +35,20 @@ _NS_COO_FLOOR = 3000.0
 _BYTES_PER_NS = 700.0
 #: packed pass-B extraction cost per visit
 _NS_PER_PACKED_VISIT = 2600.0
+#: chunk plans: ns per window tile (+ per window block K), per subwin
+#: tile (+ per window block W), per tile of the sorted partials fold,
+#: and the fixed lane-perm/heavy epilogue
+_NS_CHUNK_TILE = 15.0
+_NS_CHUNK_TILE_PER_K = 5.2
+_NS_SUBWIN_TILE_PER_W = 26.0
+_NS_CHUNK_FOLD_TILE = 9.4
+_NS_CHUNK_EPILOGUE = 20e3
 
 
 def estimate_seconds(plan: Any) -> float:
     """The reference's predicted seconds per apply (a v5e estimate)."""
     name = type(plan).__name__
-    if name == "SellPlan":
+    if name in ("SellPlan", "SellPrice"):
         return _sell_seconds(plan)
     if name == "DiaPlan":
         return _dia_seconds(plan)
@@ -55,7 +64,7 @@ def estimate_seconds(plan: Any) -> float:
         return (_NS_COO_FLOOR + _NS_PER_COO_NNZ * plan.nnz) * 1e-9
     if name == "PackedPlan":
         return _packed_seconds(plan)
-    if name == "ChunkPlan":
+    if name in ("ChunkPlan", "ChunkPrice"):
         return _chunk_seconds(plan)
     raise ValueError(f"no cost model for plan type {name}")
 
@@ -77,7 +86,8 @@ def _sell_seconds(plan) -> float:
     if plan.identity_map or st.uniform_parts or st.group_slice_identity:
         t += 10e3
     else:
-        slots_y = plan.row_map.shape[0]
+        slots_y = plan.slots_y if hasattr(plan, "slots_y") else \
+            plan.row_map.shape[0]
         t += _NS_SEGSUM_FLOOR + _NS_PER_SEGSUM_SLOT * slots_y
     if st.double:
         t *= 2.5
@@ -103,13 +113,15 @@ def _chunk_seconds(plan) -> float:
     ttot = 0
     for b in plan.buckets:
         st = b.stats
-        t += _NS_LAUNCH + st.num_tiles * (15.0 + 5.2 * st.window_blocks)
+        t += _NS_LAUNCH + st.num_tiles * (
+            _NS_CHUNK_TILE + _NS_CHUNK_TILE_PER_K * st.window_blocks)
         ttot += st.num_tiles
     for h in plan.hbuckets:
         W = h.window_blocks
-        t += _NS_LAUNCH + h.num_tiles * (15.0 + 26.0 * W)
+        t += _NS_LAUNCH + h.num_tiles * (
+            _NS_CHUNK_TILE + _NS_SUBWIN_TILE_PER_W * W)
         ttot += h.num_tiles
-    t += ttot * 9.4 + 20e3
+    t += ttot * _NS_CHUNK_FOLD_TILE + _NS_CHUNK_EPILOGUE
     if plan.residue is not None:
         t += estimate_seconds(plan.residue) * 1e9
     return t * 1e-9

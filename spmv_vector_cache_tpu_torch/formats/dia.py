@@ -48,12 +48,16 @@ class DIA:
         return int((np.asarray(self.data) != 0).sum())
 
 
-def _csr_fields(a: CSR):
+def _csr_fields(a: CSR, narrow: bool = False):
+    """(rows, cols, row of each entry, column of each entry, data); the
+    row and column ids int64, or int32 where ``narrow`` and the shape
+    lets every difference of the two fit."""
     indptr = np.asarray(a.indptr, dtype=np.int64)
-    indices = np.asarray(a.indices, dtype=np.int64) & 0x3FFFFFFF
     data = np.asarray(a.data)
     rows, cols = a.shape
-    nz_row = np.repeat(np.arange(rows, dtype=np.int64), np.diff(indptr))
+    ids = np.int32 if narrow and max(rows, cols) < 1 << 30 else np.int64
+    indices = np.asarray(a.indices).astype(ids) & 0x3FFFFFFF
+    nz_row = np.repeat(np.arange(rows, dtype=ids), np.diff(indptr))
     return rows, cols, nz_row, indices, data
 
 
@@ -112,6 +116,17 @@ def from_scipy_dia(m) -> DIA:
     return DIA(data=vd, offsets=offsets, shape=m.shape)
 
 
+def _offset_counts(d: np.ndarray, rows: int, cols: int):
+    """``np.unique(d, return_counts=True)`` of the diagonal offsets ``d``
+    (each in ``(-rows, cols)``): a count over every offset where that
+    range is no wider than a few times the entries, else the sort."""
+    if rows + cols > 4 * d.shape[0] + (1 << 16):
+        return np.unique(d.astype(np.int64, copy=False), return_counts=True)
+    counts = np.bincount(d + (rows - 1), minlength=rows + cols - 1)
+    offsets = np.flatnonzero(counts)
+    return offsets - (rows - 1), counts[offsets]
+
+
 def split_diagonal(a: CSR, *, min_diag_fill: float = 0.5,
                    max_diags: int = 96
                    ) -> Tuple[Optional[DIA], Optional[CSR], float]:
@@ -122,11 +137,11 @@ def split_diagonal(a: CSR, *, min_diag_fill: float = 0.5,
     ``max_diags`` densest.  Returns (None, a, 0.0) when nothing qualifies
     and (dia, None, 1.0) when everything does.
     """
-    rows, cols, nz_row, indices, data = _csr_fields(a)
+    rows, cols, nz_row, indices, data = _csr_fields(a, narrow=True)
     if data.size == 0:
         return None, a, 0.0
     d = indices - nz_row
-    offsets, counts = np.unique(d, return_counts=True)
+    offsets, counts = _offset_counts(d, rows, cols)
     diag_len = np.minimum(rows, cols - offsets)
     diag_len = np.minimum(diag_len, rows + offsets)
     keep = counts >= np.maximum(1.0, min_diag_fill * diag_len)

@@ -97,6 +97,18 @@ class PackedPlan:
     stats: PackedStats
 
 
+#: entries a block of the pass-A sort (its keys, sources and gathers
+#: held in cache)
+_SORT_BLOCK = 1 << 21
+
+
+def _key_dtype(n: int):
+    """The narrowest unsigned type that holds keys below ``n``: numpy's
+    stable sort of a 1- or 2-byte key is a radix sort."""
+    return np.uint8 if n <= 1 << 8 else np.uint16 if n <= 1 << 16 \
+        else np.int64
+
+
 def build_packed_plan(a, *, chunk_blocks: int = PACKED_CHUNK_BLOCKS,
                       step_tiles: int = PACKED_STEP_TILES,
                       value_dtype=np.float32) -> PackedPlan:
@@ -118,7 +130,7 @@ def build_packed_plan(a, *, chunk_blocks: int = PACKED_CHUNK_BLOCKS,
     sps = step_tiles * 8 * 128              # slots per step / S block
     nwin = max(1, _cdiv(rows, RW))
 
-    indices = np.asarray(csr.indices, dtype=np.int64) & 0x3FFFFFFF
+    indices = np.asarray(csr.indices) & 0x3FFFFFFF
     data = np.asarray(csr.data)
     indptr = np.asarray(csr.indptr, dtype=np.int64)
     nnz = int(indices.shape[0])
@@ -143,29 +155,54 @@ def build_packed_plan(a, *, chunk_blocks: int = PACKED_CHUNK_BLOCKS,
 
     # ---- pass-A layout: (chunk, row, col) order, chunks step-padded ----
     lens = np.diff(indptr)
-    nz_row = np.repeat(np.arange(rows, dtype=np.int64), lens)
     c_of = indices // C
-    order = np.argsort(c_of, kind="stable")   # (chunk, row, col)
-    rows_o = nz_row[order]
-    cols_o = (indices[order] % C).astype(np.int16)
-    vals_o = host_values(data[order], value_dtype)
-    chunks_o = c_of[order]
+    nchunks = int(c_of.max()) + 1
+    counts = np.bincount(c_of, minlength=nchunks)
+    starts = np.concatenate(([0], np.cumsum(counts)))
+    # (chunk, row, col): a stable sort by chunk, made a block of rows at
+    # a time (each block's sort and gathers stay in cache) and laid out
+    # block after block within each chunk
+    rows_o = np.empty(nnz, np.int32)
+    cols_o = np.empty(nnz, np.int16)
+    vals_o = np.empty(nnz, data.dtype)
+    key = _key_dtype(nchunks)
+    at = starts[:-1].copy()
+    bounds = np.unique(np.concatenate((
+        [0], np.searchsorted(indptr, np.arange(0, nnz, _SORT_BLOCK),
+                             side="right") - 1, [rows])))
+    for r0, r1 in zip(bounds[:-1], bounds[1:]):
+        e0, e1 = int(indptr[r0]), int(indptr[r1])
+        if e0 == e1:
+            continue
+        order = np.argsort(c_of[e0:e1].astype(key), kind="stable")
+        n_c = np.bincount(c_of[e0:e1], minlength=nchunks)
+        dest = np.repeat(at - (np.cumsum(n_c) - n_c), n_c) + \
+            np.arange(e1 - e0, dtype=np.int64)
+        rows_o[dest] = np.repeat(np.arange(r0, r1, dtype=np.int32),
+                                 lens[r0:r1])[order]
+        cols_o[dest] = (indices[e0:e1][order] % C).astype(np.int16)
+        vals_o[dest] = data[e0:e1][order]
+        at += n_c
+    del c_of
+    vals_o = host_values(vals_o, value_dtype)
+    chunks_o = np.repeat(np.arange(nchunks, dtype=np.int64), counts)
 
-    nchunks = int(chunks_o[-1]) + 1
-    counts = np.bincount(chunks_o, minlength=nchunks)
     padded = _cdiv(counts, sps) * sps
     offs = np.concatenate(([0], np.cumsum(padded)))
-    starts = np.concatenate(([0], np.cumsum(counts)))
-    slot = offs[chunks_o] + (np.arange(nnz, dtype=np.int64)
-                             - starts[chunks_o])
     total_slots = int(offs[-1])
+    sdt = np.int32 if total_slots < 1 << 31 else np.int64
+    slot = np.arange(nnz, dtype=sdt) + \
+        np.repeat((offs[:-1] - starts[:-1]).astype(sdt), counts)
     T = total_slots // 1024
     steps_a = total_slots // sps
 
+    # each chunk's entries in order from its step-padded start
     vals = np.zeros(total_slots, vdt)
-    vals[slot] = vals_o
     cols16 = np.zeros(total_slots, np.int16)
-    cols16[slot] = cols_o
+    for c in np.flatnonzero(counts):
+        at, n = int(offs[c]), int(counts[c])
+        vals[at:at + n] = vals_o[starts[c]:starts[c] + n]
+        cols16[at:at + n] = cols_o[starts[c]:starts[c] + n]
     steps_per_chunk = (padded // sps).astype(np.int64)
     cstep = np.repeat(np.arange(nchunks, dtype=np.int32), steps_per_chunk)
 
@@ -192,22 +229,26 @@ def build_packed_plan(a, *, chunk_blocks: int = PACKED_CHUNK_BLOCKS,
 
     pe = ends[p_primary]                      # ascending within chunk
     pr = rows_o[is_end][p_primary]
-    pw = pr // RW
+    pw = (pr // RW).astype(np.int64)
     pc = chunks_o[is_end][p_primary]
-    pblock = pe // sps
     npieces = int(pe.shape[0])
 
     # ---- pass-B visit list: (window, chunk, S block), window-major ----
     # pieces of one (w, c) cell are contiguous; their S blocks form a
     # consecutive run.  Dedup (w, c-ordinal, block) triples into visits.
-    vkey = (pw * nchunks + pc) * steps_a + pblock   # nondecreasing? no:
-    # pw varies within a chunk, so sort pieces by (w, c, block) first
-    vorder = np.argsort(vkey, kind="stable")
-    vk_sorted = vkey[vorder]
+    # The pieces come in (c, row) order, so each cell is one run of them:
+    # the runs taken window-major give the (w, c, block) order
+    cell = pc * nwin + pw
+    c0 = np.flatnonzero(np.concatenate(([True], cell[1:] != cell[:-1])))
+    c_len = np.diff(np.append(c0, npieces))
+    corder = np.argsort(cell[c0] % nwin * nchunks + cell[c0] // nwin)
+    c0, c_len = c0[corder], c_len[corder]
+    vorder = np.repeat(c0 - np.cumsum(c_len) + c_len, c_len) + \
+        np.arange(npieces, dtype=np.int64)
+    pe, pr, pw, pc = pe[vorder], pr[vorder], pw[vorder], pc[vorder]
+    vk_sorted = (pw * nchunks + pc) * steps_a + pe // sps
     first = np.ones(npieces, dtype=bool)
     first[1:] = vk_sorted[1:] != vk_sorted[:-1]
-    visit_of_piece = np.empty(npieces, np.int64)
-    visit_of_piece[vorder] = np.cumsum(first) - 1
     steps_b = int(first.sum())
     sblock = (vk_sorted[first] % steps_a).astype(np.int32)
     wstep = (vk_sorted[first] // (steps_a * nchunks)).astype(np.int32)
@@ -215,12 +256,11 @@ def build_packed_plan(a, *, chunk_blocks: int = PACKED_CHUNK_BLOCKS,
     wfirst[1:] = (wstep[1:] != wstep[:-1]).astype(np.int32)
 
     esrc = np.full((steps_b, 64, 128), -1, np.int16)
-    vstep = visit_of_piece
-    r_local = pr % RW
-    o = r_local // 128
-    j = r_local % 128
-    esrc[vstep, o, j] = (pe - sblock[vstep].astype(np.int64) * sps
-                         ).astype(np.int16)
+    # (visit, o, j) of row window*8192 + o*128 + j, as one flat index,
+    # written visit by visit
+    vstep = np.cumsum(first) - 1
+    esrc.reshape(-1)[vstep * RW + pr % RW] = \
+        (pe - sblock[vstep].astype(np.int64) * sps).astype(np.int16)
 
     wmask = np.zeros(nwin, vdt)
     wmask[np.unique(wstep)] = 1

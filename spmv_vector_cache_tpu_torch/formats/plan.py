@@ -43,7 +43,10 @@ the layout — the TPU port of the reference's ``maxColSpan`` analysis
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
+import time
 from typing import Any, Optional, Tuple
 
 import numpy as np
@@ -342,8 +345,11 @@ def _ensure_sorted(a: CSR) -> CSR:
     if indices.size < 2:
         return a
     indptr = np.asarray(a.indptr, dtype=np.int64)
-    decreasing = np.flatnonzero(np.diff(indices.astype(np.int64)) < 0) + 1
-    if decreasing.size == 0 or np.all(np.isin(decreasing, indptr)):
+    # a column may fall only where a row starts
+    falls = indices[1:] < indices[:-1]
+    starts = indptr[1:-1]
+    falls[starts[(starts > 0) & (starts < indices.size)] - 1] = False
+    if not falls.any():
         return a
     rows = np.repeat(np.arange(a.shape[0], dtype=np.int64),
                      np.diff(indptr))
@@ -414,46 +420,10 @@ def compute_window_rows(window_base: np.ndarray, window_blocks: int,
     return np.clip(wr, 0, f * nb - 1).astype(np.int32).reshape(-1)
 
 
-def build_sell_plan(a, *, lane_rows: int = 128, positions: int = 8,
-                    sigma: Optional[int] = None,
-                    split: Optional[int] = None,
-                    stripe_width: Optional[int] = None,
-                    max_window_blocks: int = 16,
-                    groups_per_step: Optional[int] = None,
-                    value_dtype=np.float32,
-                    pad_value: float = 0.0,
-                    window_group_tiles: Optional[int] = None,
-                    uniform_split: bool = False,
-                    window_grain: Optional[int] = None) -> SellPlan:
-    """Build a SELL tile plan from any container (host-side, numpy).
-
-    ``split``: max nonzeros per sub-row (None = no splitting).
-    ``sigma``: window (in sub-rows) for descending length sort.
-    ``stripe_width``: split rows at column boundaries of this width so the
-    windowed kernel applies to locality-poor matrices (None = off).
-    ``max_window_blocks``: cap on K; if a layout needs more, the plan is
-    marked window-infeasible (``stats.window_blocks == 0``).
-    ``groups_per_step``: override the kernel grid-step width (in 8-tile
-    window groups) — the per-step DMA burst size knob, the analog of the
-    reference's per-channel burst-beat configuration
-    (``spmv-common.scala:26-29``); None = heuristic.
-    ``pad_value``: value of padding slots — the additive identity of the
-    semiring the plan will run under (0 for plus-times, +inf for
-    min-plus, ...), so padding contributes nothing to any reduction.
-    ``window_group_tiles``: tiles sharing one x-window base (must divide
-    TILES_PER_STEP); smaller groups shrink the per-window column span.
-    ``window_grain``: lane granularity of window bases (None = pick the
-    coarsest of 128/64/32 that minimizes K).
-    ``uniform_split``: with ``split``, give EVERY row exactly
-    ``ceil(max_len/split)`` sub-rows (empty ones padded) and pad every
-    slice to the same tile count — a 128-lane slice then covers a fixed
-    block of ``128/parts`` rows (shrinking the window span) and the y
-    fixup collapses to one reshape+reduce (``stats.uniform_parts``); with
-    ``window_group_tiles == ceil(split/positions)`` each window group is
-    exactly one slice and the kernel folds it to a single output row
-    (``stats.group_slice_identity``).
-    """
-    csr = _as_csr(a)
+def _check_sell_args(value_dtype, pad_value, positions, window_group_tiles,
+                     split, stripe_width, uniform_split) -> Tuple[int, bool]:
+    """(window group tiles, double) of a SELL plan's arguments, or the
+    ``ValueError`` that :func:`build_sell_plan` raises for them."""
     wg = window_group_tiles if window_group_tiles is not None \
         else WINDOW_GROUP_TILES
     if TILES_PER_STEP % wg:
@@ -461,8 +431,7 @@ def build_sell_plan(a, *, lane_rows: int = 128, positions: int = 8,
                          f"TILES_PER_STEP ({TILES_PER_STEP})")
     if uniform_split and (split is None or stripe_width is not None):
         raise ValueError("uniform_split requires split= and no striping")
-    kind = value_kind(value_dtype)
-    double = kind == "f64"
+    double = value_kind(value_dtype) == "f64"
     check_pad(value_dtype, pad_value)
     if double and pad_value != 0.0:
         raise ValueError("double-float plans support plus_times only "
@@ -472,24 +441,70 @@ def build_sell_plan(a, *, lane_rows: int = 128, positions: int = 8,
             f"double-float plans need a power-of-two positions (got "
             f"{positions}): the reference's compensated pairwise reduction "
             f"halves the sublane axis")
-    rows, cols_n = csr.shape
+    return wg, double
+
+
+@dataclasses.dataclass(frozen=True)
+class _SellRows:
+    """A SELL plan's sub-rows in lane order and its tiles
+    (:func:`_sell_rows`): what :func:`build_sell_plan` fills with values
+    and :func:`sell_plan_stats` prices."""
+
+    o_start: np.ndarray        # each sub-row, in plan order: first entry,
+    o_len: np.ndarray          # length
+    o_row: np.ndarray          # and source row
+    slot_src: np.ndarray       # the sub-row of each lane slot, -1 if pad
+    slot_valid: np.ndarray     # (num_slices * R,) slots holding a sub-row
+    ntiles: np.ndarray         # tiles of each slice, stripes padded to B
+    tile_base: np.ndarray      # first tile of each slice, then the total
+    num_subrows: int
+    num_splits: int
+    num_stripes: int
+    uniform_parts: int
+    sorted_applied: bool
+
+    @property
+    def num_slices(self) -> int:
+        return int(self.ntiles.shape[0])
+
+    @property
+    def num_tiles(self) -> int:
+        return int(self.tile_base[-1])
+
+    @property
+    def identity_map(self) -> bool:
+        return not self.sorted_applied and self.num_splits == 0 and \
+            self.num_stripes == 1
+
+    def tile_slice(self, T: int) -> np.ndarray:
+        """Each of ``T`` tiles' slice, the grid step's pad tiles in the
+        last slice."""
+        ts = np.repeat(np.arange(self.num_slices, dtype=np.int32),
+                       self.ntiles)
+        return np.concatenate(
+            [ts, np.full(T - ts.shape[0], self.num_slices - 1, np.int32)])
+
+
+def _sell_rows(csr: CSR, R: int, P: int, sigma, split, stripe_width,
+               uniform_split: bool) -> _SellRows:
+    """Steps 1-3 of :func:`build_sell_plan`: the rows cut into (row
+    [, stripe]) [, split] sub-rows, ordered stripe-major and then by the
+    sigma length sort, laid into slices of ``R`` lanes, and each slice's
+    tile count."""
+    rows = csr.shape[0]
     indptr = np.asarray(csr.indptr, dtype=np.int64)
-    indices = (np.asarray(csr.indices, dtype=np.int64) & 0x3FFFFFFF)
-    data = host_values(csr.data, value_dtype)
     nnz = int(indptr[-1])
-    R, P, B = lane_rows, positions, TILES_PER_STEP
+    B = TILES_PER_STEP
 
     # --- 1. sub-row pieces: (row [, stripe]) [, split] ---------------------
-    nz_row = np.repeat(np.arange(rows, dtype=np.int64),
-                       np.diff(indptr)) if nnz else np.zeros(0, np.int64)
     if stripe_width is not None and nnz:
+        indices = np.asarray(csr.indices, dtype=np.int64) & 0x3FFFFFFF
+        nz_row = np.repeat(np.arange(rows, dtype=np.int64), np.diff(indptr))
         nz_stripe = indices // stripe_width
         # piece boundary where row or stripe changes (cols sorted per row)
         key_change = np.ones(nnz, dtype=bool)
         key_change[1:] = (nz_row[1:] != nz_row[:-1]) | \
                          (nz_stripe[1:] != nz_stripe[:-1])
-        piece_id = np.cumsum(key_change) - 1
-        num_pieces = int(piece_id[-1]) + 1
         piece_start = np.flatnonzero(key_change).astype(np.int64)
         piece_len = np.diff(np.concatenate([piece_start, [nnz]]))
         piece_row = nz_row[piece_start]
@@ -646,36 +661,17 @@ def build_sell_plan(a, *, lane_rows: int = 128, positions: int = 8,
         if pad:
             ntiles_padded[-1] += pad
     tile_base = np.concatenate(([0], np.cumsum(ntiles_padded)))
-    T = int(tile_base[-1])
+    return _SellRows(o_start=o_start, o_len=o_len, o_row=o_row,
+                     slot_src=slot_src, slot_valid=slot_valid,
+                     ntiles=ntiles_padded, tile_base=tile_base,
+                     num_subrows=num_subrows, num_splits=num_splits,
+                     num_stripes=num_stripes, uniform_parts=uniform_parts,
+                     sorted_applied=sorted_applied)
 
-    vals = np.full((T, P, R), pad_value, dtype=_BUILD[kind])
-    cols = np.zeros((T, P, R), dtype=np.int32)
-    live = np.zeros((T, P, R), dtype=bool)
-    if nnz:
-        vsrc = slot_src[slot_src >= 0]
-        k_slot = np.flatnonzero(slot_valid)          # slot index per subrow
-        lens = o_len[vsrc]
-        k = np.repeat(k_slot, lens)
-        q = np.arange(k.shape[0], dtype=np.int64) - \
-            np.repeat(np.cumsum(lens) - lens, lens)
-        src = np.repeat(o_start[vsrc], lens) + q
-        s = k // R
-        j = k % R
-        t = tile_base[s] + q // P
-        p = q % P
-        vals[t, p, j] = data[src]
-        cols[t, p, j] = indices[src].astype(np.int32)
-        live[t, p, j] = True
 
-    tile_slice = np.repeat(np.arange(num_slices, dtype=np.int32),
-                           ntiles_padded)
-
-    # --- 4. per-group window base + feasibility ------------------------------
-    WG = wg
-    flat_cols = cols.reshape(T // WG, -1)
-    flat_valid = live.reshape(T // WG, -1)
-    cmin = np.where(flat_valid, flat_cols, np.iinfo(np.int32).max).min(axis=1)
-    cmax = np.where(flat_valid, flat_cols, -1).max(axis=1)
+def _window_bases(cmin, cmax, T: int, window_grain, max_window_blocks: int):
+    """(K, grain, each window group's base) from the groups' smallest and
+    largest stored column (``cmax`` -1 for a group of padding)."""
     any_valid = cmax >= 0
     # evaluate window-base granularities finest-first and keep the
     # COARSEST grain achieving the minimal K: a span of 90 straddling a
@@ -698,57 +694,152 @@ def build_sell_plan(a, *, lane_rows: int = 128, positions: int = 8,
         window_blocks = 0                  # windowed kernel infeasible
         grain = 128
         wb = np.where(any_valid, cmin, 0) // 128
+    return window_blocks, grain, wb
+
+
+def _groups_per_step(window_blocks: int, groups_per_step, wg: int) -> int:
+    """Window groups of 8 tiles in one kernel grid step."""
+    if groups_per_step is not None:
+        # round up to a multiple of the window-group size: the kernels'
+        # in-place slice fold needs NG = 8*groups/wg divisible by 8
+        # (i.e. groups % wg == 0) — a non-multiple would silently demote
+        # to per-tile output
+        return _cdiv(max(1, groups_per_step), wg) * wg
+    return 64 if window_blocks else 8
+
+
+def _sell_stats(sr: _SellRows, nnz: int, T: int, P: int, R: int,
+                tile_slice, wg: int, window_blocks: int,
+                max_window_base: int, groups: int, pad_value: float,
+                double: bool, grain: int) -> PlanStats:
+    """The :class:`PlanStats` of a SELL plan of ``T`` tiles, the grid
+    step's padding included."""
+    # fold structure: may the kernel reduce whole wg-groups to one row?
+    ts_g = tile_slice.reshape(-1, wg)
+    group_fold = bool(T) and bool((ts_g == ts_g[:, :1]).all())
+    group_slice_identity = group_fold and sr.num_stripes == 1 and \
+        bool(np.all(sr.ntiles == wg))
+    return PlanStats(
+        nnz=nnz, num_tiles=T, num_slices=sr.num_slices,
+        num_subrows=sr.num_subrows, num_splits=sr.num_splits,
+        num_stripes=sr.num_stripes,
+        padded_slots=T * P * R - nnz,
+        fill=float(nnz) / float(T * P * R) if T else 0.0,
+        window_blocks=window_blocks, max_window_base=max_window_base,
+        groups_per_step=groups, pad_value=float(pad_value),
+        group_tiles=wg, uniform_parts=sr.uniform_parts,
+        group_fold=group_fold, group_slice_identity=group_slice_identity,
+        double=double, window_grain=grain)
+
+
+def build_sell_plan(a, *, lane_rows: int = 128, positions: int = 8,
+                    sigma: Optional[int] = None,
+                    split: Optional[int] = None,
+                    stripe_width: Optional[int] = None,
+                    max_window_blocks: int = 16,
+                    groups_per_step: Optional[int] = None,
+                    value_dtype=np.float32,
+                    pad_value: float = 0.0,
+                    window_group_tiles: Optional[int] = None,
+                    uniform_split: bool = False,
+                    window_grain: Optional[int] = None) -> SellPlan:
+    """Build a SELL tile plan from any container (host-side, numpy).
+
+    ``split``: max nonzeros per sub-row (None = no splitting).
+    ``sigma``: window (in sub-rows) for descending length sort.
+    ``stripe_width``: split rows at column boundaries of this width so the
+    windowed kernel applies to locality-poor matrices (None = off).
+    ``max_window_blocks``: cap on K; if a layout needs more, the plan is
+    marked window-infeasible (``stats.window_blocks == 0``).
+    ``groups_per_step``: override the kernel grid-step width (in 8-tile
+    window groups) — the per-step DMA burst size knob, the analog of the
+    reference's per-channel burst-beat configuration
+    (``spmv-common.scala:26-29``); None = heuristic.
+    ``pad_value``: value of padding slots — the additive identity of the
+    semiring the plan will run under (0 for plus-times, +inf for
+    min-plus, ...), so padding contributes nothing to any reduction.
+    ``window_group_tiles``: tiles sharing one x-window base (must divide
+    TILES_PER_STEP); smaller groups shrink the per-window column span.
+    ``window_grain``: lane granularity of window bases (None = pick the
+    coarsest of 128/64/32 that minimizes K).
+    ``uniform_split``: with ``split``, give EVERY row exactly
+    ``ceil(max_len/split)`` sub-rows (empty ones padded) and pad every
+    slice to the same tile count — a 128-lane slice then covers a fixed
+    block of ``128/parts`` rows (shrinking the window span) and the y
+    fixup collapses to one reshape+reduce (``stats.uniform_parts``); with
+    ``window_group_tiles == ceil(split/positions)`` each window group is
+    exactly one slice and the kernel folds it to a single output row
+    (``stats.group_slice_identity``).
+    """
+    csr = _as_csr(a)
+    wg, double = _check_sell_args(value_dtype, pad_value, positions,
+                                  window_group_tiles, split, stripe_width,
+                                  uniform_split)
+    kind = value_kind(value_dtype)
+    rows, cols_n = csr.shape
+    indptr = np.asarray(csr.indptr, dtype=np.int64)
+    indices = (np.asarray(csr.indices, dtype=np.int64) & 0x3FFFFFFF)
+    data = host_values(csr.data, value_dtype)
+    nnz = int(indptr[-1])
+    R, P = lane_rows, positions
+
+    # --- 1-3. sub-rows, their order, slices and tiles -----------------------
+    sr = _sell_rows(csr, R, P, sigma, split, stripe_width, uniform_split)
+    T = sr.num_tiles
+    num_slices = sr.num_slices
+    vals = np.full((T, P, R), pad_value, dtype=_BUILD[kind])
+    cols = np.zeros((T, P, R), dtype=np.int32)
+    live = np.zeros((T, P, R), dtype=bool)
+    if nnz:
+        vsrc = sr.slot_src[sr.slot_src >= 0]
+        k_slot = np.flatnonzero(sr.slot_valid)       # slot index per subrow
+        lens = sr.o_len[vsrc]
+        k = np.repeat(k_slot, lens)
+        q = np.arange(k.shape[0], dtype=np.int64) - \
+            np.repeat(np.cumsum(lens) - lens, lens)
+        src = np.repeat(sr.o_start[vsrc], lens) + q
+        s = k // R
+        j = k % R
+        t = sr.tile_base[s] + q // P
+        p = q % P
+        vals[t, p, j] = data[src]
+        cols[t, p, j] = indices[src].astype(np.int32)
+        live[t, p, j] = True
+
+    # --- 4. per-group window base + feasibility ------------------------------
+    flat_cols = cols.reshape(T // wg, -1)
+    flat_valid = live.reshape(T // wg, -1)
+    cmin = np.where(flat_valid, flat_cols, np.iinfo(np.int32).max).min(axis=1)
+    cmax = np.where(flat_valid, flat_cols, -1).max(axis=1)
+    window_blocks, grain, wb = _window_bases(cmin, cmax, T, window_grain,
+                                             max_window_blocks)
     max_window_base = int(wb.max()) if T else 0
 
     # fuse G groups of 8 tiles per kernel grid step: the reference
     # amortizes its fixed per-step pipeline cost against the
     # double-buffered VMEM budget (the grid step sets the padding of T and
     # the fold rule NG % 8 == 0, so the port keeps it)
-    if groups_per_step is not None:
-        # round up to a multiple of the window-group size: the kernels'
-        # in-place slice fold needs NG = 8*groups/wg divisible by 8
-        # (i.e. groups % wg == 0) — a non-multiple would silently demote
-        # to per-tile output
-        groups = _cdiv(max(1, groups_per_step), wg) * wg
-    else:
-        groups = 64 if window_blocks else 8
-    step = B * groups
+    groups = _groups_per_step(window_blocks, groups_per_step, wg)
+    step = TILES_PER_STEP * groups
     if T % step:
         pad = step - T % step
         vals = np.concatenate([vals,
                                np.full((pad, P, R), pad_value, vals.dtype)])
         cols = np.concatenate([cols, np.zeros((pad, P, R), cols.dtype)])
         live = np.concatenate([live, np.zeros((pad, P, R), bool)])
-        tile_slice = np.concatenate(
-            [tile_slice, np.full(pad, num_slices - 1, np.int32)])
-        wb = np.concatenate([wb, np.zeros(pad // WG, wb.dtype)])
+        wb = np.concatenate([wb, np.zeros(pad // wg, wb.dtype)])
         T = T + pad
+    tile_slice = sr.tile_slice(T)
 
     # --- 5. fixup map --------------------------------------------------------
-    row_map = np.full(padded_slots_rows, rows, dtype=np.int32)
-    vmask = slot_valid[:num_slots]
-    row_map[:num_slots][vmask] = o_row[slot_src[:num_slots][vmask]].astype(
-        np.int32)
-    identity_map = (not sorted_applied) and num_splits == 0 and \
-        num_stripes == 1
-
-    # fold structure: may the kernel reduce whole wg-groups to one row?
-    ts_g = tile_slice.reshape(-1, wg)
-    group_fold = bool(T) and bool((ts_g == ts_g[:, :1]).all())
-    group_slice_identity = group_fold and num_stripes == 1 and \
-        bool(np.all(ntiles_padded == wg))
-
-    stats = PlanStats(
-        nnz=nnz, num_tiles=T, num_slices=num_slices,
-        num_subrows=num_subrows, num_splits=num_splits,
-        num_stripes=num_stripes,
-        padded_slots=T * P * R - nnz,
-        fill=float(nnz) / float(T * P * R) if T else 0.0,
-        window_blocks=window_blocks, max_window_base=max_window_base,
-        groups_per_step=groups, pad_value=float(pad_value),
-        group_tiles=wg, uniform_parts=uniform_parts,
-        group_fold=group_fold, group_slice_identity=group_slice_identity,
-        double=double, window_grain=grain)
+    num_slots = sr.slot_src.shape[0]
+    row_map = np.full(num_slices * R, rows, dtype=np.int32)
+    vmask = sr.slot_valid[:num_slots]
+    row_map[:num_slots][vmask] = sr.o_row[
+        sr.slot_src[:num_slots][vmask]].astype(np.int32)
+    identity_map = sr.identity_map
+    stats = _sell_stats(sr, nnz, T, P, R, tile_slice, wg, window_blocks,
+                        max_window_base, groups, pad_value, double, grain)
 
     cols_win = compute_cols_win(live, cols, wb, window_blocks, wg, grain)
     if double:
@@ -767,6 +858,80 @@ def build_sell_plan(a, *, lane_rows: int = 128, positions: int = 8,
                     window_rows=window_rows,
                     shape=(rows, cols_n), lane_rows=R, positions=P,
                     identity_map=identity_map, stats=stats)
+
+
+@dataclasses.dataclass(frozen=True)
+class SellPrice:
+    """What the cost model reads of a :class:`SellPlan`, computed without
+    laying out its arrays (:func:`sell_plan_stats`): its ``stats``, its
+    shape and tile geometry, ``identity_map`` and ``slots_y``, the length
+    of its ``row_map``."""
+
+    stats: PlanStats
+    shape: Tuple[int, int]
+    lane_rows: int
+    positions: int
+    identity_map: bool
+    slots_y: int
+
+
+def sell_plan_stats(a, *, lane_rows: int = 128, positions: int = 8,
+                    sigma: Optional[int] = None,
+                    split: Optional[int] = None,
+                    max_window_blocks: int = 16,
+                    value_dtype=np.float32,
+                    pad_value: float = 0.0) -> SellPrice:
+    """The :class:`SellPrice` of ``build_sell_plan(a, ...)`` with the
+    same arguments (the planner's: no striping, no uniform split, the
+    default grid step, window groups and grain), equal to what that plan
+    carries: the same sub-rows, slices and tiles (:func:`_sell_rows`),
+    with each window group's column range read from the first and last
+    entry of each sub-row's share of it (a sub-row is a run of one
+    column-sorted row) instead of from the (T, P, R) arrays."""
+    csr = _as_csr(a)
+    wg, double = _check_sell_args(value_dtype, pad_value, positions, None,
+                                  split, None, False)
+    rows, cols_n = csr.shape
+    nnz = int(np.asarray(csr.indptr)[-1])
+    R, P = lane_rows, positions
+    sr = _sell_rows(csr, R, P, sigma, split, None, False)
+    T = sr.num_tiles
+
+    ngroups = T // wg
+    cmin = np.full(ngroups, np.iinfo(np.int32).max, dtype=np.int64)
+    cmax = np.full(ngroups, -1, dtype=np.int64)
+    k_slot = np.flatnonzero(sr.slot_valid)
+    sub = sr.slot_src[k_slot]
+    live = sr.o_len[sub] > 0
+    k_slot, sub = k_slot[live], sub[live]
+    if k_slot.size:
+        t0 = sr.tile_base[k_slot // R]
+        ln = sr.o_len[sub]
+        g0 = t0 // wg
+        g1 = (t0 + _cdiv(ln, P) - 1) // wg
+        cnt = g1 - g0 + 1
+        k = np.repeat(np.arange(k_slot.size, dtype=np.int64), cnt)
+        g = g0[k] + np.arange(k.shape[0], dtype=np.int64) - \
+            np.repeat(np.cumsum(cnt) - cnt, cnt)
+        q_lo = np.maximum(0, (g * wg - t0[k]) * P)
+        q_hi = np.minimum(ln[k], ((g + 1) * wg - t0[k]) * P)
+        src = sr.o_start[sub][k]
+        col = np.asarray(csr.indices).astype(np.int64, copy=False) & \
+            0x3FFFFFFF
+        np.minimum.at(cmin, g, col[src + q_lo])
+        np.maximum.at(cmax, g, col[src + q_hi - 1])
+    window_blocks, grain, wb = _window_bases(cmin, cmax, T, None,
+                                             max_window_blocks)
+    max_window_base = int(wb.max()) if T else 0
+    groups = _groups_per_step(window_blocks, None, wg)
+    step = TILES_PER_STEP * groups
+    T = _cdiv(T, step) * step
+    stats = _sell_stats(sr, nnz, T, P, R, sr.tile_slice(T), wg,
+                        window_blocks, max_window_base, groups, pad_value,
+                        double, grain)
+    return SellPrice(stats=stats, shape=(rows, cols_n), lane_rows=R,
+                     positions=P, identity_map=sr.identity_map,
+                     slots_y=sr.num_slices * R)
 
 
 def auto_plan(a, *, value_dtype=np.float32, max_window_blocks: int = 16,
@@ -795,10 +960,16 @@ def auto_plan(a, *, value_dtype=np.float32, max_window_blocks: int = 16,
     Planning runs in two stages, spans of ``utils/stats.py``:
     ``spmv.plan.detect`` (the CSR check and, for a plus-times plan, the
     diagonal detection) and ``spmv.plan.build`` (the rest); given a dict
-    ``stages``, each adds its host seconds there under its name.
+    ``stages``, each adds its host seconds there under its name.  Inside
+    the build, each candidate plan the heuristic builds or prices is a
+    span ``spmv.plan.build.<family>`` (``sell``, ``chunk``, ``cached``,
+    ``packed``, ``coo``); the host seconds of those not kept in the
+    returned plan go to ``stages["spmv.plan.discarded_build"]``.  The
+    counters ``plan.nnz`` and ``plan.slots`` add the returned plan's
+    stored entries and streamed slots (:func:`stored_and_streamed`).
     """
     from ..ops import semiring as sr
-    from ..utils.stats import span
+    from ..utils.stats import counters, span
 
     s = sr.get(semiring)
     check_pad(value_dtype, s.zero)
@@ -821,11 +992,24 @@ def auto_plan(a, *, value_dtype=np.float32, max_window_blocks: int = 16,
             from .dia import split_diagonal
 
             split = split_diagonal(csr, min_diag_fill=min_diag_fill)
-    with span("spmv.plan.build", stages):
-        return _plan_csr(csr, split, s, value_dtype=value_dtype,
-                         max_window_blocks=max_window_blocks,
-                         lane_rows=lane_rows, positions=positions,
-                         min_dia_coverage=min_dia_coverage)
+    log = _CANDIDATES.log = []
+    try:
+        with span("spmv.plan.build", stages):
+            plan = _plan_csr(csr, split, s, value_dtype=value_dtype,
+                             max_window_blocks=max_window_blocks,
+                             lane_rows=lane_rows, positions=positions,
+                             min_dia_coverage=min_dia_coverage)
+    finally:
+        _CANDIDATES.log = None
+    kept = _plan_parts(plan)
+    if stages is not None:
+        stages["spmv.plan.discarded_build"] = sum(
+            r["seconds"] for r in log
+            if r["plan"] is None or id(r["plan"]) not in kept)
+    nnz, slots = stored_and_streamed(plan)
+    counters["plan.nnz"] += nnz
+    counters["plan.slots"] += slots
+    return plan
 
 
 def _plan_csr(csr: CSR, split, s, *, value_dtype, max_window_blocks,
@@ -915,8 +1099,150 @@ def _coo_backstop(csr: CSR, plan, value_dtype):
 
     if isinstance(plan, CooTail) or csr.nnz > COO_TAIL_MAX:
         return plan
-    coo = coo_tail_from_csr(csr, value_dtype=value_dtype)
+    with _candidate("coo") as rec:
+        coo = rec["plan"] = coo_tail_from_csr(csr, value_dtype=value_dtype)
     return coo if estimate_seconds(coo) < estimate_seconds(plan) else plan
+
+
+# -- candidates: the plans the heuristic builds or prices ---------------------
+
+#: ``log``: the outermost candidates of the running ``auto_plan`` (None
+#: outside one); ``depth``: candidates open on this thread
+_CANDIDATES = threading.local()
+
+
+@contextlib.contextmanager
+def _candidate(family: str):
+    """One candidate plan of ``family`` (``sell``, ``chunk``, ``cached``,
+    ``packed`` or ``coo``) that the heuristic builds or prices: the span
+    ``spmv.plan.build.<family>`` around it, and a record of its host
+    seconds in the running ``auto_plan``'s log (outermost candidates
+    only: a candidate built inside another, such as a CachedPlan's hot
+    SELL plan, is part of its parent's time).  The body stores the plan
+    it built under ``rec["plan"]`` (None where it only priced one or
+    found none)."""
+    from ..utils.stats import span
+
+    log = getattr(_CANDIDATES, "log", None)
+    depth = getattr(_CANDIDATES, "depth", 0)
+    rec = {"family": family, "plan": None, "seconds": 0.0}
+    _CANDIDATES.depth = depth + 1
+    t0 = time.perf_counter()
+    try:
+        with span(f"spmv.plan.build.{family}"):
+            yield rec
+    finally:
+        _CANDIDATES.depth = depth
+        rec["seconds"] = time.perf_counter() - t0
+        if log is not None and depth == 0:
+            log.append(rec)
+
+
+def _plan_parts(plan) -> set:
+    """ids of ``plan`` and of every plan inside it (a HybridPlan's rest,
+    a CachedPlan's tiers, a ChunkPlan's residue)."""
+    ids = {id(plan)}
+    for name in ("rest", "hot", "cold", "residue"):
+        part = getattr(plan, name, None)
+        if part is not None:
+            ids |= _plan_parts(part)
+    return ids
+
+
+def stored_and_streamed(plan) -> Tuple[int, int]:
+    """(entries the plan stores, value slots an apply streams, padding
+    included) of a host or placed plan of any family; a PackedPlan
+    streams its overflow entries a second time."""
+    name = type(plan).__name__
+    if name == "SellPlan":
+        st = plan.stats
+        return st.nnz, st.num_tiles * plan.positions * plan.lane_rows
+    if name == "DiaPlan":
+        slots = int(np.prod(tuple(plan.vals.shape)))
+        return plan.stats.nnz, slots // (2 if plan.double else 1)
+    if name == "CooTail":
+        return plan.nnz, plan.nnz
+    if name == "PackedPlan":
+        st = plan.stats
+        return st.nnz, st.num_tiles * 1024 + st.overflow_nnz
+    if name == "ChunkPlan":
+        slots = sum(int(np.prod(tuple(b.cols.shape))) for b in plan.buckets)
+        slots += sum(int(np.prod(tuple(h.cols_win.shape)))
+                     for h in plan.hbuckets)
+        nnz = int(round(plan.stats.fill * max(1, slots)))
+        if plan.residue is not None:
+            rn, rs = stored_and_streamed(plan.residue)
+            nnz, slots = nnz + rn, slots + rs
+        return nnz, slots
+    parts = [p for p in (getattr(plan, "dia", None),
+                         getattr(plan, "rest", None),
+                         getattr(plan, "hot", None),
+                         getattr(plan, "cold", None)) if p is not None]
+    if not parts:
+        raise ValueError(f"no counts for plan type {name}")
+    counts = [stored_and_streamed(p) for p in parts]
+    return sum(c[0] for c in counts), sum(c[1] for c in counts)
+
+
+class _PricedSell:
+    """A SELL candidate priced from its statistics and laid out only if
+    the heuristic returns it."""
+
+    def __init__(self, csr, kw, sigma=None, split=None):
+        self.csr, self.kw = csr, kw
+        self.sigma, self.split = sigma, split
+        with _candidate("sell"):
+            self.price = sell_plan_stats(
+                csr, sigma=sigma, split=split,
+                **{k: kw[k] for k in ("value_dtype", "lane_rows",
+                                      "positions", "max_window_blocks",
+                                      "pad_value")})
+        self.stats = self.price.stats
+        self._plan = None
+
+    def plan(self) -> SellPlan:
+        if self._plan is None:
+            with _candidate("sell") as rec:
+                self._plan = rec["plan"] = build_sell_plan(
+                    self.csr, sigma=self.sigma, split=self.split, **self.kw)
+        return self._plan
+
+
+def _column_working_set_above(csr: CSR, limit: int) -> bool:
+    """Whether ``analysis.column_working_set(csr) > limit``: more than
+    ``limit`` columns live at the middle entry of the row-major stream
+    (seen at or before it and again after it) settles it in two passes;
+    otherwise the analysis decides."""
+    from . import analysis
+
+    idx = np.asarray(csr.indices)
+    n = idx.shape[0]
+    if n:
+        mid = n // 2
+        cols = csr.shape[1]
+        before = np.zeros(cols, dtype=bool)
+        before[idx[:mid + 1] & 0x3FFFFFFF] = True
+        after = np.zeros(cols, dtype=bool)
+        after[idx[mid + 1:] & 0x3FFFFFFF] = True
+        if int(np.count_nonzero(before & after)) > limit:
+            return True
+    return analysis.column_working_set(csr) > limit
+
+
+def _stripe_pieces(csr: CSR, lens: np.ndarray, sw: int) -> int:
+    """Distinct (row, stripe) runs of the row-major stream for stripes of
+    ``sw`` columns: the striped plan's sub-row count before splitting."""
+    idx = np.asarray(csr.indices)
+    n = idx.shape[0]
+    if n == 0:
+        return 0
+    stripe = (idx & 0x3FFFFFFF) // sw
+    change = np.empty(n, dtype=bool)
+    change[0] = True
+    np.not_equal(stripe[1:], stripe[:-1], out=change[1:])
+    starts = np.asarray(csr.indptr, dtype=np.int64)[:-1][lens > 0]
+    change[starts] = True
+    return int(np.count_nonzero(change))
 
 
 def _auto_sell_plan(csr: CSR, *, value_dtype, max_window_blocks,
@@ -943,18 +1269,35 @@ def _auto_sell_plan(csr: CSR, *, value_dtype, max_window_blocks,
             # dtype/shape-compatible
             if value_kind(value_dtype) != "f64" and \
                     lane_rows == 128 and positions == 8:
-                from .chunk import build_chunk_plan
+                from .chunk import (ChunkRows, build_chunk_plan,
+                                    chunk_price, chunk_seconds_floor)
                 from .costmodel import estimate_seconds
 
-                # duplicate merging sums values — plus-times only, and
-                # allow_packed is exactly the plus-times flag here
-                cp = build_chunk_plan(csr, value_dtype=value_dtype,
-                                      pad_value=pad_value,
-                                      merge_duplicates=allow_packed)
-                if cp is not None:
-                    p = build_sell_plan(csr, sigma=sigma, split=split, **kw)
-                    if estimate_seconds(cp) < estimate_seconds(p):
-                        return cp
+                # both priced from their statistics, the chunk plan first
+                # by a floor; it is laid out only where it wins
+                p = _PricedSell(csr, kw, sigma=sigma, split=split)
+                rival = estimate_seconds(p.price)
+                with _candidate("chunk") as rec:
+                    # duplicate merging sums values — plus-times only,
+                    # and allow_packed is exactly the plus-times flag here
+                    merge = allow_packed
+                    ck = dict(value_dtype=value_dtype, pad_value=pad_value,
+                              merge_duplicates=merge)
+                    rows_ = ChunkRows(csr, merge_duplicates=merge)
+                    # two floors, each dearer and tighter, then the price:
+                    # the first settles a power-law graph of 10^8 entries,
+                    # whose heavy rows alone take minutes to price
+                    cp = None
+                    if all(chunk_seconds_floor(
+                            rows_, merge_duplicates=merge,
+                            heavy_exact=exact) < rival * (1 + 1e-9)
+                            for exact in (False, True)):
+                        cp = chunk_price(rows_, **ck)
+                    if cp is not None and estimate_seconds(cp) < rival:
+                        cp = rec["plan"] = build_chunk_plan(rows_, **ck)
+                    del rows_
+                if rec["plan"] is not None:
+                    return cp
         elif float(lens.std()) > mean:
             sigma = lane_rows * 8
         elif mx >= 1.5 * positions and mx <= 3.0 * mean:
@@ -966,39 +1309,45 @@ def _auto_sell_plan(csr: CSR, *, value_dtype, max_window_blocks,
             if mx > usplit * lane_rows:
                 # would need more sub-rows than lanes (build_sell_plan
                 # rejects it); very long regular rows take the plain path
-                return build_sell_plan(csr, **kw)
-            pu = build_sell_plan(csr, split=usplit, uniform_split=True,
-                                 window_group_tiles=max(
-                                     1, _cdiv(usplit, positions)), **kw)
-            # gate on fill over the REAL tiles (grid-step padding would
-            # dominate the ratio for small matrices)
-            real_slots = pu.stats.num_slices * _cdiv(usplit, positions) * \
-                positions * lane_rows
-            if pu.stats.window_blocks and \
-                    pu.stats.nnz >= 0.5 * real_slots:
+                with _candidate("sell") as rec:
+                    rec["plan"] = build_sell_plan(csr, **kw)
+                return rec["plan"]
+            with _candidate("sell") as rec:
+                pu = build_sell_plan(csr, split=usplit, uniform_split=True,
+                                     window_group_tiles=max(
+                                         1, _cdiv(usplit, positions)), **kw)
+                # gate on fill over the REAL tiles (grid-step padding
+                # would dominate the ratio for small matrices)
+                real_slots = pu.stats.num_slices * \
+                    _cdiv(usplit, positions) * positions * lane_rows
+                if pu.stats.window_blocks and \
+                        pu.stats.nnz >= 0.5 * real_slots:
+                    rec["plan"] = pu
+            if rec["plan"] is not None:
                 return pu
-    if p is None:                      # not built for the chunk comparison
-        p = build_sell_plan(csr, sigma=sigma, split=split, **kw)
+    if p is None:                      # not priced for the chunk comparison
+        p = _PricedSell(csr, kw, sigma=sigma, split=split)
     if p.stats.window_blocks or p.stats.nnz == 0:
-        return p
+        return p.plan()
     # small x: the resident strategy (x fully on chip, no locality
     # needed) beats a striped window plan, whose sub-row merge is an
     # unsorted segment scatter
     if _cdiv(csr.shape[1], 128) <= RESIDENT_MAX_BLOCKS:
-        return p
+        return p.plan()
     # window-infeasible and wide: the maxAlive / maxColSpan analyses (in
     # their CSR duals: column working set / per-row column span,
     # ``SparseMatrix.cpp:92-119``) drive which variant runs — the
     # reference's core selection thesis
     from . import analysis
 
-    ws = analysis.column_working_set(csr)
-    if ws <= 2048 and value_kind(value_dtype) != "f64":
+    if value_kind(value_dtype) != "f64" and \
+            not _column_working_set_above(csr, 2048):
         # bounded x working set: a compact tier keeps every live column
         # resident, beating striping's sub-row merge outright
         from .cached import _compact_full_cover
 
-        fc = _compact_full_cover(csr, kw)
+        with _candidate("cached") as rec:
+            fc = rec["plan"] = _compact_full_cover(csr, kw)
         if fc is not None:
             return fc
     # striping width from the span distribution: stripes just wide
@@ -1011,25 +1360,23 @@ def _auto_sell_plan(csr: CSR, *, value_dtype, max_window_blocks,
     if 0 < p95 <= sw // 2:
         sw = max(256, 1 << int(np.ceil(np.log2(max(p95, 1)))))
     # estimate striping overhead: pieces ~= distinct (row, stripe) pairs
-    idx = np.asarray(csr.indices, dtype=np.int64) & 0x3FFFFFFF
-    nz_row = np.repeat(np.arange(csr.shape[0], dtype=np.int64), lens)
-    stripe = idx // sw
-    changes = np.ones(idx.shape[0], dtype=bool)
-    changes[1:] = (nz_row[1:] != nz_row[:-1]) | (stripe[1:] != stripe[:-1])
-    pieces = int(changes.sum())
+    pieces = _stripe_pieces(csr, lens, sw)
     if pieces and p.stats.nnz / pieces >= 4.0:
-        ps = build_sell_plan(csr, sigma=sigma, split=split,
-                             stripe_width=sw, **kw)
-        # striping must actually pay: stripe-pure slice padding can
-        # collapse fill, at which point the locality-free packed floor
-        # (the reference's v5e constants below) is cheaper than
-        # streaming the padding.  Cost-compare instead of committing on
-        # the piece estimate.
-        from .costmodel import estimate_seconds
+        with _candidate("sell") as rec:
+            ps = build_sell_plan(csr, sigma=sigma, split=split,
+                                 stripe_width=sw, **kw)
+            # striping must actually pay: stripe-pure slice padding can
+            # collapse fill, at which point the locality-free packed
+            # floor (the reference's v5e constants below) is cheaper
+            # than streaming the padding.  Cost-compare instead of
+            # committing on the piece estimate.
+            from .costmodel import estimate_seconds
 
-        packed_floor = 30e-6 + 1.64e-9 * ps.stats.nnz
-        if ps.stats.window_blocks and \
-                estimate_seconds(ps) < packed_floor:
+            packed_floor = 30e-6 + 1.64e-9 * ps.stats.nnz
+            if ps.stats.window_blocks and \
+                    estimate_seconds(ps) < packed_floor:
+                rec["plan"] = ps
+        if rec["plan"] is not None:
             return ps
     # locality-poor fall-through: a column-popularity hot/cold split
     # (CachedPlan — the vector-cache analog) wins when a small working
@@ -1043,28 +1390,34 @@ def _auto_sell_plan(csr: CSR, *, value_dtype, max_window_blocks,
     if value_kind(value_dtype) != "f64" and csr.nnz <= (1 << 20):
         # windowless but narrow working set: remap the distinct columns
         # into one compact tier (resident/deep kernel, 100% coverage)
-        fc = _compact_full_cover(csr, kw)
+        with _candidate("cached") as rec:
+            fc = rec["plan"] = _compact_full_cover(csr, kw)
         if fc is not None:
             return fc
     if csr.nnz <= COO_TAIL_MAX and value_kind(value_dtype) != "f64":
         # tiny and windowless: the element gather + segment scatter
         # beats every tiled kernel's fixed machinery
-        return coo_tail_from_csr(csr, value_dtype=value_dtype)
+        with _candidate("coo") as rec:
+            rec["plan"] = coo_tail_from_csr(csr, value_dtype=value_dtype)
+        return rec["plan"]
     if allow_cached and value_kind(value_dtype) != "f64":
         from .cached import build_cached_plan
 
-        cp = build_cached_plan(csr, value_dtype=value_dtype,
-                               max_window_blocks=max_window_blocks,
-                               lane_rows=lane_rows, positions=positions,
-                               pad_value=pad_value,
-                               allow_packed=allow_packed)
+        with _candidate("cached") as rec:
+            cp = rec["plan"] = build_cached_plan(
+                csr, value_dtype=value_dtype,
+                max_window_blocks=max_window_blocks, lane_rows=lane_rows,
+                positions=positions, pad_value=pad_value,
+                allow_packed=allow_packed)
         if cp is not None:
             return cp
     if allow_packed and value_kind(value_dtype) != "f64":
         from .packed import build_packed_plan
 
-        return build_packed_plan(csr, value_dtype=value_dtype)
-    return p
+        with _candidate("packed") as rec:
+            rec["plan"] = build_packed_plan(csr, value_dtype=value_dtype)
+        return rec["plan"]
+    return p.plan()
 
 
 def validate_plan(plan: SellPlan, a=None) -> None:

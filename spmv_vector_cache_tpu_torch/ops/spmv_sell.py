@@ -582,15 +582,16 @@ def plan_vals_dtype(plan) -> torch.dtype:
     """The torch type of ``plan``'s value slab (a double plan's is its
     float32 pairs'; a host plan's numpy slab read as torch's)."""
     if isinstance(plan, HybridPlan):
-        plan = plan.dia
-    elif isinstance(plan, CachedPlan):
-        plan = plan.hot
-    elif isinstance(plan, ChunkPlan):
+        return plan_vals_dtype(plan.dia)
+    if isinstance(plan, CachedPlan):       # its hot tier may be any plan
+        return plan_vals_dtype(plan.hot)
+    if isinstance(plan, ChunkPlan):
         parts = (*plan.buckets, *plan.hbuckets, plan.residue)
-        plan = next((p for p in parts if p is not None), None)
-        if plan is None:
+        part = next((p for p in parts if p is not None), None)
+        if part is None:
             raise ValueError("the ChunkPlan has no bucket and no residue: "
                              "it holds no values")
+        return plan_vals_dtype(part)
     vals = plan.vals
     if not isinstance(vals, torch.Tensor):
         vals = torch.from_numpy(np.asarray(vals).reshape(-1)[:0])

@@ -38,7 +38,7 @@ def test_operator_matches_jax(case):
     assert op.strategy == jop.strategy
     assert_plans_equal(op.plan, jop.plan)
     drop = ("plan_seconds", "detect_seconds", "build_seconds",
-            "place_seconds")
+            "place_seconds", "discarded_build_seconds")
     want_stats = {k: v for k, v in jop.stats.as_dict().items()
                   if k not in drop}
     got_stats = {k: v for k, v in op.stats.as_dict().items()

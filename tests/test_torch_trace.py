@@ -14,7 +14,9 @@
   iterations an exit threw away; ``bicgstab`` counts nothing and
   records no span.
 * ``from_matrix`` times its planner stages into ``op.stats``, and their
-  sum stays inside ``plan_seconds``.
+  sum stays inside ``plan_seconds``; the planner counts the stored
+  entries and streamed slots of the plan it returns (``plan.nnz``,
+  ``plan.slots``).
 * Every span the port names is ``spmv.<...>``: never the benchmark's
   ``portbench.`` prefix.
 """
@@ -29,6 +31,7 @@ import scipy.sparse as sp
 import torch
 
 from spmv_vector_cache_tpu_torch import CSR, SparseOperator
+from spmv_vector_cache_tpu_torch.formats import plan as pplan
 from spmv_vector_cache_tpu_torch.models import solvers
 from spmv_vector_cache_tpu_torch.ops import _kernels
 from spmv_vector_cache_tpu_torch.utils import stats
@@ -60,6 +63,11 @@ def stencil(n=256, dtype=np.float64):
                            dtype=dtype))
 
 
+def _slots(op) -> int:
+    """The value slots the operator's plan streams, padding included."""
+    return pplan.stored_and_streamed(op.plan)[1]
+
+
 def scattered(n=512, seed=3):
     """Random columns, no diagonal structure: a SELL plan."""
     rng = np.random.default_rng(seed)
@@ -77,7 +85,8 @@ def test_without_a_profiler_spans_record_nothing_and_counters_count():
     assert stats.span_totals == {}
     assert stats.counters == {"cg.solves": 1, "cg.host_syncs": 3,
                               "cg.reads_overlapped": 1,
-                              "cg.spec_discarded": 0}
+                              "cg.spec_discarded": 0, "plan.nnz": 766,
+                              "plan.slots": _slots(op)}
 
 
 CALLS = {
@@ -221,7 +230,8 @@ def test_cg_to_maxiter_reads_the_host_maxiter_times(maxiter):
     assert res.iterations == maxiter
     assert stats.counters == {"cg.solves": 1, "cg.host_syncs": maxiter,
                               "cg.reads_overlapped": max(maxiter - 2, 0),
-                              "cg.spec_discarded": 0}
+                              "cg.spec_discarded": 0, "plan.nnz": 766,
+                              "plan.slots": _slots(op)}
 
 
 def _distinct_eigenvalues(k, n=300):
