@@ -366,22 +366,15 @@ def x_bytes_read(x, cols, w=None):
 
 
 def packed_extract_bytes(plan, tables, x, w=4):
-    """Bytes kernel F must move on a placed PackedPlan, by part: ``esrc``
-    over the rows of each visit's window that y has (2 B each: the last
-    window is partial), the S entries those rows pick, y (both at ``w``
-    bytes an entry), and sblock, the tables, the overflow triples and
-    the x they read."""
-    window = plan.esrc.shape[1] * plan.esrc.shape[2]
-    in_y = (plan.shape[0] - plan.wstep.long() * window).clamp(max=window)
-    lanes = torch.arange(window, device=in_y.device)
-    picked = int(((plan.esrc.reshape(-1, window) >= 0)
-                  & (lanes[None, :] < in_y[:, None])).sum().item())
-    rest = (nbytes(plan.sblock, tables.woff, tables.ov_off, tables.ov_lane,
-                   tables.ov_cols, tables.ov_vals)
-            + x_bytes_read(x, tables.ov_cols, w))
-    return {"esrc": 2 * int(in_y.sum().item()), "picked S entries":
-            picked * w, "y": plan.shape[0] * w,
-            "sblock, the tables and the overflow with its x": rest}
+    """Bytes kernel F must move on a placed PackedPlan, by part: its
+    compacted list (4 B an entry), the S entries the list picks and y
+    (both at ``w`` bytes an entry), and the row offsets, the work list,
+    the overflow values and columns and the x they read."""
+    rest = (nbytes(tables.row_off, tables.units, tables.ov_cols,
+                   tables.ov_vals) + x_bytes_read(x, tables.ov_cols, w))
+    return {"list": nbytes(tables.entries),
+            "picked S entries": tables.pieces * w, "y": plan.shape[0] * w,
+            "row offsets, work list and overflow with its x": rest}
 
 
 def zipf_cols_matrix(rng, n=1 << 18, per_row=64, s=2.5):
@@ -1774,8 +1767,8 @@ def dtype_phases(card, dev, mesh4, draws):
              e_in + plan.vals.numel() * ow, 2 * plan.vals.numel())
         tables = extract_on(plan)
         scan = packed_scan_plain(*scan_args, **scan_kw)
-        ext_args = (scan, plan.sblock, plan.esrc, x, tables)
-        ext_kw = dict(rows=plan.shape[0], step_tiles=st.step_tiles)
+        ext_args = (scan, x, tables)
+        ext_kw = dict(rows=plan.shape[0])
         f_bytes = sum(packed_extract_bytes(plan, tables, x, ow).values())
         case(_kernels.entry("packed_extract_f32", tables.ov_vals.dtype),
              what,
@@ -2242,8 +2235,8 @@ def dtype_phases(card, dev, mesh4, draws):
         kw = dict(chunk_blocks=st.chunk_blocks, step_tiles=st.step_tiles)
         e_args = (plan.vals, plan.cols, plan.cstep, x)
         scan = packed_scan_kernel(*e_args, **kw)
-        f_args = (scan, plan.sblock, plan.esrc, x, extract_on(plan))
-        f_kw = dict(rows=plan.shape[0], step_tiles=st.step_tiles)
+        f_args = (scan, x, extract_on(plan))
+        f_kw = dict(rows=plan.shape[0])
         one = (plan.vals[:st.step_tiles], plan.cols[:st.step_tiles],
                plan.cstep[:1], x)
         log(f"[{what}] kernel E i8 device time "
@@ -2495,8 +2488,7 @@ def main():
     from spmv_vector_cache_tpu_torch.ops.lane_perm import (
         lane_unpermute, lane_unpermute_plain, unpermute_plan_rows)
     from spmv_vector_cache_tpu_torch.ops.operator import SparseOperator
-    from spmv_vector_cache_tpu_torch.ops.runs import (EXTRACT_BLOCK_ROWS,
-                                                      RUN_ATOMIC,
+    from spmv_vector_cache_tpu_torch.ops.runs import (RUN_ATOMIC,
                                                       extract_on, heavy_on,
                                                       light_on, runs_on,
                                                       tile_runs)
@@ -2533,6 +2525,7 @@ def main():
     from spmv_vector_cache_tpu_torch.tools import realistic
     from spmv_vector_cache_tpu_torch.utils import roofline
     from spmv_vector_cache_tpu_torch.utils.platform import require_cuda
+    from spmv_vector_cache_tpu_torch.utils.stats import counters
     from spmv_vector_cache_tpu_torch.utils.stream import (
         checksum_stream, checksum_stream_plain)
 
@@ -2729,11 +2722,24 @@ def main():
     assert p_packed.stats.overflow_nnz > 0, p_packed.stats
     log(f"[packed] {p_packed.stats}")
     f_tables = extract_on(p_packed)
-    ov_per_cta = f_tables.ov_off[1:] - f_tables.ov_off[:-1]
-    log(f"[packed] kernel F's tables: {f_tables.woff.shape[0] - 1} windows "
-        f"of {p_packed.stats.num_steps_b} visits, {ov_per_cta.shape[0]} CTAs "
-        f"of {EXTRACT_BLOCK_ROWS} rows, {int((ov_per_cta > 0).sum())} with "
-        f"overflow (at most {int(ov_per_cta.max())} entries)")
+    # every PackedPlan placed so far (the packed phase's, the chunk
+    # residues'): the compacted lists' pieces against the dense entries
+    log(f"[packed] counters: packed.f_entries "
+        f"{counters['packed.f_entries']}, packed.f_dense_entries "
+        f"{counters['packed.f_dense_entries']}")
+    assert 0 < counters["packed.f_entries"] <= \
+        counters["packed.f_dense_entries"]
+    f_units = f_tables.units.long().cpu()
+    f_off = f_tables.row_off.long().cpu()
+    f_steps = (f_units[:, 1] - f_units[:, 0]) + f_off[f_units[:, 1]] - \
+        f_off[f_units[:, 0]]
+    log(f"[packed] kernel F's list: {f_tables.entries.shape[0]} entries "
+        f"({f_tables.pieces} pieces, "
+        f"{f_tables.pieces / max(1, f_tables.dense_entries):.4f} of the "
+        f"dense esrc's {f_tables.dense_entries}), "
+        f"{f_units.shape[0]} CTAs of at most {f_tables.unit} steps, "
+        f"{int((f_steps > f_tables.unit).sum())} hub rows (at most "
+        f"{int(f_steps.max())} steps)")
     p_cached = ops["cached"][0].plan
     assert isinstance(p_cached, CachedPlan) and \
         ops["cached"][0].strategy == "cached"
@@ -3150,11 +3156,10 @@ def main():
         pst.step_tiles)[:, None, None] * (pst.chunk_blocks * 128)
         + (p_packed.cols.long() & 16383))
     # kernel F reads the plain scan, so both versions see the same input
-    ext_args = (packed_scan_plain(*scan_args, **scan_kw), p_packed.sblock,
-                p_packed.esrc, x_pk, f_tables)
-    ext_kw = dict(rows=p_packed.shape[0], step_tiles=pst.step_tiles)
-    # kernel F reads only the piece sums that esrc picks, its tables, the
-    # overflow's x, and writes y
+    ext_args = (packed_scan_plain(*scan_args, **scan_kw), x_pk, f_tables)
+    ext_kw = dict(rows=p_packed.shape[0])
+    # kernel F reads its list, the piece sums it picks, the overflow and
+    # its x, and writes y
     f_parts = packed_extract_bytes(p_packed, f_tables, x_pk)
     f_bytes = sum(f_parts.values())
     picked = f_parts["picked S entries"] // 4

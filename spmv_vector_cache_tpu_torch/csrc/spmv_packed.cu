@@ -20,18 +20,45 @@
 // Kernel F replaces the Pallas kernel `_make_extract_kernel` (same
 // file) and also computes what the reference does after that call
 // (`spmv_packed.py:189-197`: the window mask and the overflow COO), so
-// the apply is E then F and nothing else.  For each y row r < rows, in
-// window w = r / 8192 at element e = r % 8192:
-//   y[r] = sum over visits i in [woff[w], woff[w+1]) of
-//          S[sblock[i]*ST*1024 + esrc[i, e]]  (esrc < 0: none)
-//        + sum over r's overflow entries j, in the plan's order, of
-//          ov_vals[j] * x[ov_cols[j]]
-// so a window with no visit gives 0 plus its overflow.  On the TPU the
-// grid walks the visits in order with the window's y block resident;
-// here each CTA owns a block of rows (8 a thread), reads its window's
-// visit range from a table built at placement (no search), and writes
-// its rows of y once: no atomic, no partial buffer, y the same every
-// run.
+// the apply is E then F and nothing else.  It reads no dense extraction
+// index.  The plan's esrc, (visits, 64, 128) int16 with a -1 wherever a
+// row of the visited window has no piece, is compacted once at placement
+// (ops/runs.py extract_tables) into a list of what each y row sums, in
+// CSR form over the rows:
+//   entries[row_off[r] .. row_off[r+1]) = the S slots of r's primary
+//       pieces (sblock[i]*ST*1024 + esrc[i, e], >= 0), in visit order,
+//       then -1 - j for each of r's overflow entries j (ov_cols and
+//       ov_vals sorted stably by row), in the plan's order
+//   y[r] = the sum of S[slot] over its slots and of ov_vals[j] *
+//          x[ov_cols[j]] over its overflow entries (0 for none)
+// On the TPU the grid walks the visits in order with the window's y
+// block resident; here each CTA takes one unit of rows from a work list
+// built at placement with the list (`units`, no search at run time):
+// either consecutive rows whose rows plus entries ("merge steps") fit
+// kFUnit = PACKED_F_THREADS x PACKED_F_ITEMS, or one hub row with more.
+// In an ordinary unit the CTA stages every entry's term in shared memory
+// (a thread issues its PACKED_F_ITEMS coalesced list loads, then their S
+// gathers or overflow products) beside each row's end, and each thread
+// then takes PACKED_F_ITEMS consecutive steps of the unit's merge path
+// over (row ends, entries), found by a binary search (Merrill and
+// Garland's merge-based CSR SpMV): a CTA's work is even whatever its
+// rows' lengths, empty rows included.  A row that spans threads is
+// joined by a segmented scan of the threads' tails.  A hub row's CTA
+// sums a strided share a thread, PACKED_F_ITEMS loads in flight, then
+// reduces the threads' sums.  Hub units come first in the grid, the
+// longest first, so they start in the first wave; the rest follow in row
+// order, so the CTAs that run together read neighbouring rows' pieces,
+// which sit close in S ((chunk, row) order), through L2.
+//
+// Summation order, fixed by the list alone, so y is the same every run
+// (no atomic; each row written once, by one thread): in an ordinary unit
+// each thread adds its own terms of a row one after another; the partial
+// sums of a row from earlier threads combine in the scan (a shuffle tree
+// within a warp, then the warps' totals folded in warp order), and the
+// thread that holds the row's end adds its terms to that carry one after
+// another.  A hub row: thread t adds entries t, t + PACKED_F_THREADS, ...
+// in order, then a shuffle tree within each warp and the warps' sums in
+// warp order.  (The plain version adds a row's entries in list order.)
 //
 // Bound: bytes.  Pass A streams the slot (1, 2 or 4 B) and its 2-B
 // column in and writes S (1 or 2 B for the narrow integers, else 4 B);
@@ -46,25 +73,25 @@
 // the uncut uniform draw but bfloat16, and within 6 % of the fastest on
 // mac_econ_like, where 4 slots suit the 4-byte scans better
 // (probes_torch/scan_shapes.py: mac_econ_like int8 6.8 -> 4.6 us,
-// float32 7.4 -> 6.3).  Pass B reads 2 B of esrc per
-// y row and visit of its window, sblock, the S entries esrc picks, the
-// overflow triples and their x, and writes 4 B per row of y.  With a
-// thread per row and visit loads issued one after another it was
-// latency-bound (a dependent esrc load then S gather per visit, ~2 loads
-// in flight a thread, well under the ~2 MB in flight the card needs).
-// So a thread loads 16 B of esrc (8 rows) a visit, issues a batch of
-// visits' esrc loads and then all their S gathers before summing them,
-// and the CTA's thread groups take interleaved batches of the window's
-// visits; group 0 adds the other groups' sums in group order from shared
-// memory.  The order is fixed, so y is the same every run, but it is not
-// visit order.  The overflow entries are staged through shared memory
-// a CTA-wide round at a time and added, after the visits, by the thread
-// that owns the row.  On the H100, 256 rows a CTA in 4 groups of 32
-// threads, 2 visits a batch, was the fastest launch shape: 6.5 us on
-// `mac_econ_like` against a 4.90 us bound (16.4 MB), where the one-row
-// threads took 10.8 us before the overflow ops (probes_torch/
-// extract_shapes.py; PERF.md).  Issuing the next batch's esrc loads
-// before this batch's gathers, or S gathers that skip L1, were slower.
+// float32 7.4 -> 6.3).  Pass B reads 4 B of list an entry, the S entries
+// the list picks (S at most once: neighbouring rows share its sectors),
+// 4 B of row offset a row, 16 B of work list a CTA, the overflow values
+// and columns with the x they read, and writes y once.  The dense esrc
+// it read before took 2 B for every row of a window at every visit: on
+// GAP's kron graph at scale 21, 2.27 GB an apply, 97 % of it -1, where
+// the list is 145 MB.  On an H100 that draw's F moves its 314 MB in
+// 286 us (33 % of the 94-us bound) against the dense table's 2.60 ms
+// (probes_torch/extract_shapes.py; PERF.md).  Of 128 to 1024 threads a
+// CTA and 4, 8 and 16 steps a thread, 512 x 4 was the fastest there
+// (256 x 8: 347 us, 128 x 8: 476); a branch per entry between a gather
+// and an overflow product, in place of every gather first, took 326 us,
+// and re-reading the terms from shared memory in the second walk 289.
+// What holds F at a third of its bound is not measured apart: each 4-B
+// gather moves a 32-B sector, and a CTA waits on a chain of three
+// dependent loads (its work-list record, its list, the gathers).  That
+// chain is why the smaller mac_econ_like plan loses: its F takes 10.0 us
+// against the dense table's 6.5 (1.4 waves of CTAs; the list's bound
+// 2.8 us against 4.9).
 //
 // E and F have a build for each value policy of values.cuh: the float32
 // entry point, and `_bf16`, `_i32` and `_u32` (sums wrapping mod 2^32)
@@ -91,21 +118,7 @@ namespace {
 using spmv::add_rn;
 using spmv::mul_rn;
 
-// p[0:4] = a, b, c, d as one 16-byte store (p 16-byte aligned)
-__device__ __forceinline__ void store4(float* p, float a, float b, float c,
-                                       float d) {
-    *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
-}
-__device__ __forceinline__ void store4(int* p, int a, int b, int c, int d) {
-    *reinterpret_cast<int4*>(p) = make_int4(a, b, c, d);
-}
-__device__ __forceinline__ void store4(unsigned* p, unsigned a, unsigned b,
-                                       unsigned c, unsigned d) {
-    *reinterpret_cast<uint4*>(p) = make_uint4(a, b, c, d);
-}
-
 constexpr int kRowSlots = 128;        // slots per scanned row
-constexpr int kWindowRows = 8192;     // y rows per pass-B window
 constexpr unsigned kFullMask = 0xffffffffu;
 
 // Kernel E's launch shape: SL consecutive slots of a row a thread (8 at
@@ -181,172 +194,223 @@ __global__ void __launch_bounds__(kScanMaxThreads) packed_scan_kernel(
 
 // Kernel F's launch shape, chosen on the H100 by
 // probes_torch/extract_shapes.py, which builds other shapes by defining
-// these: rows a CTA writes (8 a thread; a divisor of 8192, and equal to
-// ops/runs.py EXTRACT_BLOCK_ROWS, by which placement groups the
-// overflow), thread groups that split a window's visits, and visits a
-// thread loads before it sums them.
-#ifndef PACKED_F_BLOCK_ROWS
-#define PACKED_F_BLOCK_ROWS 256
+// these: threads a CTA, and merge steps (entries or row ends) a thread
+// takes, so a CTA's unit is their product (ops/runs.py F_UNIT, by which
+// placement cuts the work list: the launch refuses a larger one)
+#ifndef PACKED_F_THREADS
+#define PACKED_F_THREADS 512
 #endif
-#ifndef PACKED_F_GROUPS
-#define PACKED_F_GROUPS 4
-#endif
-#ifndef PACKED_F_BATCH
-#define PACKED_F_BATCH 2
+#ifndef PACKED_F_ITEMS
+#define PACKED_F_ITEMS 4
 #endif
 
-constexpr int kRowsPerThread = 8;    // one 16 B esrc load a visit
-constexpr int kBlockRows = PACKED_F_BLOCK_ROWS;
-constexpr int kGroups = PACKED_F_GROUPS;
-constexpr int kBatch = PACKED_F_BATCH;
-constexpr int kTX = kBlockRows / kRowsPerThread;  // threads of a group
-constexpr int kThreads = kTX * kGroups;
-static_assert(kBlockRows % kRowsPerThread == 0 &&
-                  kWindowRows % kBlockRows == 0,
-              "a CTA's rows are whole threads' and divide a window");
-static_assert(kThreads <= 1024 && kGroups >= 1 && kBatch >= 1,
+constexpr int kFThreads = PACKED_F_THREADS;
+constexpr int kFItems = PACKED_F_ITEMS;
+constexpr int kFUnit = kFThreads * kFItems;
+constexpr int kFWarps = kFThreads / 32;
+// a unit's terms and row ends in shared memory, one word of padding
+// after every 32 (f_skew), so that the threads of a warp, each at its own
+// run of the merge path, mostly fall in distinct banks
+constexpr int kFSlots = kFUnit + kFUnit / 32;
+static_assert(kFThreads % 32 == 0 && kFThreads <= 1024 && kFItems >= 1 &&
+                  kFItems <= 32,
               "kernel F's launch shape");
+static_assert(kFSlots * 8 <= 48 * 1024,
+              "a unit's terms and row ends fit static shared memory");
 
-__device__ __forceinline__ int esrc_at(const int4& v, int j) {
-    int word = j < 2 ? v.x : j < 4 ? v.y : j < 6 ? v.z : v.w;
-    return (int)(short)(j & 1 ? (word >> 16) : word);
+__device__ __forceinline__ int f_skew(int j) { return j + (j >> 5); }
+
+// the terms of kFItems entries e[k] (where live[k]): a primary piece's sum
+// from the scan (a narrow integer scan sign- or zero-extends to int), or
+// an overflow product.  Straight-line, so that every load of a kind is
+// in flight together: each piece's gather, then each overflow entry's
+// value and column, then its x
+template <class V, int K>
+__device__ __forceinline__ void f_terms(
+        const typename V::Scan* __restrict__ scan,
+        const int* __restrict__ ov_cols,
+        const typename V::Slot* __restrict__ ov_vals,
+        const typename V::T* __restrict__ x, const int (&e)[K],
+        const bool (&live)[K], typename V::T (&v)[K]) {
+    using T = typename V::T;
+    using OV = typename V::Slot;
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+        v[k] = live[k] && e[k] >= 0 ? (T)__ldg(scan + e[k]) : T(0);
+    bool any = false;
+#pragma unroll
+    for (int k = 0; k < K; ++k) any |= live[k] && e[k] < 0;
+    if (!any) return;
+    int col[K];
+    OV val[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+        const bool o = live[k] && e[k] < 0;
+        col[k] = o ? __ldg(ov_cols + (-1 - e[k])) : 0;
+        val[k] = o ? __ldg(ov_vals + (-1 - e[k])) : OV(0);
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+        if (live[k] && e[k] < 0)
+            v[k] = mul_rn(V::widen(val[k]), __ldg(x + col[k]));
 }
 
-// blockDim (kTX, kGroups): kTX threads own the CTA's kBlockRows rows,
-// kGroups groups of them split the window's visits; V: the value policy
-// (T the sum type, the overflow values its slots, widened as they load)
+// blockDim kFThreads; CTA u sums rows [units[u].x, units[u].y), whose
+// entries are [units[u].z, units[u].w); V: the value policy (T the sum
+// type, the overflow values its slots, widened as they load)
 template <class V, class T = typename V::T, class OV = typename V::Slot>
-__global__ void __launch_bounds__(kThreads) packed_rows_kernel(
+__global__ void __launch_bounds__(kFThreads) packed_rows_kernel(
         const typename V::Scan* __restrict__ scan,
-        const int* __restrict__ sblock,
-        const int* __restrict__ woff, const int16_t* __restrict__ esrc,
-        const int* __restrict__ ov_off, const int* __restrict__ ov_lane,
-        const int* __restrict__ ov_cols, const OV* __restrict__ ov_vals,
-        const T* __restrict__ x, T* __restrict__ y, long long rows,
-        long long block_slots) {
-    // the sums of groups 1.. for group 0 to add; the overflow products of
-    // a round, their rows in the block, and each thread's run of them
-    __shared__ __align__(16) T part[kGroups > 1 ? kGroups - 1 : 1]
-                                   [kBlockRows];
-    __shared__ T ov_prod[kThreads];
-    __shared__ int ov_row[kThreads];
-    __shared__ int ov_first[kTX], ov_last[kTX];
-    const int tx = threadIdx.x, g = threadIdx.y;
-    const int tid = g * kTX + tx;
-    const long long row0 = (long long)blockIdx.x * kBlockRows;
-    const int w = (int)(row0 / kWindowRows);
-    const int e0 = (int)(row0 % kWindowRows) + tx * kRowsPerThread;
+        const int* __restrict__ row_off, const int* __restrict__ entries,
+        const int4* __restrict__ units, const int* __restrict__ ov_cols,
+        const OV* __restrict__ ov_vals, const T* __restrict__ x,
+        T* __restrict__ y) {
+    // the unit's terms and each row's end (from its first entry); the
+    // warps' scan totals and their flags
+    __shared__ T term[kFSlots];
+    __shared__ int row_end[kFSlots];
+    __shared__ T wsum[kFWarps];
+    __shared__ int wflag[kFWarps];
+    const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+    const int4 u = __ldg(units + blockIdx.x);
+    const long long r0 = u.x;
+    const int nrows = u.y - u.x, e0 = u.z, nent = u.w - u.z;
+    const int* __restrict__ mine = entries + e0;
 
-    // the first round of overflow entries, loaded before the visits
-    const int o0 = ov_off ? __ldg(ov_off + blockIdx.x) : 0;
-    const int o1 = ov_off ? __ldg(ov_off + blockIdx.x + 1) : 0;
-    int lane = 0, col = 0;
-    T val = T(0);
-    if (o0 + tid < o1) {
-        lane = __ldg(ov_lane + o0 + tid);
-        col = __ldg(ov_cols + o0 + tid);
-        val = V::widen(__ldg(ov_vals + o0 + tid));
+    if (nrows + nent > kFUnit) {
+        // a hub row (placement gives a longer unit one row): a strided
+        // share a thread, kFItems loads, then their terms, then the sum
+        T acc = T(0);
+        for (int b = 0; b < nent; b += kFUnit) {
+            int e[kFItems];
+            bool live[kFItems];
+#pragma unroll
+            for (int k = 0; k < kFItems; ++k) {
+                const int j = b + k * kFThreads + t;
+                live[k] = j < nent;
+                e[k] = live[k] ? __ldg(mine + j) : 0;
+            }
+            T v[kFItems];
+            f_terms<V>(scan, ov_cols, ov_vals, x, e, live, v);
+#pragma unroll
+            for (int k = 0; k < kFItems; ++k)
+                if (live[k]) acc = add_rn(acc, v[k]);
+        }
+#pragma unroll
+        for (int d = 16; d > 0; d >>= 1)
+            acc = add_rn(acc, __shfl_down_sync(kFullMask, acc, d));
+        if (lane == 0) wsum[warp] = acc;
+        __syncthreads();
+        if (t == 0) {
+            T s = wsum[0];
+            for (int w = 1; w < kFWarps; ++w) s = add_rn(s, wsum[w]);
+            y[r0] = s;
+        }
+        return;
     }
 
-    T acc[kRowsPerThread];
+    // stage the terms and the row ends: every list and row-offset load,
+    // then every gather, coalesced (a unit holds at most kFUnit of each)
+    {
+        int e[kFItems], re[kFItems];
+        bool live[kFItems];
 #pragma unroll
-    for (int j = 0; j < kRowsPerThread; ++j) acc[j] = T(0);
-    const int v0 = __ldg(woff + w), v1 = __ldg(woff + w + 1);
-    for (int i0 = v0 + g * kBatch; i0 < v1; i0 += kGroups * kBatch) {
-        int4 ev[kBatch];
-        long long base[kBatch];
+        for (int k = 0; k < kFItems; ++k) {
+            const int j = k * kFThreads + t;
+            live[k] = j < nent;
+            e[k] = live[k] ? __ldg(mine + j) : 0;
+            re[k] = j < nrows ? __ldg(row_off + r0 + 1 + j) - e0 : 0;
+        }
+        T v[kFItems];
+        f_terms<V>(scan, ov_cols, ov_vals, x, e, live, v);
 #pragma unroll
-        for (int u = 0; u < kBatch; ++u) {
-            const int i = i0 + u;
-            if (i < v1) {
-                ev[u] = __ldg(reinterpret_cast<const int4*>(
-                    esrc + (long long)i * kWindowRows + e0));
-                base[u] = (long long)__ldg(sblock + i) * block_slots;
+        for (int k = 0; k < kFItems; ++k) {
+            const int j = k * kFThreads + t;
+            if (live[k]) term[f_skew(j)] = v[k];
+            if (j < nrows) row_end[f_skew(j)] = re[k];
+        }
+    }
+    __syncthreads();
+
+    // this thread's steps: from diagonal d of the merge path, where the
+    // path has taken i row ends and d - i entries (entry j belongs to the
+    // first row whose end is past it)
+    const int total = nrows + nent;
+    const int d = min(t * kFItems, total);
+    int lo = max(0, d - nent), hi = min(d, nrows);
+    while (lo < hi) {
+        const int p = (lo + hi) >> 1;
+        if (row_end[f_skew(p)] <= d - p - 1)
+            lo = p + 1;
+        else
+            hi = p;
+    }
+    const int i0 = lo, j0 = d - lo;
+    const int steps = min(kFItems, total - d);
+
+    // the steps' terms (0 at a row end) and which steps end a row, kept
+    // for the second walk; the sum of the terms after the last row end
+    T v[kFItems];
+    unsigned ends = 0;
+    T tail = T(0);
+    {
+        int i = i0, j = j0;
+        int end = i < nrows ? row_end[f_skew(i)] : 0;
+#pragma unroll
+        for (int s = 0; s < kFItems; ++s) {
+            v[s] = T(0);
+            if (s < steps) {
+                if (j < end) {
+                    v[s] = term[f_skew(j)];
+                    tail = add_rn(tail, v[s]);
+                    ++j;
+                } else {
+                    ends |= 1u << s;
+                    tail = T(0);
+                    ++i;
+                    end = i < nrows ? row_end[f_skew(i)] : 0;
+                }
+            }
+        }
+    }
+
+    // segmented exclusive scan of (tail, ends != 0) over the CTA: the
+    // carry of the row this thread starts in, from the threads before it
+    T s = tail;
+    int f = ends != 0;
+#pragma unroll
+    for (int dd = 1; dd < 32; dd <<= 1) {
+        const T up = __shfl_up_sync(kFullMask, s, dd);
+        const int up_f = __shfl_up_sync(kFullMask, f, dd);
+        if (lane >= dd) {
+            if (!f) s = add_rn(up, s);
+            f |= up_f;
+        }
+    }
+    if (lane == 31) {
+        wsum[warp] = s;
+        wflag[warp] = f;
+    }
+    const T ex = __shfl_up_sync(kFullMask, s, 1);
+    const int ex_f = __shfl_up_sync(kFullMask, f, 1);
+    __syncthreads();
+    T carry = T(0);
+    for (int w = 0; w < warp; ++w)
+        carry = (w == 0 || wflag[w]) ? wsum[w] : add_rn(carry, wsum[w]);
+    if (lane > 0) carry = (ex_f || warp == 0) ? ex : add_rn(carry, ex);
+
+    // the steps again: a row's end writes its sum
+    T run = carry;
+    long long row = r0 + i0;
+#pragma unroll
+    for (int k = 0; k < kFItems; ++k) {
+        if (k < steps) {
+            if ((ends >> k) & 1) {
+                y[row++] = run;
+                run = T(0);
             } else {
-                ev[u] = make_int4(-1, -1, -1, -1);
-                base[u] = 0;
+                run = add_rn(run, v[k]);
             }
-        }
-        T v[kBatch][kRowsPerThread];
-#pragma unroll
-        for (int u = 0; u < kBatch; ++u) {
-#pragma unroll
-            for (int j = 0; j < kRowsPerThread; ++j) {
-                const int src = esrc_at(ev[u], j);
-                // a narrow integer scan sign- or zero-extends to int
-                v[u][j] = src >= 0 ? (T)__ldg(scan + base[u] + src) : T(0);
-            }
-        }
-#pragma unroll
-        for (int u = 0; u < kBatch; ++u) {
-#pragma unroll
-            for (int j = 0; j < kRowsPerThread; ++j)
-                acc[j] = add_rn(acc[j], v[u][j]);
-        }
-    }
-    if (kGroups > 1) {
-        if (g > 0) {
-            T* mine = &part[g - 1][tx * kRowsPerThread];
-            store4(mine, acc[0], acc[1], acc[2], acc[3]);
-            store4(mine + 4, acc[4], acc[5], acc[6], acc[7]);
-        }
-        __syncthreads();
-        if (g == 0) {
-#pragma unroll
-            for (int h = 1; h < kGroups; ++h) {
-#pragma unroll
-                for (int j = 0; j < kRowsPerThread; ++j)
-                    acc[j] = add_rn(acc[j],
-                                    part[h - 1][tx * kRowsPerThread + j]);
-            }
-        }
-    }
-
-    // the overflow, a round of up to kThreads entries at a time: each
-    // entry's product into shared memory, then each row's run of entries
-    // (sorted by row, the plan's order within a row) added by its owner
-    for (int r0 = o0; r0 < o1; r0 += kThreads) {
-        const int m = min(kThreads, o1 - r0);
-        if (r0 > o0 && tid < m) {
-            lane = __ldg(ov_lane + r0 + tid);
-            col = __ldg(ov_cols + r0 + tid);
-            val = V::widen(__ldg(ov_vals + r0 + tid));
-        }
-        if (tid < kTX) ov_first[tid] = ov_last[tid] = 0;
-        if (tid < m) {
-            ov_prod[tid] = mul_rn(val, __ldg(x + col));
-            ov_row[tid] = lane;
-        }
-        __syncthreads();
-        if (tid < m) {
-            const int own = lane / kRowsPerThread;
-            if (tid == 0 || ov_row[tid - 1] / kRowsPerThread != own)
-                ov_first[own] = tid;
-            if (tid == m - 1 || ov_row[tid + 1] / kRowsPerThread != own)
-                ov_last[own] = tid + 1;
-        }
-        __syncthreads();
-        if (g == 0) {
-            for (int k = ov_first[tx]; k < ov_last[tx]; ++k) {
-                const int jk = ov_row[k] % kRowsPerThread;
-                const T p = ov_prod[k];
-#pragma unroll
-                for (int j = 0; j < kRowsPerThread; ++j)
-                    if (j == jk) acc[j] = add_rn(acc[j], p);
-            }
-        }
-        __syncthreads();
-    }
-
-    if (g == 0) {
-        const long long r = row0 + tx * kRowsPerThread;
-        if (r + kRowsPerThread <= rows) {
-            store4(y + r, acc[0], acc[1], acc[2], acc[3]);
-            store4(y + r + 4, acc[4], acc[5], acc[6], acc[7]);
-        } else {
-#pragma unroll
-            for (int j = 0; j < kRowsPerThread; ++j)
-                if (r + j < rows) y[r + j] = acc[j];
         }
     }
 }
@@ -400,22 +464,21 @@ int launch_scan(const void* vals, const int16_t* cols, const int* cstep,
 }
 
 template <class V>
-int launch_rows(const void* scan, const int* sblock, const int* woff,
-                const int16_t* esrc, const int* ov_off, const int* ov_lane,
-                const int* ov_cols, const void* ov_vals, const void* x,
-                void* y, long long rows, long long block_slots,
+int launch_rows(const void* scan, const int* row_off, const int* entries,
+                const int* units, const int* ov_cols, const void* ov_vals,
+                const void* x, void* y, long long num_units, int unit,
                 void* stream) {
     using T = typename V::T;
-    if (rows > 0) {
-        const unsigned grid = (unsigned)((rows + kBlockRows - 1) /
-                                         kBlockRows);
-        packed_rows_kernel<V><<<grid, dim3(kTX, kGroups), 0,
-                                    (cudaStream_t)stream>>>(
-            static_cast<const typename V::Scan*>(scan), sblock, woff, esrc,
-            ov_off, ov_lane, ov_cols,
+    if (unit < 1 || unit > kFUnit || num_units >= (1LL << 31) ||
+        reinterpret_cast<uintptr_t>(units) % 16)
+        return (int)cudaErrorInvalidValue;
+    if (num_units > 0)
+        packed_rows_kernel<V><<<(unsigned)num_units, kFThreads, 0,
+                                (cudaStream_t)stream>>>(
+            static_cast<const typename V::Scan*>(scan), row_off, entries,
+            reinterpret_cast<const int4*>(units), ov_cols,
             static_cast<const typename V::Slot*>(ov_vals),
-            static_cast<const T*>(x), static_cast<T*>(y), rows, block_slots);
-    }
+            static_cast<const T*>(x), static_cast<T*>(y));
     return (int)cudaGetLastError();
 }
 
@@ -447,19 +510,22 @@ PACKED_SCAN_BUILD(u8, spmv::U8Values)
 PACKED_SCAN_BUILD(i16, spmv::I16Values)
 PACKED_SCAN_BUILD(u16, spmv::U16Values)
 
-// y: rows sums, written, in CTAs of PACKED_F_BLOCK_ROWS rows; ov_off:
-// one offset a CTA and one more, or null for no overflow (x is then not
-// read); block_slots = step_tiles * 1024; scan of the policy's Scan
-// type, x and y of its sum type T, ov_vals of its slots
-#define PACKED_EXTRACT_BUILD(sfx, V)                                    \
+// y: one sum a row of the units, written once; row_off, entries: the
+// compacted list (ops/runs.py extract_tables); units: num_units (first
+// row, end row, first entry, end entry) records, 16-byte aligned, each
+// of at most `unit` merge steps or one row (unit at most
+// PACKED_F_THREADS * PACKED_F_ITEMS); ov_cols, ov_vals, x:
+// the overflow, null where the list holds none (x is then not read);
+// scan of the policy's Scan type, x and y of its sum type T, ov_vals of
+// its slots
+#define PACKED_EXTRACT_BUILD(sfx, V)                                        \
     extern "C" int packed_extract_##sfx(                                    \
-        const void* scan, const int* sblock, const int* woff,               \
-        const int16_t* esrc, const int* ov_off, const int* ov_lane,         \
-        const int* ov_cols, const void* ov_vals, const void* x, void* y,    \
-        long long rows, long long block_slots, void* stream) {              \
-        return launch_rows<V>(scan, sblock, woff, esrc, ov_off,         \
-                                  ov_lane, ov_cols, ov_vals, x, y, rows,    \
-                                  block_slots, stream);                     \
+        const void* scan, const int* row_off, const int* entries,           \
+        const int* units, const int* ov_cols, const void* ov_vals,          \
+        const void* x, void* y, long long num_units, int unit,              \
+        void* stream) {                                                     \
+        return launch_rows<V>(scan, row_off, entries, units, ov_cols,       \
+                              ov_vals, x, y, num_units, unit, stream);      \
     }
 
 PACKED_EXTRACT_BUILD(f32, spmv::F32Values)

@@ -76,10 +76,9 @@ SIGNATURES = {
     # vals, cols, cstep, x, out, rows, rows_per_step, chunk_cols, ncols,
     # slots_per_thread, threads, stream
     "packed_scan_f32": [_P, _P, _P, _P, _P, _L, _I, _L, _L, _I, _I, _P],
-    # scan, sblock, woff, esrc, ov_off, ov_lane, ov_cols, ov_vals, x, y,
-    # rows, block_slots, stream
-    "packed_extract_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L,
-                           _P],
+    # scan, row_off, entries, units, ov_cols, ov_vals, x, y, num_units,
+    # unit, stream
+    "packed_extract_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _P],
     # vals, cols, tile_slice, runs, x, out, num_runs, positions, lanes,
     # ncols, parts, out_rows, max_tiles, max_slices, semiring, stream
     "spmv_sell_global_f32": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _L, _I, _L,

@@ -15,9 +15,10 @@ each heavy row's tiles one run.  The chunk light route
 list of their real slots by lane row, which placement builds
 (:func:`light_records`, :func:`light_on`), with a work list of row
 ranges balanced by their records.  Kernel F (``csrc/spmv_packed.cu``)
-takes a PackedPlan's visit range of each y window and its overflow
-entries grouped by the CTA that writes their rows (:func:`extract_tables`,
-:func:`extract_on`).
+reads a PackedPlan's piece sums and overflow entries as one list by y
+row, compacted from the plan's dense extraction index at placement, with
+a work list of row ranges balanced by their entries
+(:func:`extract_tables`, :func:`extract_on`).
 """
 
 from __future__ import annotations
@@ -31,8 +32,9 @@ from torch.utils.weak import WeakIdKeyDictionary
 from ..formats.cached import CachedPlan
 from ..formats.chunk import ChunkPlan
 from ..formats.dia import HybridPlan
-from ..formats.packed import PackedPlan
+from ..formats.packed import PACKED_WINDOW_BLOCKS, PackedPlan
 from ..formats.plan import SellPlan
+from ..utils.stats import counters
 from . import semiring as sr
 
 #: most tiles one record sums; a longer slice is split over several
@@ -362,30 +364,46 @@ def light_on(plan: ChunkPlan) -> LightRecords:
 
 
 # ---------------------------------------------------------------------------
-# kernel F: a PackedPlan's window visit ranges and grouped overflow
+# kernel F: a PackedPlan's piece sums and overflow as one list by row
 # ---------------------------------------------------------------------------
 
-#: y rows one CTA of kernel F writes, by which the overflow entries are
-#: grouped: ``PACKED_F_BLOCK_ROWS`` of ``csrc/spmv_packed.cu``, which
-#: holds F's whole launch shape (a test checks the two agree)
-EXTRACT_BLOCK_ROWS = 256
+#: merge steps (a row's end or one of its entries) a CTA of kernel F
+#: takes: ``PACKED_F_THREADS * PACKED_F_ITEMS`` of ``csrc/spmv_packed.cu``
+#: (a test checks the two agree), by which placement cuts F's work list
+F_UNIT = 2048
+
+#: pieces the compaction places at a time, so that its int64 index
+#: temporaries stay about a hundred MB whatever the plan
+_PIECES_A_PASS = 1 << 23
 
 
 @dataclasses.dataclass(frozen=True)
 class ExtractTables:
-    """What kernel F reads of a placed PackedPlan beside its own arrays:
-    window w's visits are ``[woff[w], woff[w+1])`` of the plan's
-    window-major visit list, and y block b (rows ``[b*EXTRACT_BLOCK_ROWS,
-    (b+1)*EXTRACT_BLOCK_ROWS)``) owns overflow entries ``[ov_off[b],
-    ov_off[b+1])``, stably sorted by row, so that a row's entries keep the
-    plan's order; each carries its row within the block (``ov_lane``).
-    ``ncols`` is the plan's width: F reads x at ``ov_cols`` unmasked, so
-    an x shorter than that is refused before a launch."""
+    """What kernel F reads of a placed PackedPlan in place of its dense
+    ``esrc``: row r sums ``entries[row_off[r]:row_off[r+1]]``, first the
+    scan slot of each of its primary pieces (``sblock[i] * step_tiles *
+    1024 + esrc[i, e]``, >= 0) in visit order, then ``-1 - j`` for each
+    of its overflow entries j, whose column and value are ``ov_cols[j]``
+    and ``ov_vals[j]`` (the plan's overflow sorted stably by row, so a
+    row's entries keep the plan's order).  CTA u of F sums rows
+    ``[units[u, 0], units[u, 1])``, whose entries are ``[units[u, 2],
+    units[u, 3])``: consecutive rows of at most ``unit`` merge steps
+    (rows plus entries), or one hub row of more; the hubs first, the
+    longest first, then the rest in row order.  ``pieces``
+    counts the slots, ``dense_entries`` the entries of the dense
+    ``esrc`` (visits x 8192).  ``ncols`` is the plan's width and
+    ``slots`` its scan's: F reads x and the scan at the entries
+    unmasked, so a shorter x or another scan is refused before a
+    launch."""
 
     ncols: int
-    woff: torch.Tensor        # (num_windows + 1,) int32
-    ov_off: torch.Tensor      # (blocks + 1,) int32
-    ov_lane: torch.Tensor     # (novf,) int32 row within its block
+    slots: int
+    pieces: int
+    dense_entries: int
+    unit: int
+    row_off: torch.Tensor     # (rows + 1,) int32
+    entries: torch.Tensor     # (pieces + novf,) int32
+    units: torch.Tensor       # (CTAs, 4) int32 rows, then entries
     ov_cols: torch.Tensor     # (novf,) int32 column of x
     ov_vals: torch.Tensor     # (novf,) the plan's value type
 
@@ -401,47 +419,125 @@ def _bits(t: torch.Tensor) -> np.ndarray:
     return t.view(width[t.element_size()]).numpy()
 
 
-def window_offsets(wstep, num_windows: int) -> np.ndarray:
-    """The visit range of each window: ``num_windows + 1`` int32 offsets
-    into a nondecreasing ``wstep`` (``build_packed_plan``'s order)."""
-    ws = _host(wstep).astype(np.int64)
-    if ws.size and (np.any(np.diff(ws) < 0) or ws[0] < 0 or
-                    ws[-1] >= num_windows):
-        raise ValueError(f"wstep must be nondecreasing in [0, "
-                         f"{num_windows})")
-    return np.searchsorted(ws, np.arange(num_windows + 1)).astype(np.int32)
+def piece_slots(sblock: torch.Tensor, wstep: torch.Tensor,
+                esrc: torch.Tensor, step_tiles: int):
+    """Every primary piece of a plan's pass-B arrays (tensors on one
+    device, the visits window-major: ``wstep`` nondecreasing, as
+    ``build_packed_plan`` makes it): its y row and its scan slot, int32,
+    sorted by row, a row's pieces in visit order.  A window at a time, its
+    visits' extraction indices read row-major, so that no sort is
+    needed."""
+    window = PACKED_WINDOW_BLOCKS * 128
+    flat = esrc.reshape(esrc.shape[0], window)
+    ws = wstep.long()
+    if ws.numel() and bool((ws[1:] < ws[:-1]).any()):
+        raise ValueError("wstep must be nondecreasing (window-major "
+                         "visits)")
+    bounds = torch.unique_consecutive(ws, return_counts=True)
+    first = 0
+    rows, slots = [], []
+    for w, n in zip(bounds[0].tolist(), bounds[1].tolist()):
+        e = flat[first:first + n].t()          # (rows of the window, visits)
+        lane, vi = torch.nonzero(e >= 0, as_tuple=True)
+        vi = vi + first
+        rows.append((lane + w * window).to(torch.int32))
+        slots.append((sblock[vi].long() * (step_tiles * 1024)
+                      + e[lane, vi - first].long()).to(torch.int32))
+        first += n
+    if not rows:
+        none = torch.zeros(0, dtype=torch.int32, device=esrc.device)
+        return none, none
+    return torch.cat(rows), torch.cat(slots)
 
 
-def extract_tables(plan: PackedPlan) -> ExtractTables:
+def f_units(row_off, unit: int = F_UNIT) -> np.ndarray:
+    """Kernel F's work list over ``row_off`` (numpy): (CTAs, 2) int32
+    (first row, end row), greedily the most consecutive rows whose merge
+    steps (rows plus entries) fit ``unit``, a row that alone exceeds it
+    a CTA of its own (a hub); the hubs first, the longest first, then the
+    rest in row order."""
+    steps = np.asarray(row_off, np.int64)
+    nrows = steps.shape[0] - 1
+    steps = steps + np.arange(nrows + 1)     # merge steps before each row
+    starts, r = [], 0
+    while r < nrows:
+        starts.append(r)
+        end = int(np.searchsorted(steps, steps[r] + unit, side="right")) - 1
+        r = max(end, r + 1)
+    bounds = np.append(np.asarray(starts, np.int64), nrows)
+    units = np.stack([bounds[:-1], bounds[1:]], 1)
+    size = steps[units[:, 1]] - steps[units[:, 0]]
+    hub = np.flatnonzero(size > unit)
+    order = np.concatenate([hub[np.argsort(-size[hub], kind="stable")],
+                            np.flatnonzero(size <= unit)])
+    return units[order].astype(np.int32).reshape(-1, 2)
+
+
+def compact_tables(prow, pslot, orow, ov_cols, ov_vals, *, rows: int,
+                   ncols: int, slots: int, dense_entries: int,
+                   unit: int = F_UNIT) -> ExtractTables:
+    """Kernel F's tables from the pieces' rows and slots (sorted by row, a
+    row's pieces in visit order: :func:`piece_slots`) and the overflow's
+    rows, columns and values (sorted stably by row), all on one device."""
+    dev = prow.device
+    npc, nov = prow.shape[0], orow.shape[0]
+    if max(npc + nov, slots, rows + 1) >= 2 ** 31:
+        raise ValueError(f"{npc + nov} entries, {slots} scan slots, {rows} "
+                         f"rows: kernel F's tables index in 32 bits")
+    if npc and (int(prow[-1]) >= rows or int(pslot.max()) >= slots or
+                int(pslot.min()) < 0):
+        raise ValueError(f"a piece outside {rows} rows and {slots} slots")
+    cp = torch.bincount(prow, minlength=rows)
+    co = torch.bincount(orow, minlength=rows)
+    row_off = torch.zeros(rows + 1, dtype=torch.int64, device=dev)
+    row_off[1:] = torch.cumsum(cp + co, 0)
+    entries = torch.empty(npc + nov, dtype=torch.int32, device=dev)
+    # a row's pieces first, then its overflow entries
+    before = torch.cumsum(co, 0) - co          # overflow of earlier rows
+    for k0 in range(0, npc, _PIECES_A_PASS):
+        k1 = min(npc, k0 + _PIECES_A_PASS)
+        at = torch.arange(k0, k1, device=dev) + before[prow[k0:k1].long()]
+        entries[at] = pslot[k0:k1].to(torch.int32)
+    del before
+    entries[torch.arange(nov, device=dev) + torch.cumsum(cp, 0)[orow]] = \
+        -1 - torch.arange(nov, dtype=torch.int32, device=dev)
+    off = row_off.cpu().numpy()
+    units = f_units(off, unit)
+    units = np.concatenate([units, off[units]], 1).astype(np.int32)
+    return ExtractTables(
+        ncols, slots, npc, dense_entries, unit, row_off.to(torch.int32),
+        entries, torch.from_numpy(units).to(dev),
+        ov_cols.to(device=dev, dtype=torch.int32).contiguous(),
+        ov_vals.to(dev).contiguous())
+
+
+def extract_tables(plan: PackedPlan, unit: int = F_UNIT) -> ExtractTables:
     """Kernel F's tables for ``plan`` (host or placed), on the device of
-    its ``esrc`` (the CPU for a host plan)."""
+    its ``esrc`` (the CPU for a host plan); the plan's own arrays are
+    left as they are."""
     rows, ncols = plan.shape
-    nblocks = -(-rows // EXTRACT_BLOCK_ROWS)
     ov_rows = _host(plan.ov_rows).astype(np.int64)
     ov_cols = _host(plan.ov_cols)
-    # kernel F reads y's rows and x at these unchecked
+    # kernel F reads x at these unchecked
     if ov_rows.size and (ov_rows.min() < 0 or ov_rows.max() >= rows or
                          ov_cols.min() < 0 or ov_cols.max() >= ncols):
         raise ValueError(f"overflow entries outside the plan's "
                          f"{rows} x {ncols}")
     order = np.argsort(ov_rows, kind="stable")
-    rows_s = ov_rows[order]
-    block = rows_s // EXTRACT_BLOCK_ROWS
-    ov_off = np.searchsorted(block, np.arange(nblocks + 1))
     device = plan.esrc.device if isinstance(plan.esrc, torch.Tensor) \
         else "cpu"
 
-    def put(a, dtype):
-        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
+    def put(a):
+        return torch.as_tensor(a).to(device)
 
-    return ExtractTables(
-        ncols, put(window_offsets(plan.wstep, plan.stats.num_windows),
-                   np.int32),
-        put(ov_off, np.int32),
-        put(rows_s - block * EXTRACT_BLOCK_ROWS, np.int32),
-        put(ov_cols[order], np.int32),
-        sr.take(torch.as_tensor(plan.ov_vals).cpu(),
-                torch.from_numpy(order)).to(device))
+    prow, pslot = piece_slots(put(plan.sblock), put(plan.wstep),
+                              put(plan.esrc), plan.stats.step_tiles)
+    return compact_tables(
+        prow, pslot, put(ov_rows[order]), put(ov_cols[order]),
+        sr.take(torch.as_tensor(plan.ov_vals).cpu(), torch.from_numpy(order)),
+        rows=rows, ncols=ncols, slots=plan.vals.shape[0] * 1024,
+        dense_entries=plan.esrc.shape[0] * PACKED_WINDOW_BLOCKS * 128,
+        unit=unit)
 
 
 #: kernel F's tables of each placed PackedPlan by its ``esrc`` tensor
@@ -450,9 +546,13 @@ _EXTRACT = WeakIdKeyDictionary()
 
 def place_extract(plan: PackedPlan) -> None:
     """Build a placed PackedPlan's kernel-F tables, once, so that no apply
-    waits on them."""
+    waits on them; counts their pieces (``packed.f_entries``) and the
+    entries of the dense ``esrc`` they replace (``packed.f_dense_entries``)
+    in ``utils.stats.counters``."""
     if plan.esrc not in _EXTRACT:
-        _EXTRACT[plan.esrc] = extract_tables(plan)
+        tables = _EXTRACT[plan.esrc] = extract_tables(plan)
+        counters["packed.f_entries"] += tables.pieces
+        counters["packed.f_dense_entries"] += tables.dense_entries
 
 
 def extract_on(plan: PackedPlan) -> ExtractTables:

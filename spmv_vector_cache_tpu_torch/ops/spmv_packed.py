@@ -3,13 +3,13 @@
 
 :func:`packed_scan_kernel` wraps kernel E (pass A: gather, multiply,
 segmented scan along each 128-slot row) and :func:`packed_rows_kernel`
-kernel F (pass B: read each piece's sum at its end slot, sum it into its
-row of y in a fixed order, then add the row's overflow products in the
-plan's order), both in
-``csrc/spmv_packed.cu``; beside each is its plain PyTorch version.  So
-the apply is kernel E then kernel F: F also does what the reference
-computes in XLA after its extract kernel (the window mask, the overflow
-COO), from the tables that placement builds (``ops/runs.py``
+kernel F (pass B: sum each row of y from a list of what it sums, its
+pieces' sums, read at their end slots of the scan, then its overflow
+products), both in ``csrc/spmv_packed.cu``; beside each is its plain
+PyTorch version.  So the apply is kernel E then kernel F: F also does
+what the reference computes in XLA after its extract kernel (the window
+mask, the overflow COO), from the list that placement compacts from the
+plan's dense extraction index (``ops/runs.py``
 :func:`~.runs.extract_on`).  :func:`packed_extract_kernel` is F over
 whole windows with no overflow, the reference's extract kernel alone.
 See ``formats/packed.py`` for the layout.
@@ -31,8 +31,7 @@ from ..formats.packed import PACKED_WINDOW_BLOCKS, PackedPlan
 from ..utils import platform
 from . import _kernels
 from . import semiring as sr
-from .runs import (EXTRACT_BLOCK_ROWS, ExtractTables, extract_on,
-                   window_offsets)
+from .runs import ExtractTables, compact_tables, extract_on, piece_slots
 
 
 def _check_same_device(ref, *ts):
@@ -174,9 +173,10 @@ def packed_scan_kernel(vals, cols, cstep, x, *, chunk_blocks: int,
 
 def packed_extract_plain(scan, sblock, wstep, esrc, *, num_windows: int,
                          step_tiles: int) -> torch.Tensor:
-    """Plain PyTorch version of kernel F: each visit's piece sums, added
-    into their windows in visit order; unvisited windows are 0.  The
-    sums in the scan's sum type (a narrow scan widened)."""
+    """Plain PyTorch version of kernel F over whole windows, from the
+    plan's dense ``esrc``: each visit's piece sums, added into their
+    window in visit order; unvisited windows are 0.  The sums in the
+    scan's sum type (a narrow scan widened)."""
     out_dtype = sr.x_dtype(scan.dtype)
     scan = sr.widen(scan)
     e = esrc.long()
@@ -187,7 +187,7 @@ def packed_extract_plain(scan, sblock, wstep, esrc, *, num_windows: int,
                      out_dtype)
 
 
-def _check_pass_b(scan, sblock, esrc, num_windows, *more):
+def _check_extract(scan, sblock, wstep, esrc, num_windows):
     steps_b = sblock.shape[0]
     if tuple(esrc.shape) != (steps_b, PACKED_WINDOW_BLOCKS, 128):
         raise ValueError(f"esrc {tuple(esrc.shape)} must be (steps_b, 64, "
@@ -201,46 +201,44 @@ def _check_pass_b(scan, sblock, esrc, num_windows, *more):
         raise ValueError("esrc must be int16 and sblock int32")
     if not 0 < num_windows < 65536:
         raise ValueError(f"num_windows {num_windows} out of [1, 65535]")
-    _check_same_device(scan, sblock, esrc, *more)
-    if platform.is_cuda(esrc) and esrc.data_ptr() % 16:
-        raise ValueError("kernel F reads esrc 16 B at a time: it must be "
-                         "aligned to that")
-
-
-def _check_extract(scan, sblock, wstep, esrc, num_windows):
-    _check_pass_b(scan, sblock, esrc, num_windows, wstep)
     if wstep.shape != sblock.shape or wstep.dtype != torch.int32:
         raise ValueError(f"wstep must be int32 of sblock's shape "
                          f"{tuple(sblock.shape)}")
+    _check_same_device(scan, sblock, wstep, esrc)
 
 
-def packed_rows_plain(scan, sblock, esrc, x, tables: ExtractTables, *,
-                      rows: int, step_tiles: int) -> torch.Tensor:
-    """Plain PyTorch version of kernel F: each window's visits added into
-    its rows in visit order (``index_add_``), then each row's overflow
-    products in the plan's order; y of length ``rows`` in x's type."""
-    nwin = tables.woff.shape[0] - 1
-    wstep = torch.repeat_interleave(
-        torch.arange(nwin, device=scan.device),
-        (tables.woff[1:] - tables.woff[:-1]).long())
-    y = packed_extract_plain(scan, sblock, wstep, esrc, num_windows=nwin,
-                             step_tiles=step_tiles).reshape(-1)[:rows]
-    y = sr.widen(y.contiguous())
-    block = torch.repeat_interleave(
-        torch.arange(tables.ov_off.shape[0] - 1, device=scan.device),
-        (tables.ov_off[1:] - tables.ov_off[:-1]).long())
-    prod = sr.widen(tables.ov_vals) * sr.widen(x)[tables.ov_cols.long()]
-    return sr.narrow(y.index_add_(0, block * EXTRACT_BLOCK_ROWS
-                                  + tables.ov_lane, prod), x.dtype)
+def packed_rows_plain(scan, x, tables: ExtractTables, *,
+                      rows: int) -> torch.Tensor:
+    """Plain PyTorch version of kernel F: each row's entries of the
+    compacted list added one after another in list order
+    (``index_add_``), its pieces' sums in visit order, then its overflow
+    products in the plan's order; y of length ``rows`` in x's type.
+    (Kernel F adds the same terms in another fixed order: see
+    ``csrc/spmv_packed.cu``.)"""
+    scan_w, x_w = sr.widen(scan).reshape(-1), sr.widen(x)
+    ent = tables.entries.long()
+    piece = ent >= 0
+    term = torch.empty(ent.shape, dtype=x_w.dtype, device=x.device)
+    term[piece] = scan_w[ent[piece]].to(x_w.dtype)
+    ov = -1 - ent[~piece]
+    term[~piece] = sr.widen(tables.ov_vals)[ov] * \
+        x_w[tables.ov_cols.long()[ov]]
+    row = torch.repeat_interleave(
+        torch.arange(rows, device=x.device),
+        (tables.row_off[1:] - tables.row_off[:-1]).long())
+    y = torch.zeros(rows, dtype=x_w.dtype, device=x.device)
+    return sr.narrow(y.index_add_(0, row, term), x.dtype)
 
 
-def _check_rows(scan, sblock, esrc, x, tables, rows):
+def _check_rows(scan, x, tables, rows):
     # extract_tables puts every table on one device, contiguous
-    _check_pass_b(scan, sblock, esrc, tables.woff.shape[0] - 1, x,
-                  tables.woff)
-    if tables.ov_off.shape != (-(-rows // EXTRACT_BLOCK_ROWS) + 1,):
-        raise ValueError(f"ov_off {tuple(tables.ov_off.shape)}: the tables "
-                         f"are not those of a plan of {rows} rows")
+    if tables.row_off.shape != (rows + 1,):
+        raise ValueError(f"row_off {tuple(tables.row_off.shape)}: the "
+                         f"tables are not those of a plan of {rows} rows")
+    if scan.dtype not in (torch.float32, torch.int32, torch.uint32,
+                          *NARROW_SCAN) or scan.numel() != tables.slots:
+        raise ValueError(f"a scan of {scan.numel()} {scan.dtype} slots; the "
+                         f"tables index a scan of {tables.slots}")
     if x.dim() != 1 or tables.ov_vals.dtype not in _kernels.BUILDS or \
             scan_dtype(tables.ov_vals.dtype) != scan.dtype or \
             sr.x_dtype(tables.ov_vals.dtype) != x.dtype:
@@ -251,58 +249,58 @@ def _check_rows(scan, sblock, esrc, x, tables, rows):
     if x.shape[0] < tables.ncols:
         raise ValueError(f"x has {x.shape[0]} entries; the plan has "
                          f"{tables.ncols} columns")
+    _check_same_device(scan, x, tables.row_off)
 
 
-def packed_rows_kernel(scan, sblock, esrc, x, tables: ExtractTables, *,
-                       rows: int, step_tiles: int) -> torch.Tensor:
+def packed_rows_kernel(scan, x, tables: ExtractTables, *,
+                       rows: int) -> torch.Tensor:
     """Kernel F on CUDA tensors; the plain version on CPU tensors.
-    Returns y, (rows,) in x's type (the plan's sum type): the visits of
-    each row's window, then the row's overflow."""
-    _check_rows(scan, sblock, esrc, x, tables, rows)
+    Returns y, (rows,) in x's type (the plan's sum type): each row's
+    pieces, then its overflow, from the compacted list ``tables``."""
+    _check_rows(scan, x, tables, rows)
     if not platform.is_cuda(scan):
-        return packed_rows_plain(scan, sblock, esrc, x, tables, rows=rows,
-                                 step_tiles=step_tiles)
+        return packed_rows_plain(scan, x, tables, rows=rows)
     y = torch.empty(rows, dtype=x.dtype, device=scan.device)
-    _launch_f(scan, sblock, tables.woff, esrc, tables, x, y, step_tiles)
+    _launch_f(scan, tables, x, y)
     return y
 
 
-def _launch_f(scan, sblock, woff, esrc, tables, x, y, step_tiles):
-    """One launch of kernel F into ``y`` (no overflow without tables),
-    the build of the plan's value type (the overflow's; the scan's when
-    there is none)."""
-    ov = (None,) * 4 if tables is None else (
-        tables.ov_off.data_ptr(), tables.ov_lane.data_ptr(),
-        tables.ov_cols.data_ptr(), tables.ov_vals.data_ptr())
-    vals_t = scan.dtype if tables is None else tables.ov_vals.dtype
+def _launch_f(scan, tables, x, y):
+    """One launch of kernel F into ``y``, the build of the tables'
+    overflow value type (x is not read where they hold no overflow)."""
+    ov = (tables.ov_cols.data_ptr(), tables.ov_vals.data_ptr(),
+          x.data_ptr()) if tables.ov_cols.shape[0] else (None,) * 3
     _kernels.launch(
-        _kernels.entry("packed_extract_f32", vals_t), scan.get_device(),
-        scan.data_ptr(),
-        sblock.data_ptr(), woff.data_ptr(), esrc.data_ptr(), *ov,
-        None if x is None else x.data_ptr(), y.data_ptr(), y.shape[0],
-        step_tiles * 1024)
+        _kernels.entry("packed_extract_f32", tables.ov_vals.dtype),
+        scan.get_device(), scan.data_ptr(), tables.row_off.data_ptr(),
+        tables.entries.data_ptr(), tables.units.data_ptr(), *ov,
+        y.data_ptr(), tables.units.shape[0], tables.unit)
 
 
 def packed_extract_kernel(scan, sblock, wstep, esrc, *, num_windows: int,
                           step_tiles: int) -> torch.Tensor:
     """Kernel F over whole windows with no overflow on CUDA tensors (the
-    ``packed_extract_*`` entry of the scan's type); the plain version on
-    CPU tensors.  Returns (num_windows * 64, 128) in the scan's sum
-    type.  ``wstep`` must be nondecreasing (``build_packed_plan``'s
-    window-major visit order).  Both versions write 0 to unvisited
-    windows, so the plan's ``wfirst`` and ``window_mask`` (the
+    ``packed_extract_*`` entry of the scan's type), from a list it
+    compacts from ``esrc`` first; the plain version on CPU tensors.
+    Returns (num_windows * 64, 128) in the scan's sum type.  ``wstep``
+    must be nondecreasing (``build_packed_plan``'s window-major visit
+    order).  Both versions write 0 to
+    unvisited windows, so the plan's ``wfirst`` and ``window_mask`` (the
     reference's overwrite flag and mask) are not read."""
     _check_extract(scan, sblock, wstep, esrc, num_windows)
     if not platform.is_cuda(scan):
         return packed_extract_plain(scan, sblock, wstep, esrc,
                                     num_windows=num_windows,
                                     step_tiles=step_tiles)
-    woff = torch.from_numpy(window_offsets(wstep, num_windows)).to(
-        scan.device)
-    out = torch.empty((num_windows * PACKED_WINDOW_BLOCKS, 128),
-                      dtype=sr.x_dtype(scan.dtype), device=scan.device)
-    _launch_f(scan, sblock, woff, esrc, None, None, out.reshape(-1),
-              step_tiles)
+    rows = num_windows * PACKED_WINDOW_BLOCKS * 128
+    prow, pslot = piece_slots(sblock, wstep, esrc, step_tiles)
+    none = torch.zeros(0, dtype=torch.int64, device=scan.device)
+    tables = compact_tables(prow, pslot, none, none, none.to(scan.dtype),
+                            rows=rows, ncols=0, slots=scan.numel(),
+                            dense_entries=esrc.numel())
+    out = torch.empty((rows // 128, 128), dtype=sr.x_dtype(scan.dtype),
+                      device=scan.device)
+    _launch_f(scan, tables, None, out.reshape(-1))
     return out
 
 
@@ -326,5 +324,4 @@ def spmv_packed(plan: PackedPlan, x: torch.Tensor, *,
     scan = packed_scan_kernel(plan.vals, plan.cols, plan.cstep, x,
                               chunk_blocks=st.chunk_blocks,
                               step_tiles=st.step_tiles)
-    return packed_rows_kernel(scan, plan.sblock, plan.esrc, x, tables,
-                              rows=plan.shape[0], step_tiles=st.step_tiles)
+    return packed_rows_kernel(scan, x, tables, rows=plan.shape[0])

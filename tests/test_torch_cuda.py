@@ -271,21 +271,41 @@ def test_packed_kernels_match_plain(cuda, chunk_blocks):
 
 def _packed_matrix(overflow, rows=20003, cols=9000):
     """Random nonzeros over rows that end mid-window and mid-CTA (20,003 =
-    2 windows + 3,619 rows, not a multiple of 8); with overflow, one
-    full row and 9 rows of 2,000, whose runs cross many 128-slot
-    boundaries (the full row's 8,000-odd overflow entries take a CTA of
-    kernel F several rounds); without, one nonzero a row (no run is
-    split)."""
+    2 windows + 3,619 rows, not a multiple of 8).  ``overflow``: True adds
+    one full row and 9 rows of 2,000, whose runs cross many 128-slot
+    boundaries (the full row has 8,000-odd overflow entries); False gives
+    one nonzero a row (no run is split); "hub" makes the matrix 40,000
+    wide with two full rows (7,777 and 12,345), each of over 10,000
+    overflow entries at every chunk_blocks, so kernel F splits them
+    across a CTA; "every_chunk" adds a row with a nonzero every 128
+    columns, so a primary piece in every chunk of any width; "no_piece"
+    leaves windows 1 and 3 of five (8,192 rows each) and two rows in
+    three elsewhere empty."""
     rng = np.random.default_rng(6)
-    if not overflow:
+    if overflow is False:
         return sp.csr_matrix((rng.standard_normal(rows).astype(np.float32),
                               (np.arange(rows), rng.integers(0, cols, rows))),
                              shape=(rows, cols))
-    flat = rng.choice(rows * cols, 180000, replace=False)
-    r, c = flat // cols, flat % cols
-    dense = np.arange(1000, rows, 2000)[:9]
-    r = np.concatenate([r, np.full(cols, 5), np.repeat(dense, 2000)])
-    c = np.concatenate([c, np.arange(cols), rng.integers(0, cols, 18000)])
+    if overflow == "hub":
+        cols = 40000
+    if overflow == "no_piece":
+        rows = 5 * 8192
+        r = np.arange(0, rows, 3)
+        r = np.repeat(r[(r // 8192) % 2 == 0], 4)
+        c = rng.integers(0, cols, r.shape[0])
+    else:
+        flat = rng.choice(rows * cols, 180000, replace=False)
+        r, c = flat // cols, flat % cols
+    if overflow is True:
+        dense = np.arange(1000, rows, 2000)[:9]
+        r = np.concatenate([r, np.full(cols, 5), np.repeat(dense, 2000)])
+        c = np.concatenate([c, np.arange(cols), rng.integers(0, cols, 18000)])
+    elif overflow == "hub":
+        r = np.concatenate([r, np.full(cols, 7777), np.full(cols, 12345)])
+        c = np.concatenate([c, np.arange(cols), np.arange(cols)])
+    elif overflow == "every_chunk":
+        r = np.concatenate([r, np.full(cols // 128, 77)])
+        c = np.concatenate([c, np.arange(0, cols - 127, 128)])
     m = sp.csr_matrix((rng.standard_normal(r.shape[0]).astype(np.float32),
                        (r, c)), shape=(rows, cols))
     m.sum_duplicates()
@@ -293,40 +313,67 @@ def _packed_matrix(overflow, rows=20003, cols=9000):
     return m
 
 
-@pytest.mark.parametrize("overflow", [False, True])
+def _row_counts(plan, tables):
+    """Each row's pieces and overflow entries in kernel F's list."""
+    off = tables.row_off.long().cpu()
+    n = off[1:] - off[:-1]
+    ov = torch.bincount(plan.ov_rows.long().cpu(), minlength=n.shape[0])
+    return n - ov, ov
+
+
+@pytest.mark.parametrize("overflow", [False, True, "hub", "every_chunk",
+                                      "no_piece"])
 @pytest.mark.parametrize("chunk_blocks", [1, 4, 32])
 def test_packed_rows_kernel_matches_plain(cuda, chunk_blocks, overflow):
-    # kernel F, visits then overflow, against its plain version on the
-    # same scan.  F's thread groups sum interleaved batches of a window's
-    # visits and add their sums in group order, where the plain version
-    # adds visit by visit: the same float32 terms in another order, so
-    # 1e-5 of max|y|
+    # kernel F, each row's pieces then its overflow, against its plain
+    # version on the same scan.  F's threads take even runs of the list
+    # and join a row's partial sums by a scan, where the plain version
+    # adds a row's terms one after another: the same float32 terms in
+    # another order, so 1e-5 of max|y|
     m = _packed_matrix(overflow)
     plan = place(build_packed_plan(from_scipy(m), chunk_blocks=chunk_blocks),
                  cuda)
     st = plan.stats
-    assert (st.overflow_nnz > 0) == overflow
+    if overflow in (False, True, "hub"):
+        assert (st.overflow_nnz > 0) == (overflow is not False)
     tables = pruns.extract_on(plan)
-    if overflow:
-        # more entries than the 1,024 threads a CTA has at most
-        assert int((tables.ov_off[1:] - tables.ov_off[:-1]).max()) > 1024
+    pieces, ov = _row_counts(plan, tables)
+    unit = tables.units.long().cpu()
+    steps = (unit[:, 1] - unit[:, 0]) + tables.row_off.long().cpu()[
+        unit[:, 1]] - tables.row_off.long().cpu()[unit[:, 0]]
+    if overflow is True:
+        # more entries in one row than a CTA's unit: a hub row
+        assert int(steps.max()) > tables.unit
+    if overflow == "hub":
+        assert int(ov[7777]) >= 10000 and int(ov[12345]) >= 10000
+        assert int((steps > tables.unit).sum()) >= 2
+    if overflow == "every_chunk":
+        # a piece in every chunk of the columns up to 8,960 (70 x 128)
+        assert int(pieces[77]) == np.unique(
+            m.getrow(77).indices // (chunk_blocks * 128)).shape[0] == \
+            -(-(m.shape[1] // 128 * 128) // (chunk_blocks * 128))
+    if overflow == "no_piece":
+        assert int(pieces[8192:2 * 8192].sum()) == 0
+        assert int((pieces == 0).sum()) > m.shape[0] // 2
     x = torch.from_numpy(np.random.default_rng(7).standard_normal(
         m.shape[1]).astype(np.float32)).to(cuda)
     scan = spmv_packed.packed_scan_plain(plan.vals, plan.cols, plan.cstep, x,
                                          chunk_blocks=chunk_blocks,
                                          step_tiles=st.step_tiles)
-    args = (scan, plan.sblock, plan.esrc, x, tables)
-    kw = dict(rows=m.shape[0], step_tiles=st.step_tiles)
+    args = (scan, x, tables)
+    kw = dict(rows=m.shape[0])
     before = _kernels.launches["packed_extract_f32"]
     got = spmv_packed.packed_rows_kernel(*args, **kw)
     assert _kernels.launches["packed_extract_f32"] == before + 1
     _close(got, spmv_packed.packed_rows_plain(*args, **kw))
+    if overflow == "no_piece":
+        assert int((got != 0).sum()) == int(((pieces + ov) > 0).sum())
 
 
-def _packed_operator(cuda):
+def _packed_operator(cuda, overflow=True):
     from spmv_vector_cache_tpu_torch.ops.operator import SparseOperator
 
-    m = _packed_matrix(True)
+    m = _packed_matrix(overflow)
     op = SparseOperator(place(build_packed_plan(from_scipy(m)), cuda))
     assert op.strategy == "packed"
     x = torch.from_numpy(np.random.default_rng(8).standard_normal(
@@ -361,15 +408,19 @@ def test_packed_apply_launches_e_and_f_alone(cuda):
         (applies, applies)
 
 
-def test_packed_apply_is_the_same_every_run(cuda):
+@pytest.mark.parametrize("overflow", [True, "hub"])
+def test_packed_apply_is_the_same_every_run(cuda, overflow):
     # kernel F writes each row once, with no atomic: bit-equal applies,
-    # and y as on the CPU to rounding
-    op, x = _packed_operator(cuda)
+    # hub rows split across a CTA included, and y as on the CPU to
+    # rounding
+    op, x = _packed_operator(cuda, overflow)
     y1 = op @ x
     y2 = op @ x
+    y3 = op @ x
     torch.cuda.synchronize()
-    assert torch.equal(y1, y2)
-    cpu = place(build_packed_plan(from_scipy(_packed_matrix(True))), "cpu")
+    assert torch.equal(y1, y2) and torch.equal(y1, y3)
+    cpu = place(build_packed_plan(from_scipy(_packed_matrix(overflow))),
+                "cpu")
     _close(y1.cpu(), spmv_packed.spmv_packed(cpu, x.cpu()))
 
 
@@ -1659,12 +1710,14 @@ def test_typed_chunk_kernels_match_plain(cuda, kind):
               spmv_sell.spmv_plan(cpu, x.cpu(), semiring=semiring))
 
 
+@pytest.mark.parametrize("overflow", [True, "hub"])
 @pytest.mark.parametrize("kind", sorted(TYPED))
-def test_typed_packed_kernels_match_plain(cuda, kind):
-    # kernel E, then kernel F with overflow, each the build of the plan's
+def test_typed_packed_kernels_match_plain(cuda, kind, overflow):
+    # kernel E, then kernel F with overflow (hub rows of over 10,000
+    # entries split across a CTA with "hub"), each the build of the plan's
     # value type (F's bfloat16 build reads the float32 scan and x and the
     # 2-byte overflow values)
-    m = _packed_matrix(True)
+    m = _packed_matrix(overflow)
     m.data = _typed_values(kind, m.nnz, np.random.default_rng(26))
     plan = place(build_packed_plan(from_scipy(m), chunk_blocks=4,
                                    value_dtype=TYPED[kind]), cuda)
@@ -1677,8 +1730,8 @@ def test_typed_packed_kernels_match_plain(cuda, kind):
     tables = pruns.extract_on(plan)
     assert tables.ov_vals.dtype == plan.vals.dtype
     assert tables.ov_vals.shape[0] > 0
-    rows_args = (scan, plan.sblock, plan.esrc, x, tables)
-    rows_kw = dict(rows=m.shape[0], step_tiles=st.step_tiles)
+    rows_args = (scan, x, tables)
+    rows_kw = dict(rows=m.shape[0])
     before = _kernels.launches["packed_extract_" + kind]
     got = spmv_packed.packed_rows_kernel(*rows_args, **rows_kw)
     assert _kernels.launches["packed_extract_" + kind] == before + 1

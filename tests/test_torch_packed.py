@@ -13,9 +13,10 @@ packages:
   exact);
 * y agrees with the float64 host loop to 1e-4 * max(1, max|y|), the
   JAX package's own bound for these matrices;
-* the tables placement builds for kernel F (each window's visit range,
-  the overflow grouped by the block of rows a CTA of F writes) hold the
-  plan's visits and overflow, in the plan's order within a row.
+* the tables placement builds for kernel F (each row's pieces, compacted
+  from the dense extraction index, then its overflow, and F's work list)
+  hold the plan's visits and overflow, in the plan's order within a row,
+  and give the dense index's y bit for bit.
 """
 
 import dataclasses
@@ -45,6 +46,8 @@ from spmv_vector_cache_tpu_torch.ops import spmv_packed as pspmv_packed
 from spmv_vector_cache_tpu_torch.ops import spmv_sell as psell
 from spmv_vector_cache_tpu_torch.ops import strategy as pstrategy
 from spmv_vector_cache_tpu_torch.ops.operator import SparseOperator
+from spmv_vector_cache_tpu_torch.tools import graphs, realistic
+from spmv_vector_cache_tpu_torch.utils import stats as pstats
 from tests.test_torch_chunk import _assert_close
 from tests.test_torch_plan import assert_plans_equal, both
 
@@ -175,40 +178,65 @@ def test_spmv_packed_unvisited_window_gives_its_overflow():
     assert np.count_nonzero(y[8192:]) == 3
 
 
+def _dense_rows(plan):
+    """Each row's pieces read from the dense ``esrc``, in visit order:
+    {row: [scan slot, ...]}."""
+    st = plan.stats
+    esrc = plan.esrc.reshape(plan.esrc.shape[0], -1).numpy()
+    vi, lane = np.nonzero(esrc >= 0)
+    rows = plan.wstep.numpy()[vi].astype(np.int64) * 8192 + lane
+    slots = plan.sblock.numpy()[vi].astype(np.int64) * \
+        (st.step_tiles * 1024) + esrc[vi, lane]
+    got = {}
+    for r, s in zip(rows.tolist(), slots.tolist()):
+        got.setdefault(r, []).append(s)
+    return got
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_extract_tables_hold_the_visits_and_overflow(case):
-    """Kernel F's tables: window w's visits are the plan's visits with
-    wstep == w, and block b's overflow entries are the plan's entries of
-    rows in b, sorted by row with the plan's order kept within a row."""
+    """Kernel F's tables: row r's entries are the scan slots of its
+    pieces in visit order, as the dense ``esrc`` holds them, then its
+    overflow entries, sorted by row with the plan's order kept within a
+    row; the work list covers every row once, each CTA within F's unit
+    or one row, the hubs first."""
     make, cb = CASES[case]
     _, pa = both(make())
     plan = pplan.place(ppacked.build_packed_plan(pa, chunk_blocks=cb),
                        "cpu")
     t = pruns.extract_on(plan)
-    rb, rows = pruns.EXTRACT_BLOCK_ROWS, plan.shape[0]
-    assert 8192 % rb == 0 and t.ncols == plan.shape[1]
-    wstep = plan.wstep.numpy()
-    woff = t.woff.numpy()
-    assert woff.shape == (plan.stats.num_windows + 1,)
-    assert woff[0] == 0 and woff[-1] == wstep.shape[0]
-    for w in range(plan.stats.num_windows):
-        assert np.all(wstep[woff[w]:woff[w + 1]] == w)
-    off = t.ov_off.numpy()
-    assert off.shape == (-(-rows // rb) + 1,) and off[-1] == \
-        plan.ov_rows.shape[0]
+    rows = plan.shape[0]
+    assert t.ncols == plan.shape[1] and t.slots == plan.vals.numel()
+    assert t.pieces == plan.stats.num_pieces
+    assert t.dense_entries == plan.esrc.numel()
+    off = t.row_off.numpy().astype(np.int64)
+    assert off.shape == (rows + 1,) and off[0] == 0
     assert np.all(np.diff(off) >= 0)
-    block = np.repeat(np.arange(off.shape[0] - 1), np.diff(off))
-    lane = t.ov_lane.numpy()
-    assert np.all((lane >= 0) & (lane < rb))
-    got_rows = block * rb + lane
-    assert np.all(np.diff(got_rows) >= 0)
+    ent = t.entries.numpy()
+    assert off[-1] == ent.shape[0] == t.pieces + plan.stats.overflow_nnz
+    pieces = _dense_rows(plan)
     ov_rows = plan.ov_rows.numpy()
-    for r in np.unique(ov_rows):
-        mine = ov_rows == r
-        at = got_rows == r
-        for got, want in ((t.ov_cols, plan.ov_cols),
-                          (t.ov_vals, plan.ov_vals)):
-            assert np.array_equal(got.numpy()[at], want.numpy()[mine])
+    order = np.argsort(ov_rows, kind="stable")
+    for r in range(rows):
+        mine = ent[off[r]:off[r + 1]]
+        want = pieces.get(r, [])
+        assert mine[:len(want)].tolist() == want
+        ov = -1 - mine[len(want):]
+        assert np.all(ov >= 0)
+        assert np.array_equal(order[ov], np.flatnonzero(ov_rows == r))
+    for got, want in ((t.ov_cols, plan.ov_cols), (t.ov_vals, plan.ov_vals)):
+        assert np.array_equal(got.numpy(), want.numpy()[order])
+    units = t.units.numpy().astype(np.int64)
+    assert np.array_equal(np.sort(units[:, 0]),
+                          np.concatenate(([0], np.sort(units[:, 1])))[:-1])
+    assert units[:, 1].max(initial=0) == rows
+    size = (units[:, 1] - units[:, 0]) + off[units[:, 1]] - off[units[:, 0]]
+    hub = size > t.unit
+    assert np.all(units[hub, 1] - units[hub, 0] == 1)
+    # the hubs first, then the rest in row order
+    assert np.all(np.flatnonzero(hub) < np.flatnonzero(~hub).min(
+        initial=hub.shape[0]))
+    assert np.all(np.diff(units[~hub, 0]) > 0)
 
 
 def test_packed_apply_needs_a_placed_plan():
@@ -230,12 +258,14 @@ def test_packed_apply_needs_a_placed_plan():
 
 
 def test_extract_block_rows_is_kernel_fs():
-    # placement groups the overflow by the rows a CTA of kernel F writes,
-    # a constant of the CUDA source that the launch does not pass
+    # placement cuts kernel F's work list by the merge steps a CTA of F
+    # takes, constants of the CUDA source that the launch checks
     src = (Path(pspmv_packed.__file__).parent.parent / "csrc" /
            "spmv_packed.cu").read_text()
-    got = re.search(r"#define PACKED_F_BLOCK_ROWS (\d+)", src)
-    assert got and int(got.group(1)) == pruns.EXTRACT_BLOCK_ROWS
+    threads = re.search(r"#define PACKED_F_THREADS (\d+)", src)
+    items = re.search(r"#define PACKED_F_ITEMS (\d+)", src)
+    assert threads and items
+    assert int(threads.group(1)) * int(items.group(1)) == pruns.F_UNIT
 
 
 def test_packed_apply_refuses_a_short_x():
@@ -262,30 +292,101 @@ def test_packed_rows_plain_adds_overflow_after_the_visits():
     esrc = torch.full((3, 64, 128), -1, dtype=torch.int16)
     esrc[0, 0, 0], esrc[1, 0, 0] = 5, 7
     esrc[2, 63, 127] = 1
-    rb = pruns.EXTRACT_BLOCK_ROWS
     rows = 2 * 8192 + 8192
-    nblocks = rows // rb
     ov_rows = np.array([9, 0, 8200, 0])
     order = np.argsort(ov_rows, kind="stable")
-    off = np.searchsorted(ov_rows[order] // rb, np.arange(nblocks + 1))
     i32 = torch.int32
-    tables = pruns.ExtractTables(
-        5, torch.tensor([0, 2, 2, 3], dtype=i32),
-        torch.tensor(off, dtype=i32),
-        torch.tensor(ov_rows[order] % rb, dtype=i32),
+    prow, pslot = pruns.piece_slots(torch.tensor([0, 1, 1], dtype=i32),
+                                    torch.tensor([0, 0, 2], dtype=i32),
+                                    esrc, 8)
+    assert prow.tolist() == [0, 0, 3 * 8192 - 1]
+    assert pslot.tolist() == [5, 8192 + 7, 8192 + 1]
+    tables = pruns.compact_tables(
+        prow, pslot, torch.tensor(ov_rows[order]),
         torch.tensor(np.array([1, 2, 3, 4])[order], dtype=i32),
         torch.tensor(np.array([10., 20., 30., 40.])[order],
-                     dtype=torch.float32))
+                     dtype=torch.float32),
+        rows=rows, ncols=5, slots=scan.numel(), dense_entries=esrc.numel())
+    assert tables.entries[:int(tables.row_off[1])].tolist() == \
+        [5, 8192 + 7, -1 - 0, -1 - 1]
     x = torch.tensor([0., 1., 2., 3., 4.])
-    y = pspmv_packed.packed_rows_kernel(
-        scan, torch.tensor([0, 1, 1], dtype=i32), esrc, x, tables,
-        rows=rows, step_tiles=8)
+    y = pspmv_packed.packed_rows_kernel(scan, x, tables, rows=rows)
     assert y.shape == (rows,)
     assert y[0].item() == 5 + (8192 + 7) + 20 * 2 + 40 * 4
     assert y[9].item() == 10 * 1
     assert y[8200].item() == 30 * 3
     assert y[2 * 8192 + 8191].item() == 8192 + 1
     assert int((y != 0).sum()) == 4
+    with pytest.raises(ValueError, match="slots"):
+        pspmv_packed.packed_rows_kernel(scan[:8], x, tables, rows=rows)
+
+
+def _dense_y(plan, scan, x):
+    """y the way kernel F's plain version summed it from the dense
+    ``esrc`` before the list: each window's visits added in visit order
+    (``packed_extract_plain``), then each row's overflow in the plan's
+    order."""
+    st = plan.stats
+    y = pspmv_packed.packed_extract_plain(
+        scan, plan.sblock, plan.wstep, plan.esrc,
+        num_windows=st.num_windows, step_tiles=st.step_tiles
+    ).reshape(-1)[:plan.shape[0]]
+    y = psr.widen(y.contiguous())
+    order = torch.from_numpy(np.argsort(plan.ov_rows.numpy(), kind="stable"))
+    prod = psr.widen(plan.ov_vals)[order] * \
+        psr.widen(x)[plan.ov_cols.long()[order]]
+    return psr.narrow(y.index_add_(0, plan.ov_rows.long()[order], prod),
+                      x.dtype)
+
+
+#: PackedPlans of power-law and FEM-like matrices: kron draws (hub rows
+#: of thousands of entries at scale 14) and the smoke's mac_econ_like
+LIST_CASES = {
+    "kron10": lambda: graphs.kron(10, seed=10),
+    "kron12": lambda: graphs.kron(12, seed=12),
+    "kron14": lambda: graphs.kron(14, seed=14),
+    "mac_econ_like": realistic.mac_econ_like,
+}
+
+
+@pytest.mark.parametrize("case", sorted(LIST_CASES))
+def test_compacted_list_gives_the_dense_y(case):
+    # the plain version over the compacted list sums each row's terms in
+    # the dense table's order (its pieces by visit, then its overflow), so
+    # y is the same bit for bit; and the counters placement records are
+    # the list's pieces and the dense table's entries
+    host = ppacked.build_packed_plan(LIST_CASES[case]())
+    before = dict(pstats.counters)
+    plan = pplan.place(host, "cpu")
+    st = plan.stats
+    assert pstats.counters["packed.f_entries"] - \
+        before.get("packed.f_entries", 0) == st.num_pieces
+    assert pstats.counters["packed.f_dense_entries"] - \
+        before.get("packed.f_dense_entries", 0) == st.num_steps_b * 8192
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        plan.shape[1]).astype(np.float32))
+    scan = pspmv_packed.packed_scan_plain(plan.vals, plan.cols, plan.cstep,
+                                          x, chunk_blocks=st.chunk_blocks,
+                                          step_tiles=st.step_tiles)
+    tables = pruns.extract_on(plan)
+    assert tables.pieces < tables.dense_entries / 2   # the list is smaller
+    y = pspmv_packed.packed_rows_kernel(scan, x, tables, rows=plan.shape[0])
+    assert torch.equal(y, _dense_y(plan, scan, x))
+    assert torch.equal(pspmv_packed.spmv_packed(plan, x), y)
+
+
+def test_f_units_split_hub_rows():
+    # a row of more merge steps than the unit is a CTA alone, first, the
+    # longest first; the other CTAs take the most whole rows that fit, in
+    # row order
+    lens = np.array([3, 0, 0, 5000, 2, 1, 2046, 2047, 0, 9000, 1])
+    off = np.concatenate(([0], np.cumsum(lens)))
+    units = pruns.f_units(off, 2048)
+    assert units.dtype == np.int32
+    # row 7: 2,047 entries and its end, 2,048 steps, fits
+    assert units.tolist() == [[9, 10], [3, 4], [0, 3], [4, 6], [6, 7],
+                              [7, 8], [8, 9], [10, 11]]
+    assert pruns.f_units(np.zeros(1, np.int64)).shape == (0, 2)
 
 
 #: the value types of the pass-A parity tests: float32 and the narrow
@@ -386,23 +487,20 @@ def test_packed_rows_plain_reads_a_narrow_scan(kind):
         plan.vals.to(torch.int32), plan.cols, plan.cstep, xk, **kw)
     assert scan32.dtype == torch.int32
     assert torch.equal(scan32.to(plan.vals.dtype), scan)
-    rows = dict(rows=plan.shape[0], step_tiles=st.step_tiles)
-    y = pspmv_packed.packed_rows_kernel(scan, plan.sblock, plan.esrc, xk,
-                                        tables, **rows)
+    rows = dict(rows=plan.shape[0])
+    y = pspmv_packed.packed_rows_kernel(scan, xk, tables, **rows)
     assert y.dtype == torch.int32
     assert torch.equal(y, pspmv_packed.packed_rows_plain(
-        psr.widen(scan), plan.sblock, plan.esrc, xk, tables, **rows))
+        psr.widen(scan), xk, tables, **rows))
     wide = dataclasses.replace(tables, ov_vals=tables.ov_vals.to(
         torch.int32))
-    y32 = pspmv_packed.packed_rows_plain(scan32, plan.sblock, plan.esrc, xk,
-                                         wide, **rows)
+    y32 = pspmv_packed.packed_rows_plain(scan32, xk, wide, **rows)
     assert torch.equal(psr.finish_y(y, plan.vals.dtype),
                        psr.finish_y(y32, plan.vals.dtype))
     with pytest.raises(ValueError, match="scan"):
         # a 32-bit scan with the narrow plan's tables: F's narrow build
         # would read it as 1- or 2-byte slots
-        pspmv_packed.packed_rows_kernel(scan32, plan.sblock, plan.esrc, xk,
-                                        tables, **rows)
+        pspmv_packed.packed_rows_kernel(scan32, xk, tables, **rows)
 
 
 # kernel E's launch shape: the rows of mac_econ_like's PackedPlan (1,576

@@ -248,7 +248,13 @@ def test_plan_counters_count_the_returned_plan(case):
     op = SparseOperator.from_matrix(a, device="cpu")
     assert type(op.plan).__name__ == case
     nnz, slots = pplan.stored_and_streamed(op.plan)
-    assert stats.counters == {"plan.nnz": nnz, "plan.slots": slots}
+    want = {"plan.nnz": nnz, "plan.slots": slots}
+    if case == "PackedPlan":
+        # kernel F's list, compacted when the plan is placed
+        st = op.plan.stats
+        want.update({"packed.f_entries": st.num_pieces,
+                     "packed.f_dense_entries": st.num_steps_b * 8192})
+    assert stats.counters == want
     assert stats.span_totals == {}
     assert 0 < nnz <= slots
     dedup = a.nnz if case != "HybridPlan" else \
