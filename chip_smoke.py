@@ -225,6 +225,8 @@ import time
 import numpy as np
 import torch
 
+from spmv_vector_cache_tpu_torch.utils.stats import device_us_by_kernel
+
 #: kernel vs plain version on identical inputs: both sum the same float32
 #: products, in a different order (fma, summation tree), so they agree
 #: to a few float32 ulps of the largest partial sum
@@ -265,37 +267,6 @@ def time_ms(fn, iters=30, warmup=3):
         marks.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in marks)
-
-
-def device_us_by_kernel(fn, iters=20):
-    """(device microseconds, launches) per call of ``fn``, by kernel
-    name, from a torch.profiler trace of ``iters`` calls (empty if the
-    profiler saw no device activity).  The time is per recorded launch
-    times the launches a call makes: a profiler session that follows
-    another in the process may leave the first launch unrecorded (19
-    of 20), which would otherwise read as a 5 % shorter kernel."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue                   # host ops: their kernels count below
-        if getattr(ev, "is_user_annotation", False):
-            continue                   # a span's range, not device work
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = ev.self_cuda_time_total
-        if us > 0:
-            per_call = round(ev.count / iters) or ev.count / iters
-            out[ev.key] = (us / ev.count * per_call, per_call)
-    return out
 
 
 def launch_us(fn):
@@ -1435,8 +1406,6 @@ def dtype_phases(card, dev, mesh4, draws):
     from spmv_vector_cache_tpu_torch.ops import _kernels
     from spmv_vector_cache_tpu_torch.ops import semiring as sr
     from spmv_vector_cache_tpu_torch.ops.operator import SparseOperator
-    from spmv_vector_cache_tpu_torch.ops.runs import (extract_on, heavy_on,
-                                                      light_on, tile_runs)
     from spmv_vector_cache_tpu_torch.ops.spmm_dia import (spmm_dia_kernel,
                                                           spmm_dia_plain)
     from spmv_vector_cache_tpu_torch.ops.spmm_sell import (spmm_window_kernel,
@@ -1669,10 +1638,9 @@ def dtype_phases(card, dev, mesh4, draws):
                   rows=plan.shape[0], semiring=semiring)
         out = plan.shape[0] if parts else plan.num_slices * plan.lane_rows
         case(_kernels.entry("spmv_sell_global_f32", plan.vals.dtype), what,
-             lambda: sell_global_kernel(*args, **kw),
+             lambda: sell_global_kernel(*args, **kw, work=plan.work),
              lambda: sell_global_plain(*args, **kw),
-             nbytes(*args[:3])
-             + tile_runs(plan.tile_slice, plan.num_slices).nbytes
+             nbytes(*args[:3]) + plan.work.runs.nbytes
              + x_bytes_read(x, plan.cols, xw) + out * ow,
              2 * plan.vals.numel(), lib)
 
@@ -1698,10 +1666,9 @@ def dtype_phases(card, dev, mesh4, draws):
         base = plan.window_base.long().repeat_interleave(
             st.group_tiles) * st.window_grain
         case(_kernels.entry("spmm_sell_window_f32", plan.vals.dtype), what,
-             lambda: spmm_window_kernel(*args, **kw),
+             lambda: spmm_window_kernel(*args, **kw, work=plan.work),
              lambda: spmm_window_plain(*args, **kw),
-             nbytes(*args[:4])
-             + tile_runs(plan.tile_slice, plan.num_slices).nbytes
+             nbytes(*args[:4]) + plan.work.runs.nbytes
              + x_bytes_read(b, base[:, None, None] + plan.cols_win.long(),
                             xw)
              + out * b.shape[1] * ow, 2 * plan.vals.numel() * b.shape[1],
@@ -1709,7 +1676,7 @@ def dtype_phases(card, dev, mesh4, draws):
 
     def chunk_cases(plan, x, y, what, kind, w=None):
         xw, ow = widths(x, w)
-        lr = light_on(plan)
+        lr = plan.light
         ncols = plan.shape[1]
         # the library call of the kernel's own function: the light
         # records' CSR (CUDA has no torch.sparse.mm of the integer types,
@@ -1722,14 +1689,14 @@ def dtype_phases(card, dev, mesh4, draws):
              nbytes(lr.row_off, lr.cols, lr.vals, lr.tiled, lr.units)
              + x_bytes_read(x, lr.cols, xw) + (lr.row_off.shape[0] - 1) * ow,
              2 * lr.vals.shape[0], lib)
-        h = heavy_on(plan)
+        h = plan.heavy
         args = (h.vals, h.cols_win, h.bases, h.tile_row, h.rows, x)
         y_k, y_p = y.clone(), y.clone()
         cols = h.bases.long()[:, :, None] * 128 + h.cols_win.long()
         lib = library(heavy_csr(h, ncols), kind, x) \
             if kind in ("bf16", "f16") else None
         case(_kernels.entry("spmv_subwin_f32", h.vals.dtype), what,
-             lambda: heavy_kernel(*args, y_k, semiring="plus_times"),
+             lambda: heavy_kernel(h, x, y_k, semiring="plus_times"),
              lambda: heavy_plain(*args, y_p, semiring="plus_times"),
              nbytes(*args[:5]) + x_bytes_read(x, cols, xw)
              + 2 * h.rows.shape[0] * ow, 2 * h.vals.numel(), lib)
@@ -1765,7 +1732,7 @@ def dtype_phases(card, dev, mesh4, draws):
              lambda: packed_scan_kernel(*scan_args, **scan_kw),
              lambda: packed_scan_plain(*scan_args, **scan_kw),
              e_in + plan.vals.numel() * ow, 2 * plan.vals.numel())
-        tables = extract_on(plan)
+        tables = plan.tables
         scan = packed_scan_plain(*scan_args, **scan_kw)
         ext_args = (scan, x, tables)
         ext_kw = dict(rows=plan.shape[0])
@@ -2043,7 +2010,7 @@ def dtype_phases(card, dev, mesh4, draws):
             else exact_y(m, xh, kind)
         check(name, y, want, kind)
         lib = library(bf16_rounded(m) if kind == "bf16" else m, kind, x)
-        lr = light_on(op.plan)
+        lr = op.plan.light
         profile(name, lambda: op @ x, nbytes(lr.vals, lr.cols, lr.row_off)
                 + nbytes(x) + m.shape[0] * 4, lib)
         chunk_cases(op.plan, x, y, name, kind)
@@ -2235,7 +2202,7 @@ def dtype_phases(card, dev, mesh4, draws):
         kw = dict(chunk_blocks=st.chunk_blocks, step_tiles=st.step_tiles)
         e_args = (plan.vals, plan.cols, plan.cstep, x)
         scan = packed_scan_kernel(*e_args, **kw)
-        f_args = (scan, x, extract_on(plan))
+        f_args = (scan, x, plan.tables)
         f_kw = dict(rows=plan.shape[0])
         one = (plan.vals[:st.step_tiles], plan.cols[:st.step_tiles],
                plan.cstep[:1], x)
@@ -2401,7 +2368,7 @@ def dtype_phases(card, dev, mesh4, draws):
                      f"spmv_subwin_{kind}": 1})
         check(name, y, want_of(m, xh, kind), kind)
         lib = library(f16_rounded(m) if kind == "f16" else m, kind, x)
-        lr = light_on(op.plan)
+        lr = op.plan.light
         profile(name, lambda: op @ x, nbytes(lr.vals, lr.cols, lr.row_off)
                 + nbytes(x) + out_bytes(y), lib)
         xk = narrow_x(op, x)
@@ -2488,10 +2455,7 @@ def main():
     from spmv_vector_cache_tpu_torch.ops.lane_perm import (
         lane_unpermute, lane_unpermute_plain, unpermute_plan_rows)
     from spmv_vector_cache_tpu_torch.ops.operator import SparseOperator
-    from spmv_vector_cache_tpu_torch.ops.runs import (RUN_ATOMIC,
-                                                      extract_on, heavy_on,
-                                                      light_on, runs_on,
-                                                      tile_runs)
+    from spmv_vector_cache_tpu_torch.formats.tables import RUN_ATOMIC
     from spmv_vector_cache_tpu_torch.ops.spmm_dia import (spmm_dia_kernel,
                                                           spmm_dia_plain,
                                                           spmm_dia_tiling)
@@ -2686,8 +2650,8 @@ def main():
         f"{[(h.window_blocks, h.num_tiles) for h in p_chunk.hbuckets]}, "
         f"{p_chunk.num_blocks} light blocks, {p_chunk.num_heavy} heavy rows, "
         f"residue {type(p_chunk.residue).__name__}")
-    heavy = heavy_on(p_chunk)
-    heavy_work = runs_on(heavy.tile_row, heavy.rows.shape[0])
+    heavy = p_chunk.heavy
+    heavy_work = heavy.work
     log(f"[chunk] kernel D's slab: {heavy.vals.shape[0]} real tiles of "
         f"{sum(h.num_tiles for h in p_chunk.hbuckets)}, "
         f"{heavy.rows.shape[0]} of the {p_chunk.num_heavy} heavy rows have "
@@ -2701,7 +2665,7 @@ def main():
         f"{int(torch.unique(light_heavy).numel())} heavy rows (of "
         f"{sum(b.num_tiles for b in p_chunk.buckets)} light tiles): the "
         f"heavy merge after the light route stays")
-    light = light_on(p_chunk)
+    light = p_chunk.light
     light_rows = light.row_off.shape[0] - 1
     light_len = light.row_off.diff()
     unit_rows, unit_recs = light.units.diff(dim=0).T
@@ -2721,7 +2685,7 @@ def main():
         ops["packed"][0].strategy == "packed"
     assert p_packed.stats.overflow_nnz > 0, p_packed.stats
     log(f"[packed] {p_packed.stats}")
-    f_tables = extract_on(p_packed)
+    f_tables = p_packed.tables
     # every PackedPlan placed so far (the packed phase's, the chunk
     # residues'): the compacted lists' pieces against the dense entries
     log(f"[packed] counters: packed.f_entries "
@@ -3051,7 +3015,7 @@ def main():
         args = (h.vals, h.cols_win, h.bases, h.tile_row, h.rows, x)
         y_k, y_p = ys["chunk"].clone(), ys["chunk"].clone()
         cols = h.bases.long()[:, :, None] * 128 + h.cols_win.long()
-        return (lambda: heavy_kernel(*args, y_k, semiring="plus_times"),
+        return (lambda: heavy_kernel(h, x, y_k, semiring="plus_times"),
                 lambda: heavy_plain(*args, y_p, semiring="plus_times"),
                 nbytes(*args[:5], heavy_work.runs) + x_bytes_read(x, cols)
                 + 2 * h.rows.shape[0] * 4,
@@ -3066,10 +3030,10 @@ def main():
                   rows=plan.shape[0], semiring=semiring)
         out_elems = plan.shape[0] if parts else \
             plan.num_slices * plan.lane_rows
-        runs = tile_runs(plan.tile_slice, plan.num_slices)
-        return (lambda: sell_global_kernel(*args, **kw),
+        return (lambda: sell_global_kernel(*args, **kw, work=plan.work),
                 lambda: sell_global_plain(*args, **kw),
-                nbytes(*args[:3]) + runs.nbytes + x_bytes_read(x, plan.cols)
+                nbytes(*args[:3]) + plan.work.runs.nbytes
+                + x_bytes_read(x, plan.cols)
                 + out_elems * 4,
                 2 * plan.vals.numel())
 
@@ -3096,10 +3060,10 @@ def main():
         base = plan.window_base.long().repeat_interleave(
             st.group_tiles) * st.window_grain
         cols = base[:, None, None] + plan.cols_win.long()
-        runs = tile_runs(plan.tile_slice, plan.num_slices)
-        return (lambda: spmm_window_kernel(*args, **kw),
+        return (lambda: spmm_window_kernel(*args, **kw, work=plan.work),
                 lambda: spmm_window_plain(*args, **kw),
-                nbytes(*args[:4]) + runs.nbytes + x_bytes_read(b, cols)
+                nbytes(*args[:4]) + plan.work.runs.nbytes
+                + x_bytes_read(b, cols)
                 + out_rows * b.shape[1] * 4,
                 2 * plan.vals.numel() * b.shape[1])
 
@@ -3137,10 +3101,10 @@ def main():
                   rows=plan.shape[0])
         out_elems = plan.shape[0] if parts else \
             plan.num_slices * plan.lane_rows
-        runs = tile_runs(plan.tile_slice, plan.num_slices)
-        return (lambda: sell_global_f64_kernel(*args, **kw),
+        return (lambda: sell_global_f64_kernel(*args, **kw, work=plan.work),
                 lambda: sell_global_f64_plain(*args, **kw),
-                nbytes(*args[:3]) + runs.nbytes + x_bytes_read(x, plan.cols)
+                nbytes(*args[:3]) + plan.work.runs.nbytes
+                + x_bytes_read(x, plan.cols)
                 + out_elems * 8,
                 plan.vals.numel())
 
@@ -3269,7 +3233,7 @@ def main():
     for name, plan in (("spmm_sell", p_sell), ("spmm_hybrid", p_hyb.rest),
                        *((f"sharded_spmm shard {d}", lp)
                          for d, lp in enumerate(shard_plans))):
-        runs = tile_runs(plan.tile_slice, plan.num_slices)
+        runs = plan.work.runs.cpu().numpy()
         log(f"[{name}] kernel H: parts={row_parts(plan)} (1: identity "
             f"map, p: lane fold, 0: slice sums), {runs.shape[0]} runs over "
             f"{plan.num_tiles} tiles and {plan.num_slices} slices, "

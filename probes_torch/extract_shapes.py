@@ -45,9 +45,9 @@ import chip_smoke as cs  # noqa: E402
 from spmv_vector_cache_tpu_torch.formats.packed import (  # noqa: E402
     build_packed_plan)
 from spmv_vector_cache_tpu_torch.formats.plan import place  # noqa: E402
-from spmv_vector_cache_tpu_torch.ops import _kernels  # noqa: E402
-from spmv_vector_cache_tpu_torch.ops.runs import (  # noqa: E402
+from spmv_vector_cache_tpu_torch.formats.tables import (  # noqa: E402
     F_UNIT, extract_tables)
+from spmv_vector_cache_tpu_torch.ops import _kernels  # noqa: E402
 from spmv_vector_cache_tpu_torch.ops.spmv_packed import (  # noqa: E402
     packed_rows_kernel, packed_rows_plain, packed_scan_kernel)
 from spmv_vector_cache_tpu_torch.tools import graphs, realistic  # noqa: E402
@@ -182,7 +182,7 @@ def main():
                       f"{torch.cuda.max_memory_allocated() - held} B over "
                       f"the {held} B held", flush=True)
         t = next((tb for tb in tabs.values() if tb.unit == F_UNIT), None) \
-            or extract_tables(plan)
+            or plan.tables
         parts = cs.packed_extract_bytes(plan, t, x)
         nbyte = sum(parts.values())
         off = t.row_off.long()

@@ -48,7 +48,6 @@ from spmv_vector_cache_tpu_torch.ops import _kernels  # noqa: E402
 from spmv_vector_cache_tpu_torch.ops import semiring as sr  # noqa: E402
 from spmv_vector_cache_tpu_torch.ops.operator import (  # noqa: E402
     SparseOperator)
-from spmv_vector_cache_tpu_torch.ops.runs import runs_on  # noqa: E402
 from spmv_vector_cache_tpu_torch.ops.spmv_sell import (  # noqa: E402
     _INIT, _reduce_partials, row_parts, sell_global_f64_plain,
     sell_global_plain)
@@ -146,7 +145,7 @@ def main():
         parent.spmv_sell_global_f64.argtypes = PARENT_SIG
     for case, (p, x, semiring) in cases(dev).items():
         double = p.stats.double
-        w = runs_on(p.tile_slice, p.num_slices)
+        w = p.work
         parts = row_parts(p)
         T, P2, R = p.vals.shape
         P = P2 // 2 if double else P2

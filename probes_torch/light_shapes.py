@@ -11,8 +11,8 @@ shared memory at a time (``LIGHT_CHUNK``) and the CTAs an SM must be
 able to hold, nvcc's register cap (``LIGHT_MIN_CTAS``), both at compile
 time (each build is the same source with them defined, all builds
 started together), and the records a CTA takes before its segment is
-split (``unit_records`` of ``ops/runs.light_units``, placement time; the
-largest keeps every segment whole).  Each is checked against the plain
+split (``unit_records`` of ``formats/tables.light_units``, placement
+time; the largest keeps every segment whole).  Each is checked against the plain
 version (1e-5 of max|y2d|), then timed by CUDA events and by the
 profiler's device time, the shapes forward then backward, beside
 ``torch.sparse.mm`` of the same records as a CSR.  Prints the registers
@@ -40,10 +40,10 @@ import chip_smoke as cs  # noqa: E402
 from spmv_vector_cache_tpu_torch.formats.chunk import ChunkPlan  # noqa: E402
 from spmv_vector_cache_tpu_torch.formats.plan import (  # noqa: E402
     auto_plan, place)
+from spmv_vector_cache_tpu_torch.formats.tables import (  # noqa: E402
+    light_units)
 from spmv_vector_cache_tpu_torch.ops import _kernels  # noqa: E402
 from spmv_vector_cache_tpu_torch.ops import semiring as sr  # noqa: E402
-from spmv_vector_cache_tpu_torch.ops.runs import (  # noqa: E402
-    light_on, light_units)
 from spmv_vector_cache_tpu_torch.ops.spmv_chunk import (  # noqa: E402
     light_plain)
 from spmv_vector_cache_tpu_torch.tools import realistic  # noqa: E402
@@ -97,7 +97,7 @@ def main():
     assert isinstance(plan, ChunkPlan), type(plan)
     x = torch.from_numpy(np.random.default_rng(0).standard_normal(
         a.shape[1]).astype(np.float32)).to(dev)
-    light = light_on(plan)
+    light = plan.light
     nrec, nrows = light.vals.shape[0], light.row_off.shape[0] - 1
     works = {u: dataclasses.replace(light, units=torch.from_numpy(
         light_units(light.row_off.cpu().numpy(), u)).to(dev))

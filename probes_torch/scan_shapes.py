@@ -111,7 +111,7 @@ def main():
     gen = torch.Generator(device=dev).manual_seed(17)
     for pname, plan in plans(args.plans.split(",")):
         st = plan.stats
-        tables0 = pk.extract_on(plan)
+        tables0 = plan.tables
         rows = plan.vals.shape[0] * 8
         kw = dict(chunk_blocks=st.chunk_blocks, step_tiles=st.step_tiles)
         for kind in args.kinds.split(","):

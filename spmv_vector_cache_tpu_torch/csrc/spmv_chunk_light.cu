@@ -10,7 +10,7 @@
 //   y2d[r] = (+)_{records of lane row r} vals (x) x[col]     (segments*128)
 // over the unified segment space, r = segment * 128 + lane.  The records
 // are the buckets' real slots, which placement lists by lane row in the
-// reference's order (ops/runs.py light_records): the buckets' padding,
+// reference's order (formats/tables.py light_records): the buckets' padding,
 // 98 % of their slots on a power-law matrix, is never read.  A lane row
 // of a segment that some bucket tile maps to also sums the semiring's
 // zero, what the reference's padding slots give it for a finite x (this
@@ -21,7 +21,7 @@
 // 4 B of offsets and 4 B of y2d a lane row; the distinct x entries the
 // columns name.  Design: one CTA of 128 threads a unit of at most 128
 // consecutive lane rows (one segment, split at row boundaries where it
-// holds many records: ops/runs.py light_units, so a long segment spreads
+// holds many records: formats/tables.py light_units, so a long segment spreads
 // over CTAs).  The CTA stages its records LIGHT_CHUNK at a time through
 // shared memory: each thread loads LIGHT_CHUNK / 128 of them, coalesced
 // and all in flight, then the x entries they name; then each thread
@@ -50,7 +50,7 @@
 // LIGHT_MIN_CTAS: the CTAs an SM must be able to hold at once (a register
 // cap for nvcc: 40 registers at 12).  probes_torch/light_shapes.py builds
 // others with -D and times them on the card; on an H100, with
-// ops/runs.py's 256 records a unit, 512 and 12 took 8.2-8.6 us on
+// formats/tables.py's 256 records a unit, 512 and 12 took 8.2-8.6 us on
 // scircuit_like's records, the other shapes 8.8-28 us; a warp a unit of
 // up to 32 rows in place of the CTA took 9.3 us at best, and a grid of
 // resident CTAs walking the units with the next unit's records loaded
@@ -62,8 +62,8 @@
 #define LIGHT_MIN_CTAS 12
 #endif
 
-// threads a CTA: the most lane rows a unit holds (ops/runs.py makes units
-// of at most one segment's 128 rows), one a thread
+// threads a CTA: the most lane rows a unit holds (formats/tables.py makes
+// units of at most one segment's 128 rows), one a thread
 #define LIGHT_ROWS 128
 static_assert(LIGHT_CHUNK % LIGHT_ROWS == 0,
               "each thread stages a whole number of records a chunk");

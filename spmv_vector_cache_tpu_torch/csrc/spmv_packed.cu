@@ -23,7 +23,7 @@
 // the apply is E then F and nothing else.  It reads no dense extraction
 // index.  The plan's esrc, (visits, 64, 128) int16 with a -1 wherever a
 // row of the visited window has no piece, is compacted once at placement
-// (ops/runs.py extract_tables) into a list of what each y row sums, in
+// (formats/tables.py extract_tables) into a list of what each y row sums, in
 // CSR form over the rows:
 //   entries[row_off[r] .. row_off[r+1]) = the S slots of r's primary
 //       pieces (sblock[i]*ST*1024 + esrc[i, e], >= 0), in visit order,
@@ -195,7 +195,7 @@ __global__ void __launch_bounds__(kScanMaxThreads) packed_scan_kernel(
 // Kernel F's launch shape, chosen on the H100 by
 // probes_torch/extract_shapes.py, which builds other shapes by defining
 // these: threads a CTA, and merge steps (entries or row ends) a thread
-// takes, so a CTA's unit is their product (ops/runs.py F_UNIT, by which
+// takes, so a CTA's unit is their product (formats/tables.py F_UNIT, by which
 // placement cuts the work list: the launch refuses a larger one)
 #ifndef PACKED_F_THREADS
 #define PACKED_F_THREADS 512
@@ -511,7 +511,7 @@ PACKED_SCAN_BUILD(i16, spmv::I16Values)
 PACKED_SCAN_BUILD(u16, spmv::U16Values)
 
 // y: one sum a row of the units, written once; row_off, entries: the
-// compacted list (ops/runs.py extract_tables); units: num_units (first
+// compacted list (formats/tables.py extract_tables); units: num_units (first
 // row, end row, first entry, end entry) records, 16-byte aligned, each
 // of at most `unit` merge steps or one row (unit at most
 // PACKED_F_THREADS * PACKED_F_ITEMS); ov_cols, ov_vals, x:

@@ -19,7 +19,7 @@
 //   parts >= 1:  y[s * R/parts + r] = (+)_{q < parts} S[s, q * R/parts + r]
 //                for rows < out_rows: the lane fold of a uniform-parts
 //                plan (parts = p) or the identity map (parts = 1)
-// from the work list of kernel H (ops/runs.py `tile_runs`, built at
+// from the work list of kernel H (formats/tables.py `tile_runs`, built at
 // placement): one int4 record {t0, t1, s0, s1} sums tiles [t0, t1) and
 // writes slices [s0, s1); a piece of a slice split over several records
 // (kAtomic) combines into an output preset to the semiring's init with

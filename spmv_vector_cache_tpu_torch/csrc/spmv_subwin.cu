@@ -8,7 +8,7 @@
 // reduce over the unified segment space, the add across buckets, and the
 // heavy rows' lane fold.  Kernel D runs once per apply over all the
 // plan's heavy subwindow tiles, which placement gathers into one slab
-// (ops/runs.py `heavy_tiles`: the buckets' real tiles, stably ordered by
+// (formats/tables.py `heavy_tiles`: the buckets' real tiles, stably ordered by
 // heavy row, padding dropped) with kernel G's work list over it: one
 // int4 record {t0, t1, s0, s1} sums tiles [t0, t1) and heavy rows
 // [s0, s1).  A tile t adds

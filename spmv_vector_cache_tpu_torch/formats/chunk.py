@@ -33,6 +33,8 @@ import torch
 from .plan import (TILES_PER_STEP, PlanStats, SellPlan, _as_csr, _cdiv,
                    build_dtype, check_pad, compute_window_rows,
                    finish_values, host_values, value_kind)
+from .tables import (HeavyTiles, LightRecords, heavy_tiles, light_records,
+                     table)
 
 Array = Any
 
@@ -109,16 +111,21 @@ class ChunkPlan:
     apply sums the per-segment slice reductions, un-permutes the light
     part with ``perm_idx`` (``ops/lane_perm.py``), and lane-folds the
     heavy part.  ``residue`` is None, a :class:`~.cached.CooTail` or a
-    :class:`~.packed.PackedPlan`.
+    :class:`~.packed.PackedPlan`.  Placement builds ``light`` and
+    ``heavy`` (None without heavy tiles) for the light route and kernel
+    D, and no work list for the buckets, which no apply runs alone.
     """
 
-    buckets: Tuple[SellPlan, ...]
+    buckets: Tuple[SellPlan, ...] = dataclasses.field(
+        metadata={"bare": True})
     hbuckets: Tuple[SubwinPlan, ...]
     residue: Any                     # None, CooTail or PackedPlan
     perm_idx: Array                  # (num_blocks, 128) int16 in [0,1024)
     heavy_rows: Array                # (num_heavy,) int32, ascending
     shape: Tuple[int, int]
     stats: ChunkStats
+    light: Optional[LightRecords] = table(light_records)
+    heavy: Optional[HeavyTiles] = table(heavy_tiles)
 
     @property
     def num_blocks(self) -> int:

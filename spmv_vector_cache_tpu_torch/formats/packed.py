@@ -24,12 +24,13 @@ locality or row regularity is needed.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 import numpy as np
 
 from .plan import (_as_csr, _cdiv, _ensure_sorted, build_dtype,
                    finish_values, host_values, value_kind)
+from .tables import ExtractTables, placed_extract_tables, table
 
 Array = Any
 
@@ -80,7 +81,8 @@ class PackedPlan:
     ``esrc`` (steps_b, 64, 128) int16 holds, at output element (o, j),
     the block-local end slot of row (window*8192 + o*128 + j)'s piece
     (-1 = none).  ``window_mask`` marks the windows visited.  ``ov_*``:
-    overflow COO."""
+    overflow COO.  Placement builds ``tables``, what kernel F reads in
+    place of ``esrc``."""
 
     vals: Array               # (T, 8, 128) value dtype
     cols: Array               # (T, 8, 128) int16 local col | start << 14
@@ -95,6 +97,7 @@ class PackedPlan:
     ov_rows: Array            # (novf,) int32
     shape: Tuple[int, int]
     stats: PackedStats
+    tables: Optional[ExtractTables] = table(placed_extract_tables)
 
 
 #: entries a block of the pass-A sort (its keys, sources and gathers

@@ -54,6 +54,7 @@ import torch
 
 from .containers import COO, CSC, CSR
 from .convert import coo_to_csr, csc_to_csr
+from .tables import WorkList, sell_work, table, table_names, with_tables
 
 Array = Any  # numpy array on the host, torch.Tensor once placed
 
@@ -188,21 +189,30 @@ def check_pad(value_dtype, pad_value: float) -> None:
             f"to INT_MIN, ROADMAP.md queue 3)")
 
 
-def map_arrays(plan, fn):
+def map_arrays(plan, fn, finish=None):
     """The plan with ``fn`` applied to every numpy-array or tensor field,
     nested plans included (a HybridPlan's parts, a ChunkPlan's bucket
     tuples and residue, a CachedPlan's hot and cold tiers; a field that
-    is None stays None)."""
-    changes = {}
+    is None stays None), and its tables (``formats/tables.py``) None:
+    they were built from the old arrays.  ``finish``, if given, maps
+    each plan, nested ones first, once its arrays are mapped (a
+    ChunkPlan's buckets only as a bucket tuple: they are not applied
+    alone)."""
+    tables = table_names(plan)
+    changes = dict.fromkeys(tables)
     for f in dataclasses.fields(plan):
         v = getattr(plan, f.name)
+        if f.name in tables:
+            continue
         if isinstance(v, (np.ndarray, torch.Tensor)):
             changes[f.name] = fn(v)
         elif dataclasses.is_dataclass(v) and not isinstance(v, type):
-            changes[f.name] = map_arrays(v, fn)
+            changes[f.name] = map_arrays(v, fn, finish)
         elif isinstance(v, tuple) and v and dataclasses.is_dataclass(v[0]):
-            changes[f.name] = tuple(map_arrays(p, fn) for p in v)
-    return dataclasses.replace(plan, **changes)
+            inner = None if f.metadata.get("bare") else finish
+            changes[f.name] = tuple(map_arrays(p, fn, inner) for p in v)
+    plan = dataclasses.replace(plan, **changes)
+    return finish(plan) if finish else plan
 
 
 def _to_tensor(v, device):
@@ -219,18 +229,15 @@ def place(plan, device):
     (nested plans included) — done once, by ``SparseOperator``.  The
     per-plan work of the kernels is done here, once: a ChunkPlan's
     ``perm_idx`` is checked for kernel C, which reads it unchecked on
-    every apply, the work list of kernels G, H and L is built for every
-    SellPlan in it, a ChunkPlan's heavy tiles are gathered into kernel
-    D's slab, with its work list, and a PackedPlan's window visit ranges
-    and grouped overflow are built for kernel F (``ops/runs.py``)."""
-    from ..ops.runs import place_plan_runs
+    every apply, and every plan's tables are built into its fields
+    (``formats/tables.py``): the work list of kernels G, H and L of
+    every SellPlan in it, a ChunkPlan's light records and heavy slab, a
+    PackedPlan's list for kernel F, a TriSolvePlan's sweep."""
     from .chunk import ChunkPlan, check_perm_idx
 
     if isinstance(plan, ChunkPlan):
         check_perm_idx(plan.perm_idx)
-    placed = map_arrays(plan, lambda v: _to_tensor(v, device))
-    place_plan_runs(placed)
-    return placed
+    return map_arrays(plan, lambda v: _to_tensor(v, device), with_tables)
 
 
 #: tiles per kernel grid step (output block sublane alignment requires 8)
@@ -318,6 +325,8 @@ class SellPlan:
     positions: int       # P
     identity_map: bool
     stats: PlanStats
+    #: kernels G, H and L's work list, built by placement
+    work: Optional[WorkList] = table(sell_work)
 
     @property
     def num_tiles(self) -> int:

@@ -1,41 +1,75 @@
-"""The work lists of kernels D, F, G, H and L: which CTA sums which tiles.
+"""The tables a placed plan carries for its kernels: which CTA sums what.
 
-The tiles of one slice of a SellPlan are one contiguous run
-(``tile_slice`` is nondecreasing).  Kernel H (``csrc/spmm_sell_window.cu``),
-kernel G and its float64 build L (``csrc/spmv_sell_global.cu``) sum each
-slice's run themselves, so that no per-tile partials reach device
-memory, and take their runs from one work list per placed plan:
-:func:`tile_runs` builds it from ``tile_slice``, :func:`place_plan_runs`
-at placement (``formats.plan.place``, ``parallel.place_on_mesh``), and
-:func:`runs_on` hands it to a launch.  Kernel D (``csrc/spmv_subwin.cu``)
-does the same over a ChunkPlan's heavy subwindow tiles, which placement
-gathers into one slab per plan (:func:`heavy_tiles`, :func:`heavy_on`),
-each heavy row's tiles one run.  The chunk light route
-(``csrc/spmv_chunk_light.cu``) reads a ChunkPlan's light buckets as one
-list of their real slots by lane row, which placement builds
-(:func:`light_records`, :func:`light_on`), with a work list of row
-ranges balanced by their records.  Kernel F (``csrc/spmv_packed.cu``)
-reads a PackedPlan's piece sums and overflow entries as one list by y
-row, compacted from the plan's dense extraction index at placement, with
-a work list of row ranges balanced by their entries
-(:func:`extract_tables`, :func:`extract_on`).
+Each is a layout derived from a plan's arrays, built once by placement
+(``formats.plan.place``, ``parallel.place_on_mesh``) into a field of the
+plan (:func:`table`); a host plan, or one whose arrays became tensors
+some other way (``map_arrays``), has None there, and its apply raises.
+A SellPlan's ``work`` (:func:`tile_runs`) is the run of tiles of each
+slice that kernels G, H and L (``csrc/spmv_sell_global.cu``,
+``csrc/spmm_sell_window.cu``) sum themselves; a ChunkPlan's ``heavy``
+(:func:`heavy_tiles`) is kernel D's slab of heavy subwindow tiles with
+its own work list, and its ``light`` (:func:`light_records`) the light
+route's list of real slots by lane row; a PackedPlan's ``tables``
+(:func:`extract_tables`) is kernel F's list by y row, compacted from the
+plan's dense extraction index.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
-from torch.utils.weak import WeakIdKeyDictionary
 
-from ..formats.cached import CachedPlan
-from ..formats.chunk import ChunkPlan
-from ..formats.dia import HybridPlan
-from ..formats.packed import PACKED_WINDOW_BLOCKS, PackedPlan
-from ..formats.plan import SellPlan
-from ..utils.stats import counters
-from . import semiring as sr
+
+def table(build=None):
+    """A plan field for a table that placement fills with
+    ``build(placed_plan)`` (``build`` None: a placement of its own fills
+    it, as ``parallel.place_on_mesh`` does a sharded plan's); None on a
+    host plan."""
+    return dataclasses.field(default=None, repr=False,
+                             metadata={"table": build})
+
+
+def table_names(plan) -> tuple:
+    """The names of ``plan``'s table fields."""
+    return tuple(f.name for f in dataclasses.fields(plan)
+                 if "table" in f.metadata)
+
+
+def with_tables(plan):
+    """``plan`` (placed) with every table field that names a build
+    function filled from it."""
+    built = {f.name: f.metadata["table"](plan)
+             for f in dataclasses.fields(plan) if f.metadata.get("table")}
+    return dataclasses.replace(plan, **built) if built else plan
+
+
+def placed(table, what: str):
+    """``table``, a placed plan's, or the ``ValueError`` that says
+    ``what`` is built by placement."""
+    if table is None:
+        raise ValueError(f"{what} is built when the plan is placed: place "
+                         f"it with formats.plan.place "
+                         f"(parallel.place_on_mesh for a sharded plan)")
+    return table
+
+
+def _host(t) -> np.ndarray:
+    return np.asarray(t.cpu() if isinstance(t, torch.Tensor) else t)
+
+
+def _bits(t: torch.Tensor) -> np.ndarray:
+    """The bits of a CPU tensor of 1-, 2-, 4- or 8-byte elements, as
+    signed integers of that width (for comparing values bit for bit)."""
+    width = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return t.view(width[t.element_size()]).numpy()
+
+
+# ---------------------------------------------------------------------------
+# kernels G, H and L: a SellPlan's work list
+# ---------------------------------------------------------------------------
 
 #: most tiles one record sums; a longer slice is split over several
 #: records that combine atomically into a preset output.  Untuned: no
@@ -60,8 +94,7 @@ def tile_runs(tile_slice, num_slices: int) -> np.ndarray:
     Slice s owns tiles [base[s], base[s+1]), with ``base`` the
     cumulative ``bincount`` of the nondecreasing ``tile_slice``
     (``build_sell_plan``'s ``tile_base``); every slice is written."""
-    ts = np.asarray(tile_slice.cpu() if isinstance(tile_slice, torch.Tensor)
-                    else tile_slice).astype(np.int64)
+    ts = _host(tile_slice).astype(np.int64)
     if ts.size and (np.any(np.diff(ts) < 0) or ts[0] < 0 or
                     ts[-1] >= num_slices):
         raise ValueError("tile_slice must be nondecreasing in "
@@ -91,68 +124,27 @@ def tile_runs(tile_slice, num_slices: int) -> np.ndarray:
 
 @dataclasses.dataclass(frozen=True)
 class WorkList:
-    """A placed plan's work list and what a launch sizes by it."""
+    """A work list on its plan's device and what a launch sizes by it."""
 
-    num_slices: int
-    runs: torch.Tensor        # (records, 4) int32 on the plan's device
+    runs: torch.Tensor        # (records, 4) int32
     split: bool               # a record holds one piece of a split slice
     max_tiles: int            # most tiles of one record
     max_slices: int           # most slices one record writes
 
 
-#: the work list of each placed plan by its ``tile_slice`` tensor.  A
-#: sharded apply rebuilds its shard plans around the same tensors.
-_RUNS = WeakIdKeyDictionary()
+def work_list(tile_slice: torch.Tensor, num_slices: int) -> WorkList:
+    """The work list of ``tile_slice`` on its device."""
+    recs = tile_runs(tile_slice, num_slices)
+    s1 = recs[:, 3] & ~RUN_ATOMIC
+    return WorkList(torch.from_numpy(recs).to(tile_slice.device),
+                    bool((recs[:, 3] & RUN_ATOMIC).any()),
+                    int((recs[:, 1] - recs[:, 0]).max(initial=0)),
+                    int((s1 - recs[:, 2]).max(initial=0)))
 
 
-def place_runs(tile_slice: torch.Tensor, num_slices: int) -> None:
-    """Build the work list for a placed plan's ``tile_slice``, once (a
-    no-op when it is built), so that no apply waits on it."""
-    hit = _RUNS.get(tile_slice)
-    if hit is None or hit.num_slices != num_slices:
-        recs = tile_runs(tile_slice, num_slices)
-        s1 = recs[:, 3] & ~RUN_ATOMIC
-        _RUNS[tile_slice] = WorkList(
-            num_slices, torch.from_numpy(recs).to(tile_slice.device),
-            bool((recs[:, 3] & RUN_ATOMIC).any()),
-            int((recs[:, 1] - recs[:, 0]).max(initial=0)),
-            int((s1 - recs[:, 2]).max(initial=0)))
-
-
-def place_plan_runs(plan) -> None:
-    """:func:`place_runs` for every SellPlan of a placed plan — the plan
-    itself, a HybridPlan's rest, a CachedPlan's tiers — which kernel G or
-    L (any strategy but 'window') or kernel H (``op @ B`` on a window
-    plan) may run, :func:`place_light` and :func:`place_heavy` for a
-    ChunkPlan and :func:`place_extract` for a PackedPlan (a ChunkPlan's
-    residue and a CachedPlan's cold part included)."""
-    if isinstance(plan, HybridPlan):
-        place_plan_runs(plan.rest)
-    elif isinstance(plan, CachedPlan):
-        place_plan_runs(plan.hot)
-        if plan.cold is not None:
-            place_plan_runs(plan.cold)
-    elif isinstance(plan, SellPlan):
-        place_runs(plan.tile_slice, plan.num_slices)
-    elif isinstance(plan, ChunkPlan):
-        place_light(plan)
-        place_heavy(plan)
-        if isinstance(plan.residue, PackedPlan):
-            place_extract(plan.residue)
-    elif isinstance(plan, PackedPlan):
-        place_extract(plan)
-
-
-def runs_on(tile_slice: torch.Tensor, num_slices: int) -> WorkList:
-    """The work list of a placed plan's ``tile_slice``; raises for one
-    no placement saw."""
-    hit = _RUNS.get(tile_slice)
-    if hit is None or hit.num_slices != num_slices:
-        raise ValueError("the work list of kernels D, G, H and L is built "
-                         "when their plan is placed: place the plan with "
-                         "formats.plan.place (parallel.place_on_mesh for a "
-                         "sharded plan)")
-    return hit
+def sell_work(plan) -> WorkList:
+    """A placed SellPlan's work list (its ``work``)."""
+    return work_list(plan.tile_slice, plan.num_slices)
 
 
 # ---------------------------------------------------------------------------
@@ -164,14 +156,15 @@ class HeavyTiles:
     """A placed ChunkPlan's heavy subwindow tiles, every W bucket's real
     tiles in one slab on the plan's device, stably ordered by heavy row
     (kernel D reads x at ``bases * 128 + cols_win`` whatever the
-    bucket's W, so the buckets differ only in their tiles).  Its work
-    list is :func:`runs_on` ``(tile_row, rows.shape[0])``."""
+    bucket's W, so the buckets differ only in their tiles), and its work
+    list over ``tile_row``, each heavy row's tiles one slice."""
 
     vals: torch.Tensor        # (T, P, R) float32
     cols_win: torch.Tensor    # (T, P, R) int16 offsets from the base
     bases: torch.Tensor       # (T, P) int32 base blocks of 128 columns
     tile_row: torch.Tensor    # (T,) int32 entry of ``rows``, nondecreasing
     rows: torch.Tensor        # (K,) int32 y rows of the heavy rows with tiles
+    work: WorkList
 
 
 def padding_tiles(h, num_segments: int) -> int:
@@ -181,6 +174,8 @@ def padding_tiles(h, num_segments: int) -> int:
     mapped to the last segment (``formats/chunk.py``).  A trailing tile
     of the last heavy row that looks the same holds no column but 0
     and one value in all 1024 slots."""
+    from ..ops import semiring as sr
+
     T = h.vals.shape[0]
     flat = sr.signed(h.vals).reshape(T, -1)
     pad = ((flat == flat[:, :1]).all(1) & (h.cols_win.reshape(T, -1) == 0)
@@ -189,11 +184,13 @@ def padding_tiles(h, num_segments: int) -> int:
     return T - (int(real[-1]) + 1 if real.size else 0)
 
 
-def heavy_tiles(plan: ChunkPlan) -> HeavyTiles | None:
-    """The heavy slab of a placed ChunkPlan (None without heavy tiles):
-    the buckets' tiles less their padding, concatenated and stably
-    sorted by ``tile_seg``, so each heavy row's tiles are one run in
-    bucket order.  The plan's own arrays are left as they are."""
+def heavy_tiles(plan) -> HeavyTiles | None:
+    """The heavy slab of a placed ChunkPlan (its ``heavy``; None without
+    heavy tiles): the buckets' tiles less their padding, concatenated and
+    stably sorted by ``tile_seg``, so each heavy row's tiles are one run
+    in bucket order.  The plan's own arrays are left as they are."""
+    from ..ops import semiring as sr
+
     nblk, nheavy = plan.num_blocks, plan.num_heavy
     keep = [(h, h.num_tiles - padding_tiles(h, nblk + nheavy))
             for h in plan.hbuckets]
@@ -213,37 +210,11 @@ def heavy_tiles(plan: ChunkPlan) -> HeavyTiles | None:
                        idx).contiguous()
 
     rows = plan.heavy_rows.cpu().numpy()[heavy]
+    tile_row = torch.from_numpy(tile_row.astype(np.int32)).to(dev)
     return HeavyTiles(slab("vals"), slab("cols_win"), slab("bases"),
-                      torch.from_numpy(tile_row.astype(np.int32)).to(dev),
-                      torch.from_numpy(rows.astype(np.int32)).to(dev))
-
-
-#: the heavy slab of each placed ChunkPlan by its first heavy bucket's
-#: ``vals`` tensor (None: the plan has no heavy tiles)
-_HEAVY = WeakIdKeyDictionary()
-
-
-def place_heavy(plan: ChunkPlan) -> None:
-    """Build a placed ChunkPlan's heavy slab and its work list, once, so
-    that no apply waits on them."""
-    if not plan.hbuckets or plan.hbuckets[0].vals in _HEAVY:
-        return
-    heavy = heavy_tiles(plan)
-    if heavy is not None:
-        place_runs(heavy.tile_row, heavy.rows.shape[0])
-    _HEAVY[plan.hbuckets[0].vals] = heavy
-
-
-def heavy_on(plan: ChunkPlan) -> HeavyTiles | None:
-    """The heavy slab of a placed ChunkPlan (None without heavy tiles);
-    raises for a plan no placement saw."""
-    if not plan.hbuckets:
-        return None
-    if plan.hbuckets[0].vals not in _HEAVY:
-        raise ValueError("the heavy slab of kernel D is built when its "
-                         "ChunkPlan is placed: place the plan with "
-                         "formats.plan.place")
-    return _HEAVY[plan.hbuckets[0].vals]
+                      tile_row,
+                      torch.from_numpy(rows.astype(np.int32)).to(dev),
+                      work_list(tile_row, heavy.shape[0]))
 
 
 # ---------------------------------------------------------------------------
@@ -300,10 +271,10 @@ def light_units(row_off, unit_records: int = LIGHT_UNIT_RECORDS
     return np.stack([starts, off[starts]], 1).astype(np.int32)
 
 
-def light_records(plan: ChunkPlan) -> LightRecords:
-    """The light route's records of ``plan`` (host or placed), on the
-    device of its ``perm_idx``.  The plan's own arrays are left as they
-    are."""
+def light_records(plan) -> LightRecords:
+    """The light route's records of ``plan`` (a host or placed ChunkPlan;
+    a placed one's ``light``), on the device of its ``perm_idx``.  The
+    plan's own arrays are left as they are."""
     nseg = plan.num_blocks + plan.num_heavy
     rows, vals, cols = [], [], []
     tiled = np.zeros(nseg, bool)
@@ -339,28 +310,6 @@ def light_records(plan: ChunkPlan) -> LightRecords:
         put(np.concatenate(cols)[order] if cols else [], np.int32),
         vals.contiguous().to(device),
         put(tiled, np.bool_), put(light_units(row_off), np.int32))
-
-
-#: the light records of each placed ChunkPlan by its ``perm_idx`` tensor
-_LIGHT = WeakIdKeyDictionary()
-
-
-def place_light(plan: ChunkPlan) -> None:
-    """Build a placed ChunkPlan's light records and their work list,
-    once, so that no apply waits on them."""
-    if plan.perm_idx not in _LIGHT:
-        _LIGHT[plan.perm_idx] = light_records(plan)
-
-
-def light_on(plan: ChunkPlan) -> LightRecords:
-    """The light records of a placed ChunkPlan; raises for a plan no
-    placement saw."""
-    hit = _LIGHT.get(plan.perm_idx)
-    if hit is None:
-        raise ValueError("the light records of the chunk route are built "
-                         "when their ChunkPlan is placed: place the plan "
-                         "with formats.plan.place")
-    return hit
 
 
 # ---------------------------------------------------------------------------
@@ -408,26 +357,15 @@ class ExtractTables:
     ov_vals: torch.Tensor     # (novf,) the plan's value type
 
 
-def _host(t) -> np.ndarray:
-    return np.asarray(t.cpu() if isinstance(t, torch.Tensor) else t)
-
-
-def _bits(t: torch.Tensor) -> np.ndarray:
-    """The bits of a CPU tensor of 1-, 2-, 4- or 8-byte elements, as
-    signed integers of that width (for comparing values bit for bit)."""
-    width = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
-    return t.view(width[t.element_size()]).numpy()
-
-
 def piece_slots(sblock: torch.Tensor, wstep: torch.Tensor,
                 esrc: torch.Tensor, step_tiles: int):
     """Every primary piece of a plan's pass-B arrays (tensors on one
     device, the visits window-major: ``wstep`` nondecreasing, as
-    ``build_packed_plan`` makes it): its y row and its scan slot, int32,
-    sorted by row, a row's pieces in visit order.  A window at a time, its
-    visits' extraction indices read row-major, so that no sort is
-    needed."""
-    window = PACKED_WINDOW_BLOCKS * 128
+    ``build_packed_plan`` makes it; ``esrc`` (visits, window's 128-row
+    blocks, 128)): its y row and its scan slot, int32, sorted by row, a
+    row's pieces in visit order.  A window at a time, its visits'
+    extraction indices read row-major, so that no sort is needed."""
+    window = math.prod(esrc.shape[1:])
     flat = esrc.reshape(esrc.shape[0], window)
     ws = wstep.long()
     if ws.numel() and bool((ws[1:] < ws[:-1]).any()):
@@ -511,10 +449,12 @@ def compact_tables(prow, pslot, orow, ov_cols, ov_vals, *, rows: int,
         ov_vals.to(dev).contiguous())
 
 
-def extract_tables(plan: PackedPlan, unit: int = F_UNIT) -> ExtractTables:
-    """Kernel F's tables for ``plan`` (host or placed), on the device of
-    its ``esrc`` (the CPU for a host plan); the plan's own arrays are
+def extract_tables(plan, unit: int = F_UNIT) -> ExtractTables:
+    """Kernel F's tables for a PackedPlan (host or placed), on the device
+    of its ``esrc`` (the CPU for a host plan); the plan's own arrays are
     left as they are."""
+    from ..ops import semiring as sr
+
     rows, ncols = plan.shape
     ov_rows = _host(plan.ov_rows).astype(np.int64)
     ov_cols = _host(plan.ov_cols)
@@ -536,31 +476,17 @@ def extract_tables(plan: PackedPlan, unit: int = F_UNIT) -> ExtractTables:
         prow, pslot, put(ov_rows[order]), put(ov_cols[order]),
         sr.take(torch.as_tensor(plan.ov_vals).cpu(), torch.from_numpy(order)),
         rows=rows, ncols=ncols, slots=plan.vals.shape[0] * 1024,
-        dense_entries=plan.esrc.shape[0] * PACKED_WINDOW_BLOCKS * 128,
-        unit=unit)
+        dense_entries=math.prod(plan.esrc.shape), unit=unit)
 
 
-#: kernel F's tables of each placed PackedPlan by its ``esrc`` tensor
-_EXTRACT = WeakIdKeyDictionary()
+def placed_extract_tables(plan) -> ExtractTables:
+    """A placed PackedPlan's kernel-F tables (its ``tables``); counts
+    their pieces (``packed.f_entries``) and the entries of the dense
+    ``esrc`` they replace (``packed.f_dense_entries``) in
+    ``utils.stats.counters``."""
+    from ..utils.stats import counters
 
-
-def place_extract(plan: PackedPlan) -> None:
-    """Build a placed PackedPlan's kernel-F tables, once, so that no apply
-    waits on them; counts their pieces (``packed.f_entries``) and the
-    entries of the dense ``esrc`` they replace (``packed.f_dense_entries``)
-    in ``utils.stats.counters``."""
-    if plan.esrc not in _EXTRACT:
-        tables = _EXTRACT[plan.esrc] = extract_tables(plan)
-        counters["packed.f_entries"] += tables.pieces
-        counters["packed.f_dense_entries"] += tables.dense_entries
-
-
-def extract_on(plan: PackedPlan) -> ExtractTables:
-    """The kernel-F tables of a placed PackedPlan; raises for a plan no
-    placement saw."""
-    hit = _EXTRACT.get(plan.esrc)
-    if hit is None:
-        raise ValueError("the tables of kernel F are built when its "
-                         "PackedPlan is placed: place the plan with "
-                         "formats.plan.place")
-    return hit
+    tables = extract_tables(plan)
+    counters["packed.f_entries"] += tables.pieces
+    counters["packed.f_dense_entries"] += tables.dense_entries
+    return tables

@@ -31,6 +31,7 @@ from .formats.dia import DiaPlan, DiaStats, HybridPlan
 from .formats.packed import PackedPlan, PackedStats
 from .formats.plan import (PlanStats, SellPlan, host_values, map_arrays,
                            place)
+from .formats.tables import table_names
 from .ops.spgemm import SpGemmPlan
 from .ops.sptrsv import TriSolvePlan
 from .parallel.dia_sharded import ShardedDiaPlan
@@ -81,11 +82,14 @@ def _host(plan_ref):
             shape=tuple(plan_ref.shape),
             stats=ChunkStats(**plan_ref.stats.as_dict()))
     if kind not in _PLANS:
-        raise NotImplementedError(f"{kind} is not ported yet (ROADMAP.md "
-                                  f"queue 1)")
+        raise NotImplementedError(f"{kind}: the port has no such plan "
+                                  f"(MergeSellPlan is not ported by design)")
     cls = _PLANS[kind]
     kw = {}
+    tables = table_names(cls)           # the port's own, built on placing
     for f in dataclasses.fields(cls):
+        if f.name in tables:
+            continue
         v = getattr(plan_ref, f.name)
         if f.name == "stats":
             v = _STATS[kind](**v.as_dict())

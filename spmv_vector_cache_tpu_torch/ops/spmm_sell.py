@@ -6,10 +6,10 @@ which streams a plan's nonzeros once for many right-hand sides instead of
 once per column.  :func:`spmm_window_kernel` wraps kernel H
 (``csrc/spmm_sell_window.cu``), which replaces the reference's
 ``_make_spmm_kernel`` and its ``_bt_windows`` operand and sums each
-slice's tiles itself (the work list of ``ops/runs.py``): it writes Y's
-rows where the plan's rows are an identity map or a uniform-parts lane
-fold, and slice sums for the SELL SpMV epilogue's ``row_map`` reduce
-otherwise.
+slice's tiles itself (the placed plan's work list, ``formats/tables.py``):
+it writes Y's rows where the plan's rows are an identity map or a
+uniform-parts lane fold, and slice sums for the SELL SpMV epilogue's
+``row_map`` reduce otherwise.
 :func:`spmm_window_plain` is its plain PyTorch version.
 :func:`spmm_plan` dispatches on plan type; :func:`has_fused_spmm` says,
 before anything runs, whether a plan has a fused kernel at all.
@@ -22,10 +22,10 @@ import torch
 from ..formats.cached import CooTail
 from ..formats.dia import DiaPlan, HybridPlan
 from ..formats.plan import SellPlan
+from ..formats.tables import placed
 from ..utils import platform
 from . import _kernels
 from . import semiring as sr
-from .runs import runs_on
 from .spmm_dia import spmm_dia_kernel
 from .spmv_sell import (_fixup_rows, fold_lanes, plan_as_x,
                         plan_vals_dtype, row_parts, sell_window_plain)
@@ -117,11 +117,11 @@ def _check_window(vals, cols_win, window_base, tile_slice, b, group_tiles,
 
 def spmm_window_kernel(vals, cols_win, window_base, tile_slice, b, *,
                        num_slices: int, group_tiles: int, window_grain: int,
-                       parts: int, rows: int) -> torch.Tensor:
+                       parts: int, rows: int, work=None) -> torch.Tensor:
     """Kernel H on CUDA tensors; the plain version on CPU tensors.
     Returns Y (rows, k) for ``parts`` >= 1, else the (num_slices, R, k)
-    slice sums.  On the card ``tile_slice`` must be a placed plan's: its
-    work list (``ops/runs.py``) is built at placement."""
+    slice sums.  On the card ``work`` is the work list of ``tile_slice``
+    (a placed plan's ``work``)."""
     _check_window(vals, cols_win, window_base, tile_slice, b, group_tiles,
                   num_slices, parts)
     kw = dict(num_slices=num_slices, group_tiles=group_tiles,
@@ -131,7 +131,7 @@ def spmm_window_kernel(vals, cols_win, window_base, tile_slice, b, *,
                                  **kw)
     T, P, R = vals.shape
     k = b.shape[1]
-    work = runs_on(tile_slice, num_slices)
+    work = placed(work, "the work list of kernel H")
     if parts:
         shape = (rows, k)
         covered = rows <= num_slices * (R // parts)
@@ -161,7 +161,7 @@ def _spmm_window(plan: SellPlan, b: torch.Tensor) -> torch.Tensor:
                              plan.tile_slice, b, num_slices=plan.num_slices,
                              group_tiles=st.group_tiles,
                              window_grain=st.window_grain, parts=parts,
-                             rows=plan.shape[0])
+                             rows=plan.shape[0], work=plan.work)
     return out if parts else _fixup_rows(plan, out, "plus_times")
 
 

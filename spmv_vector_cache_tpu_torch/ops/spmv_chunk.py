@@ -4,13 +4,13 @@ in ``spmv_vector_cache_tpu/ops/spmv_pallas.py``).
 :func:`light_kernel` wraps the chunk light route
 (``csrc/spmv_chunk_light.cu``): one launch over the real slots of all
 the plan's light buckets (the records by lane row that placement builds,
-``ops/runs.py`` :func:`~.runs.light_on`), which writes every lane row
+the plan's ``light``, ``formats/tables.py``), which writes every lane row
 of the unified segment space once: what the reference's window kernel
 gives per bucket, its sorted segment reduce and the add across buckets
 give together.  :func:`light_plain` is its plain PyTorch version.
 :func:`heavy_kernel` wraps kernel D (``csrc/spmv_subwin.cu``): one
 launch over all the plan's heavy subwindow tiles (the slab and work
-list that placement builds, :func:`~.runs.heavy_on`), which adds each
+list that placement builds, the plan's ``heavy``), which adds each
 heavy row's sum into y in place; :func:`heavy_plain` is its plain
 PyTorch version, and :func:`subwin_plain` the reference's per-tile
 function (``_subwin_partials``).  The rest is as the reference computes
@@ -28,11 +28,11 @@ import torch
 from ..formats.cached import CooTail
 from ..formats.chunk import ChunkPlan
 from ..formats.packed import PackedPlan
+from ..formats.tables import HeavyTiles, LightRecords, placed
 from ..utils import platform
 from . import _kernels
 from . import semiring as sr
 from .lane_perm import unpermute_plan_rows
-from .runs import LightRecords, heavy_on, light_on, runs_on
 from .spmv_packed import spmv_packed
 from .spmv_sell import _spmv_coo
 
@@ -85,9 +85,8 @@ def _check_light(light: LightRecords, x):
 def light_kernel(light: LightRecords, x, *, semiring: str) -> torch.Tensor:
     """The light route on CUDA tensors; the plain version on CPU tensors.
     Returns the (segments, 128) sums of the unified segment space, in
-    x's type.  ``light`` is a placed plan's (``ops/runs.py``
-    :func:`~.runs.light_records`, which made its tensors contiguous and
-    typed)."""
+    x's type.  ``light`` is a placed plan's (``formats/tables.py``
+    ``light_records``, which made its tensors contiguous and typed)."""
     _check_light(light, x)
     sr.check_integer(semiring, light.vals.dtype)
     if not platform.is_cuda(x):
@@ -170,19 +169,19 @@ def _check_heavy(vals, cols_win, bases, tile_row, rows, x, y):
         raise ValueError("subwindow operands must be contiguous")
 
 
-def heavy_kernel(vals, cols_win, bases, tile_row, rows, x, y, *,
-                 semiring: str) -> torch.Tensor:
-    """Kernel D on CUDA tensors; the plain version on CPU tensors.
-    Updates and returns ``y``.  On the card ``tile_row`` must be a
-    placed plan's heavy slab's (its work list, ``ops/runs.py``, is built
-    at placement)."""
+def heavy_kernel(heavy: HeavyTiles, x, y, *, semiring: str) -> torch.Tensor:
+    """Kernel D on CUDA tensors; the plain version on CPU tensors, over
+    a placed ChunkPlan's heavy slab (its ``heavy``, which carries the
+    slab's work list).  Updates and returns ``y``."""
+    vals, cols_win, bases, tile_row, rows = (
+        heavy.vals, heavy.cols_win, heavy.bases, heavy.tile_row, heavy.rows)
     _check_heavy(vals, cols_win, bases, tile_row, rows, x, y)
     sr.check_integer(semiring, vals.dtype)
     if not platform.is_cuda(x):
         return heavy_plain(vals, cols_win, bases, tile_row, rows, x, y,
                            semiring=semiring)
     T, P, R = vals.shape
-    work = runs_on(tile_row, rows.shape[0])
+    work = heavy.work
     _kernels.launch(
         _kernels.entry("spmv_subwin_f32", vals.dtype), x.get_device(),
         vals.data_ptr(),
@@ -208,7 +207,7 @@ def spmv_chunk(plan: ChunkPlan, x: torch.Tensor,
     nblk = plan.num_blocks
     nheavy = plan.num_heavy
     rows = plan.shape[0]
-    light = light_on(plan)
+    light = placed(plan.light, "the light records of the chunk route")
     xf = sr.as_x(x, light.vals.dtype)
     y2d = light_kernel(light, xf, semiring=semiring)
     y = unpermute_plan_rows(y2d[:nblk], plan.perm_idx).reshape(-1)[:rows]
@@ -218,11 +217,8 @@ def spmv_chunk(plan: ChunkPlan, x: torch.Tensor,
         yh = s.segment_reduce(yh, plan.heavy_rows,
                               num_segments=rows + 1)[:rows]
         y = s.combine(y, yh)                       # a new y: D adds in place
-        heavy = heavy_on(plan)
-        if heavy is not None:
-            y = heavy_kernel(heavy.vals, heavy.cols_win, heavy.bases,
-                             heavy.tile_row, heavy.rows, xf, y,
-                             semiring=semiring)
+        if plan.heavy is not None:
+            y = heavy_kernel(plan.heavy, xf, y, semiring=semiring)
     if isinstance(plan.residue, CooTail):
         y = s.combine(y, _spmv_coo(plan.residue, x, semiring))
     elif isinstance(plan.residue, PackedPlan):

@@ -9,8 +9,8 @@ products), both in ``csrc/spmv_packed.cu``; beside each is its plain
 PyTorch version.  So the apply is kernel E then kernel F: F also does
 what the reference computes in XLA after its extract kernel (the window
 mask, the overflow COO), from the list that placement compacts from the
-plan's dense extraction index (``ops/runs.py``
-:func:`~.runs.extract_on`).  :func:`packed_extract_kernel` is F over
+plan's dense extraction index (the plan's ``tables``,
+``formats/tables.py``).  :func:`packed_extract_kernel` is F over
 whole windows with no overflow, the reference's extract kernel alone.
 See ``formats/packed.py`` for the layout.
 
@@ -28,10 +28,11 @@ import functools
 import torch
 
 from ..formats.packed import PACKED_WINDOW_BLOCKS, PackedPlan
+from ..formats.tables import (ExtractTables, compact_tables, piece_slots,
+                              placed)
 from ..utils import platform
 from . import _kernels
 from . import semiring as sr
-from .runs import ExtractTables, compact_tables, extract_on, piece_slots
 
 
 def _check_same_device(ref, *ts):
@@ -319,7 +320,7 @@ def spmv_packed(plan: PackedPlan, x: torch.Tensor, *,
             f"packed plans run plus_times only (piece extraction rides a "
             f"segmented prefix sum); got {semiring!r}")
     st = plan.stats
-    tables = extract_on(plan)
+    tables = placed(plan.tables, "the tables of kernel F")
     x = sr.as_x(x, plan.vals.dtype)
     scan = packed_scan_kernel(plan.vals, plan.cols, plan.cstep, x,
                               chunk_blocks=st.chunk_blocks,

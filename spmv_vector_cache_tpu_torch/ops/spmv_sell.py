@@ -5,8 +5,8 @@
 which replaces the reference's window kernel; :func:`sell_global_kernel`
 wraps kernel G (``csrc/spmv_sell_global.cu``), which replaces its
 resident, deep and stream kernels and their slice reduction: G sums each
-slice's tiles itself (the work list of ``ops/runs.py``) and writes y's
-rows, or the slice sums of a general ``row_map`` plan.
+slice's tiles itself (the placed plan's work list, ``formats/tables.py``)
+and writes y's rows, or the slice sums of a general ``row_map`` plan.
 :func:`sell_window_plain` and :func:`sell_global_plain` are their plain
 PyTorch versions.  A double
 plan (``value_dtype=np.float64``: (T, 2P, R) hi/lo float32 values) runs
@@ -45,10 +45,10 @@ from ..formats.dia import DiaPlan, HybridPlan
 from ..formats.packed import PackedPlan
 from ..formats.plan import DEEP_MAX_BLOCKS, RESIDENT_MAX_BLOCKS, SellPlan
 from ..formats.plan import TILES_PER_STEP
+from ..formats.tables import placed
 from ..utils import platform
 from . import _kernels, df64
 from . import semiring as sr
-from .runs import runs_on
 from .spmv_dia import spmv_dia, spmv_dia_double
 from .spmv_packed import spmv_packed
 
@@ -376,12 +376,13 @@ def _check_slices(tile_slice, T, device, num_slices, parts, rows, R):
         raise ValueError(f"{num_slices} slices do not cover {rows} rows")
 
 
-def _launch_global(entry, vals, cols, tile_slice, x, positions, num_slices,
-                   parts, rows, semiring, *code):
+def _launch_global(entry, vals, cols, tile_slice, work, x, positions,
+                   num_slices, parts, rows, semiring, *code):
     """Launch kernel G or L (C entry point ``entry``, then ``code``) on
-    its placed work list; their output, in x's type, starts as the
-    semiring's init where split slices combine into it."""
-    work = runs_on(tile_slice, num_slices)
+    the work list of ``tile_slice`` (a placed plan's ``work``); their
+    output, in x's type, starts as the semiring's init where split slices
+    combine into it."""
+    work = placed(work, "the work list of kernels G and L")
     R = vals.shape[2]
     shape = (rows,) if parts else (num_slices, R)
     out = torch.full(shape, sr.init_value(semiring, x.dtype),
@@ -396,15 +397,16 @@ def _launch_global(entry, vals, cols, tile_slice, x, positions, num_slices,
 
 
 def sell_global_kernel(vals, cols, tile_slice, x, *, num_slices: int,
-                       parts: int, rows: int, semiring: str) -> torch.Tensor:
+                       parts: int, rows: int, semiring: str,
+                       work=None) -> torch.Tensor:
     """Kernel G on CUDA tensors; the plain version on CPU tensors.
 
     ``vals``/``cols``: (T, P, R) float32 / int32 global column ids;
     ``tile_slice`` (T,) int32 nondecreasing.  Returns y's first ``rows``
     rows for ``parts`` >= 1 (see :func:`row_parts`), else the
-    (num_slices, R) slice sums.  On the card ``tile_slice`` must be a
-    placed plan's (its work list, ``ops/runs.py``, is built at
-    placement); x is gathered through L1 and L2."""
+    (num_slices, R) slice sums.  On the card ``work`` is the work list of
+    ``tile_slice`` (a placed plan's ``work``); x is gathered through L1
+    and L2."""
     _check_global(vals, cols, x)
     sr.check_integer(semiring, vals.dtype)
     T, P, R = vals.shape
@@ -414,7 +416,7 @@ def sell_global_kernel(vals, cols, tile_slice, x, *, num_slices: int,
                                  num_slices=num_slices, parts=parts,
                                  rows=rows, semiring=semiring)
     out = _launch_global(_kernels.entry("spmv_sell_global_f32", vals.dtype),
-                         vals, cols, tile_slice, x,
+                         vals, cols, tile_slice, work, x,
                          P, num_slices, parts, rows, semiring,
                          sr.KERNEL_CODE[semiring])
     return out
@@ -431,13 +433,14 @@ def sell_global_f64_plain(vals, cols, tile_slice, x, *, num_slices: int,
 
 
 def sell_global_f64_kernel(vals, cols, tile_slice, x, *, num_slices: int,
-                           parts: int, rows: int) -> torch.Tensor:
+                           parts: int, rows: int,
+                           work=None) -> torch.Tensor:
     """Kernel L on CUDA tensors; the plain version on CPU tensors.
     ``vals``: a double plan's (T, 2P, R) float32 hi/lo slab; ``cols``:
     (T, P, R) int32; ``x`` and the output: float64.  As kernel G
     (:func:`sell_global_kernel`), plus_times: y's first ``rows`` rows for
     ``parts`` >= 1, else the (num_slices, R) slice sums; on the card
-    ``tile_slice`` must be a placed plan's."""
+    ``work`` is the work list of ``tile_slice``."""
     _check_global(vals, cols, x, double=True)
     T, P2, R = vals.shape
     _check_slices(tile_slice, T, vals.device, num_slices, parts, rows, R)
@@ -445,8 +448,9 @@ def sell_global_f64_kernel(vals, cols, tile_slice, x, *, num_slices: int,
         return sell_global_f64_plain(vals, cols, tile_slice, x,
                                      num_slices=num_slices, parts=parts,
                                      rows=rows)
-    out = _launch_global("spmv_sell_global_f64", vals, cols, tile_slice, x,
-                         P2 // 2, num_slices, parts, rows, "plus_times")
+    out = _launch_global("spmv_sell_global_f64", vals, cols, tile_slice,
+                         work, x, P2 // 2, num_slices, parts, rows,
+                         "plus_times")
     return out
 
 
@@ -485,7 +489,8 @@ def _spmv_global(plan: SellPlan, x: torch.Tensor, semiring: str,
     out = sell_global_kernel(plan.vals, plan.cols, plan.tile_slice,
                              sr.as_x(x, plan.vals.dtype),
                              num_slices=plan.num_slices, parts=parts,
-                             rows=plan.shape[0], semiring=semiring)
+                             rows=plan.shape[0], semiring=semiring,
+                             work=plan.work)
     return out if parts else _fixup_rows(plan, out, semiring)
 
 
@@ -540,7 +545,8 @@ def spmv_sell_double(plan: SellPlan, x: torch.Tensor, *,
         parts = row_parts(plan)
         out = sell_global_f64_kernel(plan.vals, plan.cols, plan.tile_slice,
                                      x, num_slices=plan.num_slices,
-                                     parts=parts, rows=plan.shape[0])
+                                     parts=parts, rows=plan.shape[0],
+                                     work=plan.work)
         return out if parts else _fixup_rows(plan, out, "plus_times")
     raise ValueError(f"unknown strategy {strategy!r}")
 
@@ -710,8 +716,8 @@ def _spmv_sums(plan, x: torch.Tensor, strategy: str,
             dia(plan.dia, x), _spmv_sums(plan.rest, x, rest_strategy,
                                          semiring))
     if not isinstance(plan, SellPlan):
-        raise NotImplementedError(
-            f"{type(plan).__name__} is not ported yet (ROADMAP.md queue 1)")
+        raise NotImplementedError(f"{type(plan).__name__}: the port runs "
+                                  f"no such plan")
     if plan.stats.double:
         if semiring != "plus_times":
             raise ValueError(

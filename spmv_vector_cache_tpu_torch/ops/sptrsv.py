@@ -12,8 +12,8 @@ neighbour products from the right-hand side and multiplies by the
 inverse of the diagonal block, which it inverts on every call.  Here
 the sweep is a Python loop of one launch a step on the plan's device:
 
-* once per placed plan (:func:`sweep_on`, kept by the ``diag_blocks``
-  tensor's identity) the inverses ``D_i^-1`` and the coupling
+* once, when the plan is placed (:func:`build_sweep`, the plan's
+  ``sweep``), the inverses ``D_i^-1`` and the coupling
   ``G_i = D_i^-1 [N_i,1 ... N_i,W]``, the W neighbour blocks side by
   side in the order in which their solved blocks lie in memory;
 * per call, one batched product ``c = D^-1 b`` for all blocks at once;
@@ -32,17 +32,40 @@ the solves run on the device every iteration.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, NamedTuple, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.utils.weak import WeakIdKeyDictionary
 
 from ..formats.containers import CSR
+from ..formats.tables import table
 
 Array = Any
 
 BLOCK = 128
+
+
+class Sweep(NamedTuple):
+    """The per-plan operators of the sweep (see the module docstring)."""
+
+    inv: torch.Tensor        # (nb, BLOCK, BLOCK) inverses of the blocks
+    coupling: tuple          # nb views (BLOCK, W * BLOCK): D_i^-1 [N_i,w ...]
+
+
+def build_sweep(plan) -> Sweep:
+    """The sweep operators of a placed TriSolvePlan (its ``sweep``), on
+    its device."""
+    diag = plan.diag_blocks
+    tri = torch.tril(diag) if plan.lower else torch.triu(diag)
+    inv = torch.linalg.inv_ex(tri).inverse
+    off = plan.off_blocks
+    if plan.lower:
+        # the solved neighbours i-W .. i-1 lie in memory in that order:
+        # slot w (block i-1-w) goes last first
+        off = off.flip(1)
+    nb, W = plan.num_blocks, plan.width
+    side = off.permute(0, 2, 1, 3).reshape(nb, BLOCK, W * BLOCK)
+    return Sweep(inv=inv, coupling=torch.bmm(inv, side).unbind(0))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,7 +77,8 @@ class TriSolvePlan:
     sub(super)-diagonal block neighbors (banded window; padding zero);
     exact for matrices whose block bandwidth <= W, which the constructor
     verifies.  ``lower`` selects forward vs backward sweep.  Arrays are
-    numpy on the host and tensors once placed (``formats.plan.place``).
+    numpy on the host and tensors once placed (``formats.plan.place``),
+    which builds ``sweep``.
     """
 
     diag_blocks: Array
@@ -62,6 +86,7 @@ class TriSolvePlan:
     n: int
     lower: bool
     unit_diag: bool
+    sweep: Optional[Sweep] = table(build_sweep)
 
     @property
     def num_blocks(self) -> int:
@@ -117,45 +142,14 @@ def build_trisolve_plan(a: CSR, *, lower: bool, unit_diag: bool = False,
                         unit_diag=unit_diag)
 
 
-class Sweep(NamedTuple):
-    """The per-plan operators of the sweep (see the module docstring)."""
-
-    inv: torch.Tensor        # (nb, BLOCK, BLOCK) inverses of the blocks
-    coupling: tuple          # nb views (BLOCK, W * BLOCK): D_i^-1 [N_i,w ...]
-
-
-_SWEEPS = WeakIdKeyDictionary()
-
-
-def sweep_on(plan: TriSolvePlan) -> Sweep:
-    """The sweep operators of a placed plan, built on its first solve and
-    kept while its ``diag_blocks`` tensor lives."""
-    if not isinstance(plan.diag_blocks, torch.Tensor):
-        raise TypeError("trisolve runs a placed TriSolvePlan: place it "
-                        "with formats.plan.place(plan, device)")
-    hit = _SWEEPS.get(plan.diag_blocks)
-    if hit is not None:
-        return hit
-    diag = plan.diag_blocks
-    tri = torch.tril(diag) if plan.lower else torch.triu(diag)
-    inv = torch.linalg.inv_ex(tri).inverse
-    off = plan.off_blocks
-    if plan.lower:
-        # the solved neighbours i-W .. i-1 lie in memory in that order:
-        # slot w (block i-1-w) goes last first
-        off = off.flip(1)
-    nb, W = plan.num_blocks, plan.width
-    side = off.permute(0, 2, 1, 3).reshape(nb, BLOCK, W * BLOCK)
-    hit = _SWEEPS[plan.diag_blocks] = Sweep(
-        inv=inv, coupling=torch.bmm(inv, side).unbind(0))
-    return hit
-
-
 def trisolve(plan: TriSolvePlan, b) -> torch.Tensor:
     """Solve T x = b for blocked triangular T on the placed plan's device
     (x in the plan's dtype): ``nb`` dependent steps of one ``addmv_``
     each, after one batched product."""
-    sw = sweep_on(plan)
+    sw = plan.sweep
+    if sw is None:
+        raise TypeError("trisolve runs a placed TriSolvePlan: place it "
+                        "with formats.plan.place(plan, device)")
     nb, W = plan.num_blocks, plan.width
     diag = plan.diag_blocks
     bp = diag.new_zeros(nb * BLOCK)

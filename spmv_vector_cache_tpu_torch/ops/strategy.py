@@ -48,8 +48,8 @@ def select_strategy(plan) -> str:
     if isinstance(plan, CooTail):
         return "coo"
     if not isinstance(plan, SellPlan):
-        raise NotImplementedError(
-            f"{type(plan).__name__} is not ported yet (ROADMAP.md queue 1)")
+        raise NotImplementedError(f"{type(plan).__name__}: the port runs "
+                                  f"no such plan")
     if plan.stats.window_blocks > 0:
         return "window"
     nb = -(-plan.shape[1] // 128)

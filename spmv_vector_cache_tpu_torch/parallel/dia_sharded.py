@@ -74,7 +74,7 @@ def build_sharded_dia_plan(a, num_shards: int, *, sublanes: int = 64,
             "value_dtype float64: sharded DIA plans run every value type "
             "but float64; double plans run unsharded, "
             "from_matrix(a, value_dtype=np.float64) (the reference builds "
-            "no double sharded plan: ROADMAP.md queue 1, item 2)")
+            "no double sharded plan to hold one against)")
     if not isinstance(a, DIA):
         a = csr_to_dia(_as_csr(a))
     rows, cols = a.shape

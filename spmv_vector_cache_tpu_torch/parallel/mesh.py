@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..formats.plan import _to_tensor
+from ..formats.tables import table_names, work_list
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,27 +70,27 @@ def place_on_mesh(plan, mesh: Mesh):
     """The sharded plan with each array field as a tuple of per-shard
     tensors, shard d on ``mesh.devices[d]``; a plan already placed there
     comes back as it is.  A window ShardedPlan's shards get kernel H's
-    work list here, once."""
-    from ..ops.runs import place_runs
+    work list here, once (its ``works``)."""
     from .spmv_sharded import ShardedPlan
 
     if mesh.size != plan.num_shards:
         raise ValueError(f"mesh of {mesh.size} devices for a plan of "
                          f"{plan.num_shards} shards")
-    if not _is_placed_on(plan, mesh):
-        changes = {}
+    if not _on_mesh(plan, mesh):
+        changes = dict.fromkeys(table_names(plan))
         for name in plan._array_fields:
             v = getattr(plan, name)
             changes[name] = tuple(_to_tensor(v[d], dev)
                                   for d, dev in enumerate(mesh.devices))
         plan = dataclasses.replace(plan, **changes)
-    if isinstance(plan, ShardedPlan) and plan.window_blocks:
-        for ts in plan.tile_slice:
-            place_runs(ts, plan.num_slices)
+    if isinstance(plan, ShardedPlan) and plan.window_blocks and \
+            plan.works is None:
+        plan = dataclasses.replace(plan, works=tuple(
+            work_list(ts, plan.num_slices) for ts in plan.tile_slice))
     return plan
 
 
-def _is_placed_on(plan, mesh: Mesh) -> bool:
+def _on_mesh(plan, mesh: Mesh) -> bool:
     for name in plan._array_fields:
         v = getattr(plan, name)
         if not isinstance(v, tuple) or any(
@@ -100,8 +101,9 @@ def _is_placed_on(plan, mesh: Mesh) -> bool:
 
 def stacked_numpy(plan):
     """The sharded plan with each array field stacked back into one
-    (num_shards, ...) host numpy array, as the builders return it."""
-    changes = {}
+    (num_shards, ...) host numpy array, as ``build_sharded_plan`` and
+    ``build_sharded_dia_plan`` return it, and no tables."""
+    changes = dict.fromkeys(table_names(plan))
     for name in plan._array_fields:
         v = getattr(plan, name)
         if isinstance(v, tuple):

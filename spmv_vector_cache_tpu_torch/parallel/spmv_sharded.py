@@ -37,6 +37,7 @@ from ..formats.plan import (WINDOW_GROUP_TILES, PlanStats, SellPlan, _as_csr,
                             _round_up, build_dtype, build_sell_plan,
                             compute_cols_win, finish_values, host_numpy,
                             value_kind)
+from ..formats.tables import WorkList, table
 from ..ops import semiring as sr
 from ..ops.spmm_sell import _spmm_window
 from ..ops.spmv_sell import _spmv_sums, check_x_length
@@ -59,7 +60,8 @@ class ShardedPlan:
     ``mesh.devices[d]``.  ``rows_per_shard`` is the uniform row-block
     height (multiple of 128; last block zero-padded).  ``halo`` is the
     column halo width each side (multiple of 128) for the banded exchange
-    mode (0 = not banded: all-gather only).
+    mode (0 = not banded: all-gather only).  A window plan placed on a
+    mesh holds kernel H's work list of each shard in ``works``.
     """
 
     vals: Array          # (D, T, P, R)
@@ -76,6 +78,7 @@ class ShardedPlan:
     window_blocks: int   # merged K (0 = window kernel infeasible somewhere)
     max_window_base: int
     groups_per_step: int
+    works: Optional[Tuple[WorkList, ...]] = table()
 
     _array_fields = ("vals", "cols", "cols_win", "tile_slice", "window_base",
                      "row_map")
@@ -96,7 +99,7 @@ def build_sharded_plan(a, num_shards: int, *, value_dtype=np.float32,
             "value_dtype float64: sharded SELL plans run every value type "
             "but float64; double plans run unsharded, "
             "from_matrix(a, value_dtype=np.float64) (the reference builds "
-            "no double sharded plan: ROADMAP.md queue 1, item 2)")
+            "no double sharded plan to hold one against)")
     csr = _as_csr(a)
     rows, cols_n = csr.shape
     rps = _round_up(_round_up(rows, num_shards) // num_shards, 128)
@@ -196,7 +199,8 @@ def _local_plan(sp: ShardedPlan, d: int, cols, window_base, x_len: int,
                     window_rows=torch.zeros(0, dtype=torch.int32,
                                             device=vals.device),
                     shape=(sp.rows_per_shard, x_len), lane_rows=R,
-                    positions=P, identity_map=sp.identity_map, stats=stats)
+                    positions=P, identity_map=sp.identity_map, stats=stats,
+                    work=sp.works[d] if sp.works else None)
 
 
 def _slices_to_rows(y2d: torch.Tensor, row_map: torch.Tensor, *,

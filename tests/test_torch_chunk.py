@@ -8,10 +8,10 @@ packages:
 * ``build_chunk_plan`` and ``auto_plan`` give byte-equal plans;
 * ``lane_unpermute`` (kernel C's plain version) equals the JAX Pallas
   kernel in interpret mode exactly (it moves values, it adds nothing);
-* kernel D's heavy slab and work list (``ops/runs.py``): every real
+* kernel D's heavy slab and work list (``formats/tables.py``): every real
   heavy tile once, no padding, each heavy row one run, a long row split;
-* the chunk light route's records (``ops/runs.py``): exactly the light
-  buckets' real slots, by lane row in the reference's order, and its
+* the chunk light route's records (``formats/tables.py``): exactly the
+  light buckets' real slots, by lane row in the reference's order, and its
   plain version against the reference's per-bucket ``_window_partials``,
   segment reduce and add across buckets (float32 tolerance under
   plus_times, exactly under the other semirings); a non-finite x at a
@@ -45,9 +45,9 @@ from spmv_vector_cache_tpu.ops import semiring as jsr
 from spmv_vector_cache_tpu.ops import spmv_pallas as jsell
 from spmv_vector_cache_tpu_torch.formats import chunk as pchunk
 from spmv_vector_cache_tpu_torch.formats import plan as pplan
+from spmv_vector_cache_tpu_torch.formats import tables as ptables
 from spmv_vector_cache_tpu_torch.interop import plan_from_reference
 from spmv_vector_cache_tpu_torch.ops import lane_perm as plane
-from spmv_vector_cache_tpu_torch.ops import runs as pruns
 from spmv_vector_cache_tpu_torch.ops import spmv_chunk as pspmv_chunk
 from spmv_vector_cache_tpu_torch.ops import spmv_sell as psell
 from spmv_vector_cache_tpu_torch.ops.operator import SparseOperator
@@ -321,14 +321,14 @@ def test_heavy_tiles_work_list():
     plan = pplan.place(pchunk.build_chunk_plan(pa), "cpu")
     nblk, nseg = plan.num_blocks, plan.num_blocks + plan.num_heavy
     # placement built the slab and its work list; the plan is unchanged
-    heavy = pruns.heavy_on(plan)
-    assert plan.hbuckets[0].vals in pruns._HEAVY
+    heavy = plan.heavy
+    assert heavy is not None and heavy.work is not None
     assert_plans_equal(plan, jchunk.build_chunk_plan(both(
         heavy_two_buckets())[0]))
     # every slab tile is one real tile of one bucket, each real tile once
     tiles = _bucket_tiles(plan)
     pads = {(i, t) for i, h in enumerate(plan.hbuckets)
-            for t in range(h.num_tiles - pruns.padding_tiles(h, nseg),
+            for t in range(h.num_tiles - ptables.padding_tiles(h, nseg),
                            h.num_tiles)}
     assert pads and all(tiles[k][3] == nseg - 1 for k in pads)
     assert all(bool((tiles[k][0] == 0).all()) for k in pads)
@@ -355,18 +355,18 @@ def test_heavy_tiles_work_list():
     # one run of one record; row 9's 39 tiles are split into atomic pieces
     assert rows.tolist() == [3, 9]
     assert len({src[t][0] for t in np.flatnonzero(tile_row == 0)}) == 2
-    work = pruns.runs_on(heavy.tile_row, 2)
+    work = heavy.work
     recs = work.runs.numpy()
-    s1 = recs[:, 3] & ~pruns.RUN_ATOMIC
-    atomic = (recs[:, 3] & pruns.RUN_ATOMIC) != 0
+    s1 = recs[:, 3] & ~ptables.RUN_ATOMIC
+    atomic = (recs[:, 3] & ptables.RUN_ATOMIC) != 0
     mine = (recs[:, 2] <= 0) & (0 < s1)
     assert mine.sum() == 1 and not atomic[mine].any()
     t0, t1 = recs[mine, 0][0], recs[mine, 1][0]
     assert (t0, t1) == (0, int((tile_row == 0).sum()))
     long_row = (recs[:, 2] <= 1) & (1 < s1)
-    assert int((tile_row == 1).sum()) == 39 > pruns.RUN_CAP
+    assert int((tile_row == 1).sum()) == 39 > ptables.RUN_CAP
     assert long_row.sum() >= 2 and atomic[long_row].all()
-    assert work.split and work.max_tiles <= pruns.RUN_CAP
+    assert work.split and work.max_tiles <= ptables.RUN_CAP
 
 
 def test_heavy_slab_needs_a_placed_plan():
@@ -375,12 +375,11 @@ def test_heavy_slab_needs_a_placed_plan():
     _, pa = both(heavy_subwin())
     host = pchunk.build_chunk_plan(pa)
     unplaced = pplan.map_arrays(host, torch.from_numpy)
-    with pytest.raises(ValueError, match="placed"):
-        pruns.heavy_on(unplaced)
+    assert unplaced.heavy is None and unplaced.light is None
     with pytest.raises(ValueError, match="placed"):
         psell.spmv_plan(unplaced, torch.ones(pa.shape[1]))
     placed = pplan.place(host, "cpu")
-    assert pruns.heavy_on(placed).vals.shape[1:] == (8, 128)
+    assert placed.heavy.vals.shape[1:] == (8, 128)
 
 
 def _jax_heavy_rows(jp, x, y0, semiring):
@@ -422,7 +421,7 @@ def test_heavy_plain_matches_jax(case, semiring):
         np.float32)
     if semiring == "or_and":
         y0 = (y0 > 0).astype(np.float32)
-    heavy = pruns.heavy_on(plan)
+    heavy = plan.heavy
     y = torch.from_numpy(y0.copy())
     got = pspmv_chunk.heavy_plain(heavy.vals, heavy.cols_win, heavy.bases,
                                   heavy.tile_row, heavy.rows,
@@ -430,9 +429,8 @@ def test_heavy_plain_matches_jax(case, semiring):
     assert got is y                     # in place
     # the wrapper takes the plain version on CPU tensors
     y2 = torch.from_numpy(y0.copy())
-    pspmv_chunk.heavy_kernel(heavy.vals, heavy.cols_win, heavy.bases,
-                             heavy.tile_row, heavy.rows, torch.from_numpy(x),
-                             y2, semiring=semiring)
+    pspmv_chunk.heavy_kernel(heavy, torch.from_numpy(x), y2,
+                             semiring=semiring)
     assert torch.equal(y2, y)
     want = _jax_heavy_rows(jp, x, y0, semiring)
     if semiring == "or_and":
@@ -458,7 +456,7 @@ def _semiring_plans(m, semiring):
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_light_records_are_the_real_slots(case):
     _, plan = _semiring_plans(CASES[case](), "plus_times")
-    light = pruns.light_on(plan)
+    light = plan.light
     nseg = plan.num_blocks + plan.num_heavy
     row_off = light.row_off.numpy()
     assert row_off.shape == (nseg * 128 + 1,) and row_off[0] == 0
@@ -495,27 +493,28 @@ def test_light_units_split_long_segments():
     # records have gone by since the segment's first; a row is never split
     row_off = np.concatenate(([0], np.cumsum([300] + [1] * 127 + [0] * 128
                                              + [10] * 128)))
-    units, first = pruns.light_units(row_off, 64).T
+    units, first = ptables.light_units(row_off, 64).T
     assert np.array_equal(first, row_off[units])
     assert units[:6].tolist() == [0, 1, 21, 85, 128, 256]
     assert units[-1] == 384
     # the segment of 10-record rows: units of 6 or 7 rows, 60-70 records
     per_unit = np.diff(units[5:])
     assert set(per_unit.tolist()) == {6, 7}
-    assert pruns.light_units(row_off, 1 << 30)[:, 0].tolist() == \
+    assert ptables.light_units(row_off, 1 << 30)[:, 0].tolist() == \
         [0, 128, 256, 384]
     with pytest.raises(ValueError, match="128"):
-        pruns.light_units(row_off[:-1], 64)
+        ptables.light_units(row_off[:-1], 64)
 
 
 def test_light_records_need_a_placed_plan():
     _, pa = both(pareto_banded(n=2048, seed=3, cap=512))
     host = pchunk.build_chunk_plan(pa)
     unplaced = pplan.map_arrays(host, torch.from_numpy)
+    assert unplaced.light is None
     with pytest.raises(ValueError, match="placed"):
-        pruns.light_on(unplaced)
+        psell.spmv_plan(unplaced, torch.ones(pa.shape[1]))
     placed = pplan.place(host, "cpu")
-    assert pruns.light_on(placed).vals.shape[0] == \
+    assert placed.light.vals.shape[0] == \
         sum(b.stats.nnz for b in host.buckets)
 
 
@@ -546,7 +545,7 @@ def test_light_plain_matches_jax(case, semiring):
     m, x = _semiring_data(CASES[case](), semiring, 6)
     jp, plan = _semiring_plans(m, semiring)
     want = _jax_light(jp, x, semiring)
-    light = pruns.light_on(plan)
+    light = plan.light
     got = pspmv_chunk.light_plain(light, torch.from_numpy(x),
                                   semiring=semiring)
     # the wrapper takes the plain version on CPU tensors

@@ -26,10 +26,11 @@ from spmv_vector_cache_tpu_torch.formats.dia import build_dia_plan
 from spmv_vector_cache_tpu_torch.formats.packed import build_packed_plan
 from spmv_vector_cache_tpu_torch.formats import plan as pplan
 from spmv_vector_cache_tpu_torch.formats.plan import build_sell_plan, place
+from spmv_vector_cache_tpu_torch.formats import tables as ptables
 from spmv_vector_cache_tpu_torch.ops import (_kernels, lane_perm, spmv_chunk,
                                              spmv_dia, spmv_packed, spmv_sell)
-from spmv_vector_cache_tpu_torch.ops import runs as pruns
 from spmv_vector_cache_tpu_torch.ops.semiring import REGISTRY
+from spmv_vector_cache_tpu_torch.utils.stats import device_us_by_kernel
 
 pytestmark = pytest.mark.cuda
 
@@ -162,7 +163,7 @@ def _long_light_rows_matrix(semiring):
     return m
 
 
-@pytest.mark.parametrize("unit_records", [16, pruns.LIGHT_UNIT_RECORDS,
+@pytest.mark.parametrize("unit_records", [16, ptables.LIGHT_UNIT_RECORDS,
                                           1 << 30])
 @pytest.mark.parametrize("semiring", sorted(REGISTRY))
 def test_light_kernel_matches_plain(cuda, semiring, unit_records):
@@ -172,8 +173,8 @@ def test_light_kernel_matches_plain(cuda, semiring, unit_records):
     m = _long_light_rows_matrix(semiring)
     kw = dict(pad_value=REGISTRY[semiring].zero, merge_duplicates=False)
     plan = place(build_chunk_plan(from_scipy(m), **kw), cuda)
-    light = pruns.light_on(plan)
-    units = pruns.light_units(light.row_off.cpu().numpy(), unit_records)
+    light = plan.light
+    units = ptables.light_units(light.row_off.cpu().numpy(), unit_records)
     light = dataclasses.replace(light, units=torch.from_numpy(units).to(cuda))
     per_unit = np.diff(units[:, 1])
     assert per_unit.max() > 1024 if unit_records > 1024 else \
@@ -213,9 +214,8 @@ def test_subwin_kernel_matches_plain(cuda, semiring, split):
     kw = dict(pad_value=REGISTRY[semiring].zero, merge_duplicates=False)
     plan = place(build_chunk_plan(from_scipy(m), **kw), cuda)
     assert plan.hbuckets
-    heavy = pruns.heavy_on(plan)
-    assert pruns.runs_on(heavy.tile_row,
-                         heavy.rows.shape[0]).split == split
+    heavy = plan.heavy
+    assert heavy.work.split == split
     rng = np.random.default_rng(4)
     x = torch.from_numpy(np.abs(rng.standard_normal(m.shape[1])).astype(
         np.float32)).to(cuda)
@@ -226,7 +226,7 @@ def test_subwin_kernel_matches_plain(cuda, semiring, split):
     args = (heavy.vals, heavy.cols_win, heavy.bases, heavy.tile_row,
             heavy.rows, x)
     before = _kernels.launches["spmv_subwin_f32"]
-    got = spmv_chunk.heavy_kernel(*args, y0.clone(), semiring=semiring)
+    got = spmv_chunk.heavy_kernel(heavy, x, y0.clone(), semiring=semiring)
     assert _kernels.launches["spmv_subwin_f32"] == before + 1
     ref = spmv_chunk.heavy_plain(*args, y0.clone(), semiring=semiring)
     if semiring == "plus_times":
@@ -336,7 +336,7 @@ def test_packed_rows_kernel_matches_plain(cuda, chunk_blocks, overflow):
     st = plan.stats
     if overflow in (False, True, "hub"):
         assert (st.overflow_nnz > 0) == (overflow is not False)
-    tables = pruns.extract_on(plan)
+    tables = plan.tables
     pieces, ov = _row_counts(plan, tables)
     unit = tables.units.long().cpu()
     steps = (unit[:, 1] - unit[:, 0]) + tables.row_off.long().cpu()[
@@ -384,22 +384,15 @@ def _packed_operator(cuda, overflow=True):
 def test_packed_apply_launches_e_and_f_alone(cuda):
     # op @ x on a PackedPlan: kernel E, then kernel F, and no other
     # kernel, copy or fill on the card (the overflow COO is summed in F)
-    from torch.profiler import ProfilerActivity, profile
-
     op, x = _packed_operator(cuda)
     op @ x                                      # builds the kernels
     torch.cuda.synchronize()
     counts = (_kernels.launches["packed_scan_f32"],
               _kernels.launches["packed_extract_f32"])
     names, applies = [], 0
-    while not names and applies < 3:    # a session now and then records
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:  # nothing
-            op @ x
-            torch.cuda.synchronize()
-        applies += 1
-        names = sorted(e.name for e in prof.events()   # spans' ranges out
-                       if e.device_type == torch.autograd.DeviceType.CUDA
-                       and not getattr(e, "is_user_annotation", False))
+    while not names and applies < 6:    # a trace now and then records nothing
+        names = sorted(device_us_by_kernel(lambda: op @ x, iters=1))
+        applies += 2                    # the helper's untraced call too
     assert len(names) == 2, names
     assert any("packed_scan_kernel" in n for n in names) and \
         any("packed_rows_kernel" in n for n in names), names
@@ -465,7 +458,7 @@ def test_global_kernel_matches_plain(cuda, semiring, fold):
         x = (x > 0.5).float()
     args, kwargs = _global_args(plan, x, semiring)
     before = _kernels.launches["spmv_sell_global_f32"]
-    got = spmv_sell.sell_global_kernel(*args, **kwargs)
+    got = spmv_sell.sell_global_kernel(*args, **kwargs, work=plan.work)
     assert _kernels.launches["spmv_sell_global_f32"] == before + 1
     _check_global(got, spmv_sell.sell_global_plain(*args, **kwargs),
                   semiring)
@@ -503,7 +496,7 @@ def test_global_kernel_x_widths_match_plain(cuda, ncols, semiring):
                                  pad_value=REGISTRY[semiring].zero), cuda)
     x = torch.from_numpy(_x_for(rng, ncols, semiring)).to(cuda)
     args, kwargs = _global_args(plan, x, semiring)
-    got = spmv_sell.sell_global_kernel(*args, **kwargs)
+    got = spmv_sell.sell_global_kernel(*args, **kwargs, work=plan.work)
     _check_global(got, spmv_sell.sell_global_plain(*args, **kwargs),
                   semiring)
 
@@ -537,17 +530,17 @@ def test_global_kernel_layouts_match_plain(cuda, layout, semiring):
                                  pad_value=REGISTRY[semiring].zero, **kw),
                  cuda)
     assert spmv_sell.row_parts(plan) == parts
-    runs = pruns.tile_runs(plan.tile_slice, plan.num_slices)
-    assert bool((runs[:, 3] & pruns.RUN_ATOMIC).any()) == split
+    runs = ptables.tile_runs(plan.tile_slice, plan.num_slices)
+    assert bool((runs[:, 3] & ptables.RUN_ATOMIC).any()) == split
     x = torch.from_numpy(_x_for(rng, cols, semiring)).to(cuda)
     args, kwargs = _global_args(plan, x, semiring)
-    got = spmv_sell.sell_global_kernel(*args, **kwargs)
+    got = spmv_sell.sell_global_kernel(*args, **kwargs, work=plan.work)
     _check_global(got, spmv_sell.sell_global_plain(*args, **kwargs),
                   semiring)
     if not split:
         # one group writes each output, in a fixed order: bit for bit
-        assert torch.equal(got, spmv_sell.sell_global_kernel(*args,
-                                                             **kwargs))
+        assert torch.equal(got, spmv_sell.sell_global_kernel(
+            *args, **kwargs, work=plan.work))
 
 
 def test_global_kernel_needs_a_placed_plan(cuda):
@@ -557,8 +550,7 @@ def test_global_kernel_needs_a_placed_plan(cuda):
     args, kwargs = _global_args(plan, x, "plus_times")
     before = _kernels.launches["spmv_sell_global_f32"]
     with pytest.raises(ValueError, match="placed"):
-        spmv_sell.sell_global_kernel(args[0], args[1], args[2].clone(), x,
-                                     **kwargs)
+        spmv_sell.sell_global_kernel(*args, **kwargs)
     assert _kernels.launches["spmv_sell_global_f32"] == before
 
 
@@ -707,8 +699,8 @@ def test_spmm_window_kernel_matches_plain(cuda, layout, k):
     plan = place(build_sell_plan(from_scipy(m), window_grain=32, **kw), cuda)
     st = plan.stats
     assert st.window_blocks > 0 and spmv_sell.row_parts(plan) == parts
-    runs = pruns.tile_runs(plan.tile_slice, plan.num_slices)
-    assert bool((runs[:, 3] & pruns.RUN_ATOMIC).any()) == split
+    runs = ptables.tile_runs(plan.tile_slice, plan.num_slices)
+    assert bool((runs[:, 3] & ptables.RUN_ATOMIC).any()) == split
     # B 200 rows short of the plan's columns: the slots of the last rows,
     # nonzeros and (but in the sorted row_map layout) padding alike, name
     # columns past B and read 0 in both versions
@@ -724,18 +716,18 @@ def test_spmm_window_kernel_matches_plain(cuda, layout, k):
                   window_grain=st.window_grain, parts=parts,
                   rows=plan.shape[0])
     before = _kernels.launches["spmm_sell_window_f32"]
-    got = spmm_sell.spmm_window_kernel(*args, **kwargs)
+    got = spmm_sell.spmm_window_kernel(*args, **kwargs, work=plan.work)
     assert _kernels.launches["spmm_sell_window_f32"] == before + 1
     _close(got, spmm_sell.spmm_window_plain(*args, **kwargs))
     if not split:
         # one CTA writes each output, in a fixed order: bit for bit again
-        assert torch.equal(got, spmm_sell.spmm_window_kernel(*args,
-                                                             **kwargs))
+        assert torch.equal(got, spmm_sell.spmm_window_kernel(
+            *args, **kwargs, work=plan.work))
 
 
 def test_spmm_window_kernel_needs_a_placed_plan(cuda):
-    # kernel H's work list is built at placement: a tile_slice that no
-    # placement saw is refused before anything launches
+    # kernel H's work list is built at placement: a launch without it is
+    # refused before anything launches
     from spmv_vector_cache_tpu_torch.ops import spmm_sell
 
     m = sp.random(1024, 1024, density=0.02, format="csr", dtype=np.float32,
@@ -751,8 +743,8 @@ def test_spmm_window_kernel_needs_a_placed_plan(cuda):
     before = _kernels.launches["spmm_sell_window_f32"]
     with pytest.raises(ValueError, match="placed"):
         spmm_sell.spmm_window_kernel(plan.vals, plan.cols_win,
-                                     plan.window_base,
-                                     plan.tile_slice.clone(), b, **kwargs)
+                                     plan.window_base, plan.tile_slice, b,
+                                     **kwargs)
     assert _kernels.launches["spmm_sell_window_f32"] == before
 
 
@@ -887,14 +879,14 @@ def test_global_f64_kernel_matches_plain(cuda, strategy, layout):
                                  **kw), cuda)
     assert plan.stats.window_blocks == 0
     assert spmv_sell.row_parts(plan) == parts
-    assert pruns.runs_on(plan.tile_slice, plan.num_slices).split == split
+    assert plan.work.split == split
     # x one column short: the last column reads as 0 in both versions
     x = torch.from_numpy(rng.standard_normal(cols - 1)).to(cuda)
     args = (plan.vals, plan.cols, plan.tile_slice, x)
     kwargs = dict(num_slices=plan.num_slices, parts=parts,
                   rows=plan.shape[0])
     before = _kernels.launches["spmv_sell_global_f64"]
-    got = spmv_sell.sell_global_f64_kernel(*args, **kwargs)
+    got = spmv_sell.sell_global_f64_kernel(*args, **kwargs, work=plan.work)
     assert _kernels.launches["spmv_sell_global_f64"] == before + 1
     _close64(got, spmv_sell.sell_global_f64_plain(*args, **kwargs))
     xf = rng.standard_normal(cols)
@@ -1675,11 +1667,11 @@ def test_typed_global_kernel_matches_plain(cuda, kind, layout):
             from_scipy(m), value_dtype=TYPED[kind],
             pad_value=REGISTRY[semiring].zero, **kw), cuda)
         if layout == "long_row":
-            assert pruns.runs_on(plan.tile_slice, plan.num_slices).split
+            assert plan.work.split
         x = _typed_x(kind, cols, rng, cuda, nonneg)
         args, kwargs = _global_args(plan, x, semiring)
         before = _kernels.launches["spmv_sell_global_" + kind]
-        got = spmv_sell.sell_global_kernel(*args, **kwargs)
+        got = spmv_sell.sell_global_kernel(*args, **kwargs, work=plan.work)
         assert _kernels.launches["spmv_sell_global_" + kind] == before + 1
         _same(got, spmv_sell.sell_global_plain(*args, **kwargs))
 
@@ -1695,7 +1687,7 @@ def test_typed_chunk_kernels_match_plain(cuda, kind):
         kw = dict(pad_value=REGISTRY[semiring].zero, merge_duplicates=False,
                   value_dtype=TYPED[kind])
         plan = place(build_chunk_plan(from_scipy(m), **kw), cuda)
-        light, heavy = pruns.light_on(plan), pruns.heavy_on(plan)
+        light, heavy = plan.light, plan.heavy
         rng = np.random.default_rng(25)
         x = _typed_x(kind, m.shape[1], rng, cuda, semiring != "plus_times")
         _same(spmv_chunk.light_kernel(light, x, semiring=semiring),
@@ -1703,7 +1695,8 @@ def test_typed_chunk_kernels_match_plain(cuda, kind):
         y0 = _typed_x(kind, m.shape[0], rng, cuda, True)
         args = (heavy.vals, heavy.cols_win, heavy.bases, heavy.tile_row,
                 heavy.rows, x)
-        _same(spmv_chunk.heavy_kernel(*args, y0.clone(), semiring=semiring),
+        _same(spmv_chunk.heavy_kernel(heavy, x, y0.clone(),
+                                      semiring=semiring),
               spmv_chunk.heavy_plain(*args, y0.clone(), semiring=semiring))
         cpu = place(build_chunk_plan(from_scipy(m), **kw), "cpu")
         _same(spmv_sell.spmv_plan(plan, x, semiring=semiring).cpu(),
@@ -1727,7 +1720,7 @@ def test_typed_packed_kernels_match_plain(cuda, kind, overflow):
     scan_kw = dict(chunk_blocks=4, step_tiles=st.step_tiles)
     scan = spmv_packed.packed_scan_kernel(*scan_args, **scan_kw)
     _same(scan, spmv_packed.packed_scan_plain(*scan_args, **scan_kw))
-    tables = pruns.extract_on(plan)
+    tables = plan.tables
     assert tables.ov_vals.dtype == plan.vals.dtype
     assert tables.ov_vals.shape[0] > 0
     rows_args = (scan, x, tables)
@@ -1895,7 +1888,7 @@ def test_typed_spmm_kernels_match_plain(cuda, kind):
     plan = place(build_sell_plan(from_scipy(m), window_grain=32,
                                  groups_per_step=1, value_dtype=TYPED[kind]),
                  cuda)
-    assert pruns.runs_on(plan.tile_slice, plan.num_slices).split
+    assert plan.work.split
     st = plan.stats
     b = torch.stack([_typed_x(kind, n, rng, cuda) for _ in range(k)], 1) \
         .contiguous()
@@ -1903,7 +1896,7 @@ def test_typed_spmm_kernels_match_plain(cuda, kind):
     kwargs = dict(num_slices=plan.num_slices, group_tiles=st.group_tiles,
                   window_grain=st.window_grain,
                   parts=spmv_sell.row_parts(plan), rows=n)
-    _same(spmm_sell.spmm_window_kernel(*args, **kwargs),
+    _same(spmm_sell.spmm_window_kernel(*args, **kwargs, work=plan.work),
           spmm_sell.spmm_window_plain(*args, **kwargs))
 
 

@@ -376,7 +376,7 @@ def test_windowless_double_plans_match_jax(case):
     # kernel L (its plain version here) on every windowless route, against
     # the JAX pair API's stream path and the float64 host loop
     from spmv_vector_cache_tpu.ops import reference as jref
-    from spmv_vector_cache_tpu_torch.ops import runs as pruns
+    from spmv_vector_cache_tpu_torch.formats import tables as ptables
 
     make, kw, writes = WINDOWLESS_CASES[case]
     m = make()
@@ -391,8 +391,8 @@ def test_windowless_double_plans_match_jax(case):
     if case == "long_slice":
         # the long rows' slices are split over records, combined atomically
         tiles = np.bincount(pp.tile_slice.numpy())
-        assert tiles.max() > pruns.RUN_CAP
-        assert pruns.runs_on(pp.tile_slice, pp.num_slices).split
+        assert tiles.max() > ptables.RUN_CAP
+        assert pp.work.split
     x = x_of(m.shape[1], 26)
     xh, xl = jdf64.split_f64(x)
     jyh, jyl = jsell.spmv_sell_double_pair(jp, xh, xl, strategy="stream",

@@ -355,13 +355,11 @@ def test_packed_plan_byte_equal(kind):
 def test_packed_extract_tables_keep_the_value_type(kind):
     # kernel F's overflow values, regrouped by row at placement, stay in
     # the plan's value type (a bfloat16 plan's 2 bytes each) and bits
-    from spmv_vector_cache_tpu_torch.ops import runs as pruns
-
     _, pa = both(typed(mac_econ_small(20000), kind))
     host = ppacked.build_packed_plan(pa, chunk_blocks=4,
                                      value_dtype=KINDS[kind])
     assert host.ov_vals.shape[0] > 0
-    tables = pruns.extract_on(pplan.place(host, "cpu"))
+    tables = pplan.place(host, "cpu").tables
     want = torch.as_tensor(host.ov_vals)
     assert tables.ov_vals.dtype == want.dtype == (
         torch.bfloat16 if kind == "bf16" else Y_DTYPE[kind])

@@ -39,8 +39,8 @@ from spmv_vector_cache_tpu.ops import reference as jref
 from spmv_vector_cache_tpu.ops import spmv_packed as jspmv_packed
 from spmv_vector_cache_tpu_torch.formats import packed as ppacked
 from spmv_vector_cache_tpu_torch.formats import plan as pplan
+from spmv_vector_cache_tpu_torch.formats import tables as ptables
 from spmv_vector_cache_tpu_torch.interop import plan_from_reference
-from spmv_vector_cache_tpu_torch.ops import runs as pruns
 from spmv_vector_cache_tpu_torch.ops import semiring as psr
 from spmv_vector_cache_tpu_torch.ops import spmv_packed as pspmv_packed
 from spmv_vector_cache_tpu_torch.ops import spmv_sell as psell
@@ -204,7 +204,7 @@ def test_extract_tables_hold_the_visits_and_overflow(case):
     _, pa = both(make())
     plan = pplan.place(ppacked.build_packed_plan(pa, chunk_blocks=cb),
                        "cpu")
-    t = pruns.extract_on(plan)
+    t = plan.tables
     rows = plan.shape[0]
     assert t.ncols == plan.shape[1] and t.slots == plan.vals.numel()
     assert t.pieces == plan.stats.num_pieces
@@ -245,15 +245,14 @@ def test_packed_apply_needs_a_placed_plan():
     _, pa = both(random_csr(50, 3000, 0.3, seed=1))
     host = ppacked.build_packed_plan(pa, chunk_blocks=4)
     unplaced = pplan.map_arrays(host, torch.from_numpy)
-    with pytest.raises(ValueError, match="placed"):
-        pruns.extract_on(unplaced)
+    assert unplaced.tables is None
     with pytest.raises(ValueError, match="placed"):
         pspmv_packed.spmv_packed(unplaced, torch.ones(3000))
     bad = dataclasses.replace(host, ov_cols=host.ov_cols + 3000)
     with pytest.raises(ValueError, match="outside"):
-        pruns.extract_tables(bad)
+        ptables.extract_tables(bad)
     placed = pplan.place(host, "cpu")
-    assert pruns.extract_on(placed).ov_vals.shape == \
+    assert placed.tables.ov_vals.shape == \
         (host.stats.overflow_nnz,)
 
 
@@ -265,7 +264,7 @@ def test_extract_block_rows_is_kernel_fs():
     threads = re.search(r"#define PACKED_F_THREADS (\d+)", src)
     items = re.search(r"#define PACKED_F_ITEMS (\d+)", src)
     assert threads and items
-    assert int(threads.group(1)) * int(items.group(1)) == pruns.F_UNIT
+    assert int(threads.group(1)) * int(items.group(1)) == ptables.F_UNIT
 
 
 def test_packed_apply_refuses_a_short_x():
@@ -296,12 +295,12 @@ def test_packed_rows_plain_adds_overflow_after_the_visits():
     ov_rows = np.array([9, 0, 8200, 0])
     order = np.argsort(ov_rows, kind="stable")
     i32 = torch.int32
-    prow, pslot = pruns.piece_slots(torch.tensor([0, 1, 1], dtype=i32),
-                                    torch.tensor([0, 0, 2], dtype=i32),
-                                    esrc, 8)
+    prow, pslot = ptables.piece_slots(torch.tensor([0, 1, 1], dtype=i32),
+                                      torch.tensor([0, 0, 2], dtype=i32),
+                                      esrc, 8)
     assert prow.tolist() == [0, 0, 3 * 8192 - 1]
     assert pslot.tolist() == [5, 8192 + 7, 8192 + 1]
-    tables = pruns.compact_tables(
+    tables = ptables.compact_tables(
         prow, pslot, torch.tensor(ov_rows[order]),
         torch.tensor(np.array([1, 2, 3, 4])[order], dtype=i32),
         torch.tensor(np.array([10., 20., 30., 40.])[order],
@@ -368,7 +367,7 @@ def test_compacted_list_gives_the_dense_y(case):
     scan = pspmv_packed.packed_scan_plain(plan.vals, plan.cols, plan.cstep,
                                           x, chunk_blocks=st.chunk_blocks,
                                           step_tiles=st.step_tiles)
-    tables = pruns.extract_on(plan)
+    tables = plan.tables
     assert tables.pieces < tables.dense_entries / 2   # the list is smaller
     y = pspmv_packed.packed_rows_kernel(scan, x, tables, rows=plan.shape[0])
     assert torch.equal(y, _dense_y(plan, scan, x))
@@ -381,12 +380,12 @@ def test_f_units_split_hub_rows():
     # row order
     lens = np.array([3, 0, 0, 5000, 2, 1, 2046, 2047, 0, 9000, 1])
     off = np.concatenate(([0], np.cumsum(lens)))
-    units = pruns.f_units(off, 2048)
+    units = ptables.f_units(off, 2048)
     assert units.dtype == np.int32
     # row 7: 2,047 entries and its end, 2,048 steps, fits
     assert units.tolist() == [[9, 10], [3, 4], [0, 3], [4, 6], [6, 7],
                               [7, 8], [8, 9], [10, 11]]
-    assert pruns.f_units(np.zeros(1, np.int64)).shape == (0, 2)
+    assert ptables.f_units(np.zeros(1, np.int64)).shape == (0, 2)
 
 
 #: the value types of the pass-A parity tests: float32 and the narrow
@@ -477,7 +476,7 @@ def test_packed_rows_plain_reads_a_narrow_scan(kind):
     plan = pplan.place(ppacked.build_packed_plan(pa, chunk_blocks=cb,
                                                  value_dtype=dtype), "cpu")
     st = plan.stats
-    tables = pruns.extract_on(plan)
+    tables = plan.tables
     xk = psr.as_x(torch.from_numpy(x), plan.vals.dtype)
     kw = dict(chunk_blocks=cb, step_tiles=st.step_tiles)
     scan = pspmv_packed.packed_scan_plain(plan.vals, plan.cols, plan.cstep,

@@ -29,7 +29,7 @@ from spmv_vector_cache_tpu.ops import spgemm as jsg
 from spmv_vector_cache_tpu.ops import sptrsv as jtri
 from spmv_vector_cache_tpu_torch.formats import convert as pconvert
 from spmv_vector_cache_tpu_torch.formats.containers import CSR
-from spmv_vector_cache_tpu_torch.formats.plan import place
+from spmv_vector_cache_tpu_torch.formats.plan import map_arrays, place
 from spmv_vector_cache_tpu_torch.interop import (plan_from_reference,
                                                  plan_to_numpy)
 from spmv_vector_cache_tpu_torch.ops import spgemm as psg
@@ -218,11 +218,17 @@ def test_trisolve_matches_jax(case):
 def test_trisolve_repeats_on_a_placed_plan():
     rng = np.random.default_rng(12)
     m, lower, unit = _tri_case("lower_two_neighbours", rng)
-    plan = place(ptri.build_trisolve_plan(_csr(m), lower=True), CPU)
+    host = ptri.build_trisolve_plan(_csr(m), lower=True)
+    assert host.sweep is None
+    plan = place(host, CPU)
+    assert plan.sweep is not None            # built once, at placement
     b = torch.from_numpy(rng.standard_normal(m.shape[0]).astype(np.float32))
     first = ptri.trisolve(plan, b)
-    assert ptri.sweep_on(plan) is ptri.sweep_on(plan)
     assert torch.equal(ptri.trisolve(plan, b), first)
+    unplaced = map_arrays(host, torch.from_numpy)
+    assert unplaced.sweep is None
+    with pytest.raises(TypeError, match="placed"):
+        ptri.trisolve(unplaced, b)
 
 
 def test_trisolve_needs_a_placed_plan():

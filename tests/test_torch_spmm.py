@@ -41,8 +41,8 @@ from spmv_vector_cache_tpu.ops import spmm_pallas as jspmm
 from spmv_vector_cache_tpu_torch.formats import cached as pcached
 from spmv_vector_cache_tpu_torch.formats import packed as ppacked
 from spmv_vector_cache_tpu_torch.formats import plan as pplan
+from spmv_vector_cache_tpu_torch.formats import tables as ptables
 from spmv_vector_cache_tpu_torch.interop import plan_from_reference
-from spmv_vector_cache_tpu_torch.ops import runs as pruns
 from spmv_vector_cache_tpu_torch.ops import spmm_dia as pdia
 from spmv_vector_cache_tpu_torch.ops import spmm_sell as pspmm
 from spmv_vector_cache_tpu_torch.ops import spmv_sell as psell
@@ -325,20 +325,20 @@ def _runs_cover(runs, tile_slice, num_slices):
     written = np.zeros(num_slices, np.int64)
     seen = np.zeros(ts.shape[0], np.int64)
     for t0, t1, s0, w in runs.tolist():
-        s1 = w & ~pruns.RUN_ATOMIC
+        s1 = w & ~ptables.RUN_ATOMIC
         assert t0 <= t1 and s0 < s1
         seen[t0:t1] += 1
         assert ((ts[t0:t1] >= s0) & (ts[t0:t1] < s1)).all()
-        if w & pruns.RUN_ATOMIC:
-            assert s1 == s0 + 1 and t1 - t0 <= pruns.RUN_CAP
-            assert (ts == s0).sum() > pruns.RUN_CAP
+        if w & ptables.RUN_ATOMIC:
+            assert s1 == s0 + 1 and t1 - t0 <= ptables.RUN_CAP
+            assert (ts == s0).sum() > ptables.RUN_CAP
         else:
-            assert t1 - t0 <= max(pruns.RUN_PACK, pruns.RUN_CAP)
+            assert t1 - t0 <= max(ptables.RUN_PACK, ptables.RUN_CAP)
             written[s0:s1] += 1
     assert (seen == 1).all()
-    split = {t0 for t0, _, _, w in runs.tolist() if w & pruns.RUN_ATOMIC}
+    split = {t0 for t0, _, _, w in runs.tolist() if w & ptables.RUN_ATOMIC}
     assert (written[np.bincount(ts, minlength=num_slices) <=
-                    pruns.RUN_CAP] == 1).all()
+                    ptables.RUN_CAP] == 1).all()
     return split
 
 
@@ -351,19 +351,19 @@ def test_tile_runs_of_a_padded_plan():
     ts = plan.tile_slice
     assert plan.num_slices == 32 and ts.shape[0] == 512
     assert (ts == 31).sum() == 450
-    runs = pruns.tile_runs(ts, plan.num_slices)
+    runs = ptables.tile_runs(ts, plan.num_slices)
     _runs_cover(runs, ts, plan.num_slices)
-    pieces = runs[(runs[:, 3] & pruns.RUN_ATOMIC) != 0]
+    pieces = runs[(runs[:, 3] & ptables.RUN_ATOMIC) != 0]
     assert len(pieces) == 15 and (pieces[:, 2] == 31).all()
     assert pieces[0, 0] == 62 and pieces[-1, 1] == 512
     # the other slices, 2 tiles each, two to a record
-    plain = runs[(runs[:, 3] & pruns.RUN_ATOMIC) == 0]
+    plain = runs[(runs[:, 3] & ptables.RUN_ATOMIC) == 0]
     assert plain.tolist()[0] == [0, 4, 0, 2]
 
 
 def test_tile_runs_of_one_tile_slices():
     ts = np.arange(20, dtype=np.int32)
-    runs = pruns.tile_runs(ts, 20)
+    runs = ptables.tile_runs(ts, 20)
     _runs_cover(runs, ts, 20)
     assert runs.tolist() == [[t, t + 4, t, t + 4] for t in range(0, 20, 4)]
 
@@ -373,12 +373,12 @@ def test_tile_runs_of_a_run_past_the_cap():
     # none, packed with their neighbours (4 tiles at most a record)
     counts = np.array([3, 70, 2, 0, 1, 0, 5])
     ts = np.repeat(np.arange(7, dtype=np.int32), counts)
-    runs = pruns.tile_runs(ts, 7)
+    runs = ptables.tile_runs(ts, 7)
     _runs_cover(runs, ts, 7)
+    atomic = ptables.RUN_ATOMIC
     assert runs.tolist() == [
-        [0, 3, 0, 1], [3, 26, 1, 2 | pruns.RUN_ATOMIC],
-        [26, 49, 1, 2 | pruns.RUN_ATOMIC], [49, 73, 1, 2 | pruns.RUN_ATOMIC],
-        [73, 76, 2, 6], [76, 81, 6, 7]]
+        [0, 3, 0, 1], [3, 26, 1, 2 | atomic], [26, 49, 1, 2 | atomic],
+        [49, 73, 1, 2 | atomic], [73, 76, 2, 6], [76, 81, 6, 7]]
 
 
 def test_tile_runs_of_a_sharded_plan():
@@ -386,7 +386,7 @@ def test_tile_runs_of_a_sharded_plan():
     # in between empty, and its padding tiles name the last one
     ts = np.concatenate([np.repeat(np.arange(6, dtype=np.int32), 2),
                          np.full(4, 9, np.int32)])
-    runs = pruns.tile_runs(ts, 10)
+    runs = ptables.tile_runs(ts, 10)
     _runs_cover(runs, ts, 10)
     assert runs.tolist() == [[0, 4, 0, 2], [4, 8, 2, 4], [8, 12, 4, 9],
                              [12, 16, 9, 10]]
@@ -396,7 +396,7 @@ def test_tile_runs_of_a_sharded_plan():
 def test_tile_runs_rejects_a_bad_tile_slice(bad):
     ts = np.array([0, 2, 1] if bad == "decreasing" else [0, 1, 3], np.int32)
     with pytest.raises(ValueError, match="nondecreasing"):
-        pruns.tile_runs(ts, 3)
+        ptables.tile_runs(ts, 3)
 
 
 @pytest.mark.parametrize("kind", ["sell", "hybrid", "sharded", "windowless",
@@ -415,21 +415,22 @@ def test_placement_builds_the_work_list(kind):
     if kind == "sharded":
         plan = place_on_mesh(build_sharded_plan(pa, 4),
                              make_mesh(4, device="cpu"))
-        read = [(ts, plan.num_slices) for ts in plan.tile_slice]
+        read = [(w, ts, plan.num_slices)
+                for w, ts in zip(plan.works, plan.tile_slice)]
         assert place_on_mesh(plan, make_mesh(4, device="cpu")) is plan
     elif kind == "hybrid":
         _, pb = both(banded(2048, [-1, 0, 1], seed=18))
         plan = pplan.place(HybridPlan(dia=build_dia_plan(pb, sublanes=8),
                                       rest=pplan.build_sell_plan(pa)), "cpu")
-        read = [(plan.rest.tile_slice, plan.rest.num_slices)]
+        read = [(plan.rest.work, plan.rest.tile_slice, plan.rest.num_slices)]
     elif kind == "cached":
         # a window tier and a nested full-cover resident tier
         _, pc = both(powerlaw_cols(0))
         plan = pplan.place(pcached.build_cached_plan(pc), "cpu")
         tier2 = plan.cold.hot
         assert isinstance(plan.cold, pcached.CachedPlan)
-        read = [(plan.hot.tile_slice, plan.hot.num_slices),
-                (tier2.tile_slice, tier2.num_slices)]
+        read = [(plan.hot.work, plan.hot.tile_slice, plan.hot.num_slices),
+                (tier2.work, tier2.tile_slice, tier2.num_slices)]
     else:
         built = {"sell": lambda: pplan.build_sell_plan(pa),
                  "windowless": lambda: _windowless(pplan, both(random_sparse(
@@ -437,19 +438,17 @@ def test_placement_builds_the_work_list(kind):
                  "double": lambda: pplan.build_sell_plan(
                      pa, value_dtype=np.float64)}[kind]()
         plan = pplan.place(built, "cpu")
-        read = [(plan.tile_slice, plan.num_slices)]
-        assert plan.tile_slice in pruns._RUNS
-    for ts, num_slices in read:
-        work = pruns._RUNS[ts]
-        want = pruns.tile_runs(ts, num_slices)
-        assert work.num_slices == num_slices
+        read = [(plan.work, plan.tile_slice, plan.num_slices)]
+        # the host plan holds none: the work list is the placed plan's
+        assert built.work is None
+    for work, ts, num_slices in read:
+        want = ptables.tile_runs(ts, num_slices)
+        assert work.runs.device == ts.device
         assert np.array_equal(work.runs.numpy(), want)
-        assert work.split == bool((want[:, 3] & pruns.RUN_ATOMIC).any())
-        s1 = want[:, 3] & ~pruns.RUN_ATOMIC
+        assert work.split == bool((want[:, 3] & ptables.RUN_ATOMIC).any())
+        s1 = want[:, 3] & ~ptables.RUN_ATOMIC
         assert work.max_tiles == (want[:, 1] - want[:, 0]).max()
         assert work.max_slices == (s1 - want[:, 2]).max()
-        # a copy of the tensor is not a placed plan's
-        assert ts.clone() not in pruns._RUNS
 
 
 # ---------------------------------------------------------------------------
